@@ -1,0 +1,300 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA
+H100: builds the CUDA kernels, holds each against its plain PyTorch version,
+times them, trains full-width GPT-2 small with DSM and AdamW local steps
+through ``run_training``, and checks the card against the CPU on nano.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, nvcc and nvidia-smi; exits non-zero, printing no
+result, without a card or without the repository's src/repro_torch.  Every
+phase prints one JSON line; any failure raises.  The line before the last
+lists every kernel; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and f32
+# FLOP/s outside the tensor cores (the optimizer kernels' arithmetic).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+N_GPT2_SMALL = 123_882_240      # gpt2_small.FULL parameters, vocab padded to 50,688
+RAGGED = 1_000_003              # not a multiple of any vector width
+MAIN = dict(n_workers=4, b_micro=4, seq=128, peak_lr=5e-3, global_lr=0.3)
+MAIN_STEPS = 4
+DSM_HP = dict(eta=MAIN["global_lr"], beta1=0.95, beta2=0.98, lam=0.1)
+ADAMW_HP = dict(beta1=0.9, beta2=0.95, eps=1e-8, wd=0.1)
+NANO_STEPS = 3
+NANO_RTOL = 1e-4                # card vs CPU loss history, see phase_card_vs_cpu
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_flops / F32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def compare(torch, ours, theirs) -> float:
+    """Max |difference| over the finite entries; raises unless NaN sits where
+    NaN sits and every other entry has the same bit pattern (so +0 and -0
+    differ).  Tolerance 0: kernel and plain version do the same IEEE f32
+    operations in the same order (the kernels are built with --fmad=false
+    and take the same f32 constants)."""
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    worst = 0.0
+    for a, b in zip(ours, theirs):
+        if a.dtype != b.dtype:
+            raise AssertionError(f"dtypes differ: {a.dtype}, {b.dtype}")
+        if not torch.equal(a.isnan(), b.isnan()):
+            raise AssertionError("NaN positions differ")
+        fin = ~b.isnan()
+        err = (a.float()[fin] - b.float()[fin]).abs().max().item()
+        if not torch.equal(a.view(as_int[a.dtype])[fin], b.view(as_int[b.dtype])[fin]):
+            raise AssertionError(f"kernel differs from its plain version in its bits: "
+                                 f"max |err| {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def dsm_inputs(torch, gen, n, dtype):
+    x0 = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    m = torch.randn(n, generator=gen, device="cuda")
+    xt = (x0.float() - 0.01 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
+    x0[:2] = -0.0
+    xt[0] = 0.0                           # delta = -0 - +0 = -0 and m = -0: u = -0
+    xt[1] = -0.0                          # delta = -0 - -0 = +0: u = +0
+    m[:2] = -0.0
+    xt[2] = float("nan")                  # u = NaN: x and m become NaN
+    return x0, m, xt
+
+
+def adamw_inputs(torch, gen, shape, dtype):
+    p = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    m = 0.1 * torch.randn(shape, generator=gen, device="cuda")
+    v = 0.01 * torch.rand(shape, generator=gen, device="cuda")
+    return p, g, m, v
+
+
+def phase_checks(torch, K):
+    from repro_torch.kernels.adamw_update import adamw_update_plain
+    from repro_torch.kernels.dsm_update import dsm_update_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for n in (N_GPT2_SMALL, RAGGED):
+        for dtype in (torch.float32, torch.bfloat16):
+            x0, m, xt = dsm_inputs(torch, gen, n, dtype)
+            ka, kb = (x0.clone(), m.clone()), (x0.clone(), m.clone())
+            K.dsm_update(*ka, xt, 0.02, **DSM_HP)
+            dsm_update_plain(*kb, xt, 0.02, **DSM_HP)
+            torch.cuda.synchronize()
+            cases.append(("dsm_update", n, str(dtype), None, compare(torch, ka, kb)))
+            del x0, m, xt, ka, kb
+            shape = (MAIN["n_workers"], n) if n == N_GPT2_SMALL else (n,)
+            p, g, mm, v = adamw_inputs(torch, gen, shape, dtype)
+            for rd in (False, True):
+                ka = (p.clone(), mm.clone(), v.clone())
+                kb = (p.clone(), mm.clone(), v.clone())
+                K.adamw_update(ka[0], g, ka[1], ka[2], 1e-3, 11, round_direction=rd,
+                               **ADAMW_HP)
+                adamw_update_plain(kb[0], g, kb[1], kb[2], 1e-3, 11, round_direction=rd,
+                                   **ADAMW_HP)
+                torch.cuda.synchronize()
+                cases.append(("adamw_update", list(shape), str(dtype), rd,
+                              compare(torch, ka, kb)))
+                del ka, kb
+            del p, g, mm, v
+            torch.cuda.empty_cache()
+    emit({"phase": "kernel_checks", "tolerance": "bitwise (atol 0, rtol 0), NaN where NaN",
+          "cases": [{"kernel": k, "shape": s, "dtype": d, "round_direction": r,
+                     "max_abs_err": e} for k, s, d, r, e in cases]})
+    return {name: max(e for k, *_, e in cases if k == name)
+            for name in ("dsm_update", "adamw_update")}
+
+
+def phase_times(torch, K, smi):
+    """Kernel, plain and library times at the main path's shapes and dtype."""
+    from repro_torch.kernels.adamw_update import adamw_update_plain
+    from repro_torch.kernels.dsm_update import dsm_update_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n, w = N_GPT2_SMALL, MAIN["n_workers"]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.empty((), dtype=dtype).element_size()
+        x0, m, xt = dsm_inputs(torch, gen, n, dtype)
+        dsm = {
+            "ms": median_ms(torch, lambda: K.dsm_update(x0, m, xt, 0.02, **DSM_HP)),
+            "plain_ms": median_ms(torch, lambda: dsm_update_plain(x0, m, xt, 0.02, **DSM_HP)),
+            "library_ms": None,      # no single PyTorch call computes the DSM step
+        }
+        dsm["bound_ms"], dsm["bound_by"] = bound_ms(n * (3 * es + 2 * 4), n * 12)
+        del x0, m, xt
+        p, g, mm, v = adamw_inputs(torch, gen, (w, n), dtype)
+        adamw = {
+            "ms": median_ms(torch, lambda: K.adamw_update(p, g, mm, v, 1e-3, 11, **ADAMW_HP)),
+            "plain_ms": median_ms(torch, lambda: adamw_update_plain(p, g, mm, v, 1e-3, 11,
+                                                                    **ADAMW_HP)),
+        }
+        adamw["bound_ms"], adamw["bound_by"] = bound_ms(w * n * (3 * es + 4 * 4), w * n * 16)
+        # yardstick only, never called by the port: PyTorch's fused AdamW needs
+        # its moments in the param dtype, so they are cast for it (bf16 moments
+        # move 8 fewer bytes per element than the port's f32 ones)
+        mm_l, v_l = mm.to(dtype), v.to(dtype)
+        steps = [torch.zeros((), dtype=torch.float32, device="cuda")]
+        adamw["library_ms"] = median_ms(torch, lambda: torch._fused_adamw_(
+            [p], [g], [mm_l], [v_l], [], steps, lr=1e-3, beta1=0.9, beta2=0.95,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False))
+        del p, g, mm, v, mm_l, v_l
+        torch.cuda.empty_cache()
+        out[str(dtype)] = {"dsm_update": dsm, "adamw_update": adamw}
+    emit({"phase": "kernel_times", "gpu": smi, "reps": 25, "stat": "median, CUDA events",
+          "shapes": {"dsm_update": [n], "adamw_update": [w, n]}, "times": out})
+    return out[str(torch.bfloat16)]
+
+
+def phase_main_path(torch, K, smi):
+    from repro_torch.configs import gpt2_small
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    cfg = gpt2_small.FULL
+    n_params = T.layout(cfg).numel
+    if n_params != N_GPT2_SMALL:
+        raise AssertionError(f"gpt2_small.FULL has {n_params} parameters")
+    s = TrainSettings(tau=gpt2_small.TOPO.tau, steps=MAIN_STEPS, eval_every=MAIN_STEPS, **MAIN)
+    # MarkovCorpus(50257) would need a ~160 GB table; the repo's own sources
+    # are a byte-level corpus (token ids < 256 of the 50,257-token vocab)
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    res = run_training(cfg, s, corpus, device="cuda")
+    launches = K.launch_counts()
+    hist = res["history"]
+    if not all(math.isfinite(x) for x in hist + [res["final_eval"]]):
+        raise AssertionError(f"non-finite loss: {hist}, eval {res['final_eval']}")
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"train loss did not fall: {hist}")
+    want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, want {want}")
+    step_ms = statistics.median(res["outer_step_s"][1:]) * 1e3
+    tokens_per_step = s.n_workers * s.tau * s.b_micro * s.seq
+    emit({"phase": "main_path", "gpu": smi, "config": cfg.name, "n_params": n_params,
+          "n_workers": s.n_workers, "tau": s.tau, "b_micro": s.b_micro, "seq": s.seq,
+          "outer_steps": s.steps, "history": hist, "final_eval": res["final_eval"],
+          "outer_step_ms": [t * 1e3 for t in res["outer_step_s"]],
+          "outer_step_ms_median_after_first": step_ms,
+          "tokens_per_s": tokens_per_step / (step_ms / 1e3),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    return launches
+
+
+def phase_card_vs_cpu(torch):
+    """Nano, same init and batches, kernels on the card vs plain versions on
+    the CPU.  Bound NANO_RTOL on each outer step's train loss: the two
+    devices sum in other orders, and sign() (and AdamW's sign-like first
+    steps) can turn such ulps into steps of 2 * eta * gamma on a few
+    coordinates per round."""
+    from repro_torch.configs.nano import NANO
+    from repro_torch.configs.gpt2_small import TOPO
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    s = TrainSettings(tau=TOPO.tau, steps=NANO_STEPS, eval_every=NANO_STEPS, **MAIN)
+    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    card = run_training(NANO, s, device="cuda", params=x0)
+    cpu = run_training(NANO, s, device="cpu", params=x0)
+    rel = [abs(a - b) / abs(b) for a, b in zip(card["history"], cpu["history"])]
+    emit({"phase": "card_vs_cpu", "config": NANO.name, "card": card["history"],
+          "cpu": cpu["history"], "max_rel_diff": max(rel), "rtol": NANO_RTOL,
+          "card_outer_step_ms": [t * 1e3 for t in card["outer_step_s"]]})
+    if max(rel) > NANO_RTOL:
+        raise AssertionError(f"card and CPU loss histories differ by {max(rel)}")
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; the port's smoke test needs the card")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        raise SystemExit(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
+          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "dir": str(_build.BUILD_DIR),
+          "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
+                    for k, v in logs.items()}})
+
+    errs = phase_checks(torch, K)
+    times = phase_times(torch, K, smi)
+    launches = phase_main_path(torch, K, smi)
+    phase_card_vs_cpu(torch)
+
+    sources = {"dsm_update": ("src/repro_torch/kernels/csrc/dsm_update.cu",
+                              "src/repro/kernels/dsm_update.py:30"),
+               "adamw_update": ("src/repro_torch/kernels/csrc/adamw_update.cu",
+                                "src/repro/kernels/adamw_update.py:24")}
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": errs[name], **times[name]}
+        for name, (src, rep) in sources.items()]})
+    print(nvidia_smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,123 @@
+"""Model architecture and training topology configs.
+
+A copy of the reference's ``ModelConfig`` / ``TopologyConfig`` fields (the
+port keeps its own copy: the reference module imports ``jax.numpy`` for its
+dtype properties).  ``act_dtype`` and ``p_dtype`` return torch dtypes.
+
+``pattern`` is a repeating tuple of ``"<mixer>:<ffn>"`` strings; layers are
+the pattern tiled to ``n_layers``.  Full repeats are stored stacked on a
+leading layer axis, the remainder unrolled.  The port runs the
+``attn:dense`` subset; other mixers raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional, Tuple
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}; have {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # "lm" | "encdec" | "vlm"
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None   # default d_model // n_heads
+    pattern: Tuple[str, ...] = ("attn:dense",)
+    window: int = 1024               # sliding-window size for "swa"
+    mlp_gated: bool = True           # SwiGLU vs plain 2-matrix MLP
+    act: str = "silu"                # silu | gelu
+    tie_embeddings: bool = True
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_combine: str = "scatter"
+    moe_impl: str = "ragged"
+    # SSM (Mamba-2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_width: int = 4
+    # RG-LRU
+    rnn_width: Optional[int] = None
+    # enc-dec (audio)
+    enc_layers: int = 0
+    enc_len: int = 1500
+    # VLM
+    n_patches: int = 0
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"          # activations
+    param_dtype: str = "bfloat16"
+    vocab_pad_to: int = 512          # pad vocab so the table shards evenly
+    q_block: int = 1024              # blockwise-attention query tile
+    attn_seq_shard: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return _round_up(self.vocab_size, self.vocab_pad_to)
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    @property
+    def p_dtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        reps = -(-self.n_layers // len(self.pattern))
+        return (self.pattern * reps)[: self.n_layers]
+
+    @property
+    def n_scan_blocks(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def n_rem_layers(self) -> int:
+        return self.n_layers % len(self.pattern)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologyConfig:
+    """How this arch maps onto the production mesh for training."""
+
+    n_workers_single: int = 16
+    n_workers_multi: int = 32
+    grad_accum: int = 1
+    base_opt: str = "adamw"
+    momentum_dtype: str = "float32"
+    tau: int = 12
+    remat: bool = True
+    remat_policy: str = "full"
+    attn_tp: bool = True
+    supports_long_context: bool = False
+
+
+def load_arch(arch_id: str):
+    """Returns the config module for an arch id (exposes FULL, SMOKE, TOPO)."""
+    return importlib.import_module(f"repro_torch.configs.{arch_id}")

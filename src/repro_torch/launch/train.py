@@ -1,0 +1,84 @@
+"""Training launcher of the port, with the reference launcher's flags and
+defaults for DSM with AdamW local steps:
+
+    PYTHONPATH=src python -m repro_torch.launch.train              # nano, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2_small --corpus text
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --tau 2
+
+``--arch`` accepts ``nano``, ``<id>`` (FULL) or ``<id>_smoke``.  The Markov
+corpus keeps a (vocab, vocab, 8) table, so a 50k-token vocabulary needs
+``--corpus text`` (bytes of this repository's Python sources).
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+from repro_torch.configs import load_arch
+
+MARKOV_LIMIT_BYTES = 8 << 30
+
+
+def resolve_arch(name: str):
+    """(ModelConfig, TopologyConfig) of an arch name."""
+    if name == "nano":
+        from repro_torch.configs.nano import NANO
+
+        return NANO, load_arch("gpt2_small").TOPO
+    if name.endswith("_smoke"):
+        mod = load_arch(name[: -len("_smoke")])
+        return mod.SMOKE, mod.TOPO
+    mod = load_arch(name)
+    return mod.FULL, mod.TOPO
+
+
+def make_corpus(kind: str, vocab: int):
+    from repro_torch.data.pipeline import MarkovCorpus, TextCorpus
+
+    if kind == "text":
+        return TextCorpus(str(Path(__file__).resolve().parents[2]), "**/*.py")
+    if MarkovCorpus.table_bytes(vocab) > MARKOV_LIMIT_BYTES:
+        raise SystemExit(f"the Markov corpus for vocab {vocab} needs "
+                         f"{MarkovCorpus.table_bytes(vocab) / 1e9:.0f} GB; use --corpus text")
+    return MarkovCorpus(vocab, seed=1)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="nano")
+    ap.add_argument("--algorithm", default="dsm", choices=("dsm",))
+    ap.add_argument("--base-opt", default=None, choices=(None, "adamw"))
+    ap.add_argument("--tau", type=int, default=None)
+    ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--n-workers", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--b-micro", type=int, default=4)
+    ap.add_argument("--peak-lr", type=float, default=5e-3)
+    ap.add_argument("--global-lr", type=float, default=0.3)
+    ap.add_argument("--corpus", default="markov", choices=("markov", "text"))
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    cfg, topo = resolve_arch(args.arch)
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    s = TrainSettings(
+        algorithm=args.algorithm, base_opt=args.base_opt or topo.base_opt,
+        n_workers=args.n_workers, tau=args.tau or topo.tau, steps=args.steps,
+        seq=args.seq, b_micro=args.b_micro, peak_lr=args.peak_lr,
+        global_lr=args.global_lr, eval_every=max(args.steps // 5, 1),
+    )
+    corpus = make_corpus(args.corpus, cfg.vocab_size)
+    result = run_training(cfg, s, corpus, log=print, device=args.device)
+    print(f"final eval loss: {result['final_eval']:.4f} "
+          f"(comm rounds: {result['comm_rounds']}, tokens: {result['tokens']})")
+    return result
+
+
+if __name__ == "__main__":
+    main()

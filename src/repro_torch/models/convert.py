@@ -1,0 +1,117 @@
+"""The port's flat parameter layout, and the bridge from the JAX package's
+parameters to it.
+
+Every parameter leaf is a view into one flat buffer, in the order of
+``jax.tree.leaves`` on the reference's params (dict keys sorted at every
+level, tuples in order), each leaf shaped as the JAX leaf (stacked blocks
+keep their leading layer axis).  Training keeps ``(W, N)`` buffers of this
+layout for params, gradients and AdamW moments, so each optimizer kernel is
+one launch over all leaves.  There is no per-leaf padding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+def flatten_tree(tree, is_leaf: Callable[[Any], bool] = lambda x: False,
+                 prefix: str = "") -> list[tuple[str, Any]]:
+    """``[(dotted path, leaf)]`` in ``jax.tree.leaves`` order."""
+    if isinstance(tree, dict) and not is_leaf(tree):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (tuple, list)) and not is_leaf(tree):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out.extend(flatten_tree(v, is_leaf, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Names, shapes and offsets of every leaf in the flat buffer."""
+
+    names: tuple
+    shapes: tuple
+    offsets: tuple
+    leaves: tuple   # the spec tree's leaf values, in layout order
+    numel: int
+
+    @classmethod
+    def from_tree(cls, spec: dict, is_leaf) -> "FlatLayout":
+        """``spec`` leaves are ``(shape, anything)``."""
+        flat = flatten_tree(spec, is_leaf)
+        names, shapes, offsets, off = [], [], [], 0
+        for name, (shape, _) in flat:
+            names.append(name)
+            shapes.append(tuple(shape))
+            offsets.append(off)
+            off += math.prod(shape)
+        return cls(tuple(names), tuple(shapes), tuple(offsets),
+                   tuple(leaf for _, leaf in flat), off)
+
+    def _spans(self):
+        for name, shape, off in zip(self.names, self.shapes, self.offsets):
+            yield name, shape, off, math.prod(shape)
+
+    def views(self, flat: torch.Tensor) -> dict:
+        """``{path: view}`` into one ``(N,)`` row."""
+        return {name: flat[off:off + n].view(shape) for name, shape, off, n in self._spans()}
+
+    def autograd_leaves(self, flat: torch.Tensor, grad: torch.Tensor) -> dict:
+        """``{path: leaf}`` views of the row ``flat`` that require grad and
+        whose ``.grad`` is the matching view of ``grad``, so that backward
+        accumulates IN PLACE into the flat gradient buffer (zero it first).
+        Stacked block leaves are split into a list of per-layer leaves."""
+        pv, gv = self.views(flat), self.views(grad)
+        out = {}
+        for name in self.names:
+            if name.startswith("decoder.blocks."):
+                out[name] = [_leaf(p, g) for p, g in zip(pv[name], gv[name])]
+            else:
+                out[name] = _leaf(pv[name], gv[name])
+        return out
+
+
+def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    t = p.detach().requires_grad_(True)
+    t.grad = g
+    return t
+
+
+def from_jax_numpy(tree, cfg, n_workers: int, device=None) -> torch.Tensor:
+    """The JAX package's params (numpy arrays, nested as the pytree or keyed
+    by dotted pytree path) as the port's ``(n_workers, N)`` flat buffer in
+    ``cfg.p_dtype``; every worker row holds the same params."""
+    from repro_torch.models.transformer import layout
+
+    lay = layout(cfg)
+    given = dict(flatten_tree(tree, is_leaf=lambda x: isinstance(x, np.ndarray)))
+    if sorted(given) != sorted(lay.names):
+        raise ValueError(f"param paths differ from the {cfg.name} layout: "
+                         f"missing {sorted(set(lay.names) - set(given))}, "
+                         f"unexpected {sorted(set(given) - set(lay.names))}")
+    row = torch.empty(lay.numel, dtype=cfg.p_dtype)
+    views = lay.views(row)
+    for name, shape in zip(lay.names, lay.shapes):
+        # via f32: numpy has no native bfloat16, and bf16 -> f32 is exact
+        arr = np.asarray(given[name]).astype(np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape}, layout wants {shape}")
+        views[name].copy_(torch.from_numpy(arr))
+    return row.to(device).unsqueeze(0).repeat(n_workers, 1)
+
+
+def to_numpy(flat: torch.Tensor, cfg) -> dict:
+    """``{path: f32 numpy array}`` of one flat ``(N,)`` row (for comparisons)."""
+    from repro_torch.models.transformer import layout
+
+    return {k: v.detach().to("cpu", torch.float32).numpy()
+            for k, v in layout(cfg).views(flat).items()}

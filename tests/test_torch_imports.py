@@ -1,0 +1,47 @@
+"""The port stands alone: nothing under src/repro_torch/ and nothing in
+chip_smoke.py imports JAX or the JAX package, and the entry points run on
+the card unless told otherwise."""
+
+import ast
+import inspect
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.launch import train as launch
+from repro_torch.train import trainer
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks", "flax", "optax")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_the_reference(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_files_exist():
+    names = {p.name for p in PORT_FILES}
+    assert {"chip_smoke.py", "dsm.py", "trainer.py", "adamw_update.py"} <= names
+
+
+def test_entry_points_default_to_the_card():
+    assert inspect.signature(trainer.run_training).parameters["device"].default is None
+    assert launch.build_parser().parse_args([]).device == "cuda"
+    assert trainer.resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert trainer.resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trainer.resolve_device()
