@@ -2,7 +2,10 @@
 """Chip smoke test of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA
 H100: builds the CUDA kernels, holds each against its plain PyTorch version,
 times them, trains full-width GPT-2 small with DSM and AdamW local steps
-through ``run_training``, and checks the card against the CPU on nano.
+through ``run_training``, checks the card against the CPU on nano, then
+trains full-width GPT-2 small with every baseline of the paper's comparison
+(and DSM with Sophia local steps and with the randomized sign) and holds
+every algorithm and base optimizer on the card against the CPU on nano.
 
     python3 chip_smoke.py
 
@@ -38,6 +41,29 @@ DSM_HP = dict(eta=MAIN["global_lr"], beta1=0.95, beta2=0.98, lam=0.1)
 ADAMW_HP = dict(beta1=0.9, beta2=0.95, eps=1e-8, wd=0.1)
 NANO_STEPS = 3
 NANO_RTOL = 1e-4                # card vs CPU loss history, see phase_card_vs_cpu
+# Lion's sign(u) and Sophia's clip at +-1 step every coordinate by +-gamma on
+# EVERY local step (AdamW only on its first ones), so a gradient within
+# rounding of 0 flips a step on any of the 36 local steps; the card and the
+# CPU then drift apart faster: 2.4e-5 to 1.01e-4 in two chip runs, and
+# this bound is ten times the largest
+SIGN_LIKE_RTOL = 1e-3
+SIGN_LIKE_BASE_OPTS = ("lion", "sophia")
+ALGO_STEPS = 3
+# each baseline's global step size as benchmarks/tables.py runs it; the
+# others take MAIN's global_lr
+ALGO_GLOBAL_LR = {"slowmo": 1.0, "signed_slowmo": 0.005, "lookahead": 1.0,
+                  "global_adamw": 1.0}
+FULL_WIDTH_RUNS = [dict(algorithm=a) for a in (
+    "slowmo", "signed_slowmo", "lookahead", "signed_lookahead", "global_adamw", "local_avg",
+    "perstep", "mv_signsgd")] + [dict(algorithm="dsm", base_opt="sophia"),
+                                 dict(algorithm="dsm", sign_mode="rand_pm")]
+NANO_DETERMINISTIC_RUNS = [dict(algorithm=a) for a in (
+    "dsm", "slowmo", "signed_slowmo", "lookahead", "signed_lookahead", "global_adamw",
+    "local_avg", "perstep")] + [dict(algorithm="dsm", base_opt=b)
+                                for b in ("sgd", "momentum", "lion", "sophia")]
+# CPU and CUDA generators give different streams: these need only be finite
+NANO_RANDOM_RUNS = [dict(algorithm="dsm", sign_mode="rand_pm"),
+                    dict(algorithm="dsm", sign_mode="rand_zero"), dict(algorithm="mv_signsgd")]
 
 
 def emit(obj) -> None:
@@ -255,6 +281,111 @@ def phase_card_vs_cpu(torch):
         raise AssertionError(f"card and CPU loss histories differ by {max(rel)}")
 
 
+def algo_settings(TrainSettings, run: dict, tau: int):
+    kw = {**MAIN, "global_lr": ALGO_GLOBAL_LR.get(run["algorithm"], MAIN["global_lr"]), **run}
+    return TrainSettings(tau=tau, steps=ALGO_STEPS, eval_every=ALGO_STEPS, **kw)
+
+
+def run_name(run: dict) -> str:
+    return "+".join(str(v) for v in run.values())
+
+
+def expected_launches(s) -> dict:
+    """Per run: the DSM kernel once per outer step for dsm (the deterministic
+    sign, any base optimizer) and signed_lookahead; the AdamW kernel tau
+    times per outer step for every algorithm with AdamW but mv_signsgd."""
+    dsm = s.algorithm in ("dsm", "signed_lookahead") and s.sign_mode == "sign"
+    adamw = s.base_opt == "adamw" and s.algorithm != "mv_signsgd"
+    return {"dsm_update": s.steps * dsm, "adamw_update": s.steps * s.tau * adamw}
+
+
+def check_launches(name, launches, want) -> None:
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches}, want {want}")
+
+
+def phase_algorithms_full_width(torch, K, smi):
+    """gpt2_small.FULL, W=4, tau=12: every baseline, DSM with Sophia local
+    steps and DSM with the randomized sign, ALGO_STEPS outer steps each."""
+    from repro_torch.configs import gpt2_small
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    cfg = gpt2_small.FULL
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    x0 = T.init_params(torch.Generator().manual_seed(0), cfg)
+    total = dict.fromkeys(K.launch_counts(), 0)
+    runs = []
+    for run in FULL_WIDTH_RUNS:
+        s = algo_settings(TrainSettings, run, gpt2_small.TOPO.tau)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        res = run_training(cfg, s, corpus, device="cuda", params=x0)
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        hist, final_eval, step_s = res["history"], res["final_eval"], res["outer_step_s"]
+        del res
+        if not all(math.isfinite(x) for x in hist + [final_eval]):
+            raise AssertionError(f"{run_name(run)}: non-finite loss {hist}, eval {final_eval}")
+        check_launches(run_name(run), launches, expected_launches(s))
+        step_ms = statistics.median(step_s[1:]) * 1e3
+        runs.append({"run": run_name(run), "global_lr": s.global_lr, "history": hist,
+                     "final_eval": final_eval, "outer_step_ms": [t * 1e3 for t in step_s],
+                     "outer_step_ms_median_after_first": step_ms,
+                     "tokens_per_s": s.n_workers * s.tau * s.b_micro * s.seq / (step_ms / 1e3),
+                     "max_memory_allocated_bytes": peak, "launches": launches})
+        for k, n in launches.items():
+            total[k] += n
+    emit({"phase": "algorithms_full_width", "gpu": smi, "config": cfg.name,
+          "n_params": T.layout(cfg).numel, "n_workers": MAIN["n_workers"],
+          "tau": gpt2_small.TOPO.tau, "b_micro": MAIN["b_micro"], "seq": MAIN["seq"],
+          "outer_steps": ALGO_STEPS, "runs": runs})
+    return total
+
+
+def phase_algorithms_card_vs_cpu(torch, K):
+    """Nano, the same init and batches on the card and the CPU, for every
+    deterministic algorithm and DSM with each base optimizer: each train
+    loss within NANO_RTOL (the reason is phase_card_vs_cpu's), or
+    SIGN_LIKE_RTOL for the sign-like base optimizers.  The random
+    paths only have to be finite: the two devices' generators differ.  Every
+    line is printed before any bound is checked."""
+    from repro_torch.configs.nano import NANO
+    from repro_torch.configs.gpt2_small import TOPO
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    total = dict.fromkeys(K.launch_counts(), 0)
+    rows, failures = [], []
+    for run in NANO_DETERMINISTIC_RUNS + NANO_RANDOM_RUNS:
+        s = algo_settings(TrainSettings, run, TOPO.tau)
+        K.reset_launch_counts()
+        card = run_training(NANO, s, device="cuda", params=x0)["history"]
+        launches = K.launch_counts()
+        cpu = run_training(NANO, s, device="cpu", params=x0)["history"]
+        check_launches(f"nano {run_name(run)}", launches, expected_launches(s))
+        for k, n in launches.items():
+            total[k] += n
+        row = {"run": run_name(run), "card": card, "cpu": cpu, "launches": launches}
+        if not all(math.isfinite(x) for x in card + cpu):
+            failures.append(f"{run_name(run)}: non-finite loss")
+        if run in NANO_DETERMINISTIC_RUNS:
+            row["rtol"] = (SIGN_LIKE_RTOL if run.get("base_opt") in SIGN_LIKE_BASE_OPTS
+                           else NANO_RTOL)
+            row["max_rel_diff"] = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+            if row["max_rel_diff"] > row["rtol"]:
+                failures.append(f"{run_name(run)}: card and CPU differ by {row['max_rel_diff']}")
+        rows.append(row)
+    emit({"phase": "algorithms_card_vs_cpu", "config": NANO.name, "outer_steps": ALGO_STEPS,
+          "rtol": NANO_RTOL, "rtol_sign_like": SIGN_LIKE_RTOL, "runs": rows})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return total
+
+
 def main() -> None:
     import torch
 
@@ -282,6 +413,9 @@ def main() -> None:
     times = phase_times(torch, K, smi)
     launches = phase_main_path(torch, K, smi)
     phase_card_vs_cpu(torch)
+    for more in (phase_algorithms_full_width(torch, K, smi),
+                 phase_algorithms_card_vs_cpu(torch, K)):
+        launches = {k: n + more[k] for k, n in launches.items()}
 
     sources = {"dsm_update": ("src/repro_torch/kernels/csrc/dsm_update.cu",
                               "src/repro/kernels/dsm_update.py:30"),

@@ -1,6 +1,16 @@
-"""Algorithm 1 (DSM), its base optimizer and learning-rate schedules."""
+"""Algorithm 1 (DSM), the paper's baselines, the base optimizers and
+learning-rate schedules."""
 
-from repro_torch.core.base_opt import AdamWState, BaseOptimizer, adamw, get_base_optimizer
+from repro_torch.core.base_opt import (
+    AdamWState,
+    BaseOptimizer,
+    adamw,
+    get_base_optimizer,
+    lion,
+    momentum,
+    sgd,
+    sophia,
+)
 from repro_torch.core.dsm import (
     DSMConfig,
     DSMState,
@@ -8,5 +18,9 @@ from repro_torch.core.dsm import (
     global_sign_momentum_step,
     make_dsm_step,
     make_local_phase,
+    randomized_sign_pm,
+    randomized_sign_zero,
+    signed_lookahead_config,
+    signsgd_momentum_config,
 )
 from repro_torch.core.schedules import constant, cosine_with_warmup

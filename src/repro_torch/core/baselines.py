@@ -1,0 +1,279 @@
+"""Baselines the paper compares against, on the flat ``(W, N)`` buffers.
+
+  * SlowMo (Alg. 5, Wang et al. 2019)          -> ``slowmo``
+  * signed SlowMo (§4.1 ablation)              -> ``signed_slowmo``
+  * Lookahead (Zhang et al. 2019; §4.1)        -> ``lookahead``
+  * Global AdamW with local steps (Alg. 7)     -> ``global_adamw``
+  * Local averaging (local AdamW; App. C.2)    -> ``local_avg``
+  * per-step data parallel (the paper's upper baseline) -> ``make_perstep_dp_step``
+  * Federated MV-sto-signSGD-SIM (Alg. 6, Sun et al. 2023) -> ``make_mv_signsgd_step``
+
+The local-step methods share ``make_local_step_method``: DSM's local phase
+(``repro_torch.core.dsm.make_local_phase``, so with AdamW the AdamW kernel
+does every local update) followed by a global update on
+``(x0, aux, x_tau_mean, gamma, t)``.  The global updates are plain PyTorch,
+as the reference's are plain jnp, and update ``x0`` and ``aux`` in place.
+
+Token batches are ``(W, tau, 1, B_micro, S)``: the trainer's layout with an
+accumulation axis of 1, which is numerically the reference's batch without
+that axis (0 + g = g, g / 1 = g).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.base_opt import BaseOptimizer, weak_scalar
+from repro_torch.core.dsm import make_local_phase, randomized_sign_pm, worker_grads
+from repro_torch.kernels.dsm_update import sign_like_jnp
+from repro_torch.models.convert import FlatLayout
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass
+class LocalMethodState:
+    """State of a local-step method; the outer step updates it IN PLACE."""
+
+    params: torch.Tensor      # (W, N) per-worker params, param dtype
+    grads: torch.Tensor       # (W, N) gradient buffer, param dtype (scratch)
+    x0: torch.Tensor          # (N,) global model
+    aux: object               # method-specific global state (momentum etc.)
+    base_state: object        # per-worker base-optimizer state, (W, N) leaves
+    t: int = 0
+    inner: int = 0
+
+
+def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
+                           schedule: Callable, init_aux: Callable, global_update: Callable,
+                           layout: FlatLayout):
+    """Generic: tau local steps -> worker mean -> ``global_update`` -> sync.
+
+    ``global_update(x0, aux, x_tau_mean, gamma, t)`` updates x0 and aux in
+    place.  Returns ``(init(x0, n_workers) -> state,
+    outer_step(state, tokens) -> (state, metrics))``.
+    """
+    local_phase = make_local_phase(loss_fn, base_opt, layout)
+
+    def init(x0: torch.Tensor, n_workers: int) -> LocalMethodState:
+        params = x0.unsqueeze(0).repeat(n_workers, 1)
+        return LocalMethodState(params=params, grads=torch.zeros_like(params), x0=x0.clone(),
+                                aux=init_aux(x0), base_state=base_opt.init(params))
+
+    def outer_step(state: LocalMethodState, tokens: torch.Tensor):
+        gamma_t = schedule(state.t)
+        gamma = float(gamma_t)
+        losses = local_phase(state, tokens, gamma)
+        x_tau = state.params.mean(dim=0, dtype=F32).to(state.params.dtype)
+        global_update(state.x0, state.aux, x_tau, gamma, state.t)
+        state.params.copy_(state.x0.expand_as(state.params))
+        state.t += 1
+        state.inner += tau
+        return state, {"loss": losses.mean(), "gamma": gamma_t}
+
+    return init, outer_step
+
+
+# ---------------------------------------------------------------------------
+# Global updates
+# ---------------------------------------------------------------------------
+
+def _f32(c) -> float:
+    return float(np.float32(c))
+
+
+def _delta(x0: torch.Tensor, x_tau: torch.Tensor, gamma: float) -> torch.Tensor:
+    """The pseudo-gradient (x0 - x_tau) / gamma in f32.  It divides by a
+    tensor on the data's device: torch turns division by a host scalar into
+    a product with its reciprocal on the card."""
+    g = torch.tensor(gamma, dtype=F32, device=x0.device)
+    return (x0.to(F32) - x_tau.to(F32)) / g
+
+
+def _zeros_f32(x0: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(x0, dtype=F32)
+
+
+def _step_from(x0: torch.Tensor, scale: float, gamma: float, u: torch.Tensor) -> None:
+    """x0 <- x0 - scale * gamma * u in f32, rounded to x0's dtype."""
+    x0.copy_(x0.to(F32) - _f32(np.float32(scale) * np.float32(gamma)) * u)
+
+
+def slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5, alpha: float = 1.0):
+    """SlowMo (Alg. 5): u <- beta*u + Delta ; x <- x0 - alpha*gamma*u."""
+
+    def global_update(x0, u, x_tau, gamma, t):
+        u.mul_(beta).add_(_delta(x0, x_tau, gamma))
+        _step_from(x0, alpha, gamma, u)
+
+    return make_local_step_method(loss_fn, base_opt, tau, schedule, _zeros_f32,
+                                  global_update, layout)
+
+
+def signed_slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5,
+                  eta: float = 1.0):
+    """§4.1, the printed form (sign taken before momentum):
+    m <- beta*m + ((1-beta)/gamma)*sign(x0 - x_tau); x <- x0 - eta*gamma*m."""
+
+    def global_update(x0, m, x_tau, gamma, t):
+        c = _f32(np.float32(1.0 - beta) / np.float32(gamma))   # an f32 division
+        m.mul_(beta).add_(c * sign_like_jnp(x0.to(F32) - x_tau.to(F32)))
+        _step_from(x0, eta, gamma, m)
+
+    return make_local_step_method(loss_fn, base_opt, tau, schedule, _zeros_f32,
+                                  global_update, layout)
+
+
+def lookahead(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.2, eta: float = 1.0):
+    """Lookahead (§4.1): DSM with (7) replaced by x <- x0 - eta*gamma*u (no sign)."""
+
+    def global_update(x0, m, x_tau, gamma, t):
+        m.mul_(beta).add_((1.0 - beta) * _delta(x0, x_tau, gamma))
+        _step_from(x0, eta, gamma, m)
+
+    return make_local_step_method(loss_fn, base_opt, tau, schedule, _zeros_f32,
+                                  global_update, layout)
+
+
+def local_avg(loss_fn, base_opt, tau, schedule, layout):
+    """Local AdamW / FedAvg-style: x <- mean_i x^{(i)}_{t,tau} (App. C.2)."""
+
+    def global_update(x0, aux, x_tau, gamma, t):
+        x0.copy_(x_tau)
+
+    return make_local_step_method(loss_fn, base_opt, tau, schedule, lambda x0: (),
+                                  global_update, layout)
+
+
+class GlobalAdamWAux(NamedTuple):
+    m: torch.Tensor
+    v: torch.Tensor
+
+
+def global_adamw(loss_fn, base_opt, tau, schedule, layout, eta: float = 1.0, b1: float = 0.9,
+                 b2: float = 0.95, weight_decay: float = 0.0, eps: float = 1e-8):
+    """Alg. 7: AdamW on the pseudo-gradient g = (x0 - x_tau)/gamma."""
+
+    def init_aux(x0):
+        return GlobalAdamWAux(_zeros_f32(x0), _zeros_f32(x0))
+
+    def global_update(x0, aux, x_tau, gamma, t):
+        g = _delta(x0, x_tau, gamma)
+        aux.m.mul_(b1).add_((1 - b1) * g)
+        aux.v.mul_(b2).add_((1 - b2) * g * g)
+        # bias corrections: f32 constants on the host, divided by on the device
+        tc = np.float32(t + 1)
+        bc1, bc2 = (torch.tensor(np.float32(1) - np.float32(b) ** tc, dtype=F32,
+                                 device=x0.device) for b in (b1, b2))
+        x0f = x0.to(F32)
+        step = (aux.m / bc1) / (torch.sqrt(aux.v / bc2) + eps) + weight_decay * x0f
+        x0.copy_(x0f - _f32(np.float32(eta) * np.float32(gamma)) * step)
+
+    return make_local_step_method(loss_fn, base_opt, tau, schedule, init_aux,
+                                  global_update, layout)
+
+
+LOCAL_METHODS = {"slowmo": slowmo, "signed_slowmo": signed_slowmo, "lookahead": lookahead,
+                 "global_adamw": global_adamw, "local_avg": local_avg}
+
+
+# ---------------------------------------------------------------------------
+# Per-step data parallel: the gradient mean EVERY round (the paper's
+# communication-heavy upper baseline)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PerStepDPState:
+    params: torch.Tensor      # (N,) the one global copy
+    grads: torch.Tensor       # (W, N) per-worker gradients (scratch)
+    base_state: object
+    t: int = 0
+
+
+def make_perstep_dp_step(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
+                         schedule: Callable, layout: FlatLayout):
+    """tau rounds per call, each: W forward+backward passes on the one
+    parameter copy, the gradient mean, one base-optimizer update (with AdamW,
+    the AdamW kernel on (N,)).  One call consumes the tokens of one DSM outer
+    step and communicates tau times as often.
+
+    The update is the training path's local step, cast back to the param
+    dtype; the reference's ``x - gamma * d`` promotes bf16 params to f32.
+    """
+
+    def init(x0: torch.Tensor, n_workers: int) -> PerStepDPState:
+        return PerStepDPState(params=x0.clone(), grads=x0.new_zeros(n_workers, x0.numel()),
+                              base_state=base_opt.init(x0))
+
+    def outer_step(state: PerStepDPState, tokens: torch.Tensor):
+        gamma_t = schedule(state.t)   # indexed by the outer-equivalent step
+        gamma = float(gamma_t)
+        losses = torch.empty(tau, tokens.shape[0], dtype=F32, device=state.params.device)
+        for k in range(tau):
+            worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, k], losses[k])
+            g = state.grads.mean(dim=0, dtype=F32).to(state.params.dtype)   # all-reduce
+            base_opt.update(state.params, g, state.base_state, gamma, state.t * tau + k)
+        state.t += 1
+        return state, {"loss": losses.mean(), "gamma": gamma_t}
+
+    return init, outer_step
+
+
+# ---------------------------------------------------------------------------
+# Federated MV-sto-signSGD-SIM (Alg. 6, Sun et al. 2023)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MVState:
+    x: torch.Tensor           # (N,) global model
+    x_prev: torch.Tensor      # (N,) the previous global model
+    m: torch.Tensor           # (W, N) per-worker momentum, f32
+    params: torch.Tensor      # (W, N) local iterates z (scratch)
+    grads: torch.Tensor       # (W, N) gradient buffer (scratch)
+    t: int = 0
+
+
+def make_mv_signsgd_step(loss_fn: Callable, tau: int, gamma: float, eta: float,
+                         layout: FlatLayout, beta: float = 0.9, alpha: float = 0.5,
+                         bound: float = 1.0):
+    """Alg. 6: local SGD from the extrapolated point, randomized-sign majority
+    vote.  The local SGD steps and the extrapolation run in the param dtype,
+    as the reference's do; momentum and vote in f32."""
+
+    def init(x0: torch.Tensor, n_workers: int) -> MVState:
+        params = x0.unsqueeze(0).repeat(n_workers, 1)
+        return MVState(x=x0.clone(), x_prev=x0.clone(), m=torch.zeros_like(params, dtype=F32),
+                       params=params, grads=torch.zeros_like(params))
+
+    def outer_step(state: MVState, tokens: torch.Tensor, rng: Optional[torch.Generator] = None,
+                   uniform: Optional[torch.Tensor] = None):
+        """``uniform``: the (W, N) f32 draws of the signs, else drawn from ``rng``."""
+        dt = state.x.dtype
+        n_workers = tokens.shape[0]
+        # y_t = x_t + alpha (x_t - x_{t-1}), every worker starts from it
+        y = state.x + weak_scalar(alpha, dt) * (state.x - state.x_prev)
+        state.params.copy_(y.expand_as(state.params))
+        lr = weak_scalar(gamma, dt)
+        losses = torch.empty(tau, n_workers, dtype=F32, device=state.x.device)
+        for k in range(tau):
+            worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, k], losses[k])
+            state.params.sub_(lr * state.grads)
+
+        # local momentum from a fresh gradient at z_tau on the last microbatch
+        worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, -1],
+                     torch.empty(n_workers, device=state.x.device))
+        state.m.mul_(beta).add_((1 - beta) * state.grads.to(F32))
+
+        # randomized sign per worker, sum, majority vote
+        votes = randomized_sign_pm(state.m, rng, bound, uniform).sum(dim=0)
+        x_new = state.x.to(F32) - eta * sign_like_jnp(votes)
+        state.x_prev.copy_(state.x)
+        state.x.copy_(x_new)
+        state.t += 1
+        return state, {"loss": losses.mean()}
+
+    return init, outer_step

@@ -10,34 +10,76 @@ One outer step t:
      (eqs. 6-8), then every worker restarts from x_{t+1,0}.
 
 The W workers are simulated on one device: a Python loop runs each worker's
-forward and backward, and the AdamW kernel then updates all workers in one
-launch.  The global step is the DSM kernel on the card.
+forward and backward, and the base optimizer then updates all workers at
+once (with AdamW, one launch of the AdamW kernel).  The global step is the
+DSM kernel on the card for the deterministic sign; the randomized signs of
+eqs. 9/10 (``sign_mode`` ``rand_pm`` / ``rand_zero``) run in plain PyTorch.
 
-The port covers the dense, fault-free case with ``sign_mode="sign"``; the
-randomized signs, fault masks, ZeRO sharding and the device-parallel local
-phase raise ``NotImplementedError`` (ROADMAP.md).
+The port covers the dense, fault-free case; fault masks, ZeRO sharding and
+the device-parallel local phase raise ``NotImplementedError`` (ROADMAP.md).
+
+Instances (paper §2 "Algorithm instances"):
+  * tau=1, beta1=beta2=beta, lam=0    -> signSGD with momentum (eq. 3)
+  * n=1 (W=1)                         -> signed Lookahead (+ decoupled wd)
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.base_opt import BaseOptimizer
-from repro_torch.kernels.dsm_update import dsm_update
+from repro_torch.kernels.dsm_update import dsm_update, dsm_update_plain, sign_like_jnp
 from repro_torch.models.convert import FlatLayout
 from repro_torch.obs import metrics as OM
 
-SIGN_MODES = ("sign", "rand_pm", "rand_zero")
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Randomized sign operators (paper §3.1, eqs. 9/10)
+# ---------------------------------------------------------------------------
+
+def _uniform(u: torch.Tensor, rng: Optional[torch.Generator], uniform):
+    """U[0, 1) draws of u's shape in f32: ``uniform`` when the caller gives
+    them, else drawn from the generator ``rng`` on u's device."""
+    if uniform is not None:
+        return uniform
+    return torch.rand(u.shape, generator=rng, dtype=F32, device=u.device)
+
+
+def _on(c: float, u: torch.Tensor) -> torch.Tensor:
+    # divide by a tensor on the data's device: torch turns division by a
+    # host scalar into a product with its reciprocal on the card
+    return torch.tensor(c, dtype=F32, device=u.device)
+
+
+def randomized_sign_pm(u: torch.Tensor, rng: Optional[torch.Generator], bound: float,
+                       uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. (9): +-sign(u_j), P[sign(u_j)] = 1/2 + |u_j|/(2B).  E[.] = u/B."""
+    p_keep = 0.5 + u.abs() / _on(2.0 * bound, u)
+    s = sign_like_jnp(u)
+    return torch.where(_uniform(u, rng, uniform) < p_keep, s, -s)
+
+
+def randomized_sign_zero(u: torch.Tensor, rng: Optional[torch.Generator], bound: float,
+                         uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. (10): sign(u_j) w.p. |u_j|/B else 0.  E[.] = u/B."""
+    keep = _uniform(u, rng, uniform) < u.abs() / _on(bound, u)
+    return torch.where(keep, sign_like_jnp(u), torch.zeros_like(u))
+
+
+RANDOMIZED_SIGNS = {"rand_pm": randomized_sign_pm, "rand_zero": randomized_sign_zero}
+SIGN_MODES = ("sign",) + tuple(RANDOMIZED_SIGNS)
 
 
 @dataclasses.dataclass(frozen=True)
 class DSMConfig:
     """Hyper-parameters of Algorithm 1 (the reference's fields, less
-    ``sign_bound``, read only by the randomized signs, and ``use_kernel``:
-    the port's global step is always the DSM kernel's wrapper).
+    ``use_kernel``: the port's deterministic global step is always the DSM
+    kernel's wrapper).
 
     Defaults are the paper's recommended Lion parameters for the global step
     (beta1=0.95, beta2=0.98, lambda=0.1; §4 Implementations).
@@ -49,6 +91,7 @@ class DSMConfig:
     beta2: float = 0.98           # m_{t+1} interpolation (eq. 8)
     weight_decay: float = 0.1     # decoupled lambda (eq. 7)
     sign_mode: str = "sign"       # "sign" | "rand_pm" | "rand_zero"
+    sign_bound: float = 1.0       # B for randomized sign (theory uses tau*R)
     zero_sharded: bool = False
     device_parallel_local: bool = False
     mask_nonfinite: bool = False
@@ -64,7 +107,6 @@ class DSMConfig:
 
 def check_ported(cfg: DSMConfig) -> None:
     missing = [name for name, on in (
-        (f"sign_mode={cfg.sign_mode!r}", cfg.sign_mode != "sign"),
         ("zero_sharded", cfg.zero_sharded),
         ("device_parallel_local", cfg.device_parallel_local),
         ("mask_nonfinite", cfg.mask_nonfinite),
@@ -98,17 +140,48 @@ def dsm_init(x0: torch.Tensor, base_opt: BaseOptimizer, n_workers: int) -> DSMSt
     )
 
 
-def global_sign_momentum_step(x0, m, x_tau_mean, gamma, cfg: DSMConfig):
+def global_sign_momentum_step(x0, m, x_tau_mean, gamma, cfg: DSMConfig,
+                              rng: Optional[torch.Generator] = None,
+                              uniform: Optional[torch.Tensor] = None):
     """Eqs. (6)-(8) in place on the flat buffers; returns (x0, m).
 
-    The DSM kernel on the card, its plain version on the CPU.  With f32
-    momentum the reference's jnp path and its kernel do the same f32
-    arithmetic in the same order, so this one path stands for both.
+    ``sign_mode="sign"``: the DSM kernel on the card, its plain version on
+    the CPU.  With f32 momentum the reference's jnp path and its kernel do
+    the same f32 arithmetic in the same order, so this one path stands for
+    both.  The randomized signs draw their f32 uniforms over the flat (N,)
+    buffer from ``rng`` (or take ``uniform``).
     """
-    if cfg.sign_mode != "sign":
-        raise NotImplementedError(f"sign_mode={cfg.sign_mode!r} is not ported yet (ROADMAP.md)")
-    return dsm_update(x0, m, x_tau_mean, gamma, eta=cfg.global_lr, beta1=cfg.beta1,
-                      beta2=cfg.beta2, lam=cfg.weight_decay)
+    hp = dict(eta=cfg.global_lr, beta1=cfg.beta1, beta2=cfg.beta2, lam=cfg.weight_decay)
+    if cfg.sign_mode == "sign":
+        return dsm_update(x0, m, x_tau_mean, gamma, **hp)
+    # The configured sign_mode, not a failed launch, picks this path: the
+    # kernel computes only the deterministic sign, so the randomized modes
+    # run the same eqs. (6)-(8) in plain PyTorch on every device, as the
+    # reference routes them past its kernel.
+    op = RANDOMIZED_SIGNS[cfg.sign_mode]
+    return dsm_update_plain(x0, m, x_tau_mean, gamma, **hp,
+                            sign=lambda u: op(u, rng, cfg.sign_bound, uniform))
+
+
+def worker_grads(loss_fn: Callable, layout: FlatLayout, params: torch.Tensor,
+                 grads: torch.Tensor, tokens: torch.Tensor, losses: torch.Tensor) -> None:
+    """Every worker's forward and backward, in place into ``grads[w]`` of the
+    ``(W, N)`` buffer (zeroed first): worker w at ``params[w]``, or at the
+    one ``(N,)`` params, on its microbatches ``tokens[w]`` (accum, B_micro,
+    S), gradients summed then divided by accum; its mean loss into
+    ``losses[w]``."""
+    grads.zero_()
+    accum = tokens.shape[1]
+    for w in range(grads.shape[0]):
+        leaves = layout.autograd_leaves(params if params.dim() == 1 else params[w], grads[w])
+        loss_sum = torch.zeros((), dtype=F32, device=losses.device)
+        for a in range(accum):
+            loss = loss_fn(leaves, tokens[w, a])
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+        if accum > 1:
+            grads[w].div_(accum)
+        losses[w] = loss_sum / accum
 
 
 def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLayout):
@@ -116,26 +189,15 @@ def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLay
     steps of every worker, in place on ``state.params`` / ``state.base_state``.
 
     ``tokens``: (W, tau, accum, B_micro, S).  Each local step runs every
-    worker's forward and backward (gradients accumulated over ``accum``
-    microbatches, then divided by ``accum``), then one base-optimizer update
-    over all workers at step index ``state.inner + k``.
+    worker's forward and backward (:func:`worker_grads`), then one
+    base-optimizer update over all workers at step index ``state.inner + k``.
     """
 
-    def local_phase(state: DSMState, tokens: torch.Tensor, gamma: float) -> torch.Tensor:
-        W, tau, accum = tokens.shape[:3]
-        losses = torch.empty(tau, W, dtype=torch.float32, device=state.params.device)
+    def local_phase(state, tokens: torch.Tensor, gamma: float) -> torch.Tensor:
+        tau, n_workers = tokens.shape[1], tokens.shape[0]
+        losses = torch.empty(tau, n_workers, dtype=F32, device=state.params.device)
         for k in range(tau):
-            state.grads.zero_()
-            for w in range(W):
-                leaves = layout.autograd_leaves(state.params[w], state.grads[w])
-                loss_sum = torch.zeros((), dtype=torch.float32, device=losses.device)
-                for a in range(accum):
-                    loss = loss_fn(leaves, tokens[w, k, a])
-                    loss.backward()
-                    loss_sum = loss_sum + loss.detach()
-                if accum > 1:
-                    state.grads[w].div_(accum)
-                losses[k, w] = loss_sum / accum
+            worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, k], losses[k])
             base_opt.update(state.params, state.grads, state.base_state, gamma,
                             state.inner + k)
         return losses
@@ -145,17 +207,20 @@ def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLay
 
 def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
                   schedule: Callable, layout: FlatLayout):
-    """Build ``outer_step(state, tokens) -> (state, metrics)``.
+    """Build ``outer_step(state, tokens[, rng]) -> (state, metrics)``.
 
     ``tokens``: (W, tau, accum, B_micro, S) int64 on the state's device.
     ``loss_fn(params, microbatch)`` takes a ``{path: tensor}`` params dict and
-    one (B_micro, S) microbatch.  ``metrics`` holds 0-d tensors ``loss``,
+    one (B_micro, S) microbatch.  ``rng``: the ``torch.Generator`` on the
+    state's device that the randomized signs draw from (unused by
+    ``sign_mode="sign"``).  ``metrics`` holds 0-d tensors ``loss``,
     ``last_loss``, ``gamma`` and the ``(N_METRICS,)`` ``pack``.
     """
     check_ported(cfg)
     local_phase = make_local_phase(loss_fn, base_opt, layout)
 
-    def outer_step(state: DSMState, tokens: torch.Tensor):
+    def outer_step(state: DSMState, tokens: torch.Tensor,
+                   rng: Optional[torch.Generator] = None):
         gamma_t = schedule(state.t)          # fixed for the whole outer step
         gamma = float(gamma_t)
         losses = local_phase(state, tokens, gamma)
@@ -163,7 +228,7 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
         # line 7: the worker mean, in f32 and cast back (as jnp.mean of bf16)
         x_tau = state.params.mean(dim=0, dtype=torch.float32).to(state.params.dtype)
         stat = OM.stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1)
-        global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg)
+        global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, rng)
 
         # line 11: every worker restarts from x_{t+1,0}; AdamW state carries on
         state.params.copy_(state.x0.expand_as(state.params))
@@ -178,3 +243,17 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
                        "pack": pack}
 
     return outer_step
+
+
+# ---------------------------------------------------------------------------
+# Convenience instances
+# ---------------------------------------------------------------------------
+
+def signsgd_momentum_config(beta: float) -> DSMConfig:
+    """tau=1, beta1=beta2=beta, lam=0: exactly eq. (3) signSGD w/ momentum."""
+    return DSMConfig(tau=1, beta1=beta, beta2=beta, weight_decay=0.0)
+
+
+def signed_lookahead_config(tau: int, beta: float, weight_decay: float = 0.0) -> DSMConfig:
+    """n=1 instance (§4.1 ablation): signed Lookahead with decoupled wd."""
+    return DSMConfig(tau=tau, beta1=beta, beta2=beta, weight_decay=weight_decay)

@@ -51,8 +51,11 @@ def sign_like_jnp(u: torch.Tensor) -> torch.Tensor:
     return torch.where(u > 0, 1.0, torch.where(u < 0, -1.0, u))
 
 
-def dsm_update_plain(x0, m, x_tau, gamma, *, eta, beta1, beta2, lam):
-    """Plain PyTorch version, same arithmetic and order as the kernel."""
+def dsm_update_plain(x0, m, x_tau, gamma, *, eta, beta1, beta2, lam, sign=sign_like_jnp):
+    """Plain PyTorch version, same arithmetic and order as the kernel.
+
+    ``sign`` maps u to S(u); the kernel computes only the deterministic
+    sign, the default, and the randomized signs of eqs. 9/10 pass theirs."""
     k = dsm_consts(gamma, eta=eta, beta1=beta1, beta2=beta2, lam=lam)
     # divide by a tensor on the data's device: torch turns division by a
     # host scalar into a product with its reciprocal on the card
@@ -60,7 +63,7 @@ def dsm_update_plain(x0, m, x_tau, gamma, *, eta, beta1, beta2, lam):
     x0f = x0.to(F32)
     delta = (x0f - x_tau.to(F32)) / g
     u = k.beta1 * m + k.omb1 * delta
-    x_new = x0f - k.eta_gamma * (sign_like_jnp(u) + k.lam * x0f)
+    x_new = x0f - k.eta_gamma * (sign(u) + k.lam * x0f)
     m_new = k.beta2 * m + k.omb2 * delta
     x0.copy_(x_new)
     m.copy_(m_new)

@@ -1,9 +1,10 @@
-"""Training launcher of the port, with the reference launcher's flags and
-defaults for DSM with AdamW local steps:
+"""Training launcher of the port, with the reference launcher's training
+flags and defaults (DSM with the arch's base optimizer, AdamW):
 
     PYTHONPATH=src python -m repro_torch.launch.train              # nano, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2_small --corpus text
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --tau 2
+    PYTHONPATH=src python -m repro_torch.launch.train --algorithm slowmo --base-opt sophia
 
 ``--arch`` accepts ``nano``, ``<id>`` (FULL) or ``<id>_smoke``.  The Markov
 corpus keeps a (vocab, vocab, 8) table, so a 50k-token vocabulary needs
@@ -16,6 +17,8 @@ import argparse
 from pathlib import Path
 
 from repro_torch.configs import load_arch
+from repro_torch.core.base_opt import REGISTRY
+from repro_torch.train.trainer import ALGORITHMS, TrainSettings, run_training
 
 MARKOV_LIMIT_BYTES = 8 << 30
 
@@ -47,8 +50,9 @@ def make_corpus(kind: str, vocab: int):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="nano")
-    ap.add_argument("--algorithm", default="dsm", choices=("dsm",))
-    ap.add_argument("--base-opt", default=None, choices=(None, "adamw"))
+    ap.add_argument("--algorithm", default="dsm", choices=ALGORITHMS)
+    ap.add_argument("--base-opt", default=None, choices=tuple(REGISTRY),
+                    help="base optimizer of the local steps (default: the arch's)")
     ap.add_argument("--tau", type=int, default=None)
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--n-workers", type=int, default=4)
@@ -65,8 +69,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     cfg, topo = resolve_arch(args.arch)
-    from repro_torch.train.trainer import TrainSettings, run_training
-
     s = TrainSettings(
         algorithm=args.algorithm, base_opt=args.base_opt or topo.base_opt,
         n_workers=args.n_workers, tau=args.tau or topo.tau, steps=args.steps,

@@ -85,34 +85,18 @@ def test_global_step_matches_reference(use_kernel, dtype):
 
 
 def test_global_step_rejects_unported_sign_modes():
-    x = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        D.global_sign_momentum_step(x, x.clone(), x.clone(), 0.1,
-                                    D.DSMConfig(sign_mode="rand_pm"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         D.check_ported(D.DSMConfig(zero_sharded=True))
 
 
-UNPORTED_DSM = [dict(sign_mode="rand_pm"), dict(sign_mode="rand_zero"), dict(zero_sharded=True),
-                dict(device_parallel_local=True), dict(mask_nonfinite=True)]
+UNPORTED_DSM = [dict(zero_sharded=True), dict(device_parallel_local=True),
+                dict(mask_nonfinite=True)]
 
 
 @pytest.mark.parametrize("option", UNPORTED_DSM, ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_dsm_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         D.check_ported(D.DSMConfig(**option))
-
-
-@pytest.mark.parametrize("algorithm,base_opt", [("slowmo", "adamw"), ("dsm", "lion")])
-def test_unported_algorithms_raise(algorithm, base_opt):
-    from repro_torch.configs.nano import NANO
-    from repro_torch.train.trainer import TrainSettings, run_training
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_training(NANO, TrainSettings(algorithm=algorithm, base_opt=base_opt), device="cpu")
-    if base_opt != "adamw":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            B.get_base_optimizer(base_opt)
 
 
 def test_metric_pack_matches_reference():
