@@ -6,6 +6,9 @@ through ``run_training``, checks the card against the CPU on nano, then
 trains full-width GPT-2 small with every baseline of the paper's comparison
 (and DSM with Sophia local steps and with the randomized sign) and holds
 every algorithm and base optimizer on the card against the CPU on nano.
+Last comes fault-tolerant DSM: full width under a seeded fault plan with
+guards, a checkpoint and resume at full width held against uninterrupted
+runs, and the fault plan, guards and a rollback on nano, card against CPU.
 
     python3 chip_smoke.py
 
@@ -20,10 +23,13 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -64,6 +70,16 @@ NANO_DETERMINISTIC_RUNS = [dict(algorithm=a) for a in (
 # CPU and CUDA generators give different streams: these need only be finite
 NANO_RANDOM_RUNS = [dict(algorithm="dsm", sign_mode="rand_pm"),
                     dict(algorithm="dsm", sign_mode="rand_zero"), dict(algorithm="mv_signsgd")]
+# fault-tolerant DSM: per round, the dropped, stale and corrupt workers of
+# the hand-built plan (W = 4): a clean round, each fault alone and together,
+# all four dropped (the skip-round), and a clean round after it
+FAULT_ROUNDS = [((), (), ()), ((1,), (), ()), ((), (2,), (3,)), ((0, 1, 2, 3), (), ()),
+                ((0,), (), (1,)), ((), (), ())]
+ALL_DROPPED = 3
+RESUME_STEPS = 4
+# every round after the first has a loss above 0.9 x the EMA of accepted
+# losses (a margin of ~10%, never within rounding): the guard rejects it
+SPIKE_FACTOR = 0.9
 
 
 def emit(obj) -> None:
@@ -247,15 +263,17 @@ def phase_main_path(torch, K, smi):
         raise AssertionError(f"launch counts {launches}, want {want}")
     step_ms = statistics.median(res["outer_step_s"][1:]) * 1e3
     tokens_per_step = s.n_workers * s.tau * s.b_micro * s.seq
+    peak = torch.cuda.max_memory_allocated()
     emit({"phase": "main_path", "gpu": smi, "config": cfg.name, "n_params": n_params,
           "n_workers": s.n_workers, "tau": s.tau, "b_micro": s.b_micro, "seq": s.seq,
           "outer_steps": s.steps, "history": hist, "final_eval": res["final_eval"],
           "outer_step_ms": [t * 1e3 for t in res["outer_step_s"]],
           "outer_step_ms_median_after_first": step_ms,
           "tokens_per_s": tokens_per_step / (step_ms / 1e3),
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches})
-    return launches
+          "max_memory_allocated_bytes": peak, "launches": launches})
+    # kept for the repeat check of resume_full_width (same settings, same process)
+    final = {"history": hist, "x0": res["state"].x0.cpu(), "m": res["state"].m.cpu()}
+    return launches, {"outer_step_ms": step_ms, "max_memory_allocated_bytes": peak}, final
 
 
 def phase_card_vs_cpu(torch):
@@ -386,6 +404,279 @@ def phase_algorithms_card_vs_cpu(torch, K):
     return total
 
 
+def fault_plan(FaultPlan, FaultSpec):
+    """The hand-built plan of FAULT_ROUNDS for W = 4 workers."""
+    plan = FaultPlan(MAIN["n_workers"], len(FAULT_ROUNDS), FaultSpec())
+    for t, masks in enumerate(FAULT_ROUNDS):
+        for arr, workers in zip((plan.drop, plan.stale, plan.corrupt), masks):
+            arr[t, list(workers)] = True
+    return plan
+
+
+def bits(torch, t):
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype])
+
+
+def phase_robustness_full_width(torch, K, smi, main_cost):
+    """gpt2_small.FULL, W=4, tau=12, DSM + AdamW under the hand-built fault
+    plan with mask_nonfinite and guard_nonfinite.  After every round: every
+    state tensor finite, the pack's survivor_frac the plan's; across the
+    all-dropped round x0 and m byte-equal to copies on the card; one DSM
+    launch per round (the skip-round included) and tau AdamW launches."""
+    from repro_torch.configs import gpt2_small
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.obs.metrics import IDX
+    from repro_torch.robustness.faults import FaultPlan, FaultSpec
+    from repro_torch.robustness.guards import state_tensors
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    cfg = gpt2_small.FULL
+    plan = fault_plan(FaultPlan, FaultSpec)
+    s = TrainSettings(tau=gpt2_small.TOPO.tau, steps=len(FAULT_ROUNDS),
+                      eval_every=len(FAULT_ROUNDS), faults=plan, mask_nonfinite=True,
+                      guard_nonfinite=True, **MAIN)
+    want_sf = [float((~plan.drop[t] & ~plan.corrupt[t]).mean()) for t in range(plan.steps)]
+    rounds, kept = [], {}
+
+    def on_round(t, state, metrics):
+        finite = torch.stack([torch.isfinite(x).all() for x in state_tensors(state)]).all()
+        row = {"t": t, "finite": bool(finite), "guard_ok": bool(metrics["guard_ok"]),
+               "survivor_frac": metrics["pack"][IDX["survivor_frac"]].item()}
+        if t == ALL_DROPPED:
+            row["x0_m_unchanged"] = bool(torch.equal(bits(torch, state.x0), kept["x0"])
+                                         and torch.equal(bits(torch, state.m), kept["m"]))
+            kept.clear()
+        if t + 1 == ALL_DROPPED:
+            kept.update(x0=bits(torch, state.x0).clone(), m=bits(torch, state.m).clone())
+        rounds.append(row)
+
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    res = run_training(cfg, s, corpus, device="cuda", on_round=on_round)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist, step_s = res["history"], res["outer_step_s"]
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    layer_ms = fault_layer_ms(torch, res["state"], plan.round(2, res["state"].x0.device))
+    emit({"phase": "robustness_full_width", "gpu": smi, "config": cfg.name,
+          "n_workers": s.n_workers, "tau": s.tau, "outer_steps": s.steps,
+          "fault_rounds": [{"drop": list(d), "stale": list(st), "corrupt": list(c)}
+                           for d, st, c in FAULT_ROUNDS],
+          "rounds": rounds, "history": hist, "final_eval": res["final_eval"],
+          "skipped_rounds": res["skipped_rounds"],
+          "outer_step_ms": [t * 1e3 for t in step_s],
+          "outer_step_ms_median_after_first": step_ms,
+          "main_path_outer_step_ms_median_after_first": main_cost["outer_step_ms"],
+          "max_memory_allocated_bytes": peak,
+          "main_path_max_memory_allocated_bytes": main_cost["max_memory_allocated_bytes"],
+          "check_copies_bytes": 6 * n_params(cfg),   # on_round's bf16 x0 + f32 m
+          "fault_layer_ms": layer_ms, "fault_layer_reps": 10, "launches": launches})
+    del res
+    failures = []
+    if not all(math.isfinite(x) for x in hist):
+        failures.append(f"non-finite loss {hist}")
+    if not all(r["finite"] for r in rounds):
+        failures.append("a state tensor went non-finite")
+    if [r["survivor_frac"] for r in rounds] != want_sf:
+        failures.append(f"survivor_frac {[r['survivor_frac'] for r in rounds]}, plan {want_sf}")
+    if not rounds[ALL_DROPPED].get("x0_m_unchanged"):
+        failures.append("x0 / m changed across the all-dropped round")
+    check_launches("robustness_full_width", launches,
+                   {"dsm_update": s.steps, "adamw_update": s.steps * s.tau})
+    if failures:
+        raise AssertionError("robustness_full_width: " + "; ".join(failures))
+    return launches
+
+
+def fault_layer_ms(torch, state, fr) -> dict:
+    """CUDA-event times of the fault-tolerance layer alone, on the full-width
+    state after the run (each leaves it as it is): the guard's snapshot,
+    finiteness check and select around a step that does nothing; the
+    survivor-aware mean (apply_faults, finite mask, masked mean) of the
+    round ``fr`` beside the dense mean it replaces; the skip-round's x0/m
+    copies and select."""
+    from repro_torch.core.dsm import masked_worker_mean, worker_finite_mask
+    from repro_torch.robustness.faults import apply_faults
+    from repro_torch.robustness.guards import init_guard, make_guarded_step
+
+    dev = state.x0.device
+    loss = torch.ones((), device=dev)
+    guard = init_guard(dev)
+    noop = make_guarded_step(lambda st, *a: (st, {"loss": loss}), nonfinite=True)
+
+    def survivor_mean():
+        contrib = apply_faults(state.params, state.x0, fr)
+        w = fr.survivors.float() * worker_finite_mask(contrib).float()
+        return masked_worker_mean(contrib, w)
+
+    def skip_select():
+        ok = torch.ones((), dtype=torch.bool, device=dev)
+        for buf in (state.x0, state.m):
+            torch.where(ok, buf, buf.clone(), out=buf)
+
+    return {"guard": median_ms(torch, lambda: noop(state, guard), reps=10),
+            "survivor_mean": median_ms(torch, survivor_mean, reps=10),
+            "dense_mean": median_ms(torch, lambda: state.params.mean(
+                dim=0, dtype=torch.float32).to(state.params.dtype), reps=10),
+            "skip_select": median_ms(torch, skip_select, reps=10)}
+
+
+def n_params(cfg) -> int:
+    from repro_torch.models import transformer as T
+
+    return T.layout(cfg).numel
+
+
+def max_gap(torch, a: dict, b: dict) -> dict:
+    """Largest differences between two runs' histories and final x0 / m."""
+    return {"history": max(abs(x - y) for x, y in zip(a["history"], b["history"])),
+            "x0": (a["x0"].float() - b["x0"].float()).abs().max().item(),
+            "m": (a["m"] - b["m"]).abs().max().item()}
+
+
+def bit_equal(torch, a: dict, b: dict) -> bool:
+    return (a["history"] == b["history"] and torch.equal(bits(torch, a["x0"]), bits(torch, b["x0"]))
+            and torch.equal(bits(torch, a["m"]), bits(torch, b["m"])))
+
+
+def phase_resume_full_width(torch, K, smi, main_final):
+    """gpt2_small.FULL, DSM + AdamW, the main path's settings.  Repeat: one
+    more uninterrupted 4-step run against main_path's (default algorithms),
+    then two under torch.use_deterministic_algorithms(True, warn_only=True).
+    Resume, in that mode: 2 steps with checkpoint_every=2, then resume=True
+    to step 4, into a temporary directory that the phase removes.  If the
+    two deterministic runs agree bit for bit, the resumed history and final
+    x0 and m must too; else they must stay within the repeat gap."""
+    from repro_torch.configs import gpt2_small
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    cfg = gpt2_small.FULL
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    total = dict.fromkeys(K.launch_counts(), 0)
+
+    def run(**kw):
+        s = TrainSettings(tau=gpt2_small.TOPO.tau, eval_every=RESUME_STEPS,
+                          **{"steps": RESUME_STEPS, **MAIN, **kw})
+        torch.cuda.empty_cache()
+        K.reset_launch_counts()
+        res = run_training(cfg, s, corpus, device="cuda")
+        steps_run = len(res["outer_step_s"])
+        check_launches("resume_full_width", K.launch_counts(),
+                       {"dsm_update": steps_run, "adamw_update": steps_run * s.tau})
+        for k, n in K.launch_counts().items():
+            total[k] += n
+        out = {"history": res["history"], "x0": res["state"].x0.cpu(), "m": res["state"].m.cpu(),
+               "checkpoint_s": res["checkpoint_s"], "restore_s": res["restore_s"],
+               "steps_run": steps_run}
+        del res
+        return out
+
+    default = run()
+    warn = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det_a, det_b = run(), run()
+            tmp_root = ROOT / "build"
+            tmp_root.mkdir(exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=tmp_root) as d:
+                first = run(steps=2, checkpoint_dir=d, checkpoint_every=2, checkpoint_keep=1)
+                resumed = run(checkpoint_dir=d, checkpoint_every=2, checkpoint_keep=1,
+                              resume=True)
+                ck = os.path.join(d, "ckpt_%08d" % RESUME_STEPS)
+                ck_bytes = os.path.getsize(ck + ".npz") + os.path.getsize(ck + ".json")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    warn = sorted({str(w.message).splitlines()[0][:200] for w in caught})
+    repeat_default = bit_equal(torch, default, main_final)
+    repeat_det = bit_equal(torch, det_a, det_b)
+    gap = max_gap(torch, det_a, det_b)
+    resume_gap = max_gap(torch, resumed, det_a)
+    held = ("bit-exact" if repeat_det and bit_equal(torch, resumed, det_a) else
+            "within the repeat gap" if not repeat_det and all(
+                resume_gap[k] <= gap[k] for k in gap) else "failed")
+    emit({"phase": "resume_full_width", "gpu": smi, "config": cfg.name,
+          "outer_steps": RESUME_STEPS, "killed_at": 2,
+          "default_repeat_bit_exact": repeat_default,
+          "default_repeat_gap": max_gap(torch, default, main_final),
+          "deterministic_repeat_bit_exact": repeat_det, "deterministic_repeat_gap": gap,
+          "deterministic_warnings": warn, "resumed_gap": resume_gap, "resume": held,
+          "history": det_a["history"], "resumed_history": resumed["history"],
+          "resumed_steps_run": resumed["steps_run"],
+          "checkpoint_bytes": ck_bytes,
+          "checkpoint_save_s": first["checkpoint_s"] + resumed["checkpoint_s"],
+          "restore_s": resumed["restore_s"]})
+    if held == "failed":
+        raise AssertionError(f"resume_full_width: resumed run differs by {resume_gap}, "
+                             f"repeat gap {gap}")
+    if resumed["steps_run"] != RESUME_STEPS - 2 or resumed["restore_s"] is None:
+        raise AssertionError("resume_full_width: the resumed run did not start at step 2")
+    return total
+
+
+def phase_robustness_card_vs_cpu(torch, K):
+    """Nano, the hand-built fault plan and guards on the card and the CPU:
+    (a) mask_nonfinite + guard_nonfinite; (b) the same plus SPIKE_FACTOR,
+    which rejects every round after the first, with checkpoints every round,
+    patience 2 and up to 4 rollbacks: each rollback replays one round from a
+    checkpoint taken mid-streak, so the run ends.  Loss histories within
+    NANO_RTOL, skipped rounds and rollbacks equal; every line is printed
+    before any bound is checked."""
+    from repro_torch.configs.gpt2_small import TOPO
+    from repro_torch.configs.nano import NANO
+    from repro_torch.models import transformer as T
+    from repro_torch.robustness.faults import FaultPlan, FaultSpec
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    plan = fault_plan(FaultPlan, FaultSpec)
+    total = dict.fromkeys(K.launch_counts(), 0)
+    runs = {"faults+guards": {},
+            "faults+guards+spike+rollback": dict(guard_spike_factor=SPIKE_FACTOR,
+                                                 checkpoint_every=1, guard_patience=2,
+                                                 guard_max_rollbacks=4)}
+    rows, failures = [], []
+    tmp_root = ROOT / "build"
+    tmp_root.mkdir(exist_ok=True)
+    for name, kw in runs.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory(dir=tmp_root) as d:
+                s = TrainSettings(tau=TOPO.tau, steps=len(FAULT_ROUNDS),
+                                  eval_every=len(FAULT_ROUNDS), faults=plan,
+                                  mask_nonfinite=True, guard_nonfinite=True,
+                                  checkpoint_dir=d if kw else None, **MAIN, **kw)
+                K.reset_launch_counts()
+                res = run_training(NANO, s, device=dev, params=x0)
+                if dev == "cuda":
+                    n_rounds = len(res["outer_step_s"])     # replayed rounds included
+                    check_launches(f"nano {name}", K.launch_counts(),
+                                   {"dsm_update": n_rounds, "adamw_update": n_rounds * s.tau})
+                    for k, n in K.launch_counts().items():
+                        total[k] += n
+                out[dev] = {k: res[k] for k in ("history", "skipped_rounds", "rollbacks")}
+        card, cpu = out["cuda"], out["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card["history"], cpu["history"]))
+        rows.append({"run": name, "card": card, "cpu": cpu, "max_rel_diff": rel,
+                     "rtol": NANO_RTOL})
+        if rel > NANO_RTOL or len(card["history"]) != len(cpu["history"]):
+            failures.append(f"{name}: card and CPU differ by {rel}")
+        if (card["skipped_rounds"], card["rollbacks"]) != (cpu["skipped_rounds"],
+                                                           cpu["rollbacks"]):
+            failures.append(f"{name}: skipped/rollbacks {card} vs {cpu}")
+        if kw and not (card["skipped_rounds"] > 0 and card["rollbacks"] > 0):
+            failures.append(f"{name}: the guard rejected nothing or never rolled back")
+    emit({"phase": "robustness_card_vs_cpu", "config": NANO.name,
+          "outer_steps": len(FAULT_ROUNDS), "spike_factor": SPIKE_FACTOR, "runs": rows})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return total
+
+
 def main() -> None:
     import torch
 
@@ -411,10 +702,13 @@ def main() -> None:
 
     errs = phase_checks(torch, K)
     times = phase_times(torch, K, smi)
-    launches = phase_main_path(torch, K, smi)
+    launches, main_cost, main_final = phase_main_path(torch, K, smi)
     phase_card_vs_cpu(torch)
     for more in (phase_algorithms_full_width(torch, K, smi),
-                 phase_algorithms_card_vs_cpu(torch, K)):
+                 phase_algorithms_card_vs_cpu(torch, K),
+                 phase_robustness_full_width(torch, K, smi, main_cost),
+                 phase_resume_full_width(torch, K, smi, main_final),
+                 phase_robustness_card_vs_cpu(torch, K)):
         launches = {k: n + more[k] for k, n in launches.items()}
 
     sources = {"dsm_update": ("src/repro_torch/kernels/csrc/dsm_update.cu",

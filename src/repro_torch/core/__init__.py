@@ -18,9 +18,11 @@ from repro_torch.core.dsm import (
     global_sign_momentum_step,
     make_dsm_step,
     make_local_phase,
+    masked_worker_mean,
     randomized_sign_pm,
     randomized_sign_zero,
     signed_lookahead_config,
     signsgd_momentum_config,
+    worker_finite_mask,
 )
 from repro_torch.core.schedules import constant, cosine_with_warmup

@@ -22,7 +22,7 @@ that axis (0 + g = g, g / 1 = g).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, ClassVar, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -46,6 +46,8 @@ class LocalMethodState:
     base_state: object        # per-worker base-optimizer state, (W, N) leaves
     t: int = 0
     inner: int = 0
+
+    SCRATCH: ClassVar[tuple] = ("grads",)   # not checkpointed, not guarded
 
 
 def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
@@ -193,6 +195,8 @@ class PerStepDPState:
     base_state: object
     t: int = 0
 
+    SCRATCH: ClassVar[tuple] = ("grads",)   # not checkpointed, not guarded
+
 
 def make_perstep_dp_step(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
                          schedule: Callable, layout: FlatLayout):
@@ -235,6 +239,8 @@ class MVState:
     params: torch.Tensor      # (W, N) local iterates z (scratch)
     grads: torch.Tensor       # (W, N) gradient buffer (scratch)
     t: int = 0
+
+    SCRATCH: ClassVar[tuple] = ("params", "grads")   # not checkpointed, not guarded
 
 
 def make_mv_signsgd_step(loss_fn: Callable, tau: int, gamma: float, eta: float,

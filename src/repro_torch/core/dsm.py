@@ -15,8 +15,10 @@ once (with AdamW, one launch of the AdamW kernel).  The global step is the
 DSM kernel on the card for the deterministic sign; the randomized signs of
 eqs. 9/10 (``sign_mode`` ``rand_pm`` / ``rand_zero``) run in plain PyTorch.
 
-The port covers the dense, fault-free case; fault masks, ZeRO sharding and
-the device-parallel local phase raise ``NotImplementedError`` (ROADMAP.md).
+The outer step takes an optional ``FaultRound`` (``repro_torch.robustness``)
+and then makes line 7's mean survivor-aware; ``DSMConfig.mask_nonfinite``
+masks non-finite workers without injected faults.  ZeRO sharding and the
+device-parallel local phase raise ``NotImplementedError`` (ROADMAP.md).
 
 Instances (paper §2 "Algorithm instances"):
   * tau=1, beta1=beta2=beta, lam=0    -> signSGD with momentum (eq. 3)
@@ -26,7 +28,7 @@ Instances (paper §2 "Algorithm instances"):
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, ClassVar, Optional
 
 import torch
 
@@ -34,6 +36,7 @@ from repro_torch.core.base_opt import BaseOptimizer
 from repro_torch.kernels.dsm_update import dsm_update, dsm_update_plain, sign_like_jnp
 from repro_torch.models.convert import FlatLayout
 from repro_torch.obs import metrics as OM
+from repro_torch.robustness.faults import apply_faults
 
 F32 = torch.float32
 
@@ -94,7 +97,7 @@ class DSMConfig:
     sign_bound: float = 1.0       # B for randomized sign (theory uses tau*R)
     zero_sharded: bool = False
     device_parallel_local: bool = False
-    mask_nonfinite: bool = False
+    mask_nonfinite: bool = False  # survivor-aware mean masks NaN/inf workers
 
     def __post_init__(self):
         if self.sign_mode not in SIGN_MODES:
@@ -109,7 +112,6 @@ def check_ported(cfg: DSMConfig) -> None:
     missing = [name for name, on in (
         ("zero_sharded", cfg.zero_sharded),
         ("device_parallel_local", cfg.device_parallel_local),
-        ("mask_nonfinite", cfg.mask_nonfinite),
     ) if on]
     if missing:
         raise NotImplementedError(f"DSM options not ported yet (ROADMAP.md): {missing}")
@@ -127,6 +129,10 @@ class DSMState:
     t: int = 0                # outer step counter
     inner: int = 0            # total local-step counter (AdamW bias correction)
 
+    # buffers that hold nothing between outer steps: not checkpointed, not
+    # guarded (the reference's state has no such buffer)
+    SCRATCH: ClassVar[tuple] = ("grads",)
+
 
 def dsm_init(x0: torch.Tensor, base_opt: BaseOptimizer, n_workers: int) -> DSMState:
     """State from the flat global params ``x0`` (N,)."""
@@ -138,6 +144,44 @@ def dsm_init(x0: torch.Tensor, base_opt: BaseOptimizer, n_workers: int) -> DSMSt
         m=torch.zeros_like(x0, dtype=torch.float32),
         base_state=base_opt.init(params),
     )
+
+
+# ---------------------------------------------------------------------------
+# Survivor-aware aggregation (reference ``core/dsm.py:116-160``): dropped
+# workers are excluded by the announced survivor mask, non-finite
+# contributions are detected on the device and masked, and a round with no
+# usable contribution leaves x0 / m bit-untouched (skip-round).
+# ---------------------------------------------------------------------------
+
+def worker_finite_mask(params_w: torch.Tensor) -> torch.Tensor:
+    """``(W,)`` bool: worker i's contribution is finite everywhere."""
+    return torch.isfinite(params_w).all(dim=1)
+
+
+def masked_worker_mean(params_w: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted worker mean of ``(W, N)`` in the param dtype, in the
+    reference's order: zero-weight workers are zeroed BEFORE the product (NaN
+    * 0 is NaN), the product is summed in f32 and rounded (``jnp.sum``
+    upcasts bf16), then divided by max(sum of weights, 1) in the param dtype.
+    All-zero weights give 0; the caller applies the skip-round."""
+    dt = params_w.dtype
+    wsum = torch.clamp(weights.to(F32).sum(), min=1.0)
+    w = weights.to(dt)[:, None]
+    contrib = torch.where(w > 0, params_w, torch.zeros((), dtype=dt, device=params_w.device))
+    return (w * contrib).sum(dim=0, dtype=F32).to(dt) / wsum.to(dt)
+
+
+def _contribution_weights(contrib: torch.Tensor, cfg: "DSMConfig",
+                          faults) -> Optional[torch.Tensor]:
+    """(W,) f32 weights: the announced survivors times the finiteness mask,
+    or None for the dense path."""
+    weights = None
+    if faults is not None:
+        weights = faults.survivors.to(F32)
+    if cfg.mask_nonfinite or faults is not None:
+        finite = worker_finite_mask(contrib).to(F32)
+        weights = finite if weights is None else weights * finite
+    return weights
 
 
 def global_sign_momentum_step(x0, m, x_tau_mean, gamma, cfg: DSMConfig,
@@ -207,28 +251,54 @@ def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLay
 
 def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
                   schedule: Callable, layout: FlatLayout):
-    """Build ``outer_step(state, tokens[, rng]) -> (state, metrics)``.
+    """Build ``outer_step(state, tokens[, rng[, faults]]) -> (state, metrics)``.
 
     ``tokens``: (W, tau, accum, B_micro, S) int64 on the state's device.
     ``loss_fn(params, microbatch)`` takes a ``{path: tensor}`` params dict and
     one (B_micro, S) microbatch.  ``rng``: the ``torch.Generator`` on the
     state's device that the randomized signs draw from (unused by
     ``sign_mode="sign"``).  ``metrics`` holds 0-d tensors ``loss``,
-    ``last_loss``, ``gamma`` and the ``(N_METRICS,)`` ``pack``.
+    ``last_loss``, ``gamma`` and the ``(N_METRICS,)`` ``pack``, plus
+    ``survivors`` (the sum of the weights) on a survivor-aware round.
+
+    ``faults`` (a ``repro_torch.robustness.FaultRound``) makes the round
+    survivor-aware: stale and corrupt contributions are injected, dropped
+    ones excluded from the mean, non-finite ones detected and masked.  A
+    round with no usable contribution still runs the global step (one DSM
+    launch) and then restores x0 and m from copies with a device-side select,
+    so they stay bit-untouched with no host read; the workers re-sync from
+    x0, and ``t`` and ``inner`` advance.  ``cfg.mask_nonfinite`` turns on the
+    detection without injection.
     """
     check_ported(cfg)
     local_phase = make_local_phase(loss_fn, base_opt, layout)
 
     def outer_step(state: DSMState, tokens: torch.Tensor,
-                   rng: Optional[torch.Generator] = None):
+                   rng: Optional[torch.Generator] = None, faults=None):
         gamma_t = schedule(state.t)          # fixed for the whole outer step
         gamma = float(gamma_t)
         losses = local_phase(state, tokens, gamma)
 
-        # line 7: the worker mean, in f32 and cast back (as jnp.mean of bf16)
-        x_tau = state.params.mean(dim=0, dtype=torch.float32).to(state.params.dtype)
+        contrib = state.params
+        if faults is not None:
+            contrib = apply_faults(state.params, state.x0, faults)
+        weights = _contribution_weights(contrib, cfg, faults)
+        if weights is None:
+            # line 7: the worker mean, in f32 and cast back (as jnp.mean of bf16)
+            x_tau = state.params.mean(dim=0, dtype=torch.float32).to(state.params.dtype)
+        else:
+            x_tau = masked_worker_mean(contrib, weights)
+            del contrib     # frees the faulted (W, N) copy before the x0 / m copies
+            kept = (state.x0.clone(), state.m.clone())
         stat = OM.stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1)
         global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, rng)
+        wsum = None
+        if weights is not None:
+            # skip-round: no usable contribution -> x0 / m bit-untouched
+            wsum = weights.sum()
+            ok = wsum > 0
+            for buf, old in zip((state.x0, state.m), kept):
+                torch.where(ok, buf, old, out=buf)
 
         # line 11: every worker restarts from x_{t+1,0}; AdamW state carries on
         state.params.copy_(state.x0.expand_as(state.params))
@@ -236,11 +306,15 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
         state.inner += cfg.tau
 
         loss_mean, last_loss, spread = OM.loss_stats(losses)
+        n_workers = state.params.shape[0]
         pack = OM.finish_pack(loss=loss_mean, last_loss=last_loss, gamma=gamma_t,
                               worker_spread=spread, stat_sums=stat,
-                              n_elems=state.x0.numel())
-        return state, {"loss": loss_mean, "gamma": gamma_t, "last_loss": last_loss,
-                       "pack": pack}
+                              n_elems=state.x0.numel(),
+                              survivor_frac=None if wsum is None else wsum / n_workers)
+        metrics = {"loss": loss_mean, "gamma": gamma_t, "last_loss": last_loss, "pack": pack}
+        if wsum is not None:
+            metrics["survivors"] = wsum
+        return state, metrics
 
     return outer_step
 

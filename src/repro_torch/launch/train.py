@@ -5,6 +5,9 @@ flags and defaults (DSM with the arch's base optimizer, AdamW):
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2_small --corpus text
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --tau 2
     PYTHONPATH=src python -m repro_torch.launch.train --algorithm slowmo --base-opt sophia
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --tau 2 \
+        --faults "drop=0.25,straggle=0.1,nan=0.05,seed=0" --guard-nonfinite \
+        --checkpoint-dir /tmp/ck            # add --resume to continue from it
 
 ``--arch`` accepts ``nano``, ``<id>`` (FULL) or ``<id>_smoke``.  The Markov
 corpus keeps a (vocab, vocab, 8) table, so a 50k-token vocabulary needs
@@ -60,8 +63,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--b-micro", type=int, default=4)
     ap.add_argument("--peak-lr", type=float, default=5e-3)
     ap.add_argument("--global-lr", type=float, default=0.3)
+    ap.add_argument("--checkpoint", default=None,
+                    help="save the final global params here (<path>.npz + .json)")
     ap.add_argument("--corpus", default="markov", choices=("markov", "text"))
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # --- robustness (the reference's docs/fault_tolerance.md) ---
+    ap.add_argument("--faults", default=None,
+                    help="seeded fault-injection spec, e.g. "
+                         "'drop=0.25,straggle=0.1,nan=0.05,seed=0'")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="atomic rotated checkpoints of the full training state land here")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="outer steps between checkpoints (default: steps // 5)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume bit for bit from the latest complete checkpoint in "
+                         "--checkpoint-dir")
+    ap.add_argument("--guard-spike-factor", type=float, default=0.0,
+                    help="skip rounds whose loss exceeds this factor times the "
+                         "accepted-loss EMA (0 disables)")
+    ap.add_argument("--guard-nonfinite", action="store_true",
+                    help="skip rounds that produce NaN/inf anywhere in the training state")
     return ap
 
 
@@ -74,11 +95,24 @@ def main(argv=None):
         n_workers=args.n_workers, tau=args.tau or topo.tau, steps=args.steps,
         seq=args.seq, b_micro=args.b_micro, peak_lr=args.peak_lr,
         global_lr=args.global_lr, eval_every=max(args.steps // 5, 1),
+        faults=args.faults, guard_nonfinite=args.guard_nonfinite,
+        guard_spike_factor=args.guard_spike_factor, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, resume=args.resume,
     )
     corpus = make_corpus(args.corpus, cfg.vocab_size)
     result = run_training(cfg, s, corpus, log=print, device=args.device)
     print(f"final eval loss: {result['final_eval']:.4f} "
-          f"(comm rounds: {result['comm_rounds']}, tokens: {result['tokens']})")
+          f"(comm rounds: {result['comm_rounds']}, tokens: {result['tokens']}, "
+          f"skipped rounds: {result['skipped_rounds']}, rollbacks: {result['rollbacks']})")
+    if args.checkpoint:
+        from repro_torch.checkpoint import checkpoint as CK
+        from repro_torch.models import convert
+        from repro_torch.models.transformer import layout
+
+        st = result["state"]
+        final = st.x0 if hasattr(st, "x0") else st.params
+        CK.save(args.checkpoint, convert.leaf_tree(layout(cfg), final), step=args.steps)
+        print(f"saved checkpoint to {args.checkpoint}.npz")
     return result
 
 

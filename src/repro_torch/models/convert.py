@@ -1,5 +1,5 @@
 """The port's flat parameter layout, and the bridge from the JAX package's
-parameters to it.
+parameters and training state to it.
 
 Every parameter leaf is a view into one flat buffer, in the order of
 ``jax.tree.leaves`` on the reference's params (dict keys sorted at every
@@ -115,3 +115,96 @@ def to_numpy(flat: torch.Tensor, cfg) -> dict:
 
     return {k: v.detach().to("cpu", torch.float32).numpy()
             for k, v in layout(cfg).views(flat).items()}
+
+
+# ---------------------------------------------------------------------------
+# Whole training states under the reference's pytree paths (checkpoints)
+# ---------------------------------------------------------------------------
+
+def state_fields(state) -> list:
+    """``(name, value)`` of a training state: dataclass fields less its
+    ``SCRATCH`` buffers, NamedTuple fields, dict items or sequence items."""
+    if dataclasses.is_dataclass(state):
+        skip = getattr(state, "SCRATCH", ())
+        return [(f.name, getattr(state, f.name)) for f in dataclasses.fields(state)
+                if f.name not in skip]
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return list(zip(state._fields, state))
+    if isinstance(state, dict):
+        return list(state.items())
+    if isinstance(state, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(state)]
+    return []
+
+
+def leaf_tree(lay: FlatLayout, flat: torch.Tensor) -> dict:
+    """``{"/"-joined leaf path: view}`` of an ``(N,)`` buffer, or of a
+    ``(W, N)`` buffer with each leaf ``(W, *shape)`` as the reference's
+    per-worker leaves (strided views, no copy)."""
+    if flat.dim() == 1:
+        return {k.replace(".", "/"): v for k, v in lay.views(flat).items()}
+    return {name.replace(".", "/"): flat[:, off:off + n].view(flat.shape[0], *shape)
+            for name, shape, off, n in lay._spans()}
+
+
+def state_to_tree(state, cfg) -> dict:
+    """The state as nested dicts keyed like the reference's state pytree:
+    ``params/<leaf>`` (W, *shape), ``x0/<leaf>``, ``m/<leaf>``,
+    ``base_state/m/<leaf>``, ``t`` and ``inner`` (int32) for DSM.  Leaves
+    are views of the state's buffers; scratch buffers are left out."""
+    from repro_torch.models.transformer import layout
+
+    lay = layout(cfg)
+
+    def conv(v):
+        if isinstance(v, torch.Tensor):
+            return v if v.dim() == 0 else leaf_tree(lay, v)
+        if isinstance(v, int):
+            return torch.tensor(v, dtype=torch.int32)
+        return {k: conv(x) for k, x in state_fields(v)}
+
+    return conv(state)
+
+
+def load_state_tree(state, tree: dict, cfg) -> None:
+    """Copy a tree of :func:`state_to_tree`'s form (for example restored by
+    ``checkpoint.restore``) into ``state``'s buffers in place; integer
+    counters are set.  A leaf of another dtype or shape raises."""
+    from repro_torch.models.transformer import layout
+
+    lay = layout(cfg)
+
+    def put(dst: torch.Tensor, src: torch.Tensor, what: str):
+        if src.dtype != dst.dtype or tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{what}: {src.dtype} {tuple(src.shape)}, state holds "
+                             f"{dst.dtype} {tuple(dst.shape)}")
+        dst.copy_(src)
+
+    def load(obj, sub, prefix):
+        for name, v in state_fields(obj):
+            what = f"{prefix}{name}"
+            if isinstance(v, torch.Tensor):
+                if v.dim() == 0:
+                    put(v, sub[name], what)
+                else:
+                    for path, view in leaf_tree(lay, v).items():
+                        put(view, sub[name][path], f"{what}/{path}")
+            elif isinstance(v, int):
+                setattr(obj, name, int(sub[name]))
+            else:
+                load(v, sub[name], what + "/")
+
+    load(state, tree, "")
+
+
+def state_from_tree(tree: dict, cfg, base_opt, n_workers: int, device=None):
+    """A ``DSMState`` on ``device`` from a tree of the reference's DSM state
+    paths, for example the ``state`` subtree of a checkpoint that the JAX
+    package's ``run_training(checkpoint_dir=...)`` wrote."""
+    from repro_torch.core.dsm import dsm_init
+    from repro_torch.models.transformer import layout
+
+    x0 = torch.zeros(layout(cfg).numel, dtype=cfg.p_dtype, device=device)
+    state = dsm_init(x0, base_opt, n_workers)
+    load_state_tree(state, tree, cfg)
+    return state

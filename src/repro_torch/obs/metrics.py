@@ -6,7 +6,8 @@ Pack layout (d = number of global parameters):
   pg_density = ||Delta||_1^2 / (d ||Delta||_2^2), sign_agree = fraction of
   coordinates where sign(m) * sign(Delta) > 0, m_l1 = ||m||_1,
   update_cos = cos(u, m), worker_spread = std over workers of the per-worker
-  mean loss, survivor_frac (1.0 dense), guard_ok (1.0),
+  mean loss, survivor_frac (sum of the survivor weights / W; 1.0 dense),
+  guard_ok (the guard's verdict; 1.0 unguarded),
 with Delta = (x_0 - x_tau) / gamma and u = beta1 m + (1 - beta1) Delta.
 """
 
@@ -59,7 +60,7 @@ def stat_sums(x0: torch.Tensor, m: torch.Tensor, x_tau: torch.Tensor, gamma,
 
 
 def finish_pack(*, loss, last_loss, gamma, worker_spread, stat_sums: torch.Tensor,
-                n_elems: int) -> torch.Tensor:
+                n_elems: int, survivor_frac=None) -> torch.Tensor:
     """Assemble the ``(N_METRICS,)`` f32 pack from the raw sums."""
     l1, sq, m_l1, agree, u_dot_m, u_sq, m_sq = stat_sums.unbind(0)
     dev = stat_sums.device
@@ -71,7 +72,16 @@ def finish_pack(*, loss, last_loss, gamma, worker_spread, stat_sums: torch.Tenso
         return torch.as_tensor(x, dtype=F32).to(dev)
 
     one = torch.ones((), dtype=F32, device=dev)
+    sf = one if survivor_frac is None else f32(survivor_frac)
     return torch.stack([
         f32(loss), f32(last_loss), f32(gamma), l1, torch.sqrt(sq), density, agree / n,
-        m_l1, cos, f32(worker_spread), one, one,
+        m_l1, cos, f32(worker_spread), sf, one,
     ])
+
+
+def set_guard_flag(pack: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """The pack with the guard's verdict in its ``guard_ok`` slot (a new
+    tensor; a device-side write, no host read)."""
+    out = pack.clone()
+    out[IDX["guard_ok"]] = ok.to(F32)
+    return out

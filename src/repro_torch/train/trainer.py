@@ -5,21 +5,30 @@ simulated workers on one device.
 Runs on the card unless the caller passes ``device="cpu"``; there is no
 fallback when no card is present.  f32 matmuls run in full f32 (no TF32),
 so the f32 logits product matches the reference.
+
+Fault tolerance as in the reference (``docs/fault_tolerance.md``): seeded
+fault injection and the survivor-aware global step (DSM family only),
+skip-round guards, atomic rotated checkpoints of the whole training state
+with bit-exact resume, and bounded rollback to the last checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.checkpoint import checkpoint as CK
 from repro_torch.core import DSMConfig, dsm_init, get_base_optimizer, make_dsm_step
 from repro_torch.core import baselines as BL
 from repro_torch.core.schedules import constant, cosine_with_warmup
 from repro_torch.data.pipeline import MarkovCorpus, dsm_batches, eval_batch
+from repro_torch.models import convert as C
 from repro_torch.models import transformer as T
+from repro_torch.robustness import guards as G
+from repro_torch.robustness.faults import FaultPlan
 
 ALGORITHMS = (
     "dsm", "slowmo", "signed_slowmo", "lookahead", "signed_lookahead",
@@ -51,6 +60,19 @@ class TrainSettings:
     eval_every: int = 10
     eval_batch: int = 16
     heterogeneous: bool = True
+    # --- robustness (the reference's docs/fault_tolerance.md) ---
+    faults: Any = None              # FaultPlan | FaultSpec | spec str, e.g.
+    #                                 "drop=0.25,straggle=0.1,nan=0.05,seed=0"
+    mask_nonfinite: bool = False    # survivor-aware mean w/o injection (DSM)
+    guard_nonfinite: bool = False   # reject rounds with NaN/inf in the state
+    guard_spike_factor: float = 0.0  # reject rounds w/ loss > factor*EMA (0=off)
+    guard_ema_beta: float = 0.9     # loss EMA for spike detection
+    guard_patience: int = 5         # K consecutive bad rounds -> rollback
+    guard_max_rollbacks: int = 2    # bounded retry; exceeded -> RuntimeError
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0       # outer steps; <=0 -> max(1, steps // 5)
+    checkpoint_keep: int = 3        # rotated retention
+    resume: bool = False            # resume from checkpoint_dir's latest
 
 
 def _schedule(s: TrainSettings):
@@ -60,11 +82,13 @@ def _schedule(s: TrainSettings):
 
 
 def build_algorithm(loss_fn, s: TrainSettings, layout):
-    """Returns (init(x0, n_workers) -> state, step(state, tokens, rng) ->
-    (state, metrics), eval_params(state) -> (N,) params, comm_multiplier).
+    """Returns (init(x0, n_workers) -> state, step(state, tokens, rng,
+    faults=None) -> (state, metrics), eval_params(state) -> (N,) params,
+    comm_multiplier).
 
     ``tokens``: (W, tau, 1, B_micro, S); ``rng``: the ``torch.Generator``
-    that the randomized signs draw from.
+    that the randomized signs draw from; ``faults``: the round's
+    ``FaultRound``, taken by the DSM family only.
     """
     base = get_base_optimizer(s.base_opt)
     sched = _schedule(s)
@@ -73,6 +97,7 @@ def build_algorithm(loss_fn, s: TrainSettings, layout):
         cfg = DSMConfig(
             tau=s.tau, global_lr=s.global_lr, beta1=s.dsm_beta1, beta2=s.dsm_beta2,
             weight_decay=s.dsm_wd, sign_mode=s.sign_mode, sign_bound=float(s.tau),
+            mask_nonfinite=s.mask_nonfinite,
         )
         if s.algorithm == "signed_lookahead":
             cfg = dataclasses.replace(cfg, beta1=s.slow_beta, beta2=s.slow_beta,
@@ -87,21 +112,37 @@ def build_algorithm(loss_fn, s: TrainSettings, layout):
               "global_adamw": dict(eta=s.global_lr),
               "local_avg": {}}[s.algorithm]
         init, step = BL.LOCAL_METHODS[s.algorithm](loss_fn, base, s.tau, sched, layout, **kw)
-        return init, (lambda st, tokens, rng: step(st, tokens)), (lambda st: st.x0), 1.0
+        return (init, (lambda st, tokens, rng, faults=None: step(st, tokens)),
+                (lambda st: st.x0), 1.0)
 
     if s.algorithm == "perstep":
         init, step = BL.make_perstep_dp_step(loss_fn, base, s.tau, sched, layout)
-        return (init, (lambda st, tokens, rng: step(st, tokens)), (lambda st: st.params),
-                float(s.tau))
+        return (init, (lambda st, tokens, rng, faults=None: step(st, tokens)),
+                (lambda st: st.params), float(s.tau))
 
     if s.algorithm == "mv_signsgd":
         init, step = BL.make_mv_signsgd_step(
             loss_fn, s.tau, gamma=s.peak_lr, eta=s.global_lr * s.peak_lr, layout=layout,
             beta=s.slow_beta, bound=1.0,
         )
-        return init, step, (lambda st: st.x), 1.0
+        return init, (lambda st, tokens, rng, faults=None: step(st, tokens, rng)), \
+            (lambda st: st.x), 1.0
 
     raise ValueError(f"unknown algorithm {s.algorithm!r}; have {ALGORITHMS}")
+
+
+_DSM_FAMILY = ("dsm", "signed_lookahead")
+
+
+def _resolve_fault_plan(s: TrainSettings) -> Optional[FaultPlan]:
+    if not s.faults:
+        return None
+    if s.algorithm not in _DSM_FAMILY:
+        raise ValueError("fault injection needs the survivor-aware DSM step family; "
+                         f"got algorithm={s.algorithm!r}")
+    if isinstance(s.faults, FaultPlan):
+        return s.faults
+    return FaultPlan.from_spec(s.faults, s.n_workers, s.steps)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -125,14 +166,32 @@ def _sync(dev: torch.device) -> None:
 
 
 def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = None,
-                 device=None, params: Optional[torch.Tensor] = None) -> dict:
+                 device=None, params: Optional[torch.Tensor] = None,
+                 on_round: Optional[Callable] = None) -> dict:
     """Train; returns dict(history, eval_losses, final_eval, tokens,
-    comm_rounds, wall_s, outer_step_s, state).
+    comm_rounds, wall_s, outer_step_s, skipped_rounds, rollbacks,
+    checkpoint_s, restore_s, state).
 
     ``params``: initial params in the port's flat layout, ``(N,)`` or
     ``(W, N)`` (for example ``convert.from_jax_numpy`` of the reference's
     ``init_params``); by default they are drawn from ``s.seed``.
-    ``outer_step_s`` holds each outer step's time, ended by a device sync.
+    ``outer_step_s`` holds each round's time, ended by a device sync;
+    ``on_round(t, state, metrics)`` runs after each round, outside that time.
+
+    Robustness settings, with the reference's semantics:
+
+      * ``faults`` — seeded fault injection (DSM family only);
+        ``mask_nonfinite`` masks non-finite workers without injection.
+      * ``guard_nonfinite`` / ``guard_spike_factor`` — skip-round guards; with
+        ``checkpoint_dir`` set, ``guard_patience`` consecutive bad rounds roll
+        the run back to the last checkpoint, at most ``guard_max_rollbacks``
+        times before raising RuntimeError.
+      * ``checkpoint_dir`` / ``checkpoint_every`` / ``resume`` — atomic rotated
+        checkpoints of the whole training state (optimizer state, the
+        generator of the randomized signs, guard state, loss history; the
+        data position is the step index), so a killed run restarts bit for
+        bit from the last complete checkpoint.  ``checkpoint_s`` holds each
+        save's seconds, ``restore_s`` the resume's (None without one).
     """
     dev = resolve_device(device)
     set_matmul_precision()
@@ -153,6 +212,73 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     # where the reference splits its key
     rng = torch.Generator(device=dev).manual_seed(s.seed)
 
+    plan = _resolve_fault_plan(s)
+    guards_on = s.guard_nonfinite or s.guard_spike_factor > 0
+    guard = G.init_guard(dev) if guards_on else None
+    step_fn = (G.make_guarded_step(step, nonfinite=s.guard_nonfinite,
+                                   spike_factor=s.guard_spike_factor,
+                                   ema_beta=s.guard_ema_beta) if guards_on else step)
+
+    ckpt_on = bool(s.checkpoint_dir)
+    ckpt_every = s.checkpoint_every if s.checkpoint_every > 0 else max(1, s.steps // 5)
+    rollback_on = ckpt_on and guards_on and s.guard_patience > 0
+
+    def ckpt_tree():
+        # the reference's "state" and "guard" paths; the generator replaces
+        # its threefry "key", which cannot be carried across
+        tree = {"state": C.state_to_tree(state, cfg), "rng": rng.get_state()}
+        if guard is not None:
+            tree["guard"] = dict(guard._asdict())
+        return tree
+
+    def restore_latest():
+        """Load the newest checkpoint into state, rng and guard in place."""
+        nonlocal guard
+        tree, step_no, extra = CK.restore_latest(s.checkpoint_dir, ckpt_tree())
+        C.load_state_tree(state, tree["state"], cfg)
+        rng.set_state(tree["rng"])
+        if guards_on:
+            guard = G.GuardState(**{k: v.to(dev) for k, v in tree["guard"].items()})
+        return step_no, extra
+
+    def make_batches(skip: int = 0):
+        # data position == outer-step index: the stream is a pure function
+        # of (corpus, seed), so a resume replays `skip` rounds
+        it = dsm_batches(corpus, s.n_workers, s.tau, 1, s.b_micro, s.seq,
+                         seed=s.seed, heterogeneous=s.heterogeneous)
+        for _ in range(skip):
+            next(it)
+        return it
+
+    history, evals, step_s, ckpt_s = [], [], [], []
+    start_step, rollbacks, restore_s = 0, 0, None
+    if s.resume and ckpt_on and CK.latest_checkpoint(s.checkpoint_dir) is not None:
+        _sync(dev)
+        tr = time.perf_counter()
+        start_step, extra = restore_latest()
+        _sync(dev)
+        restore_s = time.perf_counter() - tr
+        history = [float(x) for x in extra.get("history", [])]
+        evals = [tuple(e) for e in extra.get("evals", [])]
+        rollbacks = int(extra.get("rollbacks", 0))
+        if log:
+            log(f"resumed from checkpoint at step {start_step}")
+
+    def ckpt_extra():
+        return {"history": history, "evals": [list(e) for e in evals],
+                "rollbacks": rollbacks,
+                "skipped_rounds": int(guard.skipped) if guards_on else 0}
+
+    def save(step_no: int) -> None:
+        _sync(dev)
+        tc = time.perf_counter()
+        CK.save_checkpoint(s.checkpoint_dir, ckpt_tree(), step_no, keep=s.checkpoint_keep,
+                           extra=ckpt_extra())
+        ckpt_s.append(time.perf_counter() - tc)
+
+    if ckpt_on and start_step == 0:
+        save(0)   # the step-0 checkpoint: the rollback target always exists
+
     ev_tokens = torch.as_tensor(eval_batch(corpus, s.eval_batch, s.seq)["tokens"],
                                 dtype=torch.long, device=dev)
 
@@ -160,23 +286,49 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         with torch.no_grad():
             return float(T.loss_fn(lay.views(eval_params(state)), ev_tokens, cfg))
 
-    batches = dsm_batches(corpus, s.n_workers, s.tau, 1, s.b_micro, s.seq,
-                          seed=s.seed, heterogeneous=s.heterogeneous)
-    history, evals, step_s = [], [], []
+    batches = make_batches(start_step)
+    t = start_step
     _sync(dev)
     t0 = time.time()
-    for t in range(1, s.steps + 1):
+    while t < s.steps:
         ts = time.perf_counter()
         tokens = torch.as_tensor(next(batches)["tokens"], dtype=torch.long).to(dev)
-        state, metrics = step(state, tokens, rng)
+        fr = plan.round(t, dev) if plan is not None else None
+        if guards_on:
+            state, guard, metrics = step_fn(state, guard, tokens, rng, fr)
+        else:
+            state, metrics = step_fn(state, tokens, rng, fr)
         history.append(metrics["loss"])     # device scalar, read at sync points
         _sync(dev)
         step_s.append(time.perf_counter() - ts)
+        if on_round is not None:
+            on_round(t, state, metrics)
+
+        if rollback_on and int(guard.bad_streak) >= s.guard_patience:
+            if rollbacks >= s.guard_max_rollbacks:
+                raise RuntimeError(
+                    f"training diverged: {int(guard.bad_streak)} consecutive "
+                    f"bad rounds at step {t} after {rollbacks} rollbacks")
+            rollbacks += 1
+            t_ck, extra = restore_latest()
+            guard = guard._replace(bad_streak=torch.zeros_like(guard.bad_streak))
+            history = [float(x) for x in extra.get("history", [])]
+            evals = [tuple(e) for e in extra.get("evals", [])]
+            if log:
+                log(f"rollback #{rollbacks}: step {t} -> checkpoint at {t_ck}")
+            batches = make_batches(t_ck)
+            t = t_ck
+            continue
+
+        t += 1
         if t % s.eval_every == 0 or t == s.steps:
             el = eval_loss()
             evals.append((t, el))
             if log:
                 log(f"step {t:4d} train={float(history[-1]):.4f} eval={el:.4f}")
+        if ckpt_on and t % ckpt_every == 0:
+            history = [float(x) for x in history]   # a checkpoint is a sync point
+            save(t)
     wall = time.time() - t0
     return {
         "history": [float(x) for x in history],
@@ -186,5 +338,9 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         "comm_rounds": int(s.steps * comm_mult),
         "wall_s": wall,
         "outer_step_s": step_s,
+        "skipped_rounds": int(guard.skipped) if guards_on else 0,
+        "rollbacks": rollbacks,
+        "checkpoint_s": ckpt_s,
+        "restore_s": restore_s,
         "state": state,
     }

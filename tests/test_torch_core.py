@@ -89,8 +89,7 @@ def test_global_step_rejects_unported_sign_modes():
         D.check_ported(D.DSMConfig(zero_sharded=True))
 
 
-UNPORTED_DSM = [dict(zero_sharded=True), dict(device_parallel_local=True),
-                dict(mask_nonfinite=True)]
+UNPORTED_DSM = [dict(zero_sharded=True), dict(device_parallel_local=True)]
 
 
 @pytest.mark.parametrize("option", UNPORTED_DSM, ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
