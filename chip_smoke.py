@@ -6,9 +6,14 @@ through ``run_training``, checks the card against the CPU on nano, then
 trains full-width GPT-2 small with every baseline of the paper's comparison
 (and DSM with Sophia local steps and with the randomized sign) and holds
 every algorithm and base optimizer on the card against the CPU on nano.
-Last comes fault-tolerant DSM: full width under a seeded fault plan with
-guards, a checkpoint and resume at full width held against uninterrupted
-runs, and the fault plan, guards and a rollback on nano, card against CPU.
+Then fault-tolerant DSM: full width under a seeded fault plan with guards,
+a checkpoint and resume at full width held against uninterrupted runs, and
+the fault plan, guards and a rollback on nano, card against CPU.  Last come
+runs of one process per rank: four ranks sharing the card over gloo with
+the ZeRO-sharded global step and with the replicated one, at full width,
+held against the main path; one rank over NCCL; and four ranks under faults
+and guards on nano, card against CPU and against the dense run, with a
+checkpoint resumed by one process.
 
     python3 chip_smoke.py
 
@@ -24,6 +29,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -80,6 +86,10 @@ RESUME_STEPS = 4
 # every round after the first has a loss above 0.9 x the EMA of accepted
 # losses (a margin of ~10%, never within rounding): the guard rejects it
 SPIKE_FACTOR = 0.9
+RANKS = 4                       # processes sharing the card over gloo, one worker each
+ZERO_RTOL = 1e-4                # ranks vs main path, loss history (bit-equal expected)
+NCCL_STEPS = 2
+RANKS_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -137,16 +147,23 @@ def compare(torch, ours, theirs) -> float:
     return worst
 
 
-def dsm_inputs(torch, gen, n, dtype):
+def dsm_inputs(torch, gen, n, dtype, at=(0,)):
+    """x0, m, x_tau with u = -0, +0 and NaN planted at each offset of ``at``."""
     x0 = torch.randn(n, generator=gen, device="cuda").to(dtype)
     m = torch.randn(n, generator=gen, device="cuda")
     xt = (x0.float() - 0.01 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
-    x0[:2] = -0.0
-    xt[0] = 0.0                           # delta = -0 - +0 = -0 and m = -0: u = -0
-    xt[1] = -0.0                          # delta = -0 - -0 = +0: u = +0
-    m[:2] = -0.0
-    xt[2] = float("nan")                  # u = NaN: x and m become NaN
+    for i in at:
+        x0[i:i + 2] = -0.0
+        xt[i] = 0.0                       # delta = -0 - +0 = -0 and m = -0: u = -0
+        xt[i + 1] = -0.0                  # delta = -0 - -0 = +0: u = +0
+        m[i:i + 2] = -0.0
+        xt[i + 2] = float("nan")          # u = NaN: x and m become NaN
     return x0, m, xt
+
+
+def same_bits(torch, a, b) -> bool:
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return torch.equal(a.view(as_int[a.dtype]), b.view(as_int[b.dtype]))
 
 
 def adamw_inputs(torch, gen, shape, dtype):
@@ -158,44 +175,65 @@ def adamw_inputs(torch, gen, shape, dtype):
 
 
 def phase_checks(torch, K):
+    """Each kernel against its plain version, bit for bit, at the main
+    path's shapes: the DSM step over (N,) and over the ZeRO shard views that
+    zero_full_width launches it on (an inner shard and the shorter last one,
+    each a view at a 128-aligned offset; the rest of the buffer must stay as
+    it was), AdamW over (W, N) and over one rank's (1, N) rows; and at a
+    ragged size."""
+    from repro_torch.distributed import zero
     from repro_torch.kernels.adamw_update import adamw_update_plain
     from repro_torch.kernels.dsm_update import dsm_update_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    shards = zero.shard_bounds(N_GPT2_SMALL, RANKS)
     cases = []
     for n in (N_GPT2_SMALL, RAGGED):
         for dtype in (torch.float32, torch.bfloat16):
-            x0, m, xt = dsm_inputs(torch, gen, n, dtype)
-            ka, kb = (x0.clone(), m.clone()), (x0.clone(), m.clone())
-            K.dsm_update(*ka, xt, 0.02, **DSM_HP)
-            dsm_update_plain(*kb, xt, 0.02, **DSM_HP)
-            torch.cuda.synchronize()
-            cases.append(("dsm_update", n, str(dtype), None, compare(torch, ka, kb)))
-            del x0, m, xt, ka, kb
-            shape = (MAIN["n_workers"], n) if n == N_GPT2_SMALL else (n,)
-            p, g, mm, v = adamw_inputs(torch, gen, shape, dtype)
-            for rd in (False, True):
-                ka = (p.clone(), mm.clone(), v.clone())
-                kb = (p.clone(), mm.clone(), v.clone())
-                K.adamw_update(ka[0], g, ka[1], ka[2], 1e-3, 11, round_direction=rd,
-                               **ADAMW_HP)
-                adamw_update_plain(kb[0], g, kb[1], kb[2], 1e-3, 11, round_direction=rd,
-                                   **ADAMW_HP)
+            full = n == N_GPT2_SMALL
+            views = [(None, 0, n)] + ([(r, *shards[r]) for r in (1, RANKS - 1)] if full else [])
+            x0, m, xt = dsm_inputs(torch, gen, n, dtype, at=[a for _, a, _ in views])
+            for rank, a, b in views:
+                ka, kb = (x0.clone(), m.clone()), (x0.clone(), m.clone())
+                K.dsm_update(ka[0][a:b], ka[1][a:b], xt[a:b], 0.02, **DSM_HP)
+                dsm_update_plain(kb[0][a:b], kb[1][a:b], xt[a:b], 0.02, **DSM_HP)
                 torch.cuda.synchronize()
-                cases.append(("adamw_update", list(shape), str(dtype), rd,
-                              compare(torch, ka, kb)))
+                err = compare(torch, ka, kb)
+                if not all(same_bits(torch, k[:a], o[:a]) and same_bits(torch, k[b:], o[b:])
+                           for k, o in zip(ka, (x0, m))):
+                    raise AssertionError(f"dsm_update on [{a}, {b}) of {n} wrote outside it")
+                cases.append({"kernel": "dsm_update", "shape": [b - a], "dtype": str(dtype),
+                              "zero_shard": None if rank is None else
+                              {"rank": rank, "of": RANKS, "offset": a, "buffer": n},
+                              "max_abs_err": err})
                 del ka, kb
-            del p, g, mm, v
+            del x0, m, xt
+            for shape in ([(MAIN["n_workers"], n), (1, n)] if full else [(n,)]):
+                p, g, mm, v = adamw_inputs(torch, gen, shape, dtype)
+                for rd in (False, True):
+                    ka = (p.clone(), mm.clone(), v.clone())
+                    kb = (p.clone(), mm.clone(), v.clone())
+                    K.adamw_update(ka[0], g, ka[1], ka[2], 1e-3, 11, round_direction=rd,
+                                   **ADAMW_HP)
+                    adamw_update_plain(kb[0], g, kb[1], kb[2], 1e-3, 11, round_direction=rd,
+                                       **ADAMW_HP)
+                    torch.cuda.synchronize()
+                    cases.append({"kernel": "adamw_update", "shape": list(shape),
+                                  "dtype": str(dtype), "round_direction": rd,
+                                  "max_abs_err": compare(torch, ka, kb)})
+                    del ka, kb
+                del p, g, mm, v
             torch.cuda.empty_cache()
     emit({"phase": "kernel_checks", "tolerance": "bitwise (atol 0, rtol 0), NaN where NaN",
-          "cases": [{"kernel": k, "shape": s, "dtype": d, "round_direction": r,
-                     "max_abs_err": e} for k, s, d, r, e in cases]})
-    return {name: max(e for k, *_, e in cases if k == name)
+          "cases": cases})
+    return {name: max(c["max_abs_err"] for c in cases if c["kernel"] == name)
             for name in ("dsm_update", "adamw_update")}
 
 
 def phase_times(torch, K, smi):
-    """Kernel, plain and library times at the main path's shapes and dtype."""
+    """Kernel, plain and library times at the main path's shapes and dtype,
+    and the DSM kernel's on one rank's shard of zero_full_width."""
+    from repro_torch.distributed import zero
     from repro_torch.kernels.adamw_update import adamw_update_plain
     from repro_torch.kernels.dsm_update import dsm_update_plain
 
@@ -211,7 +249,16 @@ def phase_times(torch, K, smi):
             "library_ms": None,      # no single PyTorch call computes the DSM step
         }
         dsm["bound_ms"], dsm["bound_by"] = bound_ms(n * (3 * es + 2 * 4), n * 12)
-        del x0, m, xt
+        # the ZeRO call site: one rank's shard of RANKS, a view at a
+        # 128-aligned offset (zero_full_width launches the kernel on these)
+        a, b = zero.shard_bounds(n, RANKS)[1]
+        views = (x0[a:b], m[a:b], xt[a:b])
+        shard = {"elements": b - a,
+                 "ms": median_ms(torch, lambda: K.dsm_update(*views, 0.02, **DSM_HP)),
+                 "plain_ms": median_ms(torch, lambda: dsm_update_plain(*views, 0.02, **DSM_HP))}
+        shard["bound_ms"], shard["bound_by"] = bound_ms((b - a) * (3 * es + 2 * 4), (b - a) * 12)
+        dsm["zero_shard"] = shard
+        del x0, m, xt, views
         p, g, mm, v = adamw_inputs(torch, gen, (w, n), dtype)
         adamw = {
             "ms": median_ms(torch, lambda: K.adamw_update(p, g, mm, v, 1e-3, 11, **ADAMW_HP)),
@@ -677,6 +724,201 @@ def phase_robustness_card_vs_cpu(torch, K):
     return total
 
 
+def run_ranks(world, cfg, settings, device, params=None, corpus=None, fields=None,
+              backend="gloo"):
+    """Each rank's results of ``tests/torch_ranks.py::train_rank`` (one
+    process per rank, in ``build/``); a child's failure raises here."""
+    from repro_torch.distributed import spawn
+
+    import torch_ranks
+
+    tmp_root = ROOT / "build"
+    tmp_root.mkdir(exist_ok=True)
+    res = spawn.run_ranks(torch_ranks.train_rank, world,
+                          (cfg, settings, device, params, corpus, fields),
+                          backend=backend, timeout_s=RANKS_TIMEOUT_S, group_timeout_s=120,
+                          work_dir=str(tmp_root))
+    return [[r[i] for r in res] for i in range(len(settings))]
+
+
+def ranks_summary(ranks, steps) -> dict:
+    """Per rank: launches, peak bytes, outer-step ms, collectives per round."""
+    return {"launches": [r["launches"] for r in ranks],
+            "peak_bytes": [r.get("peak_bytes") for r in ranks],
+            "outer_step_ms": [[t * 1e3 for t in r["outer_step_s"]] for r in ranks],
+            "outer_step_ms_median_after_first": [
+                statistics.median(r["outer_step_s"][1:]) * 1e3 for r in ranks],
+            "collective_ms_per_round": [
+                sum(v["seconds"] for v in r["comm"].values()) / steps * 1e3 for r in ranks],
+            "collective_bytes_per_round": [
+                sum(v["bytes"] for v in r["comm"].values()) / steps for r in ranks],
+            "collectives": [r["comm"] for r in ranks]}
+
+
+def history_rel(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def phase_ranks_full_width(torch, K, smi, main_final, name, flags):
+    """gpt2_small.FULL, W=4, tau=12, MAIN_STEPS outer steps, the main path's
+    init and data, as RANKS processes sharing the card over gloo (one worker
+    each).  The loss history within ZERO_RTOL of main_path's (bit-equal is
+    expected: each rank runs its worker as the dense process does, and the
+    scattered mean is the dense mean column for column); the largest x0/m
+    gap printed either way.  Per rank: MAIN_STEPS DSM launches (over the
+    rank's shard with zero_sharded, over N without) and MAIN_STEPS * tau
+    AdamW launches over (1, N), peak memory, step time, collectives."""
+    from repro_torch.configs import gpt2_small
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.distributed import zero
+    from repro_torch.train.trainer import TrainSettings
+
+    cfg = gpt2_small.FULL
+    s = TrainSettings(tau=gpt2_small.TOPO.tau, steps=MAIN_STEPS, eval_every=MAIN_STEPS,
+                      **MAIN, **flags)
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(RANKS, cfg, [s], "cuda", corpus=corpus, fields=("x0", "m"))[0]
+    wall = time.perf_counter() - t0
+    final = {"history": ranks[0]["history"], "x0": ranks[0]["state"]["x0"],
+             "m": ranks[0]["state"]["m"]}
+    want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
+    rel = history_rel(final["history"], main_final["history"])
+    n = n_params(cfg)
+    emit({"phase": name, "gpu": smi, "config": cfg.name, "n_params": n, "ranks": RANKS,
+          "backend": "gloo", "n_workers": s.n_workers, "tau": s.tau, "outer_steps": s.steps,
+          "flags": flags, "dsm_elements_per_rank": (
+              [b - a for a, b in zero.shard_bounds(n, RANKS)] if s.zero_sharded
+              else [n] * RANKS),
+          "history": final["history"], "main_path_history": main_final["history"],
+          "max_rel_diff": rel, "rtol": ZERO_RTOL,
+          "bit_equal_to_main_path": bit_equal(torch, final, main_final),
+          "max_gap": max_gap(torch, final, main_final), "final_eval": ranks[0]["final_eval"],
+          "wall_s": wall, **ranks_summary(ranks, s.steps)})
+    failures = []
+    if any(r["history"] != final["history"] for r in ranks):
+        failures.append("the ranks' histories differ")
+    if rel > ZERO_RTOL:
+        failures.append(f"history differs from main_path's by {rel}")
+    for r, got in enumerate(r["launches"] for r in ranks):
+        if got != want:
+            failures.append(f"rank {r}: launch counts {got}, want {want}")
+    if failures:
+        raise AssertionError(f"{name}: " + "; ".join(failures))
+    return {k: sum(r["launches"][k] for r in ranks) for k in want}
+
+
+def phase_zero_nccl_world1(torch, K):
+    """Nano, NCCL_STEPS outer steps, one rank over NCCL (the only NCCL group
+    one card allows) with both flags: bit-equal to the dense run on the card."""
+    from repro_torch.configs.gpt2_small import TOPO
+    from repro_torch.configs.nano import NANO
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    kw = dict(tau=TOPO.tau, steps=NCCL_STEPS, eval_every=NCCL_STEPS, **MAIN)
+    s = TrainSettings(zero_sharded=True, device_parallel_local=True, **kw)
+    K.reset_launch_counts()
+    dense = run_training(NANO, TrainSettings(**kw), device="cuda", params=x0)
+    launches = K.launch_counts()
+    rank = run_ranks(1, NANO, [s], "cuda", x0, backend="nccl")[0][0]
+    ours = {"history": rank["history"], "x0": rank["state"]["x0"], "m": rank["state"]["m"]}
+    theirs = {"history": dense["history"], "x0": dense["state"].x0.cpu(),
+              "m": dense["state"].m.cpu()}
+    same = bit_equal(torch, ours, theirs)
+    emit({"phase": "zero_nccl_world1", "config": NANO.name, "backend": "nccl", "ranks": 1,
+          "outer_steps": s.steps, "history": ours["history"], "dense_history": dense["history"],
+          "bit_equal_to_dense": same, "max_gap": max_gap(torch, ours, theirs),
+          "launches": rank["launches"], "collectives": rank["comm"]})
+    want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
+    if not same or rank["launches"] != want or launches != want:
+        raise AssertionError(f"zero_nccl_world1: bit-equal {same}, launches "
+                             f"{rank['launches']} / {launches}, want {want}")
+    return {k: launches[k] + rank["launches"][k] for k in want}
+
+
+def phase_zero_card_vs_cpu(torch, K):
+    """Nano, the hand-built fault plan with mask_nonfinite and guards, both
+    flags, RANKS gloo ranks on the card, checkpointing every 2 rounds.  Held
+    against the dense run on the card bit for bit, and against RANKS gloo
+    ranks on the CPU within NANO_RTOL with equal skipped rounds.  The
+    checkpoint at step 2 is then resumed by one process (world 4 -> 1) and
+    must end bit-equal to the dense run too."""
+    from repro_torch.configs.gpt2_small import TOPO
+    from repro_torch.configs.nano import NANO
+    from repro_torch.models import transformer as T
+    from repro_torch.robustness.faults import FaultPlan, FaultSpec
+    from repro_torch.train.trainer import TrainSettings, run_training
+    from repro_torch.checkpoint import checkpoint as CK
+
+    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    plan = fault_plan(FaultPlan, FaultSpec)
+    kw = dict(tau=TOPO.tau, steps=len(FAULT_ROUNDS), eval_every=len(FAULT_ROUNDS), faults=plan,
+              mask_nonfinite=True, guard_nonfinite=True, **MAIN)
+    both = dict(zero_sharded=True, device_parallel_local=True)
+    tmp_root = ROOT / "build"
+    tmp_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp_root) as d:
+        ck = dict(checkpoint_every=2, checkpoint_keep=len(FAULT_ROUNDS))
+        K.reset_launch_counts()
+        dense = run_training(NANO, TrainSettings(**kw), device="cuda", params=x0)
+        dense_launches = K.launch_counts()
+        card = run_ranks(RANKS, NANO, [TrainSettings(checkpoint_dir=f"{d}/card", **ck, **kw,
+                                                     **both)], "cuda", x0)[0]
+        cpu = run_ranks(RANKS, NANO, [TrainSettings(checkpoint_dir=f"{d}/cpu", **ck, **kw,
+                                                    **both)], "cpu", x0)[0]
+        os.makedirs(f"{d}/resume")
+        for suffix in (".npz", ".json"):
+            shutil.copy(CK.step_path(f"{d}/card", 2) + suffix, f"{d}/resume")
+        K.reset_launch_counts()
+        resumed = run_training(NANO, TrainSettings(checkpoint_dir=f"{d}/resume", resume=True,
+                                                   **ck, **kw, **both), device="cuda", params=x0)
+        resumed_launches = K.launch_counts()
+
+    def final(r, flat=True):
+        st = r["state"]
+        return {"history": r["history"], "x0": st["x0"] if flat else st.x0.cpu(),
+                "m": st["m"] if flat else st.m.cpu()}
+
+    theirs = final(dense, flat=False)
+    ours, back = final(card[0]), final(resumed, flat=False)
+    rel = history_rel(card[0]["history"], cpu[0]["history"])
+    row = {"phase": "zero_card_vs_cpu", "config": NANO.name, "ranks": RANKS, "backend": "gloo",
+           "outer_steps": len(FAULT_ROUNDS), "card": card[0]["history"],
+           "cpu": cpu[0]["history"], "dense_card": dense["history"],
+           "resumed_world1": resumed["history"], "max_rel_diff_card_cpu": rel,
+           "rtol": NANO_RTOL, "bit_equal_to_dense": bit_equal(torch, ours, theirs),
+           "resumed_bit_equal_to_dense": bit_equal(torch, back, theirs),
+           "max_gap": max_gap(torch, ours, theirs),
+           "skipped_rounds": [card[0]["skipped_rounds"], cpu[0]["skipped_rounds"],
+                              dense["skipped_rounds"]],
+           "launches": [r["launches"] for r in card], "resumed_launches": resumed_launches}
+    emit(row)
+    failures = []
+    if rel > NANO_RTOL:
+        failures.append(f"card and CPU ranks differ by {rel}")
+    if len(set(row["skipped_rounds"])) != 1:
+        failures.append(f"skipped rounds {row['skipped_rounds']}")
+    if not (row["bit_equal_to_dense"] and row["resumed_bit_equal_to_dense"]):
+        failures.append("not bit-equal to the dense run on the card")
+    if any(r["history"] != run[0]["history"] for run in (card, cpu) for r in run):
+        failures.append("the ranks' histories differ")
+    want = {"dsm_update": len(FAULT_ROUNDS), "adamw_update": len(FAULT_ROUNDS) * TOPO.tau}
+    for got in [r["launches"] for r in card] + [dense_launches]:
+        if got != want:
+            failures.append(f"launch counts {got}, want {want}")
+    # the resume from the step-2 checkpoint runs the last rounds only
+    rest = len(FAULT_ROUNDS) - 2
+    if resumed_launches != {"dsm_update": rest, "adamw_update": rest * TOPO.tau}:
+        failures.append(f"resumed run: launch counts {resumed_launches}, want {rest} rounds")
+    if failures:
+        raise AssertionError("zero_card_vs_cpu: " + "; ".join(failures))
+    launch_sets = [r["launches"] for r in card] + [dense_launches, resumed_launches]
+    return {k: sum(ls[k] for ls in launch_sets) for k in want}
+
+
 def main() -> None:
     import torch
 
@@ -685,6 +927,7 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))     # torch_ranks: what each rank process runs
     from repro_torch import kernels as K
     from repro_torch.kernels import _build
 
@@ -708,7 +951,13 @@ def main() -> None:
                  phase_algorithms_card_vs_cpu(torch, K),
                  phase_robustness_full_width(torch, K, smi, main_cost),
                  phase_resume_full_width(torch, K, smi, main_final),
-                 phase_robustness_card_vs_cpu(torch, K)):
+                 phase_robustness_card_vs_cpu(torch, K),
+                 phase_ranks_full_width(torch, K, smi, main_final, "zero_full_width",
+                                        dict(zero_sharded=True, device_parallel_local=True)),
+                 phase_ranks_full_width(torch, K, smi, main_final, "device_parallel_full_width",
+                                        dict(device_parallel_local=True)),
+                 phase_zero_nccl_world1(torch, K),
+                 phase_zero_card_vs_cpu(torch, K)):
         launches = {k: n + more[k] for k, n in launches.items()}
 
     sources = {"dsm_update": ("src/repro_torch/kernels/csrc/dsm_update.cu",
@@ -717,7 +966,8 @@ def main() -> None:
                                 "src/repro/kernels/adamw_update.py:24")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name], **times[name]}
+         "launches": launches[name], "max_abs_err": errs[name],
+         **{k: v for k, v in times[name].items() if k != "zero_shard"}}
         for name, (src, rep) in sources.items()]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,6 +13,11 @@ The local-step methods share ``make_local_step_method``: DSM's local phase
 does every local update) followed by a global update on
 ``(x0, aux, x_tau_mean, gamma, t)``.  The global updates are plain PyTorch,
 as the reference's are plain jnp, and update ``x0`` and ``aux`` in place.
+Under a topology (the device-parallel local phase, reference
+``baselines.py:40-110``) a rank runs its own workers, the worker mean is
+the dense one on every rank, and the global update runs replicated.
+``perstep`` and ``mv_signsgd`` take no topology, as the reference's read
+no mesh flag: each rank runs them whole.
 
 Token batches are ``(W, tau, 1, B_micro, S)``: the trainer's layout with an
 accumulation axis of 1, which is numerically the reference's batch without
@@ -28,7 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.base_opt import BaseOptimizer, weak_scalar
-from repro_torch.core.dsm import make_local_phase, randomized_sign_pm, worker_grads
+from repro_torch.core.dsm import make_local_phase, randomized_sign_pm, worker_grads, worker_mean
+from repro_torch.distributed import comm
+from repro_torch.distributed import zero as Z
 from repro_torch.kernels.dsm_update import sign_like_jnp
 from repro_torch.models.convert import FlatLayout
 
@@ -52,17 +59,18 @@ class LocalMethodState:
 
 def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
                            schedule: Callable, init_aux: Callable, global_update: Callable,
-                           layout: FlatLayout):
+                           layout: FlatLayout, topo=None):
     """Generic: tau local steps -> worker mean -> ``global_update`` -> sync.
 
     ``global_update(x0, aux, x_tau_mean, gamma, t)`` updates x0 and aux in
     place.  Returns ``(init(x0, n_workers) -> state,
-    outer_step(state, tokens) -> (state, metrics))``.
+    outer_step(state, tokens) -> (state, metrics))``.  Under ``topo`` the
+    state and ``tokens`` hold the rank's own workers.
     """
     local_phase = make_local_phase(loss_fn, base_opt, layout)
 
     def init(x0: torch.Tensor, n_workers: int) -> LocalMethodState:
-        params = x0.unsqueeze(0).repeat(n_workers, 1)
+        params = x0.unsqueeze(0).repeat(n_workers if topo is None else topo.local_workers, 1)
         return LocalMethodState(params=params, grads=torch.zeros_like(params), x0=x0.clone(),
                                 aux=init_aux(x0), base_state=base_opt.init(params))
 
@@ -70,7 +78,11 @@ def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
         gamma_t = schedule(state.t)
         gamma = float(gamma_t)
         losses = local_phase(state, tokens, gamma)
-        x_tau = state.params.mean(dim=0, dtype=F32).to(state.params.dtype)
+        if topo is None:
+            x_tau = worker_mean(state.params)
+        else:
+            losses = comm.gather_workers(losses, topo, dim=1)
+            x_tau = Z.replicated_worker_mean(state.params, topo)
         global_update(state.x0, state.aux, x_tau, gamma, state.t)
         state.params.copy_(state.x0.expand_as(state.params))
         state.t += 1
@@ -105,7 +117,8 @@ def _step_from(x0: torch.Tensor, scale: float, gamma: float, u: torch.Tensor) ->
     x0.copy_(x0.to(F32) - _f32(np.float32(scale) * np.float32(gamma)) * u)
 
 
-def slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5, alpha: float = 1.0):
+def slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5, alpha: float = 1.0,
+           topo=None):
     """SlowMo (Alg. 5): u <- beta*u + Delta ; x <- x0 - alpha*gamma*u."""
 
     def global_update(x0, u, x_tau, gamma, t):
@@ -113,11 +126,11 @@ def slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5, alpha: f
         _step_from(x0, alpha, gamma, u)
 
     return make_local_step_method(loss_fn, base_opt, tau, schedule, _zeros_f32,
-                                  global_update, layout)
+                                  global_update, layout, topo)
 
 
 def signed_slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5,
-                  eta: float = 1.0):
+                  eta: float = 1.0, topo=None):
     """§4.1, the printed form (sign taken before momentum):
     m <- beta*m + ((1-beta)/gamma)*sign(x0 - x_tau); x <- x0 - eta*gamma*m."""
 
@@ -127,10 +140,11 @@ def signed_slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5,
         _step_from(x0, eta, gamma, m)
 
     return make_local_step_method(loss_fn, base_opt, tau, schedule, _zeros_f32,
-                                  global_update, layout)
+                                  global_update, layout, topo)
 
 
-def lookahead(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.2, eta: float = 1.0):
+def lookahead(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.2, eta: float = 1.0,
+              topo=None):
     """Lookahead (§4.1): DSM with (7) replaced by x <- x0 - eta*gamma*u (no sign)."""
 
     def global_update(x0, m, x_tau, gamma, t):
@@ -138,17 +152,17 @@ def lookahead(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.2, eta: 
         _step_from(x0, eta, gamma, m)
 
     return make_local_step_method(loss_fn, base_opt, tau, schedule, _zeros_f32,
-                                  global_update, layout)
+                                  global_update, layout, topo)
 
 
-def local_avg(loss_fn, base_opt, tau, schedule, layout):
+def local_avg(loss_fn, base_opt, tau, schedule, layout, topo=None):
     """Local AdamW / FedAvg-style: x <- mean_i x^{(i)}_{t,tau} (App. C.2)."""
 
     def global_update(x0, aux, x_tau, gamma, t):
         x0.copy_(x_tau)
 
     return make_local_step_method(loss_fn, base_opt, tau, schedule, lambda x0: (),
-                                  global_update, layout)
+                                  global_update, layout, topo)
 
 
 class GlobalAdamWAux(NamedTuple):
@@ -157,7 +171,7 @@ class GlobalAdamWAux(NamedTuple):
 
 
 def global_adamw(loss_fn, base_opt, tau, schedule, layout, eta: float = 1.0, b1: float = 0.9,
-                 b2: float = 0.95, weight_decay: float = 0.0, eps: float = 1e-8):
+                 b2: float = 0.95, weight_decay: float = 0.0, eps: float = 1e-8, topo=None):
     """Alg. 7: AdamW on the pseudo-gradient g = (x0 - x_tau)/gamma."""
 
     def init_aux(x0):
@@ -176,7 +190,7 @@ def global_adamw(loss_fn, base_opt, tau, schedule, layout, eta: float = 1.0, b1:
         x0.copy_(x0f - _f32(np.float32(eta) * np.float32(gamma)) * step)
 
     return make_local_step_method(loss_fn, base_opt, tau, schedule, init_aux,
-                                  global_update, layout)
+                                  global_update, layout, topo)
 
 
 LOCAL_METHODS = {"slowmo": slowmo, "signed_slowmo": signed_slowmo, "lookahead": lookahead,

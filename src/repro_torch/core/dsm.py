@@ -9,16 +9,26 @@ One outer step t:
   3. the global sign-momentum step on Delta_t = (x_{t,0} - x_{t,tau}) / gamma_t
      (eqs. 6-8), then every worker restarts from x_{t+1,0}.
 
-The W workers are simulated on one device: a Python loop runs each worker's
-forward and backward, and the base optimizer then updates all workers at
-once (with AdamW, one launch of the AdamW kernel).  The global step is the
-DSM kernel on the card for the deterministic sign; the randomized signs of
-eqs. 9/10 (``sign_mode`` ``rand_pm`` / ``rand_zero``) run in plain PyTorch.
+A process runs its workers one after another: a Python loop runs each
+worker's forward and backward, and the base optimizer then updates all of
+them at once (with AdamW, one launch of the AdamW kernel).  The global step
+is the DSM kernel on the card for the deterministic sign; the randomized
+signs of eqs. 9/10 (``sign_mode`` ``rand_pm`` / ``rand_zero``) run in plain
+PyTorch.
+
+Without a topology one process holds all W workers.  With a
+``repro_torch.distributed.mesh.Topology`` (one process per rank) a rank
+holds only its own workers, and its local phase runs with zero collectives
+(``device_parallel_local``); the worker mean is a scatter of each worker's
+column chunks to their owners.  ``zero_sharded`` then keeps only the rank's
+shard of x0 and m and runs the DSM kernel on it
+(``repro_torch.distributed.zero``); without it every rank runs the
+replicated global step on the whole mean.  Both are bit-equal to the dense
+path.
 
 The outer step takes an optional ``FaultRound`` (``repro_torch.robustness``)
 and then makes line 7's mean survivor-aware; ``DSMConfig.mask_nonfinite``
-masks non-finite workers without injected faults.  ZeRO sharding and the
-device-parallel local phase raise ``NotImplementedError`` (ROADMAP.md).
+masks non-finite workers without injected faults.
 
 Instances (paper §2 "Algorithm instances"):
   * tau=1, beta1=beta2=beta, lam=0    -> signSGD with momentum (eq. 3)
@@ -33,6 +43,8 @@ from typing import Callable, ClassVar, Optional
 import torch
 
 from repro_torch.core.base_opt import BaseOptimizer
+from repro_torch.distributed import comm
+from repro_torch.distributed import zero as Z
 from repro_torch.kernels.dsm_update import dsm_update, dsm_update_plain, sign_like_jnp
 from repro_torch.models.convert import FlatLayout
 from repro_torch.obs import metrics as OM
@@ -108,15 +120,6 @@ class DSMConfig:
             raise ValueError("tau must be >= 1")
 
 
-def check_ported(cfg: DSMConfig) -> None:
-    missing = [name for name, on in (
-        ("zero_sharded", cfg.zero_sharded),
-        ("device_parallel_local", cfg.device_parallel_local),
-    ) if on]
-    if missing:
-        raise NotImplementedError(f"DSM options not ported yet (ROADMAP.md): {missing}")
-
-
 @dataclasses.dataclass
 class DSMState:
     """Algorithm 1 state; the outer step updates it IN PLACE."""
@@ -126,6 +129,8 @@ class DSMState:
     x0: torch.Tensor          # (N,) global model x_{t,0}
     m: torch.Tensor           # (N,) global sign momentum m_t, f32
     base_state: object        # per-worker base-optimizer state, (W, N) leaves
+    # under a topology W is the rank's own workers, and with zero_sharded
+    # x0 and m hold the rank's shard
     t: int = 0                # outer step counter
     inner: int = 0            # total local-step counter (AdamW bias correction)
 
@@ -134,16 +139,20 @@ class DSMState:
     SCRATCH: ClassVar[tuple] = ("grads",)
 
 
-def dsm_init(x0: torch.Tensor, base_opt: BaseOptimizer, n_workers: int) -> DSMState:
-    """State from the flat global params ``x0`` (N,)."""
-    params = x0.unsqueeze(0).repeat(n_workers, 1)
-    return DSMState(
+def dsm_init(x0: torch.Tensor, base_opt: BaseOptimizer, n_workers: int, topo=None,
+             global_sharded: bool = False) -> DSMState:
+    """State from the flat global params ``x0`` (N,): every worker's, or
+    under ``topo`` the rank's workers and, with ``global_sharded``, the
+    rank's shard of x0 and m."""
+    params = x0.unsqueeze(0).repeat(n_workers if topo is None else topo.local_workers, 1)
+    state = DSMState(
         params=params,
         grads=torch.zeros_like(params),
         x0=x0.clone(),
         m=torch.zeros_like(x0, dtype=torch.float32),
         base_state=base_opt.init(params),
     )
+    return state if topo is None else Z.shard_dsm_state(state, topo, global_sharded)
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +165,11 @@ def dsm_init(x0: torch.Tensor, base_opt: BaseOptimizer, n_workers: int) -> DSMSt
 def worker_finite_mask(params_w: torch.Tensor) -> torch.Tensor:
     """``(W,)`` bool: worker i's contribution is finite everywhere."""
     return torch.isfinite(params_w).all(dim=1)
+
+
+def worker_mean(params_w: torch.Tensor) -> torch.Tensor:
+    """Line 7's mean of ``(W, N)`` in f32, cast back (as ``jnp.mean`` of bf16)."""
+    return params_w.mean(dim=0, dtype=F32).to(params_w.dtype)
 
 
 def masked_worker_mean(params_w: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -171,15 +185,18 @@ def masked_worker_mean(params_w: torch.Tensor, weights: torch.Tensor) -> torch.T
     return (w * contrib).sum(dim=0, dtype=F32).to(dt) / wsum.to(dt)
 
 
-def _contribution_weights(contrib: torch.Tensor, cfg: "DSMConfig",
-                          faults) -> Optional[torch.Tensor]:
+def _contribution_weights(contrib: torch.Tensor, cfg: "DSMConfig", faults,
+                          topo=None) -> Optional[torch.Tensor]:
     """(W,) f32 weights: the announced survivors times the finiteness mask,
-    or None for the dense path."""
+    or None for the dense path.  Under ``topo`` each rank checks its own
+    workers and the masks are gathered to every worker's."""
     weights = None
     if faults is not None:
         weights = faults.survivors.to(F32)
     if cfg.mask_nonfinite or faults is not None:
         finite = worker_finite_mask(contrib).to(F32)
+        if topo is not None:
+            finite = comm.gather_workers(finite, topo)
         weights = finite if weights is None else weights * finite
     return weights
 
@@ -230,11 +247,13 @@ def worker_grads(loss_fn: Callable, layout: FlatLayout, params: torch.Tensor,
 
 def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLayout):
     """``local_phase(state, tokens, gamma) -> losses (tau, W)``: tau local
-    steps of every worker, in place on ``state.params`` / ``state.base_state``.
+    steps of every worker the state holds (all W, or a rank's own), in place
+    on ``state.params`` / ``state.base_state``, with no collective.
 
-    ``tokens``: (W, tau, accum, B_micro, S).  Each local step runs every
-    worker's forward and backward (:func:`worker_grads`), then one
-    base-optimizer update over all workers at step index ``state.inner + k``.
+    ``tokens``: (W, tau, accum, B_micro, S), the state's workers' rows.
+    Each local step runs every worker's forward and backward
+    (:func:`worker_grads`), then one base-optimizer update over all of them
+    at step index ``state.inner + k``.
     """
 
     def local_phase(state, tokens: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -250,48 +269,76 @@ def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLay
 
 
 def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
-                  schedule: Callable, layout: FlatLayout):
+                  schedule: Callable, layout: FlatLayout, topo=None):
     """Build ``outer_step(state, tokens[, rng[, faults]]) -> (state, metrics)``.
 
-    ``tokens``: (W, tau, accum, B_micro, S) int64 on the state's device.
-    ``loss_fn(params, microbatch)`` takes a ``{path: tensor}`` params dict and
-    one (B_micro, S) microbatch.  ``rng``: the ``torch.Generator`` on the
-    state's device that the randomized signs draw from (unused by
-    ``sign_mode="sign"``).  ``metrics`` holds 0-d tensors ``loss``,
-    ``last_loss``, ``gamma`` and the ``(N_METRICS,)`` ``pack``, plus
-    ``survivors`` (the sum of the weights) on a survivor-aware round.
+    ``tokens``: (W, tau, accum, B_micro, S) int64 on the state's device, the
+    state's workers' rows.  ``loss_fn(params, microbatch)`` takes a ``{path:
+    tensor}`` params dict and one (B_micro, S) microbatch.  ``rng``: the
+    ``torch.Generator`` on the state's device that the randomized signs draw
+    from (unused by ``sign_mode="sign"``).  ``metrics`` holds 0-d tensors
+    ``loss``, ``last_loss``, ``gamma`` and the ``(N_METRICS,)`` ``pack``,
+    plus ``survivors`` (the sum of the weights) on a survivor-aware round.
 
-    ``faults`` (a ``repro_torch.robustness.FaultRound``) makes the round
-    survivor-aware: stale and corrupt contributions are injected, dropped
-    ones excluded from the mean, non-finite ones detected and masked.  A
-    round with no usable contribution still runs the global step (one DSM
-    launch) and then restores x0 and m from copies with a device-side select,
-    so they stay bit-untouched with no host read; the workers re-sync from
-    x0, and ``t`` and ``inner`` advance.  ``cfg.mask_nonfinite`` turns on the
-    detection without injection.
+    ``topo`` (a ``repro_torch.distributed.mesh.Topology``) runs the round
+    over the ranks of a process group, as the reference's mesh branches do
+    (``core/dsm.py:432-482``): the losses and finiteness masks are gathered
+    in worker order, the worker mean is scattered to the shards' owners, and
+    with ``cfg.zero_sharded`` the DSM kernel updates the rank's shard (one
+    all-reduce for the pack's sums, one all-gather of x_{t+1,0}); without it
+    every rank gathers the whole mean and runs the replicated global step.
+    ``cfg.device_parallel_local`` needs a topology, as the reference's needs
+    a mesh.
+
+    ``faults`` (a ``repro_torch.robustness.FaultRound`` of all W workers)
+    makes the round survivor-aware: stale and corrupt contributions are
+    injected, dropped ones excluded from the mean, non-finite ones detected
+    and masked.  A round with no usable contribution still runs the global
+    step (one DSM launch) and then restores x0 and m (or their shards) from
+    copies with a device-side select, so they stay bit-untouched with no
+    host read; the workers re-sync from x0, and ``t`` and ``inner`` advance.
+    ``cfg.mask_nonfinite`` turns on the detection without injection.
     """
-    check_ported(cfg)
+    if cfg.device_parallel_local and topo is None:
+        raise ValueError("device_parallel local phase needs a topology with a 'worker' axis "
+                         "(repro_torch.distributed.mesh.topology)")
     local_phase = make_local_phase(loss_fn, base_opt, layout)
+    sharded = cfg.zero_sharded and topo is not None
+    n = layout.numel
 
     def outer_step(state: DSMState, tokens: torch.Tensor,
                    rng: Optional[torch.Generator] = None, faults=None):
         gamma_t = schedule(state.t)          # fixed for the whole outer step
         gamma = float(gamma_t)
         losses = local_phase(state, tokens, gamma)
+        if topo is not None:
+            losses = comm.gather_workers(losses, topo, dim=1)
 
         contrib = state.params
         if faults is not None:
-            contrib = apply_faults(state.params, state.x0, faults)
-        weights = _contribution_weights(contrib, cfg, faults)
-        if weights is None:
+            own = faults if topo is None else type(faults)(
+                *(mask[topo.worker_slice] for mask in faults))
+            contrib = apply_faults(state.params, Z.gather_shards(state.x0, topo, n)
+                                   if sharded else state.x0, own)
+        weights = _contribution_weights(contrib, cfg, faults, topo)
+        if topo is None:
             # line 7: the worker mean, in f32 and cast back (as jnp.mean of bf16)
-            x_tau = state.params.mean(dim=0, dtype=torch.float32).to(state.params.dtype)
+            x_tau = worker_mean(contrib) if weights is None else masked_worker_mean(
+                contrib, weights)
+        elif sharded:
+            x_tau = Z.scattered_worker_mean(contrib, topo, weights)
         else:
-            x_tau = masked_worker_mean(contrib, weights)
+            x_tau = Z.replicated_worker_mean(contrib, topo, weights)
+        if weights is not None:
             del contrib     # frees the faulted (W, N) copy before the x0 / m copies
             kept = (state.x0.clone(), state.m.clone())
-        stat = OM.stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1)
-        global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, rng)
+        if sharded:
+            stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1, topo)
+            Z.sharded_global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, topo, n,
+                                                rng)
+        else:
+            stat = OM.stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1)
+            global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, rng)
         wsum = None
         if weights is not None:
             # skip-round: no usable contribution -> x0 / m bit-untouched
@@ -300,17 +347,17 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
             for buf, old in zip((state.x0, state.m), kept):
                 torch.where(ok, buf, old, out=buf)
 
-        # line 11: every worker restarts from x_{t+1,0}; AdamW state carries on
-        state.params.copy_(state.x0.expand_as(state.params))
+        # line 11: every worker restarts from x_{t+1,0} (the all-gather when
+        # sharded); AdamW state carries on
+        x0 = Z.gather_shards(state.x0, topo, n) if sharded else state.x0
+        state.params.copy_(x0.expand_as(state.params))
         state.t += 1
         state.inner += cfg.tau
 
         loss_mean, last_loss, spread = OM.loss_stats(losses)
-        n_workers = state.params.shape[0]
         pack = OM.finish_pack(loss=loss_mean, last_loss=last_loss, gamma=gamma_t,
-                              worker_spread=spread, stat_sums=stat,
-                              n_elems=state.x0.numel(),
-                              survivor_frac=None if wsum is None else wsum / n_workers)
+                              worker_spread=spread, stat_sums=stat, n_elems=n,
+                              survivor_frac=None if wsum is None else wsum / losses.shape[1])
         metrics = {"loss": loss_mean, "gamma": gamma_t, "last_loss": last_loss, "pack": pack}
         if wsum is not None:
             metrics["survivors"] = wsum

@@ -12,11 +12,27 @@ flags and defaults (DSM with the arch's base optimizer, AdamW):
 ``--arch`` accepts ``nano``, ``<id>`` (FULL) or ``<id>_smoke``.  The Markov
 corpus keeps a (vocab, vocab, 8) table, so a 50k-token vocabulary needs
 ``--corpus text`` (bytes of this repository's Python sources).
+
+Several ranks, one process each, start under ``torch.distributed.run``;
+``--zero-sharded`` and ``--device-parallel-local`` then split the workers
+over the ranks (the world must be a multiple of ``--n-workers``)::
+
+    # four ranks on the CPU
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --device cpu --dist-backend gloo \
+        --zero-sharded --device-parallel-local
+    # four ranks sharing one card: gloo; one card per rank: nccl (the default)
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --dist-backend gloo --zero-sharded --device-parallel-local
+
+Under ``nccl`` rank r runs on ``cuda:LOCAL_RANK``; under ``gloo`` on the
+``--device`` given.  Rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 
 from repro_torch.configs import load_arch
@@ -67,6 +83,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="save the final global params here (<path>.npz + .json)")
     ap.add_argument("--corpus", default="markov", choices=("markov", "text"))
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # --- several ranks (the reference launcher's mesh flags) ---
+    ap.add_argument("--zero-sharded", action="store_true",
+                    help="shard the DSM global state x0 / m over the ranks (ZeRO)")
+    ap.add_argument("--device-parallel-local", action="store_true",
+                    help="each rank runs its own workers' local steps")
+    ap.add_argument("--dist-backend", default="nccl", choices=("nccl", "gloo"),
+                    help="process-group backend under torch.distributed.run: nccl (one "
+                         "card per rank) or gloo (ranks sharing a card, or the CPU)")
     # --- robustness (the reference's docs/fault_tolerance.md) ---
     ap.add_argument("--faults", default=None,
                     help="seeded fault-injection spec, e.g. "
@@ -86,6 +110,24 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def init_ranks(args):
+    """``(group, device)``: the process group of a run started by
+    ``torch.distributed.run`` (None outside one) and this rank's device."""
+    if "WORLD_SIZE" not in os.environ:
+        return None, args.device
+    from repro_torch.distributed import comm
+
+    device = args.device
+    if args.dist_backend == "nccl":
+        import torch
+
+        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+        torch.cuda.set_device(device)
+    group = comm.init_group(args.dist_backend, "env://", int(os.environ["RANK"]),
+                            int(os.environ["WORLD_SIZE"]))
+    return group, device
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
@@ -98,9 +140,19 @@ def main(argv=None):
         faults=args.faults, guard_nonfinite=args.guard_nonfinite,
         guard_spike_factor=args.guard_spike_factor, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, resume=args.resume,
+        zero_sharded=args.zero_sharded, device_parallel_local=args.device_parallel_local,
     )
     corpus = make_corpus(args.corpus, cfg.vocab_size)
-    result = run_training(cfg, s, corpus, log=print, device=args.device)
+    group, device = init_ranks(args)
+    try:
+        result = run_training(cfg, s, corpus, log=print, device=device, group=group)
+    finally:
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    if group is not None and int(os.environ["RANK"]) != 0:
+        return result
     print(f"final eval loss: {result['final_eval']:.4f} "
           f"(comm rounds: {result['comm_rounds']}, tokens: {result['tokens']}, "
           f"skipped rounds: {result['skipped_rounds']}, rollbacks: {result['rollbacks']})")
@@ -111,6 +163,8 @@ def main(argv=None):
 
         st = result["state"]
         final = st.x0 if hasattr(st, "x0") else st.params
+        if final.numel() != layout(cfg).numel:
+            final = st.params[0]     # x0 is a ZeRO shard; the workers hold the whole x0
         CK.save(args.checkpoint, convert.leaf_tree(layout(cfg), final), step=args.steps)
         print(f"saved checkpoint to {args.checkpoint}.npz")
     return result

@@ -16,6 +16,10 @@ so the wrapper snapshots the state's tensors before the step and selects
 between the two with ``torch.where`` on the device.  A state's integer
 counters (``t``, ``inner``) live on the host, so a state that has them costs
 one host read of the verdict per round.
+
+Over the ranks of a topology each rank checks the part of the state it
+holds, and one all-reduce (MIN) of the verdict makes every rank accept or
+reject the round together; each rank's snapshot and select stay local.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.distributed import comm
 from repro_torch.models.convert import state_fields
 from repro_torch.obs.metrics import set_guard_flag
 
@@ -68,13 +73,15 @@ def tree_all_finite(state) -> torch.Tensor:
 
 
 def make_guarded_step(step_fn: Callable, *, nonfinite: bool = True, spike_factor: float = 0.0,
-                      ema_beta: float = 0.9) -> Callable:
+                      ema_beta: float = 0.9, topo=None) -> Callable:
     """Wrap ``step_fn(state, *args)`` into
     ``guarded(state, guard, *args) -> (state', guard', metrics)``.
 
     ``spike_factor <= 0`` disables spike detection; ``nonfinite=False``
     disables the full-state finiteness check (a non-finite loss always
     rejects).  The first accepted round seeds the EMA with its loss.
+    ``topo``: the state is one rank's part, and the ranks agree on one
+    verdict (the loss is the gathered one, equal on every rank).
     """
     if spike_factor < 0:
         raise ValueError("spike_factor must be >= 0 (0 disables)")
@@ -87,6 +94,8 @@ def make_guarded_step(step_fn: Callable, *, nonfinite: bool = True, spike_factor
         ok = torch.isfinite(loss)
         if nonfinite:
             ok = ok & tree_all_finite(new_state)
+            if topo is not None:
+                ok = comm.all_reduce(ok.to(I32), topo, "min").to(torch.bool)
         if spike_factor > 0:
             spike = (guard.seen > 0) & (loss > spike_factor * guard.ema)
             ok = ok & ~spike

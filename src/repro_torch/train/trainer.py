@@ -1,6 +1,8 @@
 """Training harness of the port: DSM (Algorithm 1) or any of the paper's
-baselines, with any base optimizer, on any ``attn:dense`` ModelConfig, W
-simulated workers on one device.
+baselines, with any base optimizer, on any ``attn:dense`` ModelConfig: W
+simulated workers in one process, or over the ranks of a process group, one
+process per rank, each holding its own workers (``zero_sharded``,
+``device_parallel_local``).
 
 Runs on the card unless the caller passes ``device="cpu"``; there is no
 fallback when no card is present.  f32 matmuls run in full f32 (no TF32),
@@ -10,6 +12,11 @@ Fault tolerance as in the reference (``docs/fault_tolerance.md``): seeded
 fault injection and the survivor-aware global step (DSM family only),
 skip-round guards, atomic rotated checkpoints of the whole training state
 with bit-exact resume, and bounded rollback to the last checkpoint.
+
+Over a process group every rank builds the whole (W, tau, accum, B, S)
+batch and takes its workers' rows, so the data is the dense run's worker for
+worker; every rank returns the same history, rank 0 logs and writes the
+checkpoints (in the dense layout), and every rank restores its part.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ from repro_torch.core import DSMConfig, dsm_init, get_base_optimizer, make_dsm_s
 from repro_torch.core import baselines as BL
 from repro_torch.core.schedules import constant, cosine_with_warmup
 from repro_torch.data.pipeline import MarkovCorpus, dsm_batches, eval_batch
+from repro_torch.distributed import comm
+from repro_torch.distributed import mesh as MESH
+from repro_torch.distributed import zero as Z
 from repro_torch.models import convert as C
 from repro_torch.models import transformer as T
 from repro_torch.robustness import guards as G
@@ -60,6 +70,8 @@ class TrainSettings:
     eval_every: int = 10
     eval_batch: int = 16
     heterogeneous: bool = True
+    zero_sharded: bool = False      # ZeRO-sharded global step over the ranks
+    device_parallel_local: bool = False  # each rank runs its own workers' local phase
     # --- robustness (the reference's docs/fault_tolerance.md) ---
     faults: Any = None              # FaultPlan | FaultSpec | spec str, e.g.
     #                                 "drop=0.25,straggle=0.1,nan=0.05,seed=0"
@@ -81,14 +93,16 @@ def _schedule(s: TrainSettings):
     return constant(s.peak_lr)
 
 
-def build_algorithm(loss_fn, s: TrainSettings, layout):
+def build_algorithm(loss_fn, s: TrainSettings, layout, topo=None):
     """Returns (init(x0, n_workers) -> state, step(state, tokens, rng,
     faults=None) -> (state, metrics), eval_params(state) -> (N,) params,
     comm_multiplier).
 
-    ``tokens``: (W, tau, 1, B_micro, S); ``rng``: the ``torch.Generator``
-    that the randomized signs draw from; ``faults``: the round's
-    ``FaultRound``, taken by the DSM family only.
+    ``tokens``: (W, tau, 1, B_micro, S), the state's workers' rows; ``rng``:
+    the ``torch.Generator`` that the randomized signs draw from; ``faults``:
+    the round's ``FaultRound``, taken by the DSM family only.  ``topo``: the
+    rank's place among the ranks, taken by the DSM family and the local-step
+    baselines (see :data:`TOPOLOGY_ALGORITHMS`).
     """
     base = get_base_optimizer(s.base_opt)
     sched = _schedule(s)
@@ -97,13 +111,17 @@ def build_algorithm(loss_fn, s: TrainSettings, layout):
         cfg = DSMConfig(
             tau=s.tau, global_lr=s.global_lr, beta1=s.dsm_beta1, beta2=s.dsm_beta2,
             weight_decay=s.dsm_wd, sign_mode=s.sign_mode, sign_bound=float(s.tau),
+            zero_sharded=s.zero_sharded, device_parallel_local=s.device_parallel_local,
             mask_nonfinite=s.mask_nonfinite,
         )
         if s.algorithm == "signed_lookahead":
             cfg = dataclasses.replace(cfg, beta1=s.slow_beta, beta2=s.slow_beta,
                                       weight_decay=0.0)
-        step = make_dsm_step(loss_fn, base, cfg, sched, layout)
-        return (lambda x0, n: dsm_init(x0, base, n)), step, (lambda st: st.x0), 1.0
+        step = make_dsm_step(loss_fn, base, cfg, sched, layout, topo)
+        sharded = s.zero_sharded and topo is not None
+        return ((lambda x0, n: dsm_init(x0, base, n, topo, s.zero_sharded)), step,
+                # x0 is the rank's shard: params[0] equals x0 after the gather
+                (lambda st: st.params[0]) if sharded else (lambda st: st.x0), 1.0)
 
     if s.algorithm in BL.LOCAL_METHODS:
         kw = {"slowmo": dict(beta=s.slow_beta, alpha=s.global_lr),
@@ -111,7 +129,8 @@ def build_algorithm(loss_fn, s: TrainSettings, layout):
               "lookahead": dict(beta=s.slow_beta, eta=s.global_lr),
               "global_adamw": dict(eta=s.global_lr),
               "local_avg": {}}[s.algorithm]
-        init, step = BL.LOCAL_METHODS[s.algorithm](loss_fn, base, s.tau, sched, layout, **kw)
+        init, step = BL.LOCAL_METHODS[s.algorithm](loss_fn, base, s.tau, sched, layout,
+                                                   topo=topo, **kw)
         return (init, (lambda st, tokens, rng, faults=None: step(st, tokens)),
                 (lambda st: st.x0), 1.0)
 
@@ -132,6 +151,14 @@ def build_algorithm(loss_fn, s: TrainSettings, layout):
 
 
 _DSM_FAMILY = ("dsm", "signed_lookahead")
+# the algorithms that split the workers over the ranks; the others read no
+# topology flag (as in the reference) and every rank runs them whole
+TOPOLOGY_ALGORITHMS = _DSM_FAMILY + tuple(BL.LOCAL_METHODS)
+
+
+def splits_workers(s: TrainSettings) -> bool:
+    """The run splits its workers over the ranks of a topology."""
+    return (s.zero_sharded or s.device_parallel_local) and s.algorithm in TOPOLOGY_ALGORITHMS
 
 
 def _resolve_fault_plan(s: TrainSettings) -> Optional[FaultPlan]:
@@ -167,16 +194,29 @@ def _sync(dev: torch.device) -> None:
 
 def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = None,
                  device=None, params: Optional[torch.Tensor] = None,
-                 on_round: Optional[Callable] = None) -> dict:
+                 on_round: Optional[Callable] = None, group=None,
+                 time_collectives: bool = False) -> dict:
     """Train; returns dict(history, eval_losses, final_eval, tokens,
     comm_rounds, wall_s, outer_step_s, skipped_rounds, rollbacks,
-    checkpoint_s, restore_s, state).
+    checkpoint_s, restore_s, state, comm, and peak_bytes on the card).
 
     ``params``: initial params in the port's flat layout, ``(N,)`` or
     ``(W, N)`` (for example ``convert.from_jax_numpy`` of the reference's
     ``init_params``); by default they are drawn from ``s.seed``.
     ``outer_step_s`` holds each round's time, ended by a device sync;
     ``on_round(t, state, metrics)`` runs after each round, outside that time.
+
+    ``group``: the ``torch.distributed`` process group of a run with one
+    process per rank; every rank calls ``run_training`` with the same
+    arguments.  With ``s.zero_sharded`` or ``s.device_parallel_local`` the
+    ranks form the reference's ``(worker, zero)`` grid
+    (``repro_torch.distributed.mesh``) and each runs its own workers;
+    ``group=None`` with either flag is the reference's one-device degenerate
+    grid.  Without the flags every rank runs the whole algorithm.
+    ``state`` is the rank's own part; ``comm`` holds this rank's collective
+    calls and bytes, and with ``time_collectives`` their seconds (each
+    collective then syncs the device before and after); ``peak_bytes`` is
+    ``torch.cuda.max_memory_allocated`` of the run's card.
 
     Robustness settings, with the reference's semantics:
 
@@ -191,7 +231,9 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         generator of the randomized signs, guard state, loss history; the
         data position is the step index), so a killed run restarts bit for
         bit from the last complete checkpoint.  ``checkpoint_s`` holds each
-        save's seconds, ``restore_s`` the resume's (None without one).
+        save's seconds, ``restore_s`` the resume's (None without one).  A
+        checkpoint holds the dense layout whatever the world size, so it
+        restores under any other.
     """
     dev = resolve_device(device)
     set_matmul_precision()
@@ -206,7 +248,17 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     def loss_fn(p, tokens):
         return T.loss_fn(p, tokens, cfg)
 
-    init, step, eval_params, comm_mult = build_algorithm(loss_fn, s, lay)
+    topo = None
+    if splits_workers(s):
+        topo = MESH.topology(s.n_workers, group, time_collectives)
+    # one topology for rank-0-only work and barriers, whether or not the
+    # algorithm splits its workers
+    ranks = topo if topo is not None else MESH.topology(1, group, time_collectives)
+    root = ranks.rank == 0
+    log = log if root else None
+    rows = slice(None) if topo is None else topo.worker_slice
+
+    init, step, eval_params, comm_mult = build_algorithm(loss_fn, s, lay, topo)
     state = init(x0, s.n_workers)
     # the randomized signs' draws; each outer step that uses it advances it,
     # where the reference splits its key
@@ -217,25 +269,33 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     guard = G.init_guard(dev) if guards_on else None
     step_fn = (G.make_guarded_step(step, nonfinite=s.guard_nonfinite,
                                    spike_factor=s.guard_spike_factor,
-                                   ema_beta=s.guard_ema_beta) if guards_on else step)
+                                   ema_beta=s.guard_ema_beta, topo=topo)
+               if guards_on else step)
 
     ckpt_on = bool(s.checkpoint_dir)
     ckpt_every = s.checkpoint_every if s.checkpoint_every > 0 else max(1, s.steps // 5)
     rollback_on = ckpt_on and guards_on and s.guard_patience > 0
 
-    def ckpt_tree():
+    def ckpt_tree(st):
         # the reference's "state" and "guard" paths; the generator replaces
         # its threefry "key", which cannot be carried across
-        tree = {"state": C.state_to_tree(state, cfg), "rng": rng.get_state()}
+        tree = {"state": C.state_to_tree(st, cfg), "rng": rng.get_state()}
         if guard is not None:
             tree["guard"] = dict(guard._asdict())
         return tree
 
     def restore_latest():
-        """Load the newest checkpoint into state, rng and guard in place."""
+        """Load the newest checkpoint into state, rng and guard in place;
+        every rank reads the file and keeps its part."""
         nonlocal guard
-        tree, step_no, extra = CK.restore_latest(s.checkpoint_dir, ckpt_tree())
-        C.load_state_tree(state, tree["state"], cfg)
+        if topo is None:
+            tree, step_no, extra = CK.restore_latest(s.checkpoint_dir, ckpt_tree(state))
+            C.load_state_tree(state, tree["state"], cfg)
+        else:
+            dense = Z.dense_host(state, topo, lay.numel)
+            tree, step_no, extra = CK.restore_latest(s.checkpoint_dir, ckpt_tree(dense))
+            C.load_state_tree(dense, tree["state"], cfg)
+            Z.load_local_part(state, dense, topo)
         rng.set_state(tree["rng"])
         if guards_on:
             guard = G.GuardState(**{k: v.to(dev) for k, v in tree["guard"].items()})
@@ -272,8 +332,14 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     def save(step_no: int) -> None:
         _sync(dev)
         tc = time.perf_counter()
-        CK.save_checkpoint(s.checkpoint_dir, ckpt_tree(), step_no, keep=s.checkpoint_keep,
-                           extra=ckpt_extra())
+        # shards and worker rows gathered to rank 0, which writes the dense
+        # layout; the others wait until the file is complete
+        dense = state if topo is None else Z.gather_state(state, topo, lay.numel)
+        if root:
+            CK.save_checkpoint(s.checkpoint_dir, ckpt_tree(dense), step_no,
+                               keep=s.checkpoint_keep, extra=ckpt_extra())
+        del dense
+        comm.barrier(ranks, dev)
         ckpt_s.append(time.perf_counter() - tc)
 
     if ckpt_on and start_step == 0:
@@ -292,7 +358,7 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     t0 = time.time()
     while t < s.steps:
         ts = time.perf_counter()
-        tokens = torch.as_tensor(next(batches)["tokens"], dtype=torch.long).to(dev)
+        tokens = torch.as_tensor(next(batches)["tokens"][rows], dtype=torch.long).to(dev)
         fr = plan.round(t, dev) if plan is not None else None
         if guards_on:
             state, guard, metrics = step_fn(state, guard, tokens, rng, fr)
@@ -330,7 +396,7 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
             history = [float(x) for x in history]   # a checkpoint is a sync point
             save(t)
     wall = time.time() - t0
-    return {
+    out = {
         "history": [float(x) for x in history],
         "eval_losses": evals,
         "final_eval": evals[-1][1] if evals else float("nan"),
@@ -343,4 +409,8 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         "checkpoint_s": ckpt_s,
         "restore_s": restore_s,
         "state": state,
+        "comm": ranks.stats.as_dict(),
     }
+    if dev.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out

@@ -84,20 +84,6 @@ def test_global_step_matches_reference(use_kernel, dtype):
     np.testing.assert_allclose(m_out.numpy(), np.asarray(jm["a"]), rtol=1e-5, atol=1e-6)
 
 
-def test_global_step_rejects_unported_sign_modes():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        D.check_ported(D.DSMConfig(zero_sharded=True))
-
-
-UNPORTED_DSM = [dict(zero_sharded=True), dict(device_parallel_local=True)]
-
-
-@pytest.mark.parametrize("option", UNPORTED_DSM, ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
-def test_unported_dsm_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        D.check_ported(D.DSMConfig(**option))
-
-
 def test_metric_pack_matches_reference():
     rng = np.random.default_rng(2)
     n = 4099

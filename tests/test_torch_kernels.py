@@ -274,3 +274,36 @@ def test_cuda_kernels_match_plain_on_card(dtype):
         torch.cuda.synchronize()
         for a, b in zip(ka, kb):
             _same_bits(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dsm_kernel_on_a_zero_shard_view(dtype):
+    """The ZeRO call site: the DSM kernel through ``zero.dsm_update_shard``
+    on one rank's shard, a view at a 128-aligned offset into the flat
+    buffers (rank 2 of 4 over the ragged 1,000,003).  Bit-equal to the plain
+    version on the same view; the rest of the buffers untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (and nvcc to build the kernels)")
+    from repro_torch.core.dsm import DSMConfig
+    from repro_torch.distributed import zero
+
+    n = 1_000_003
+    a, b = zero.shard_bounds(n, 4)[2]
+    assert a % 128 == 0
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x0 = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    m = torch.randn(n, generator=gen, device="cuda")
+    xt = (x0.float() - 0.01 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
+    cfg = DSMConfig(global_lr=DSM_HP["eta"], beta1=DSM_HP["beta1"], beta2=DSM_HP["beta2"],
+                    weight_decay=DSM_HP["lam"])
+    ka, kb = (x0.clone(), m.clone()), (x0.clone(), m.clone())
+    before = dsm_update.launches
+    zero.dsm_update_shard(ka[0][a:b], ka[1][a:b], xt[a:b], 0.02, cfg)
+    dsm_update_plain(kb[0][a:b], kb[1][a:b], xt[a:b], 0.02, **DSM_HP)
+    torch.cuda.synchronize()
+    assert dsm_update.launches == before + 1
+    for new, plain, old in zip(ka, kb, (x0, m)):
+        _same_bits(new, plain)
+        _same_bits(torch.cat([new[:a], new[b:]]), torch.cat([old[:a], old[b:]]))
+    assert not torch.equal(ka[0][a:b], x0[a:b])

@@ -1,0 +1,145 @@
+"""What the port's multi-rank tests and ``chip_smoke.py`` run in each
+rank's process.
+
+``repro_torch.distributed.spawn.run_ranks`` starts every rank in a fresh
+process, which imports the function it runs by name; these live apart from
+the test files so that a rank imports neither JAX nor the JAX package."""
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.dsm import DSMConfig
+from repro_torch.distributed import mesh
+from repro_torch.distributed import zero as Z
+from repro_torch.models.convert import state_fields
+
+
+def flat_state(state, prefix: str = "") -> dict:
+    """``{dotted field name: tensor or int}`` of a training state on the
+    CPU, less its scratch buffers (``params``, ``x0``, ``base_state.m``...)."""
+    out = {}
+    for name, v in state_fields(state):
+        if isinstance(v, torch.Tensor):
+            out[prefix + name] = v.cpu()
+        elif isinstance(v, int):
+            out[prefix + name] = v
+        else:
+            out.update(flat_state(v, f"{prefix}{name}."))
+    return out
+
+
+def train_rank(rank: int, world: int, cfg, settings: list, device: str = "cpu",
+               params: Optional[torch.Tensor] = None, corpus=None,
+               fields: Optional[tuple] = None) -> list:
+    """A training run on this rank: ``run_training`` on the default group,
+    collectives timed, for each of ``settings`` in turn.  Each result (on
+    the CPU) holds ``history``, ``eval_losses``, ``final_eval``,
+    ``skipped_rounds``, ``rollbacks``, ``outer_step_s``, ``comm``,
+    ``peak_bytes`` (on the card) and this process's kernel ``launches``; on
+    rank 0 also ``state``, the final state in the dense layout
+    (:func:`flat_state`), or only its ``fields`` of the DSM state (for
+    example ``("x0", "m")``, which a full-width run gathers without the
+    workers' rows)."""
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import run_training, splits_workers
+
+    group = dist.group.WORLD
+    n = T.layout(cfg).numel
+    out = []
+    for s in settings:
+        K.reset_launch_counts()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        res = run_training(cfg, s, corpus, device=device, params=params, group=group,
+                           time_collectives=True)
+        res["launches"] = K.launch_counts()
+        state = res.pop("state")
+        topo = mesh.topology(s.n_workers, group) if splits_workers(s) else None
+        if fields is not None:
+            state = {k: getattr(state, k) if topo is None else Z.gather_shards(
+                getattr(state, k), topo, n) for k in fields}
+        elif topo is not None:
+            state = Z.gather_state(state, topo, n)
+        if rank == 0:
+            res["state"] = flat_state(state)
+        out.append(res)
+        del state
+    return out
+
+
+def global_step_rank(rank: int, world: int, cases: list) -> list:
+    """Each case's ZeRO pieces on this rank: the scattered and replicated
+    worker means, the stat sums, and the sharded global step (x0 / m
+    gathered).  A case: ``params`` (W, N), ``x0``, ``m`` (numpy f32),
+    ``dtype``, ``weights`` ((W,) or None), ``gamma``, ``cfg`` (DSMConfig
+    keywords), ``seed`` (the generator of the randomized signs)."""
+    out = []
+    for c in cases:
+        dt = getattr(torch, c["dtype"])
+        n_workers, n = c["params"].shape
+        topo = mesh.topology(n_workers, dist.group.WORLD)
+        rows = torch.from_numpy(c["params"][topo.worker_slice]).to(dt)
+        weights = None if c["weights"] is None else torch.from_numpy(c["weights"])
+        a, b = Z.my_bounds(n, topo)
+        x_tau = Z.scattered_worker_mean(rows, topo, weights)
+        x0 = torch.from_numpy(c["x0"][a:b]).to(dt)
+        m = torch.from_numpy(c["m"][a:b])
+        cfg = DSMConfig(**c["cfg"])
+        stat = Z.sharded_stat_sums(x0, m, x_tau, c["gamma"], cfg.beta1, topo)
+        rng = torch.Generator().manual_seed(c["seed"])
+        Z.sharded_global_sign_momentum_step(x0, m, x_tau, c["gamma"], cfg, topo, n, rng)
+        out.append({"bounds": (a, b), "x_tau": x_tau,
+                    "x_tau_full": Z.replicated_worker_mean(rows, topo, weights),
+                    "stat": stat, "x0": Z.gather_shards(x0, topo, n),
+                    "m": Z.gather_shards(m, topo, n)})
+    return out
+
+
+def collectives_rank(rank: int, world: int, n_workers: int) -> dict:
+    """Each collective of ``comm`` on small tensors of known values."""
+    from repro_torch.distributed import comm
+
+    topo = mesh.topology(n_workers, dist.group.WORLD)
+    w = topo.worker_index
+    losses = torch.tensor([[10.0 * w + k] for k in range(3)])          # (tau=3, W_local=1)
+    total = comm.all_reduce(torch.tensor([rank + 1.0]), topo, "sum")
+    low = comm.all_reduce(torch.tensor([rank + 1], dtype=torch.int32), topo, "min")
+    root = comm.gather_to_root(torch.full((2,), rank, dtype=torch.bfloat16), topo)
+    comm.barrier(topo, "cpu")
+    return {"losses": comm.gather_workers(losses, topo, dim=1), "sum": total, "min": low,
+            "root": root, "stats": topo.stats.as_dict(),
+            "grid": (topo.worker, topo.zero, topo.worker_index, topo.zero_index,
+                     topo.worker_slice.start, topo.worker_slice.stop)}
+
+
+def outer_steps_rank(rank: int, world: int, n_workers: int, flags: dict, rounds: list) -> list:
+    """The metric packs of nano DSM outer steps (AdamW, tau 2) on this rank,
+    one per ``rounds`` entry: None (dense round) or the (W,) survivor /
+    stale / corrupt masks of a fault round."""
+    from repro_torch.configs.nano import NANO
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core.dsm import dsm_init, make_dsm_step
+    from repro_torch.data.pipeline import MarkovCorpus, dsm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.robustness.faults import FaultRound
+
+    topo = None if world == 0 else mesh.topology(n_workers, dist.group.WORLD)
+    base = base_opt.adamw()
+    lay = T.layout(NANO)
+    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, NANO), base,
+                         DSMConfig(tau=2, global_lr=0.3, **flags), schedules.constant(5e-3), lay,
+                         topo)
+    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    state = dsm_init(x0, base, n_workers, topo, flags.get("zero_sharded", False))
+    rows = slice(None) if topo is None else topo.worker_slice
+    batches = dsm_batches(MarkovCorpus(NANO.vocab_size, seed=1), n_workers, 2, 1, 2, 32, seed=0)
+    packs = []
+    for masks in rounds:
+        tokens = torch.from_numpy(next(batches)["tokens"][rows]).long()
+        faults = None if masks is None else FaultRound(*(torch.tensor(m) for m in masks))
+        state, metrics = step(state, tokens, None, faults)
+        packs.append(metrics["pack"])
+    return packs
