@@ -13,7 +13,12 @@ runs of one process per rank: four ranks sharing the card over gloo with
 the ZeRO-sharded global step and with the replicated one, at full width,
 held against the main path; one rank over NCCL; and four ranks under faults
 and guards on nano, card against CPU and against the dense run, with a
-checkpoint resumed by one process.
+checkpoint resumed by one process.  The observability layer rides along:
+main_path's run again with a run directory, a metric flush every round, a
+torch.profiler capture of one outer step and the host-sync sanitizer, held
+bit for bit against main_path and read back (kernel launches, device busy
+share and idle gaps from the trace); the ZeRO ranks write run directories
+whose comm ledger must equal their counted collectives.
 
     python3 chip_smoke.py
 
@@ -52,6 +57,7 @@ MAIN_STEPS = 4
 DSM_HP = dict(eta=MAIN["global_lr"], beta1=0.95, beta2=0.98, lam=0.1)
 ADAMW_HP = dict(beta1=0.9, beta2=0.95, eps=1e-8, wd=0.1)
 NANO_STEPS = 3
+PROFILED_STEP = 2               # obs_full_width's profiled outer step (0-based)
 NANO_RTOL = 1e-4                # card vs CPU loss history, see phase_card_vs_cpu
 # Lion's sign(u) and Sophia's clip at +-1 step every coordinate by +-gamma on
 # EVERY local step (AdamW only on its first ones), so a gradient within
@@ -92,7 +98,13 @@ NCCL_STEPS = 2
 RANKS_TIMEOUT_S = 600
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -321,6 +333,116 @@ def phase_main_path(torch, K, smi):
     # kept for the repeat check of resume_full_width (same settings, same process)
     final = {"history": hist, "x0": res["state"].x0.cpu(), "m": res["state"].m.cpu()}
     return launches, {"outer_step_ms": step_ms, "max_memory_allocated_bytes": peak}, final
+
+
+def phase_obs_full_width(torch, K, smi, main_final, main_cost):
+    """main_path's run again (gpt2_small.FULL, W=4, tau=12, MAIN_STEPS outer
+    steps, its settings and corpus) with a run directory, a metric flush
+    every round, a torch.profiler capture of outer step PROFILED_STEP and
+    the sanitizer (no implicit host sync inside the step), in a temporary
+    directory under build/.  History and final x0/m bit-equal to
+    main_path's; MAIN_STEPS DSM and MAIN_STEPS * tau AdamW launches in the
+    run, the post-run phase probe's apart; the run directory complete and
+    summarized by ``python -m repro_torch.obs``; from the trace of the
+    profiled step: tau AdamW and one DSM kernel launch, the device busy
+    share, the top device operations and the longest idle gaps.  The
+    median outer step leaves out the first and the profiled one.  Every
+    number is printed before any check."""
+    from repro_torch.configs import gpt2_small
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.obs.sinks import read_run
+    from repro_torch.obs.tracing import profile_summary
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    cfg = gpt2_small.FULL
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    tmp_root = ROOT / "build"
+    tmp_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp_root) as d:
+        s = TrainSettings(tau=gpt2_small.TOPO.tau, steps=MAIN_STEPS, eval_every=MAIN_STEPS,
+                          run_dir=d, log_every=1,
+                          profile_steps=f"{PROFILED_STEP}:{PROFILED_STEP}", sanitize=True,
+                          **MAIN)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        res = run_training(cfg, s, corpus, device="cuda")
+        probe = res["probe_launches"]
+        launches = {k: n - probe[k] for k, n in K.launch_counts().items()}
+        manifest, events, rows = read_run(d)
+        summary = subprocess.run([sys.executable, "-m", "repro_torch.obs", "summarize", d],
+                                 capture_output=True, text=True, timeout=120, cwd=ROOT,
+                                 env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        traces = sorted((Path(d) / "profile").glob("*.json"))
+        trace = profile_summary(str(traces[0])) if traces else None
+        trace_bytes = os.path.getsize(traces[0]) if traces else None
+    final = {"history": res["history"], "x0": res["state"].x0.cpu(), "m": res["state"].m.cpu()}
+    step_s, peak, phase_ms = res["outer_step_s"], res["peak_bytes"], res["phase_ms"]
+    del res
+    spans = [e for e in events if e["kind"] == "span"]
+    ledger = next((e for e in events if e["kind"] == "comm_ledger"), None)
+    memory = next((e["stats"] for e in events if e["kind"] == "device_memory"), None)
+    failed = [e for e in events if e["kind"] == "profile_failed"]
+    kernels = {name: sum(n for k, n in (trace or {}).get("kernel_launches", {}).items()
+                         if f"{name}_kernel" in k) for name in ("adamw", "dsm")}
+    step_ms = statistics.median(step_s[i] for i in range(1, MAIN_STEPS)
+                                if i != PROFILED_STEP) * 1e3
+    row = {"phase": "obs_full_width", "gpu": smi, "config": cfg.name,
+           "settings": {"log_every": 1, "profile_steps": s.profile_steps, "sanitize": True},
+           "history": final["history"], "main_path_history": main_final["history"],
+           "bit_equal_to_main_path": bit_equal(torch, final, main_final),
+           "max_gap": max_gap(torch, final, main_final),
+           "launches": launches, "probe_launches": probe,
+           "scalars_steps": [r["step"] for r in rows], "scalars_loss": [r["loss"] for r in rows],
+           "manifest": {k: manifest.get(k) for k in ("backend", "device_name", "device_count",
+                                                     "torch_version", "cuda_version")},
+           "event_kinds": sorted({e["kind"] for e in events}),
+           "train_window_n": sum(e.get("n", 1) for e in spans if e["name"] == "train_window"),
+           "probe_spans_s": {e["name"]: e["seconds"] for e in spans if e.get("probe")},
+           "comm_ledger": ledger and {k: ledger[k] for k in ("degenerate_mesh", "observed",
+                                                            "predicted")},
+           "device_memory": memory, "profile_failed": failed,
+           "summarize_rc": summary.returncode, "summarize": summary.stdout[-3000:],
+           "phase_ms": phase_ms, "outer_step_ms": [t * 1e3 for t in step_s],
+           "outer_step_ms_median_unprofiled": step_ms,
+           "main_path_outer_step_ms_median_after_first": main_cost["outer_step_ms"],
+           "max_memory_allocated_bytes": peak,
+           "main_path_max_memory_allocated_bytes": main_cost["max_memory_allocated_bytes"],
+           "profiled_step": PROFILED_STEP, "trace_bytes": trace_bytes, "trace_kernels": kernels,
+           "trace": trace}
+    emit(row)
+    failures = []
+    if not row["bit_equal_to_main_path"]:
+        failures.append(f"history / x0 / m differ from main_path's by {row['max_gap']}")
+    want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
+    if launches != want:
+        failures.append(f"launch counts {launches}, want {want}")
+    # the probe: 1 warm-up + 3 timed local phases, 1 + 3 timed outer steps
+    if probe != {"dsm_update": 4, "adamw_update": 8 * s.tau}:
+        failures.append(f"probe launches {probe}")
+    if row["scalars_steps"] != list(range(1, s.steps + 1)) or row["scalars_loss"] != final[
+            "history"]:
+        failures.append("scalars.csv does not hold the history")
+    if row["manifest"]["device_name"] != torch.cuda.get_device_name(0):
+        failures.append(f"manifest names {row['manifest']['device_name']}")
+    need = {"comm_ledger", "eval", "span", "device_memory", "finished"}
+    if not need <= set(row["event_kinds"]) or row["train_window_n"] != s.steps:
+        failures.append(f"events {row['event_kinds']}, train windows {row['train_window_n']}")
+    if set(row["probe_spans_s"]) != {"local_phase", "global_step"}:
+        failures.append(f"probe spans {row['probe_spans_s']}")
+    if not (ledger and ledger["degenerate_mesh"]):
+        failures.append("no degenerate comm_ledger")
+    if not memory or not all(v["peak_bytes_in_use"] > 0 for v in memory.values()):
+        failures.append(f"device_memory {memory}")
+    if summary.returncode != 0:
+        failures.append(f"summarize exited {summary.returncode}: {summary.stderr[-500:]}")
+    if failed or trace is None:
+        failures.append(f"no trace: {failed}")
+    elif kernels != {"adamw": s.tau, "dsm": 1} or trace["busy_share"] is None:
+        failures.append(f"trace kernels {kernels}, busy share {trace['busy_share']}")
+    if failures:
+        raise AssertionError("obs_full_width: " + "; ".join(failures))
+    return {k: launches[k] + probe[k] for k in want}
 
 
 def phase_card_vs_cpu(torch):
@@ -759,10 +881,12 @@ def history_rel(a, b) -> float:
     return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
 
-def phase_ranks_full_width(torch, K, smi, main_final, name, flags):
+def phase_ranks_full_width(torch, K, smi, main_final, name, flags, with_run_dir=False):
     """gpt2_small.FULL, W=4, tau=12, MAIN_STEPS outer steps, the main path's
     init and data, as RANKS processes sharing the card over gloo (one worker
-    each).  The loss history within ZERO_RTOL of main_path's (bit-equal is
+    each).  ``with_run_dir``: the ranks get a run directory (in build/) that
+    rank 0 writes, and its comm ledger's observed bytes must equal each
+    rank's CommStats bytes of one round.  The loss history within ZERO_RTOL of main_path's (bit-equal is
     expected: each rank runs its worker as the dense process does, and the
     scattered mean is the dense mean column for column); the largest x0/m
     gap printed either way.  Per rank: MAIN_STEPS DSM launches (over the
@@ -771,16 +895,22 @@ def phase_ranks_full_width(torch, K, smi, main_final, name, flags):
     from repro_torch.configs import gpt2_small
     from repro_torch.data.pipeline import TextCorpus
     from repro_torch.distributed import zero
+    from repro_torch.obs.sinks import read_run
     from repro_torch.train.trainer import TrainSettings
 
     cfg = gpt2_small.FULL
-    s = TrainSettings(tau=gpt2_small.TOPO.tau, steps=MAIN_STEPS, eval_every=MAIN_STEPS,
-                      **MAIN, **flags)
     corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = run_ranks(RANKS, cfg, [s], "cuda", corpus=corpus, fields=("x0", "m"))[0]
-    wall = time.perf_counter() - t0
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        s = TrainSettings(tau=gpt2_small.TOPO.tau, steps=MAIN_STEPS, eval_every=MAIN_STEPS,
+                          run_dir=d if with_run_dir else None, **MAIN, **flags)
+        t0 = time.perf_counter()
+        ranks = run_ranks(RANKS, cfg, [s], "cuda", corpus=corpus, fields=("x0", "m"))[0]
+        wall = time.perf_counter() - t0
+        events = read_run(d)[1] if with_run_dir else []
+    ledger = next((e for e in events if e["kind"] == "comm_ledger"), None)
+    round_bytes = [sum(v["bytes"] for v in r["comm"].values()) / s.steps for r in ranks]
     final = {"history": ranks[0]["history"], "x0": ranks[0]["state"]["x0"],
              "m": ranks[0]["state"]["m"]}
     want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
@@ -795,8 +925,15 @@ def phase_ranks_full_width(torch, K, smi, main_final, name, flags):
           "max_rel_diff": rel, "rtol": ZERO_RTOL,
           "bit_equal_to_main_path": bit_equal(torch, final, main_final),
           "max_gap": max_gap(torch, final, main_final), "final_eval": ranks[0]["final_eval"],
-          "wall_s": wall, **ranks_summary(ranks, s.steps)})
+          "wall_s": wall, **ranks_summary(ranks, s.steps),
+          "probe_launches": [r["probe_launches"] for r in ranks],
+          "comm_ledger": ledger and {k: ledger[k] for k in ("observed", "predicted", "ratio")}})
     failures = []
+    if with_run_dir:
+        observed = ledger and ledger["observed"]["reduce_bytes"] + ledger["observed"][
+            "gather_bytes"]
+        if not ledger or any(observed != b for b in round_bytes):
+            failures.append(f"comm ledger {observed} bytes, CommStats {round_bytes} per round")
     if any(r["history"] != final["history"] for r in ranks):
         failures.append("the ranks' histories differ")
     if rel > ZERO_RTOL:
@@ -806,7 +943,8 @@ def phase_ranks_full_width(torch, K, smi, main_final, name, flags):
             failures.append(f"rank {r}: launch counts {got}, want {want}")
     if failures:
         raise AssertionError(f"{name}: " + "; ".join(failures))
-    return {k: sum(r["launches"][k] for r in ranks) for k in want}
+    return {k: sum(r["launches"][k] + (r["probe_launches"] or {}).get(k, 0) for r in ranks)
+            for k in want}
 
 
 def phase_zero_nccl_world1(torch, K):
@@ -845,13 +983,18 @@ def phase_zero_card_vs_cpu(torch, K):
     against the dense run on the card bit for bit, and against RANKS gloo
     ranks on the CPU within NANO_RTOL with equal skipped rounds.  The
     checkpoint at step 2 is then resumed by one process (world 4 -> 1) and
-    must end bit-equal to the dense run too."""
+    must end bit-equal to the dense run too.  The card ranks write a run
+    directory (rank 0); the resumed process appends to a copy of it, which
+    must hold a ``resumed`` event and dedupe (the last row of each step) to
+    the dense card run's history."""
     from repro_torch.configs.gpt2_small import TOPO
     from repro_torch.configs.nano import NANO
     from repro_torch.models import transformer as T
     from repro_torch.robustness.faults import FaultPlan, FaultSpec
     from repro_torch.train.trainer import TrainSettings, run_training
     from repro_torch.checkpoint import checkpoint as CK
+    from repro_torch.obs.sinks import read_run
+    from repro_torch.obs.summarize import _dedupe_by_step
 
     x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
     plan = fault_plan(FaultPlan, FaultSpec)
@@ -866,16 +1009,21 @@ def phase_zero_card_vs_cpu(torch, K):
         dense = run_training(NANO, TrainSettings(**kw), device="cuda", params=x0)
         dense_launches = K.launch_counts()
         card = run_ranks(RANKS, NANO, [TrainSettings(checkpoint_dir=f"{d}/card", **ck, **kw,
-                                                     **both)], "cuda", x0)[0]
+                                                     run_dir=f"{d}/card_run", **both)],
+                         "cuda", x0)[0]
         cpu = run_ranks(RANKS, NANO, [TrainSettings(checkpoint_dir=f"{d}/cpu", **ck, **kw,
                                                     **both)], "cpu", x0)[0]
         os.makedirs(f"{d}/resume")
         for suffix in (".npz", ".json"):
             shutil.copy(CK.step_path(f"{d}/card", 2) + suffix, f"{d}/resume")
+        shutil.copytree(f"{d}/card_run", f"{d}/resume_run")
         K.reset_launch_counts()
         resumed = run_training(NANO, TrainSettings(checkpoint_dir=f"{d}/resume", resume=True,
-                                                   **ck, **kw, **both), device="cuda", params=x0)
-        resumed_launches = K.launch_counts()
+                                                   run_dir=f"{d}/resume_run", **ck, **kw, **both),
+                               device="cuda", params=x0)
+        probe = resumed["probe_launches"]
+        resumed_launches = {k: n - probe[k] for k, n in K.launch_counts().items()}
+        _, run_events, run_rows = read_run(f"{d}/resume_run")
 
     def final(r, flat=True):
         st = r["state"]
@@ -894,7 +1042,10 @@ def phase_zero_card_vs_cpu(torch, K):
            "max_gap": max_gap(torch, ours, theirs),
            "skipped_rounds": [card[0]["skipped_rounds"], cpu[0]["skipped_rounds"],
                               dense["skipped_rounds"]],
-           "launches": [r["launches"] for r in card], "resumed_launches": resumed_launches}
+           "launches": [r["launches"] for r in card], "resumed_launches": resumed_launches,
+           "run_dir_rows": [r["step"] for r in run_rows],
+           "run_dir_resumed": [e["step"] for e in run_events if e["kind"] == "resumed"],
+           "run_dir_deduped_loss": [r["loss"] for r in _dedupe_by_step(run_rows)]}
     emit(row)
     failures = []
     if rel > NANO_RTOL:
@@ -913,9 +1064,13 @@ def phase_zero_card_vs_cpu(torch, K):
     rest = len(FAULT_ROUNDS) - 2
     if resumed_launches != {"dsm_update": rest, "adamw_update": rest * TOPO.tau}:
         failures.append(f"resumed run: launch counts {resumed_launches}, want {rest} rounds")
+    if (row["run_dir_resumed"] != [2] or len(row["run_dir_rows"]) != len(FAULT_ROUNDS) + rest
+            or row["run_dir_deduped_loss"] != dense["history"]):
+        failures.append("the resumed run directory does not dedupe to the dense history")
     if failures:
         raise AssertionError("zero_card_vs_cpu: " + "; ".join(failures))
-    launch_sets = [r["launches"] for r in card] + [dense_launches, resumed_launches]
+    launch_sets = ([r["launches"] for r in card] + [r["probe_launches"] for r in card]
+                   + [dense_launches, resumed_launches, probe])
     return {k: sum(ls[k] for ls in launch_sets) for k in want}
 
 
@@ -947,13 +1102,15 @@ def main() -> None:
     times = phase_times(torch, K, smi)
     launches, main_cost, main_final = phase_main_path(torch, K, smi)
     phase_card_vs_cpu(torch)
-    for more in (phase_algorithms_full_width(torch, K, smi),
+    for more in (phase_obs_full_width(torch, K, smi, main_final, main_cost),
+                 phase_algorithms_full_width(torch, K, smi),
                  phase_algorithms_card_vs_cpu(torch, K),
                  phase_robustness_full_width(torch, K, smi, main_cost),
                  phase_resume_full_width(torch, K, smi, main_final),
                  phase_robustness_card_vs_cpu(torch, K),
                  phase_ranks_full_width(torch, K, smi, main_final, "zero_full_width",
-                                        dict(zero_sharded=True, device_parallel_local=True)),
+                                        dict(zero_sharded=True, device_parallel_local=True),
+                                        with_run_dir=True),
                  phase_ranks_full_width(torch, K, smi, main_final, "device_parallel_full_width",
                                         dict(device_parallel_local=True)),
                  phase_zero_nccl_world1(torch, K),

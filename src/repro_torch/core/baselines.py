@@ -103,8 +103,9 @@ def _f32(c) -> float:
 def _delta(x0: torch.Tensor, x_tau: torch.Tensor, gamma: float) -> torch.Tensor:
     """The pseudo-gradient (x0 - x_tau) / gamma in f32.  It divides by a
     tensor on the data's device: torch turns division by a host scalar into
-    a product with its reciprocal on the card."""
-    g = torch.tensor(gamma, dtype=F32, device=x0.device)
+    a product with its reciprocal on the card.  The tensor is filled in
+    there: a copy from the host would synchronise the stream."""
+    g = torch.full((), gamma, dtype=F32, device=x0.device)
     return (x0.to(F32) - x_tau.to(F32)) / g
 
 
@@ -183,8 +184,8 @@ def global_adamw(loss_fn, base_opt, tau, schedule, layout, eta: float = 1.0, b1:
         aux.v.mul_(b2).add_((1 - b2) * g * g)
         # bias corrections: f32 constants on the host, divided by on the device
         tc = np.float32(t + 1)
-        bc1, bc2 = (torch.tensor(np.float32(1) - np.float32(b) ** tc, dtype=F32,
-                                 device=x0.device) for b in (b1, b2))
+        bc1, bc2 = (torch.full((), float(np.float32(1) - np.float32(b) ** tc), dtype=F32,
+                               device=x0.device) for b in (b1, b2))
         x0f = x0.to(F32)
         step = (aux.m / bc1) / (torch.sqrt(aux.v / bc2) + eps) + weight_decay * x0f
         x0.copy_(x0f - _f32(np.float32(eta) * np.float32(gamma)) * step)

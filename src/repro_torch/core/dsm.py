@@ -41,6 +41,7 @@ import dataclasses
 from typing import Callable, ClassVar, Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.base_opt import BaseOptimizer
 from repro_torch.distributed import comm
@@ -67,8 +68,9 @@ def _uniform(u: torch.Tensor, rng: Optional[torch.Generator], uniform):
 
 def _on(c: float, u: torch.Tensor) -> torch.Tensor:
     # divide by a tensor on the data's device: torch turns division by a
-    # host scalar into a product with its reciprocal on the card
-    return torch.tensor(c, dtype=F32, device=u.device)
+    # host scalar into a product with its reciprocal on the card (filled in
+    # there: a copy from the host would synchronise the stream)
+    return torch.full((), c, dtype=F32, device=u.device)
 
 
 def randomized_sign_pm(u: torch.Tensor, rng: Optional[torch.Generator], bound: float,
@@ -310,7 +312,13 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
                    rng: Optional[torch.Generator] = None, faults=None):
         gamma_t = schedule(state.t)          # fixed for the whole outer step
         gamma = float(gamma_t)
-        losses = local_phase(state, tokens, gamma)
+        # the reference's jax.named_scope ranges, seen in a profiler trace
+        with record_function("dsm_local_phase"):
+            losses = local_phase(state, tokens, gamma)
+        with record_function("dsm_global_step"):
+            return global_phase(state, losses, gamma_t, gamma, rng, faults)
+
+    def global_phase(state, losses, gamma_t, gamma, rng, faults):
         if topo is not None:
             losses = comm.gather_workers(losses, topo, dim=1)
 

@@ -9,7 +9,10 @@ equal size; a shorter last shard is padded in the send buffer only.
 ``gloo`` runs its collectives on host buffers: with the ``gloo`` backend a
 CUDA tensor is staged through a host copy every time, before the
 collective and never after a failure.  ``nccl`` takes the CUDA tensors as
-they are.  With no process group (a world of one) every collective is the
+they are.  Those host copies synchronise the stream by design, so they are
+the one place exempt from the sanitizer's ban on host syncs
+(``repro_torch.analysis.sanitize.no_implicit_host_sync``): ``_counted``
+lifts it for a staged collective only.  With no process group (a world of one) every collective is the
 identity.
 
 Each collective adds its calls and bytes sent to ``topo.stats``.  Only a
@@ -73,15 +76,30 @@ def _sync(t: torch.Tensor) -> None:
 
 @contextmanager
 def _counted(topo, name: str, t: torch.Tensor, nbytes: int):
-    if not topo.stats.timed:
+    with _host_staging_allowed(_staged(topo, t)):
+        if not topo.stats.timed:
+            yield
+            topo.stats.add(name, nbytes, None)
+            return
+        _sync(t)
+        t0 = time.perf_counter()
         yield
-        topo.stats.add(name, nbytes, None)
+        _sync(t)
+        topo.stats.add(name, nbytes, time.perf_counter() - t0)
+
+
+@contextmanager
+def _host_staging_allowed(staged: bool):
+    """gloo's host copies of CUDA tensors pass the sanitizer's sync ban."""
+    if not staged:
+        yield
         return
-    _sync(t)
-    t0 = time.perf_counter()
-    yield
-    _sync(t)
-    topo.stats.add(name, nbytes, time.perf_counter() - t0)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
 
 
 def _staged(topo, t: torch.Tensor) -> bool:

@@ -65,9 +65,10 @@ def moments_and_direction(p, g, m, v, k: AdamWConsts, round_direction: bool):
     pf, gf = p.to(F32), g.to(F32)
     dev = p.device
     # divide by tensors on the data's device: torch turns division by a
-    # host scalar into a product with its reciprocal on the card
-    bc1 = torch.tensor(k.bc1, dtype=F32, device=dev)
-    bc2 = torch.tensor(k.bc2, dtype=F32, device=dev)
+    # host scalar into a product with its reciprocal on the card (filled in
+    # there: a copy from the host would synchronise the stream)
+    bc1 = torch.full((), k.bc1, dtype=F32, device=dev)
+    bc2 = torch.full((), k.bc2, dtype=F32, device=dev)
     m_new = k.beta1 * m + k.omb1 * gf
     if round_direction:
         v_new = k.beta2 * v + k.omb2 * (gf * gf)

@@ -58,8 +58,9 @@ def dsm_update_plain(x0, m, x_tau, gamma, *, eta, beta1, beta2, lam, sign=sign_l
     sign, the default, and the randomized signs of eqs. 9/10 pass theirs."""
     k = dsm_consts(gamma, eta=eta, beta1=beta1, beta2=beta2, lam=lam)
     # divide by a tensor on the data's device: torch turns division by a
-    # host scalar into a product with its reciprocal on the card
-    g = torch.tensor(k.gamma, dtype=F32, device=x0.device)
+    # host scalar into a product with its reciprocal on the card (filled in
+    # there: a copy from the host would synchronise the stream)
+    g = torch.full((), k.gamma, dtype=F32, device=x0.device)
     x0f = x0.to(F32)
     delta = (x0f - x_tau.to(F32)) / g
     u = k.beta1 * m + k.omb1 * delta

@@ -8,6 +8,8 @@ flags and defaults (DSM with the arch's base optimizer, AdamW):
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --tau 2 \
         --faults "drop=0.25,straggle=0.1,nan=0.05,seed=0" --guard-nonfinite \
         --checkpoint-dir /tmp/ck            # add --resume to continue from it
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --tau 2 \
+        --run-dir build/run --log-every 1 --profile-steps 1:1 --sanitize
 
 ``--arch`` accepts ``nano``, ``<id>`` (FULL) or ``<id>_smoke``.  The Markov
 corpus keeps a (vocab, vocab, 8) table, so a 50k-token vocabulary needs
@@ -107,6 +109,24 @@ def build_parser() -> argparse.ArgumentParser:
                          "accepted-loss EMA (0 disables)")
     ap.add_argument("--guard-nonfinite", action="store_true",
                     help="skip rounds that produce NaN/inf anywhere in the training state")
+    # --- observability (the reference's docs/observability.md) ---
+    ap.add_argument("--run-dir", default=None,
+                    help="observability run directory: manifest.json, "
+                         "events.jsonl (spans, comm ledger), scalars.csv; "
+                         "inspect with `python -m repro_torch.obs summarize <dir>`")
+    ap.add_argument("--log-every", type=int, default=0,
+                    help="metric flush + log cadence in outer steps "
+                         "(default: the eval cadence)")
+    ap.add_argument("--profile-steps", default=None, metavar="A:B",
+                    help="capture a torch.profiler trace for the inclusive "
+                         "outer-step range A:B into <run-dir>/profile")
+    # --- runtime sanitizers (the reference's docs/analysis.md) ---
+    ap.add_argument("--sanitize", action="store_true",
+                    help="no implicit host sync inside the outer step on the card "
+                         "(CUDA sync debug mode 'error'; gloo's host staging exempt)")
+    ap.add_argument("--sanitize-nans", action="store_true",
+                    help="every floating tensor the outer step returns must be finite "
+                         "(chaos tier: masked NaNs must never reach the state)")
     return ap
 
 
@@ -141,6 +161,8 @@ def main(argv=None):
         guard_spike_factor=args.guard_spike_factor, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, resume=args.resume,
         zero_sharded=args.zero_sharded, device_parallel_local=args.device_parallel_local,
+        sanitize=args.sanitize, sanitize_nans=args.sanitize_nans, run_dir=args.run_dir,
+        log_every=args.log_every, profile_steps=args.profile_steps,
     )
     corpus = make_corpus(args.corpus, cfg.vocab_size)
     group, device = init_ranks(args)
@@ -156,6 +178,9 @@ def main(argv=None):
     print(f"final eval loss: {result['final_eval']:.4f} "
           f"(comm rounds: {result['comm_rounds']}, tokens: {result['tokens']}, "
           f"skipped rounds: {result['skipped_rounds']}, rollbacks: {result['rollbacks']})")
+    if args.run_dir:
+        print(f"run dir: {args.run_dir} "
+              f"(summarize: python -m repro_torch.obs summarize {args.run_dir})")
     if args.checkpoint:
         from repro_torch.checkpoint import checkpoint as CK
         from repro_torch.models import convert

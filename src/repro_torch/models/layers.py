@@ -37,7 +37,9 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Te
 
 def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, hd, 2, dtype=F32, device=device) / hd
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=F32, device=device), exps)
+    # theta is filled in on the device: a copy from the host would
+    # synchronise the stream at every attention call
+    return 1.0 / torch.pow(torch.full((), theta, dtype=F32, device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

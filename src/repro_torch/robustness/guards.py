@@ -15,7 +15,9 @@ moves on to the next batch.  The port's steps update their state in place,
 so the wrapper snapshots the state's tensors before the step and selects
 between the two with ``torch.where`` on the device.  A state's integer
 counters (``t``, ``inner``) live on the host, so a state that has them costs
-one host read of the verdict per round.
+one host read of the verdict per round: :func:`settle_counters`, which the
+trainer calls after the step, outside its sanitizer, as the reference reads
+its rollback streak outside its transfer guard.
 
 Over the ranks of a topology each rank checks the part of the state it
 holds, and one all-reduce (MIN) of the verdict makes every rank accept or
@@ -72,10 +74,37 @@ def tree_all_finite(state) -> torch.Tensor:
     return torch.stack(oks).all() if oks else torch.ones((), dtype=torch.bool)
 
 
-def make_guarded_step(step_fn: Callable, *, nonfinite: bool = True, spike_factor: float = 0.0,
-                      ema_beta: float = 0.9, topo=None) -> Callable:
+def make_guarded_step(step_fn: Callable, **kw) -> Callable:
     """Wrap ``step_fn(state, *args)`` into
-    ``guarded(state, guard, *args) -> (state', guard', metrics)``.
+    ``guarded(state, guard, *args) -> (state', guard', metrics)``: the
+    device step of :func:`make_guarded_device_step` (same keywords), then
+    :func:`settle_counters`."""
+    device_step = make_guarded_device_step(step_fn, **kw)
+
+    def guarded(state, guard: GuardState, *args):
+        new_state, new_guard, metrics, counters = device_step(state, guard, *args)
+        settle_counters(new_state, metrics, counters)
+        return new_state, new_guard, metrics
+
+    return guarded
+
+
+def settle_counters(state, metrics: dict, counters: dict) -> None:
+    """Put back the host counters of a rejected round: the one host read of
+    the verdict, and none when the state has no host counters."""
+    if counters and not bool(metrics["guard_ok"]):
+        for name, value in counters.items():
+            setattr(state, name, value)
+
+
+def make_guarded_device_step(step_fn: Callable, *, nonfinite: bool = True,
+                             spike_factor: float = 0.0, ema_beta: float = 0.9,
+                             topo=None) -> Callable:
+    """``device_step(state, guard, *args) -> (state', guard', metrics,
+    counters)``: the guarded round with no host read.  A rejected round's
+    tensors are restored on the device; its host counters stay advanced
+    until :func:`settle_counters` puts back ``counters``, the values from
+    before the step.
 
     ``spike_factor <= 0`` disables spike detection; ``nonfinite=False``
     disables the full-state finiteness check (a non-finite loss always
@@ -86,7 +115,7 @@ def make_guarded_step(step_fn: Callable, *, nonfinite: bool = True, spike_factor
     if spike_factor < 0:
         raise ValueError("spike_factor must be >= 0 (0 disables)")
 
-    def guarded(state, guard: GuardState, *args):
+    def device_step(state, guard: GuardState, *args):
         kept = [t.clone() for t in state_tensors(state)]
         counters = _counters(state)
         new_state, metrics = step_fn(state, *args)
@@ -111,13 +140,10 @@ def make_guarded_step(step_fn: Callable, *, nonfinite: bool = True, spike_factor
         )
         for buf, old in zip(state_tensors(new_state), kept):
             torch.where(ok, buf, old, out=buf)
-        if counters and not bool(ok):
-            for name, value in counters.items():
-                setattr(new_state, name, value)
         metrics = dict(metrics, guard_ok=ok, bad_streak=new_guard.bad_streak,
                        skipped_rounds=new_guard.skipped)
         if "pack" in metrics:
             metrics["pack"] = set_guard_flag(metrics["pack"], ok)
-        return new_state, new_guard, metrics
+        return new_state, new_guard, metrics, counters
 
-    return guarded
+    return device_step

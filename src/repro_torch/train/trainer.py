@@ -21,14 +21,20 @@ checkpoints (in the dense layout), and every rank restores its part.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import os
 import time
 from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import kernels as K
+from repro_torch.analysis import sanitize as SAN
 from repro_torch.checkpoint import checkpoint as CK
-from repro_torch.core import DSMConfig, dsm_init, get_base_optimizer, make_dsm_step
+from repro_torch.core import (DSMConfig, dsm_init, get_base_optimizer, make_dsm_step,
+                              make_local_phase)
 from repro_torch.core import baselines as BL
 from repro_torch.core.schedules import constant, cosine_with_warmup
 from repro_torch.data.pipeline import MarkovCorpus, dsm_batches, eval_batch
@@ -37,6 +43,10 @@ from repro_torch.distributed import mesh as MESH
 from repro_torch.distributed import zero as Z
 from repro_torch.models import convert as C
 from repro_torch.models import transformer as T
+from repro_torch.obs import ledger as OL
+from repro_torch.obs import metrics as OM
+from repro_torch.obs import sinks as OS
+from repro_torch.obs import tracing as OT
 from repro_torch.robustness import guards as G
 from repro_torch.robustness.faults import FaultPlan
 
@@ -85,6 +95,18 @@ class TrainSettings:
     checkpoint_every: int = 0       # outer steps; <=0 -> max(1, steps // 5)
     checkpoint_keep: int = 3        # rotated retention
     resume: bool = False            # resume from checkpoint_dir's latest
+    # --- runtime sanitizers (the reference's docs/analysis.md) ---
+    sanitize: bool = False          # no implicit host sync inside the outer
+    #                                 step (CUDA sync debug mode "error")
+    sanitize_nans: bool = False     # every floating tensor the step returns
+    #                                 must be finite (the chaos tier)
+    # --- observability (the reference's docs/observability.md) ---
+    run_dir: Optional[str] = None   # obs run directory: manifest.json /
+    #                                 events.jsonl / scalars.csv / profile/
+    log_every: int = 0              # metric flush + log cadence in outer
+    #                                 steps; <=0 -> eval_every
+    profile_steps: Optional[str] = None  # "A:B": torch.profiler window
+    #                                 (inclusive outer-step range)
 
 
 def _schedule(s: TrainSettings):
@@ -198,7 +220,8 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
                  time_collectives: bool = False) -> dict:
     """Train; returns dict(history, eval_losses, final_eval, tokens,
     comm_rounds, wall_s, outer_step_s, skipped_rounds, rollbacks,
-    checkpoint_s, restore_s, state, comm, and peak_bytes on the card).
+    checkpoint_s, restore_s, state, comm, step_compiles, run_dir, phase_ms,
+    final_metrics, probe_launches, and peak_bytes on the card).
 
     ``params``: initial params in the port's flat layout, ``(N,)`` or
     ``(W, N)`` (for example ``convert.from_jax_numpy`` of the reference's
@@ -234,6 +257,27 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         save's seconds, ``restore_s`` the resume's (None without one).  A
         checkpoint holds the dense layout whatever the world size, so it
         restores under any other.
+
+    Observability and sanitizers, with the reference's semantics and file
+    format (``repro_torch.obs``, ``repro_torch.analysis.sanitize``):
+
+      * ``run_dir`` — rank 0 writes manifest.json, events.jsonl (spans,
+        the comm ledger after the first round, eval / checkpoint / rollback
+        / resumed / device_memory / finished events) and one scalars.csv
+        row per round, flushed every ``log_every`` rounds and at every eval,
+        checkpoint and rollback with ONE device-to-host copy.  After the
+        loop a probe times the local phase and the outer step on a clone of
+        the final state; ``probe_launches`` holds the kernel launches it
+        made (the run's results do not change).  ``phase_ms`` holds the
+        spans; ``final_metrics`` the last scalars row (equal on every rank);
+        ``peak_bytes`` is read before the probe.
+      * ``profile_steps`` "A:B" — a ``torch.profiler`` trace of outer steps
+        A..B in ``<run_dir>/profile`` (rank 0); a profiler that fails is a
+        ``profile_failed`` event, not the end of the run.
+      * ``sanitize`` — no implicit host sync inside each step call on the
+        card; ``sanitize_nans`` — every floating tensor the step returns
+        must be finite.  ``step_compiles`` is None: an eager step compiles
+        nothing.
     """
     dev = resolve_device(device)
     set_matmul_precision()
@@ -267,9 +311,11 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     plan = _resolve_fault_plan(s)
     guards_on = s.guard_nonfinite or s.guard_spike_factor > 0
     guard = G.init_guard(dev) if guards_on else None
-    step_fn = (G.make_guarded_step(step, nonfinite=s.guard_nonfinite,
-                                   spike_factor=s.guard_spike_factor,
-                                   ema_beta=s.guard_ema_beta, topo=topo)
+    # the guarded round with no host read; its host counters are settled
+    # after the call (G.settle_counters), outside the sanitizer
+    step_fn = (G.make_guarded_device_step(step, nonfinite=s.guard_nonfinite,
+                                          spike_factor=s.guard_spike_factor,
+                                          ema_beta=s.guard_ema_beta, topo=topo)
                if guards_on else step)
 
     ckpt_on = bool(s.checkpoint_dir)
@@ -309,6 +355,9 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         for _ in range(skip):
             next(it)
         return it
+
+    def batch_tokens(raw) -> torch.Tensor:
+        return torch.as_tensor(raw["tokens"][rows], dtype=torch.long).to(dev)
 
     history, evals, step_s, ckpt_s = [], [], [], []
     start_step, rollbacks, restore_s = 0, 0, None
@@ -352,55 +401,172 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         with torch.no_grad():
             return float(T.loss_fn(lay.views(eval_params(state)), ev_tokens, cfg))
 
+    # --- observability (the reference's docs/observability.md): run sinks,
+    # comm ledger, phase spans, profiler window.  Per-round metrics stay on
+    # the device in `pending`; flush_metrics() brings them over in one copy
+    # at the sync points (log / eval / checkpoint / rollback / end).  Every
+    # rank flushes (each returns the same final_metrics); rank 0 writes. ---
+    obs_on = bool(s.run_dir)
+    writer = profile = None
+    phase_totals = OT.PhaseTotals()
+    log_every = s.log_every if s.log_every > 0 else s.eval_every
+    pending: list = []      # (outer step number, on-device metrics dict)
+    if obs_on and root:
+        manifest = OS.build_manifest(
+            run_name=os.path.basename(os.path.normpath(s.run_dir)), settings=s,
+            model_cfg=cfg, mesh=topo, device=dev, world=ranks.world)
+        writer = OS.RunWriter(s.run_dir, manifest, resume=start_step > 0)
+        if start_step > 0:
+            writer.event("resumed", step=start_step)
+    if obs_on:
+        # parsed on every rank, so a bad spec stops them all; rank 0 profiles
+        profile_steps = OT.parse_profile_steps(s.profile_steps)
+        if writer is not None:
+            profile = OT.ProfileWindow(
+                profile_steps, os.path.join(s.run_dir, "profile"), dev,
+                on_fail=lambda step, err: writer.event("profile_failed", step=step, error=err))
+    # the first round's collectives, counted (the eager step has no program
+    # to read ahead of time, see obs/ledger.py)
+    ledger_from = ranks.stats.as_dict() if obs_on else None
+
+    def emit(kind: str, **fields) -> None:
+        if writer is not None:
+            writer.event(kind, **fields)
+
+    def span(name: str, seconds: float, **fields) -> None:
+        phase_totals.add(name, seconds, n=fields.get("n", 1))
+        if writer is not None:
+            writer.span(name, seconds, **fields)
+
+    def flush_metrics():
+        """ONE device-to-host copy for every pending round; returns the
+        last decoded scalar row (dict) or None.  Closes the running
+        train-window span: the copy is its fence."""
+        nonlocal window_t0, window_steps
+        if not pending:
+            return None
+        fetched = OM.fetch_metrics([m for _, m in pending])
+        if obs_on and window_steps:
+            span("train_window", time.monotonic() - window_t0, n=window_steps,
+                 step=pending[-1][0])
+        row = None
+        for (step_no, _), m in zip(pending, fetched):
+            vals = OM.decode_metrics_row(m)
+            if writer is not None:
+                writer.metrics_row(step_no, vals)
+            row = dict(zip(OM.METRIC_NAMES, (float(v) for v in vals)))
+        pending.clear()
+        window_steps = 0
+        window_t0 = time.monotonic()
+        return row
+
+    # --- runtime sanitizers (the reference's docs/analysis.md): no host
+    # sync around each step call; the eval / log / checkpoint reads and the
+    # guard's verdict stay OUTSIDE, at the sanctioned sync points ---
+    step_guard = (functools.partial(SAN.no_implicit_host_sync, dev) if s.sanitize
+                  else contextlib.nullcontext)
+
     batches = make_batches(start_step)
     t = start_step
     _sync(dev)
     t0 = time.time()
-    while t < s.steps:
-        ts = time.perf_counter()
-        tokens = torch.as_tensor(next(batches)["tokens"][rows], dtype=torch.long).to(dev)
-        fr = plan.round(t, dev) if plan is not None else None
-        if guards_on:
-            state, guard, metrics = step_fn(state, guard, tokens, rng, fr)
-        else:
-            state, metrics = step_fn(state, tokens, rng, fr)
-        history.append(metrics["loss"])     # device scalar, read at sync points
-        _sync(dev)
-        step_s.append(time.perf_counter() - ts)
-        if on_round is not None:
-            on_round(t, state, metrics)
+    window_t0 = time.monotonic()
+    window_steps = 0
+    last_row = None
+    try:
+        while t < s.steps:
+            if profile is not None:
+                tick = time.monotonic()
+                profile.tick(t)
+                # the profiler's start and trace export stay out of the train window
+                window_t0 += time.monotonic() - tick
+            ts = time.perf_counter()
+            tokens = batch_tokens(next(batches))
+            fr = plan.round(t, dev) if plan is not None else None
+            with step_guard():
+                if guards_on:
+                    state, guard, metrics, counters = step_fn(state, guard, tokens, rng, fr)
+                else:
+                    state, metrics = step_fn(state, tokens, rng, fr)
+                history.append(metrics["loss"])     # device scalar, read at sync points
+                pending.append((t + 1, metrics))
+                window_steps += 1
+            if guards_on:
+                G.settle_counters(state, metrics, counters)   # the verdict's host read
+            _sync(dev)
+            step_s.append(time.perf_counter() - ts)
+            if s.sanitize_nans:
+                SAN.debug_nans(t + 1, state=state, guard=guard, metrics=metrics)
+            if ledger_from is not None:
+                emit("comm_ledger", **OL.observed_ledger(
+                    OL.stats_delta(ledger_from, ranks.stats.as_dict()), numel=lay.numel,
+                    n_param_leaves=len(lay.names), param_bytes=cfg.p_dtype.itemsize,
+                    algo="dsm" if s.algorithm in _DSM_FAMILY else s.algorithm, tau=s.tau,
+                    phase="global_zero" if s.zero_sharded and topo is not None
+                    else "global_dense", world=topo.world if topo is not None else 1,
+                    name="train_step"))
+                ledger_from = None
+            if on_round is not None:
+                on_round(t, state, metrics)
 
-        if rollback_on and int(guard.bad_streak) >= s.guard_patience:
-            if rollbacks >= s.guard_max_rollbacks:
-                raise RuntimeError(
-                    f"training diverged: {int(guard.bad_streak)} consecutive "
-                    f"bad rounds at step {t} after {rollbacks} rollbacks")
-            rollbacks += 1
-            t_ck, extra = restore_latest()
-            guard = guard._replace(bad_streak=torch.zeros_like(guard.bad_streak))
-            history = [float(x) for x in extra.get("history", [])]
-            evals = [tuple(e) for e in extra.get("evals", [])]
-            if log:
-                log(f"rollback #{rollbacks}: step {t} -> checkpoint at {t_ck}")
-            batches = make_batches(t_ck)
-            t = t_ck
-            continue
+            if rollback_on and int(guard.bad_streak) >= s.guard_patience:
+                last_row = flush_metrics() or last_row  # rejected rounds are observations
+                if rollbacks >= s.guard_max_rollbacks:
+                    raise RuntimeError(
+                        f"training diverged: {int(guard.bad_streak)} consecutive "
+                        f"bad rounds at step {t} after {rollbacks} rollbacks")
+                rollbacks += 1
+                t_ck, extra = restore_latest()
+                guard = guard._replace(bad_streak=torch.zeros_like(guard.bad_streak))
+                history = [float(x) for x in extra.get("history", [])]
+                evals = [tuple(e) for e in extra.get("evals", [])]
+                emit("rollback", step=t, to_step=t_ck, n=rollbacks)
+                if log:
+                    log(f"rollback #{rollbacks}: step {t} -> checkpoint at {t_ck}")
+                batches = make_batches(t_ck)
+                t = t_ck
+                window_t0 = time.monotonic()
+                continue
 
-        t += 1
-        if t % s.eval_every == 0 or t == s.steps:
-            el = eval_loss()
-            evals.append((t, el))
-            if log:
-                log(f"step {t:4d} train={float(history[-1]):.4f} eval={el:.4f}")
-        if ckpt_on and t % ckpt_every == 0:
-            history = [float(x) for x in history]   # a checkpoint is a sync point
-            save(t)
+            t += 1
+            is_eval = t % s.eval_every == 0 or t == s.steps
+            is_log = t % log_every == 0
+            did_ckpt = ckpt_on and t % ckpt_every == 0
+            if is_eval or is_log or did_ckpt:
+                last_row = flush_metrics() or last_row
+            if is_eval:
+                with OT.Span("eval", dev) as sp:
+                    el = eval_loss()
+                if obs_on:
+                    span("eval", sp.seconds, step=t)
+                    emit("eval", step=t, eval_loss=el)
+                evals.append((t, el))
+                if log:
+                    train = last_row["loss"] if last_row else float(history[-1])
+                    log(f"step {t:4d} train={train:.4f} eval={el:.4f}")
+            elif is_log and log and last_row is not None:
+                log(f"step {t:4d} train={last_row['loss']:.4f}")
+            if did_ckpt:
+                history = [float(x) for x in history]   # a checkpoint is a sync point
+                with OT.Span("checkpoint", dev) as sp:
+                    save(t)
+                if obs_on:
+                    span("checkpoint", sp.seconds, step=t)
+                    emit("checkpoint", step=t)
+            if obs_on and (is_eval or is_log or did_ckpt):
+                # eval / checkpoint time must not leak into the next train window
+                window_t0 = time.monotonic()
+    finally:
+        if profile is not None:
+            profile.close()
     wall = time.time() - t0
+    tokens_total = s.steps * s.tau * s.n_workers * s.b_micro * s.seq
+    last_row = flush_metrics() or last_row      # tail rounds (early exits)
     out = {
         "history": [float(x) for x in history],
         "eval_losses": evals,
         "final_eval": evals[-1][1] if evals else float("nan"),
-        "tokens": s.steps * s.tau * s.n_workers * s.b_micro * s.seq,
+        "tokens": tokens_total,
         "comm_rounds": int(s.steps * comm_mult),
         "wall_s": wall,
         "outer_step_s": step_s,
@@ -410,7 +576,57 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         "restore_s": restore_s,
         "state": state,
         "comm": ranks.stats.as_dict(),
+        # an eager step compiles nothing: the reference's recompilation
+        # counter has no counterpart
+        "step_compiles": None,
+        "run_dir": s.run_dir,
+        "phase_ms": None,
+        "final_metrics": last_row,
+        "probe_launches": None,
     }
     if dev.type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if obs_on:
+        steps_done = t - start_step
+        if s.algorithm in _DSM_FAMILY and steps_done > 0:
+            out["probe_launches"] = probe_phases(
+                span, state, guard, step_fn, make_local_phase(loss_fn, get_base_optimizer(
+                    s.base_opt), lay), batch_tokens(next(make_batches(start_step))),
+                plan.round(start_step, dev) if plan is not None else None, s, dev)
+        mem = OT.device_memory_stats(dev)
+        if mem is not None:
+            emit("device_memory", stats=mem)
+        emit("finished", steps=steps_done, wall_s=wall,
+             steps_per_s=steps_done / wall if wall > 0 else None, tokens=tokens_total,
+             tokens_per_s=tokens_total / wall if wall > 0 else None,
+             skipped_rounds=out["skipped_rounds"], rollbacks=rollbacks)
+        out["phase_ms"] = phase_totals.as_dict()
+        if writer is not None:
+            writer.close()
     return out
+
+
+def probe_phases(span, state, guard, step_fn, local_phase, tokens, fr, s: TrainSettings,
+                 dev) -> dict:
+    """The post-run phase probe (the reference's): the local phase and the
+    whole outer step cannot be fenced apart inside a round, so both are
+    timed here (median of 3 after 1 warm-up, CUDA events on the card), and
+    global step = outer step - local phase, written with ``probe=True``.
+    The port's steps update their state in place, so the probe runs on a
+    clone of the final state (its scratch shared) and of the guard and the
+    generator: the run's results stay as they were.  Returns the kernel
+    launches the probe made, which the run's own counts do not hold."""
+    before = K.launch_counts()
+    st = Z.map_state(state, torch.clone)
+    rng = torch.Generator(device=dev).manual_seed(s.seed)
+    if guard is not None:
+        g = G.GuardState(*(x.clone() for x in guard))
+        outer = functools.partial(step_fn, st, g, tokens, rng, fr)
+    else:
+        outer = functools.partial(step_fn, st, tokens, rng, fr)
+    local_s = OT.timeit_fenced(lambda: local_phase(st, tokens, s.peak_lr), iters=3, device=dev)
+    step_s = OT.timeit_fenced(outer, iters=3, device=dev)
+    span("local_phase", local_s, probe=True)
+    span("global_step", max(step_s - local_s, 0.0), probe=True)
+    del st
+    return {k: n - before[k] for k, n in K.launch_counts().items()}

@@ -34,6 +34,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "dsm.py", "trainer.py", "adamw_update.py"} <= names
+    rel = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
+    assert {f"obs/{m}.py" for m in ("sinks", "tracing", "comm_model", "ledger", "summarize",
+                                    "__main__")} | {"analysis/sanitize.py"} <= rel
 
 
 def test_entry_points_default_to_the_card():

@@ -37,7 +37,9 @@ def train_rank(rank: int, world: int, cfg, settings: list, device: str = "cpu",
     collectives timed, for each of ``settings`` in turn.  Each result (on
     the CPU) holds ``history``, ``eval_losses``, ``final_eval``,
     ``skipped_rounds``, ``rollbacks``, ``outer_step_s``, ``comm``,
-    ``peak_bytes`` (on the card) and this process's kernel ``launches``; on
+    ``final_metrics``, ``peak_bytes`` (on the card) and this process's kernel
+    ``launches`` in the run (with a ``run_dir``, those of the post-run phase
+    probe are apart, in ``probe_launches``); on
     rank 0 also ``state``, the final state in the dense layout
     (:func:`flat_state`), or only its ``fields`` of the DSM state (for
     example ``("x0", "m")``, which a full-width run gathers without the
@@ -55,7 +57,8 @@ def train_rank(rank: int, world: int, cfg, settings: list, device: str = "cpu",
             torch.cuda.reset_peak_memory_stats()
         res = run_training(cfg, s, corpus, device=device, params=params, group=group,
                            time_collectives=True)
-        res["launches"] = K.launch_counts()
+        probe = res["probe_launches"] or {}
+        res["launches"] = {k: n - probe.get(k, 0) for k, n in K.launch_counts().items()}
         state = res.pop("state")
         topo = mesh.topology(s.n_workers, group) if splits_workers(s) else None
         if fields is not None:
