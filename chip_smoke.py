@@ -18,7 +18,13 @@ main_path's run again with a run directory, a metric flush every round, a
 torch.profiler capture of one outer step and the host-sync sanitizer, held
 bit for bit against main_path and read back (kernel launches, device busy
 share and idle gaps from the trace); the ZeRO ranks write run directories
-whose comm ledger must equal their counted collectives.
+whose comm ledger must equal their counted collectives.  Last, the paper's
+other GPT-2 sizes and serving: the AdamW kernel bit for bit past 2^31
+elements, GPT-2 medium and large trained at full width through both
+kernels, generate on the trained large model held against its full
+forward, and card vs CPU for serving (nano) and the dense GQA/MQA archs
+(SMOKE).  algorithms_full_width and resume_full_width run GPT-2 small at
+full width with its depth cut to CUT_LAYERS layers.
 
     python3 chip_smoke.py
 
@@ -31,8 +37,10 @@ lists every kernel; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -67,6 +75,16 @@ NANO_RTOL = 1e-4                # card vs CPU loss history, see phase_card_vs_cp
 SIGN_LIKE_RTOL = 1e-3
 SIGN_LIKE_BASE_OPTS = ("lion", "sophia")
 ALGO_STEPS = 3
+# algorithms_full_width and resume_full_width run gpt2_small at full width
+# with its depth cut to this many layers, to keep the whole command well
+# inside its time limit (PERF.md section 4)
+CUT_LAYERS = 2
+# the card-vs-CPU phases run their CPU side in worker processes, beside
+# their card runs (which are timed by no one); nano's small ops gain more
+# from processes than from threads
+CPU_WORKERS = 3
+CPU_WORKER_THREADS = 2
+CPU_RUN_TIMEOUT_S = 900
 # each baseline's global step size as benchmarks/tables.py runs it; the
 # others take MAIN's global_lr
 ALGO_GLOBAL_LR = {"slowmo": 1.0, "signed_slowmo": 0.005, "lookahead": 1.0,
@@ -96,6 +114,29 @@ RANKS = 4                       # processes sharing the card over gloo, one work
 ZERO_RTOL = 1e-4                # ranks vs main path, loss history (bit-equal expected)
 NCCL_STEPS = 2
 RANKS_TIMEOUT_S = 600
+# the paper's other GPT-2 sizes at full width (vocab padded to 50,688)
+PAPER_SIZES = (("gpt2_medium", 353_944_576), ("gpt2_large", 772_762_880))
+PAPER_STEPS = 3
+# the AdamW kernel past 2^31 elements: two rows of 2^30 + RAGGED
+PAST_2G_SHAPE = (2, 2 ** 30 + RAGGED)
+INT32_EDGE = 2 ** 31
+PAST_2G_CHUNK = 1 << 28         # elements per slice of the plain version's check
+ARCH_SMOKES = ("gpt2_medium", "gpt2_large", "deepseek_67b", "granite_34b", "minitron_4b")
+ARCH_STEPS = 2
+ARCH_BATCH = dict(b_micro=2, seq=64)    # archs_card_vs_cpu's microbatch: the CPU side's cost
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 32
+# serve_full_width: decode logits against the full forward, bf16 through 36
+# layers.  The two paths run the same ops at other shapes (one query row
+# against a cache, or every row at once), so a GEMM may round a bf16
+# activation one ulp (2^-8 relative) the other way; across the 72 residual
+# adds that is ~sqrt(72) * 2^-9 ~ 1.7% of the final state typically and 14%
+# at worst; the row prints the largest logit beside the error
+SERVE_ATOL = 0.25
+# the same check with the trained x0 in f32 (activations f32, no TF32), over
+# the first SERVE_F32_STEPS tokens: only the summation orders differ there
+SERVE_F32_ATOL = 1e-3
+SERVE_F32_STEPS = 8
+SERVE_CPU_ATOL = 1e-4           # serve_card_vs_cpu: nano f32 decode logits
 
 
 T0 = time.perf_counter()
@@ -278,14 +319,25 @@ def phase_times(torch, K, smi):
                                                                     **ADAMW_HP)),
         }
         adamw["bound_ms"], adamw["bound_by"] = bound_ms(w * n * (3 * es + 4 * 4), w * n * 16)
-        # yardstick only, never called by the port: PyTorch's fused AdamW needs
-        # its moments in the param dtype, so they are cast for it (bf16 moments
-        # move 8 fewer bytes per element than the port's f32 ones)
-        mm_l, v_l = mm.to(dtype), v.to(dtype)
+        # yardstick only, never called by the port: PyTorch's fused AdamW,
+        # first on the kernel's own inputs (param-dtype p and g, f32
+        # moments), then with the moments cast to the param dtype (bf16
+        # moments move 8 fewer bytes per element than the port's f32 ones)
         steps = [torch.zeros((), dtype=torch.float32, device="cuda")]
-        adamw["library_ms"] = median_ms(torch, lambda: torch._fused_adamw_(
-            [p], [g], [mm_l], [v_l], [], steps, lr=1e-3, beta1=0.9, beta2=0.95,
-            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False))
+
+        def fused(mm_l, v_l):
+            return lambda: torch._fused_adamw_(
+                [p], [g], [mm_l], [v_l], [], steps, lr=1e-3, beta1=0.9, beta2=0.95,
+                weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False)
+
+        try:
+            adamw["library_ms"] = median_ms(torch, fused(mm, v))
+            adamw["library_same_inputs"] = True
+        except RuntimeError as e:   # the library's answer is the measurement
+            adamw["library_ms"] = None
+            adamw["library_same_inputs"] = f"refused: {str(e).splitlines()[0][:300]}"
+        mm_l, v_l = mm.to(dtype), v.to(dtype)
+        adamw["library_param_dtype_moments_ms"] = median_ms(torch, fused(mm_l, v_l))
         del p, g, mm, v, mm_l, v_l
         torch.cuda.empty_cache()
         out[str(dtype)] = {"dsm_update": dsm, "adamw_update": adamw}
@@ -445,7 +497,37 @@ def phase_obs_full_width(torch, K, smi, main_final, main_cost):
     return {k: launches[k] + probe[k] for k in want}
 
 
-def phase_card_vs_cpu(torch):
+def cpu_run(cfg, s, params) -> dict:
+    """``run_training(cfg, s, device="cpu", params=params)`` in a CPU worker
+    process; its history, skipped rounds and rollbacks."""
+    from repro_torch.train.trainer import run_training
+
+    res = run_training(cfg, s, device="cpu", params=params)
+    return {k: res[k] for k in ("history", "skipped_rounds", "rollbacks")}
+
+
+def cpu_worker_init() -> None:
+    """Each worker at its start: its torch threads, and the imports of
+    cpu_run."""
+    import torch
+
+    import repro_torch.train.trainer  # noqa: F401
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def cpu_worker():
+    """CPU_WORKERS processes (spawned, all started now) for the card-vs-CPU
+    phases' CPU runs; the caller shuts them down."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=cpu_worker_init)
+    for _ in range(CPU_WORKERS):     # one process per submit while none is idle
+        pool.submit(int)
+    return pool
+
+
+def phase_card_vs_cpu(torch, pool):
     """Nano, same init and batches, kernels on the card vs plain versions on
     the CPU.  Bound NANO_RTOL on each outer step's train loss: the two
     devices sum in other orders, and sign() (and AdamW's sign-like first
@@ -458,14 +540,26 @@ def phase_card_vs_cpu(torch):
 
     s = TrainSettings(tau=TOPO.tau, steps=NANO_STEPS, eval_every=NANO_STEPS, **MAIN)
     x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    cpu = pool.submit(cpu_run, NANO, s, x0)
     card = run_training(NANO, s, device="cuda", params=x0)
-    cpu = run_training(NANO, s, device="cpu", params=x0)
+    cpu = cpu.result(timeout=CPU_RUN_TIMEOUT_S)
     rel = [abs(a - b) / abs(b) for a, b in zip(card["history"], cpu["history"])]
     emit({"phase": "card_vs_cpu", "config": NANO.name, "card": card["history"],
           "cpu": cpu["history"], "max_rel_diff": max(rel), "rtol": NANO_RTOL,
           "card_outer_step_ms": [t * 1e3 for t in card["outer_step_s"]]})
     if max(rel) > NANO_RTOL:
         raise AssertionError(f"card and CPU loss histories differ by {max(rel)}")
+
+
+def gpt2_small_cut():
+    """gpt2_small.FULL (width 768, vocab padded to 50,688, bf16) at CUT_LAYERS
+    layers."""
+    import dataclasses
+
+    from repro_torch.configs import gpt2_small
+
+    return dataclasses.replace(gpt2_small.FULL, name=f"gpt2_small_{CUT_LAYERS}l",
+                               n_layers=CUT_LAYERS)
 
 
 def algo_settings(TrainSettings, run: dict, tau: int):
@@ -492,14 +586,15 @@ def check_launches(name, launches, want) -> None:
 
 
 def phase_algorithms_full_width(torch, K, smi):
-    """gpt2_small.FULL, W=4, tau=12: every baseline, DSM with Sophia local
-    steps and DSM with the randomized sign, ALGO_STEPS outer steps each."""
+    """gpt2_small at full width and CUT_LAYERS layers, W=4, tau=12: every
+    baseline, DSM with Sophia local steps and DSM with the randomized sign,
+    ALGO_STEPS outer steps each."""
     from repro_torch.configs import gpt2_small
     from repro_torch.data.pipeline import TextCorpus
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import TrainSettings, run_training
 
-    cfg = gpt2_small.FULL
+    cfg = gpt2_small_cut()
     corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
     x0 = T.init_params(torch.Generator().manual_seed(0), cfg)
     total = dict.fromkeys(K.launch_counts(), 0)
@@ -532,7 +627,7 @@ def phase_algorithms_full_width(torch, K, smi):
     return total
 
 
-def phase_algorithms_card_vs_cpu(torch, K):
+def phase_algorithms_card_vs_cpu(torch, K, pool):
     """Nano, the same init and batches on the card and the CPU, for every
     deterministic algorithm and DSM with each base optimizer: each train
     loss within NANO_RTOL (the reason is phase_card_vs_cpu's), or
@@ -547,12 +642,15 @@ def phase_algorithms_card_vs_cpu(torch, K):
     x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
     total = dict.fromkeys(K.launch_counts(), 0)
     rows, failures = [], []
-    for run in NANO_DETERMINISTIC_RUNS + NANO_RANDOM_RUNS:
+    runs = NANO_DETERMINISTIC_RUNS + NANO_RANDOM_RUNS
+    cpu_runs = [pool.submit(cpu_run, NANO, algo_settings(TrainSettings, run, TOPO.tau), x0)
+                for run in runs]
+    for run, cpu in zip(runs, cpu_runs):
         s = algo_settings(TrainSettings, run, TOPO.tau)
         K.reset_launch_counts()
         card = run_training(NANO, s, device="cuda", params=x0)["history"]
         launches = K.launch_counts()
-        cpu = run_training(NANO, s, device="cpu", params=x0)["history"]
+        cpu = cpu.result(timeout=CPU_RUN_TIMEOUT_S)["history"]
         check_launches(f"nano {run_name(run)}", launches, expected_launches(s))
         for k, n in launches.items():
             total[k] += n
@@ -710,10 +808,11 @@ def bit_equal(torch, a: dict, b: dict) -> bool:
             and torch.equal(bits(torch, a["m"]), bits(torch, b["m"])))
 
 
-def phase_resume_full_width(torch, K, smi, main_final):
-    """gpt2_small.FULL, DSM + AdamW, the main path's settings.  Repeat: one
-    more uninterrupted 4-step run against main_path's (default algorithms),
-    then two under torch.use_deterministic_algorithms(True, warn_only=True).
+def phase_resume_full_width(torch, K, smi):
+    """gpt2_small at full width and CUT_LAYERS layers, DSM + AdamW, the main
+    path's settings.  Repeat: two uninterrupted 4-step runs (default
+    algorithms; obs_full_width repeats main_path itself at full depth), then
+    two under torch.use_deterministic_algorithms(True, warn_only=True).
     Resume, in that mode: 2 steps with checkpoint_every=2, then resume=True
     to step 4, into a temporary directory that the phase removes.  If the
     two deterministic runs agree bit for bit, the resumed history and final
@@ -722,7 +821,7 @@ def phase_resume_full_width(torch, K, smi, main_final):
     from repro_torch.data.pipeline import TextCorpus
     from repro_torch.train.trainer import TrainSettings, run_training
 
-    cfg = gpt2_small.FULL
+    cfg = gpt2_small_cut()
     corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
     total = dict.fromkeys(K.launch_counts(), 0)
 
@@ -743,7 +842,7 @@ def phase_resume_full_width(torch, K, smi, main_final):
         del res
         return out
 
-    default = run()
+    default, default_b = run(), run()
     warn = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -761,7 +860,7 @@ def phase_resume_full_width(torch, K, smi, main_final):
         finally:
             torch.use_deterministic_algorithms(False)
     warn = sorted({str(w.message).splitlines()[0][:200] for w in caught})
-    repeat_default = bit_equal(torch, default, main_final)
+    repeat_default = bit_equal(torch, default, default_b)
     repeat_det = bit_equal(torch, det_a, det_b)
     gap = max_gap(torch, det_a, det_b)
     resume_gap = max_gap(torch, resumed, det_a)
@@ -771,7 +870,7 @@ def phase_resume_full_width(torch, K, smi, main_final):
     emit({"phase": "resume_full_width", "gpu": smi, "config": cfg.name,
           "outer_steps": RESUME_STEPS, "killed_at": 2,
           "default_repeat_bit_exact": repeat_default,
-          "default_repeat_gap": max_gap(torch, default, main_final),
+          "default_repeat_gap": max_gap(torch, default, default_b),
           "deterministic_repeat_bit_exact": repeat_det, "deterministic_repeat_gap": gap,
           "deterministic_warnings": warn, "resumed_gap": resume_gap, "resume": held,
           "history": det_a["history"], "resumed_history": resumed["history"],
@@ -787,7 +886,7 @@ def phase_resume_full_width(torch, K, smi, main_final):
     return total
 
 
-def phase_robustness_card_vs_cpu(torch, K):
+def phase_robustness_card_vs_cpu(torch, K, pool):
     """Nano, the hand-built fault plan and guards on the card and the CPU:
     (a) mask_nonfinite + guard_nonfinite; (b) the same plus SPIKE_FACTOR,
     which rejects every round after the first, with checkpoints every round,
@@ -811,24 +910,32 @@ def phase_robustness_card_vs_cpu(torch, K):
     rows, failures = [], []
     tmp_root = ROOT / "build"
     tmp_root.mkdir(exist_ok=True)
-    for name, kw in runs.items():
+    with tempfile.TemporaryDirectory(dir=tmp_root) as d:
+
+        def settings(name, kw, side):
+            ck = os.path.join(d, f"{name}_{side}")
+            os.makedirs(ck)
+            return TrainSettings(tau=TOPO.tau, steps=len(FAULT_ROUNDS),
+                                 eval_every=len(FAULT_ROUNDS), faults=plan, mask_nonfinite=True,
+                                 guard_nonfinite=True, checkpoint_dir=ck if kw else None,
+                                 **MAIN, **kw)
+
+        cpu_runs = {name: pool.submit(cpu_run, NANO, settings(name, kw, "cpu"), x0)
+                    for name, kw in runs.items()}
         out = {}
-        for dev in ("cuda", "cpu"):
-            with tempfile.TemporaryDirectory(dir=tmp_root) as d:
-                s = TrainSettings(tau=TOPO.tau, steps=len(FAULT_ROUNDS),
-                                  eval_every=len(FAULT_ROUNDS), faults=plan,
-                                  mask_nonfinite=True, guard_nonfinite=True,
-                                  checkpoint_dir=d if kw else None, **MAIN, **kw)
-                K.reset_launch_counts()
-                res = run_training(NANO, s, device=dev, params=x0)
-                if dev == "cuda":
-                    n_rounds = len(res["outer_step_s"])     # replayed rounds included
-                    check_launches(f"nano {name}", K.launch_counts(),
-                                   {"dsm_update": n_rounds, "adamw_update": n_rounds * s.tau})
-                    for k, n in K.launch_counts().items():
-                        total[k] += n
-                out[dev] = {k: res[k] for k in ("history", "skipped_rounds", "rollbacks")}
-        card, cpu = out["cuda"], out["cpu"]
+        for name, kw in runs.items():
+            s = settings(name, kw, "card")
+            K.reset_launch_counts()
+            res = run_training(NANO, s, device="cuda", params=x0)
+            n_rounds = len(res["outer_step_s"])     # replayed rounds included
+            check_launches(f"nano {name}", K.launch_counts(),
+                           {"dsm_update": n_rounds, "adamw_update": n_rounds * s.tau})
+            for k, n in K.launch_counts().items():
+                total[k] += n
+            out[name] = ({k: res[k] for k in ("history", "skipped_rounds", "rollbacks")},
+                         cpu_runs[name].result(timeout=CPU_RUN_TIMEOUT_S))
+    for name, kw in runs.items():
+        card, cpu = out[name]
         rel = max(abs(a - b) / abs(b) for a, b in zip(card["history"], cpu["history"]))
         rows.append({"run": name, "card": card, "cpu": cpu, "max_rel_diff": rel,
                      "rtol": NANO_RTOL})
@@ -1074,6 +1181,335 @@ def phase_zero_card_vs_cpu(torch, K):
     return {k: sum(ls[k] for ls in launch_sets) for k in want}
 
 
+def local_step_breakdown(torch, cfg, state, corpus, s) -> dict:
+    """One local step on a trained state (every worker's forward and
+    backward, one AdamW launch): its host-clock ms (synced), then the same
+    step under torch.profiler: device busy ms and share, device operations,
+    the top ones.  Changes the state; its launches are not the run's."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.base_opt import get_base_optimizer
+    from repro_torch.core.dsm import make_local_phase
+    from repro_torch.data.pipeline import dsm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.obs.tracing import profile_summary
+
+    local = make_local_phase(lambda p, t: T.loss_fn(p, t, cfg), get_base_optimizer("adamw"),
+                             T.layout(cfg))
+    raw = next(dsm_batches(corpus, s.n_workers, 1, 1, s.b_micro, s.seq, seed=s.seed))
+    tokens = torch.as_tensor(raw["tokens"], dtype=torch.long, device="cuda")
+    local(state, tokens, 1e-5)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    local(state, tokens, 1e-5)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("dsm_local_phase"):
+                local(state, tokens, 1e-5)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(f"{d}/local_step.json")
+        summ = profile_summary(f"{d}/local_step.json", top=5, gaps=0)
+    return {"host_ms": host_ms, "profiled_window_ms": summ.get("window_us", 0) / 1e3,
+            "device_busy_ms": summ.get("busy_us", 0) / 1e3, "busy_share": summ["busy_share"],
+            "device_events": summ["device_events"], "top_ops": summ.get("top_ops")}
+
+
+def phase_paper_sizes_full_width(torch, K, smi):
+    """gpt2_medium.FULL, then gpt2_large.FULL: depth and widths as
+    published, bf16 params, W=4, tau=TOPO.tau, B_micro=4, S=128, the
+    config's paper PEAK_LR and the main path's other settings, PAPER_STEPS
+    outer steps with an eval after each, through run_training and both
+    kernels.  Per size: N equal to specs.param_count, PAPER_STEPS DSM and
+    PAPER_STEPS * tau AdamW launches, finite losses, the last eval below the
+    first, the peak (reset, cache emptied before each size) under the card's
+    memory; each kernel timed at that N on the trained state's buffers
+    beside its byte bound; one local step's host time and device busy time.
+    Returns (launches, gpt2_large's trained x0)."""
+    from repro_torch.configs import load_arch, specs
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    total = dict.fromkeys(K.launch_counts(), 0)
+    rows, failures, kept = [], [], None
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    for arch, n_want in PAPER_SIZES:
+        mod = load_arch(arch)
+        cfg = mod.FULL
+        n = specs.param_count(cfg)
+        if n != n_want:
+            raise AssertionError(f"{arch}: specs.param_count {n}, want {n_want}")
+        s = TrainSettings(tau=mod.TOPO.tau, steps=PAPER_STEPS, eval_every=1,
+                          **{**MAIN, "peak_lr": mod.PEAK_LR})
+        kept = None                 # gpt2_medium's x0 goes before gpt2_large starts
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        res = run_training(cfg, s, corpus, device="cuda")
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        state = res.pop("state")
+        hist, evals, step_s = res["history"], [e for _, e in res["eval_losses"]], res[
+            "outer_step_s"]
+        del res
+        kept = state.x0.clone()     # the trained x0 (the timings below overwrite the state)
+        w = s.n_workers
+        p, g, mm, v = state.params, state.grads, state.base_state.m, state.base_state.v
+        adamw = {"elements": w * n,
+                 "ms": median_ms(torch, lambda: K.adamw_update(p, g, mm, v, 1e-5, 11,
+                                                               **ADAMW_HP))}
+        adamw["bound_ms"], adamw["bound_by"] = bound_ms(w * n * 22, w * n * 16)
+        dsm = {"elements": n, "ms": median_ms(torch, lambda: K.dsm_update(
+            state.x0, state.m, p[0], 1e-5, **DSM_HP))}
+        dsm["bound_ms"], dsm["bound_by"] = bound_ms(n * 14, n * 12)
+        breakdown = local_step_breakdown(torch, cfg, state, corpus, s)
+        del state, p, g, mm, v
+        step_ms = statistics.median(step_s[1:]) * 1e3
+        tokens_per_step = s.n_workers * s.tau * s.b_micro * s.seq
+        rows.append({"config": cfg.name, "n_params": n, "n_layers": cfg.n_layers,
+                     "d_model": cfg.d_model, "padded_vocab": cfg.padded_vocab,
+                     "param_dtype": cfg.param_dtype, "peak_lr": s.peak_lr,
+                     "global_lr": s.global_lr, "history": hist, "evals": evals,
+                     "outer_step_ms": [t * 1e3 for t in step_s],
+                     "outer_step_ms_median_steps_2_3": step_ms,
+                     "tokens_per_outer_step": tokens_per_step,
+                     "tokens_per_s": tokens_per_step / (step_ms / 1e3),
+                     "max_memory_allocated_bytes": peak, "launches": launches,
+                     "adamw_update": adamw, "dsm_update": dsm, "local_step": breakdown})
+        want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
+        if launches != want:
+            failures.append(f"{arch}: launch counts {launches}, want {want}")
+        if not all(math.isfinite(x) for x in hist + evals):
+            failures.append(f"{arch}: non-finite loss {hist}, evals {evals}")
+        elif not evals[-1] < evals[0]:
+            failures.append(f"{arch}: eval loss did not fall: {evals}")
+        if not peak < card_bytes:
+            failures.append(f"{arch}: peak {peak} B of the card's {card_bytes}")
+        for k in total:
+            total[k] += launches[k]
+    emit({"phase": "paper_sizes_full_width", "gpu": smi, "n_workers": MAIN["n_workers"],
+          "tau": s.tau, "b_micro": MAIN["b_micro"], "seq": MAIN["seq"],
+          "outer_steps": PAPER_STEPS, "card_bytes": card_bytes, "sizes": rows})
+    if failures:
+        raise AssertionError("paper_sizes_full_width: " + "; ".join(failures))
+    return total, kept
+
+
+def phase_kernels_past_2g(torch, K):
+    """The AdamW kernel bit for bit against its plain version (bf16 params,
+    f32 moments, the training path's rounding) on one (2, 2^30 + RAGGED)
+    buffer, 2^31 + 2 * RAGGED elements: past the int32 range, with a vector
+    tail of (2^30 + RAGGED) * 2 mod 8 elements.  Zeros, -0 and NaN are
+    planted in g and p at offsets just below and above 2^31 (and the last
+    element).  The plain version runs slice by slice on saved copies of the
+    inputs, so the check fits the card; everything is freed after."""
+    from repro_torch.kernels.adamw_update import adamw_update_plain
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    p, g, m, v = adamw_inputs(torch, gen, PAST_2G_SHAPE, torch.bfloat16)
+    n = p.numel()
+    flat = [t.view(-1) for t in (p, g, m, v)]
+    planted = [INT32_EDGE - 2, INT32_EDGE - 1, INT32_EDGE, INT32_EDGE + 1, n - 1]
+    for off, (pv, gv) in zip(planted, ((-0.0, 0.0), (1.0, float("nan")), (0.0, -0.0),
+                                       (-1.0, float("nan")), (0.5, 0.0))):
+        flat[0][off], flat[1][off] = pv, gv
+    saved = [t.clone() for t in (flat[0], flat[2], flat[3])]
+    K.adamw_update(p, g, m, v, 1e-3, 11, **ADAMW_HP)
+    worst = 0.0
+    for a in range(0, n, PAST_2G_CHUNK):
+        b = min(a + PAST_2G_CHUNK, n)
+        ref = [t[a:b] for t in saved]
+        adamw_update_plain(ref[0], flat[1][a:b], ref[1], ref[2], 1e-3, 11, **ADAMW_HP)
+        worst = max(worst, compare(torch, [flat[0][a:b], flat[2][a:b], flat[3][a:b]], ref))
+    at = {str(off): {"p": flat[0][off].item(), "m": flat[2][off].item(),
+                     "v": flat[3][off].item()} for off in planted}
+    del saved, ref
+    # timed after the check, on the updated buffers (median of 5 launches)
+    ms = median_ms(torch, lambda: K.adamw_update(p, g, m, v, 1e-3, 11, **ADAMW_HP), reps=5,
+                   warmup=1)
+    del p, g, m, v, flat
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_past_2g", "kernel": "adamw_update", "shape": list(PAST_2G_SHAPE),
+          "elements": n, "past_int32_by": n - INT32_EDGE, "dtype": "torch.bfloat16",
+          "round_direction": True, "tolerance": "bitwise (atol 0, rtol 0), NaN where NaN",
+          "max_abs_err": worst, "ms": ms, "bound_ms": bound_ms(n * 22, n * 16)[0],
+          "max_memory_allocated_bytes": peak, "planted": at})
+    if not (math.isnan(at[str(INT32_EDGE + 1)]["p"]) and at[str(INT32_EDGE)]["p"] != 0.0):
+        raise AssertionError(f"kernels_past_2g: planted values {at}")
+
+
+def phase_archs_card_vs_cpu(torch, K, pool):
+    """The SMOKE configs of ARCH_SMOKES (f32: GQA, MQA, gated SiLU, untied
+    heads), the same init and batches on the card (kernels) and the CPU
+    (plain versions): ARCH_STEPS DSM outer steps with TOPO.base_opt and
+    TOPO.tau, microbatches of ARCH_BATCH, the main path's other settings.
+    Each train loss within NANO_RTOL; ARCH_STEPS DSM and ARCH_STEPS * tau
+    AdamW launches.  Every line is printed before any bound is checked."""
+    from repro_torch.configs import load_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    total = dict.fromkeys(K.launch_counts(), 0)
+    rows, failures = [], []
+    jobs = []
+    for arch in ARCH_SMOKES:
+        mod = load_arch(arch)
+        s = TrainSettings(tau=mod.TOPO.tau, steps=ARCH_STEPS, eval_every=ARCH_STEPS,
+                          base_opt=mod.TOPO.base_opt, **{**MAIN, **ARCH_BATCH})
+        x0 = T.init_params(torch.Generator().manual_seed(0), mod.SMOKE)
+        jobs.append((mod.SMOKE, s, x0, pool.submit(cpu_run, mod.SMOKE, s, x0)))
+    for cfg, s, x0, cpu in jobs:
+        K.reset_launch_counts()
+        card = run_training(cfg, s, device="cuda", params=x0)["history"]
+        launches = K.launch_counts()
+        cpu = cpu.result(timeout=CPU_RUN_TIMEOUT_S)["history"]
+        rel = history_rel(card, cpu)
+        rows.append({"config": cfg.name, "base_opt": s.base_opt, "tau": s.tau,
+                     "b_micro": s.b_micro, "seq": s.seq, "card": card,
+                     "cpu": cpu, "max_rel_diff": rel, "launches": launches})
+        want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
+        if launches != want:
+            failures.append(f"{cfg.name}: launch counts {launches}, want {want}")
+        if not rel <= NANO_RTOL:
+            failures.append(f"{cfg.name}: card and CPU differ by {rel}")
+        for k in total:
+            total[k] += launches[k]
+    emit({"phase": "archs_card_vs_cpu", "outer_steps": ARCH_STEPS, "rtol": NANO_RTOL,
+          "runs": rows})
+    if failures:
+        raise AssertionError("archs_card_vs_cpu: " + "; ".join(failures))
+    return total
+
+
+def teacher_forced(torch, params, cfg, prompt, toks):
+    """Every decode step's logits (prefill's for the first token, then
+    decode_step fed ``toks``) beside a full forward over prompt +
+    toks[:, :i] at its last position; rows of (decode, full) f32 logits."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.serve import _splice_cache
+
+    B, S = prompt.shape
+    out = []
+    with torch.no_grad():
+        logits, small = T.prefill(params, {"tokens": prompt}, cfg)
+        cache = _splice_cache(T.init_cache(cfg, B, S + toks.shape[1], device=prompt.device),
+                              small, cfg, S)
+        del small
+        for i in range(toks.shape[1]):
+            if i:
+                logits, cache = T.decode_step(params, cache, toks[:, i - 1], S + i - 1, cfg)
+            seq = torch.cat([prompt, toks[:, :i]], dim=1)
+            h = T.hidden_states(params, seq, cfg)[:, -1:]
+            out.append((logits.clone(), T._logits(params, h, cfg)[:, 0]))
+    return out
+
+
+def phase_serve_full_width(torch, smi, x0):
+    """generate on gpt2_large.FULL's trained x0 (bf16): SERVE_BATCH prompts
+    of SERVE_PROMPT corpus tokens, SERVE_NEW greedy tokens; prefill seconds,
+    decode tokens/s and the peak.  Then, teacher-forced, each decode step's
+    logits against the full forward within SERVE_ATOL, and generate's token
+    equal to the full forward's argmax wherever its top-2 margin exceeds
+    SERVE_ATOL.  The same teacher-forced check with x0 in f32 over the first
+    SERVE_F32_STEPS tokens, within SERVE_F32_ATOL."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import gpt2_large
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.models import transformer as T
+    from repro_torch.train.serve import generate
+
+    cfg = gpt2_large.FULL
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    prompt = torch.as_tensor(corpus.sample(np.random.default_rng(7), SERVE_BATCH, SERVE_PROMPT),
+                             dtype=torch.long, device="cuda")
+    params = T.layout(cfg).views(x0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    generate(params, cfg, prompt, max_new_tokens=2, device="cuda")     # warm-up
+    toks, stats = generate(params, cfg, prompt, max_new_tokens=SERVE_NEW, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    rows = teacher_forced(torch, params, cfg, prompt, toks)
+    errs, decided, agree, top = [], 0, 0, 0.0
+    for i, (dec, full) in enumerate(rows):
+        errs.append((dec - full).abs().max().item())
+        top = max(top, full.abs().max().item())
+        lg = full[:, : cfg.vocab_size]
+        top2 = torch.topk(lg, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > SERVE_ATOL
+        decided += int(sure.sum())
+        agree += int((sure & (lg.argmax(-1) == toks[:, i])).sum())
+    del rows
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    rows = teacher_forced(torch, T.layout(cfg32).views(x0.float()), cfg32, prompt,
+                          toks[:, :SERVE_F32_STEPS])
+    errs32 = [(dec - full).abs().max().item() for dec, full in rows]
+    del rows
+    row = {"phase": "serve_full_width", "gpu": smi, "config": cfg.name,
+           "batch": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+           "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+           "decode_tok_per_s": stats["tok_per_s"], "max_memory_allocated_bytes": peak,
+           "params_bytes": base, "atol": SERVE_ATOL, "max_abs_logit": top,
+           "decode_vs_full_max_abs_err": max(errs), "per_step_err": errs,
+           "tokens_decided": decided, "tokens_equal_where_decided": agree,
+           "f32_atol": SERVE_F32_ATOL, "f32_decode_vs_full_max_abs_err": max(errs32),
+           "f32_per_step_err": errs32, "tokens": toks[0].tolist()}
+    emit(row)
+    if not (max(errs) <= SERVE_ATOL and agree == decided and decided > 0
+            and max(errs32) <= SERVE_F32_ATOL):
+        raise AssertionError(f"serve_full_width: decode vs full forward {max(errs)} (atol "
+                             f"{SERVE_ATOL}), f32 {max(errs32)} (atol {SERVE_F32_ATOL}), "
+                             f"{agree} of {decided} decided tokens equal")
+
+
+def phase_serve_card_vs_cpu(torch):
+    """Nano (f32), the same params and prompts: generate's greedy tokens
+    equal on the card and the CPU, and every teacher-forced decode step's
+    logits within SERVE_CPU_ATOL."""
+    import numpy as np
+
+    from repro_torch.configs.nano import NANO
+    from repro_torch.models import transformer as T
+    from repro_torch.train.serve import generate
+
+    flat = T.init_params(torch.Generator().manual_seed(0), NANO)
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, NANO.vocab_size, (4, 24)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = T.layout(NANO).views(flat.to(dev))
+        toks, _ = generate(params, NANO, prompt, max_new_tokens=SERVE_NEW, device=dev)
+        rows = teacher_forced(torch, params, NANO, prompt.to(dev), toks)
+        out[dev] = (toks.cpu(), [d.cpu() for d, _ in rows])
+    same = torch.equal(out["cuda"][0], out["cpu"][0])
+    err = max((a - b).abs().max().item() for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    emit({"phase": "serve_card_vs_cpu", "config": NANO.name, "new_tokens": SERVE_NEW,
+          "tokens_equal": same, "decode_logits_max_abs_diff": err, "atol": SERVE_CPU_ATOL})
+    if not (same and err <= SERVE_CPU_ATOL):
+        raise AssertionError(f"serve_card_vs_cpu: tokens equal {same}, logits differ by {err}")
+
+
+def slice_phases(torch, K, smi, pool) -> dict:
+    """The phases of the paper's GPT-2 sizes, the arch registry and serving;
+    returns their runs' launches.  serve_full_width serves the x0 that
+    paper_sizes_full_width trained."""
+    phase_kernels_past_2g(torch, K)
+    total, x0_large = phase_paper_sizes_full_width(torch, K, smi)
+    phase_serve_full_width(torch, smi, x0_large)
+    del x0_large
+    phase_serve_card_vs_cpu(torch)
+    more = phase_archs_card_vs_cpu(torch, K, pool)
+    return {k: n + more[k] for k, n in total.items()}
+
+
 def main() -> None:
     import torch
 
@@ -1098,37 +1534,50 @@ def main() -> None:
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
                     for k, v in logs.items()}})
 
+    pool = cpu_worker()
+    try:
+        launches, errs, times = all_phases(torch, K, smi, pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    sources = {"dsm_update": ("src/repro_torch/kernels/csrc/dsm_update.cu",
+                              "src/repro/kernels/dsm_update.py:30"),
+               "adamw_update": ("src/repro_torch/kernels/csrc/adamw_update.cu",
+                                "src/repro/kernels/adamw_update.py:24")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": errs[name],
+         **{k: times[name][k] for k in keys}}
+        for name, (src, rep) in sources.items()]})
+    print(nvidia_smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+def all_phases(torch, K, smi, pool):
+    """Every phase in order; returns (launches of the runs, the kernel
+    checks' worst errors, the kernel times)."""
     errs = phase_checks(torch, K)
     times = phase_times(torch, K, smi)
     launches, main_cost, main_final = phase_main_path(torch, K, smi)
-    phase_card_vs_cpu(torch)
+    phase_card_vs_cpu(torch, pool)
     for more in (phase_obs_full_width(torch, K, smi, main_final, main_cost),
                  phase_algorithms_full_width(torch, K, smi),
-                 phase_algorithms_card_vs_cpu(torch, K),
+                 phase_algorithms_card_vs_cpu(torch, K, pool),
                  phase_robustness_full_width(torch, K, smi, main_cost),
-                 phase_resume_full_width(torch, K, smi, main_final),
-                 phase_robustness_card_vs_cpu(torch, K),
+                 phase_resume_full_width(torch, K, smi),
+                 phase_robustness_card_vs_cpu(torch, K, pool),
                  phase_ranks_full_width(torch, K, smi, main_final, "zero_full_width",
                                         dict(zero_sharded=True, device_parallel_local=True),
                                         with_run_dir=True),
                  phase_ranks_full_width(torch, K, smi, main_final, "device_parallel_full_width",
                                         dict(device_parallel_local=True)),
                  phase_zero_nccl_world1(torch, K),
-                 phase_zero_card_vs_cpu(torch, K)):
+                 phase_zero_card_vs_cpu(torch, K),
+                 slice_phases(torch, K, smi, pool)):
         launches = {k: n + more[k] for k, n in launches.items()}
-
-    sources = {"dsm_update": ("src/repro_torch/kernels/csrc/dsm_update.cu",
-                              "src/repro/kernels/dsm_update.py:30"),
-               "adamw_update": ("src/repro_torch/kernels/csrc/adamw_update.cu",
-                                "src/repro/kernels/adamw_update.py:24")}
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         **{k: v for k, v in times[name].items() if k != "zero_shard"}}
-        for name, (src, rep) in sources.items()]})
-    print(nvidia_smi(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
+    return launches, errs, times
 
 
 if __name__ == "__main__":

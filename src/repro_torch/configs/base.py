@@ -8,6 +8,10 @@ dtype properties).  ``act_dtype`` and ``p_dtype`` return torch dtypes.
 the pattern tiled to ``n_layers``.  Full repeats are stored stacked on a
 leading layer axis, the remainder unrolled.  The port runs the
 ``attn:dense`` subset; other mixers raise ``NotImplementedError``.
+
+Every arch id of the reference has a module ``repro_torch.configs.<id>``
+with ``FULL`` and ``SMOKE`` ModelConfigs and a ``TOPO`` TopologyConfig (the
+paper's GPT-2 sizes also a ``PEAK_LR``), copied field for field.
 """
 
 from __future__ import annotations
@@ -89,6 +93,18 @@ class ModelConfig:
     def p_dtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
 
+    @property
+    def d_inner(self) -> int:        # Mamba-2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def d_rnn(self) -> int:
+        return self.rnn_width if self.rnn_width is not None else self.d_model
+
     def layer_kinds(self) -> Tuple[str, ...]:
         reps = -(-self.n_layers // len(self.pattern))
         return (self.pattern * reps)[: self.n_layers]
@@ -118,6 +134,48 @@ class TopologyConfig:
     supports_long_context: bool = False
 
 
+# ---------------------------------------------------------------------------
+# Input shapes and arch ids (the reference's registry)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+ARCH_IDS = (
+    "minitron_4b",
+    "granite_moe_3b_a800m",
+    "gemma3_1b",
+    "granite_34b",
+    "whisper_large_v3",
+    "llava_next_34b",
+    "deepseek_67b",
+    "mamba2_780m",
+    "llama4_maverick_400b_a17b",
+    "recurrentgemma_2b",
+)
+
+PAPER_ARCH_IDS = ("gpt2_small", "gpt2_medium", "gpt2_large")
+
+
 def load_arch(arch_id: str):
     """Returns the config module for an arch id (exposes FULL, SMOKE, TOPO)."""
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
+
+
+def arch_supports_shape(cfg: ModelConfig, topo: TopologyConfig, shape_name: str) -> bool:
+    if shape_name == "long_500k":
+        return topo.supports_long_context
+    return True

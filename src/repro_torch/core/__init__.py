@@ -25,4 +25,4 @@ from repro_torch.core.dsm import (
     signsgd_momentum_config,
     worker_finite_mask,
 )
-from repro_torch.core.schedules import constant, cosine_with_warmup
+from repro_torch.core.schedules import constant, cosine_with_warmup, get_schedule

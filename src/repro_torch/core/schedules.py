@@ -42,3 +42,10 @@ def cosine_with_warmup(
 
     return sched
 
+
+def get_schedule(name: str, peak_lr: float, total_steps: int = 10000, **kw):
+    if name == "constant":
+        return constant(peak_lr)
+    if name == "cosine":
+        return cosine_with_warmup(peak_lr, total_steps, **kw)
+    raise ValueError(f"unknown schedule {name!r}")

@@ -1,1 +1,10 @@
 """The attn:dense decoder LM, its layers and the flat parameter layout."""
+
+from repro_torch.models.transformer import (
+    decode_step,
+    hidden_states,
+    init_cache,
+    init_params,
+    loss_fn,
+    prefill,
+)

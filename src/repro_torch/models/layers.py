@@ -1,5 +1,6 @@
 """Model building blocks of the ``attn:dense`` subset: RMSNorm, RoPE, causal
-GQA attention and the dense MLP, as plain PyTorch functions on tensors.
+GQA attention, one-token attention against a KV cache and the dense MLP,
+as plain PyTorch functions on tensors.
 
 They follow the reference's precision path: activations in
 ``cfg.act_dtype``, attention scores and softmax in f32, probabilities cast
@@ -87,6 +88,21 @@ def causal_attention(q, k, v, q_block: int = 1024) -> torch.Tensor:
         probs = torch.softmax(scores, dim=-1)
         outs.append(_gqa_out(probs, v[:, :q_end], q.dtype))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def decode_attention(q, k_cache, v_cache, valid_mask) -> torch.Tensor:
+    """One-token query against a KV cache.
+
+    q: (B,1,H,hd); caches: (B,S,KVH,hd); valid_mask: (S,) or (B,S) bool.
+    """
+    scores = _gqa_scores(q, k_cache)                      # (B,g,r,1,S)
+    if valid_mask.dim() == 1:
+        m = valid_mask[None, None, None, None, :]
+    else:
+        m = valid_mask[:, None, None, None, :]
+    scores = scores.masked_fill(~m, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_out(probs, v_cache, q.dtype)
 
 
 def attn_qkv(wq, wk, wv, x, positions, cfg):

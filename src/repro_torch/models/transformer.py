@@ -1,6 +1,7 @@
-"""Decoder-only LM of the ``attn:dense`` pattern family (nano, GPT-2):
-parameter shapes, init, forward over stacked blocks and the chunked
-next-token cross-entropy.
+"""Decoder-only LM of the ``attn:dense`` pattern family (nano, GPT-2 and the
+dense GQA/MQA archs): parameter shapes, init, forward over stacked blocks,
+the chunked next-token cross-entropy, and serving: the KV cache, prefill
+and one-token decode.
 
 Parameters are a flat dict ``{path: tensor}`` keyed by the reference's
 pytree paths (``"decoder.blocks.p0.attn.wq"``); stacked blocks keep their
@@ -107,29 +108,49 @@ def init_params(gen: torch.Generator, cfg, device=None) -> torch.Tensor:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_block(p, x, positions, cfg):
-    """One attn:dense block; ``p(name)`` returns the block's leaf."""
+def _apply_block(p, x, positions, cfg, kv_out=None):
+    """One attn:dense block; ``p(name)`` returns the block's leaf.  With a
+    dict ``kv_out`` the block's keys (after RoPE) and values land in it as
+    ``k`` / ``v`` (B, S, KVH, hd), the prefill's cache entry."""
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
     q, k, v = L.attn_qkv(p("attn.wq"), p("attn.wk"), p("attn.wv"), h, positions, cfg)
+    if kv_out is not None:
+        kv_out.update(k=k, v=v)
     out = L.causal_attention(q, k, v, q_block=cfg.q_block)
     x = x + L.attn_proj_out(p("attn.wo"), out)
+    return _mlp_residual(p, x, cfg)
+
+
+def _mlp_residual(p, x, cfg):
     h = L.rmsnorm(p("ln2.scale"), x, cfg.norm_eps)
     w3 = p("mlp.w3") if cfg.mlp_gated else None
     return x + L.mlp_apply(p("mlp.w1"), p("mlp.w2"), h, cfg, w3=w3)
 
 
-def hidden_states(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Embedding (cast to the activation dtype, scaled by sqrt(d_model)),
-    the blocks in layer order, the final norm."""
-    x = params["embed"][tokens].to(cfg.act_dtype) * math.sqrt(cfg.d_model)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+def _layers(params: dict, cfg):
+    """``(where, p)`` of every layer in order: ``where`` is ``("blocks", "p<j>",
+    i)`` for layer i of the stacked pattern position j or ``("rem", i, None)``
+    for a remainder layer; ``p(name)`` returns that layer's leaf."""
     for i in range(cfg.n_scan_blocks):
         for j, _ in enumerate(cfg.pattern):
             pre = f"decoder.blocks.p{j}."
-            x = _apply_block(lambda n: params[pre + n][i], x, positions, cfg)
+            yield ("blocks", f"p{j}", i), (lambda n, pre=pre, i=i: params[pre + n][i])
     for i in range(cfg.n_rem_layers):
         pre = f"decoder.rem.{i}."
-        x = _apply_block(lambda n: params[pre + n], x, positions, cfg)
+        yield ("rem", i, None), (lambda n, pre=pre: params[pre + n])
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Embedding rows cast to the activation dtype, scaled by sqrt(d_model)."""
+    return params["embed"][tokens].to(cfg.act_dtype) * math.sqrt(cfg.d_model)
+
+
+def hidden_states(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Embedding, the blocks in layer order, the final norm."""
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for _, p in _layers(params, cfg):
+        x = _apply_block(p, x, positions, cfg)
     return L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps)
 
 
@@ -157,3 +178,87 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
         gold = torch.gather(logits, -1, targets[:, c0:c1, None])[..., 0]
         total = total + ((lse - gold) * mask[:, c0:c1]).sum()
     return total / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Serving: KV cache, prefill, one-token decode (the reference's
+# transformer.init_cache / prefill / decode_step for the attn mixer)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> dict:
+    """Zero KV cache with the reference's structure: ``{"blocks": {"p<j>":
+    {"k", "v"}}, "rem": ({"k", "v"}, ...)}``, stacked leaves (n_scan_blocks,
+    batch, max_len, KVH, hd), remainder leaves (batch, max_len, KVH, hd), in
+    ``dtype`` (default the activation dtype)."""
+    check_supported(cfg)
+    dtype = dtype or cfg.act_dtype
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+
+    def entry(lead=()):
+        return {name: torch.zeros(lead + shape, dtype=dtype, device=device)
+                for name in ("k", "v")}
+
+    blocks = ({f"p{j}": entry((cfg.n_scan_blocks,)) for j, _ in enumerate(cfg.pattern)}
+              if cfg.n_scan_blocks > 0 else {})
+    return {"blocks": blocks, "rem": tuple(entry() for _ in range(cfg.n_rem_layers))}
+
+
+def _cache_entry(cache: dict, where) -> dict:
+    """One layer's ``{"k", "v"}`` views into the cache."""
+    kind, key, i = where
+    if kind == "blocks":
+        return {name: leaf[i] for name, leaf in cache["blocks"][key].items()}
+    return cache["rem"][key]
+
+
+def prefill(params: dict, batch: dict, cfg):
+    """Forward over the prompt ``batch["tokens"]`` (B, S); returns (last
+    position's f32 logits (B, padded vocab), a cache of length S holding
+    every layer's keys and values)."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    stacked: dict = {}
+    rem = []
+    for (kind, key, _), p in _layers(params, cfg):
+        entry: dict = {}
+        x = _apply_block(p, x, positions, cfg, kv_out=entry)
+        if kind == "blocks":
+            stacked.setdefault(key, []).append(entry)
+        else:
+            rem.append(entry)
+    cache = {"blocks": {key: {name: torch.stack([e[name] for e in entries])
+                              for name in ("k", "v")}
+                        for key, entries in stacked.items()},
+             "rem": tuple(rem)}
+    h = L.rmsnorm(params["final_norm.scale"], x[:, -1:], cfg.norm_eps)
+    return _logits(params, h, cfg)[:, 0], cache
+
+
+def _decode_block(p, entry: dict, x, pos: int, cfg):
+    """One token through one block at absolute position ``pos``: RoPE there,
+    its key and value written into the cache at ``pos``, attention over
+    positions ``<= pos``."""
+    h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    q, k, v = L.attn_qkv(p("attn.wq"), p("attn.wk"), p("attn.wv"), h, positions, cfg)
+    entry["k"][:, pos:pos + 1].copy_(k)
+    entry["v"][:, pos:pos + 1].copy_(v)
+    valid = torch.arange(entry["k"].shape[1], device=x.device) <= pos
+    out = L.decode_attention(q, entry["k"], entry["v"], valid)
+    x = x + L.attn_proj_out(p("attn.wo"), out)
+    return _mlp_residual(p, x, cfg)
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg):
+    """tokens: (B,) ids; pos: the Python int position they take.  Returns
+    (f32 logits (B, padded vocab), cache).  Unlike the reference, which
+    returns a new cache, the keys and values are written into ``cache`` in
+    place and the same dict is returned; nothing is read back to the host."""
+    check_supported(cfg)
+    x = _embed(params, tokens[:, None], cfg)
+    for where, p in _layers(params, cfg):
+        x = _decode_block(p, _cache_entry(cache, where), x, pos, cfg)
+    h = L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps)
+    return _logits(params, h, cfg)[:, 0], cache

@@ -1,0 +1,122 @@
+"""Batched serving: prefill a prompt batch, then autoregressive decode.
+
+The reference's ``train/serve.py`` for the ``attn`` mixer.  Prefill builds
+a cache of the prompt's length, which is spliced into a zero cache of
+``prompt + max_new_tokens`` positions; each decode step then writes one
+position of it in place.  The decode loop reads nothing back to the host:
+positions are Python ints and the tokens stay on the device until the end.
+
+    PYTHONPATH=src python -c "
+    import torch
+    from repro_torch.configs.nano import NANO
+    from repro_torch.models import init_params
+    from repro_torch.train.serve import generate
+    params = init_params(torch.Generator().manual_seed(0), NANO)
+    prompt = torch.randint(0, NANO.vocab_size, (2, 16))
+    print(generate(params, NANO, prompt, max_new_tokens=8, device='cpu'))"
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.models import transformer as T
+
+
+def _clock(dev: torch.device) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def generate(
+    params,
+    cfg,
+    prompt_tokens,                       # (B, S_prompt) ids
+    max_new_tokens: int = 32,
+    temperature: float = 0.0,
+    rng: Optional[torch.Generator] = None,
+    extra_batch: Optional[dict] = None,  # frames/patches of encdec/vlm: not ported
+    device="cuda",
+):
+    """Greedy (or temperature) decoding.  Returns (tokens (B, new) int64 on
+    ``device``, stats with ``prefill_s``, ``decode_s`` and ``tok_per_s``).
+
+    ``params``: the flat ``(N,)`` buffer of ``cfg``'s layout or a ``{path:
+    tensor}`` dict of its views; moved to ``device`` if they lie elsewhere.
+    Temperature sampling draws Gumbel noise from ``rng``, a
+    ``torch.Generator`` on ``device`` (default seeded 0): the same
+    distribution as the reference's ``jax.random.categorical``, not its
+    random numbers.  On the card the clock is read after
+    ``torch.cuda.synchronize``.
+    """
+    T.check_supported(cfg)
+    if extra_batch:
+        raise NotImplementedError(
+            f"{cfg.name}: extra_batch {sorted(extra_batch)} feeds the encdec / vlm families, "
+            "which the port does not serve yet (ROADMAP.md)")
+    dev = torch.device(device)
+    if isinstance(params, torch.Tensor):
+        params = T.layout(cfg).views(params.to(dev))
+    else:
+        params = {k: v.to(dev) for k, v in params.items()}
+    prompt = torch.as_tensor(prompt_tokens, dtype=torch.long).to(dev)
+    B, S = prompt.shape
+    max_len = S + max_new_tokens
+
+    with torch.no_grad():
+        t0 = _clock(dev)
+        logits, pcache = T.prefill(params, {"tokens": prompt}, cfg)
+        cache = T.init_cache(cfg, B, max_len, cfg.act_dtype, device=dev)
+        cache = _splice_cache(cache, pcache, cfg, S)
+        del pcache
+        prefill_s = _clock(dev) - t0
+
+        rng = rng if rng is not None else torch.Generator(device=dev).manual_seed(0)
+
+        def pick(logits):
+            logits = logits[:, : cfg.vocab_size]
+            if temperature <= 0.0:
+                return torch.argmax(logits, dim=-1)
+            u = torch.rand(logits.shape, generator=rng, dtype=torch.float32, device=dev)
+            gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+            return torch.argmax(logits / temperature + gumbel, dim=-1)
+
+        tok = pick(logits)
+        out = [tok]
+        t0 = _clock(dev)
+        for i in range(max_new_tokens - 1):
+            logits, cache = T.decode_step(params, cache, tok, S + i, cfg)
+            tok = pick(logits)
+            out.append(tok)
+        decode_s = _clock(dev) - t0
+    return torch.stack(out, dim=1), {
+        "prefill_s": prefill_s,
+        "decode_s": decode_s,
+        "tok_per_s": (max_new_tokens - 1) * B / max(decode_s, 1e-9),
+    }
+
+
+def _splice_cache(big: dict, small: dict, cfg, prompt_len: int) -> dict:
+    """Copy a prefill cache (length = prompt) into a longer decode cache:
+    each full-attention key/value leaf is the prefill's, zero-padded at the
+    end of its sequence axis, in the big leaf's dtype."""
+    T.check_supported(cfg)
+
+    def splice_leaf(big_leaf, small_leaf):
+        if big_leaf.shape == small_leaf.shape:
+            return small_leaf.to(big_leaf.dtype)
+        ax = big_leaf.dim() - 3  # seq axis of (..., S, kvh, hd)
+        out = torch.zeros_like(big_leaf)
+        out.narrow(ax, 0, small_leaf.shape[ax]).copy_(small_leaf)
+        return out
+
+    def splice_entry(big_e, small_e):
+        return {name: splice_leaf(big_e[name], small_e[name]) for name in big_e}
+
+    return {"blocks": {key: splice_entry(big["blocks"][key], small["blocks"][key])
+                       for key in big["blocks"]},
+            "rem": tuple(splice_entry(b, s) for b, s in zip(big["rem"], small["rem"]))}

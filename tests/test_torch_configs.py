@@ -1,0 +1,101 @@
+"""The port's arch registry against the JAX package's: every arch module's
+FULL / SMOKE / TOPO (and PEAK_LR) field for field, the input shapes and arch
+ids, the parameter counts of the ``attn:dense`` archs, the launcher's
+resolution of every id, and ``get_schedule``.  Dtypes are compared by name
+(the port's properties return torch dtypes, the reference's numpy ones)."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS as J_ARCH_IDS
+from repro.configs import INPUT_SHAPES as J_INPUT_SHAPES
+from repro.configs import PAPER_ARCH_IDS as J_PAPER_ARCH_IDS
+from repro.configs import arch_supports_shape as j_arch_supports_shape
+from repro.configs import load_arch as j_load_arch
+from repro.configs import specs as JSPECS
+from repro.core import schedules as JS
+from repro_torch import configs as C
+from repro_torch import core
+from repro_torch.configs import specs
+from repro_torch.core import schedules as S
+from repro_torch.launch import train as launch
+
+ALL_IDS = J_ARCH_IDS + J_PAPER_ARCH_IDS
+DENSE_FULL = ("gpt2_small", "gpt2_medium", "gpt2_large", "deepseek_67b", "granite_34b",
+              "minitron_4b")
+PROPERTIES = ("hd", "padded_vocab", "d_inner", "ssm_heads", "d_rnn", "n_scan_blocks",
+              "n_rem_layers")
+
+
+def _dtype_name(d) -> str:
+    return str(d).removeprefix("torch.") if isinstance(d, torch.dtype) else np.dtype(d).name
+
+
+def test_ids_and_input_shapes_match_reference():
+    assert C.ARCH_IDS == J_ARCH_IDS
+    assert C.PAPER_ARCH_IDS == J_PAPER_ARCH_IDS
+    assert {k: dataclasses.asdict(v) for k, v in C.INPUT_SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in J_INPUT_SHAPES.items()}
+
+
+@pytest.mark.parametrize("arch", ALL_IDS)
+def test_arch_module_matches_reference(arch):
+    ours, theirs = C.load_arch(arch), j_load_arch(arch)
+    for name in ("FULL", "SMOKE"):
+        a, b = getattr(ours, name), getattr(theirs, name)
+        assert dataclasses.asdict(a) == dataclasses.asdict(b), (arch, name)
+        for prop in PROPERTIES:
+            assert getattr(a, prop) == getattr(b, prop), (arch, name, prop)
+        assert a.layer_kinds() == b.layer_kinds()
+        assert _dtype_name(a.act_dtype) == _dtype_name(b.act_dtype) == a.dtype
+        assert _dtype_name(a.p_dtype) == _dtype_name(b.p_dtype) == a.param_dtype
+    assert dataclasses.asdict(ours.TOPO) == dataclasses.asdict(theirs.TOPO)
+    assert getattr(ours, "PEAK_LR", None) == getattr(theirs, "PEAK_LR", None)
+    for shape in C.INPUT_SHAPES:
+        assert C.arch_supports_shape(ours.FULL, ours.TOPO, shape) == j_arch_supports_shape(
+            theirs.FULL, theirs.TOPO, shape)
+
+
+@pytest.mark.parametrize("arch", DENSE_FULL)
+def test_param_count_matches_reference(arch):
+    cfg = C.load_arch(arch).FULL
+    assert specs.param_count(cfg) == JSPECS.param_count(j_load_arch(arch).FULL)
+
+
+def test_paper_gpt2_sizes_param_counts():
+    """The paper's GPT-2 medium and large at full width, vocab padded to
+    50,688: the N that the AdamW and DSM kernels cover."""
+    medium, large = C.load_arch("gpt2_medium").FULL, C.load_arch("gpt2_large").FULL
+    assert medium.padded_vocab == large.padded_vocab == 50_688
+    assert specs.param_count(medium) == 353_944_576
+    assert specs.param_count(large) == 772_762_880
+    assert 4 * specs.param_count(large) > 2 ** 31     # the (W, N) AdamW buffer at W = 4
+
+
+@pytest.mark.parametrize("arch", ALL_IDS)
+def test_launcher_resolves_every_arch(arch):
+    cfg, topo = launch.resolve_arch(arch)
+    assert cfg == C.load_arch(arch).FULL and topo == C.load_arch(arch).TOPO
+    smoke, _ = launch.resolve_arch(f"{arch}_smoke")
+    assert smoke == C.load_arch(arch).SMOKE
+
+
+@pytest.mark.parametrize("name,kw", [("constant", {}), ("cosine", {}),
+                                     ("cosine", dict(warmup_steps=10, final_frac=0.1))])
+def test_get_schedule_matches_reference(name, kw):
+    ours, theirs = S.get_schedule(name, 3e-4, 100, **kw), JS.get_schedule(name, 3e-4, 100, **kw)
+    for step in (0, 1, 9, 10, 57, 99, 150, 2500):
+        a, b = ours(step), theirs(jnp.int32(step))
+        assert a.dtype == torch.float32
+        assert abs(a.item() - float(b)) <= 2 * np.spacing(np.float32(b)), (name, step)
+    assert core.get_schedule is S.get_schedule
+
+
+def test_get_schedule_rejects_unknown_names():
+    for get in (S.get_schedule, JS.get_schedule):
+        with pytest.raises(ValueError, match="unknown schedule 'linear'"):
+            get("linear", 1e-3)

@@ -37,6 +37,12 @@ def test_port_files_exist():
     rel = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
     assert {f"obs/{m}.py" for m in ("sinks", "tracing", "comm_model", "ledger", "summarize",
                                     "__main__")} | {"analysis/sanitize.py"} <= rel
+    # the arch registry (every reference arch id) and serving
+    archs = ("gpt2_small", "gpt2_medium", "gpt2_large", "deepseek_67b", "gemma3_1b",
+             "granite_34b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b",
+             "llava_next_34b", "mamba2_780m", "minitron_4b", "recurrentgemma_2b",
+             "whisper_large_v3")
+    assert {f"configs/{a}.py" for a in archs} | {"configs/specs.py", "train/serve.py"} <= rel
 
 
 def test_entry_points_default_to_the_card():
