@@ -23,8 +23,18 @@ other GPT-2 sizes and serving: the AdamW kernel bit for bit past 2^31
 elements, GPT-2 medium and large trained at full width through both
 kernels, generate on the trained large model held against its full
 forward, and card vs CPU for serving (nano) and the dense GQA/MQA archs
-(SMOKE).  algorithms_full_width and resume_full_width run GPT-2 small at
-full width with its depth cut to CUT_LAYERS layers.
+(SMOKE).  Then sliding-window attention and MoE, with parameters in their
+reference dtypes (one flat buffer and one kernel launch per dtype group):
+both kernels bit for bit at every dtype group's shape of these paths,
+Gemma-3 1B (whole depth, W=2, S=1024) and Granite MoE 3B at full width and
+GRANITE_LAYERS layers (bf16 experts, f32 routers: two groups) trained
+through both kernels with each group's launches counted and timed, each
+served on its trained x0 (Gemma's 640-token prompts past its 512-token
+window, 128 new tokens around the ring) and held against its full forward,
+and card vs CPU for the three SMOKE configs and Granite's SMOKE with bf16
+parameters, training and greedy tokens.  algorithms_full_width and
+resume_full_width run GPT-2 small at full width with its depth cut to
+CUT_LAYERS layers.
 
     python3 chip_smoke.py
 
@@ -130,13 +140,33 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 32
 # against a cache, or every row at once), so a GEMM may round a bf16
 # activation one ulp (2^-8 relative) the other way; across the 72 residual
 # adds that is ~sqrt(72) * 2^-9 ~ 1.7% of the final state typically and 14%
-# at worst; the row prints the largest logit beside the error
+# at worst; the row prints the largest logit beside the error.  In a MoE
+# model such an ulp can also move a token's k-th and (k+1)-th expert past
+# each other, and then the two paths run other experts: the bound holds
+# the rows whose experts agree at every MoE layer, the others are counted,
+# and the f32 check (where the routes agree but at exact ties) covers
+# every generated token
 SERVE_ATOL = 0.25
 # the same check with the trained x0 in f32 (activations f32, no TF32), over
 # the first SERVE_F32_STEPS tokens: only the summation orders differ there
 SERVE_F32_ATOL = 1e-3
 SERVE_F32_STEPS = 8
 SERVE_CPU_ATOL = 1e-4           # serve_card_vs_cpu: nano f32 decode logits
+# sliding-window attention (gemma3_1b) and MoE (granite_moe_3b_a800m)
+# at full width.  Neither arch module has a PEAK_LR: MAIN's (the launcher's
+# default) applies.  gemma3_1b.FULL whole depth at W=2 (W=4 would need ~75 GB
+# of state), S=1024 so that its 512-token window binds; granite at full
+# width and GRANITE_LAYERS of its 32 layers (3.30 B parameters fit at no W
+# with AdamW).  N per dtype group: the param dtype's, then f32.
+GEMMA = dict(n_workers=2, b_micro=1, seq=1024)
+GEMMA_N = (999_812_736,)
+GRANITE_LAYERS = 6
+GRANITE_N = (680_283_648, 368_640)
+WINDOW_MOE_STEPS = 3
+WINDOW_MOE_EVAL_BATCH = 4           # eval sequences: gemma's f32 logits take 1.07 GB per 1024
+SERVE_SWA = (4, 640, 128)       # batch, prompt (past the window), new tokens (the ring wraps)
+SERVE_MOE = (4, 128, 32)
+WINDOW_MOE_SMOKES = ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b")
 
 
 T0 = time.perf_counter()
@@ -571,13 +601,15 @@ def run_name(run: dict) -> str:
     return "+".join(str(v) for v in run.values())
 
 
-def expected_launches(s) -> dict:
-    """Per run: the DSM kernel once per outer step for dsm (the deterministic
-    sign, any base optimizer) and signed_lookahead; the AdamW kernel tau
-    times per outer step for every algorithm with AdamW but mv_signsgd."""
+def expected_launches(s, groups: int = 1) -> dict:
+    """Per run: the DSM kernel once per outer step and dtype group for dsm
+    (the deterministic sign, any base optimizer) and signed_lookahead; the
+    AdamW kernel tau times per outer step and group for every algorithm with
+    AdamW but mv_signsgd."""
     dsm = s.algorithm in ("dsm", "signed_lookahead") and s.sign_mode == "sign"
     adamw = s.base_opt == "adamw" and s.algorithm != "mv_signsgd"
-    return {"dsm_update": s.steps * dsm, "adamw_update": s.steps * s.tau * adamw}
+    return {"dsm_update": s.steps * dsm * groups,
+            "adamw_update": s.steps * s.tau * adamw * groups}
 
 
 def check_launches(name, launches, want) -> None:
@@ -1298,6 +1330,25 @@ def phase_paper_sizes_full_width(torch, K, smi):
     return total, kept
 
 
+def adamw_vs_plain_chunked(torch, K, p, g, m, v) -> float:
+    """The AdamW kernel over the whole (p, g, m, v) (the training path's
+    rounding), then its plain version slice by slice on saved copies of p,
+    m and v, so the check fits the card beside the buffers; the worst
+    |error| (``compare`` raises on any bit that differs)."""
+    from repro_torch.kernels.adamw_update import adamw_update_plain
+
+    flat = [t.view(-1) for t in (p, g, m, v)]
+    saved = [t.clone() for t in (flat[0], flat[2], flat[3])]
+    K.adamw_update(p, g, m, v, 1e-3, 11, **ADAMW_HP)
+    worst = 0.0
+    for a in range(0, flat[0].numel(), PAST_2G_CHUNK):
+        b = min(a + PAST_2G_CHUNK, flat[0].numel())
+        ref = [t[a:b] for t in saved]
+        adamw_update_plain(ref[0], flat[1][a:b], ref[1], ref[2], 1e-3, 11, **ADAMW_HP)
+        worst = max(worst, compare(torch, [flat[0][a:b], flat[2][a:b], flat[3][a:b]], ref))
+    return worst
+
+
 def phase_kernels_past_2g(torch, K):
     """The AdamW kernel bit for bit against its plain version (bf16 params,
     f32 moments, the training path's rounding) on one (2, 2^30 + RAGGED)
@@ -1306,8 +1357,6 @@ def phase_kernels_past_2g(torch, K):
     planted in g and p at offsets just below and above 2^31 (and the last
     element).  The plain version runs slice by slice on saved copies of the
     inputs, so the check fits the card; everything is freed after."""
-    from repro_torch.kernels.adamw_update import adamw_update_plain
-
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1318,17 +1367,9 @@ def phase_kernels_past_2g(torch, K):
     for off, (pv, gv) in zip(planted, ((-0.0, 0.0), (1.0, float("nan")), (0.0, -0.0),
                                        (-1.0, float("nan")), (0.5, 0.0))):
         flat[0][off], flat[1][off] = pv, gv
-    saved = [t.clone() for t in (flat[0], flat[2], flat[3])]
-    K.adamw_update(p, g, m, v, 1e-3, 11, **ADAMW_HP)
-    worst = 0.0
-    for a in range(0, n, PAST_2G_CHUNK):
-        b = min(a + PAST_2G_CHUNK, n)
-        ref = [t[a:b] for t in saved]
-        adamw_update_plain(ref[0], flat[1][a:b], ref[1], ref[2], 1e-3, 11, **ADAMW_HP)
-        worst = max(worst, compare(torch, [flat[0][a:b], flat[2][a:b], flat[3][a:b]], ref))
+    worst = adamw_vs_plain_chunked(torch, K, p, g, m, v)
     at = {str(off): {"p": flat[0][off].item(), "m": flat[2][off].item(),
                      "v": flat[3][off].item()} for off in planted}
-    del saved, ref
     # timed after the check, on the updated buffers (median of 5 launches)
     ms = median_ms(torch, lambda: K.adamw_update(p, g, m, v, 1e-3, 11, **ADAMW_HP), reps=5,
                    warmup=1)
@@ -1346,57 +1387,114 @@ def phase_kernels_past_2g(torch, K):
 
 def phase_archs_card_vs_cpu(torch, K, pool):
     """The SMOKE configs of ARCH_SMOKES (f32: GQA, MQA, gated SiLU, untied
-    heads), the same init and batches on the card (kernels) and the CPU
-    (plain versions): ARCH_STEPS DSM outer steps with TOPO.base_opt and
-    TOPO.tau, microbatches of ARCH_BATCH, the main path's other settings.
-    Each train loss within NANO_RTOL; ARCH_STEPS DSM and ARCH_STEPS * tau
-    AdamW launches.  Every line is printed before any bound is checked."""
+    heads): card_vs_cpu_runs."""
     from repro_torch.configs import load_arch
+
+    return card_vs_cpu_runs(torch, K, pool, "archs_card_vs_cpu",
+                            [(load_arch(a).SMOKE, load_arch(a).TOPO) for a in ARCH_SMOKES])
+
+
+def card_vs_cpu_runs(torch, K, pool, phase, configs, serve=False):
+    """Each (cfg, TOPO) of ``configs``, the same init and batches on the card
+    (kernels) and the CPU (plain versions): ARCH_STEPS DSM outer steps with
+    TOPO.base_opt and TOPO.tau, microbatches of ARCH_BATCH, the main path's
+    other settings.  Each train loss within NANO_RTOL; the launches of
+    expected_launches per dtype group.  With ``serve``, generate's
+    SERVE_NEW greedy tokens from the same init on both devices equal.
+    Every line is printed before any bound is checked."""
+    import numpy as np
+
+    from repro_torch.groups import each
     from repro_torch.models import transformer as T
+    from repro_torch.train.serve import generate
     from repro_torch.train.trainer import TrainSettings, run_training
 
     total = dict.fromkeys(K.launch_counts(), 0)
     rows, failures = [], []
     jobs = []
-    for arch in ARCH_SMOKES:
-        mod = load_arch(arch)
-        s = TrainSettings(tau=mod.TOPO.tau, steps=ARCH_STEPS, eval_every=ARCH_STEPS,
-                          base_opt=mod.TOPO.base_opt, **{**MAIN, **ARCH_BATCH})
-        x0 = T.init_params(torch.Generator().manual_seed(0), mod.SMOKE)
-        jobs.append((mod.SMOKE, s, x0, pool.submit(cpu_run, mod.SMOKE, s, x0)))
+    for cfg, topo in configs:
+        s = TrainSettings(tau=topo.tau, steps=ARCH_STEPS, eval_every=ARCH_STEPS,
+                          base_opt=topo.base_opt, **{**MAIN, **ARCH_BATCH})
+        x0 = T.init_params(torch.Generator().manual_seed(0), cfg)
+        jobs.append((cfg, s, x0, pool.submit(cpu_run, cfg, s, x0)))
     for cfg, s, x0, cpu in jobs:
         K.reset_launch_counts()
         card = run_training(cfg, s, device="cuda", params=x0)["history"]
         launches = K.launch_counts()
         cpu = cpu.result(timeout=CPU_RUN_TIMEOUT_S)["history"]
         rel = history_rel(card, cpu)
-        rows.append({"config": cfg.name, "base_opt": s.base_opt, "tau": s.tau,
-                     "b_micro": s.b_micro, "seq": s.seq, "card": card,
-                     "cpu": cpu, "max_rel_diff": rel, "launches": launches})
-        want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
+        groups = T.layout(cfg).n_groups
+        row = {"config": cfg.name, "param_dtype": cfg.param_dtype, "groups": groups,
+               "base_opt": s.base_opt, "tau": s.tau, "b_micro": s.b_micro, "seq": s.seq,
+               "card": card, "cpu": cpu, "max_rel_diff": rel, "launches": launches,
+               "launches_per_group": {k: n / groups for k, n in launches.items()}}
+        want = expected_launches(s, groups)
         if launches != want:
             failures.append(f"{cfg.name}: launch counts {launches}, want {want}")
         if not rel <= NANO_RTOL:
             failures.append(f"{cfg.name}: card and CPU differ by {rel}")
+        if serve:
+            prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                                                       (4, 24)))
+            toks = {dev: generate(each(lambda t: t.to(dev), x0), cfg, prompt,
+                                  max_new_tokens=SERVE_NEW, device=dev)[0].cpu()
+                    for dev in ("cuda", "cpu")}
+            row["generate_tokens_equal"] = torch.equal(toks["cuda"], toks["cpu"])
+            if not row["generate_tokens_equal"]:
+                failures.append(f"{cfg.name}: generate's tokens differ on card and CPU")
+        rows.append(row)
         for k in total:
             total[k] += launches[k]
-    emit({"phase": "archs_card_vs_cpu", "outer_steps": ARCH_STEPS, "rtol": NANO_RTOL,
-          "runs": rows})
+    emit({"phase": phase, "outer_steps": ARCH_STEPS, "rtol": NANO_RTOL, "runs": rows})
     if failures:
-        raise AssertionError("archs_card_vs_cpu: " + "; ".join(failures))
+        raise AssertionError(f"{phase}: " + "; ".join(failures))
     return total
+
+
+class RouteLog:
+    """While active, records the top-k experts (sorted) of the last position
+    of every ``layers.moe_apply`` call, recomputed from the call's own
+    inputs by the same f32 routing ops: per MoE layer, (B, K)."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        torch, orig = self.torch, L.moe_apply
+
+        def recorded(p, x, cfg):
+            xt = x.reshape(-1, x.shape[-1]).to(torch.float32)
+            probs = torch.softmax(xt @ p["router"].to(torch.float32), dim=-1)
+            top = torch.topk(probs, cfg.top_k, dim=-1).indices.sort(dim=-1).values
+            self.calls.append(top.reshape(x.shape[0], x.shape[1], -1)[:, -1])
+            return orig(p, x, cfg)
+
+        self.restore = lambda: setattr(L, "moe_apply", orig)
+        L.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.restore()
+
+    def take(self) -> list:
+        out, self.calls = self.calls, []
+        return out
 
 
 def teacher_forced(torch, params, cfg, prompt, toks):
     """Every decode step's logits (prefill's for the first token, then
     decode_step fed ``toks``) beside a full forward over prompt +
-    toks[:, :i] at its last position; rows of (decode, full) f32 logits."""
+    toks[:, :i] at its last position; rows of (decode, full) f32 logits and
+    a (B,) bool: the row's experts equal in both at every MoE layer (all
+    True without one)."""
     from repro_torch.models import transformer as T
     from repro_torch.train.serve import _splice_cache
 
     B, S = prompt.shape
     out = []
-    with torch.no_grad():
+    with torch.no_grad(), RouteLog(torch) as log:
         logits, small = T.prefill(params, {"tokens": prompt}, cfg)
         cache = _splice_cache(T.init_cache(cfg, B, S + toks.shape[1], device=prompt.device),
                               small, cfg, S)
@@ -1404,44 +1502,76 @@ def teacher_forced(torch, params, cfg, prompt, toks):
         for i in range(toks.shape[1]):
             if i:
                 logits, cache = T.decode_step(params, cache, toks[:, i - 1], S + i - 1, cfg)
+            dec_routes = log.take()
             seq = torch.cat([prompt, toks[:, :i]], dim=1)
             h = T.hidden_states(params, seq, cfg)[:, -1:]
-            out.append((logits.clone(), T._logits(params, h, cfg)[:, 0]))
+            same = torch.ones(B, dtype=torch.bool, device=prompt.device)
+            for a, b in zip(dec_routes, log.take(), strict=True):
+                same &= (a == b).all(dim=-1)
+            out.append((logits.clone(), T._logits(params, h, cfg)[:, 0], same))
     return out
+
+
+def route_checked(rows, atol) -> dict:
+    """Decode vs full forward: per step the largest |logit gap| over all
+    rows and over the rows whose experts agree at every MoE layer; the rows
+    whose routes differ and their largest gap; ``ok`` when every row of
+    equal routes is within ``atol``."""
+    every, same, flipped, flipped_err = [], [], 0, 0.0
+    for dec, full, agree in rows:
+        gap = (dec - full).abs().amax(dim=-1)
+        every.append(gap.max().item())
+        same.append(gap[agree].max().item() if agree.any() else 0.0)
+        flipped += int((~agree).sum())
+        if not agree.all():
+            flipped_err = max(flipped_err, gap[~agree].max().item())
+    return {"max_abs_err": max(every), "per_step_err": every,
+            "same_routes_max_abs_err": max(same), "rows_other_routes": flipped,
+            "other_routes_max_abs_err": flipped_err, "ok": max(same) <= atol}
 
 
 def phase_serve_full_width(torch, smi, x0):
     """generate on gpt2_large.FULL's trained x0 (bf16): SERVE_BATCH prompts
-    of SERVE_PROMPT corpus tokens, SERVE_NEW greedy tokens; prefill seconds,
-    decode tokens/s and the peak.  Then, teacher-forced, each decode step's
-    logits against the full forward within SERVE_ATOL, and generate's token
-    equal to the full forward's argmax wherever its top-2 margin exceeds
-    SERVE_ATOL.  The same teacher-forced check with x0 in f32 over the first
-    SERVE_F32_STEPS tokens, within SERVE_F32_ATOL."""
+    of SERVE_PROMPT corpus tokens, SERVE_NEW greedy tokens (serve_check)."""
+    from repro_torch.configs import gpt2_large
+
+    serve_check(torch, smi, "serve_full_width", gpt2_large.FULL, x0, SERVE_BATCH,
+                SERVE_PROMPT, SERVE_NEW)
+
+
+def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new) -> None:
+    """generate on the trained ``x0`` (cfg's flat buffers, bf16): ``batch``
+    prompts of ``prompt_len`` corpus tokens, ``new`` greedy tokens; prefill
+    seconds, decode tokens/s and the peak.  Then, teacher-forced, each
+    decode step's logits against the full forward within SERVE_ATOL on the
+    rows whose experts agree (``route_checked``: every row of a dense
+    model), and generate's token equal to the full forward's argmax
+    wherever its top-2 margin exceeds SERVE_ATOL.  The same teacher-forced
+    check with every leaf in f32 (activations f32), within SERVE_F32_ATOL,
+    over the first SERVE_F32_STEPS tokens of a dense model and every token
+    of a MoE one."""
     import dataclasses
 
     import numpy as np
 
-    from repro_torch.configs import gpt2_large
     from repro_torch.data.pipeline import TextCorpus
     from repro_torch.models import transformer as T
     from repro_torch.train.serve import generate
 
-    cfg = gpt2_large.FULL
     corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
-    prompt = torch.as_tensor(corpus.sample(np.random.default_rng(7), SERVE_BATCH, SERVE_PROMPT),
+    prompt = torch.as_tensor(corpus.sample(np.random.default_rng(7), batch, prompt_len),
                              dtype=torch.long, device="cuda")
     params = T.layout(cfg).views(x0)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     generate(params, cfg, prompt, max_new_tokens=2, device="cuda")     # warm-up
-    toks, stats = generate(params, cfg, prompt, max_new_tokens=SERVE_NEW, device="cuda")
+    toks, stats = generate(params, cfg, prompt, max_new_tokens=new, device="cuda")
     peak = torch.cuda.max_memory_allocated()
     rows = teacher_forced(torch, params, cfg, prompt, toks)
-    errs, decided, agree, top = [], 0, 0, 0.0
-    for i, (dec, full) in enumerate(rows):
-        errs.append((dec - full).abs().max().item())
+    bf16 = route_checked(rows, SERVE_ATOL)
+    decided, agree, top = 0, 0, 0.0
+    for i, (_, full, _) in enumerate(rows):
         top = max(top, full.abs().max().item())
         lg = full[:, : cfg.vocab_size]
         top2 = torch.topk(lg, 2, dim=-1).values
@@ -1449,26 +1579,29 @@ def phase_serve_full_width(torch, smi, x0):
         decided += int(sure.sum())
         agree += int((sure & (lg.argmax(-1) == toks[:, i])).sum())
     del rows
+    moe = any(k.endswith(":moe") for k in cfg.pattern)
+    f32_steps = new if moe else SERVE_F32_STEPS
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    rows = teacher_forced(torch, T.layout(cfg32).views(x0.float()), cfg32, prompt,
-                          toks[:, :SERVE_F32_STEPS])
-    errs32 = [(dec - full).abs().max().item() for dec, full in rows]
+    rows = teacher_forced(torch, {k: v.float() for k, v in params.items()}, cfg32, prompt,
+                          toks[:, :f32_steps])
+    f32 = route_checked(rows, SERVE_F32_ATOL)
     del rows
-    row = {"phase": "serve_full_width", "gpu": smi, "config": cfg.name,
-           "batch": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+    row = {"phase": phase, "gpu": smi, "config": cfg.name, "n_layers": cfg.n_layers,
+           "batch": batch, "prompt_tokens": prompt_len, "new_tokens": new,
            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
            "decode_tok_per_s": stats["tok_per_s"], "max_memory_allocated_bytes": peak,
            "params_bytes": base, "atol": SERVE_ATOL, "max_abs_logit": top,
-           "decode_vs_full_max_abs_err": max(errs), "per_step_err": errs,
+           "decode_vs_full_max_abs_err": bf16["max_abs_err"], "bf16": bf16,
            "tokens_decided": decided, "tokens_equal_where_decided": agree,
-           "f32_atol": SERVE_F32_ATOL, "f32_decode_vs_full_max_abs_err": max(errs32),
-           "f32_per_step_err": errs32, "tokens": toks[0].tolist()}
+           "f32_atol": SERVE_F32_ATOL, "f32_steps": f32_steps,
+           "f32_decode_vs_full_max_abs_err": f32["max_abs_err"], "f32": f32,
+           "tokens": toks[0].tolist()}
     emit(row)
-    if not (max(errs) <= SERVE_ATOL and agree == decided and decided > 0
-            and max(errs32) <= SERVE_F32_ATOL):
-        raise AssertionError(f"serve_full_width: decode vs full forward {max(errs)} (atol "
-                             f"{SERVE_ATOL}), f32 {max(errs32)} (atol {SERVE_F32_ATOL}), "
-                             f"{agree} of {decided} decided tokens equal")
+    if not (bf16["ok"] and agree == decided and decided > 0 and f32["ok"]):
+        raise AssertionError(
+            f"{phase}: decode vs full forward {bf16['same_routes_max_abs_err']} where the "
+            f"routes agree (atol {SERVE_ATOL}), f32 {f32['same_routes_max_abs_err']} (atol "
+            f"{SERVE_F32_ATOL}), {agree} of {decided} decided tokens equal")
 
 
 def phase_serve_card_vs_cpu(torch):
@@ -1488,13 +1621,179 @@ def phase_serve_card_vs_cpu(torch):
         params = T.layout(NANO).views(flat.to(dev))
         toks, _ = generate(params, NANO, prompt, max_new_tokens=SERVE_NEW, device=dev)
         rows = teacher_forced(torch, params, NANO, prompt.to(dev), toks)
-        out[dev] = (toks.cpu(), [d.cpu() for d, _ in rows])
+        out[dev] = (toks.cpu(), [d.cpu() for d, _, _ in rows])
     same = torch.equal(out["cuda"][0], out["cpu"][0])
     err = max((a - b).abs().max().item() for a, b in zip(out["cuda"][1], out["cpu"][1]))
     emit({"phase": "serve_card_vs_cpu", "config": NANO.name, "new_tokens": SERVE_NEW,
           "tokens_equal": same, "decode_logits_max_abs_diff": err, "atol": SERVE_CPU_ATOL})
     if not (same and err <= SERVE_CPU_ATOL):
         raise AssertionError(f"serve_card_vs_cpu: tokens equal {same}, logits differ by {err}")
+
+
+def granite_cut():
+    """granite_moe_3b_a800m.FULL at full width and GRANITE_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import granite_moe_3b_a800m
+
+    return dataclasses.replace(granite_moe_3b_a800m.FULL, n_layers=GRANITE_LAYERS,
+                               name=f"granite_moe_3b_a800m_{GRANITE_LAYERS}l")
+
+
+def window_moe_paths():
+    """(cfg, settings, N per dtype group) of the sliding-window and MoE
+    training paths."""
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.train.trainer import TrainSettings
+
+    common = dict(tau=12, steps=WINDOW_MOE_STEPS, eval_every=1, eval_batch=WINDOW_MOE_EVAL_BATCH,
+                  peak_lr=MAIN["peak_lr"], global_lr=MAIN["global_lr"])
+    return [(gemma3_1b.FULL, TrainSettings(**common, **GEMMA), GEMMA_N),
+            (granite_cut(), TrainSettings(**common, **{k: MAIN[k] for k in (
+                "n_workers", "b_micro", "seq")}), GRANITE_N)]
+
+
+def phase_group_kernel_checks(torch, K):
+    """Both kernels bit for bit against their plain versions at the
+    sliding-window and MoE paths' shapes, group by group: the DSM step over
+    each group's (n,), the AdamW step over each group's (W, n) (the plain
+    version slice by slice where the buffers are large); random inputs,
+    0 / -0 / NaN planted in the DSM inputs."""
+    from repro_torch.kernels.dsm_update import dsm_update_plain
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = []
+    for cfg, s, _ in window_moe_paths():
+        lay = T.layout(cfg)
+        for dtype, n in zip(lay.dtypes, lay.group_numels):
+            torch.cuda.empty_cache()
+            x0, m, xt = dsm_inputs(torch, gen, n, dtype)
+            ka = (x0.clone(), m.clone())
+            K.dsm_update(ka[0], ka[1], xt, 0.02, **DSM_HP)
+            dsm_update_plain(x0, m, xt, 0.02, **DSM_HP)
+            cases.append({"kernel": "dsm_update", "config": cfg.name, "shape": [n],
+                          "dtype": str(dtype), "max_abs_err": compare(torch, ka, (x0, m))})
+            del x0, m, xt, ka
+            torch.cuda.empty_cache()
+            p, g, mm, v = adamw_inputs(torch, gen, (s.n_workers, n), dtype)
+            cases.append({"kernel": "adamw_update", "config": cfg.name,
+                          "shape": [s.n_workers, n], "dtype": str(dtype),
+                          "max_abs_err": adamw_vs_plain_chunked(torch, K, p, g, mm, v)})
+            del p, g, mm, v
+    torch.cuda.empty_cache()
+    emit({"phase": "group_kernel_checks", "tolerance": "bitwise (atol 0, rtol 0), NaN where NaN",
+          "cases": cases})
+    return {name: max(c["max_abs_err"] for c in cases if c["kernel"] == name)
+            for name in ("dsm_update", "adamw_update")}
+
+
+def phase_window_moe_full_width(torch, K, smi):
+    """gemma3_1b.FULL (whole depth, W=2, S=1024) and granite_moe_3b_a800m at
+    full width and GRANITE_LAYERS layers (W=4, S=128), tau=12, WINDOW_MOE_STEPS
+    outer steps with an eval after each, through run_training and both
+    kernels.  Per path: N per dtype group as listed, one DSM launch per
+    group per round and tau AdamW launches per group per round, finite
+    losses, the last eval below the first, the peak under the card's
+    memory; each kernel timed per group on the trained state's buffers
+    beside its byte bound; one local step's host and device time.  Returns
+    (launches, [(cfg, trained x0)])."""
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.groups import each, parts, pick
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import run_training
+
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    total = dict.fromkeys(K.launch_counts(), 0)
+    rows, failures, trained = [], [], []
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    for cfg, s, n_want in window_moe_paths():
+        lay = T.layout(cfg)
+        if lay.group_numels != n_want:
+            raise AssertionError(f"{cfg.name}: groups of {lay.group_numels}, want {n_want}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        res = run_training(cfg, s, corpus, device="cuda")
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        state = res.pop("state")
+        hist, evals, step_s = res["history"], [e for _, e in res["eval_losses"]], res[
+            "outer_step_s"]
+        del res
+        trained.append((cfg, each(torch.clone, state.x0)))
+        kernels = []
+        for i, (dtype, n) in enumerate(zip(lay.dtypes, lay.group_numels)):
+            es, w = dtype.itemsize, s.n_workers
+            p, g = pick(state.params, i), pick(state.grads, i)
+            mm, v = pick(state.base_state.m, i), pick(state.base_state.v, i)
+            row = {"dtype": str(dtype), "elements": n,
+                   "adamw_ms": median_ms(torch, lambda: K.adamw_update(p, g, mm, v, 1e-5, 11,
+                                                                       **ADAMW_HP)),
+                   "dsm_ms": median_ms(torch, lambda: K.dsm_update(
+                       pick(state.x0, i), pick(state.m, i), p[0], 1e-5, **DSM_HP))}
+            row["adamw_bound_ms"] = bound_ms(w * n * (3 * es + 16), w * n * 16)[0]
+            row["dsm_bound_ms"] = bound_ms(n * (3 * es + 8), n * 12)[0]
+            kernels.append(row)
+        breakdown = local_step_breakdown(torch, cfg, state, corpus, s)
+        del state, p, g, mm, v
+        step_ms = statistics.median(step_s[1:]) * 1e3
+        tokens_per_step = s.n_workers * s.tau * s.b_micro * s.seq
+        rows.append({"config": cfg.name, "n_params": lay.numel, "n_layers": cfg.n_layers,
+                     "groups": [[str(d), n] for d, n in zip(lay.dtypes, lay.group_numels)],
+                     "n_workers": s.n_workers, "tau": s.tau, "b_micro": s.b_micro,
+                     "seq": s.seq, "peak_lr": s.peak_lr, "global_lr": s.global_lr,
+                     "history": hist, "evals": evals,
+                     "outer_step_ms": [t * 1e3 for t in step_s],
+                     "outer_step_ms_median_after_first": step_ms,
+                     "tokens_per_outer_step": tokens_per_step,
+                     "tokens_per_s": tokens_per_step / (step_ms / 1e3),
+                     "max_memory_allocated_bytes": peak, "launches": launches,
+                     "launches_per_group": {k: n / lay.n_groups for k, n in launches.items()},
+                     "kernels_per_group": kernels, "local_step": breakdown})
+        want = expected_launches(s, lay.n_groups)
+        if launches != want:
+            failures.append(f"{cfg.name}: launch counts {launches}, want {want}")
+        if not all(math.isfinite(x) for x in hist + evals):
+            failures.append(f"{cfg.name}: non-finite loss {hist}, evals {evals}")
+        elif not evals[-1] < evals[0]:
+            failures.append(f"{cfg.name}: eval loss did not fall: {evals}")
+        if not peak < card_bytes:
+            failures.append(f"{cfg.name}: peak {peak} B of the card's {card_bytes}")
+        if not all(t.dtype == d for t, d in zip(parts(trained[-1][1]), lay.dtypes)):
+            failures.append(f"{cfg.name}: x0 groups of dtypes other than {lay.dtypes}")
+        for k in total:
+            total[k] += launches[k]
+    emit({"phase": "window_moe_full_width", "gpu": smi, "outer_steps": WINDOW_MOE_STEPS,
+          "card_bytes": card_bytes, "paths": rows})
+    if failures:
+        raise AssertionError("window_moe_full_width: " + "; ".join(failures))
+    return total, trained
+
+
+def window_moe_phases(torch, K, smi, pool) -> tuple:
+    """The phases of sliding-window attention and MoE; returns (their runs'
+    launches, the group kernel checks' worst errors)."""
+    import dataclasses
+
+    from repro_torch.configs import granite_moe_3b_a800m, load_arch
+
+    errs = phase_group_kernel_checks(torch, K)
+    total, trained = phase_window_moe_full_width(torch, K, smi)
+    for (cfg, x0), (b, prompt, new), phase in zip(trained, (SERVE_SWA, SERVE_MOE),
+                                                   ("serve_swa_full_width",
+                                                    "serve_moe_full_width")):
+        serve_check(torch, smi, phase, cfg, x0, b, prompt, new)
+    del trained, x0
+    torch.cuda.empty_cache()
+    # granite's SMOKE with bf16 parameters (activations f32, as the SMOKE's):
+    # two dtype groups, the routers f32
+    bf16p = dataclasses.replace(granite_moe_3b_a800m.SMOKE, param_dtype="bfloat16",
+                                name="granite_moe_smoke_bf16_params")
+    configs = [(load_arch(a).SMOKE, load_arch(a).TOPO) for a in WINDOW_MOE_SMOKES]
+    configs.append((bf16p, granite_moe_3b_a800m.TOPO))
+    more = card_vs_cpu_runs(torch, K, pool, "window_moe_card_vs_cpu", configs, serve=True)
+    return {k: n + more[k] for k, n in total.items()}, errs
 
 
 def slice_phases(torch, K, smi, pool) -> dict:
@@ -1577,6 +1876,9 @@ def all_phases(torch, K, smi, pool):
                  phase_zero_card_vs_cpu(torch, K),
                  slice_phases(torch, K, smi, pool)):
         launches = {k: n + more[k] for k, n in launches.items()}
+    more, group_errs = window_moe_phases(torch, K, smi, pool)
+    launches = {k: n + more[k] for k, n in launches.items()}
+    errs = {k: max(e, group_errs[k]) for k, e in errs.items()}
     return launches, errs, times
 
 

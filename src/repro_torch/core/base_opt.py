@@ -15,6 +15,10 @@ on the card (its plain version on the CPU) with the training path's rounding
 (``round_direction=True``); the other optimizers have no TPU kernel and
 update in plain PyTorch.
 
+``init`` and ``update`` take a mixed-dtype model's :class:`Groups` buffers
+too: the state then holds Groups, and ``update`` runs group by group (with
+AdamW one kernel launch per group, in the group's dtype).
+
 A Python float meets a reference array as a weakly typed constant, which
 takes the array's dtype: against f32 tensors PyTorch rounds it the same way,
 against bf16 tensors :func:`weak_scalar` rounds it first.
@@ -27,6 +31,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.groups import Groups, join, parts, pick
 from repro_torch.kernels.adamw_update import adamw_consts, adamw_update, moments_and_direction
 from repro_torch.kernels.dsm_update import sign_like_jnp
 
@@ -39,6 +44,23 @@ class BaseOptimizer:
     init: Callable
     direction: Callable
     update: Callable
+
+
+def _over_groups(name: str, init: Callable, direction: Callable,
+                 update: Callable) -> BaseOptimizer:
+    """The optimizer whose ``init`` and ``update`` also take :class:`Groups`
+    buffers, group by group; ``direction`` stays per tensor."""
+
+    def grouped_init(params):
+        if isinstance(params, Groups):
+            return join([init(p) for p in params])
+        return init(params)
+
+    def grouped_update(params, grads, state, gamma, step):
+        for i, (p, g) in enumerate(zip(parts(params), parts(grads), strict=True)):
+            update(p, g, pick(state, i), gamma, step)
+
+    return BaseOptimizer(name, grouped_init, direction, grouped_update)
 
 
 def weak_scalar(c: float, dtype: torch.dtype) -> float:
@@ -75,7 +97,7 @@ def sgd() -> BaseOptimizer:
     def direction(grads, state, params, step):
         return grads, state
 
-    return BaseOptimizer("sgd", init, direction, _plain_update(direction))
+    return _over_groups("sgd", init, direction, _plain_update(direction))
 
 
 def momentum(beta: float = 0.9, nesterov: bool = False) -> BaseOptimizer:
@@ -91,7 +113,7 @@ def momentum(beta: float = 0.9, nesterov: bool = False) -> BaseOptimizer:
         d = b * new_m + grads if nesterov else new_m
         return d, new_m
 
-    return BaseOptimizer("momentum", init, direction, _plain_update(direction))
+    return _over_groups("momentum", init, direction, _plain_update(direction))
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +151,7 @@ def adamw(
     def update(params, grads, state, gamma, step):
         adamw_update(params, grads, state.m, state.v, gamma, step, round_direction=True, **hp)
 
-    return BaseOptimizer("adamw", init, direction, update)
+    return _over_groups("adamw", init, direction, update)
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +170,7 @@ def lion(b1: float = 0.95, b2: float = 0.98, weight_decay: float = 0.1) -> BaseO
         d = (sign_like_jnp(u) + weight_decay * params.to(F32)).to(params.dtype)
         return d, b2 * state + (1.0 - b2) * g
 
-    return BaseOptimizer("lion", init, direction, _plain_update(direction))
+    return _over_groups("lion", init, direction, _plain_update(direction))
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +207,7 @@ def sophia(
         d = (d + weight_decay * params.to(F32)).to(params.dtype)
         return d, SophiaState(new_m, new_h)
 
-    return BaseOptimizer("sophia", init, direction, _plain_update(direction))
+    return _over_groups("sophia", init, direction, _plain_update(direction))
 
 
 REGISTRY: dict[str, Callable[..., BaseOptimizer]] = {

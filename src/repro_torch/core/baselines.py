@@ -19,6 +19,10 @@ the dense one on every rank, and the global update runs replicated.
 ``perstep`` and ``mv_signsgd`` take no topology, as the reference's read
 no mesh flag: each rank runs them whole.
 
+A mixed-dtype model's buffers are Groups (``repro_torch.groups``): the
+global updates run group by group, each on its group's x0 and aux; such a
+model takes no topology.
+
 Token batches are ``(W, tau, 1, B_micro, S)``: the trainer's layout with an
 accumulation axis of 1, which is numerically the reference's batch without
 that axis (0 + g = g, g / 1 = g).
@@ -36,6 +40,7 @@ from repro_torch.core.base_opt import BaseOptimizer, weak_scalar
 from repro_torch.core.dsm import make_local_phase, randomized_sign_pm, worker_grads, worker_mean
 from repro_torch.distributed import comm
 from repro_torch.distributed import zero as Z
+from repro_torch.groups import Groups, each, join, parts, pick
 from repro_torch.kernels.dsm_update import sign_like_jnp
 from repro_torch.models.convert import FlatLayout
 
@@ -69,10 +74,15 @@ def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
     """
     local_phase = make_local_phase(loss_fn, base_opt, layout)
 
-    def init(x0: torch.Tensor, n_workers: int) -> LocalMethodState:
-        params = x0.unsqueeze(0).repeat(n_workers if topo is None else topo.local_workers, 1)
-        return LocalMethodState(params=params, grads=torch.zeros_like(params), x0=x0.clone(),
-                                aux=init_aux(x0), base_state=base_opt.init(params))
+    def init(x0, n_workers: int) -> LocalMethodState:
+        if topo is not None:
+            Z.check_one_group(x0)
+        rows = n_workers if topo is None else topo.local_workers
+        params = each(lambda x: x.unsqueeze(0).repeat(rows, 1), x0)
+        aux = join([init_aux(x) for x in x0]) if isinstance(x0, Groups) else init_aux(x0)
+        return LocalMethodState(params=params, grads=each(torch.zeros_like, params),
+                                x0=each(torch.clone, x0), aux=aux,
+                                base_state=base_opt.init(params))
 
     def outer_step(state: LocalMethodState, tokens: torch.Tensor):
         gamma_t = schedule(state.t)
@@ -83,8 +93,9 @@ def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
         else:
             losses = comm.gather_workers(losses, topo, dim=1)
             x_tau = Z.replicated_worker_mean(state.params, topo)
-        global_update(state.x0, state.aux, x_tau, gamma, state.t)
-        state.params.copy_(state.x0.expand_as(state.params))
+        for i, x0 in enumerate(parts(state.x0)):
+            global_update(x0, pick(state.aux, i), pick(x_tau, i), gamma, state.t)
+        each(lambda p, x: p.copy_(x.expand_as(p)), state.params, state.x0)
         state.t += 1
         state.inner += tau
         return state, {"loss": losses.mean(), "gamma": gamma_t}
@@ -224,17 +235,19 @@ def make_perstep_dp_step(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
     dtype; the reference's ``x - gamma * d`` promotes bf16 params to f32.
     """
 
-    def init(x0: torch.Tensor, n_workers: int) -> PerStepDPState:
-        return PerStepDPState(params=x0.clone(), grads=x0.new_zeros(n_workers, x0.numel()),
+    def init(x0, n_workers: int) -> PerStepDPState:
+        return PerStepDPState(params=each(torch.clone, x0),
+                              grads=each(lambda x: x.new_zeros(n_workers, x.numel()), x0),
                               base_state=base_opt.init(x0))
 
     def outer_step(state: PerStepDPState, tokens: torch.Tensor):
         gamma_t = schedule(state.t)   # indexed by the outer-equivalent step
         gamma = float(gamma_t)
-        losses = torch.empty(tau, tokens.shape[0], dtype=F32, device=state.params.device)
+        losses = torch.empty(tau, tokens.shape[0], dtype=F32,
+                             device=parts(state.params)[0].device)
         for k in range(tau):
             worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, k], losses[k])
-            g = state.grads.mean(dim=0, dtype=F32).to(state.params.dtype)   # all-reduce
+            g = worker_mean(state.grads)                                     # all-reduce
             base_opt.update(state.params, g, state.base_state, gamma, state.t * tau + k)
         state.t += 1
         return state, {"loss": losses.mean(), "gamma": gamma_t}
@@ -265,35 +278,42 @@ def make_mv_signsgd_step(loss_fn: Callable, tau: int, gamma: float, eta: float,
     vote.  The local SGD steps and the extrapolation run in the param dtype,
     as the reference's do; momentum and vote in f32."""
 
-    def init(x0: torch.Tensor, n_workers: int) -> MVState:
-        params = x0.unsqueeze(0).repeat(n_workers, 1)
-        return MVState(x=x0.clone(), x_prev=x0.clone(), m=torch.zeros_like(params, dtype=F32),
-                       params=params, grads=torch.zeros_like(params))
+    def init(x0, n_workers: int) -> MVState:
+        params = each(lambda x: x.unsqueeze(0).repeat(n_workers, 1), x0)
+        return MVState(x=each(torch.clone, x0), x_prev=each(torch.clone, x0),
+                       m=each(lambda p: torch.zeros_like(p, dtype=F32), params),
+                       params=params, grads=each(torch.zeros_like, params))
 
     def outer_step(state: MVState, tokens: torch.Tensor, rng: Optional[torch.Generator] = None,
-                   uniform: Optional[torch.Tensor] = None):
-        """``uniform``: the (W, N) f32 draws of the signs, else drawn from ``rng``."""
-        dt = state.x.dtype
+                   uniform=None):
+        """``uniform``: the (W, N) f32 draws of the signs (Groups of them for
+        Groups buffers), else drawn from ``rng``."""
         n_workers = tokens.shape[0]
-        # y_t = x_t + alpha (x_t - x_{t-1}), every worker starts from it
-        y = state.x + weak_scalar(alpha, dt) * (state.x - state.x_prev)
-        state.params.copy_(y.expand_as(state.params))
-        lr = weak_scalar(gamma, dt)
-        losses = torch.empty(tau, n_workers, dtype=F32, device=state.x.device)
+        dev = parts(state.x)[0].device
+
+        def start(p, x, x_prev):
+            # y_t = x_t + alpha (x_t - x_{t-1}), every worker starts from it
+            y = x + weak_scalar(alpha, x.dtype) * (x - x_prev)
+            p.copy_(y.expand_as(p))
+
+        each(start, state.params, state.x, state.x_prev)
+        losses = torch.empty(tau, n_workers, dtype=F32, device=dev)
         for k in range(tau):
             worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, k], losses[k])
-            state.params.sub_(lr * state.grads)
+            each(lambda p, g: p.sub_(weak_scalar(gamma, p.dtype) * g), state.params, state.grads)
 
         # local momentum from a fresh gradient at z_tau on the last microbatch
         worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, -1],
-                     torch.empty(n_workers, device=state.x.device))
-        state.m.mul_(beta).add_((1 - beta) * state.grads.to(F32))
+                     torch.empty(n_workers, device=dev))
+        each(lambda m, g: m.mul_(beta).add_((1 - beta) * g.to(F32)), state.m, state.grads)
 
         # randomized sign per worker, sum, majority vote
-        votes = randomized_sign_pm(state.m, rng, bound, uniform).sum(dim=0)
-        x_new = state.x.to(F32) - eta * sign_like_jnp(votes)
-        state.x_prev.copy_(state.x)
-        state.x.copy_(x_new)
+        for i, (x, x_prev, m) in enumerate(zip(parts(state.x), parts(state.x_prev),
+                                               parts(state.m))):
+            votes = randomized_sign_pm(m, rng, bound, pick(uniform, i)).sum(dim=0)
+            x_new = x.to(F32) - eta * sign_like_jnp(votes)
+            x_prev.copy_(x)
+            x.copy_(x_new)
         state.t += 1
         return state, {"loss": losses.mean()}
 

@@ -26,6 +26,12 @@ shard of x0 and m and runs the DSM kernel on it
 replicated global step on the whole mean.  Both are bit-equal to the dense
 path.
 
+A mixed-dtype model (``repro_torch.groups``) keeps one buffer per dtype
+group for params, gradients, x0, m and the base-optimizer state: the local
+updates, the worker mean and the global step run group by group, one DSM
+launch per group per round; ``stat_sums`` adds the groups' sums.  Such a
+model runs on the dense path only: a topology raises NotImplementedError.
+
 The outer step takes an optional ``FaultRound`` (``repro_torch.robustness``)
 and then makes line 7's mean survivor-aware; ``DSMConfig.mask_nonfinite``
 masks non-finite workers without injected faults.
@@ -38,6 +44,7 @@ Instances (paper §2 "Algorithm instances"):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, ClassVar, Optional
 
 import torch
@@ -46,6 +53,7 @@ from torch.profiler import record_function
 from repro_torch.core.base_opt import BaseOptimizer
 from repro_torch.distributed import comm
 from repro_torch.distributed import zero as Z
+from repro_torch.groups import Groups, each, parts
 from repro_torch.kernels.dsm_update import dsm_update, dsm_update_plain, sign_like_jnp
 from repro_torch.models.convert import FlatLayout
 from repro_torch.obs import metrics as OM
@@ -131,6 +139,7 @@ class DSMState:
     x0: torch.Tensor          # (N,) global model x_{t,0}
     m: torch.Tensor           # (N,) global sign momentum m_t, f32
     base_state: object        # per-worker base-optimizer state, (W, N) leaves
+    # a mixed-dtype model holds each buffer as Groups, one tensor per group
     # under a topology W is the rank's own workers, and with zero_sharded
     # x0 and m hold the rank's shard
     t: int = 0                # outer step counter
@@ -141,17 +150,21 @@ class DSMState:
     SCRATCH: ClassVar[tuple] = ("grads",)
 
 
-def dsm_init(x0: torch.Tensor, base_opt: BaseOptimizer, n_workers: int, topo=None,
+def dsm_init(x0, base_opt: BaseOptimizer, n_workers: int, topo=None,
              global_sharded: bool = False) -> DSMState:
-    """State from the flat global params ``x0`` (N,): every worker's, or
-    under ``topo`` the rank's workers and, with ``global_sharded``, the
-    rank's shard of x0 and m."""
-    params = x0.unsqueeze(0).repeat(n_workers if topo is None else topo.local_workers, 1)
+    """State from the flat global params ``x0`` (N,) (a tensor, or the
+    Groups of a mixed-dtype model): every worker's, or under ``topo`` the
+    rank's workers and, with ``global_sharded``, the rank's shard of x0 and
+    m."""
+    if topo is not None:
+        Z.check_one_group(x0)
+    rows = n_workers if topo is None else topo.local_workers
+    params = each(lambda x: x.unsqueeze(0).repeat(rows, 1), x0)
     state = DSMState(
         params=params,
-        grads=torch.zeros_like(params),
-        x0=x0.clone(),
-        m=torch.zeros_like(x0, dtype=torch.float32),
+        grads=each(torch.zeros_like, params),
+        x0=each(torch.clone, x0),
+        m=each(lambda x: torch.zeros_like(x, dtype=torch.float32), x0),
         base_state=base_opt.init(params),
     )
     return state if topo is None else Z.shard_dsm_state(state, topo, global_sharded)
@@ -164,17 +177,25 @@ def dsm_init(x0: torch.Tensor, base_opt: BaseOptimizer, n_workers: int, topo=Non
 # usable contribution leaves x0 / m bit-untouched (skip-round).
 # ---------------------------------------------------------------------------
 
-def worker_finite_mask(params_w: torch.Tensor) -> torch.Tensor:
-    """``(W,)`` bool: worker i's contribution is finite everywhere."""
-    return torch.isfinite(params_w).all(dim=1)
+def worker_finite_mask(params_w) -> torch.Tensor:
+    """``(W,)`` bool: worker i's contribution is finite everywhere (in
+    every group)."""
+    ok = [torch.isfinite(p).all(dim=1) for p in parts(params_w)]
+    return functools.reduce(torch.logical_and, ok)
 
 
-def worker_mean(params_w: torch.Tensor) -> torch.Tensor:
-    """Line 7's mean of ``(W, N)`` in f32, cast back (as ``jnp.mean`` of bf16)."""
-    return params_w.mean(dim=0, dtype=F32).to(params_w.dtype)
+def worker_mean(params_w):
+    """Line 7's mean of ``(W, N)`` in f32, cast back (as ``jnp.mean`` of
+    bf16); group by group."""
+    return each(lambda p: p.mean(dim=0, dtype=F32).to(p.dtype), params_w)
 
 
-def masked_worker_mean(params_w: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def masked_worker_mean(params_w, weights: torch.Tensor):
+    """:func:`_masked_mean` group by group."""
+    return each(lambda p: _masked_mean(p, weights), params_w)
+
+
+def _masked_mean(params_w: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted worker mean of ``(W, N)`` in the param dtype, in the
     reference's order: zero-weight workers are zeroed BEFORE the product (NaN
     * 0 is NaN), the product is summed in f32 and rounded (``jnp.sum``
@@ -209,11 +230,17 @@ def global_sign_momentum_step(x0, m, x_tau_mean, gamma, cfg: DSMConfig,
     """Eqs. (6)-(8) in place on the flat buffers; returns (x0, m).
 
     ``sign_mode="sign"``: the DSM kernel on the card, its plain version on
-    the CPU.  With f32 momentum the reference's jnp path and its kernel do
+    the CPU; Groups buffers (and ``uniform``) run group by group, one launch
+    each.  With f32 momentum the reference's jnp path and its kernel do
     the same f32 arithmetic in the same order, so this one path stands for
     both.  The randomized signs draw their f32 uniforms over the flat (N,)
     buffer from ``rng`` (or take ``uniform``).
     """
+    if isinstance(x0, Groups):
+        us = uniform if uniform is not None else (None,) * len(x0)
+        for x, mm, xt, u in zip(x0, m, x_tau_mean, us, strict=True):
+            global_sign_momentum_step(x, mm, xt, gamma, cfg, rng, u)
+        return x0, m
     hp = dict(eta=cfg.global_lr, beta1=cfg.beta1, beta2=cfg.beta2, lam=cfg.weight_decay)
     if cfg.sign_mode == "sign":
         return dsm_update(x0, m, x_tau_mean, gamma, **hp)
@@ -226,24 +253,27 @@ def global_sign_momentum_step(x0, m, x_tau_mean, gamma, cfg: DSMConfig,
                             sign=lambda u: op(u, rng, cfg.sign_bound, uniform))
 
 
-def worker_grads(loss_fn: Callable, layout: FlatLayout, params: torch.Tensor,
-                 grads: torch.Tensor, tokens: torch.Tensor, losses: torch.Tensor) -> None:
+def worker_grads(loss_fn: Callable, layout: FlatLayout, params, grads, tokens: torch.Tensor,
+                 losses: torch.Tensor) -> None:
     """Every worker's forward and backward, in place into ``grads[w]`` of the
-    ``(W, N)`` buffer (zeroed first): worker w at ``params[w]``, or at the
+    ``(W, N)`` buffers (zeroed first): worker w at ``params[w]``, or at the
     one ``(N,)`` params, on its microbatches ``tokens[w]`` (accum, B_micro,
     S), gradients summed then divided by accum; its mean loss into
-    ``losses[w]``."""
-    grads.zero_()
+    ``losses[w]``.  The buffers are tensors or Groups."""
+    for g in parts(grads):
+        g.zero_()
     accum = tokens.shape[1]
-    for w in range(grads.shape[0]):
-        leaves = layout.autograd_leaves(params if params.dim() == 1 else params[w], grads[w])
+    for w in range(parts(grads)[0].shape[0]):
+        leaves = layout.autograd_leaves(each(lambda p: p if p.dim() == 1 else p[w], params),
+                                        each(lambda g: g[w], grads))
         loss_sum = torch.zeros((), dtype=F32, device=losses.device)
         for a in range(accum):
             loss = loss_fn(leaves, tokens[w, a])
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         if accum > 1:
-            grads[w].div_(accum)
+            for g in parts(grads):
+                g[w].div_(accum)
         losses[w] = loss_sum / accum
 
 
@@ -260,7 +290,7 @@ def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLay
 
     def local_phase(state, tokens: torch.Tensor, gamma: float) -> torch.Tensor:
         tau, n_workers = tokens.shape[1], tokens.shape[0]
-        losses = torch.empty(tau, n_workers, dtype=F32, device=state.params.device)
+        losses = torch.empty(tau, n_workers, dtype=F32, device=parts(state.params)[0].device)
         for k in range(tau):
             worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, k], losses[k])
             base_opt.update(state.params, state.grads, state.base_state, gamma,
@@ -339,7 +369,8 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
             x_tau = Z.replicated_worker_mean(contrib, topo, weights)
         if weights is not None:
             del contrib     # frees the faulted (W, N) copy before the x0 / m copies
-            kept = (state.x0.clone(), state.m.clone())
+            kept = parts(state.x0) + parts(state.m)
+            kept = [t.clone() for t in kept]
         if sharded:
             stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1, topo)
             Z.sharded_global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, topo, n,
@@ -352,13 +383,13 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
             # skip-round: no usable contribution -> x0 / m bit-untouched
             wsum = weights.sum()
             ok = wsum > 0
-            for buf, old in zip((state.x0, state.m), kept):
+            for buf, old in zip(parts(state.x0) + parts(state.m), kept):
                 torch.where(ok, buf, old, out=buf)
 
         # line 11: every worker restarts from x_{t+1,0} (the all-gather when
         # sharded); AdamW state carries on
         x0 = Z.gather_shards(state.x0, topo, n) if sharded else state.x0
-        state.params.copy_(x0.expand_as(state.params))
+        each(lambda p, x: p.copy_(x.expand_as(p)), state.params, x0)
         state.t += 1
         state.inner += cfg.tau
 

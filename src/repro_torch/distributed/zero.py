@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.distributed import comm
+from repro_torch.groups import Groups
 from repro_torch.kernels.dsm_update import dsm_update
 from repro_torch.models.convert import state_fields
 from repro_torch.obs import metrics as OM
@@ -63,6 +64,14 @@ def shard_bounds(n: int, shards: int) -> list:
 
 def my_bounds(n: int, topo) -> tuple:
     return shard_bounds(n, num_shards(topo))[topo.rank]
+
+
+def check_one_group(x0) -> None:
+    """The ranks split one flat buffer: a mixed-dtype model's Groups raise."""
+    if isinstance(x0, Groups):
+        raise NotImplementedError(
+            f"a model of {len(x0)} dtype groups runs on the dense path only; the ZeRO-sharded "
+            "and device-parallel ranks split one flat buffer (ROADMAP.md)")
 
 
 def shard_dsm_state(state, topo, global_sharded: bool = True):

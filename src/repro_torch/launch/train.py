@@ -11,9 +11,15 @@ flags and defaults (DSM with the arch's base optimizer, AdamW):
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --tau 2 \
         --run-dir build/run --log-every 1 --profile-steps 1:1 --sanitize
 
-``--arch`` accepts ``nano``, ``<id>`` (FULL) or ``<id>_smoke``.  The Markov
-corpus keeps a (vocab, vocab, 8) table, so a 50k-token vocabulary needs
-``--corpus text`` (bytes of this repository's Python sources).
+``--arch`` accepts ``nano``, ``<id>`` (FULL) or ``<id>_smoke`` of the ported
+block kinds: ``attn`` / ``swa`` mixers with dense or MoE FFNs (gemma3_1b,
+granite_moe_3b_a800m, llama4_maverick_400b_a17b_smoke among them).  A model
+whose training state (W copies of params, gradients and AdamW moments, plus
+x0 and m) exceeds the device's memory is refused before anything is
+allocated: llama4_maverick_400b_a17b FULL has 397.7 B parameters, ~21.5 TB of
+state at W=4.  The Markov corpus keeps a (vocab, vocab, 8) table, so a
+50k-token vocabulary needs ``--corpus text`` (bytes of this repository's
+Python sources).
 
 Several ranks, one process each, start under ``torch.distributed.run``;
 ``--zero-sharded`` and ``--device-parallel-local`` then split the workers
@@ -39,7 +45,7 @@ from pathlib import Path
 
 from repro_torch.configs import load_arch
 from repro_torch.core.base_opt import REGISTRY
-from repro_torch.train.trainer import ALGORITHMS, TrainSettings, run_training
+from repro_torch.train.trainer import ALGORITHMS, TrainSettings, resolve_device, run_training
 
 MARKOV_LIMIT_BYTES = 8 << 30
 
@@ -66,6 +72,37 @@ def make_corpus(kind: str, vocab: int):
         raise SystemExit(f"the Markov corpus for vocab {vocab} needs "
                          f"{MarkovCorpus.table_bytes(vocab) / 1e9:.0f} GB; use --corpus text")
     return MarkovCorpus(vocab, seed=1)
+
+
+def state_bytes(cfg, n_workers: int) -> int:
+    """Bytes of a DSM + AdamW training state: per worker params and
+    gradients in their dtypes and two f32 moments, plus x0 and the f32 m."""
+    from repro_torch.models.transformer import layout
+
+    lay = layout(cfg)
+    return sum(n * (n_workers * (2 * dt.itemsize + 8) + dt.itemsize + 4)
+               for dt, n in zip(lay.dtypes, lay.group_numels))
+
+
+def device_bytes(device: str) -> int:
+    import torch
+
+    dev = resolve_device(device)      # raises without a card
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def check_fits(cfg, n_workers: int, device: str) -> None:
+    """Refuse a model whose training state exceeds the device's memory."""
+    need, have = state_bytes(cfg, n_workers), device_bytes(device)
+    if need > have:
+        from repro_torch.configs import specs
+
+        raise SystemExit(
+            f"{cfg.name}: {specs.param_count(cfg):,} parameters need {need / 1e9:,.1f} GB of "
+            f"training state at W={n_workers}, over the {have / 1e9:,.1f} GB of {device}; "
+            "train its _smoke config or a cut depth")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -164,6 +201,7 @@ def main(argv=None):
         sanitize=args.sanitize, sanitize_nans=args.sanitize_nans, run_dir=args.run_dir,
         log_every=args.log_every, profile_steps=args.profile_steps,
     )
+    check_fits(cfg, args.n_workers, args.device)
     corpus = make_corpus(args.corpus, cfg.vocab_size)
     group, device = init_ranks(args)
     try:
@@ -183,12 +221,13 @@ def main(argv=None):
               f"(summarize: python -m repro_torch.obs summarize {args.run_dir})")
     if args.checkpoint:
         from repro_torch.checkpoint import checkpoint as CK
+        from repro_torch.groups import parts
         from repro_torch.models import convert
         from repro_torch.models.transformer import layout
 
         st = result["state"]
         final = st.x0 if hasattr(st, "x0") else st.params
-        if final.numel() != layout(cfg).numel:
+        if sum(t.numel() for t in parts(final)) != layout(cfg).numel:
             final = st.params[0]     # x0 is a ZeRO shard; the workers hold the whole x0
         CK.save(args.checkpoint, convert.leaf_tree(layout(cfg), final), step=args.steps)
         print(f"saved checkpoint to {args.checkpoint}.npz")

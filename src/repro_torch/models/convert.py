@@ -1,12 +1,15 @@
 """The port's flat parameter layout, and the bridge from the JAX package's
 parameters and training state to it.
 
-Every parameter leaf is a view into one flat buffer, in the order of
-``jax.tree.leaves`` on the reference's params (dict keys sorted at every
-level, tuples in order), each leaf shaped as the JAX leaf (stacked blocks
-keep their leading layer axis).  Training keeps ``(W, N)`` buffers of this
-layout for params, gradients and AdamW moments, so each optimizer kernel is
-one launch over all leaves.  There is no per-leaf padding.
+Every parameter leaf is a view into a flat buffer of its dtype group, in
+the order of ``jax.tree.leaves`` on the reference's params within the group
+(dict keys sorted at every level, tuples in order), each leaf shaped as the
+JAX leaf (stacked blocks keep their leading layer axis).  A model whose
+leaves share one dtype has one group and one buffer; a mixed-dtype model
+(an f32 router in a bf16 model) has one per dtype, the param dtype's first
+(``repro_torch.groups``).  Training keeps ``(W, N)`` buffers of this layout
+for params, gradients and AdamW moments, so each optimizer kernel is one
+launch per group over all its leaves.  There is no per-leaf padding.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from repro_torch.groups import Groups, each, parts
 
 
 def flatten_tree(tree, is_leaf: Callable[[Any], bool] = lambda x: False,
@@ -36,36 +41,71 @@ def flatten_tree(tree, is_leaf: Callable[[Any], bool] = lambda x: False,
 
 @dataclasses.dataclass(frozen=True)
 class FlatLayout:
-    """Names, shapes and offsets of every leaf in the flat buffer."""
+    """Names, shapes, dtype groups and offsets of every leaf in the flat
+    buffers: one buffer per dtype group (``repro_torch.groups``), each
+    leaf at ``offsets[i]`` of group ``groups[i]``'s buffer.  ``numel`` is
+    the total over all groups."""
 
     names: tuple
     shapes: tuple
     offsets: tuple
     leaves: tuple   # the spec tree's leaf values, in layout order
     numel: int
+    groups: tuple         # each leaf's group index
+    dtypes: tuple         # each group's dtype (None for an untyped spec)
+    group_numels: tuple   # each group's element count
 
     @classmethod
-    def from_tree(cls, spec: dict, is_leaf) -> "FlatLayout":
-        """``spec`` leaves are ``(shape, anything)``."""
+    def from_tree(cls, spec: dict, is_leaf, dtype_of=lambda leaf: None,
+                  first=None) -> "FlatLayout":
+        """``spec`` leaves are ``(shape, ...)``; ``dtype_of(leaf)`` gives a
+        leaf's dtype.  The leaves are grouped by dtype, the group of
+        ``first`` leading and the others in order of first appearance;
+        within a group they keep the tree's order."""
         flat = flatten_tree(spec, is_leaf)
-        names, shapes, offsets, off = [], [], [], 0
-        for name, (shape, _) in flat:
-            names.append(name)
-            shapes.append(tuple(shape))
-            offsets.append(off)
-            off += math.prod(shape)
-        return cls(tuple(names), tuple(shapes), tuple(offsets),
-                   tuple(leaf for _, leaf in flat), off)
+        dts = [dtype_of(leaf) for _, leaf in flat]
+        order = sorted(dict.fromkeys(dts), key=lambda d: d != first)
+        names, shapes, offsets, leaves, groups, sizes = [], [], [], [], [], []
+        for g, dt in enumerate(order):
+            off = 0
+            for (name, leaf), d in zip(flat, dts):
+                if d != dt:
+                    continue
+                shape = tuple(leaf[0])
+                names.append(name)
+                shapes.append(shape)
+                offsets.append(off)
+                leaves.append(leaf)
+                groups.append(g)
+                off += math.prod(shape)
+            sizes.append(off)
+        return cls(tuple(names), tuple(shapes), tuple(offsets), tuple(leaves), sum(sizes),
+                   tuple(groups), tuple(order), tuple(sizes))
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.dtypes)
 
     def _spans(self):
-        for name, shape, off in zip(self.names, self.shapes, self.offsets):
-            yield name, shape, off, math.prod(shape)
+        for name, shape, off, g in zip(self.names, self.shapes, self.offsets, self.groups):
+            yield name, shape, off, math.prod(shape), g
 
-    def views(self, flat: torch.Tensor) -> dict:
-        """``{path: view}`` into one ``(N,)`` row."""
-        return {name: flat[off:off + n].view(shape) for name, shape, off, n in self._spans()}
+    def empty(self, lead: tuple = (), device=None):
+        """Uninitialised buffers of this layout with leading dims ``lead``:
+        a tensor for one group, else :class:`Groups`, each in its group's
+        dtype."""
+        bufs = [torch.empty(lead + (n,), dtype=dt, device=device)
+                for dt, n in zip(self.dtypes, self.group_numels)]
+        return bufs[0] if len(bufs) == 1 else Groups(bufs)
 
-    def autograd_leaves(self, flat: torch.Tensor, grad: torch.Tensor) -> dict:
+    def views(self, flat) -> dict:
+        """``{path: view}`` into one ``(N,)`` row (a tensor, or
+        :class:`Groups` of the groups' rows)."""
+        bufs = parts(flat)
+        return {name: bufs[g][off:off + n].view(shape)
+                for name, shape, off, n, g in self._spans()}
+
+    def autograd_leaves(self, flat, grad) -> dict:
         """``{path: leaf}`` views of the row ``flat`` that require grad and
         whose ``.grad`` is the matching view of ``grad``, so that backward
         accumulates IN PLACE into the flat gradient buffer (zero it first).
@@ -86,10 +126,11 @@ def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def from_jax_numpy(tree, cfg, n_workers: int, device=None) -> torch.Tensor:
+def from_jax_numpy(tree, cfg, n_workers: int, device=None):
     """The JAX package's params (numpy arrays, nested as the pytree or keyed
-    by dotted pytree path) as the port's ``(n_workers, N)`` flat buffer in
-    ``cfg.p_dtype``; every worker row holds the same params."""
+    by dotted pytree path) as the port's ``(n_workers, N)`` flat buffers,
+    each leaf in its group's dtype (the reference's); every worker row
+    holds the same params."""
     from repro_torch.models.transformer import layout
 
     lay = layout(cfg)
@@ -98,7 +139,7 @@ def from_jax_numpy(tree, cfg, n_workers: int, device=None) -> torch.Tensor:
         raise ValueError(f"param paths differ from the {cfg.name} layout: "
                          f"missing {sorted(set(lay.names) - set(given))}, "
                          f"unexpected {sorted(set(given) - set(lay.names))}")
-    row = torch.empty(lay.numel, dtype=cfg.p_dtype)
+    row = lay.empty()
     views = lay.views(row)
     for name, shape in zip(lay.names, lay.shapes):
         # via f32: numpy has no native bfloat16, and bf16 -> f32 is exact
@@ -106,10 +147,10 @@ def from_jax_numpy(tree, cfg, n_workers: int, device=None) -> torch.Tensor:
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, layout wants {shape}")
         views[name].copy_(torch.from_numpy(arr))
-    return row.to(device).unsqueeze(0).repeat(n_workers, 1)
+    return each(lambda r: r.to(device).unsqueeze(0).repeat(n_workers, 1), row)
 
 
-def to_numpy(flat: torch.Tensor, cfg) -> dict:
+def to_numpy(flat, cfg) -> dict:
     """``{path: f32 numpy array}`` of one flat ``(N,)`` row (for comparisons)."""
     from repro_torch.models.transformer import layout
 
@@ -137,28 +178,39 @@ def state_fields(state) -> list:
     return []
 
 
-def leaf_tree(lay: FlatLayout, flat: torch.Tensor) -> dict:
+def leaf_tree(lay: FlatLayout, flat) -> dict:
     """``{"/"-joined leaf path: view}`` of an ``(N,)`` buffer, or of a
     ``(W, N)`` buffer with each leaf ``(W, *shape)`` as the reference's
-    per-worker leaves (strided views, no copy)."""
-    if flat.dim() == 1:
+    per-worker leaves (strided views, no copy); a :class:`Groups` buffer
+    gives every group's leaves."""
+    bufs = parts(flat)
+    if bufs[0].dim() == 1:
         return {k.replace(".", "/"): v for k, v in lay.views(flat).items()}
-    return {name.replace(".", "/"): flat[:, off:off + n].view(flat.shape[0], *shape)
-            for name, shape, off, n in lay._spans()}
+    return {name.replace(".", "/"): bufs[g][:, off:off + n].view(bufs[g].shape[0], *shape)
+            for name, shape, off, n, g in lay._spans()}
+
+
+def _is_buffer(v) -> bool:
+    """A state buffer in the layout: a tensor of one dimension or more, or
+    the :class:`Groups` of one."""
+    return isinstance(v, Groups) or (isinstance(v, torch.Tensor) and v.dim() > 0)
 
 
 def state_to_tree(state, cfg) -> dict:
     """The state as nested dicts keyed like the reference's state pytree:
     ``params/<leaf>`` (W, *shape), ``x0/<leaf>``, ``m/<leaf>``,
     ``base_state/m/<leaf>``, ``t`` and ``inner`` (int32) for DSM.  Leaves
-    are views of the state's buffers; scratch buffers are left out."""
+    are views of the state's buffers, each in its group's dtype; scratch
+    buffers are left out."""
     from repro_torch.models.transformer import layout
 
     lay = layout(cfg)
 
     def conv(v):
+        if _is_buffer(v):
+            return leaf_tree(lay, v)
         if isinstance(v, torch.Tensor):
-            return v if v.dim() == 0 else leaf_tree(lay, v)
+            return v
         if isinstance(v, int):
             return torch.tensor(v, dtype=torch.int32)
         return {k: conv(x) for k, x in state_fields(v)}
@@ -183,12 +235,11 @@ def load_state_tree(state, tree: dict, cfg) -> None:
     def load(obj, sub, prefix):
         for name, v in state_fields(obj):
             what = f"{prefix}{name}"
-            if isinstance(v, torch.Tensor):
-                if v.dim() == 0:
-                    put(v, sub[name], what)
-                else:
-                    for path, view in leaf_tree(lay, v).items():
-                        put(view, sub[name][path], f"{what}/{path}")
+            if _is_buffer(v):
+                for path, view in leaf_tree(lay, v).items():
+                    put(view, sub[name][path], f"{what}/{path}")
+            elif isinstance(v, torch.Tensor):
+                put(v, sub[name], what)
             elif isinstance(v, int):
                 setattr(obj, name, int(sub[name]))
             else:
@@ -204,7 +255,7 @@ def state_from_tree(tree: dict, cfg, base_opt, n_workers: int, device=None):
     from repro_torch.core.dsm import dsm_init
     from repro_torch.models.transformer import layout
 
-    x0 = torch.zeros(layout(cfg).numel, dtype=cfg.p_dtype, device=device)
+    x0 = each(torch.zeros_like, layout(cfg).empty(device=device))
     state = dsm_init(x0, base_opt, n_workers)
     load_state_tree(state, tree, cfg)
     return state

@@ -1,6 +1,7 @@
-"""Model building blocks of the ``attn:dense`` subset: RMSNorm, RoPE, causal
-GQA attention, one-token attention against a KV cache and the dense MLP,
-as plain PyTorch functions on tensors.
+"""Model building blocks of the ``attn`` / ``swa`` mixers and the dense and
+MoE FFNs: RMSNorm, RoPE, causal GQA attention (full or sliding-window),
+one-token attention against a KV cache, the dense MLP and the top-k routed
+mixture of experts, as plain PyTorch functions on tensors.
 
 They follow the reference's precision path: activations in
 ``cfg.act_dtype``, attention scores and softmax in f32, probabilities cast
@@ -14,6 +15,7 @@ to ``v.dtype`` before the PV product.  Quirks kept on purpose:
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -73,20 +75,27 @@ def _gqa_out(probs, v, out_dtype):
     return out.reshape(B, Sq, KVH * rep, v.shape[-1]).to(out_dtype)
 
 
-def causal_attention(q, k, v, q_block: int = 1024) -> torch.Tensor:
-    """Blockwise causal attention as explicit masked softmax (no fused
-    attention op, so the precision path is the reference's)."""
+def causal_attention(q, k, v, window: Optional[int] = None,
+                     q_block: int = 1024) -> torch.Tensor:
+    """Blockwise causal (optionally sliding-window) attention as explicit
+    masked softmax (no fused attention op, so the precision path is the
+    reference's).  Each query tile attends only to the block-aligned keys
+    it can see: with a window it starts at ``(q_start - window) // qb * qb``."""
     B, S, H, hd = q.shape
     qb = min(q_block, S)
     outs = []
     for q_start in range(0, S, qb):
         q_end = min(q_start + qb, S)
-        scores = _gqa_scores(q[:, q_start:q_end], k[:, :q_end])
+        k_start = 0 if window is None else max(0, (q_start - window) // qb * qb)
+        scores = _gqa_scores(q[:, q_start:q_end], k[:, k_start:q_end])
         q_pos = torch.arange(q_start, q_end, device=q.device)[:, None]
-        k_pos = torch.arange(0, q_end, device=q.device)[None, :]
-        scores = scores.masked_fill(k_pos > q_pos, float("-inf"))
+        k_pos = torch.arange(k_start, q_end, device=q.device)[None, :]
+        hidden = k_pos > q_pos
+        if window is not None:
+            hidden |= k_pos <= q_pos - window
+        scores = scores.masked_fill(hidden, float("-inf"))
         probs = torch.softmax(scores, dim=-1)
-        outs.append(_gqa_out(probs, v[:, :q_end], q.dtype))
+        outs.append(_gqa_out(probs, v[:, k_start:q_end], q.dtype))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
@@ -125,3 +134,98 @@ def mlp_apply(w1, w2, x: torch.Tensor, cfg, w3=None) -> torch.Tensor:
     if w3 is not None:
         h = h * (x @ w3.to(x.dtype))
     return h @ w2.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing, a stable sort by expert, one product per expert
+# ---------------------------------------------------------------------------
+
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``(n,)`` int64 occurrences of 0..n-1 in ``idx``, by comparison: on the
+    card ``torch.bincount`` and ``F.one_hot`` read the input's range on the
+    host."""
+    return (idx.reshape(-1, 1) == torch.arange(n, device=idx.device)).sum(0)
+
+
+def _host_sizes(counts: torch.Tensor) -> list:
+    """The group sizes on the host: the MoE layer's one device sync per
+    call, exempt from the sanitizer's ban on implicit host syncs."""
+    if not counts.is_cuda:
+        return counts.tolist()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return counts.tolist()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, sizes: list) -> torch.Tensor:
+    """``jax.lax.ragged_dot``: the rows of ``x`` (sorted by group) in groups
+    of ``sizes`` rows, group e times ``w[e]``, in x's dtype."""
+    return torch.cat([xe @ we for xe, we in zip(torch.split(x, sizes), w.unbind(0))])
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
+    """The reference's ``moe_apply``: returns (out (B, S, d), f32 aux loss).
+
+    ``p``: ``router`` (d, E) f32, ``we1`` / ``we3`` (E, d, d_ff), ``we2``
+    (E, d_ff, d) and, with shared experts, ``shared`` = ``{"w1", "w2"[,
+    "w3"]}``.  Routing in f32: softmax over ``x @ router``, top-k, gates
+    renormalised with a 1e-9 floor; the Switch aux loss from the top-1
+    expert.  ``moe_impl="ragged"`` sorts the token-expert pairs by expert
+    (stable, as ``jnp.argsort``) and runs one product per expert
+    (:func:`grouped_mm`: the group sizes are read on the host once per
+    call); ``"dense"`` runs every expert on every token.  The ``scatter``
+    combine adds each token's K weighted outputs in sorted order, one
+    rounding per add in the activation dtype as the reference's scatter-add
+    applies them; ``ksum`` contracts them with the gates.
+    """
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    xt = x.reshape(B * S, d)
+    T, dt = B * S, xt.dtype
+    act = act_fn(cfg.act)
+
+    logits = xt.to(F32) @ p["router"].to(F32)               # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)    # (T, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance aux loss (Switch-style), from the top-1 expert
+    density = _counts(expert_idx[:, 0], E).to(F32) / T
+    aux = E * torch.sum(density * probs.mean(dim=0))
+
+    if cfg.moe_impl == "dense":
+        gates = torch.zeros(T, E, dtype=dt, device=x.device).scatter(
+            1, expert_idx, gate_vals.to(dt))
+        h = act(torch.einsum("td,edf->tef", xt, p["we1"].to(dt)))
+        if "we3" in p:
+            h = h * torch.einsum("td,edf->tef", xt, p["we3"].to(dt))
+        out = torch.einsum("tef,efd,te->td", h, p["we2"].to(dt), gates)
+    else:
+        flat_expert = expert_idx.reshape(T * K)
+        sort_idx = torch.argsort(flat_expert, stable=True)
+        token_of = sort_idx // K
+        xs = xt[token_of]                                   # (TK, d)
+        sizes = _host_sizes(_counts(flat_expert, E))
+        h = act(grouped_mm(xs, p["we1"].to(dt), sizes))
+        if "we3" in p:
+            h = h * grouped_mm(xs, p["we3"].to(dt), sizes)
+        y = grouped_mm(h, p["we2"].to(dt), sizes)           # (TK, d)
+        inv = torch.argsort(sort_idx)
+        if cfg.moe_combine == "ksum":
+            out = torch.einsum("tkd,tk->td", y[inv].reshape(T, K, d), gate_vals.to(dt))
+        else:
+            w = gate_vals.reshape(T * K)[sort_idx].to(dt)
+            # each token's K products in sorted order: its pairs by expert id
+            contrib = (y * w[:, None])[inv].reshape(T, K, d)
+            by_expert = torch.argsort(expert_idx, dim=1)
+            contrib = contrib.gather(1, by_expert[:, :, None].expand(T, K, d))
+            out = contrib[:, 0]
+            for k in range(1, K):
+                out = out + contrib[:, k]
+    if "shared" in p:
+        sh = p["shared"]
+        out = out + mlp_apply(sh["w1"], sh["w2"], xt, cfg, w3=sh.get("w3"))
+    return out.reshape(B, S, d), aux

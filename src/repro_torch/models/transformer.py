@@ -1,12 +1,16 @@
-"""Decoder-only LM of the ``attn:dense`` pattern family (nano, GPT-2 and the
-dense GQA/MQA archs): parameter shapes, init, forward over stacked blocks,
-the chunked next-token cross-entropy, and serving: the KV cache, prefill
-and one-token decode.
+"""Decoder-only LM of the ``attn`` / ``swa`` mixers with dense or MoE FFNs
+(nano, GPT-2, the dense GQA/MQA archs, Gemma-3's sliding-window pattern,
+the Granite and Llama-4 MoE archs): parameter shapes and dtypes, init,
+forward over stacked blocks, the chunked next-token cross-entropy plus the
+MoE aux loss, and serving: the KV cache (a ring of ``window`` slots for a
+``swa`` layer), prefill and one-token decode.
 
 Parameters are a flat dict ``{path: tensor}`` keyed by the reference's
 pytree paths (``"decoder.blocks.p0.attn.wq"``); stacked blocks keep their
 leading layer axis and may also be given as a list of per-layer tensors.
-``repro_torch.models.convert`` lays them out in one flat buffer.
+``repro_torch.models.convert`` lays them out in flat buffers, one per
+dtype group: the MoE router is f32 whatever the param dtype, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.convert import FlatLayout
 
 F32 = torch.float32
+MOE_AUX_COEF = 0.01
 CE_CHUNK = 2048
+MIXERS, FFNS = ("attn", "swa"), ("dense", "moe")
 
 
 def _parse_kind(kind: str) -> tuple[str, str]:
@@ -28,74 +34,107 @@ def _parse_kind(kind: str) -> tuple[str, str]:
 
 
 def check_supported(cfg) -> None:
-    bad = [k for k in cfg.pattern if _parse_kind(k) != ("attn", "dense")]
+    bad = [k for k in cfg.pattern
+           if _parse_kind(k)[0] not in MIXERS or _parse_kind(k)[1] not in FFNS]
     if cfg.family != "lm" or bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only 'attn:dense' models; family "
-            f"{cfg.family!r} / block kinds {bad} are not ported yet (ROADMAP.md)")
+            f"{cfg.name}: the port runs decoder-only models of mixers {MIXERS} and FFNs "
+            f"{FFNS}; family {cfg.family!r} / block kinds {bad} are not ported yet "
+            "(ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
-# Parameter tree: shapes + init distributions, nested as the reference's
+# Parameter tree: shapes, init distributions and dtypes, nested as the
+# reference's
 # ---------------------------------------------------------------------------
 
-def _block_spec(cfg, lead: tuple) -> dict:
-    """One block's leaves as (shape, init) with init "ones" or a normal std."""
-    d, h, kvh, hd, dff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
-    s = {
-        "ln1": {"scale": (lead + (d,), "ones")},
-        "attn": {
-            "wq": (lead + (d, h * hd), 1.0 / math.sqrt(d)),
-            "wk": (lead + (d, kvh * hd), 1.0 / math.sqrt(d)),
-            "wv": (lead + (d, kvh * hd), 1.0 / math.sqrt(d)),
-            "wo": (lead + (h * hd, d), 1.0 / math.sqrt(h * hd)),
-        },
-        "ln2": {"scale": (lead + (d,), "ones")},
-        "mlp": {
-            "w1": (lead + (d, dff), 1.0 / math.sqrt(d)),
-            "w2": (lead + (dff, d), 1.0 / math.sqrt(dff)),
-        },
-    }
+def _dense(shape: tuple, dtype, std=None) -> tuple:
+    """A leaf ``(shape, std, dtype)``: std 1/sqrt(fan_in), fan_in = shape[-2]
+    (the reference's ``_init_dense``) unless given."""
+    return (shape, std if std is not None else 1.0 / math.sqrt(shape[-2]), dtype)
+
+
+def _mlp_spec(cfg, lead: tuple, d_ff: int) -> dict:
+    d, pd = cfg.d_model, cfg.p_dtype
+    s = {"w1": _dense(lead + (d, d_ff), pd), "w2": _dense(lead + (d_ff, d), pd)}
     if cfg.mlp_gated:
-        s["mlp"]["w3"] = (lead + (d, dff), 1.0 / math.sqrt(d))
+        s["w3"] = _dense(lead + (d, d_ff), pd)
+    return s
+
+
+def _moe_spec(cfg, lead: tuple) -> dict:
+    d, dff, E, pd = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.p_dtype
+    s = {"router": _dense(lead + (d, E), F32, std=0.02),
+         "we1": _dense(lead + (E, d, dff), pd), "we2": _dense(lead + (E, dff, d), pd)}
+    if cfg.mlp_gated:
+        s["we3"] = _dense(lead + (E, d, dff), pd)
+    if cfg.n_shared_experts:
+        s["shared"] = _mlp_spec(cfg, lead, cfg.d_ff * cfg.n_shared_experts)
+    return s
+
+
+def _block_spec(cfg, kind: str, lead: tuple) -> dict:
+    """One block's leaves as (shape, init, dtype) with init "ones" or a normal std."""
+    d, h, kvh, hd, pd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.p_dtype
+    _, ffn = _parse_kind(kind)
+    s = {
+        "ln1": {"scale": (lead + (d,), "ones", pd)},
+        "attn": {
+            "wq": _dense(lead + (d, h * hd), pd),
+            "wk": _dense(lead + (d, kvh * hd), pd),
+            "wv": _dense(lead + (d, kvh * hd), pd),
+            "wo": _dense(lead + (h * hd, d), pd),
+        },
+        "ln2": {"scale": (lead + (d,), "ones", pd)},
+    }
+    if ffn == "moe":
+        s["moe"] = _moe_spec(cfg, lead)
+    else:
+        s["mlp"] = _mlp_spec(cfg, lead, cfg.d_ff)
     return s
 
 
 def param_spec(cfg) -> dict:
-    """Nested ``{key: (shape, init)}`` tree with the reference's structure
-    (``transformer.init_params``)."""
+    """Nested ``{key: (shape, init, dtype)}`` tree with the reference's
+    structure (``transformer.init_params``)."""
     check_supported(cfg)
     blocks = {}
     if cfg.n_scan_blocks > 0:
-        for j, _ in enumerate(cfg.pattern):
-            blocks[f"p{j}"] = _block_spec(cfg, (cfg.n_scan_blocks,))
+        for j, kind in enumerate(cfg.pattern):
+            blocks[f"p{j}"] = _block_spec(cfg, kind, (cfg.n_scan_blocks,))
     spec = {
-        "embed": ((cfg.padded_vocab, cfg.d_model), 0.02),
-        "final_norm": {"scale": ((cfg.d_model,), "ones")},
+        "embed": ((cfg.padded_vocab, cfg.d_model), 0.02, cfg.p_dtype),
+        "final_norm": {"scale": ((cfg.d_model,), "ones", cfg.p_dtype)},
         "decoder": {"blocks": blocks,
-                    "rem": tuple(_block_spec(cfg, ()) for _ in range(cfg.n_rem_layers))},
+                    "rem": tuple(_block_spec(cfg, cfg.pattern[i], ())
+                                 for i in range(cfg.n_rem_layers))},
     }
     if not cfg.tie_embeddings:
-        spec["lm_head"] = ((cfg.d_model, cfg.padded_vocab), 0.02)
+        spec["lm_head"] = ((cfg.d_model, cfg.padded_vocab), 0.02, cfg.p_dtype)
     return spec
 
 
 def layout(cfg) -> FlatLayout:
-    return FlatLayout.from_tree(param_spec(cfg), is_leaf=_is_spec_leaf)
+    """The flat layout: the ``cfg.p_dtype`` group first, then f32 (the MoE
+    routers of a bf16 model); one group when every leaf shares a dtype."""
+    return FlatLayout.from_tree(param_spec(cfg), is_leaf=_is_spec_leaf,
+                                dtype_of=lambda leaf: leaf[2], first=cfg.p_dtype)
 
 
 def _is_spec_leaf(x) -> bool:
-    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
+    return isinstance(x, tuple) and len(x) == 3 and isinstance(x[0], tuple)
 
 
-def init_params(gen: torch.Generator, cfg, device=None) -> torch.Tensor:
-    """A flat ``(N,)`` buffer in ``cfg.p_dtype`` on ``device``: normal draws
-    (std 1/sqrt(fan_in), 0.02 for the embedding) from ``gen``, ones for the
-    norm scales — the reference's distributions, not its random numbers."""
+def init_params(gen: torch.Generator, cfg, device=None):
+    """Flat ``(N,)`` buffers on ``device``, each leaf in its reference dtype
+    (one tensor, or the :class:`~repro_torch.groups.Groups` of a
+    mixed-dtype model): normal draws (std 1/sqrt(fan_in), 0.02 for the
+    embedding and the router) from ``gen``, ones for the norm scales — the
+    reference's distributions, not its random numbers."""
     lay = layout(cfg)
-    flat = torch.empty(lay.numel, dtype=cfg.p_dtype, device=device)
+    flat = lay.empty(device=device)
     views = lay.views(flat)
-    for name, (shape, init) in zip(lay.names, lay.leaves):
+    for name, (shape, init, _) in zip(lay.names, lay.leaves):
         if init == "ones":
             views[name].fill_(1.0)
         else:
@@ -108,36 +147,56 @@ def init_params(gen: torch.Generator, cfg, device=None) -> torch.Tensor:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_block(p, x, positions, cfg, kv_out=None):
-    """One attn:dense block; ``p(name)`` returns the block's leaf.  With a
-    dict ``kv_out`` the block's keys (after RoPE) and values land in it as
-    ``k`` / ``v`` (B, S, KVH, hd), the prefill's cache entry."""
+def _apply_block(p, kind: str, x, positions, cfg, kv_out=None):
+    """One block of ``kind``; ``p(name)`` returns the block's leaf.  Returns
+    (x, the MoE aux loss or None).  With a dict ``kv_out`` the block's keys
+    (after RoPE) and values land in it as ``k`` / ``v`` (B, S', KVH, hd),
+    the prefill's cache entry: every position, or a ``swa`` layer's last
+    ``min(window, S)``."""
+    mixer, ffn = _parse_kind(kind)
+    window = cfg.window if mixer == "swa" else None
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
     q, k, v = L.attn_qkv(p("attn.wq"), p("attn.wk"), p("attn.wv"), h, positions, cfg)
     if kv_out is not None:
-        kv_out.update(k=k, v=v)
-    out = L.causal_attention(q, k, v, q_block=cfg.q_block)
+        w = k.shape[1] if window is None else min(window, k.shape[1])
+        kv_out.update(k=k[:, -w:], v=v[:, -w:])
+    out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
     x = x + L.attn_proj_out(p("attn.wo"), out)
-    return _mlp_residual(p, x, cfg)
+    return _ffn_residual(p, ffn, x, cfg)
 
 
-def _mlp_residual(p, x, cfg):
+def _moe_params(p, cfg) -> dict:
+    """A block's MoE leaves in ``layers.moe_apply``'s form."""
+    names = ("router", "we1", "we2") + (("we3",) if cfg.mlp_gated else ())
+    out = {n: p(f"moe.{n}") for n in names}
+    if cfg.n_shared_experts:
+        out["shared"] = {n: p(f"moe.shared.{n}")
+                         for n in ("w1", "w2") + (("w3",) if cfg.mlp_gated else ())}
+    return out
+
+
+def _ffn_residual(p, ffn: str, x, cfg):
+    """x + the block's FFN of its second norm; returns (x, aux or None)."""
     h = L.rmsnorm(p("ln2.scale"), x, cfg.norm_eps)
+    if ffn == "moe":
+        out, aux = L.moe_apply(_moe_params(p, cfg), h, cfg)
+        return x + out, aux
     w3 = p("mlp.w3") if cfg.mlp_gated else None
-    return x + L.mlp_apply(p("mlp.w1"), p("mlp.w2"), h, cfg, w3=w3)
+    return x + L.mlp_apply(p("mlp.w1"), p("mlp.w2"), h, cfg, w3=w3), None
 
 
 def _layers(params: dict, cfg):
-    """``(where, p)`` of every layer in order: ``where`` is ``("blocks", "p<j>",
-    i)`` for layer i of the stacked pattern position j or ``("rem", i, None)``
-    for a remainder layer; ``p(name)`` returns that layer's leaf."""
+    """``(where, kind, p)`` of every layer in order: ``where`` is
+    ``("blocks", "p<j>", i)`` for layer i of the stacked pattern position j
+    (kind ``pattern[j]``) or ``("rem", i, None)`` for a remainder layer
+    (kind ``pattern[i]``); ``p(name)`` returns that layer's leaf."""
     for i in range(cfg.n_scan_blocks):
-        for j, _ in enumerate(cfg.pattern):
+        for j, kind in enumerate(cfg.pattern):
             pre = f"decoder.blocks.p{j}."
-            yield ("blocks", f"p{j}", i), (lambda n, pre=pre, i=i: params[pre + n][i])
+            yield ("blocks", f"p{j}", i), kind, (lambda n, pre=pre, i=i: params[pre + n][i])
     for i in range(cfg.n_rem_layers):
         pre = f"decoder.rem.{i}."
-        yield ("rem", i, None), (lambda n, pre=pre: params[pre + n])
+        yield ("rem", i, None), cfg.pattern[i], (lambda n, pre=pre: params[pre + n])
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
@@ -145,13 +204,26 @@ def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     return params["embed"][tokens].to(cfg.act_dtype) * math.sqrt(cfg.d_model)
 
 
-def hidden_states(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Embedding, the blocks in layer order, the final norm."""
+def _add_aux(total, aux):
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+def _forward(params: dict, tokens: torch.Tensor, cfg):
+    """(final hidden states, the MoE aux loss summed over layers or None)."""
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for _, p in _layers(params, cfg):
-        x = _apply_block(p, x, positions, cfg)
-    return L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps)
+    aux = None
+    for _, kind, p in _layers(params, cfg):
+        x, a = _apply_block(p, kind, x, positions, cfg)
+        aux = _add_aux(aux, a)
+    return L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps), aux
+
+
+def hidden_states(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Embedding, the blocks in layer order, the final norm."""
+    return _forward(params, tokens, cfg)[0]
 
 
 def _logits(params, h, cfg):
@@ -164,8 +236,9 @@ def _logits(params, h, cfg):
 def loss_fn(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """Next-token CE over ``tokens`` (B, S), chunked over the sequence: the
     targets are shifted, the last position is masked, and the loss is the
-    masked sum over ``mask.sum()``.  (The MoE aux term is 0 for dense FFNs.)"""
-    h = hidden_states(params, tokens, cfg)
+    masked sum over ``mask.sum()``, plus ``MOE_AUX_COEF`` times the aux loss
+    summed over the MoE layers (a model without one adds nothing)."""
+    h, aux = _forward(params, tokens, cfg)
     B, S = tokens.shape
     targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
     mask = torch.cat([torch.ones(B, S - 1, dtype=F32, device=tokens.device),
@@ -177,30 +250,38 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, targets[:, c0:c1, None])[..., 0]
         total = total + ((lse - gold) * mask[:, c0:c1]).sum()
-    return total / torch.clamp(mask.sum(), min=1.0)
+    loss = total / torch.clamp(mask.sum(), min=1.0)
+    return loss if aux is None else loss + MOE_AUX_COEF * aux
 
 
 # ---------------------------------------------------------------------------
 # Serving: KV cache, prefill, one-token decode (the reference's
-# transformer.init_cache / prefill / decode_step for the attn mixer)
+# transformer.init_cache / prefill / decode_step for the attn and swa mixers)
 # ---------------------------------------------------------------------------
+
+def _cache_len(kind: str, cfg, max_len: int) -> int:
+    """A layer's cache slots: ``max_len``, or a ring of ``min(window,
+    max_len)`` for ``swa``."""
+    return min(cfg.window, max_len) if _parse_kind(kind)[0] == "swa" else max_len
+
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> dict:
     """Zero KV cache with the reference's structure: ``{"blocks": {"p<j>":
     {"k", "v"}}, "rem": ({"k", "v"}, ...)}``, stacked leaves (n_scan_blocks,
-    batch, max_len, KVH, hd), remainder leaves (batch, max_len, KVH, hd), in
-    ``dtype`` (default the activation dtype)."""
+    batch, L, KVH, hd), remainder leaves (batch, L, KVH, hd), with L =
+    ``max_len`` or a ``swa`` layer's ``min(window, max_len)``, in ``dtype``
+    (default the activation dtype)."""
     check_supported(cfg)
     dtype = dtype or cfg.act_dtype
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
 
-    def entry(lead=()):
-        return {name: torch.zeros(lead + shape, dtype=dtype, device=device)
-                for name in ("k", "v")}
+    def entry(kind, lead=()):
+        shape = lead + (batch, _cache_len(kind, cfg, max_len), cfg.n_kv_heads, cfg.hd)
+        return {name: torch.zeros(shape, dtype=dtype, device=device) for name in ("k", "v")}
 
-    blocks = ({f"p{j}": entry((cfg.n_scan_blocks,)) for j, _ in enumerate(cfg.pattern)}
+    blocks = ({f"p{j}": entry(kind, (cfg.n_scan_blocks,)) for j, kind in enumerate(cfg.pattern)}
               if cfg.n_scan_blocks > 0 else {})
-    return {"blocks": blocks, "rem": tuple(entry() for _ in range(cfg.n_rem_layers))}
+    return {"blocks": blocks,
+            "rem": tuple(entry(cfg.pattern[i]) for i in range(cfg.n_rem_layers))}
 
 
 def _cache_entry(cache: dict, where) -> dict:
@@ -213,18 +294,19 @@ def _cache_entry(cache: dict, where) -> dict:
 
 def prefill(params: dict, batch: dict, cfg):
     """Forward over the prompt ``batch["tokens"]`` (B, S); returns (last
-    position's f32 logits (B, padded vocab), a cache of length S holding
-    every layer's keys and values)."""
+    position's f32 logits (B, padded vocab), a cache holding every layer's
+    keys and values: all S positions, a ``swa`` layer's last
+    ``min(window, S)`` in position order)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     stacked: dict = {}
     rem = []
-    for (kind, key, _), p in _layers(params, cfg):
+    for (where, key, _), kind, p in _layers(params, cfg):
         entry: dict = {}
-        x = _apply_block(p, x, positions, cfg, kv_out=entry)
-        if kind == "blocks":
+        x, _ = _apply_block(p, kind, x, positions, cfg, kv_out=entry)
+        if where == "blocks":
             stacked.setdefault(key, []).append(entry)
         else:
             rem.append(entry)
@@ -236,29 +318,41 @@ def prefill(params: dict, batch: dict, cfg):
     return _logits(params, h, cfg)[:, 0], cache
 
 
-def _decode_block(p, entry: dict, x, pos: int, cfg):
+def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg):
     """One token through one block at absolute position ``pos``: RoPE there,
-    its key and value written into the cache at ``pos``, attention over
-    positions ``<= pos``."""
+    its key and value written into the cache, attention over the positions
+    it sees.  A full-attention layer writes slot ``pos`` and sees slots
+    ``<= pos``; a ``swa`` layer's ring of w slots holds position p at slot
+    ``p % w``, and slot i holds the latest position ``i + w * floor((pos -
+    i) / w)``, valid when that is ``>= 0`` (the reference's mask)."""
+    mixer, ffn = _parse_kind(kind)
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
     positions = torch.arange(pos, pos + 1, device=x.device)
     q, k, v = L.attn_qkv(p("attn.wq"), p("attn.wk"), p("attn.wv"), h, positions, cfg)
-    entry["k"][:, pos:pos + 1].copy_(k)
-    entry["v"][:, pos:pos + 1].copy_(v)
-    valid = torch.arange(entry["k"].shape[1], device=x.device) <= pos
+    n_slots = entry["k"].shape[1]
+    idx = torch.arange(n_slots, device=x.device)
+    if mixer == "swa":
+        slot = pos % n_slots
+        valid = idx + n_slots * torch.div(pos - idx, n_slots, rounding_mode="floor") >= 0
+    else:
+        slot = pos
+        valid = idx <= pos
+    entry["k"][:, slot:slot + 1].copy_(k)
+    entry["v"][:, slot:slot + 1].copy_(v)
     out = L.decode_attention(q, entry["k"], entry["v"], valid)
     x = x + L.attn_proj_out(p("attn.wo"), out)
-    return _mlp_residual(p, x, cfg)
+    return _ffn_residual(p, ffn, x, cfg)[0]
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg):
     """tokens: (B,) ids; pos: the Python int position they take.  Returns
     (f32 logits (B, padded vocab), cache).  Unlike the reference, which
     returns a new cache, the keys and values are written into ``cache`` in
-    place and the same dict is returned; nothing is read back to the host."""
+    place and the same dict is returned; nothing is read back to the host
+    but a MoE layer's group sizes (``layers.moe_apply``)."""
     check_supported(cfg)
     x = _embed(params, tokens[:, None], cfg)
-    for where, p in _layers(params, cfg):
-        x = _decode_block(p, _cache_entry(cache, where), x, pos, cfg)
+    for where, kind, p in _layers(params, cfg):
+        x = _decode_block(p, kind, _cache_entry(cache, where), x, pos, cfg)
     h = L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps)
     return _logits(params, h, cfg)[:, 0], cache

@@ -18,10 +18,13 @@ rounds since the last sync point to the host in one copy, and
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+
+from repro_torch.groups import Groups
 
 F32 = torch.float32
 
@@ -46,9 +49,12 @@ def loss_stats(losses: torch.Tensor):
     return s[0], s[1], spread
 
 
-def stat_sums(x0: torch.Tensor, m: torch.Tensor, x_tau: torch.Tensor, gamma,
-              beta1: float) -> torch.Tensor:
-    """``(N_STAT_SUMS,)`` f32 sums over the flat global buffers."""
+def stat_sums(x0, m, x_tau, gamma, beta1: float) -> torch.Tensor:
+    """``(N_STAT_SUMS,)`` f32 sums over the flat global buffers (over every
+    group of Groups buffers, each group's sums added in group order)."""
+    if isinstance(x0, Groups):
+        sums = [stat_sums(*g, gamma, beta1) for g in zip(x0, m, x_tau, strict=True)]
+        return functools.reduce(torch.add, sums)
     g = torch.full((), float(gamma), dtype=F32, device=x0.device)
     b1 = torch.tensor(beta1, dtype=F32)
     omb1 = float(1.0 - b1)            # the reference folds 1 - beta1 in f32 here

@@ -26,6 +26,8 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
+from repro_torch.groups import each
+
 
 class FaultRound(NamedTuple):
     """One outer round's faults as ``(W,)`` bool tensors on the state's device."""
@@ -113,11 +115,16 @@ class FaultPlan:
         return float(self.drop.mean()) if self.drop.size else 0.0
 
 
-def apply_faults(params_w: torch.Tensor, x0: torch.Tensor, faults: FaultRound) -> torch.Tensor:
+def apply_faults(params_w, x0, faults: FaultRound):
     """The delivered ``(W, N)`` iterates under the round's faults (a new
-    tensor): stale workers deliver the round-start ``x0`` (N,), corrupt
-    workers NaN.  Dropped workers are left as they are: excluding them is
-    the aggregator's job (the survivor weights of the masked mean)."""
+    tensor, or Groups of them for Groups buffers): stale workers deliver the
+    round-start ``x0`` (N,), corrupt workers NaN.  Dropped workers are left
+    as they are: excluding them is the aggregator's job (the survivor
+    weights of the masked mean)."""
+    return each(lambda p, x: _apply_faults(p, x, faults), params_w, x0)
+
+
+def _apply_faults(params_w: torch.Tensor, x0: torch.Tensor, faults: FaultRound) -> torch.Tensor:
     out = torch.where(faults.stale[:, None], x0[None], params_w)
     return torch.where(faults.corrupt[:, None], torch.full((), float("nan"), dtype=out.dtype,
                                                            device=out.device), out)

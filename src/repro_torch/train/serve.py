@@ -1,10 +1,12 @@
 """Batched serving: prefill a prompt batch, then autoregressive decode.
 
-The reference's ``train/serve.py`` for the ``attn`` mixer.  Prefill builds
-a cache of the prompt's length, which is spliced into a zero cache of
-``prompt + max_new_tokens`` positions; each decode step then writes one
-position of it in place.  The decode loop reads nothing back to the host:
-positions are Python ints and the tokens stay on the device until the end.
+The reference's ``train/serve.py`` for the ``attn`` and ``swa`` mixers.
+Prefill builds a cache of the prompt's length (a ``swa`` layer's last
+``window`` positions), which is spliced into a zero cache of ``prompt +
+max_new_tokens`` positions (a ring of ``window`` slots for ``swa``); each
+decode step then writes one slot of it in place.  The decode loop reads
+nothing back to the host but each MoE layer's group sizes: positions are
+Python ints and the tokens stay on the device until the end.
 
     PYTHONPATH=src python -c "
     import torch
@@ -23,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.groups import Groups, each
 from repro_torch.models import transformer as T
 
 
@@ -45,7 +48,8 @@ def generate(
     """Greedy (or temperature) decoding.  Returns (tokens (B, new) int64 on
     ``device``, stats with ``prefill_s``, ``decode_s`` and ``tok_per_s``).
 
-    ``params``: the flat ``(N,)`` buffer of ``cfg``'s layout or a ``{path:
+    ``params``: the flat ``(N,)`` buffers of ``cfg``'s layout (a tensor, or
+    the :class:`~repro_torch.groups.Groups` of a mixed-dtype model) or a ``{path:
     tensor}`` dict of its views; moved to ``device`` if they lie elsewhere.
     Temperature sampling draws Gumbel noise from ``rng``, a
     ``torch.Generator`` on ``device`` (default seeded 0): the same
@@ -59,8 +63,8 @@ def generate(
             f"{cfg.name}: extra_batch {sorted(extra_batch)} feeds the encdec / vlm families, "
             "which the port does not serve yet (ROADMAP.md)")
     dev = torch.device(device)
-    if isinstance(params, torch.Tensor):
-        params = T.layout(cfg).views(params.to(dev))
+    if isinstance(params, (torch.Tensor, Groups)):
+        params = T.layout(cfg).views(each(lambda t: t.to(dev), params))
     else:
         params = {k: v.to(dev) for k, v in params.items()}
     prompt = torch.as_tensor(prompt_tokens, dtype=torch.long).to(dev)
@@ -101,22 +105,31 @@ def generate(
 
 
 def _splice_cache(big: dict, small: dict, cfg, prompt_len: int) -> dict:
-    """Copy a prefill cache (length = prompt) into a longer decode cache:
-    each full-attention key/value leaf is the prefill's, zero-padded at the
-    end of its sequence axis, in the big leaf's dtype."""
+    """Copy a prefill cache into a longer decode cache, in the big leaf's
+    dtype.  A full-attention key/value leaf is the prefill's, zero-padded
+    at the end of its sequence axis; a ``swa`` leaf is a ring (position p
+    at slot ``p % w_big``) that prefill gave its last ``w_small`` positions
+    in order, so it is padded and then rolled by ``(prompt_len - w_small) %
+    w_big``."""
     T.check_supported(cfg)
 
-    def splice_leaf(big_leaf, small_leaf):
-        if big_leaf.shape == small_leaf.shape:
+    def splice_leaf(kind, big_leaf, small_leaf):
+        ring = kind.split(":")[0] == "swa"
+        if big_leaf.shape == small_leaf.shape and not ring:
             return small_leaf.to(big_leaf.dtype)
         ax = big_leaf.dim() - 3  # seq axis of (..., S, kvh, hd)
+        w_big, w_small = big_leaf.shape[ax], small_leaf.shape[ax]
         out = torch.zeros_like(big_leaf)
-        out.narrow(ax, 0, small_leaf.shape[ax]).copy_(small_leaf)
+        out.narrow(ax, 0, w_small).copy_(small_leaf)
+        if ring:
+            out = torch.roll(out, (prompt_len - w_small) % w_big, dims=ax)
         return out
 
-    def splice_entry(big_e, small_e):
-        return {name: splice_leaf(big_e[name], small_e[name]) for name in big_e}
+    def splice_entry(kind, big_e, small_e):
+        return {name: splice_leaf(kind, big_e[name], small_e[name]) for name in big_e}
 
-    return {"blocks": {key: splice_entry(big["blocks"][key], small["blocks"][key])
+    return {"blocks": {key: splice_entry(cfg.pattern[int(key[1:])], big["blocks"][key],
+                                         small["blocks"][key])
                        for key in big["blocks"]},
-            "rem": tuple(splice_entry(b, s) for b, s in zip(big["rem"], small["rem"]))}
+            "rem": tuple(splice_entry(cfg.pattern[i], b, s)
+                         for i, (b, s) in enumerate(zip(big["rem"], small["rem"])))}

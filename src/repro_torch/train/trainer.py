@@ -41,6 +41,7 @@ from repro_torch.data.pipeline import MarkovCorpus, dsm_batches, eval_batch
 from repro_torch.distributed import comm
 from repro_torch.distributed import mesh as MESH
 from repro_torch.distributed import zero as Z
+from repro_torch.groups import each, parts
 from repro_torch.models import convert as C
 from repro_torch.models import transformer as T
 from repro_torch.obs import ledger as OL
@@ -224,8 +225,11 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     final_metrics, probe_launches, and peak_bytes on the card).
 
     ``params``: initial params in the port's flat layout, ``(N,)`` or
-    ``(W, N)`` (for example ``convert.from_jax_numpy`` of the reference's
-    ``init_params``); by default they are drawn from ``s.seed``.
+    ``(W, N)``, the Groups of a mixed-dtype model (for example
+    ``convert.from_jax_numpy`` of the reference's ``init_params``); by
+    default they are drawn from ``s.seed``.  A mixed-dtype model runs on
+    the dense path only: with ``zero_sharded`` or ``device_parallel_local``
+    over a topology it raises NotImplementedError.
     ``outer_step_s`` holds each round's time, ended by a device sync;
     ``on_round(t, state, metrics)`` runs after each round, outside that time.
 
@@ -285,9 +289,11 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     lay = T.layout(cfg)
     if params is None:
         gen = torch.Generator().manual_seed(s.seed)
-        x0 = T.init_params(gen, cfg).to(dev)
+        x0 = each(lambda t: t.to(dev), T.init_params(gen, cfg))
     else:
-        x0 = params.reshape(-1, lay.numel)[0].to(device=dev, dtype=cfg.p_dtype).clone()
+        x0 = lay.empty(device=dev)
+        for dst, src in zip(parts(x0), parts(params), strict=True):
+            dst.copy_(src.reshape(-1, dst.numel())[0])
 
     def loss_fn(p, tokens):
         return T.loss_fn(p, tokens, cfg)

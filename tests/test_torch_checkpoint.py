@@ -4,6 +4,7 @@ shape-checked restores, bit-exact resume of ``run_training``, and a
 checkpoint of the reference's ``run_training`` carried into the port and
 stepped on, on the CPU."""
 
+import dataclasses
 import json
 import os
 
@@ -21,11 +22,13 @@ from repro.core import schedules as JS
 from repro.models import transformer as JT
 from repro.train import trainer as JTR
 from repro_torch.checkpoint import checkpoint as CK
+from repro_torch.configs import load_arch
 from repro_torch.configs.nano import NANO
 from repro_torch.core import base_opt as B
 from repro_torch.core import dsm as D
 from repro_torch.core import schedules as S
 from repro_torch.data.pipeline import MarkovCorpus, dsm_batches
+from repro_torch.groups import each
 from repro_torch.models import convert
 from repro_torch.models import transformer as T
 from repro_torch.robustness import guards as G
@@ -332,3 +335,78 @@ def test_launcher_faulted_guarded_checkpointed_run_resumes(tmp_path, capsys):
     np.testing.assert_array_equal(_flat_jax(params), res["state"].x0.numpy())
     with open(str(tmp_path / "final") + ".json") as f:
         assert len(json.load(f)["keys"]) == len(T.layout(NANO).names)
+
+
+# ---------------------------------------------------------------------------
+# A mixed-dtype state: granite_moe SMOKE with bf16 parameters, its routers
+# f32 (two dtype groups)
+# ---------------------------------------------------------------------------
+
+MIXED = dataclasses.replace(load_arch("granite_moe_3b_a800m").SMOKE, param_dtype="bfloat16",
+                            name="granite_moe_smoke_bf16_params")
+MIXED_RESUME_RUNS = [dict(), dict(faults="drop=0.25,nan=0.2,seed=4", guard_nonfinite=True),
+                     dict(algorithm="global_adamw"), dict(base_opt="momentum")]
+
+
+def _mixed_settings(**kw):
+    base = dict(n_workers=2, tau=2, steps=4, b_micro=1, seq=16, eval_every=2, eval_batch=2,
+                peak_lr=5e-3, global_lr=0.3)
+    return TR.TrainSettings(**{**base, **kw})
+
+
+def _mixed_init():
+    return T.init_params(torch.Generator().manual_seed(0), MIXED)
+
+
+def test_mixed_dtype_state_roundtrip_keeps_each_leaf_dtype(tmp_path):
+    """After one DSM outer step: ``state_to_tree`` -> save -> restore ->
+    ``load_state_tree`` into a fresh state is bit-equal in every buffer;
+    the file holds each router leaf of params and x0 as float32 and every
+    other param-dtype leaf as bf16, m and the AdamW moments as float32; a
+    file whose router is bf16 is refused."""
+    lay = T.layout(MIXED)
+    base = B.adamw()
+    step = D.make_dsm_step(lambda p, mb: T.loss_fn(p, mb, MIXED), base, D.DSMConfig(tau=2),
+                           S.constant(1e-3), lay)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, MIXED.vocab_size,
+                                                                (2, 2, 1, 1, 16)))
+    state, _ = step(D.dsm_init(_mixed_init(), base, 2), tokens)
+    path = str(tmp_path / "mixed")
+    CK.save(path, convert.state_to_tree(state, MIXED), step=1)
+    with open(path + ".json") as f:
+        tags = dict(json.load(f)["keys"])
+    for key, tag in tags.items():
+        field, leaf = key.split("/", 1)[0], key.rsplit("/", 1)[-1]
+        want = ("float32" if field in ("m", "base_state") or leaf == "router" else "__bf16__")
+        assert tag == (want if field != "t" and field != "inner" else "int32"), key
+    fresh = D.dsm_init(each(torch.zeros_like, _mixed_init()), base, 2)
+    tree, _ = CK.restore(path, convert.state_to_tree(fresh, MIXED))
+    convert.load_state_tree(fresh, tree, MIXED)
+    assert fresh.t == state.t and fresh.inner == state.inner
+    for a, b in zip(G.state_tensors(fresh), G.state_tensors(state)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    tree["x0"]["decoder/blocks/p0/moe/router"] = tree["x0"]["decoder/blocks/p0/moe/router"].to(
+        torch.bfloat16)
+    with pytest.raises(ValueError, match="router"):
+        convert.load_state_tree(fresh, tree, MIXED)
+
+
+@pytest.mark.parametrize("kw", MIXED_RESUME_RUNS, ids=lambda k: ",".join(
+    f"{a}={b}" for a, b in k.items()) or "dsm")
+def test_mixed_dtype_kill_and_resume_is_bit_exact(tmp_path, kw):
+    """The mixed-dtype model stopped at step 2 of 4 (checkpoints every 2)
+    and resumed: history, evals and every state buffer equal the
+    uninterrupted run's bit for bit."""
+    d = str(tmp_path)
+    ref = TR.run_training(MIXED, _mixed_settings(**kw), device="cpu", params=_mixed_init())
+    TR.run_training(MIXED, _mixed_settings(steps=2, checkpoint_dir=d, checkpoint_every=2, **kw),
+                    device="cpu", params=_mixed_init())
+    res = TR.run_training(MIXED, _mixed_settings(checkpoint_dir=d, checkpoint_every=2,
+                                                 resume=True, **kw),
+                          device="cpu", params=_mixed_init())
+    assert res["restore_s"] is not None
+    assert res["history"] == ref["history"] and res["eval_losses"] == ref["eval_losses"]
+    tensors = G.state_tensors(res["state"])
+    assert {t.dtype for t in tensors if t.is_floating_point()} >= {torch.bfloat16, torch.float32}
+    for a, b in zip(tensors, G.state_tensors(ref["state"])):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -1,7 +1,9 @@
 """The port's arch registry against the JAX package's: every arch module's
 FULL / SMOKE / TOPO (and PEAK_LR) field for field, the input shapes and arch
-ids, the parameter counts of the ``attn:dense`` archs, the launcher's
-resolution of every id, and ``get_schedule``.  Dtypes are compared by name
+ids, the parameter counts of the ported archs (dense, sliding-window and
+MoE), the launcher's resolution of every id, its training of the
+sliding-window and MoE SMOKE configs and its refusal of a training state
+past the device's memory, and ``get_schedule``.  Dtypes are compared by name
 (the port's properties return torch dtypes, the reference's numpy ones)."""
 
 import dataclasses
@@ -27,6 +29,7 @@ from repro_torch.launch import train as launch
 ALL_IDS = J_ARCH_IDS + J_PAPER_ARCH_IDS
 DENSE_FULL = ("gpt2_small", "gpt2_medium", "gpt2_large", "deepseek_67b", "granite_34b",
               "minitron_4b")
+NEW_FULL = ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b")
 PROPERTIES = ("hd", "padded_vocab", "d_inner", "ssm_heads", "d_rnn", "n_scan_blocks",
               "n_rem_layers")
 
@@ -60,7 +63,7 @@ def test_arch_module_matches_reference(arch):
             theirs.FULL, theirs.TOPO, shape)
 
 
-@pytest.mark.parametrize("arch", DENSE_FULL)
+@pytest.mark.parametrize("arch", DENSE_FULL + NEW_FULL)
 def test_param_count_matches_reference(arch):
     cfg = C.load_arch(arch).FULL
     assert specs.param_count(cfg) == JSPECS.param_count(j_load_arch(arch).FULL)
@@ -99,3 +102,21 @@ def test_get_schedule_rejects_unknown_names():
     for get in (S.get_schedule, JS.get_schedule):
         with pytest.raises(ValueError, match="unknown schedule 'linear'"):
             get("linear", 1e-3)
+
+
+@pytest.mark.parametrize("arch", [f"{a}_smoke" for a in NEW_FULL])
+def test_launcher_trains_the_window_and_moe_smokes(arch, capsys):
+    """``--arch <id>_smoke`` of the sliding-window and MoE archs trains on
+    the CPU with each arch's base optimizer: a finite final eval, printed."""
+    res = launch.main(["--device", "cpu", "--arch", arch, "--steps", "2", "--tau", "2",
+                       "--n-workers", "2", "--seq", "32", "--b-micro", "1"])
+    assert np.isfinite(res["final_eval"]) and len(res["history"]) == 2
+    assert "final eval loss:" in capsys.readouterr().out
+
+
+def test_launcher_refuses_a_state_past_the_device():
+    """llama4_maverick_400b_a17b FULL (397,693,916,160 parameters) is refused
+    before anything is allocated: its training state exceeds any one
+    device's memory."""
+    with pytest.raises(SystemExit, match="397,693,916,160 parameters"):
+        launch.main(["--device", "cpu", "--arch", "llama4_maverick_400b_a17b", "--steps", "1"])

@@ -17,23 +17,30 @@ import torch
 from benchmarks.tables import NANO as J_NANO
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.configs.gpt2_small import SMOKE as J_SMOKE
+from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.gpt2_small import SMOKE
 from repro_torch.configs.nano import NANO
 from repro_torch.models import convert
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.train import trainer as TR
 
 # GQA (2 kv heads for 4 query heads), a gated SiLU MLP, an untied head, a
-# two-kind pattern with a remainder layer, and query tiles shorter than S
+# two-block pattern with a remainder layer, and query tiles shorter than S
 _GQA = dict(name="gqa_gated", family="lm", n_layers=3, d_model=32, n_heads=4,
             n_kv_heads=2, d_ff=48, vocab_size=80, head_dim=8,
             pattern=("attn:dense", "attn:dense"), mlp_gated=True, act="silu",
             tie_embeddings=False, dtype="float32", param_dtype="float32",
             vocab_pad_to=32, q_block=16)
-CASES = [(J_NANO, NANO), (J_SMOKE, SMOKE), (JModelConfig(**_GQA), ModelConfig(**_GQA))]
-IDS = ["nano", "gpt2_small_smoke", "gqa_gated_untied"]
+# sliding-window and MoE blocks in one pattern, a windowed remainder layer,
+# a window and query tiles shorter than S, a shared expert, the ksum combine
+_SWA_MOE = dict(_GQA, name="swa_moe", pattern=("swa:moe", "attn:dense"), window=12,
+                n_experts=5, top_k=2, n_shared_experts=1, moe_combine="ksum", d_ff=24)
+CASES = [(J_NANO, NANO), (J_SMOKE, SMOKE), (JModelConfig(**_GQA), ModelConfig(**_GQA)),
+         (JModelConfig(**_SWA_MOE), ModelConfig(**_SWA_MOE))]
+IDS = ["nano", "gpt2_small_smoke", "gqa_gated_untied", "swa_moe_ksum"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -119,6 +126,30 @@ def test_init_draws_the_reference_distributions():
 
 def test_unported_mixers_raise():
     cfg = ModelConfig(name="x", family="lm", n_layers=2, d_model=32, n_heads=2,
-                      n_kv_heads=2, d_ff=64, vocab_size=64, pattern=("swa:dense",))
+                      n_kv_heads=2, d_ff=64, vocab_size=64, pattern=("ssm:dense",))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.layout(cfg)
+
+
+# (S, q_block, window): whole key tiles skipped wherever q_start - window
+# >= q_block; a window as wide as S; a ragged last query tile
+WINDOW_CASES = [(64, 8, 16), (37, 4, 5), (40, 16, 24), (24, 8, 24), (33, 33, 7)]
+
+
+@pytest.mark.parametrize("S,q_block,window", WINDOW_CASES,
+                         ids=[f"S{s}_qb{q}_w{w}" for s, q, w in WINDOW_CASES])
+def test_sliding_window_attention_matches_reference(S, q_block, window):
+    """``causal_attention`` with ``window`` against the reference's (GQA, 8
+    query heads on 2 kv heads, f32): outputs within 1e-6; and the same
+    blockwise path with ``window=None`` is the plain causal one."""
+    rng = np.random.default_rng(S + window)
+    q = rng.standard_normal((2, S, 8, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, S, 2, 16)).astype(np.float32) for _ in range(2))
+    theirs = JL.causal_attention(*(jnp.asarray(a) for a in (q, k, v)), window=window,
+                                 q_block=q_block)
+    ours = L.causal_attention(*(torch.from_numpy(a) for a in (q, k, v)), window=window,
+                              q_block=q_block)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-6, atol=1e-6)
+    full = L.causal_attention(*(torch.from_numpy(a) for a in (q, k, v)), q_block=q_block)
+    np.testing.assert_allclose(full.numpy(), np.asarray(JL.causal_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), q_block=q_block)), rtol=1e-6, atol=1e-6)

@@ -66,3 +66,24 @@ def test_outer_steps_make_no_host_sync_on_the_card(algorithm, guarded):
         if guarded:
             G.settle_counters(state, metrics, counters)
     assert torch.isfinite(metrics["loss"]).item()
+
+
+@pytest.mark.gpu
+def test_moe_and_window_steps_make_no_other_host_sync_on_the_card():
+    """A bf16 model of sliding-window and MoE blocks (its routers f32: two
+    dtype groups) trains two DSM outer steps on the card under
+    ``sanitize=True``: the MoE layers' group-size reads are the one
+    sanctioned sync, and nothing else in the step syncs."""
+    import dataclasses
+
+    from repro_torch.configs import load_arch
+
+    _card()
+    cfg = dataclasses.replace(load_arch("granite_moe_3b_a800m").SMOKE, name="swa_moe_bf16",
+                              pattern=("swa:moe", "attn:dense"), window=16, dtype="bfloat16",
+                              param_dtype="bfloat16")
+    assert T.layout(cfg).n_groups == 2
+    s = TR.TrainSettings(n_workers=2, tau=2, steps=2, b_micro=2, seq=32, eval_every=2,
+                         sanitize=True)
+    res = TR.run_training(cfg, s, device="cuda")
+    assert all(torch.isfinite(torch.tensor(res["history"])))

@@ -3,14 +3,21 @@ against the JAX package's, on the CPU.
 
 Params come from the reference's ``T.init_params`` through
 ``convert.from_jax_numpy``; prompts are drawn with numpy.  Configs: nano,
-gpt2_small_smoke (MHA, tied) and granite_34b_smoke (MQA, one kv head,
-untied head), all f32.  Tolerances (f32, sums in other orders through two
-layers): ``decode_attention`` alone within 1e-6; logits within 2e-5
-absolute plus 1e-5 relative, cache keys and
-values within 1e-5 absolute plus 1e-5 relative; greedy tokens equal (every
+gpt2_small_smoke (MHA, tied), granite_34b_smoke (MQA, one kv head, untied
+head), two sliding-window models (the 19-token prompt inside a 32-token
+window, and past an 8-token window: the ring's splice rolls), and the
+SMOKE configs of gemma3_1b, granite_moe_3b_a800m and
+llama4_maverick_400b_a17b (MoE in prefill and decode), all f32, at most
+two layers.  A decode of 14 tokens wraps an 8-slot ring twice.
+Tolerances (f32, sums in other orders through two layers):
+``decode_attention`` alone within 1e-6; logits within 2e-5 absolute plus
+1e-5 relative, cache keys and values within 1e-5 absolute plus 1e-5
+relative; greedy tokens equal (every
 step's top-2 logit margin in these cases is far above the logit tolerance,
 which the test checks); the splice copies, so its leaves are bit-equal.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +29,7 @@ import repro.models as JM
 import repro_torch.models as PM
 from benchmarks.tables import NANO as J_NANO
 from repro.configs import load_arch as j_load_arch
+from repro.configs.base import ModelConfig as JModelConfig
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.train import serve as JS
@@ -34,9 +42,24 @@ from repro_torch.models import transformer as T
 from repro_torch.train import serve as S
 from repro_torch.train import trainer as TR
 
+def _pair(**kw):
+    return JModelConfig(**kw), ModelConfig(**kw)
+
+
+# a sliding-window layer with the prompt shorter than the window (one
+# windowed remainder layer) and longer (a stacked windowed layer beside a
+# global one): prefill keeps the last min(window, S) positions, the splice
+# rolls them into the ring
+_SWA = dict(family="lm", d_model=32, n_heads=4, n_kv_heads=2, d_ff=48, vocab_size=80,
+            head_dim=8, pattern=("swa:dense", "attn:dense"), act="gelu", dtype="float32",
+            param_dtype="float32", vocab_pad_to=32, q_block=8)
 CASES = {"nano": (J_NANO, NANO),
          "gpt2_small_smoke": (j_load_arch("gpt2_small").SMOKE, load_arch("gpt2_small").SMOKE),
-         "granite_34b_smoke": (j_load_arch("granite_34b").SMOKE, load_arch("granite_34b").SMOKE)}
+         "granite_34b_smoke": (j_load_arch("granite_34b").SMOKE, load_arch("granite_34b").SMOKE),
+         "swa_prompt_in_window": _pair(name="swa_w32", n_layers=1, window=32, **_SWA),
+         "swa_prompt_past_window": _pair(name="swa_w8", n_layers=2, window=8, **_SWA),
+         **{f"{a.split('_')[0]}_smoke": (j_load_arch(a).SMOKE, load_arch(a).SMOKE)
+            for a in ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b")}}
 B, S_PROMPT, NEW = 2, 19, 6
 LOGIT_TOL = dict(rtol=1e-5, atol=2e-5)
 CACHE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -132,10 +155,16 @@ def test_splice_cache_leaf_equal(name):
     assert sorted(a) == sorted(b)
     for k in b:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    # a prompt as long as the cache copies straight through
+    # a prompt as long as the cache: full-attention leaves copy straight
+    # through, a sliding-window ring is rolled as the reference rolls it
     same = S._splice_cache(T.init_cache(cfg, B, S_PROMPT), small, cfg, S_PROMPT)
+    theirs = _leaves(JS._splice_cache(JT.init_cache(jcfg, B, S_PROMPT, jcfg.act_dtype), jsmall,
+                                      jcfg, S_PROMPT))
     for k, v in _leaves(same).items():
-        np.testing.assert_array_equal(v, _leaves(small)[k], err_msg=k)
+        np.testing.assert_array_equal(v, theirs[k], err_msg=k)
+        if "swa" not in cfg.pattern[int(k.split(".")[1][1:]) if k.startswith("blocks")
+                                    else int(k.split(".")[1])]:
+            np.testing.assert_array_equal(v, _leaves(small)[k], err_msg=k)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -206,8 +235,10 @@ def test_models_package_exports_the_reference_names():
 
 
 def test_unported_mixers_and_extra_batch_raise():
-    for arch in ("gemma3_1b", "mamba2_780m", "recurrentgemma_2b", "whisper_large_v3"):
-        cfg = load_arch(arch).SMOKE
+    xattn = dataclasses.replace(load_arch("gpt2_small").SMOKE, name="x",
+                                pattern=("attn:dense", "xattn:dense"))
+    for cfg in [xattn] + [load_arch(a).SMOKE for a in (
+            "mamba2_780m", "recurrentgemma_2b", "whisper_large_v3")]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             T.init_cache(cfg, 1, 8)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -216,3 +247,29 @@ def test_unported_mixers_and_extra_batch_raise():
     with pytest.raises(NotImplementedError, match="extra_batch"):
         S.generate(flat, NANO, torch.zeros(1, 4, dtype=torch.long), device="cpu",
                    extra_batch={"patches": torch.zeros(1)})
+
+
+def test_decode_wraps_the_ring():
+    """A sliding-window model (window 8) prompted with 5 tokens decodes 14
+    more against a cache of 8 ring slots: positions 8..18 overwrite slots 0..2
+    and the ring wraps twice.  Every step's logits and cache leaves against
+    the reference's (the module's tolerances)."""
+    jcfg, cfg = CASES["swa_prompt_past_window"]
+    jp = JT.init_params(jax.random.PRNGKey(4), jcfg)
+    params = T.layout(cfg).views(convert.from_jax_numpy(jax.tree.map(np.asarray, jp), cfg, 1)[0])
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab_size, (B, 5)).astype(np.int32)
+    max_len = 5 + 14
+    _, jsmall = JT.prefill(jp, {"tokens": jnp.asarray(prompt)}, jcfg, remat=False)
+    jcache = JS._splice_cache(JT.init_cache(jcfg, B, max_len, jcfg.act_dtype), jsmall, jcfg, 5)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (14, B)).astype(np.int32)
+    with torch.no_grad():
+        _, small = T.prefill(params, {"tokens": torch.from_numpy(prompt).long()}, cfg)
+        cache = S._splice_cache(T.init_cache(cfg, B, max_len), small, cfg, 5)
+        assert cache["blocks"]["p0"]["k"].shape[2] == cfg.window   # the ring
+        assert cache["blocks"]["p1"]["k"].shape[2] == max_len      # the global layer
+        for i, tok in enumerate(toks):
+            jlogits, jcache = JT.decode_step(jp, jcache, jnp.asarray(tok), jnp.int32(5 + i), jcfg)
+            logits, cache = T.decode_step(params, cache, torch.from_numpy(tok).long(), 5 + i,
+                                          cfg)
+            np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **LOGIT_TOL)
+            _assert_caches_close(cache, jcache, **CACHE_TOL)
