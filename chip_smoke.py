@@ -32,7 +32,13 @@ through both kernels with each group's launches counted and timed, each
 served on its trained x0 (Gemma's 640-token prompts past its 512-token
 window, 128 new tokens around the ring) and held against its full forward,
 and card vs CPU for the three SMOKE configs and Granite's SMOKE with bf16
-parameters, training and greedy tokens.  algorithms_full_width and
+parameters, training and greedy tokens.  Then the encoder-decoder and the
+VLM: both kernels bit for bit at Whisper's shapes, Whisper-large-v3 at
+full width and ENCDEC_LAYERS of its 32 + 32 layers trained through
+make_dsm_step on batch dicts of tokens and frames (W=2, S=448) and served
+with its frames, LLaVA-NeXT-34B at full width and VLM_LAYERS layers served
+after its 2,880 patches, each held against its full forward, and card vs
+CPU for both SMOKE configs.  algorithms_full_width and
 resume_full_width run GPT-2 small at full width with its depth cut to
 CUT_LAYERS layers.
 
@@ -147,6 +153,15 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 32
 # and the f32 check (where the routes agree but at exact ties) covers
 # every generated token
 SERVE_ATOL = 0.25
+# serve_vlm_full_width's bf16 bound: the rationale above at its worst, one
+# bf16 ulp (2^-8) of the largest logit per residual add (two per layer).
+# llava's random-weight blocks (gated SiLU, d_ff 20480, an untied head)
+# reach 2.6% of their largest logit (0.47 on logits up to 18.2 on the
+# H100, past SERVE_ATOL); a decoder LM of the same block shape and prompt
+# length without patches shows the same gap (CPU, bf16, width 1024), so
+# the gap is the blocks' bf16 noise, not the patch prefix; the f32 check
+# (SERVE_F32_ATOL) holds the decode path itself
+SERVE_ULP_PER_ADD = 2.0 ** -8
 # the same check with the trained x0 in f32 (activations f32, no TF32), over
 # the first SERVE_F32_STEPS tokens: only the summation orders differ there
 SERVE_F32_ATOL = 1e-3
@@ -167,6 +182,23 @@ WINDOW_MOE_EVAL_BATCH = 4           # eval sequences: gemma's f32 logits take 1.
 SERVE_SWA = (4, 640, 128)       # batch, prompt (past the window), new tokens (the ring wraps)
 SERVE_MOE = (4, 128, 32)
 WINDOW_MOE_SMOKES = ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b")
+# the encoder-decoder and the VLM at full width.  whisper_large_v3.FULL
+# (1,535,060,480 parameters) at ENCDEC_LAYERS of its 32 encoder and 32
+# decoder layers (whole depth at W=2 would need ~78 GB), W=2, S=448 (the
+# published decoder context), 1500 frames per sequence; N in one bf16
+# group.  llava_next_34b.FULL at VLM_LAYERS of its 60 layers, served only
+# (one layer's training state alone is ~78 GB at W=2), its 2,880 patches
+# (anyres 5 x 576) before 128 text tokens.
+ENCDEC = dict(n_workers=2, b_micro=1, seq=448)
+ENCDEC_LAYERS = 16
+ENCDEC_N = 800_954_880
+ENCDEC_STEPS = 3
+ENCDEC_EVAL_BATCH = 2
+SERVE_ENCDEC = (4, 64, 64)      # batch, prompt, new tokens
+VLM_LAYERS = 8
+VLM_N = 5_431_745_536
+SERVE_VLM = (2, 128, 32)        # 32 new tokens < 2,880 patches: where the reference raises
+ENCDEC_VLM_SMOKES = ("whisper_large_v3", "llava_next_34b")
 
 
 T0 = time.perf_counter()
@@ -1226,21 +1258,21 @@ def local_step_breakdown(torch, cfg, state, corpus, s) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.obs.tracing import profile_summary
 
-    local = make_local_phase(lambda p, t: T.loss_fn(p, t, cfg), get_base_optimizer("adamw"),
+    local = make_local_phase(lambda p, mb: T.loss_fn(p, mb, cfg), get_base_optimizer("adamw"),
                              T.layout(cfg))
     raw = next(dsm_batches(corpus, s.n_workers, 1, 1, s.b_micro, s.seq, seed=s.seed))
-    tokens = torch.as_tensor(raw["tokens"], dtype=torch.long, device="cuda")
-    local(state, tokens, 1e-5)                      # warm-up
+    batch = {"tokens": torch.as_tensor(raw["tokens"], dtype=torch.long, device="cuda")}
+    local(state, batch, 1e-5)                       # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    local(state, tokens, 1e-5)
+    local(state, batch, 1e-5)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function("dsm_local_phase"):
-                local(state, tokens, 1e-5)
+                local(state, batch, 1e-5)
             torch.cuda.synchronize()
         prof.export_chrome_trace(f"{d}/local_step.json")
         summ = profile_summary(f"{d}/local_step.json", top=5, gaps=0)
@@ -1483,28 +1515,32 @@ class RouteLog:
         return out
 
 
-def teacher_forced(torch, params, cfg, prompt, toks):
+def teacher_forced(torch, params, cfg, prompt, toks, extra=None):
     """Every decode step's logits (prefill's for the first token, then
     decode_step fed ``toks``) beside a full forward over prompt +
     toks[:, :i] at its last position; rows of (decode, full) f32 logits and
     a (B,) bool: the row's experts equal in both at every MoE layer (all
-    True without one)."""
+    True without one).  ``extra``: the batch's frames or patches; a VLM's
+    patches come before the prompt, so its decode positions start after
+    them."""
     from repro_torch.models import transformer as T
     from repro_torch.train.serve import _splice_cache
 
+    extra = extra or {}
     B, S = prompt.shape
+    n0 = S + (extra["patches"].shape[1] if "patches" in extra else 0)
     out = []
     with torch.no_grad(), RouteLog(torch) as log:
-        logits, small = T.prefill(params, {"tokens": prompt}, cfg)
-        cache = _splice_cache(T.init_cache(cfg, B, S + toks.shape[1], device=prompt.device),
-                              small, cfg, S)
+        logits, small = T.prefill(params, {"tokens": prompt, **extra}, cfg)
+        cache = _splice_cache(T.init_cache(cfg, B, n0 + toks.shape[1], device=prompt.device),
+                              small, cfg, n0)
         del small
         for i in range(toks.shape[1]):
             if i:
-                logits, cache = T.decode_step(params, cache, toks[:, i - 1], S + i - 1, cfg)
+                logits, cache = T.decode_step(params, cache, toks[:, i - 1], n0 + i - 1, cfg)
             dec_routes = log.take()
             seq = torch.cat([prompt, toks[:, :i]], dim=1)
-            h = T.hidden_states(params, seq, cfg)[:, -1:]
+            h = T.hidden_states(params, {"tokens": seq, **extra}, cfg)[0][:, -1:]
             same = torch.ones(B, dtype=torch.bool, device=prompt.device)
             for a, b in zip(dec_routes, log.take(), strict=True):
                 same &= (a == b).all(dim=-1)
@@ -1539,14 +1575,18 @@ def phase_serve_full_width(torch, smi, x0):
                 SERVE_PROMPT, SERVE_NEW)
 
 
-def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new) -> None:
+def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new, extra=None,
+                per_add_bound=False) -> None:
     """generate on the trained ``x0`` (cfg's flat buffers, bf16): ``batch``
-    prompts of ``prompt_len`` corpus tokens, ``new`` greedy tokens; prefill
+    prompts of ``prompt_len`` corpus tokens, ``new`` greedy tokens (with
+    ``extra``, the batch's frames or patches, as ``extra_batch``); prefill
     seconds, decode tokens/s and the peak.  Then, teacher-forced, each
-    decode step's logits against the full forward within SERVE_ATOL on the
-    rows whose experts agree (``route_checked``: every row of a dense
-    model), and generate's token equal to the full forward's argmax
-    wherever its top-2 margin exceeds SERVE_ATOL.  The same teacher-forced
+    decode step's logits against the full forward within SERVE_ATOL (with
+    ``per_add_bound``, within SERVE_ULP_PER_ADD of the largest logit per
+    residual add where that is larger) on the rows whose experts agree
+    (``route_checked``: every row of a dense model), and generate's token
+    equal to the full forward's argmax wherever its top-2 margin exceeds
+    that bound.  The same teacher-forced
     check with every leaf in f32 (activations f32), within SERVE_F32_ATOL,
     over the first SERVE_F32_STEPS tokens of a dense model and every token
     of a MoE one."""
@@ -1565,17 +1605,20 @@ def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    generate(params, cfg, prompt, max_new_tokens=2, device="cuda")     # warm-up
-    toks, stats = generate(params, cfg, prompt, max_new_tokens=new, device="cuda")
+    generate(params, cfg, prompt, max_new_tokens=2, extra_batch=extra, device="cuda")  # warm-up
+    toks, stats = generate(params, cfg, prompt, max_new_tokens=new, extra_batch=extra,
+                           device="cuda")
     peak = torch.cuda.max_memory_allocated()
-    rows = teacher_forced(torch, params, cfg, prompt, toks)
-    bf16 = route_checked(rows, SERVE_ATOL)
-    decided, agree, top = 0, 0, 0.0
+    rows = teacher_forced(torch, params, cfg, prompt, toks, extra)
+    top = max(full.abs().max().item() for _, full, _ in rows)
+    atol = max(SERVE_ATOL, 2 * cfg.n_layers * SERVE_ULP_PER_ADD * top) if per_add_bound else (
+        SERVE_ATOL)
+    bf16 = route_checked(rows, atol)
+    decided, agree = 0, 0
     for i, (_, full, _) in enumerate(rows):
-        top = max(top, full.abs().max().item())
         lg = full[:, : cfg.vocab_size]
         top2 = torch.topk(lg, 2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > SERVE_ATOL
+        sure = (top2[:, 0] - top2[:, 1]) > atol
         decided += int(sure.sum())
         agree += int((sure & (lg.argmax(-1) == toks[:, i])).sum())
     del rows
@@ -1583,14 +1626,16 @@ def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new) -> None:
     f32_steps = new if moe else SERVE_F32_STEPS
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     rows = teacher_forced(torch, {k: v.float() for k, v in params.items()}, cfg32, prompt,
-                          toks[:, :f32_steps])
+                          toks[:, :f32_steps],
+                          {k: v.float() for k, v in extra.items()} if extra else None)
     f32 = route_checked(rows, SERVE_F32_ATOL)
     del rows
     row = {"phase": phase, "gpu": smi, "config": cfg.name, "n_layers": cfg.n_layers,
            "batch": batch, "prompt_tokens": prompt_len, "new_tokens": new,
+           "extra_batch": {k: list(v.shape) for k, v in (extra or {}).items()},
            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
            "decode_tok_per_s": stats["tok_per_s"], "max_memory_allocated_bytes": peak,
-           "params_bytes": base, "atol": SERVE_ATOL, "max_abs_logit": top,
+           "params_bytes": base, "atol": atol, "max_abs_logit": top,
            "decode_vs_full_max_abs_err": bf16["max_abs_err"], "bf16": bf16,
            "tokens_decided": decided, "tokens_equal_where_decided": agree,
            "f32_atol": SERVE_F32_ATOL, "f32_steps": f32_steps,
@@ -1600,7 +1645,7 @@ def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new) -> None:
     if not (bf16["ok"] and agree == decided and decided > 0 and f32["ok"]):
         raise AssertionError(
             f"{phase}: decode vs full forward {bf16['same_routes_max_abs_err']} where the "
-            f"routes agree (atol {SERVE_ATOL}), f32 {f32['same_routes_max_abs_err']} (atol "
+            f"routes agree (atol {atol}), f32 {f32['same_routes_max_abs_err']} (atol "
             f"{SERVE_F32_ATOL}), {agree} of {decided} decided tokens equal")
 
 
@@ -1653,18 +1698,19 @@ def window_moe_paths():
                 "n_workers", "b_micro", "seq")}), GRANITE_N)]
 
 
-def phase_group_kernel_checks(torch, K):
-    """Both kernels bit for bit against their plain versions at the
-    sliding-window and MoE paths' shapes, group by group: the DSM step over
-    each group's (n,), the AdamW step over each group's (W, n) (the plain
-    version slice by slice where the buffers are large); random inputs,
-    0 / -0 / NaN planted in the DSM inputs."""
+def phase_group_kernel_checks(torch, K, phase="group_kernel_checks", paths=None):
+    """Both kernels bit for bit against their plain versions at the shapes
+    of ``paths`` ((cfg, settings) pairs; by default the sliding-window and
+    MoE paths), group by group: the DSM step over each group's (n,), the
+    AdamW step over each group's (W, n) (the plain version slice by slice
+    where the buffers are large); random inputs, 0 / -0 / NaN planted in
+    the DSM inputs."""
     from repro_torch.kernels.dsm_update import dsm_update_plain
     from repro_torch.models import transformer as T
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = []
-    for cfg, s, _ in window_moe_paths():
+    for cfg, s in paths or [(cfg, s) for cfg, s, _ in window_moe_paths()]:
         lay = T.layout(cfg)
         for dtype, n in zip(lay.dtypes, lay.group_numels):
             torch.cuda.empty_cache()
@@ -1682,7 +1728,7 @@ def phase_group_kernel_checks(torch, K):
                           "max_abs_err": adamw_vs_plain_chunked(torch, K, p, g, mm, v)})
             del p, g, mm, v
     torch.cuda.empty_cache()
-    emit({"phase": "group_kernel_checks", "tolerance": "bitwise (atol 0, rtol 0), NaN where NaN",
+    emit({"phase": phase, "tolerance": "bitwise (atol 0, rtol 0), NaN where NaN",
           "cases": cases})
     return {name: max(c["max_abs_err"] for c in cases if c["kernel"] == name)
             for name in ("dsm_update", "adamw_update")}
@@ -1796,6 +1842,256 @@ def window_moe_phases(torch, K, smi, pool) -> tuple:
     return {k: n + more[k] for k, n in total.items()}, errs
 
 
+def whisper_cut():
+    """whisper_large_v3.FULL at full width and ENCDEC_LAYERS encoder and
+    decoder layers."""
+    import dataclasses
+
+    from repro_torch.configs import whisper_large_v3
+
+    return dataclasses.replace(whisper_large_v3.FULL, n_layers=ENCDEC_LAYERS,
+                               enc_layers=ENCDEC_LAYERS,
+                               name=f"whisper_large_v3_{ENCDEC_LAYERS}+{ENCDEC_LAYERS}l")
+
+
+def llava_cut():
+    """llava_next_34b.FULL at full width and VLM_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import llava_next_34b
+
+    return dataclasses.replace(llava_next_34b.FULL, n_layers=VLM_LAYERS,
+                               name=f"llava_next_34b_{VLM_LAYERS}l")
+
+
+def encdec_settings():
+    from repro_torch.train.trainer import TrainSettings
+
+    return TrainSettings(tau=12, steps=ENCDEC_STEPS, peak_lr=MAIN["peak_lr"],
+                         global_lr=MAIN["global_lr"], **ENCDEC)
+
+
+def frames_of(torch, gen, cfg, lead):
+    """Stub frame embeddings (lead..., enc_len, d_model), f32 on the card."""
+    return torch.randn(lead + (cfg.enc_len, cfg.d_model), generator=gen, device="cuda")
+
+
+def phase_encdec_full_width(torch, K, smi):
+    """whisper_cut() trained through make_dsm_step on batch dicts (tokens of
+    the src/**/*.py corpus, seeded random frames), AdamW local steps, W=2,
+    tau=12, B_micro=1, S=448, ENCDEC_STEPS outer steps, the trainer's
+    schedule at MAIN's rates; an eval on a fixed held-out batch (its own
+    frames) after each.  N = ENCDEC_N, one DSM launch and tau AdamW
+    launches per round, finite losses, the last eval below the first, the
+    peak under the card's memory; each kernel timed on the trained state's
+    buffers beside its byte bound.  Returns (launches, cfg, trained x0)."""
+    from repro_torch.core import DSMConfig, dsm_init, get_base_optimizer, make_dsm_step
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.pipeline import TextCorpus, dsm_batches, eval_batch
+    from repro_torch.models import transformer as T
+
+    cfg, s = whisper_cut(), encdec_settings()
+    lay = T.layout(cfg)
+    if lay.numel != ENCDEC_N or lay.n_groups != 1:
+        raise AssertionError(f"{cfg.name}: N {lay.numel} in {lay.n_groups} groups, "
+                             f"want {ENCDEC_N} in one")
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = get_base_optimizer("adamw")
+    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg), base,
+                         DSMConfig(tau=s.tau, global_lr=s.global_lr),
+                         cosine_with_warmup(s.peak_lr, s.steps, warmup_steps=s.warmup), lay)
+    state = dsm_init(T.init_params(torch.Generator(device="cuda").manual_seed(s.seed), cfg,
+                                   device="cuda"), base, s.n_workers)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ev = {"tokens": torch.as_tensor(eval_batch(corpus, ENCDEC_EVAL_BATCH, s.seq)["tokens"],
+                                    dtype=torch.long, device="cuda"),
+          "frames": frames_of(torch, gen, cfg, (ENCDEC_EVAL_BATCH,))}
+
+    def eval_loss() -> float:
+        with torch.no_grad():
+            return float(T.loss_fn(lay.views(state.x0), ev, cfg))
+
+    batches = dsm_batches(corpus, s.n_workers, s.tau, 1, s.b_micro, s.seq, seed=s.seed)
+    hist, evals, step_s = [], [eval_loss()], []
+    K.reset_launch_counts()
+    for _ in range(s.steps):
+        batch = {"tokens": torch.as_tensor(next(batches)["tokens"], dtype=torch.long,
+                                           device="cuda"),
+                 "frames": frames_of(torch, gen, cfg, (s.n_workers, s.tau, 1, s.b_micro))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        del batch
+        hist.append(metrics["loss"].item())
+        evals.append(eval_loss())
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    x0 = state.x0.clone()
+    n, w, es = ENCDEC_N, s.n_workers, cfg.p_dtype.itemsize
+    kernels = {
+        "adamw_ms": median_ms(torch, lambda: K.adamw_update(
+            state.params, state.grads, state.base_state.m, state.base_state.v, 1e-5, 11,
+            **ADAMW_HP)),
+        "adamw_bound_ms": bound_ms(w * n * (3 * es + 16), w * n * 16)[0],
+        "dsm_ms": median_ms(torch, lambda: K.dsm_update(state.x0, state.m, state.params[0],
+                                                        1e-5, **DSM_HP)),
+        "dsm_bound_ms": bound_ms(n * (3 * es + 8), n * 12)[0]}
+    del state
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    tokens_per_step = s.n_workers * s.tau * s.b_micro * s.seq
+    emit({"phase": "encdec_full_width", "gpu": smi, "config": cfg.name, "n_params": n,
+          "n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers, "enc_len": cfg.enc_len,
+          "n_workers": w, "tau": s.tau, "b_micro": s.b_micro, "seq": s.seq,
+          "peak_lr": s.peak_lr, "global_lr": s.global_lr, "history": hist,
+          "eval_before": evals[0], "evals": evals[1:],
+          "outer_step_ms": [t * 1e3 for t in step_s],
+          "outer_step_ms_median_after_first": step_ms,
+          "tokens_per_outer_step": tokens_per_step,
+          "tokens_per_s": tokens_per_step / (step_ms / 1e3),
+          "max_memory_allocated_bytes": peak, "card_bytes": card_bytes, "launches": launches,
+          "kernels": kernels})
+    failures = []
+    want = expected_launches(s)
+    if launches != want:
+        failures.append(f"launch counts {launches}, want {want}")
+    if not all(math.isfinite(x) for x in hist + evals):
+        failures.append(f"non-finite loss {hist}, evals {evals}")
+    elif not evals[-1] < evals[1]:
+        failures.append(f"eval loss did not fall: {evals[1:]}")
+    if not peak < card_bytes:
+        failures.append(f"peak {peak} B of the card's {card_bytes}")
+    if failures:
+        raise AssertionError("encdec_full_width: " + "; ".join(failures))
+    return launches, cfg, x0
+
+
+def phase_serve_vlm_full_width(torch, smi):
+    """llava_cut() from init_params on the card (seeded): serve_check with
+    SERVE_VLM's batch, prompt and new tokens after the config's 2,880
+    seeded random patches (fewer new tokens than patches: the case where
+    the reference's cache is too short), its bf16 bound per residual add
+    (SERVE_ULP_PER_ADD)."""
+    from repro_torch.models import transformer as T
+
+    cfg = llava_cut()
+    lay = T.layout(cfg)
+    if lay.numel != VLM_N or lay.n_groups != 1:
+        raise AssertionError(f"{cfg.name}: N {lay.numel} in {lay.n_groups} groups, "
+                             f"want {VLM_N} in one")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x0 = T.init_params(gen, cfg, device="cuda")
+    b, prompt, new = SERVE_VLM
+    patches = torch.randn((b, cfg.n_patches, cfg.d_model), generator=gen, device="cuda")
+    serve_check(torch, smi, "serve_vlm_full_width", cfg, x0, b, prompt, new,
+                {"patches": patches}, per_add_bound=True)
+    del x0, patches
+    torch.cuda.empty_cache()
+
+
+def smoke_batch(cfg, seed, lead, seq) -> dict:
+    """The reference's smoke batch dict (numpy): f32 patches before seq -
+    n_patches token ids (vlm), or f32 frames beside seq token ids (encdec)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_text = seq - cfg.n_patches if cfg.family == "vlm" else seq
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, lead + (n_text,))}
+    key, length = ("patches", cfg.n_patches) if cfg.family == "vlm" else ("frames", cfg.enc_len)
+    batch[key] = rng.standard_normal(lead + (length, cfg.d_model), dtype=np.float32)
+    return batch
+
+
+def encdec_vlm_smoke_run(arch: str, device: str) -> dict:
+    """An arch's SMOKE (f32) on ``device``, the same init and batches on
+    every device: the loss of a microbatch at x0, one DSM outer step (W=2,
+    tau=2, AdamW, gamma 1e-3, eta 0.5) on a batch dict, the loss of that
+    microbatch after it, and generate's SERVE_NEW greedy tokens."""
+    import torch
+
+    from repro_torch.configs import load_arch
+    from repro_torch.core import DSMConfig, dsm_init, get_base_optimizer, make_dsm_step
+    from repro_torch.core.schedules import constant
+    from repro_torch.models import transformer as T
+    from repro_torch.train.serve import generate
+    from repro_torch.train.trainer import set_matmul_precision
+
+    set_matmul_precision()
+    cfg = load_arch(arch).SMOKE
+    lay = T.layout(cfg)
+    x0 = T.init_params(torch.Generator().manual_seed(0), cfg).to(device)
+    batch = {k: torch.as_tensor(v).to(device)
+             for k, v in smoke_batch(cfg, 1, (2, 2, 1, 2), 32).items()}
+    micro = {k: v[0, 0, 0] for k, v in batch.items()}
+    with torch.no_grad():
+        before = T.loss_fn(lay.views(x0), micro, cfg).item()
+    base = get_base_optimizer("adamw")
+    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg), base,
+                         DSMConfig(tau=2, global_lr=0.5), constant(1e-3), lay)
+    state, metrics = step(dsm_init(x0, base, 2), batch)
+    with torch.no_grad():
+        after = T.loss_fn(lay.views(state.x0), micro, cfg).item()
+    prompt = {k: torch.as_tensor(v) for k, v in smoke_batch(cfg, 2, (4,), 24).items()}
+    toks, _ = generate(x0, cfg, prompt.pop("tokens"), max_new_tokens=SERVE_NEW,
+                       extra_batch=prompt, device=device)
+    return {"losses": [before, metrics["loss"].item(), after], "tokens": toks.cpu()}
+
+
+def phase_encdec_vlm_card_vs_cpu(torch, K, pool):
+    """whisper and llava SMOKE (f32), encdec_vlm_smoke_run on the card and
+    on the CPU (in the worker pool): each loss within NANO_RTOL, the greedy
+    tokens equal, one DSM and tau AdamW launches per arch on the card."""
+    cpu = {a: pool.submit(encdec_vlm_smoke_run, a, "cpu") for a in ENCDEC_VLM_SMOKES}
+    rows, failures = [], []
+    total = dict.fromkeys(K.launch_counts(), 0)
+    for arch in ENCDEC_VLM_SMOKES:
+        K.reset_launch_counts()
+        card = encdec_vlm_smoke_run(arch, "cuda")
+        launches = K.launch_counts()
+        theirs = cpu[arch].result(timeout=CPU_RUN_TIMEOUT_S)
+        rel = history_rel(card["losses"], theirs["losses"])
+        same = torch.equal(card["tokens"], theirs["tokens"])
+        rows.append({"arch": arch, "card": card["losses"], "cpu": theirs["losses"],
+                     "max_rel_diff": rel, "generate_tokens_equal": same, "launches": launches})
+        if not rel <= NANO_RTOL:
+            failures.append(f"{arch}: card and CPU differ by {rel}")
+        if not same:
+            failures.append(f"{arch}: generate's tokens differ on card and CPU")
+        if launches != {"dsm_update": 1, "adamw_update": 2}:
+            failures.append(f"{arch}: launch counts {launches}")
+        for k in total:
+            total[k] += launches[k]
+    emit({"phase": "encdec_vlm_card_vs_cpu", "rtol": NANO_RTOL,
+          "losses": "x0 microbatch, outer step, after it", "runs": rows})
+    if failures:
+        raise AssertionError("encdec_vlm_card_vs_cpu: " + "; ".join(failures))
+    return total
+
+
+def encdec_vlm_phases(torch, K, smi, pool) -> tuple:
+    """The phases of the encoder-decoder and the VLM; returns (their runs'
+    launches, the kernel checks' worst errors at whisper's shapes)."""
+    errs = phase_group_kernel_checks(torch, K, "encdec_kernel_checks",
+                                     [(whisper_cut(), encdec_settings())])
+    total, cfg, x0 = phase_encdec_full_width(torch, K, smi)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, prompt, new = SERVE_ENCDEC
+    frames = frames_of(torch, gen, cfg, (b,))
+    serve_check(torch, smi, "serve_encdec_full_width", cfg, x0, b, prompt, new,
+                {"frames": frames})
+    del x0, frames
+    torch.cuda.empty_cache()
+    phase_serve_vlm_full_width(torch, smi)
+    more = phase_encdec_vlm_card_vs_cpu(torch, K, pool)
+    return {k: n + more[k] for k, n in total.items()}, errs
+
+
 def slice_phases(torch, K, smi, pool) -> dict:
     """The phases of the paper's GPT-2 sizes, the arch registry and serving;
     returns their runs' launches.  serve_full_width serves the x0 that
@@ -1876,9 +2172,10 @@ def all_phases(torch, K, smi, pool):
                  phase_zero_card_vs_cpu(torch, K),
                  slice_phases(torch, K, smi, pool)):
         launches = {k: n + more[k] for k, n in launches.items()}
-    more, group_errs = window_moe_phases(torch, K, smi, pool)
-    launches = {k: n + more[k] for k, n in launches.items()}
-    errs = {k: max(e, group_errs[k]) for k, e in errs.items()}
+    for phases in (window_moe_phases, encdec_vlm_phases):
+        more, group_errs = phases(torch, K, smi, pool)
+        launches = {k: n + more[k] for k, n in launches.items()}
+        errs = {k: max(e, group_errs[k]) for k, e in errs.items()}
     return launches, errs, times
 
 

@@ -23,9 +23,10 @@ A mixed-dtype model's buffers are Groups (``repro_torch.groups``): the
 global updates run group by group, each on its group's x0 and aux; such a
 model takes no topology.
 
-Token batches are ``(W, tau, 1, B_micro, S)``: the trainer's layout with an
-accumulation axis of 1, which is numerically the reference's batch without
-that axis (0 + g = g, g / 1 = g).
+Batches are dicts of leaves ``(W, tau, 1, B_micro, ...)`` (``tokens``, and
+``patches`` or ``frames`` for the vlm / encdec families): the trainer's
+layout with an accumulation axis of 1, which is numerically the reference's
+batch without that axis (0 + g = g, g / 1 = g).
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.base_opt import BaseOptimizer, weak_scalar
-from repro_torch.core.dsm import make_local_phase, randomized_sign_pm, worker_grads, worker_mean
+from repro_torch.core.dsm import (lead_dims, make_local_phase, randomized_sign_pm, take,
+                                  worker_grads, worker_mean)
 from repro_torch.distributed import comm
 from repro_torch.distributed import zero as Z
 from repro_torch.groups import Groups, each, join, parts, pick
@@ -69,8 +71,8 @@ def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
 
     ``global_update(x0, aux, x_tau_mean, gamma, t)`` updates x0 and aux in
     place.  Returns ``(init(x0, n_workers) -> state,
-    outer_step(state, tokens) -> (state, metrics))``.  Under ``topo`` the
-    state and ``tokens`` hold the rank's own workers.
+    outer_step(state, batch) -> (state, metrics))``.  Under ``topo`` the
+    state and ``batch`` hold the rank's own workers.
     """
     local_phase = make_local_phase(loss_fn, base_opt, layout)
 
@@ -84,10 +86,10 @@ def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
                                 x0=each(torch.clone, x0), aux=aux,
                                 base_state=base_opt.init(params))
 
-    def outer_step(state: LocalMethodState, tokens: torch.Tensor):
+    def outer_step(state: LocalMethodState, batch: dict):
         gamma_t = schedule(state.t)
         gamma = float(gamma_t)
-        losses = local_phase(state, tokens, gamma)
+        losses = local_phase(state, batch, gamma)
         if topo is None:
             x_tau = worker_mean(state.params)
         else:
@@ -240,13 +242,14 @@ def make_perstep_dp_step(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
                               grads=each(lambda x: x.new_zeros(n_workers, x.numel()), x0),
                               base_state=base_opt.init(x0))
 
-    def outer_step(state: PerStepDPState, tokens: torch.Tensor):
+    def outer_step(state: PerStepDPState, batch: dict):
         gamma_t = schedule(state.t)   # indexed by the outer-equivalent step
         gamma = float(gamma_t)
-        losses = torch.empty(tau, tokens.shape[0], dtype=F32,
+        losses = torch.empty(tau, lead_dims(batch)[0], dtype=F32,
                              device=parts(state.params)[0].device)
         for k in range(tau):
-            worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, k], losses[k])
+            worker_grads(loss_fn, layout, state.params, state.grads,
+                         take(batch, slice(None), k), losses[k])
             g = worker_mean(state.grads)                                     # all-reduce
             base_opt.update(state.params, g, state.base_state, gamma, state.t * tau + k)
         state.t += 1
@@ -284,11 +287,11 @@ def make_mv_signsgd_step(loss_fn: Callable, tau: int, gamma: float, eta: float,
                        m=each(lambda p: torch.zeros_like(p, dtype=F32), params),
                        params=params, grads=each(torch.zeros_like, params))
 
-    def outer_step(state: MVState, tokens: torch.Tensor, rng: Optional[torch.Generator] = None,
+    def outer_step(state: MVState, batch: dict, rng: Optional[torch.Generator] = None,
                    uniform=None):
         """``uniform``: the (W, N) f32 draws of the signs (Groups of them for
         Groups buffers), else drawn from ``rng``."""
-        n_workers = tokens.shape[0]
+        n_workers = lead_dims(batch)[0]
         dev = parts(state.x)[0].device
 
         def start(p, x, x_prev):
@@ -299,11 +302,12 @@ def make_mv_signsgd_step(loss_fn: Callable, tau: int, gamma: float, eta: float,
         each(start, state.params, state.x, state.x_prev)
         losses = torch.empty(tau, n_workers, dtype=F32, device=dev)
         for k in range(tau):
-            worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, k], losses[k])
+            worker_grads(loss_fn, layout, state.params, state.grads,
+                         take(batch, slice(None), k), losses[k])
             each(lambda p, g: p.sub_(weak_scalar(gamma, p.dtype) * g), state.params, state.grads)
 
         # local momentum from a fresh gradient at z_tau on the last microbatch
-        worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, -1],
+        worker_grads(loss_fn, layout, state.params, state.grads, take(batch, slice(None), -1),
                      torch.empty(n_workers, device=dev))
         each(lambda m, g: m.mul_(beta).add_((1 - beta) * g.to(F32)), state.m, state.grads)
 

@@ -11,7 +11,11 @@ One outer step t:
 
 A process runs its workers one after another: a Python loop runs each
 worker's forward and backward, and the base optimizer then updates all of
-them at once (with AdamW, one launch of the AdamW kernel).  The global step
+them at once (with AdamW, one launch of the AdamW kernel).  A batch is the
+reference's dict of leaves shaped (W, tau, accum, B_micro, ...): ``tokens``
+and, for the vlm / encdec families, ``patches`` or ``frames``; every leaf is
+indexed alike by worker, local step and microbatch (:func:`take`), as the
+reference maps over its batch pytree.  The global step
 is the DSM kernel on the card for the deterministic sign; the randomized
 signs of eqs. 9/10 (``sign_mode`` ``rand_pm`` / ``rand_zero``) run in plain
 PyTorch.
@@ -253,22 +257,35 @@ def global_sign_momentum_step(x0, m, x_tau_mean, gamma, cfg: DSMConfig,
                             sign=lambda u: op(u, rng, cfg.sign_bound, uniform))
 
 
-def worker_grads(loss_fn: Callable, layout: FlatLayout, params, grads, tokens: torch.Tensor,
+def take(batch: dict, *index) -> dict:
+    """Every leaf of the batch dict indexed alike: ``take(batch, w, a)`` is
+    worker w's microbatch a, ``take(batch, slice(None), k)`` every worker's
+    local step k."""
+    return {name: leaf[index] for name, leaf in batch.items()}
+
+
+def lead_dims(batch: dict) -> torch.Size:
+    """The leading dims every leaf shares, read off the first leaf in
+    ``jax.tree.leaves`` order (sorted keys)."""
+    return batch[min(batch)].shape
+
+
+def worker_grads(loss_fn: Callable, layout: FlatLayout, params, grads, batch: dict,
                  losses: torch.Tensor) -> None:
     """Every worker's forward and backward, in place into ``grads[w]`` of the
     ``(W, N)`` buffers (zeroed first): worker w at ``params[w]``, or at the
-    one ``(N,)`` params, on its microbatches ``tokens[w]`` (accum, B_micro,
-    S), gradients summed then divided by accum; its mean loss into
-    ``losses[w]``.  The buffers are tensors or Groups."""
+    one ``(N,)`` params, on its microbatches ``take(batch, w)`` (leaves
+    (accum, B_micro, ...)), gradients summed then divided by accum; its
+    mean loss into ``losses[w]``.  The buffers are tensors or Groups."""
     for g in parts(grads):
         g.zero_()
-    accum = tokens.shape[1]
+    accum = lead_dims(batch)[1]
     for w in range(parts(grads)[0].shape[0]):
         leaves = layout.autograd_leaves(each(lambda p: p if p.dim() == 1 else p[w], params),
                                         each(lambda g: g[w], grads))
         loss_sum = torch.zeros((), dtype=F32, device=losses.device)
         for a in range(accum):
-            loss = loss_fn(leaves, tokens[w, a])
+            loss = loss_fn(leaves, take(batch, w, a))
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         if accum > 1:
@@ -278,21 +295,22 @@ def worker_grads(loss_fn: Callable, layout: FlatLayout, params, grads, tokens: t
 
 
 def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLayout):
-    """``local_phase(state, tokens, gamma) -> losses (tau, W)``: tau local
+    """``local_phase(state, batch, gamma) -> losses (tau, W)``: tau local
     steps of every worker the state holds (all W, or a rank's own), in place
     on ``state.params`` / ``state.base_state``, with no collective.
 
-    ``tokens``: (W, tau, accum, B_micro, S), the state's workers' rows.
-    Each local step runs every worker's forward and backward
+    ``batch``: a dict of leaves (W, tau, accum, B_micro, ...), the state's
+    workers' rows.  Each local step runs every worker's forward and backward
     (:func:`worker_grads`), then one base-optimizer update over all of them
     at step index ``state.inner + k``.
     """
 
-    def local_phase(state, tokens: torch.Tensor, gamma: float) -> torch.Tensor:
-        tau, n_workers = tokens.shape[1], tokens.shape[0]
+    def local_phase(state, batch: dict, gamma: float) -> torch.Tensor:
+        n_workers, tau = lead_dims(batch)[:2]
         losses = torch.empty(tau, n_workers, dtype=F32, device=parts(state.params)[0].device)
         for k in range(tau):
-            worker_grads(loss_fn, layout, state.params, state.grads, tokens[:, k], losses[k])
+            worker_grads(loss_fn, layout, state.params, state.grads,
+                         take(batch, slice(None), k), losses[k])
             base_opt.update(state.params, state.grads, state.base_state, gamma,
                             state.inner + k)
         return losses
@@ -302,11 +320,13 @@ def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLay
 
 def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
                   schedule: Callable, layout: FlatLayout, topo=None):
-    """Build ``outer_step(state, tokens[, rng[, faults]]) -> (state, metrics)``.
+    """Build ``outer_step(state, batch[, rng[, faults]]) -> (state, metrics)``.
 
-    ``tokens``: (W, tau, accum, B_micro, S) int64 on the state's device, the
-    state's workers' rows.  ``loss_fn(params, microbatch)`` takes a ``{path:
-    tensor}`` params dict and one (B_micro, S) microbatch.  ``rng``: the
+    ``batch``: the reference's dict of leaves (W, tau, accum, B_micro, ...)
+    on the state's device, the state's workers' rows: int64 ``tokens`` (...,
+    S), with ``patches`` or ``frames`` for the vlm / encdec families.
+    ``loss_fn(params, microbatch)`` takes a ``{path: tensor}`` params dict
+    and one microbatch, the dict of (B_micro, ...) leaves.  ``rng``: the
     ``torch.Generator`` on the state's device that the randomized signs draw
     from (unused by ``sign_mode="sign"``).  ``metrics`` holds 0-d tensors
     ``loss``, ``last_loss``, ``gamma`` and the ``(N_METRICS,)`` ``pack``,
@@ -338,13 +358,13 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
     sharded = cfg.zero_sharded and topo is not None
     n = layout.numel
 
-    def outer_step(state: DSMState, tokens: torch.Tensor,
+    def outer_step(state: DSMState, batch: dict,
                    rng: Optional[torch.Generator] = None, faults=None):
         gamma_t = schedule(state.t)          # fixed for the whole outer step
         gamma = float(gamma_t)
         # the reference's jax.named_scope ranges, seen in a profiler trace
         with record_function("dsm_local_phase"):
-            losses = local_phase(state, tokens, gamma)
+            losses = local_phase(state, batch, gamma)
         with record_function("dsm_global_step"):
             return global_phase(state, losses, gamma_t, gamma, rng, faults)
 

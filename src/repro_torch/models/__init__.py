@@ -1,4 +1,5 @@
-"""The attn:dense decoder LM, its layers and the flat parameter layout."""
+"""The sequence model (decoder LM, encoder-decoder, VLM), its layers and the
+flat parameter layout."""
 
 from repro_torch.models.transformer import (
     decode_step,

@@ -109,11 +109,12 @@ class FlatLayout:
         """``{path: leaf}`` views of the row ``flat`` that require grad and
         whose ``.grad`` is the matching view of ``grad``, so that backward
         accumulates IN PLACE into the flat gradient buffer (zero it first).
-        Stacked block leaves are split into a list of per-layer leaves."""
+        Stacked block leaves (the decoder's and the encoder's) are split
+        into a list of per-layer leaves."""
         pv, gv = self.views(flat), self.views(grad)
         out = {}
         for name in self.names:
-            if name.startswith("decoder.blocks."):
+            if name.startswith(("decoder.blocks.", "encoder.blocks.")):
                 out[name] = [_leaf(p, g) for p, g in zip(pv[name], gv[name])]
             else:
                 out[name] = _leaf(pv[name], gv[name])

@@ -1,7 +1,9 @@
-"""Model building blocks of the ``attn`` / ``swa`` mixers and the dense and
-MoE FFNs: RMSNorm, RoPE, causal GQA attention (full or sliding-window),
-one-token attention against a KV cache, the dense MLP and the top-k routed
-mixture of experts, as plain PyTorch functions on tensors.
+"""Model building blocks of the ``attn`` / ``swa`` / ``encattn`` / ``xattn``
+mixers and the dense and MoE FFNs: RMSNorm, RoPE, causal GQA attention
+(full or sliding-window), bidirectional attention (the encoder's and the
+cross-attention's), one-token attention against a KV cache, the dense MLP
+and the top-k routed mixture of experts, as plain PyTorch functions on
+tensors.
 
 They follow the reference's precision path: activations in
 ``cfg.act_dtype``, attention scores and softmax in f32, probabilities cast
@@ -97,6 +99,16 @@ def causal_attention(q, k, v, window: Optional[int] = None,
         probs = torch.softmax(scores, dim=-1)
         outs.append(_gqa_out(probs, v[:, k_start:q_end], q.dtype))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def full_attention(q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bidirectional (encoder / cross) attention over every key; ``mask``
+    (broadcast against the (B, KVH, rep, Sq, Sk) scores) hides the keys
+    where it is False."""
+    scores = _gqa_scores(q, k)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, float("-inf"))
+    return _gqa_out(torch.softmax(scores, dim=-1), v, q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask) -> torch.Tensor:

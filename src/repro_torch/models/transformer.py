@@ -1,9 +1,18 @@
-"""Decoder-only LM of the ``attn`` / ``swa`` mixers with dense or MoE FFNs
-(nano, GPT-2, the dense GQA/MQA archs, Gemma-3's sliding-window pattern,
-the Granite and Llama-4 MoE archs): parameter shapes and dtypes, init,
-forward over stacked blocks, the chunked next-token cross-entropy plus the
-MoE aux loss, and serving: the KV cache (a ring of ``window`` slots for a
-``swa`` layer), prefill and one-token decode.
+"""The reference's sequence model for the ``attn`` / ``swa`` / ``encattn`` /
+``xattn`` mixers with dense or MoE FFNs: the decoder-only LM (nano, GPT-2,
+the dense GQA/MQA archs, Gemma-3's sliding-window pattern, the Granite and
+Llama-4 MoE archs), the encoder-decoder (Whisper's backbone: an
+``encattn:dense`` encoder over frame embeddings, decoder blocks with
+cross-attention) and the VLM (LLaVA's backbone: projected patches before
+the text).  Parameter shapes and dtypes, init, forward over stacked blocks,
+the chunked next-token cross-entropy over the text positions plus the MoE
+aux loss, and serving: the KV cache (a ring of ``window`` slots for a
+``swa`` layer, the encoder's keys and values for an ``xattn`` layer),
+prefill and one-token decode.
+
+Every entry point takes the reference's batch dict: ``tokens`` (B, S),
+plus ``frames`` (B, enc_len, d_model) for ``encdec`` or ``patches`` (B,
+n_patches, d_model) for ``vlm`` (the stubbed front ends' embeddings).
 
 Parameters are a flat dict ``{path: tensor}`` keyed by the reference's
 pytree paths (``"decoder.blocks.p0.attn.wq"``); stacked blocks keep their
@@ -25,7 +34,9 @@ from repro_torch.models.convert import FlatLayout
 F32 = torch.float32
 MOE_AUX_COEF = 0.01
 CE_CHUNK = 2048
-MIXERS, FFNS = ("attn", "swa"), ("dense", "moe")
+FAMILIES, FFNS = ("lm", "vlm", "encdec"), ("dense", "moe")
+MIXERS = ("attn", "swa", "xattn")    # a decoder block's; xattn in encdec only
+ENC_PATTERN = ("encattn:dense",)     # the encoder's blocks (reference transformer.py:95)
 
 
 def _parse_kind(kind: str) -> tuple[str, str]:
@@ -34,13 +45,14 @@ def _parse_kind(kind: str) -> tuple[str, str]:
 
 
 def check_supported(cfg) -> None:
+    mixers = MIXERS if cfg.family == "encdec" else MIXERS[:2]
     bad = [k for k in cfg.pattern
-           if _parse_kind(k)[0] not in MIXERS or _parse_kind(k)[1] not in FFNS]
-    if cfg.family != "lm" or bad:
+           if _parse_kind(k)[0] not in mixers or _parse_kind(k)[1] not in FFNS]
+    if cfg.family not in FAMILIES or bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only models of mixers {MIXERS} and FFNs "
-            f"{FFNS}; family {cfg.family!r} / block kinds {bad} are not ported yet "
-            "(ROADMAP.md)")
+            f"{cfg.name}: the port runs families {FAMILIES} with decoder mixers {MIXERS} "
+            f"(xattn in encdec only; the encoder's encattn) and FFNs {FFNS}; family "
+            f"{cfg.family!r} / block kinds {bad} are not ported yet (ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -73,20 +85,26 @@ def _moe_spec(cfg, lead: tuple) -> dict:
     return s
 
 
-def _block_spec(cfg, kind: str, lead: tuple) -> dict:
-    """One block's leaves as (shape, init, dtype) with init "ones" or a normal std."""
+def _attn_spec(cfg, lead: tuple) -> dict:
     d, h, kvh, hd, pd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.p_dtype
-    _, ffn = _parse_kind(kind)
-    s = {
-        "ln1": {"scale": (lead + (d,), "ones", pd)},
-        "attn": {
-            "wq": _dense(lead + (d, h * hd), pd),
-            "wk": _dense(lead + (d, kvh * hd), pd),
-            "wv": _dense(lead + (d, kvh * hd), pd),
-            "wo": _dense(lead + (h * hd, d), pd),
-        },
-        "ln2": {"scale": (lead + (d,), "ones", pd)},
-    }
+    return {"wq": _dense(lead + (d, h * hd), pd), "wk": _dense(lead + (d, kvh * hd), pd),
+            "wv": _dense(lead + (d, kvh * hd), pd), "wo": _dense(lead + (h * hd, d), pd)}
+
+
+def _norm_spec(cfg, lead: tuple) -> dict:
+    return {"scale": (lead + (cfg.d_model,), "ones", cfg.p_dtype)}
+
+
+def _block_spec(cfg, kind: str, lead: tuple) -> dict:
+    """One block's leaves as (shape, init, dtype) with init "ones" or a normal
+    std; an ``xattn`` block adds its cross-attention ``xattn`` and norm
+    ``lnx``."""
+    mixer, ffn = _parse_kind(kind)
+    s = {"ln1": _norm_spec(cfg, lead), "attn": _attn_spec(cfg, lead),
+         "ln2": _norm_spec(cfg, lead)}
+    if mixer == "xattn":
+        s["xattn"] = _attn_spec(cfg, lead)
+        s["lnx"] = _norm_spec(cfg, lead)
     if ffn == "moe":
         s["moe"] = _moe_spec(cfg, lead)
     else:
@@ -94,23 +112,31 @@ def _block_spec(cfg, kind: str, lead: tuple) -> dict:
     return s
 
 
+def _stack_spec(cfg, pattern: tuple, n_blocks: int, n_rem: int) -> dict:
+    """Stacked blocks of the pattern's full repeats, then the remainder."""
+    blocks = ({f"p{j}": _block_spec(cfg, kind, (n_blocks,)) for j, kind in enumerate(pattern)}
+              if n_blocks > 0 else {})
+    return {"blocks": blocks, "rem": tuple(_block_spec(cfg, pattern[i], ())
+                                           for i in range(n_rem))}
+
+
 def param_spec(cfg) -> dict:
     """Nested ``{key: (shape, init, dtype)}`` tree with the reference's
-    structure (``transformer.init_params``)."""
+    structure (``transformer.init_params``): an ``encdec`` model adds the
+    ``encoder`` stack and ``enc_norm``, a ``vlm`` one ``patch_proj``."""
     check_supported(cfg)
-    blocks = {}
-    if cfg.n_scan_blocks > 0:
-        for j, kind in enumerate(cfg.pattern):
-            blocks[f"p{j}"] = _block_spec(cfg, kind, (cfg.n_scan_blocks,))
     spec = {
         "embed": ((cfg.padded_vocab, cfg.d_model), 0.02, cfg.p_dtype),
-        "final_norm": {"scale": ((cfg.d_model,), "ones", cfg.p_dtype)},
-        "decoder": {"blocks": blocks,
-                    "rem": tuple(_block_spec(cfg, cfg.pattern[i], ())
-                                 for i in range(cfg.n_rem_layers))},
+        "final_norm": _norm_spec(cfg, ()),
+        "decoder": _stack_spec(cfg, cfg.pattern, cfg.n_scan_blocks, cfg.n_rem_layers),
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((cfg.d_model, cfg.padded_vocab), 0.02, cfg.p_dtype)
+    if cfg.family == "encdec":
+        spec["encoder"] = _stack_spec(cfg, ENC_PATTERN, cfg.enc_layers, 0)
+        spec["enc_norm"] = _norm_spec(cfg, ())
+    if cfg.family == "vlm":
+        spec["patch_proj"] = _dense((cfg.d_model, cfg.d_model), cfg.p_dtype)
     return spec
 
 
@@ -147,12 +173,15 @@ def init_params(gen: torch.Generator, cfg, device=None):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_block(p, kind: str, x, positions, cfg, kv_out=None):
+def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
     """One block of ``kind``; ``p(name)`` returns the block's leaf.  Returns
-    (x, the MoE aux loss or None).  With a dict ``kv_out`` the block's keys
-    (after RoPE) and values land in it as ``k`` / ``v`` (B, S', KVH, hd),
-    the prefill's cache entry: every position, or a ``swa`` layer's last
-    ``min(window, S)``."""
+    (x, the MoE aux loss or None).  ``encattn`` attends bidirectionally;
+    ``xattn`` attends causally, then its queries attend over ``enc_out``
+    (B, enc_len, d), the encoder's output.  With a dict ``kv_out`` the
+    block's keys (after RoPE) and values land in it as ``k`` / ``v`` (B,
+    S', KVH, hd), the prefill's cache entry: every position, or a ``swa``
+    layer's last ``min(window, S)``; an ``xattn`` block adds the
+    cross-attention's ``kx`` / ``vx`` (B, enc_len, KVH, hd)."""
     mixer, ffn = _parse_kind(kind)
     window = cfg.window if mixer == "swa" else None
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
@@ -160,9 +189,37 @@ def _apply_block(p, kind: str, x, positions, cfg, kv_out=None):
     if kv_out is not None:
         w = k.shape[1] if window is None else min(window, k.shape[1])
         kv_out.update(k=k[:, -w:], v=v[:, -w:])
-    out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
+    if mixer == "encattn":
+        out = L.full_attention(q, k, v)
+    else:
+        out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
     x = x + L.attn_proj_out(p("attn.wo"), out)
+    if mixer == "xattn":
+        kx, vx = _cross_kv(p, enc_out, cfg)
+        if kv_out is not None:
+            kv_out.update(kx=kx, vx=vx)
+        x = _cross_residual(p, x, kx, vx, cfg)
     return _ffn_residual(p, ffn, x, cfg)
+
+
+def _cross_kv(p, enc_out, cfg) -> tuple:
+    """The cross-attention's keys and values of the encoder output, without
+    RoPE: (B, enc_len, KVH, hd) each."""
+    B, Se, _ = enc_out.shape
+    kx = (enc_out @ p("xattn.wk").to(enc_out.dtype)).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    vx = (enc_out @ p("xattn.wv").to(enc_out.dtype)).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    return kx, vx
+
+
+def _cross_residual(p, x, kx, vx, cfg):
+    """x + the cross-attention of ``lnx(x)``'s queries over every encoder
+    position's ``kx`` / ``vx``.  Decode calls it on one query row: the
+    reference masks that call with an all-true mask, which hides nothing,
+    so no mask is built."""
+    hx = L.rmsnorm(p("lnx.scale"), x, cfg.norm_eps)
+    B, S, _ = hx.shape
+    qx = (hx @ p("xattn.wq").to(hx.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    return x + L.attn_proj_out(p("xattn.wo"), L.full_attention(qx, kx, vx))
 
 
 def _moe_params(p, cfg) -> dict:
@@ -185,18 +242,21 @@ def _ffn_residual(p, ffn: str, x, cfg):
     return x + L.mlp_apply(p("mlp.w1"), p("mlp.w2"), h, cfg, w3=w3), None
 
 
-def _layers(params: dict, cfg):
-    """``(where, kind, p)`` of every layer in order: ``where`` is
-    ``("blocks", "p<j>", i)`` for layer i of the stacked pattern position j
-    (kind ``pattern[j]``) or ``("rem", i, None)`` for a remainder layer
-    (kind ``pattern[i]``); ``p(name)`` returns that layer's leaf."""
-    for i in range(cfg.n_scan_blocks):
-        for j, kind in enumerate(cfg.pattern):
-            pre = f"decoder.blocks.p{j}."
+def _layers(params: dict, cfg, stack: str = "decoder"):
+    """``(where, kind, p)`` of every layer of the ``decoder`` (or
+    ``encoder``) stack in order: ``where`` is ``("blocks", "p<j>", i)`` for
+    layer i of the stacked pattern position j (kind ``pattern[j]``) or
+    ``("rem", i, None)`` for a remainder layer (kind ``pattern[i]``);
+    ``p(name)`` returns that layer's leaf."""
+    pattern, n_blocks, n_rem = ((ENC_PATTERN, cfg.enc_layers, 0) if stack == "encoder" else
+                                (cfg.pattern, cfg.n_scan_blocks, cfg.n_rem_layers))
+    for i in range(n_blocks):
+        for j, kind in enumerate(pattern):
+            pre = f"{stack}.blocks.p{j}."
             yield ("blocks", f"p{j}", i), kind, (lambda n, pre=pre, i=i: params[pre + n][i])
-    for i in range(cfg.n_rem_layers):
-        pre = f"decoder.rem.{i}."
-        yield ("rem", i, None), cfg.pattern[i], (lambda n, pre=pre: params[pre + n])
+    for i in range(n_rem):
+        pre = f"{stack}.rem.{i}."
+        yield ("rem", i, None), pattern[i], (lambda n, pre=pre: params[pre + n])
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
@@ -210,20 +270,54 @@ def _add_aux(total, aux):
     return aux if total is None else total + aux
 
 
-def _forward(params: dict, tokens: torch.Tensor, cfg):
-    """(final hidden states, the MoE aux loss summed over layers or None)."""
-    x = _embed(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+def _encode(params: dict, frames: torch.Tensor, cfg) -> torch.Tensor:
+    """The encoder over the (stub) frame embeddings (B, enc_len, d): cast to
+    the activation dtype, the ``encattn`` blocks with RoPE at
+    ``arange(enc_len)``, ``enc_norm``."""
+    x = frames.to(cfg.act_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for _, kind, p in _layers(params, cfg, "encoder"):
+        x, _ = _apply_block(p, kind, x, positions, cfg)
+    return L.rmsnorm(params["enc_norm.scale"], x, cfg.norm_eps)
+
+
+def _inputs(params: dict, batch: dict, cfg) -> tuple:
+    """(the decoder's input (B, n_prefix + S, d), the encoder output or
+    None, n_prefix): the text embedding, after the projected patches of a
+    ``vlm`` batch (``n_prefix`` of them); an ``encdec`` batch's frames
+    through the encoder."""
+    x = _embed(params, batch["tokens"], cfg)
+    enc_out, n_prefix = None, 0
+    if cfg.family == "encdec":
+        enc_out = _encode(params, batch["frames"], cfg)
+    elif cfg.family == "vlm":
+        patches = batch["patches"].to(cfg.act_dtype) @ params["patch_proj"].to(cfg.act_dtype)
+        x = torch.cat([patches, x], dim=1)
+        n_prefix = patches.shape[1]
+    return x, enc_out, n_prefix
+
+
+def _forward(params: dict, batch: dict, cfg):
+    """(final hidden states, the MoE aux loss summed over layers or None,
+    n_prefix)."""
+    x, enc_out, n_prefix = _inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
     aux = None
     for _, kind, p in _layers(params, cfg):
-        x, a = _apply_block(p, kind, x, positions, cfg)
+        x, a = _apply_block(p, kind, x, positions, cfg, enc_out)
         aux = _add_aux(aux, a)
-    return L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps), aux
+    return L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps), aux, n_prefix
 
 
-def hidden_states(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Embedding, the blocks in layer order, the final norm."""
-    return _forward(params, tokens, cfg)[0]
+def hidden_states(params: dict, batch: dict, cfg) -> tuple:
+    """The full forward to the final hidden states; returns (h (B,
+    n_prefix + S, d), the f32 MoE aux loss (0 without a MoE layer),
+    n_prefix: the non-text positions, a ``vlm`` batch's patches, that the
+    loss leaves out)."""
+    h, aux, n_prefix = _forward(params, batch, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=F32, device=h.device)
+    return h, aux, n_prefix
 
 
 def _logits(params, h, cfg):
@@ -233,12 +327,15 @@ def _logits(params, h, cfg):
     return h.to(F32) @ params["lm_head"].to(F32)
 
 
-def loss_fn(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Next-token CE over ``tokens`` (B, S), chunked over the sequence: the
-    targets are shifted, the last position is masked, and the loss is the
-    masked sum over ``mask.sum()``, plus ``MOE_AUX_COEF`` times the aux loss
-    summed over the MoE layers (a model without one adds nothing)."""
-    h, aux = _forward(params, tokens, cfg)
+def loss_fn(params: dict, batch: dict, cfg) -> torch.Tensor:
+    """Next-token CE over ``batch["tokens"]`` (B, S) at the text positions
+    (``h[:, n_prefix:]``), chunked over the sequence: the targets are
+    shifted, the last position is masked, and the loss is the masked sum
+    over ``mask.sum()``, plus ``MOE_AUX_COEF`` times the aux loss summed
+    over the MoE layers (a model without one adds nothing)."""
+    h, aux, n_prefix = _forward(params, batch, cfg)
+    h = h[:, n_prefix:]
+    tokens = batch["tokens"]
     B, S = tokens.shape
     targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
     mask = torch.cat([torch.ones(B, S - 1, dtype=F32, device=tokens.device),
@@ -256,7 +353,8 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Serving: KV cache, prefill, one-token decode (the reference's
-# transformer.init_cache / prefill / decode_step for the attn and swa mixers)
+# transformer.init_cache / prefill / decode_step for the attn, swa and xattn
+# mixers)
 # ---------------------------------------------------------------------------
 
 def _cache_len(kind: str, cfg, max_len: int) -> int:
@@ -270,13 +368,20 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> dict:
     {"k", "v"}}, "rem": ({"k", "v"}, ...)}``, stacked leaves (n_scan_blocks,
     batch, L, KVH, hd), remainder leaves (batch, L, KVH, hd), with L =
     ``max_len`` or a ``swa`` layer's ``min(window, max_len)``, in ``dtype``
-    (default the activation dtype)."""
+    (default the activation dtype).  An ``xattn`` layer's entry adds the
+    encoder's keys and values ``kx`` / ``vx`` (..., batch, enc_len, KVH,
+    hd)."""
     check_supported(cfg)
     dtype = dtype or cfg.act_dtype
 
     def entry(kind, lead=()):
-        shape = lead + (batch, _cache_len(kind, cfg, max_len), cfg.n_kv_heads, cfg.hd)
-        return {name: torch.zeros(shape, dtype=dtype, device=device) for name in ("k", "v")}
+        n = _cache_len(kind, cfg, max_len)
+        lens = {"k": n, "v": n}
+        if _parse_kind(kind)[0] == "xattn":
+            lens.update(kx=cfg.enc_len, vx=cfg.enc_len)
+        return {name: torch.zeros(lead + (batch, n, cfg.n_kv_heads, cfg.hd), dtype=dtype,
+                                  device=device)
+                for name, n in lens.items()}
 
     blocks = ({f"p{j}": entry(kind, (cfg.n_scan_blocks,)) for j, kind in enumerate(cfg.pattern)}
               if cfg.n_scan_blocks > 0 else {})
@@ -285,7 +390,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> dict:
 
 
 def _cache_entry(cache: dict, where) -> dict:
-    """One layer's ``{"k", "v"}`` views into the cache."""
+    """One layer's ``{"k", "v"[, "kx", "vx"]}`` views into the cache."""
     kind, key, i = where
     if kind == "blocks":
         return {name: leaf[i] for name, leaf in cache["blocks"][key].items()}
@@ -293,25 +398,26 @@ def _cache_entry(cache: dict, where) -> dict:
 
 
 def prefill(params: dict, batch: dict, cfg):
-    """Forward over the prompt ``batch["tokens"]`` (B, S); returns (last
-    position's f32 logits (B, padded vocab), a cache holding every layer's
-    keys and values: all S positions, a ``swa`` layer's last
-    ``min(window, S)`` in position order)."""
+    """Forward over the prompt: ``batch["tokens"]`` (B, S) after a ``vlm``
+    batch's ``patches``, beside an ``encdec`` batch's ``frames``.  Returns
+    (last position's f32 logits (B, padded vocab), a cache holding every
+    layer's keys and values: all n_prefix + S positions, a ``swa`` layer's
+    last ``min(window, n_prefix + S)`` in position order, an ``xattn``
+    layer's ``kx`` / ``vx`` of the encoder output, collected once)."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    x = _embed(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, enc_out, _ = _inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
     stacked: dict = {}
     rem = []
     for (where, key, _), kind, p in _layers(params, cfg):
         entry: dict = {}
-        x, _ = _apply_block(p, kind, x, positions, cfg, kv_out=entry)
+        x, _ = _apply_block(p, kind, x, positions, cfg, enc_out, kv_out=entry)
         if where == "blocks":
             stacked.setdefault(key, []).append(entry)
         else:
             rem.append(entry)
     cache = {"blocks": {key: {name: torch.stack([e[name] for e in entries])
-                              for name in ("k", "v")}
+                              for name in entries[0]}
                         for key, entries in stacked.items()},
              "rem": tuple(rem)}
     h = L.rmsnorm(params["final_norm.scale"], x[:, -1:], cfg.norm_eps)
@@ -324,7 +430,8 @@ def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg):
     it sees.  A full-attention layer writes slot ``pos`` and sees slots
     ``<= pos``; a ``swa`` layer's ring of w slots holds position p at slot
     ``p % w``, and slot i holds the latest position ``i + w * floor((pos -
-    i) / w)``, valid when that is ``>= 0`` (the reference's mask)."""
+    i) / w)``, valid when that is ``>= 0`` (the reference's mask).  An
+    ``xattn`` layer then attends over its cached ``kx`` / ``vx``."""
     mixer, ffn = _parse_kind(kind)
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
     positions = torch.arange(pos, pos + 1, device=x.device)
@@ -341,6 +448,8 @@ def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg):
     entry["v"][:, slot:slot + 1].copy_(v)
     out = L.decode_attention(q, entry["k"], entry["v"], valid)
     x = x + L.attn_proj_out(p("attn.wo"), out)
+    if mixer == "xattn":
+        x = _cross_residual(p, x, entry["kx"], entry["vx"], cfg)
     return _ffn_residual(p, ffn, x, cfg)[0]
 
 

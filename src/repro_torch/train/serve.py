@@ -1,12 +1,22 @@
 """Batched serving: prefill a prompt batch, then autoregressive decode.
 
-The reference's ``train/serve.py`` for the ``attn`` and ``swa`` mixers.
-Prefill builds a cache of the prompt's length (a ``swa`` layer's last
-``window`` positions), which is spliced into a zero cache of ``prompt +
-max_new_tokens`` positions (a ring of ``window`` slots for ``swa``); each
-decode step then writes one slot of it in place.  The decode loop reads
-nothing back to the host but each MoE layer's group sizes: positions are
-Python ints and the tokens stay on the device until the end.
+The reference's ``train/serve.py`` for the ``attn``, ``swa`` and ``xattn``
+mixers, with the encdec model's frames or the VLM's patches in
+``extra_batch``.  Prefill builds a cache of the prefilled length, ``n_prefix
++ S`` (the VLM's patches, then the prompt; a ``swa`` layer's last
+``window`` positions), which is spliced into a zero cache of ``n_prefix + S
++ max_new_tokens`` positions (a ring of ``window`` slots for ``swa``); an
+``xattn`` layer's encoder keys and values ``kx`` / ``vx`` copy through.
+Each decode step then writes one slot in place, at position ``n_prefix + S
++ i``.  The decode loop reads nothing back to the host but each MoE layer's
+group sizes: positions are Python ints and the tokens stay on the device
+until the end.
+
+The reference sizes the cache ``S + max_new_tokens`` whatever the prefix
+(``src/repro/train/serve.py:30``), so a VLM's prefill overruns it: its
+splice raises when ``max_new_tokens < n_patches``, and otherwise its decode
+writes past the cache's end (a clamped slot) from step ``max_new_tokens -
+n_patches`` on.  The port sizes the cache to hold every position it writes.
 
     PYTHONPATH=src python -c "
     import torch
@@ -42,7 +52,7 @@ def generate(
     max_new_tokens: int = 32,
     temperature: float = 0.0,
     rng: Optional[torch.Generator] = None,
-    extra_batch: Optional[dict] = None,  # frames/patches of encdec/vlm: not ported
+    extra_batch: Optional[dict] = None,  # {"frames": ...} (encdec) / {"patches": ...} (vlm)
     device="cuda",
 ):
     """Greedy (or temperature) decoding.  Returns (tokens (B, new) int64 on
@@ -55,27 +65,30 @@ def generate(
     ``torch.Generator`` on ``device`` (default seeded 0): the same
     distribution as the reference's ``jax.random.categorical``, not its
     random numbers.  On the card the clock is read after
-    ``torch.cuda.synchronize``.
+    ``torch.cuda.synchronize``.  ``extra_batch``: the rest of the
+    reference's batch dict, an encdec model's ``frames`` (B, enc_len,
+    d_model) or a VLM's ``patches`` (B, n_patches, d_model), moved to
+    ``device``.
     """
     T.check_supported(cfg)
-    if extra_batch:
-        raise NotImplementedError(
-            f"{cfg.name}: extra_batch {sorted(extra_batch)} feeds the encdec / vlm families, "
-            "which the port does not serve yet (ROADMAP.md)")
     dev = torch.device(device)
     if isinstance(params, (torch.Tensor, Groups)):
         params = T.layout(cfg).views(each(lambda t: t.to(dev), params))
     else:
         params = {k: v.to(dev) for k, v in params.items()}
     prompt = torch.as_tensor(prompt_tokens, dtype=torch.long).to(dev)
+    batch = {"tokens": prompt, **{k: torch.as_tensor(v).to(dev)
+                                  for k, v in (extra_batch or {}).items()}}
     B, S = prompt.shape
-    max_len = S + max_new_tokens
+    n_prefix = batch["patches"].shape[1] if cfg.family == "vlm" else 0
+    start = n_prefix + S                 # the first decoded position
+    max_len = start + max_new_tokens
 
     with torch.no_grad():
         t0 = _clock(dev)
-        logits, pcache = T.prefill(params, {"tokens": prompt}, cfg)
+        logits, pcache = T.prefill(params, batch, cfg)
         cache = T.init_cache(cfg, B, max_len, cfg.act_dtype, device=dev)
-        cache = _splice_cache(cache, pcache, cfg, S)
+        cache = _splice_cache(cache, pcache, cfg, start)
         del pcache
         prefill_s = _clock(dev) - t0
 
@@ -93,7 +106,7 @@ def generate(
         out = [tok]
         t0 = _clock(dev)
         for i in range(max_new_tokens - 1):
-            logits, cache = T.decode_step(params, cache, tok, S + i, cfg)
+            logits, cache = T.decode_step(params, cache, tok, start + i, cfg)
             tok = pick(logits)
             out.append(tok)
         decode_s = _clock(dev) - t0
@@ -110,12 +123,13 @@ def _splice_cache(big: dict, small: dict, cfg, prompt_len: int) -> dict:
     at the end of its sequence axis; a ``swa`` leaf is a ring (position p
     at slot ``p % w_big``) that prefill gave its last ``w_small`` positions
     in order, so it is padded and then rolled by ``(prompt_len - w_small) %
-    w_big``."""
+    w_big``; the cross-attention's ``kx`` / ``vx`` copy through.
+    ``prompt_len`` is the prefilled length (a VLM's patches included)."""
     T.check_supported(cfg)
 
-    def splice_leaf(kind, big_leaf, small_leaf):
+    def splice_leaf(kind, name, big_leaf, small_leaf):
         ring = kind.split(":")[0] == "swa"
-        if big_leaf.shape == small_leaf.shape and not ring:
+        if name in ("kx", "vx") or (big_leaf.shape == small_leaf.shape and not ring):
             return small_leaf.to(big_leaf.dtype)
         ax = big_leaf.dim() - 3  # seq axis of (..., S, kvh, hd)
         w_big, w_small = big_leaf.shape[ax], small_leaf.shape[ax]
@@ -126,7 +140,7 @@ def _splice_cache(big: dict, small: dict, cfg, prompt_len: int) -> dict:
         return out
 
     def splice_entry(kind, big_e, small_e):
-        return {name: splice_leaf(kind, big_e[name], small_e[name]) for name in big_e}
+        return {name: splice_leaf(kind, name, big_e[name], small_e[name]) for name in big_e}
 
     return {"blocks": {key: splice_entry(cfg.pattern[int(key[1:])], big["blocks"][key],
                                          small["blocks"][key])

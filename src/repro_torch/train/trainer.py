@@ -1,5 +1,6 @@
 """Training harness of the port: DSM (Algorithm 1) or any of the paper's
-baselines, with any base optimizer, on any ``attn:dense`` ModelConfig: W
+baselines, with any base optimizer, on any decoder-only (``lm``)
+ModelConfig the port builds: W
 simulated workers in one process, or over the ranks of a process group, one
 process per rank, each holding its own workers (``zero_sharded``,
 ``device_parallel_local``).
@@ -14,8 +15,8 @@ skip-round guards, atomic rotated checkpoints of the whole training state
 with bit-exact resume, and bounded rollback to the last checkpoint.
 
 Over a process group every rank builds the whole (W, tau, accum, B, S)
-batch and takes its workers' rows, so the data is the dense run's worker for
-worker; every rank returns the same history, rank 0 logs and writes the
+batch and takes its workers' rows of every leaf, so the data is the dense
+run's worker for worker; every rank returns the same history, rank 0 logs and writes the
 checkpoints (in the dense layout), and every rank restores its part.
 """
 
@@ -117,11 +118,13 @@ def _schedule(s: TrainSettings):
 
 
 def build_algorithm(loss_fn, s: TrainSettings, layout, topo=None):
-    """Returns (init(x0, n_workers) -> state, step(state, tokens, rng,
+    """Returns (init(x0, n_workers) -> state, step(state, batch, rng,
     faults=None) -> (state, metrics), eval_params(state) -> (N,) params,
     comm_multiplier).
 
-    ``tokens``: (W, tau, 1, B_micro, S), the state's workers' rows; ``rng``:
+    ``batch``: the dict of (W, tau, 1, B_micro, ...) leaves, the state's
+    workers' rows; ``loss_fn(params, microbatch)`` takes one microbatch's
+    dict; ``rng``:
     the ``torch.Generator`` that the randomized signs draw from; ``faults``:
     the round's ``FaultRound``, taken by the DSM family only.  ``topo``: the
     rank's place among the ranks, taken by the DSM family and the local-step
@@ -154,12 +157,12 @@ def build_algorithm(loss_fn, s: TrainSettings, layout, topo=None):
               "local_avg": {}}[s.algorithm]
         init, step = BL.LOCAL_METHODS[s.algorithm](loss_fn, base, s.tau, sched, layout,
                                                    topo=topo, **kw)
-        return (init, (lambda st, tokens, rng, faults=None: step(st, tokens)),
+        return (init, (lambda st, batch, rng, faults=None: step(st, batch)),
                 (lambda st: st.x0), 1.0)
 
     if s.algorithm == "perstep":
         init, step = BL.make_perstep_dp_step(loss_fn, base, s.tau, sched, layout)
-        return (init, (lambda st, tokens, rng, faults=None: step(st, tokens)),
+        return (init, (lambda st, batch, rng, faults=None: step(st, batch)),
                 (lambda st: st.params), float(s.tau))
 
     if s.algorithm == "mv_signsgd":
@@ -167,13 +170,15 @@ def build_algorithm(loss_fn, s: TrainSettings, layout, topo=None):
             loss_fn, s.tau, gamma=s.peak_lr, eta=s.global_lr * s.peak_lr, layout=layout,
             beta=s.slow_beta, bound=1.0,
         )
-        return init, (lambda st, tokens, rng, faults=None: step(st, tokens, rng)), \
+        return init, (lambda st, batch, rng, faults=None: step(st, batch, rng)), \
             (lambda st: st.x), 1.0
 
     raise ValueError(f"unknown algorithm {s.algorithm!r}; have {ALGORITHMS}")
 
 
 _DSM_FAMILY = ("dsm", "signed_lookahead")
+# the batch leaf, beside the tokens, of the families that run_training refuses
+_EXTRA_LEAF = {"vlm": "patches", "encdec": "frames"}
 # the algorithms that split the workers over the ranks; the others read no
 # topology flag (as in the reference) and every rank runs them whole
 TOPOLOGY_ALGORITHMS = _DSM_FAMILY + tuple(BL.LOCAL_METHODS)
@@ -229,7 +234,10 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     ``convert.from_jax_numpy`` of the reference's ``init_params``); by
     default they are drawn from ``s.seed``.  A mixed-dtype model runs on
     the dense path only: with ``zero_sharded`` or ``device_parallel_local``
-    over a topology it raises NotImplementedError.
+    over a topology it raises NotImplementedError.  A ``vlm`` or ``encdec``
+    config raises ValueError: the corpus gives tokens only, as the
+    reference's trainer feeds them (``make_dsm_step`` takes those families'
+    batch dicts).
     ``outer_step_s`` holds each round's time, ended by a device sync;
     ``on_round(t, state, metrics)`` runs after each round, outside that time.
 
@@ -283,6 +291,13 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         must be finite.  ``step_compiles`` is None: an eager step compiles
         nothing.
     """
+    if cfg.family in _EXTRA_LEAF:
+        raise ValueError(
+            f"{cfg.name}: run_training feeds token batches only, as the reference's trainer "
+            f"does (its loss_fn raises KeyError for a {cfg.family!r} batch without "
+            f"{_EXTRA_LEAF[cfg.family]!r}); train the {cfg.family} family through "
+            "repro_torch.core.dsm.make_dsm_step with a batch dict of tokens and "
+            f"{_EXTRA_LEAF[cfg.family]}")
     dev = resolve_device(device)
     set_matmul_precision()
     corpus = corpus or MarkovCorpus(cfg.vocab_size, seed=1)
@@ -295,8 +310,8 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         for dst, src in zip(parts(x0), parts(params), strict=True):
             dst.copy_(src.reshape(-1, dst.numel())[0])
 
-    def loss_fn(p, tokens):
-        return T.loss_fn(p, tokens, cfg)
+    def loss_fn(p, microbatch):
+        return T.loss_fn(p, microbatch, cfg)
 
     topo = None
     if splits_workers(s):
@@ -362,8 +377,10 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
             next(it)
         return it
 
-    def batch_tokens(raw) -> torch.Tensor:
-        return torch.as_tensor(raw["tokens"][rows], dtype=torch.long).to(dev)
+    def device_batch(raw) -> dict:
+        # the state's workers' rows of every leaf; token ids as int64
+        return {k: torch.as_tensor(v[rows], dtype=torch.long if k == "tokens" else None).to(dev)
+                for k, v in raw.items()}
 
     history, evals, step_s, ckpt_s = [], [], [], []
     start_step, rollbacks, restore_s = 0, 0, None
@@ -400,12 +417,12 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     if ckpt_on and start_step == 0:
         save(0)   # the step-0 checkpoint: the rollback target always exists
 
-    ev_tokens = torch.as_tensor(eval_batch(corpus, s.eval_batch, s.seq)["tokens"],
-                                dtype=torch.long, device=dev)
+    ev_batch = {"tokens": torch.as_tensor(eval_batch(corpus, s.eval_batch, s.seq)["tokens"],
+                                          dtype=torch.long, device=dev)}
 
     def eval_loss() -> float:
         with torch.no_grad():
-            return float(T.loss_fn(lay.views(eval_params(state)), ev_tokens, cfg))
+            return float(T.loss_fn(lay.views(eval_params(state)), ev_batch, cfg))
 
     # --- observability (the reference's docs/observability.md): run sinks,
     # comm ledger, phase spans, profiler window.  Per-round metrics stay on
@@ -487,13 +504,13 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
                 # the profiler's start and trace export stay out of the train window
                 window_t0 += time.monotonic() - tick
             ts = time.perf_counter()
-            tokens = batch_tokens(next(batches))
+            batch = device_batch(next(batches))
             fr = plan.round(t, dev) if plan is not None else None
             with step_guard():
                 if guards_on:
-                    state, guard, metrics, counters = step_fn(state, guard, tokens, rng, fr)
+                    state, guard, metrics, counters = step_fn(state, guard, batch, rng, fr)
                 else:
-                    state, metrics = step_fn(state, tokens, rng, fr)
+                    state, metrics = step_fn(state, batch, rng, fr)
                 history.append(metrics["loss"])     # device scalar, read at sync points
                 pending.append((t + 1, metrics))
                 window_steps += 1
@@ -597,7 +614,7 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         if s.algorithm in _DSM_FAMILY and steps_done > 0:
             out["probe_launches"] = probe_phases(
                 span, state, guard, step_fn, make_local_phase(loss_fn, get_base_optimizer(
-                    s.base_opt), lay), batch_tokens(next(make_batches(start_step))),
+                    s.base_opt), lay), device_batch(next(make_batches(start_step))),
                 plan.round(start_step, dev) if plan is not None else None, s, dev)
         mem = OT.device_memory_stats(dev)
         if mem is not None:
@@ -612,7 +629,7 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     return out
 
 
-def probe_phases(span, state, guard, step_fn, local_phase, tokens, fr, s: TrainSettings,
+def probe_phases(span, state, guard, step_fn, local_phase, batch, fr, s: TrainSettings,
                  dev) -> dict:
     """The post-run phase probe (the reference's): the local phase and the
     whole outer step cannot be fenced apart inside a round, so both are
@@ -627,10 +644,10 @@ def probe_phases(span, state, guard, step_fn, local_phase, tokens, fr, s: TrainS
     rng = torch.Generator(device=dev).manual_seed(s.seed)
     if guard is not None:
         g = G.GuardState(*(x.clone() for x in guard))
-        outer = functools.partial(step_fn, st, g, tokens, rng, fr)
+        outer = functools.partial(step_fn, st, g, batch, rng, fr)
     else:
-        outer = functools.partial(step_fn, st, tokens, rng, fr)
-    local_s = OT.timeit_fenced(lambda: local_phase(st, tokens, s.peak_lr), iters=3, device=dev)
+        outer = functools.partial(step_fn, st, batch, rng, fr)
+    local_s = OT.timeit_fenced(lambda: local_phase(st, batch, s.peak_lr), iters=3, device=dev)
     step_s = OT.timeit_fenced(outer, iters=3, device=dev)
     span("local_phase", local_s, probe=True)
     span("global_step", max(step_s - local_s, 0.0), probe=True)

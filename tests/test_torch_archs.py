@@ -1,15 +1,20 @@
 """The paper's other GPT-2 sizes, the dense GQA/MQA archs, the
-sliding-window arch and the MoE archs in the port, against the JAX package,
-on the CPU (the pattern of the reference's ``tests/test_smoke_archs.py``,
-held element for element).
+sliding-window arch, the MoE archs, the encoder-decoder and the VLM in the
+port, against the JAX package, on the CPU (the pattern of the reference's
+``tests/test_smoke_archs.py``, held element for element).
 
 For the SMOKE configs of gpt2_medium, gpt2_large, deepseek_67b (GQA 8/2,
 gated SiLU, untied head), granite_34b (MQA, one kv head, GELU, untied),
 minitron_4b (GQA, gated SiLU, untied SMOKE head), gemma3_1b (sliding-window
 and global attention, MQA, gated GELU), granite_moe_3b_a800m (4 experts top
-2) and llama4_maverick_400b_a17b (dense and MoE blocks alternating, top 1
-with a shared expert, SGD local steps), all f32, from the reference's
-``init_params`` through ``convert.from_jax_numpy``:
+2), llama4_maverick_400b_a17b (dense and MoE blocks alternating, top 1
+with a shared expert, SGD local steps), whisper_large_v3 (an encoder over
+frame embeddings, cross-attention in every decoder block) and
+llava_next_34b (GQA 8/2, projected patches before the text, the loss on
+the text positions), all f32, from the reference's ``init_params`` through
+``convert.from_jax_numpy``, on the reference's batch dicts (the
+reference's ``_smoke_batch`` shapes: frames (enc_len, d_model) beside the
+tokens, or n_patches patches before S - n_patches tokens):
 
   * loss rtol 1e-6 and every gradient leaf within 3e-5 of that leaf's
     largest magnitude (the tolerances of ``test_torch_model.py``);
@@ -40,7 +45,10 @@ with a shared expert, SGD local steps), all f32, from the reference's
     0); AdamW moves those by 2 * gamma, and through a value projection or
     an expert that moves every second-step gradient by ~1e-3 relative (a
     2e-3 change of one such weight moves 47-70% of m's coordinates past the
-    bound in either package, measured).
+    bound in either package, measured).  whisper_large_v3 and
+    llava_next_34b leave it too, measured on the same batch layout: whisper's
+    m differs at 2.2% of the coordinates (17,227 of 787,900), and one of
+    llava's 3,410,432 AdamW moment entries sits 1.4% past the moment bound.
   * the same outer step driven by the reference's loss and gradients
     (``_reference_loss``), for every ported arch, within the same
     tolerances: the port's local steps, worker mean and global step on the
@@ -79,9 +87,11 @@ from repro_torch.models import transformer as T
 from repro_torch.train import trainer as TR
 
 DENSE = ("gpt2_medium", "gpt2_large", "deepseek_67b", "granite_34b", "minitron_4b")
-PORTED = DENSE + ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b")
-# the end-to-end DSM comparison: gemma3 and granite_moe leave it (see the
-# module docstring) for the step on the reference's gradients
+PORTED = DENSE + ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b",
+                  "llava_next_34b", "whisper_large_v3")
+# the end-to-end DSM comparison: gemma3, granite_moe, llava and whisper
+# leave it (see the module docstring) for the step on the reference's
+# gradients
 END_TO_END = DENSE + ("llama4_maverick_400b_a17b",)
 UNPORTED = tuple(a for a in ARCH_IDS if a not in PORTED)
 W, TAU, BM, SEQ = 2, 2, 2, 32
@@ -103,6 +113,31 @@ def _flat(tree, n_workers=None) -> np.ndarray:
     return np.concatenate([v.reshape(n_workers, -1) for v in leaves], axis=1)
 
 
+def _batch(cfg, seed, lead, S):
+    """The reference's batch dict for ``cfg`` (numpy; leading dims ``lead``):
+    int32 tokens, and f32 patches before S - n_patches tokens (vlm) or f32
+    frames (encdec)."""
+    rng = np.random.default_rng(seed)
+    n_text = S - cfg.n_patches if cfg.family == "vlm" else S
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, lead + (n_text,)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(lead + (cfg.n_patches, cfg.d_model),
+                                               dtype=np.float32)
+    elif cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(lead + (cfg.enc_len, cfg.d_model),
+                                              dtype=np.float32)
+    return batch
+
+
+def _jax_batch(batch: dict) -> dict:
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch_batch(batch: dict) -> dict:
+    return {k: torch.from_numpy(v).long() if k == "tokens" else torch.from_numpy(v)
+            for k, v in batch.items()}
+
+
 def _setup(arch, seed):
     jcfg, cfg = j_load_arch(arch).SMOKE, load_arch(arch).SMOKE
     jp = JT.init_params(jax.random.PRNGKey(seed), jcfg)
@@ -121,12 +156,11 @@ def _assert_close_with_flips(ours, theirs, rtol, atol, flip_size, max_flips, wha
 def test_smoke_loss_and_grads_match_reference(arch):
     jcfg, cfg, jp, flat = _setup(arch, seed=3)
     assert cfg.n_layers <= 2 and cfg.d_model <= 512
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    batch = _batch(cfg, 1, (2,), 40 + cfg.n_patches)
     jloss, jgrads = jax.jit(jax.value_and_grad(
-        lambda p: JT.loss_fn(p, {"tokens": jnp.asarray(tokens)}, jcfg, remat=False)))(jp)
+        lambda p: JT.loss_fn(p, _jax_batch(batch), jcfg, remat=False)))(jp)
     grad = torch.zeros_like(flat)
-    loss = T.loss_fn(T.layout(cfg).autograd_leaves(flat, grad),
-                     torch.from_numpy(tokens).long(), cfg)
+    loss = T.loss_fn(T.layout(cfg).autograd_leaves(flat, grad), _torch_batch(batch), cfg)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
     ours = convert.to_numpy(grad, cfg)
@@ -142,19 +176,18 @@ def test_smoke_loss_and_grads_match_reference(arch):
 def test_smoke_dsm_outer_step_matches_reference(arch):
     jcfg, cfg, jp, flat = _setup(arch, seed=0)
     topo = load_arch(arch).TOPO
-    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size,
-                                               (W, TAU, 1, BM, SEQ)).astype(np.int32)
+    batch = _batch(cfg, 4, (W, TAU, 1, BM), SEQ)
 
     jbase = j_get_base_optimizer(topo.base_opt)
     jstep = jax.jit(j_make_dsm_step(lambda p, b: JT.loss_fn(p, b, jcfg, remat=False), jbase,
                                     JDSMConfig(tau=TAU, global_lr=ETA), j_constant(GAMMA)))
-    jstate, jm = jstep(j_dsm_init(jp, jbase, n_workers=W), {"tokens": jnp.asarray(tokens)})
+    jstate, jm = jstep(j_dsm_init(jp, jbase, n_workers=W), _jax_batch(batch))
 
     base = B.get_base_optimizer(topo.base_opt)
     lay = T.layout(cfg)
     step = D.make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg), base,
                            D.DSMConfig(tau=TAU, global_lr=ETA), S.constant(GAMMA), lay)
-    state, m = step(D.dsm_init(flat, base, W), torch.from_numpy(tokens).long())
+    state, m = step(D.dsm_init(flat, base, W), _torch_batch(batch))
 
     _assert_step_close(state, m, jstate, jm, flat, lay)
 
@@ -186,8 +219,7 @@ def _reference_loss(jcfg, jp, lay):
     the leaves' values go to ``JT.loss_fn`` and ``jax.grad``, and backward
     hands each leaf the reference's gradient."""
     treedef = jax.tree.structure(jp)
-    vg = jax.jit(jax.value_and_grad(
-        lambda p, t: JT.loss_fn(p, {"tokens": t}, jcfg, remat=False)))
+    vg = jax.jit(jax.value_and_grad(lambda p, b: JT.loss_fn(p, b, jcfg, remat=False)))
 
     def loss_fn(p, mb):
         stacked = [isinstance(p[n], list) for n in lay.names]
@@ -201,7 +233,8 @@ def _reference_loss(jcfg, jp, lay):
                     arr = [t.detach().numpy() for t in ts[i:i + len(ps)]]
                     vals.append(np.stack(arr) if st else arr[0])
                     i += len(ps)
-                loss, grads = vg(jax.tree.unflatten(treedef, vals), jnp.asarray(mb.numpy()))
+                loss, grads = vg(jax.tree.unflatten(treedef, vals),
+                                 {k: jnp.asarray(v.numpy()) for k, v in mb.items()})
                 ctx.grads = [np.asarray(g) for g in jax.tree.leaves(grads)]
                 return torch.tensor(float(loss), dtype=torch.float32)
 
@@ -229,18 +262,17 @@ def test_smoke_dsm_outer_step_on_reference_gradients(arch):
     Delta = (x0 - x_tau) / gamma scales an ulp of x_tau by 1/gamma."""
     jcfg, cfg, jp, flat = _setup(arch, seed=0)
     topo = load_arch(arch).TOPO
-    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size,
-                                               (W, TAU, 1, BM, SEQ)).astype(np.int32)
+    batch = _batch(cfg, 4, (W, TAU, 1, BM), SEQ)
     jbase = j_get_base_optimizer(topo.base_opt)
     jstep = jax.jit(j_make_dsm_step(lambda p, b: JT.loss_fn(p, b, jcfg, remat=False), jbase,
                                     JDSMConfig(tau=TAU, global_lr=ETA), j_constant(GAMMA)))
-    jstate, jm = jstep(j_dsm_init(jp, jbase, n_workers=W), {"tokens": jnp.asarray(tokens)})
+    jstate, jm = jstep(j_dsm_init(jp, jbase, n_workers=W), _jax_batch(batch))
 
     base = B.get_base_optimizer(topo.base_opt)
     lay = T.layout(cfg)
     step = D.make_dsm_step(_reference_loss(jcfg, jp, lay), base,
                            D.DSMConfig(tau=TAU, global_lr=ETA), S.constant(GAMMA), lay)
-    state, m = step(D.dsm_init(flat, base, W), torch.from_numpy(tokens).long())
+    state, m = step(D.dsm_init(flat, base, W), _torch_batch(batch))
 
     _assert_step_close(state, m, jstate, jm, flat, lay)
 
@@ -336,7 +368,7 @@ def test_bf16_granite_moe_keeps_routers_f32_and_steps_like_the_reference():
     base = B.get_base_optimizer("adamw")
     step = D.make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg), base,
                            D.DSMConfig(tau=TAU, global_lr=ETA), S.constant(GAMMA), lay)
-    state, m = step(D.dsm_init(flat, base, W), torch.from_numpy(tokens).long())
+    state, m = step(D.dsm_init(flat, base, W), {"tokens": torch.from_numpy(tokens).long()})
 
     np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=1e-4)
     theirs_x0, theirs_m = (dict(convert.flatten_tree(jax.tree.map(np.asarray, t),

@@ -93,8 +93,8 @@ def _jax_loss(p, mb):
     return JT.loss_fn(p, mb, J_NANO, remat=False)
 
 
-def _loss(p, tokens):
-    return T.loss_fn(p, tokens, NANO)
+def _loss(p, mb):
+    return T.loss_fn(p, mb, NANO)
 
 
 def _init():
@@ -123,7 +123,7 @@ def test_local_step_method_matches_reference(method):
     for t in range(2):
         tokens = next(batches)["tokens"]
         jstate, jm = jstep(jstate, {"tokens": jnp.asarray(tokens[:, :, 0])})
-        state, m = step(state, torch.from_numpy(tokens).long())
+        state, m = step(state, {"tokens": torch.from_numpy(tokens).long()})
         gamma = float(jm["gamma"])
         assert m["gamma"].item() == gamma
         assert (state.t, state.inner) == (int(jstate.t), int(jstate.inner))
@@ -171,7 +171,7 @@ def test_mv_signsgd_matches_reference_from_its_uniforms():
         tokens = next(batches)["tokens"]
         key = jax.random.PRNGKey(100 + t)
         jstate, jm = jstep(jstate, {"tokens": jnp.asarray(tokens[:, :, 0])}, key)
-        state, m = step(state, torch.from_numpy(tokens).long(),
+        state, m = step(state, {"tokens": torch.from_numpy(tokens).long()},
                         uniform=_mv_uniforms(key, jstate.m))
         np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=1e-5)
         _close(state.m.numpy(), _flat_jax(jstate.m, W), 0.0, 3e-5, f"m step {t}")

@@ -273,7 +273,7 @@ def test_reference_checkpoint_restores_into_the_port_and_steps_on(tmp_path):
         next(batches)
     tokens = next(batches)["tokens"]
     jstate, jm = jstep(jstate, {"tokens": jnp.asarray(tokens)})
-    state, m = step_fn(state, torch.from_numpy(tokens).long())
+    state, m = step_fn(state, {"tokens": torch.from_numpy(tokens).long()})
     np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=1e-5)
     flip = 2 * np.float32(s.global_lr) * np.float32(jm["gamma"])
     n = T.layout(NANO).numel
@@ -370,7 +370,7 @@ def test_mixed_dtype_state_roundtrip_keeps_each_leaf_dtype(tmp_path):
                            S.constant(1e-3), lay)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, MIXED.vocab_size,
                                                                 (2, 2, 1, 1, 16)))
-    state, _ = step(D.dsm_init(_mixed_init(), base, 2), tokens)
+    state, _ = step(D.dsm_init(_mixed_init(), base, 2), {"tokens": tokens})
     path = str(tmp_path / "mixed")
     CK.save(path, convert.state_to_tree(state, MIXED), step=1)
     with open(path + ".json") as f:

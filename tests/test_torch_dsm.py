@@ -84,7 +84,7 @@ def test_outer_steps_match_make_dsm_step():
     for t in range(2):      # the second step checks what carries over
         tokens = next(batches)["tokens"]
         jstate, jm = jstep(jstate, {"tokens": jnp.asarray(tokens)})
-        state, m = step(state, torch.from_numpy(tokens).long())
+        state, m = step(state, {"tokens": torch.from_numpy(tokens).long()})
         gamma = float(jm["gamma"])
         # 1 ulp: under jit XLA turns the warmup's division by a constant into
         # a product with its reciprocal; the port divides, as eager JAX does

@@ -112,15 +112,15 @@ def test_two_groups_step_like_one(run):
     s = TR.TrainSettings(n_workers=W, tau=TAU, steps=2, b_micro=BM, seq=SEQ, peak_lr=1e-3,
                          warmup=1, **run)
     x0 = T.init_params(torch.Generator().manual_seed(0), SMOKE)
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, SMOKE.vocab_size, (W, TAU, 1, BM, SEQ)))
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, SMOKE.vocab_size, (W, TAU, 1, BM, SEQ)))}
     states, losses = [], []
     for lay, start in ((one, x0), (two, _regroup(x0, one, two))):
-        init, step, _, _ = TR.build_algorithm(lambda p, t: T.loss_fn(p, t, SMOKE), s, lay)
+        init, step, _, _ = TR.build_algorithm(lambda p, mb: T.loss_fn(p, mb, SMOKE), s, lay)
         state = init(start, W)
         rng = torch.Generator().manual_seed(0)
         for _ in range(2):
-            state, metrics = step(state, tokens, rng)
+            state, metrics = step(state, batch, rng)
             losses.append(metrics["loss"].item())
         states.append(_buffers(state, lay))
     assert losses[:2] == losses[2:]

@@ -84,7 +84,8 @@ def test_loss_and_grads_match_jax(jcfg, cfg):
         lambda p: JT.loss_fn(p, {"tokens": jnp.asarray(tokens)}, jcfg, remat=False)))(jp)
     grad = torch.zeros_like(flat)
     lay = T.layout(cfg)
-    loss = T.loss_fn(lay.autograd_leaves(flat, grad), torch.from_numpy(tokens).long(), cfg)
+    loss = T.loss_fn(lay.autograd_leaves(flat, grad), {"tokens": torch.from_numpy(tokens).long()},
+                     cfg)
     loss.backward()
 
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
@@ -104,10 +105,10 @@ def test_stacked_and_per_layer_params_agree():
     lay = T.layout(NANO)
     tokens = torch.randint(0, NANO.vocab_size, (2, 16), generator=gen)
     stacked = {k: v.clone().requires_grad_(True) for k, v in lay.views(flat).items()}
-    l1 = T.loss_fn(stacked, tokens, NANO)
+    l1 = T.loss_fn(stacked, {"tokens": tokens}, NANO)
     l1.backward()
     grad = torch.zeros_like(flat)
-    l2 = T.loss_fn(lay.autograd_leaves(flat, grad), tokens, NANO)
+    l2 = T.loss_fn(lay.autograd_leaves(flat, grad), {"tokens": tokens}, NANO)
     l2.backward()
     assert l1.item() == l2.item()
     for name, g in lay.views(grad).items():

@@ -86,17 +86,17 @@ def _one_round(algorithm, guards=False):
     """The metrics dict of one nano outer step of ``algorithm``."""
     s = TR.TrainSettings(algorithm=algorithm, **SMALL)
     lay = T.layout(NANO)
-    init, step, _, _ = TR.build_algorithm(lambda p, t: T.loss_fn(p, t, NANO), s, lay)
+    init, step, _, _ = TR.build_algorithm(lambda p, mb: T.loss_fn(p, mb, NANO), s, lay)
     state = init(T.init_params(torch.Generator().manual_seed(0), NANO), s.n_workers)
     raw = next(dsm_batches(MarkovCorpus(NANO.vocab_size, seed=1), s.n_workers, s.tau, 1,
                            s.b_micro, s.seq, seed=0))
-    tokens = torch.as_tensor(raw["tokens"], dtype=torch.long)
+    batch = {"tokens": torch.as_tensor(raw["tokens"], dtype=torch.long)}
     rng = torch.Generator().manual_seed(0)
     if guards:
         _, _, metrics = G.make_guarded_step(step, nonfinite=True)(state, G.init_guard(),
-                                                                  tokens, rng)
+                                                                  batch, rng)
     else:
-        _, metrics = step(state, tokens, rng)
+        _, metrics = step(state, batch, rng)
     return metrics
 
 
@@ -505,8 +505,8 @@ def test_debug_nans_passes_a_faulted_masked_run_and_names_a_leak(monkeypatch):
     def leaky(*a, **k):
         init, step, ev, mult = build(*a, **k)
 
-        def step_leaks(state, tokens, rng, faults=None):
-            state, metrics = step(state, tokens, rng, faults)
+        def step_leaks(state, batch, rng, faults=None):
+            state, metrics = step(state, batch, rng, faults)
             if state.t == 2:
                 state.m[3] = float("nan")
             return state, metrics

@@ -167,7 +167,7 @@ def _quad(n_workers=W, tau=2):
         return 0.5 * jnp.mean(jnp.sum((params["x"][None] - tgt) ** 2, axis=-1))
 
     def loss(p, mb):
-        return 0.5 * ((p["x"][None] - (tcenter + mb)) ** 2).sum(-1).mean()
+        return 0.5 * ((p["x"][None] - (tcenter + mb["noise"])) ** 2).sum(-1).mean()
 
     def noise(t):
         return 0.1 * jax.random.normal(jax.random.fold_in(key, t), (n_workers, tau, 1, 4, D_QUAD))
@@ -211,7 +211,7 @@ def test_faulted_outer_steps_match_reference(source):
             fr, jfr = plan.round(t, "cpu"), jplan.round(t)
         batch = noise(t)
         jstate, jm = jstep(jstate, {"noise": batch}, None, jfr)
-        state, m = step(state, torch.from_numpy(np.array(batch)), None, fr)
+        state, m = step(state, {"noise": torch.from_numpy(np.array(batch))}, None, fr)
         np.testing.assert_allclose(state.x0.numpy(), _np(jstate.x0["x"]), **X_TOL)
         np.testing.assert_allclose(state.m.numpy(), _np(jstate.m["x"]), **M_TOL)
         np.testing.assert_allclose(state.params.numpy(), _np(jstate.params["x"]), **X_TOL)
@@ -240,10 +240,11 @@ def test_all_dropped_round_is_skipped_bit_exactly(dtype, monkeypatch):
                            lay)
     state = D.dsm_init(torch.zeros(D_QUAD, dtype=dtype), B.adamw(), W)
     fr, _ = _faults(*PLAN_ROUNDS[0])
-    step(state, torch.from_numpy(np.array(noise(0))).to(dtype), None, fr)
+    step(state, {"noise": torch.from_numpy(np.array(noise(0))).to(dtype)}, None, fr)
     x0, m = state.x0.clone(), state.m.clone()
     dead, _ = _faults(*PLAN_ROUNDS[5])
-    state, metrics = step(state, torch.from_numpy(np.array(noise(1))).to(dtype), None, dead)
+    state, metrics = step(state, {"noise": torch.from_numpy(np.array(noise(1))).to(dtype)}, None,
+                          dead)
     assert torch.equal(state.x0.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
                        x0.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
     assert torch.equal(state.m.view(torch.int32), m.view(torch.int32))
@@ -262,7 +263,7 @@ def test_mask_nonfinite_masks_a_diverged_worker_like_the_reference():
         batch = np.array(noise(t))
         batch[1] = np.nan
         jstate, jm = jstep(jstate, {"noise": jnp.asarray(batch)})
-        state, m = step(state, torch.from_numpy(batch))
+        state, m = step(state, {"noise": torch.from_numpy(batch)})
         np.testing.assert_allclose(state.x0.numpy(), _np(jstate.x0["x"]), **X_TOL)
         np.testing.assert_allclose(state.m.numpy(), _np(jstate.m["x"]), **M_TOL)
         assert m["survivors"].item() == float(jm["survivors"]) == 3.0
@@ -325,11 +326,11 @@ def test_guard_rejects_a_dsm_round_and_restores_every_buffer_bit_exactly():
                            S.constant(0.05), lay)
     gstep = G.make_guarded_step(step, nonfinite=True, spike_factor=1e-6)
     state, guard = D.dsm_init(torch.zeros(D_QUAD), B.adamw(), W), G.init_guard()
-    state, guard, m = gstep(state, guard, torch.from_numpy(np.array(noise(0))))
+    state, guard, m = gstep(state, guard, {"noise": torch.from_numpy(np.array(noise(0)))})
     assert bool(m["guard_ok"]) and m["pack"][M.IDX["guard_ok"]].item() == 1.0
     before = [t.clone() for t in G.state_tensors(state)]
     assert len(before) == 5      # params, x0, m, AdamW m and v; not the grads
-    state, guard, m = gstep(state, guard, torch.from_numpy(np.array(noise(1))))
+    state, guard, m = gstep(state, guard, {"noise": torch.from_numpy(np.array(noise(1)))})
     assert not bool(m["guard_ok"]) and m["pack"][M.IDX["guard_ok"]].item() == 0.0
     for a, b in zip(G.state_tensors(state), before):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -49,7 +49,7 @@ def test_outer_steps_make_no_host_sync_on_the_card(algorithm, guarded):
     dev = _card()
     TR.set_matmul_precision()
     s = TR.TrainSettings(algorithm=algorithm, n_workers=2, tau=2, b_micro=2, seq=32)
-    init, step, _, _ = TR.build_algorithm(lambda p, t: T.loss_fn(p, t, NANO), s,
+    init, step, _, _ = TR.build_algorithm(lambda p, mb: T.loss_fn(p, mb, NANO), s,
                                           T.layout(NANO))
     state = init(T.init_params(torch.Generator().manual_seed(0), NANO).to(dev), s.n_workers)
     guard = G.init_guard(dev)
@@ -57,12 +57,12 @@ def test_outer_steps_make_no_host_sync_on_the_card(algorithm, guarded):
     batches = dsm_batches(MarkovCorpus(NANO.vocab_size, seed=1), 2, 2, 1, 2, 32, seed=0)
     rng = torch.Generator(device=dev).manual_seed(0)
     for _ in range(2):
-        tokens = torch.as_tensor(next(batches)["tokens"], dtype=torch.long).to(dev)
+        batch = {"tokens": torch.as_tensor(next(batches)["tokens"], dtype=torch.long).to(dev)}
         with SAN.no_implicit_host_sync(dev):
             if guarded:
-                state, guard, metrics, counters = dstep(state, guard, tokens, rng)
+                state, guard, metrics, counters = dstep(state, guard, batch, rng)
             else:
-                state, metrics = step(state, tokens, rng)
+                state, metrics = step(state, batch, rng)
         if guarded:
             G.settle_counters(state, metrics, counters)
     assert torch.isfinite(metrics["loss"]).item()

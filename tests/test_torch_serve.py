@@ -221,7 +221,7 @@ def test_bf16_decode_follows_the_full_forward():
             if i:
                 logits, cache = T.decode_step(params, cache, toks[:, i - 1], 11 + i, cfg)
             seq = torch.cat([prompt, toks[:, :i]], dim=1)
-            h = T.hidden_states(params, seq, cfg)[:, -1:]
+            h = T.hidden_states(params, {"tokens": seq}, cfg)[0][:, -1:]
             full = T._logits(params, h, cfg)[:, 0]
             assert (logits - full).abs().max().item() < 0.05, i
             assert torch.equal(logits[:, :cfg.vocab_size].argmax(-1), toks[:, i])
@@ -235,18 +235,17 @@ def test_models_package_exports_the_reference_names():
 
 
 def test_unported_mixers_and_extra_batch_raise():
+    """The recurrent mixers, and cross-attention in a decoder-only model
+    (no encoder to attend to), raise.  Whisper and ``extra_batch`` (frames,
+    patches) are served since the encdec / VLM port:
+    ``tests/test_torch_encdec_vlm.py``."""
     xattn = dataclasses.replace(load_arch("gpt2_small").SMOKE, name="x",
                                 pattern=("attn:dense", "xattn:dense"))
-    for cfg in [xattn] + [load_arch(a).SMOKE for a in (
-            "mamba2_780m", "recurrentgemma_2b", "whisper_large_v3")]:
+    for cfg in [xattn] + [load_arch(a).SMOKE for a in ("mamba2_780m", "recurrentgemma_2b")]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             T.init_cache(cfg, 1, 8)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             S.generate({}, cfg, torch.zeros(1, 4, dtype=torch.long), device="cpu")
-    flat = T.init_params(torch.Generator().manual_seed(0), NANO)
-    with pytest.raises(NotImplementedError, match="extra_batch"):
-        S.generate(flat, NANO, torch.zeros(1, 4, dtype=torch.long), device="cpu",
-                   extra_batch={"patches": torch.zeros(1)})
 
 
 def test_decode_wraps_the_ring():

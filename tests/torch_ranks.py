@@ -141,8 +141,44 @@ def outer_steps_rank(rank: int, world: int, n_workers: int, flags: dict, rounds:
     batches = dsm_batches(MarkovCorpus(NANO.vocab_size, seed=1), n_workers, 2, 1, 2, 32, seed=0)
     packs = []
     for masks in rounds:
-        tokens = torch.from_numpy(next(batches)["tokens"][rows]).long()
+        batch = {"tokens": torch.from_numpy(next(batches)["tokens"][rows]).long()}
         faults = None if masks is None else FaultRound(*(torch.tensor(m) for m in masks))
-        state, metrics = step(state, tokens, None, faults)
+        state, metrics = step(state, batch, None, faults)
         packs.append(metrics["pack"])
     return packs
+
+
+def batch_dict_steps_rank(rank: int, world: int, cfg, n_workers: int, flags: dict, x0,
+                          batches: list) -> dict:
+    """DSM outer steps (AdamW, constant gamma 1e-3, eta 0.5) of ``cfg`` on
+    the batch dicts of ``batches`` (numpy leaves (W, tau, 1, B_micro, ...),
+    ``tokens`` as int ids): every leaf's rows of this rank's workers, as the
+    trainer slices a batch.  ``world == 0`` runs the dense path in this
+    process.  Runs on one torch thread, so that the CPU's matmuls split
+    their sums alike in every process.  Returns the losses and the final x0
+    and m (gathered from the shards)."""
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core.dsm import dsm_init, make_dsm_step
+    from repro_torch.models import transformer as T
+
+    torch.set_num_threads(1)
+    topo = None if world == 0 else mesh.topology(n_workers, dist.group.WORLD)
+    base = base_opt.adamw()
+    lay = T.layout(cfg)
+    tau = batches[0]["tokens"].shape[1]
+    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg), base,
+                         DSMConfig(tau=tau, global_lr=0.5, **flags), schedules.constant(1e-3),
+                         lay, topo)
+    state = dsm_init(x0, base, n_workers, topo, flags.get("zero_sharded", False))
+    rows = slice(None) if topo is None else topo.worker_slice
+    losses = []
+    for raw in batches:
+        batch = {k: torch.from_numpy(v[rows]) for k, v in raw.items()}
+        batch["tokens"] = batch["tokens"].long()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    sharded = topo is not None and flags.get("zero_sharded", False)
+    n = lay.numel
+    return {"losses": losses,
+            **{k: Z.gather_shards(getattr(state, k), topo, n) if sharded else getattr(state, k)
+               for k in ("x0", "m")}}
