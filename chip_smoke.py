@@ -38,7 +38,14 @@ full width and ENCDEC_LAYERS of its 32 + 32 layers trained through
 make_dsm_step on batch dicts of tokens and frames (W=2, S=448) and served
 with its frames, LLaVA-NeXT-34B at full width and VLM_LAYERS layers served
 after its 2,880 patches, each held against its full forward, and card vs
-CPU for both SMOKE configs.  algorithms_full_width and
+CPU for both SMOKE configs.  Then the recurrent mixers: both kernels bit
+for bit at their shapes, RecurrentGemma-2B at full width and RG_LAYERS of
+its 26 layers (RG-LRU and local attention, W=2, S=3072 past its 2048-token
+window) and Mamba-2 780M at whole depth (SSD, W=2, S=2048) trained through
+run_training and both kernels (bf16 blocks, f32 decay leaves: two groups),
+each served from its recurrent state on its trained x0 and held against its
+full forward, and card vs CPU for both SMOKE configs and RecurrentGemma's
+SMOKE with bf16 parameters.  algorithms_full_width and
 resume_full_width run GPT-2 small at full width with its depth cut to
 CUT_LAYERS layers.
 
@@ -166,6 +173,17 @@ SERVE_ULP_PER_ADD = 2.0 ** -8
 # the first SERVE_F32_STEPS tokens: only the summation orders differ there
 SERVE_F32_ATOL = 1e-3
 SERVE_F32_STEPS = 8
+# serve_check's bf16 check of a model whose bf16 noise passes the bounds
+# above (mamba2, 48 layers): its bf16 model sits ~1 logit from its own f32
+# model at every position, the full forward and the decode alike (CPU,
+# random init, logits up to 8.8; on the card its trained x0's decode read
+# 3.16 from its full forward on logits up to 12.5, PERF.md section 6).  Its
+# decode is held against the f32 model's full forward instead: within
+# SERVE_NOISE_FACTOR times the bf16 full forward's own largest distance to
+# it over the steps (the CPU read 0.96 times at 48 layers, 1.18 at 3), and
+# every token where the bf16 full forward's top-2 margin exceeds
+# SERVE_NOISE_FACTOR times that step's distance equal to its argmax
+SERVE_NOISE_FACTOR = 2.0
 SERVE_CPU_ATOL = 1e-4           # serve_card_vs_cpu: nano f32 decode logits
 # sliding-window attention (gemma3_1b) and MoE (granite_moe_3b_a800m)
 # at full width.  Neither arch module has a PEAK_LR: MAIN's (the launcher's
@@ -199,6 +217,24 @@ VLM_LAYERS = 8
 VLM_N = 5_431_745_536
 SERVE_VLM = (2, 128, 32)        # 32 new tokens < 2,880 patches: where the reference raises
 ENCDEC_VLM_SMOKES = ("whisper_large_v3", "llava_next_34b")
+# the recurrent mixers at full width.  recurrentgemma_2b.FULL (2,894,481,920
+# parameters) at RG_LAYERS of its 26 layers, two (rglru, rglru, swa) groups,
+# W=2: ~60 GB at 6 layers (the state and the global step's f32 temporaries,
+# ~51 B per parameter as gemma3's peak showed), where 9 layers would need
+# ~73 GB; S=3072 so that its 2048-token window binds.  mamba2_780m.FULL at
+# whole depth (48 layers), W=2, S=2048 (Mamba-2's published training
+# context).  N per dtype group: the param dtype's, then f32 (lam; A_log, D,
+# dt_bias).  Neither arch module has a PEAK_LR: MAIN's applies.
+RG = dict(n_workers=2, b_micro=1, seq=3072)
+RG_LAYERS = 6
+RG_N = (1_169_246_720, 10_240)
+MAMBA = dict(n_workers=2, b_micro=1, seq=2048)
+MAMBA_N = (780_768_768, 6_912)
+RECURRENT_STEPS = 3
+RECURRENT_EVAL_BATCH = 2        # eval sequences: recurrentgemma's f32 logits, 2.1 GB per 2048
+SERVE_RG = (4, 2560, 128)       # batch, prompt (past the window), new tokens
+SERVE_MAMBA = (4, 512, 128)     # a prompt of four 128-position SSD chunks
+RECURRENT_SMOKES = ("mamba2_780m", "recurrentgemma_2b")
 
 
 T0 = time.perf_counter()
@@ -1522,22 +1558,31 @@ def teacher_forced(torch, params, cfg, prompt, toks, extra=None):
     a (B,) bool: the row's experts equal in both at every MoE layer (all
     True without one).  ``extra``: the batch's frames or patches; a VLM's
     patches come before the prompt, so its decode positions start after
-    them."""
+    them.  A model with a recurrent layer takes one full forward over
+    prompt + toks and reads each step's position from it (causal: a
+    position sees nothing after it), its tokens padded on the right to a
+    multiple of the SSD's 128-position chunk where Mamba-2 needs one: one
+    forward in place of one per step, at lengths the SSD accepts."""
     from repro_torch.models import transformer as T
     from repro_torch.train.serve import _splice_cache
 
     extra = extra or {}
     B, S = prompt.shape
     n0 = S + (extra["patches"].shape[1] if "patches" in extra else 0)
+    recurrent = [k.split(":")[0] for k in cfg.pattern if k.split(":")[0] in T.RECURRENT]
     out = []
     with torch.no_grad(), RouteLog(torch) as log:
         logits, small = T.prefill(params, {"tokens": prompt, **extra}, cfg)
         cache = _splice_cache(T.init_cache(cfg, B, n0 + toks.shape[1], device=prompt.device),
                               small, cfg, n0)
         del small
+        decoded = []
         for i in range(toks.shape[1]):
             if i:
                 logits, cache = T.decode_step(params, cache, toks[:, i - 1], n0 + i - 1, cfg)
+            if recurrent:
+                decoded.append(logits.clone())
+                continue
             dec_routes = log.take()
             seq = torch.cat([prompt, toks[:, :i]], dim=1)
             h = T.hidden_states(params, {"tokens": seq, **extra}, cfg)[0][:, -1:]
@@ -1545,7 +1590,32 @@ def teacher_forced(torch, params, cfg, prompt, toks, extra=None):
             for a, b in zip(dec_routes, log.take(), strict=True):
                 same &= (a == b).all(dim=-1)
             out.append((logits.clone(), T._logits(params, h, cfg)[:, 0], same))
+        if recurrent:
+            del cache
+            full = one_pass_logits(torch, params, cfg, prompt, toks, extra)
+            every = torch.ones(B, dtype=torch.bool, device=prompt.device)
+            out = [(dec, full[:, i], every) for i, dec in enumerate(decoded)]
     return out
+
+
+def one_pass_logits(torch, params, cfg, prompt, toks, extra=None):
+    """The full forward's f32 logits (B, new, padded vocab) at the positions
+    that predict each of ``toks`` (B, new), from ONE forward over prompt +
+    toks (causal: a position sees nothing after it); the tokens padded on
+    the right to a multiple of the SSD's 128-position chunk where a Mamba-2
+    layer needs one."""
+    from repro_torch.models import transformer as T
+
+    extra = extra or {}
+    B, S = prompt.shape
+    n0 = S + (extra["patches"].shape[1] if "patches" in extra else 0)
+    seq = torch.cat([prompt, toks], dim=1)
+    ssm = any(k.startswith("ssm:") for k in cfg.pattern)
+    pad = (-seq.shape[1]) % 128 if ssm and seq.shape[1] > 128 else 0
+    seq = torch.cat([seq, seq.new_zeros(B, pad)], dim=1)
+    with torch.no_grad():
+        h = T.hidden_states(params, {"tokens": seq, **extra}, cfg)[0]
+        return T._logits(params, h[:, n0 - 1:n0 - 1 + toks.shape[1]], cfg)
 
 
 def route_checked(rows, atol) -> dict:
@@ -1576,7 +1646,7 @@ def phase_serve_full_width(torch, smi, x0):
 
 
 def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new, extra=None,
-                per_add_bound=False) -> None:
+                per_add_bound=False, noise_bound=False) -> None:
     """generate on the trained ``x0`` (cfg's flat buffers, bf16): ``batch``
     prompts of ``prompt_len`` corpus tokens, ``new`` greedy tokens (with
     ``extra``, the batch's frames or patches, as ``extra_batch``); prefill
@@ -1586,10 +1656,14 @@ def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new, extra=None,
     residual add where that is larger) on the rows whose experts agree
     (``route_checked``: every row of a dense model), and generate's token
     equal to the full forward's argmax wherever its top-2 margin exceeds
-    that bound.  The same teacher-forced
-    check with every leaf in f32 (activations f32), within SERVE_F32_ATOL,
-    over the first SERVE_F32_STEPS tokens of a dense model and every token
-    of a MoE one."""
+    that bound.  With ``noise_bound`` the bf16 decode is held instead
+    against the f32 model's full forward (one pass, every step), within
+    SERVE_NOISE_FACTOR times the bf16 full forward's own largest distance
+    to it; a token is decided where the bf16 full forward's top-2 margin
+    exceeds SERVE_NOISE_FACTOR times its distance at that step.  The same
+    teacher-forced check with every leaf in f32 (activations f32), within
+    SERVE_F32_ATOL, over the first SERVE_F32_STEPS tokens of a dense model
+    and every token of a MoE one."""
     import dataclasses
 
     import numpy as np
@@ -1614,22 +1688,35 @@ def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new, extra=None,
     atol = max(SERVE_ATOL, 2 * cfg.n_layers * SERVE_ULP_PER_ADD * top) if per_add_bound else (
         SERVE_ATOL)
     bf16 = route_checked(rows, atol)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = {k: v.float() for k, v in params.items()}
+    extra32 = {k: v.float() for k, v in extra.items()} if extra else None
+    margins = [atol] * len(rows)
+    noise = None
+    if noise_bound:
+        ref = one_pass_logits(torch, params32, cfg32, prompt, toks, extra32)
+        full_err = [(full - ref[:, i]).abs().max().item() for i, (_, full, _) in enumerate(rows)]
+        dec_err = [(dec - ref[:, i]).abs().max().item() for i, (dec, _, _) in enumerate(rows)]
+        del ref
+        margins = [SERVE_NOISE_FACTOR * e for e in full_err]
+        noise = {"factor": SERVE_NOISE_FACTOR, "full_vs_f32_per_step": full_err,
+                 "decode_vs_f32_per_step": dec_err,
+                 "ratio": max(dec_err) / max(max(full_err), 1e-30),
+                 "ok": max(dec_err) <= SERVE_NOISE_FACTOR * max(full_err)}
+        bf16["ok"] = noise["ok"]
     decided, agree = 0, 0
     for i, (_, full, _) in enumerate(rows):
         lg = full[:, : cfg.vocab_size]
         top2 = torch.topk(lg, 2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > atol
+        sure = (top2[:, 0] - top2[:, 1]) > margins[i]
         decided += int(sure.sum())
         agree += int((sure & (lg.argmax(-1) == toks[:, i])).sum())
     del rows
     moe = any(k.endswith(":moe") for k in cfg.pattern)
     f32_steps = new if moe else SERVE_F32_STEPS
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    rows = teacher_forced(torch, {k: v.float() for k, v in params.items()}, cfg32, prompt,
-                          toks[:, :f32_steps],
-                          {k: v.float() for k, v in extra.items()} if extra else None)
+    rows = teacher_forced(torch, params32, cfg32, prompt, toks[:, :f32_steps], extra32)
     f32 = route_checked(rows, SERVE_F32_ATOL)
-    del rows
+    del rows, params32
     row = {"phase": phase, "gpu": smi, "config": cfg.name, "n_layers": cfg.n_layers,
            "batch": batch, "prompt_tokens": prompt_len, "new_tokens": new,
            "extra_batch": {k: list(v.shape) for k, v in (extra or {}).items()},
@@ -1637,7 +1724,7 @@ def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new, extra=None,
            "decode_tok_per_s": stats["tok_per_s"], "max_memory_allocated_bytes": peak,
            "params_bytes": base, "atol": atol, "max_abs_logit": top,
            "decode_vs_full_max_abs_err": bf16["max_abs_err"], "bf16": bf16,
-           "tokens_decided": decided, "tokens_equal_where_decided": agree,
+           "bf16_vs_f32_noise": noise, "tokens_decided": decided, "tokens_equal_where_decided": agree,
            "f32_atol": SERVE_F32_ATOL, "f32_steps": f32_steps,
            "f32_decode_vs_full_max_abs_err": f32["max_abs_err"], "f32": f32,
            "tokens": toks[0].tolist()}
@@ -1645,8 +1732,9 @@ def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new, extra=None,
     if not (bf16["ok"] and agree == decided and decided > 0 and f32["ok"]):
         raise AssertionError(
             f"{phase}: decode vs full forward {bf16['same_routes_max_abs_err']} where the "
-            f"routes agree (atol {atol}), f32 {f32['same_routes_max_abs_err']} (atol "
-            f"{SERVE_F32_ATOL}), {agree} of {decided} decided tokens equal")
+            f"routes agree (atol {atol}), bf16 against the f32 model {noise}, f32 "
+            f"{f32['same_routes_max_abs_err']} (atol {SERVE_F32_ATOL}), {agree} of {decided} "
+            "decided tokens equal")
 
 
 def phase_serve_card_vs_cpu(torch):
@@ -1734,16 +1822,18 @@ def phase_group_kernel_checks(torch, K, phase="group_kernel_checks", paths=None)
             for name in ("dsm_update", "adamw_update")}
 
 
-def phase_window_moe_full_width(torch, K, smi):
-    """gemma3_1b.FULL (whole depth, W=2, S=1024) and granite_moe_3b_a800m at
-    full width and GRANITE_LAYERS layers (W=4, S=128), tau=12, WINDOW_MOE_STEPS
-    outer steps with an eval after each, through run_training and both
-    kernels.  Per path: N per dtype group as listed, one DSM launch per
-    group per round and tau AdamW launches per group per round, finite
-    losses, the last eval below the first, the peak under the card's
-    memory; each kernel timed per group on the trained state's buffers
-    beside its byte bound; one local step's host and device time.  Returns
-    (launches, [(cfg, trained x0)])."""
+def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", paths=None):
+    """Each (cfg, settings, N per dtype group) of ``paths`` through
+    run_training and both kernels, an eval after each outer step; by
+    default the sliding-window and MoE paths: gemma3_1b.FULL (whole depth,
+    W=2, S=1024) and granite_moe_3b_a800m at full width and GRANITE_LAYERS
+    layers (W=4, S=128), tau=12, WINDOW_MOE_STEPS outer steps.  Per path: N
+    per dtype group as listed, one DSM launch per group per round and tau
+    AdamW launches per group per round, finite losses, the last eval below
+    the first, the peak under the card's memory; each kernel timed per
+    group on the trained state's buffers beside its byte bound; one local
+    step's host and device time.  Returns (launches, [(cfg, trained
+    x0)])."""
     from repro_torch.data.pipeline import TextCorpus
     from repro_torch.groups import each, parts, pick
     from repro_torch.models import transformer as T
@@ -1753,7 +1843,8 @@ def phase_window_moe_full_width(torch, K, smi):
     total = dict.fromkeys(K.launch_counts(), 0)
     rows, failures, trained = [], [], []
     card_bytes = torch.cuda.get_device_properties(0).total_memory
-    for cfg, s, n_want in window_moe_paths():
+    paths = paths or window_moe_paths()
+    for cfg, s, n_want in paths:
         lay = T.layout(cfg)
         if lay.group_numels != n_want:
             raise AssertionError(f"{cfg.name}: groups of {lay.group_numels}, want {n_want}")
@@ -1810,10 +1901,10 @@ def phase_window_moe_full_width(torch, K, smi):
             failures.append(f"{cfg.name}: x0 groups of dtypes other than {lay.dtypes}")
         for k in total:
             total[k] += launches[k]
-    emit({"phase": "window_moe_full_width", "gpu": smi, "outer_steps": WINDOW_MOE_STEPS,
+    emit({"phase": phase, "gpu": smi, "outer_steps": paths[0][1].steps,
           "card_bytes": card_bytes, "paths": rows})
     if failures:
-        raise AssertionError("window_moe_full_width: " + "; ".join(failures))
+        raise AssertionError(f"{phase}: " + "; ".join(failures))
     return total, trained
 
 
@@ -2092,6 +2183,60 @@ def encdec_vlm_phases(torch, K, smi, pool) -> tuple:
     return {k: n + more[k] for k, n in total.items()}, errs
 
 
+def recurrentgemma_cut():
+    """recurrentgemma_2b.FULL at full width and RG_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import recurrentgemma_2b
+
+    return dataclasses.replace(recurrentgemma_2b.FULL, n_layers=RG_LAYERS,
+                               name=f"recurrentgemma_2b_{RG_LAYERS}l")
+
+
+def recurrent_paths():
+    """(cfg, settings, N per dtype group) of the recurrent training paths."""
+    from repro_torch.configs import mamba2_780m
+    from repro_torch.train.trainer import TrainSettings
+
+    common = dict(tau=12, steps=RECURRENT_STEPS, eval_every=1,
+                  eval_batch=RECURRENT_EVAL_BATCH, peak_lr=MAIN["peak_lr"],
+                  global_lr=MAIN["global_lr"])
+    return [(recurrentgemma_cut(), TrainSettings(**common, **RG), RG_N),
+            (mamba2_780m.FULL, TrainSettings(**common, **MAMBA), MAMBA_N)]
+
+
+def recurrent_phases(torch, K, smi, pool) -> tuple:
+    """The phases of the recurrent mixers: both kernels bit for bit at each
+    dtype group's shape of the two paths (recurrent_kernel_checks), both
+    models trained through run_training (recurrent_full_width), each served
+    on its trained x0 and held against its full forward
+    (serve_recurrent_full_width: RecurrentGemma's prompt past its window,
+    Mamba-2's four SSD chunks), and card vs CPU for both SMOKE configs and
+    RecurrentGemma's SMOKE with bf16 parameters (recurrent_card_vs_cpu).
+    Returns (their runs' launches, the kernel checks' worst errors)."""
+    import dataclasses
+
+    from repro_torch.configs import load_arch, recurrentgemma_2b
+
+    paths = recurrent_paths()
+    errs = phase_group_kernel_checks(torch, K, "recurrent_kernel_checks",
+                                     [(cfg, s) for cfg, s, _ in paths])
+    total, trained = phase_window_moe_full_width(torch, K, smi, "recurrent_full_width", paths)
+    for (cfg, x0), (b, prompt, new) in zip(trained, (SERVE_RG, SERVE_MAMBA)):
+        serve_check(torch, smi, "serve_recurrent_full_width", cfg, x0, b, prompt, new,
+                    noise_bound=cfg.name.startswith("mamba2"))
+    del trained, x0
+    torch.cuda.empty_cache()
+    # RecurrentGemma's SMOKE with bf16 parameters (activations f32, as the
+    # SMOKE's): two dtype groups, lam f32
+    bf16p = dataclasses.replace(recurrentgemma_2b.SMOKE, param_dtype="bfloat16",
+                                name="recurrentgemma_smoke_bf16_params")
+    configs = [(load_arch(a).SMOKE, load_arch(a).TOPO) for a in RECURRENT_SMOKES]
+    configs.append((bf16p, recurrentgemma_2b.TOPO))
+    more = card_vs_cpu_runs(torch, K, pool, "recurrent_card_vs_cpu", configs, serve=True)
+    return {k: n + more[k] for k, n in total.items()}, errs
+
+
 def slice_phases(torch, K, smi, pool) -> dict:
     """The phases of the paper's GPT-2 sizes, the arch registry and serving;
     returns their runs' launches.  serve_full_width serves the x0 that
@@ -2172,7 +2317,7 @@ def all_phases(torch, K, smi, pool):
                  phase_zero_card_vs_cpu(torch, K),
                  slice_phases(torch, K, smi, pool)):
         launches = {k: n + more[k] for k, n in launches.items()}
-    for phases in (window_moe_phases, encdec_vlm_phases):
+    for phases in (window_moe_phases, encdec_vlm_phases, recurrent_phases):
         more, group_errs = phases(torch, K, smi, pool)
         launches = {k: n + more[k] for k, n in launches.items()}
         errs = {k: max(e, group_errs[k]) for k, e in errs.items()}

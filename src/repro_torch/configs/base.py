@@ -6,8 +6,8 @@ dtype properties).  ``act_dtype`` and ``p_dtype`` return torch dtypes.
 
 ``pattern`` is a repeating tuple of ``"<mixer>:<ffn>"`` strings; layers are
 the pattern tiled to ``n_layers``.  Full repeats are stored stacked on a
-leading layer axis, the remainder unrolled.  The port runs the
-``attn:dense`` subset; other mixers raise ``NotImplementedError``.
+leading layer axis, the remainder unrolled.  The port builds every mixer
+and FFN of the reference; an unknown one raises ``ValueError``.
 
 Every arch id of the reference has a module ``repro_torch.configs.<id>``
 with ``FULL`` and ``SMOKE`` ModelConfigs and a ``TOPO`` TopologyConfig (the

@@ -1,8 +1,9 @@
 """Parameter counts of the port's models.
 
 ``param_count`` counts the port's flat layout, the leaves of the
-reference's ``init_params`` tree; it raises ``NotImplementedError`` for a
-family or block kind the port does not build yet.  The reference's
+reference's ``init_params`` tree, over every dtype group; it raises
+``ValueError`` for a family or block kind that the reference does not
+build either.  The reference's
 abstract specs, sharding specs and ``active_param_count`` serve its dry-run
 and are not ported (ROADMAP.md).
 """

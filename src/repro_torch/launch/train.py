@@ -11,13 +11,16 @@ flags and defaults (DSM with the arch's base optimizer, AdamW):
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --tau 2 \
         --run-dir build/run --log-every 1 --profile-steps 1:1 --sanitize
 
-``--arch`` accepts ``nano``, ``<id>`` (FULL) or ``<id>_smoke`` of the ported
-block kinds: ``attn`` / ``swa`` mixers with dense or MoE FFNs (gemma3_1b,
-granite_moe_3b_a800m, llama4_maverick_400b_a17b_smoke among them).  A model
-whose training state (W copies of params, gradients and AdamW moments, plus
-x0 and m) exceeds the device's memory is refused before anything is
-allocated: llama4_maverick_400b_a17b FULL has 397.7 B parameters, ~21.5 TB of
-state at W=4.  The Markov corpus keeps a (vocab, vocab, 8) table, so a
+``--arch`` accepts ``nano``, ``<id>`` (FULL) or ``<id>_smoke`` of every
+decoder-only arch: ``attn`` / ``swa`` mixers with dense or MoE FFNs
+(gemma3_1b, granite_moe_3b_a800m, llama4_maverick_400b_a17b_smoke among
+them) and the recurrent mamba2_780m and recurrentgemma_2b (whisper and
+llava train on batch dicts through ``make_dsm_step``).  A model whose
+training state (W copies of params, gradients and AdamW moments, plus x0
+and m, each group in its dtype) exceeds the device's memory is refused
+before anything is allocated: llama4_maverick_400b_a17b FULL has 397.7 B
+parameters, ~21.5 TB of state at W=4; recurrentgemma_2b FULL 2.89 B, 156 GB
+at W=4, over one 80 GB card.  The Markov corpus keeps a (vocab, vocab, 8) table, so a
 50k-token vocabulary needs ``--corpus text`` (bytes of this repository's
 Python sources).
 

@@ -1,13 +1,16 @@
 """Model building blocks of the ``attn`` / ``swa`` / ``encattn`` / ``xattn``
-mixers and the dense and MoE FFNs: RMSNorm, RoPE, causal GQA attention
-(full or sliding-window), bidirectional attention (the encoder's and the
-cross-attention's), one-token attention against a KV cache, the dense MLP
-and the top-k routed mixture of experts, as plain PyTorch functions on
-tensors.
+mixers, the recurrent ``ssm`` (Mamba-2 SSD) and ``rglru`` (RG-LRU) mixers
+and the dense and MoE FFNs: RMSNorm, RoPE, causal GQA attention (full or
+sliding-window), bidirectional attention (the encoder's and the
+cross-attention's), one-token attention against a KV cache, the dense MLP,
+the top-k routed mixture of experts, the causal depthwise conv, the chunked
+SSD scan and the RG-LRU's linear scan with their one-token steps, as plain
+PyTorch functions on tensors.
 
 They follow the reference's precision path: activations in
 ``cfg.act_dtype``, attention scores and softmax in f32, probabilities cast
-to ``v.dtype`` before the PV product.  Quirks kept on purpose:
+to ``v.dtype`` before the PV product; the recurrences' states and scans in
+f32.  Quirks kept on purpose:
 
   * RMSNorm multiplies by ``(1 + scale)``, with ``scale`` initialised to ones;
   * RoPE uses the split-half convention, in f32;
@@ -241,3 +244,291 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
         sh = p["shared"]
         out = out + mlp_apply(sh["w1"], sh["w2"], xt, cfg, w3=sh.get("w3"))
     return out.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv (the Mamba-2 and RG-LRU front conv)
+# ---------------------------------------------------------------------------
+
+def conv1d_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over x (B, S, C): ``p["w"]`` (width, C),
+    ``p["b"]`` (C,).  The reference's sum of ``width`` shifted products in
+    x's dtype, added in its order (``F.conv1d`` would accumulate otherwise
+    in bf16); the causal padding is zeros."""
+    width, S = p["w"].shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    w = p["w"].to(x.dtype)
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, width):
+        out = out + xp[:, i:i + S] * w[i]
+    return out + p["b"].to(x.dtype)
+
+
+def conv1d_step(p: dict, conv_state: torch.Tensor, x_t: torch.Tensor) -> tuple:
+    """Decode: conv_state (B, width - 1, C), x_t (B, C) -> (y_t, the new
+    state: the window's last width - 1 rows).  Accumulates in f32."""
+    window = torch.cat([conv_state, x_t[:, None]], dim=1)          # (B, width, C)
+    y = (window.to(F32) * p["w"].to(F32)).sum(dim=1)
+    y = (y + p["b"].to(F32)).to(x_t.dtype)
+    return y, window[:, 1:]
+
+
+def conv_tail(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The conv state after a prompt x (B, S, C): its last ``width - 1``
+    rows, left-padded with zeros when S is shorter (the causal padding of
+    :func:`conv1d_apply`).  The reference keeps only the S rows there, and
+    its decode then fails on a prompt shorter than width - 1."""
+    tail = x[:, -(width - 1):]
+    return F.pad(tail, (0, 0, width - 1 - tail.shape[1], 0))
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD, state-space duality, chunked)  [arXiv:2405.21060]
+# ---------------------------------------------------------------------------
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x (..., L) -> (..., L, L) with out[i, j] = sum_{j<k<=i} x[k] and -inf
+    above the diagonal.  Each segment's sum runs up from k = j + 1 (a cumsum
+    down the rows of x masked to k > j), where the reference takes the
+    difference of two prefix sums: the same numbers, without the rounding
+    of prefix sums that reach ~10^3 within a 128-position chunk (an f32 ulp
+    of ~1e-4 there, which exp turns into a relative error of the decay).
+    The -inf is a masked fill: zero gradient there, never inf - inf."""
+    L_ = x.shape[-1]
+    ones = torch.ones(L_, L_, dtype=torch.bool, device=x.device)
+    rows = x[..., :, None].expand(*x.shape, L_).masked_fill(~torch.tril(ones, -1), 0.0)
+    return torch.cumsum(rows, dim=-2).masked_fill(~torch.tril(ones), float("-inf"))
+
+
+def _suffix_sums(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum_{k>s} x[k] along ``dim`` (0 at the last position): a reversed
+    cumsum shifted by one, so the sums near the end, the ones whose exp
+    matters, are not the difference of two large prefix sums."""
+    rev = torch.flip(torch.cumsum(torch.flip(x, [dim]), dim=dim), [dim])
+    n = x.shape[dim]
+    return torch.cat([rev.narrow(dim, 1, n - 1), torch.zeros_like(rev.narrow(dim, 0, 1))],
+                     dim=dim)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
+    """The Mamba-2 SSD scan, chunked (the reference's minimal version of the
+    paper's Listing 1), in f32.
+
+    x: (B, S, H, P) value heads; dt: (B, S, H) > 0; A: (H,) > 0 decay rate;
+    Bm, Cm: (B, S, N) single-group projections.  Returns y (B, S, H, P).
+    The reference's four-operand einsums are pairwise products in a fixed
+    order (``torch.einsum`` would let ``opt_einsum``, where installed, pick
+    the order); the inter-chunk recurrence is a loop over the S / chunk
+    chunks.  S must be a multiple of ``chunk``, as the reference asserts."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"sequence length must be divisible by ssd chunk: S={S}, "
+                         f"chunk={chunk}")
+    nc = S // chunk
+    dA = (-A[None, None, :] * dt).to(F32)                  # (B, S, H) log-decay (< 0)
+    xw = x.to(F32) * dt[..., None]                         # dt-weighted input
+
+    def c(t):
+        return t.reshape(Bsz, nc, chunk, *t.shape[2:])
+
+    xc = c(xw)                                             # (B, nc, Q, H, P)
+    Bc, Cc = c(Bm.to(F32)), c(Cm.to(F32))                  # (B, nc, Q, N)
+    dAc_h = c(dA).permute(0, 1, 3, 2)                      # (B, nc, H, Q)
+    A_cum = torch.cumsum(dAc_h, dim=-1)
+    xc_h = xc.permute(0, 1, 3, 2, 4)                       # (B, nc, H, Q, P)
+
+    # 1) intra-chunk (diagonal blocks): (C B^T) * L, then times x
+    Lmat = torch.exp(_segsum(dAc_h))                       # (B, nc, H, Q, Q)
+    CB = Cc @ Bc.transpose(-1, -2)                         # (B, nc, Q, Q)
+    Y_diag = (CB[:, :, None] * Lmat) @ xc_h                # (B, nc, H, Q, P)
+
+    # 2) chunk states: x decayed to the chunk's end, times B
+    decay_states = torch.exp(_suffix_sums(dAc_h, -1))      # (B, nc, H, Q): A_cum[-1] - A_cum
+    states = (xc_h * decay_states[..., None]).transpose(-1, -2) @ Bc[:, :, None]
+    # (B, nc, H, P, N)
+
+    # 3) inter-chunk recurrence: the state before each chunk
+    chunk_decay = torch.exp(A_cum[..., -1])                # (B, nc, H)
+    carry = torch.zeros(Bsz, H, P, N, dtype=F32, device=x.device)
+    prev = []
+    for i in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, i, :, None, None] + states[:, i]
+    prev_states = torch.stack(prev, dim=1)                 # (B, nc, H, P, N)
+
+    # 4) state -> output within the chunk
+    state_decay_out = torch.exp(A_cum)                     # (B, nc, H, Q)
+    Y_off = (Cc[:, :, None] @ prev_states.transpose(-1, -2)) * state_decay_out[..., None]
+    y = (Y_diag + Y_off).permute(0, 1, 3, 2, 4)            # (B, nc, Q, H, P)
+    return y.reshape(Bsz, S, H, P)
+
+
+def _mamba2_split(p: dict, x: torch.Tensor, cfg) -> tuple:
+    """The in-projection of x (..., d), split: z, the conv's input (x, B, C
+    streams) and dt before its softplus."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    proj = x @ p["in_proj"].to(x.dtype)
+    z, conv_in, dt = torch.split(proj, [di, di + 2 * N, cfg.ssm_heads], dim=-1)
+    return z, conv_in, dt
+
+
+def _mamba2_out(p: dict, y: torch.Tensor, z: torch.Tensor, x_dtype) -> torch.Tensor:
+    """The gated RMSNorm of y (f32) and the out-projection."""
+    y = rmsnorm(p["norm"]["scale"], y.to(x_dtype) * F.silu(z))
+    return y @ p["out_proj"].to(x_dtype)
+
+
+def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None):
+    """The training / prefill path, x (B, S, d) -> (B, S, d).  ``p``: the
+    block's ``ssm`` leaves nested as the reference's (``in_proj``, ``conv``
+    {``w``, ``b``}, ``A_log``, ``D``, ``dt_bias``, ``norm`` {``scale``},
+    ``out_proj``).  The SSD runs in chunks of ``min(128, S)``.  With a dict
+    ``state_out`` the state after the last position lands in it, as the
+    reference's ``_mamba2_final_state`` computes it: ``state`` (B, H, P, N)
+    f32 and ``conv`` (B, width - 1, d_inner + 2N), the conv's input tail
+    (:func:`conv_tail`)."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, conv_in, dt = _mamba2_split(p, x, cfg)
+    conv_out = F.silu(conv1d_apply(p["conv"], conv_in))
+    xs, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
+    dt = F.softplus(dt.to(F32) + p["dt_bias"])             # (B, S, H)
+    A = torch.exp(p["A_log"])                              # (H,) > 0
+    xh = xs.reshape(*xs.shape[:2], H, P)
+    y = ssd_chunked(xh, dt, A, Bm, Cm, chunk=min(128, xs.shape[1]))
+    y = y + p["D"][None, None, :, None] * xh.to(F32)
+    if state_out is not None:
+        state_out.update(state=_ssd_final_state(xh, dt, A, Bm),
+                         conv=conv_tail(conv_in, p["conv"]["w"].shape[0]))
+    return _mamba2_out(p, y.reshape(*xs.shape[:2], di), z, x.dtype)
+
+
+def _ssd_final_state(xh, dt, A, Bm) -> torch.Tensor:
+    """The recurrence's state after the last of S positions, (B, H, P, N)
+    f32, in closed form: sum_s w_s dt_s x_s B_s^T with w_s = exp(-A sum_{k>s}
+    dt_k), the decay from s to the end: ``ssd_chunked``'s chunk-state
+    weight over the whole prompt (:func:`_suffix_sums`)."""
+    w = torch.exp(_suffix_sums(-A[None, None, :] * dt, 1)) * dt   # (B, S, H)
+    wx = xh.to(F32) * w[..., None]                                # (B, S, H, P)
+    return wx.permute(0, 2, 3, 1) @ Bm.to(F32)[:, None]           # (B, H, P, N)
+
+
+def mamba2_decode(p: dict, cache: dict, x_t: torch.Tensor, cfg) -> tuple:
+    """One-token recurrent step, x_t (B, d); cache ``{"state": (B, H, P, N)
+    f32, "conv": (B, width - 1, C)}``.  Returns (out (B, d), the new
+    cache dict); the caller writes it back."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, conv_in, dt = _mamba2_split(p, x_t, cfg)
+    conv_y, new_conv = conv1d_step(p["conv"], cache["conv"], conv_in)
+    xs, Bm, Cm = torch.split(F.silu(conv_y), [di, N, N], dim=-1)
+    dt = F.softplus(dt.to(F32) + p["dt_bias"])             # (B, H)
+    A = torch.exp(p["A_log"])
+    dA = torch.exp(-A[None] * dt)                          # (B, H)
+    xh = xs.reshape(-1, H, P).to(F32)
+    dBx = (dt[:, :, None] * xh)[..., None] * Bm.to(F32)[:, None, None, :]
+    new_state = cache["state"] * dA[..., None, None] + dBx
+    y = (new_state @ Cm.to(F32)[:, None, :, None])[..., 0]  # (B, H, P)
+    y = y + p["D"][None, :, None] * xh
+    out = _mamba2_out(p, y.reshape(-1, di), z, x_t.dtype)
+    return out, {"state": new_state, "conv": new_conv}
+
+
+def mamba2_init_cache(cfg, batch: int, dtype, lead: tuple = (), device=None) -> dict:
+    """Zero ``{"state": (*lead, B, H, P, N) f32, "conv": (*lead, B, width -
+    1, d_inner + 2N) dtype}``."""
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    return {"state": torch.zeros(lead + (batch, H, P, N), dtype=F32, device=device),
+            "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, cfg.d_inner + 2 * N),
+                                dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin)  [arXiv:2402.19427]
+# ---------------------------------------------------------------------------
+
+_RGLRU_C = 8.0
+
+
+def _rglru_coeffs(p: dict, xc: torch.Tensor) -> tuple:
+    """xc (..., d_rnn), the conv's output -> (a, b) of h = a * h_prev + b,
+    f32."""
+    r = torch.sigmoid((xc @ p["w_a"].to(xc.dtype)).to(F32))
+    i = torch.sigmoid((xc @ p["w_x"].to(xc.dtype)).to(F32))
+    log_a = -_RGLRU_C * r * F.softplus(p["lam"])           # <= 0
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) * (i * xc.to(F32))
+    return a, b
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1 from h_{-1} = 0, i.e. the ``h``
+    of ``jax.lax.associative_scan(combine, (a, b), axis=1)`` with combine
+    ((al, bl), (ar, br)) = (al * ar, br + ar * bl), in the same recursion
+    and so the same association order (:func:`_scan`).  About 2 log2(S)
+    levels of a few elementwise ops each; O(S) work."""
+    return _scan(a, b)[1]
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """``jax.lax.associative_scan``'s recursion over axis 1: combine adjacent
+    pairs, scan the half-length result (the odd outputs), then combine those
+    with the even inputs (the even outputs), and interleave."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    # combine(l, r) of each adjacent pair, r the later element
+    ra = a[:, 0:n - 1:2] * a[:, 1::2]
+    rb = b[:, 1::2] + a[:, 1::2] * b[:, 0:n - 1:2]
+    odd_a, odd_b = _scan(ra, rb)
+    k = odd_a.shape[1] - (n % 2 == 0)
+    ev_a = torch.cat([a[:, :1], odd_a[:, :k] * a[:, 2::2]], dim=1)
+    ev_b = torch.cat([b[:, :1], b[:, 2::2] + a[:, 2::2] * odd_b[:, :k]], dim=1)
+    return _interleave(ev_a, odd_a), _interleave(ev_b, odd_b)
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """out[:, 2k] = even[:, k], out[:, 2k + 1] = odd[:, k] (even as long as
+    odd or one longer)."""
+    n_odd = odd.shape[1]
+    pairs = torch.stack([even[:, :n_odd], odd], dim=2).flatten(1, 2)
+    return torch.cat([pairs, even[:, n_odd:]], dim=1) if even.shape[1] > n_odd else pairs
+
+
+def rglru_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None):
+    """The training / prefill path, x (B, S, d) -> (B, S, d): the tanh-GELU
+    gate, the conv, the RG-LRU recurrence over S (:func:`linear_scan`).
+    ``p``: the block's ``rglru`` leaves nested as the reference's
+    (``in_x``, ``in_gate``, ``conv`` {``w``, ``b``}, ``w_a``, ``w_x``,
+    ``lam``, ``out``).  With a dict ``state_out`` the state after the last
+    position lands in it, as the reference's ``_rglru_final_state``
+    computes it: ``h`` (B, d_rnn) f32 and ``conv`` (B, width - 1, d_rnn),
+    the conv's input tail (:func:`conv_tail`)."""
+    gate = F.gelu((x @ p["in_gate"].to(x.dtype)).to(F32), approximate="tanh")
+    xr = x @ p["in_x"].to(x.dtype)
+    a, b = _rglru_coeffs(p, conv1d_apply(p["conv"], xr))   # (B, S, d_rnn)
+    h = linear_scan(a, b)
+    if state_out is not None:
+        state_out.update(h=h[:, -1], conv=conv_tail(xr, p["conv"]["w"].shape[0]))
+    y = (h * gate).to(x.dtype)
+    return y @ p["out"].to(x.dtype)
+
+
+def rglru_decode(p: dict, cache: dict, x_t: torch.Tensor, cfg) -> tuple:
+    """x_t (B, d); cache ``{"h": (B, d_rnn) f32, "conv": (B, width - 1,
+    d_rnn)}``.  Returns (out (B, d), the new cache dict); the caller
+    writes it back."""
+    gate = F.gelu((x_t @ p["in_gate"].to(x_t.dtype)).to(F32), approximate="tanh")
+    xr = x_t @ p["in_x"].to(x_t.dtype)
+    xc, new_conv = conv1d_step(p["conv"], cache["conv"], xr)
+    a, b = _rglru_coeffs(p, xc)                            # (B, d_rnn)
+    new_h = a * cache["h"] + b
+    y = (new_h * gate).to(x_t.dtype)
+    return y @ p["out"].to(x_t.dtype), {"h": new_h, "conv": new_conv}
+
+
+def rglru_init_cache(cfg, batch: int, dtype, lead: tuple = (), device=None) -> dict:
+    """Zero ``{"h": (*lead, B, d_rnn) f32, "conv": (*lead, B, width - 1,
+    d_rnn) dtype}``."""
+    return {"h": torch.zeros(lead + (batch, cfg.d_rnn), dtype=F32, device=device),
+            "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, cfg.d_rnn), dtype=dtype,
+                                device=device)}

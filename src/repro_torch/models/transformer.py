@@ -1,14 +1,17 @@
-"""The reference's sequence model for the ``attn`` / ``swa`` / ``encattn`` /
-``xattn`` mixers with dense or MoE FFNs: the decoder-only LM (nano, GPT-2,
-the dense GQA/MQA archs, Gemma-3's sliding-window pattern, the Granite and
-Llama-4 MoE archs), the encoder-decoder (Whisper's backbone: an
-``encattn:dense`` encoder over frame embeddings, decoder blocks with
-cross-attention) and the VLM (LLaVA's backbone: projected patches before
-the text).  Parameter shapes and dtypes, init, forward over stacked blocks,
-the chunked next-token cross-entropy over the text positions plus the MoE
-aux loss, and serving: the KV cache (a ring of ``window`` slots for a
-``swa`` layer, the encoder's keys and values for an ``xattn`` layer),
-prefill and one-token decode.
+"""The reference's sequence model for every mixer it builds, ``attn`` /
+``swa`` / ``encattn`` / ``xattn`` and the recurrent ``ssm`` (Mamba-2 SSD)
+and ``rglru`` (RG-LRU), with dense, MoE or no FFNs: the decoder-only LM
+(nano, GPT-2, the dense GQA/MQA archs, Gemma-3's sliding-window pattern,
+the Granite and Llama-4 MoE archs, Mamba-2, RecurrentGemma's two RG-LRU
+layers per local-attention layer), the encoder-decoder (Whisper's
+backbone: an ``encattn:dense`` encoder over frame embeddings, decoder
+blocks with cross-attention) and the VLM (LLaVA's backbone: projected
+patches before the text).  Parameter shapes and dtypes, init, forward over
+stacked blocks, the chunked next-token cross-entropy over the text
+positions plus the MoE aux loss, and serving: the cache (keys and values; a
+ring of ``window`` slots for a ``swa`` layer; the encoder's keys and values
+for an ``xattn`` layer; the recurrent state and the conv's last inputs for
+an ``ssm`` or ``rglru`` layer), prefill and one-token decode.
 
 Every entry point takes the reference's batch dict: ``tokens`` (B, S),
 plus ``frames`` (B, enc_len, d_model) for ``encdec`` or ``patches`` (B,
@@ -18,7 +21,8 @@ Parameters are a flat dict ``{path: tensor}`` keyed by the reference's
 pytree paths (``"decoder.blocks.p0.attn.wq"``); stacked blocks keep their
 leading layer axis and may also be given as a list of per-layer tensors.
 ``repro_torch.models.convert`` lays them out in flat buffers, one per
-dtype group: the MoE router is f32 whatever the param dtype, as in the
+dtype group: the MoE router and the recurrences' ``lam``, ``A_log``,
+``D`` and ``dt_bias`` are f32 whatever the param dtype, as in the
 reference.
 """
 
@@ -34,8 +38,9 @@ from repro_torch.models.convert import FlatLayout
 F32 = torch.float32
 MOE_AUX_COEF = 0.01
 CE_CHUNK = 2048
-FAMILIES, FFNS = ("lm", "vlm", "encdec"), ("dense", "moe")
-MIXERS = ("attn", "swa", "xattn")    # a decoder block's; xattn in encdec only
+FAMILIES, FFNS = ("lm", "vlm", "encdec"), ("dense", "moe", "none")
+MIXERS = ("attn", "swa", "xattn", "ssm", "rglru")   # a decoder block's; xattn in encdec only
+RECURRENT = ("ssm", "rglru")
 ENC_PATTERN = ("encattn:dense",)     # the encoder's blocks (reference transformer.py:95)
 
 
@@ -45,14 +50,20 @@ def _parse_kind(kind: str) -> tuple[str, str]:
 
 
 def check_supported(cfg) -> None:
-    mixers = MIXERS if cfg.family == "encdec" else MIXERS[:2]
-    bad = [k for k in cfg.pattern
-           if _parse_kind(k)[0] not in mixers or _parse_kind(k)[1] not in FFNS]
-    if cfg.family not in FAMILIES or bad:
+    """An unknown family, mixer or FFN raises ``ValueError``, as the
+    reference's ``_init_block`` does for a mixer or FFN.  An ``xattn`` block
+    outside an ``encdec`` model has no encoder to attend to: the reference
+    fails there in its forward; the port refuses it."""
+    unknown = [k for k in cfg.pattern
+               if _parse_kind(k)[0] not in MIXERS or _parse_kind(k)[1] not in FFNS]
+    if cfg.family not in FAMILIES or unknown:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} or block kinds "
+                         f"{unknown}; the reference builds families {FAMILIES} with "
+                         f"mixers {MIXERS} and FFNs {FFNS}")
+    if cfg.family != "encdec" and any(_parse_kind(k)[0] == "xattn" for k in cfg.pattern):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs families {FAMILIES} with decoder mixers {MIXERS} "
-            f"(xattn in encdec only; the encoder's encattn) and FFNs {FFNS}; family "
-            f"{cfg.family!r} / block kinds {bad} are not ported yet (ROADMAP.md)")
+            f"{cfg.name}: an xattn block needs the encdec family's encoder; a "
+            f"{cfg.family!r} model with one is not built (ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -95,19 +106,61 @@ def _norm_spec(cfg, lead: tuple) -> dict:
     return {"scale": (lead + (cfg.d_model,), "ones", cfg.p_dtype)}
 
 
+def _mamba2_spec(cfg, lead: tuple) -> dict:
+    """The reference's ``layers.init_mamba2`` leaves: the in-projection to
+    [z, x, B, C, dt], the conv over the (x, B, C) streams, the f32 decay
+    ``A_log`` = log(linspace(1, 16, H)), skip ``D`` = 1 and ``dt_bias`` =
+    0, the gated norm and the out-projection."""
+    d, di, N, H, pd = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.p_dtype
+    return {"in_proj": _dense(lead + (d, 2 * di + 2 * N + H), pd),
+            "conv": _conv_spec(cfg, lead, di + 2 * N),
+            "A_log": (lead + (H,), "a_log", F32), "D": (lead + (H,), "ones", F32),
+            "dt_bias": (lead + (H,), "zeros", F32),
+            "norm": {"scale": (lead + (di,), "ones", pd)},
+            "out_proj": _dense(lead + (di, d), pd)}
+
+
+def _rglru_spec(cfg, lead: tuple) -> dict:
+    """The reference's ``layers.init_rglru`` leaves: the input and gate
+    projections, the conv, the recurrence and input gates ``w_a`` /
+    ``w_x``, the f32 ``lam`` = 2.2 and the out-projection."""
+    d, dr, pd = cfg.d_model, cfg.d_rnn, cfg.p_dtype
+    return {"in_x": _dense(lead + (d, dr), pd), "in_gate": _dense(lead + (d, dr), pd),
+            "conv": _conv_spec(cfg, lead, dr), "w_a": _dense(lead + (dr, dr), pd),
+            "w_x": _dense(lead + (dr, dr), pd), "lam": (lead + (dr,), "lam", F32),
+            "out": _dense(lead + (dr, d), pd)}
+
+
+def _conv_spec(cfg, lead: tuple, channels: int) -> dict:
+    """``layers.init_conv1d``: ``w`` (width, channels) with std
+    1/sqrt(width) (the reference's explicit scale), ``b`` zeros."""
+    w = cfg.conv_width
+    return {"w": _dense(lead + (w, channels), cfg.p_dtype, std=1.0 / math.sqrt(w)),
+            "b": (lead + (channels,), "zeros", cfg.p_dtype)}
+
+
 def _block_spec(cfg, kind: str, lead: tuple) -> dict:
-    """One block's leaves as (shape, init, dtype) with init "ones" or a normal
-    std; an ``xattn`` block adds its cross-attention ``xattn`` and norm
-    ``lnx``."""
+    """One block's leaves as (shape, init, dtype) with init a normal std or
+    one of the deterministic fills of ``FILLS``: the first norm ``ln1``, the
+    mixer's leaves under ``attn`` (an ``xattn`` block adds its
+    cross-attention ``xattn`` and norm ``lnx``), ``ssm`` or ``rglru``, then
+    the FFN's ``ln2`` and ``mlp`` or ``moe`` (nothing for ``none``)."""
     mixer, ffn = _parse_kind(kind)
-    s = {"ln1": _norm_spec(cfg, lead), "attn": _attn_spec(cfg, lead),
-         "ln2": _norm_spec(cfg, lead)}
+    s = {"ln1": _norm_spec(cfg, lead)}
+    if mixer == "ssm":
+        s["ssm"] = _mamba2_spec(cfg, lead)
+    elif mixer == "rglru":
+        s["rglru"] = _rglru_spec(cfg, lead)
+    else:
+        s["attn"] = _attn_spec(cfg, lead)
     if mixer == "xattn":
         s["xattn"] = _attn_spec(cfg, lead)
         s["lnx"] = _norm_spec(cfg, lead)
+    if ffn != "none":
+        s["ln2"] = _norm_spec(cfg, lead)
     if ffn == "moe":
         s["moe"] = _moe_spec(cfg, lead)
-    else:
+    elif ffn == "dense":
         s["mlp"] = _mlp_spec(cfg, lead, cfg.d_ff)
     return s
 
@@ -141,8 +194,9 @@ def param_spec(cfg) -> dict:
 
 
 def layout(cfg) -> FlatLayout:
-    """The flat layout: the ``cfg.p_dtype`` group first, then f32 (the MoE
-    routers of a bf16 model); one group when every leaf shares a dtype."""
+    """The flat layout: the ``cfg.p_dtype`` group first, then f32 (a bf16
+    model's MoE routers, ``lam``, ``A_log``, ``D`` and ``dt_bias``); one
+    group when every leaf shares a dtype."""
     return FlatLayout.from_tree(param_spec(cfg), is_leaf=_is_spec_leaf,
                                 dtype_of=lambda leaf: leaf[2], first=cfg.p_dtype)
 
@@ -151,18 +205,30 @@ def _is_spec_leaf(x) -> bool:
     return isinstance(x, tuple) and len(x) == 3 and isinstance(x[0], tuple)
 
 
+# the deterministic inits (f32 values of a leaf's shape): the last axis of
+# a stacked leaf is the layer's
+FILLS = {
+    "ones": torch.ones,
+    "zeros": torch.zeros,
+    "lam": lambda shape: torch.full(shape, 2.2),
+    "a_log": lambda shape: torch.log(torch.linspace(1.0, 16.0, shape[-1])).expand(shape),
+}
+
+
 def init_params(gen: torch.Generator, cfg, device=None):
     """Flat ``(N,)`` buffers on ``device``, each leaf in its reference dtype
     (one tensor, or the :class:`~repro_torch.groups.Groups` of a
     mixed-dtype model): normal draws (std 1/sqrt(fan_in), 0.02 for the
-    embedding and the router) from ``gen``, ones for the norm scales — the
-    reference's distributions, not its random numbers."""
+    embedding and the router, 1/sqrt(width) for a conv) from ``gen``, and
+    the reference's fixed values (``FILLS``) for the norm scales, the conv
+    biases and the recurrences' ``A_log``, ``D``, ``dt_bias`` and ``lam`` —
+    the reference's distributions, not its random numbers."""
     lay = layout(cfg)
     flat = lay.empty(device=device)
     views = lay.views(flat)
     for name, (shape, init, _) in zip(lay.names, lay.leaves):
-        if init == "ones":
-            views[name].fill_(1.0)
+        if isinstance(init, str):
+            views[name].copy_(FILLS[init](shape))
         else:
             w = torch.randn(shape, generator=gen, dtype=F32, device=gen.device) * init
             views[name].copy_(w)
@@ -177,14 +243,20 @@ def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
     """One block of ``kind``; ``p(name)`` returns the block's leaf.  Returns
     (x, the MoE aux loss or None).  ``encattn`` attends bidirectionally;
     ``xattn`` attends causally, then its queries attend over ``enc_out``
-    (B, enc_len, d), the encoder's output.  With a dict ``kv_out`` the
-    block's keys (after RoPE) and values land in it as ``k`` / ``v`` (B,
-    S', KVH, hd), the prefill's cache entry: every position, or a ``swa``
-    layer's last ``min(window, S)``; an ``xattn`` block adds the
-    cross-attention's ``kx`` / ``vx`` (B, enc_len, KVH, hd)."""
+    (B, enc_len, d), the encoder's output; ``ssm`` and ``rglru`` run their
+    recurrences over the sequence.  With a dict ``kv_out`` the block's cache
+    entry from the prefill lands in it: the keys (after RoPE) and values as
+    ``k`` / ``v`` (B, S', KVH, hd), every position or a ``swa`` layer's last
+    ``min(window, S)``; an ``xattn`` block adds the cross-attention's ``kx``
+    / ``vx`` (B, enc_len, KVH, hd); a recurrent block its state after the
+    last position (``layers.mamba2_apply`` / ``rglru_apply``)."""
     mixer, ffn = _parse_kind(kind)
-    window = cfg.window if mixer == "swa" else None
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
+    if mixer in RECURRENT:
+        apply = L.mamba2_apply if mixer == "ssm" else L.rglru_apply
+        x = x + apply(_mixer_params(p, mixer, cfg), h, cfg, state_out=kv_out)
+        return _ffn_residual(p, ffn, x, cfg)
+    window = cfg.window if mixer == "swa" else None
     q, k, v = L.attn_qkv(p("attn.wq"), p("attn.wk"), p("attn.wv"), h, positions, cfg)
     if kv_out is not None:
         w = k.shape[1] if window is None else min(window, k.shape[1])
@@ -200,6 +272,15 @@ def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
             kv_out.update(kx=kx, vx=vx)
         x = _cross_residual(p, x, kx, vx, cfg)
     return _ffn_residual(p, ffn, x, cfg)
+
+
+def _mixer_params(p, mixer: str, cfg) -> dict:
+    """A recurrent block's ``ssm`` / ``rglru`` leaves nested as the
+    reference's tree (``{"conv": {"w", "b"}, ...}``: the mixer's spec, one
+    level deep), the form of ``layers.mamba2_apply`` / ``rglru_apply``."""
+    spec = (_mamba2_spec if mixer == "ssm" else _rglru_spec)(cfg, ())
+    return {k: {n: p(f"{mixer}.{k}.{n}") for n in v} if isinstance(v, dict)
+            else p(f"{mixer}.{k}") for k, v in spec.items()}
 
 
 def _cross_kv(p, enc_out, cfg) -> tuple:
@@ -233,7 +314,10 @@ def _moe_params(p, cfg) -> dict:
 
 
 def _ffn_residual(p, ffn: str, x, cfg):
-    """x + the block's FFN of its second norm; returns (x, aux or None)."""
+    """x + the block's FFN of its second norm (x itself for ``none``);
+    returns (x, aux or None)."""
+    if ffn == "none":
+        return x, None
     h = L.rmsnorm(p("ln2.scale"), x, cfg.norm_eps)
     if ffn == "moe":
         out, aux = L.moe_apply(_moe_params(p, cfg), h, cfg)
@@ -352,9 +436,8 @@ def loss_fn(params: dict, batch: dict, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Serving: KV cache, prefill, one-token decode (the reference's
-# transformer.init_cache / prefill / decode_step for the attn, swa and xattn
-# mixers)
+# Serving: the cache, prefill, one-token decode (the reference's
+# transformer.init_cache / prefill / decode_step)
 # ---------------------------------------------------------------------------
 
 def _cache_len(kind: str, cfg, max_len: int) -> int:
@@ -364,20 +447,28 @@ def _cache_len(kind: str, cfg, max_len: int) -> int:
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> dict:
-    """Zero KV cache with the reference's structure: ``{"blocks": {"p<j>":
-    {"k", "v"}}, "rem": ({"k", "v"}, ...)}``, stacked leaves (n_scan_blocks,
-    batch, L, KVH, hd), remainder leaves (batch, L, KVH, hd), with L =
-    ``max_len`` or a ``swa`` layer's ``min(window, max_len)``, in ``dtype``
-    (default the activation dtype).  An ``xattn`` layer's entry adds the
-    encoder's keys and values ``kx`` / ``vx`` (..., batch, enc_len, KVH,
-    hd)."""
+    """Zero cache with the reference's structure: ``{"blocks": {"p<j>":
+    entry}, "rem": (entry, ...)}``, stacked leaves with a leading
+    (n_scan_blocks,) axis, in ``dtype`` (default the activation dtype)
+    unless named.  An attention layer's entry is ``{"k", "v"}`` (batch, L,
+    KVH, hd), with L = ``max_len`` or a ``swa`` layer's ``min(window,
+    max_len)``; an ``xattn`` layer's adds the encoder's keys and values
+    ``kx`` / ``vx`` (batch, enc_len, KVH, hd); an ``ssm`` layer's is
+    ``{"state": (batch, H, P, N) f32, "conv": (batch, width - 1, d_inner +
+    2N)}``, an ``rglru`` layer's ``{"h": (batch, d_rnn) f32, "conv":
+    (batch, width - 1, d_rnn)}``."""
     check_supported(cfg)
     dtype = dtype or cfg.act_dtype
 
     def entry(kind, lead=()):
+        mixer = _parse_kind(kind)[0]
+        if mixer == "ssm":
+            return L.mamba2_init_cache(cfg, batch, dtype, lead, device)
+        if mixer == "rglru":
+            return L.rglru_init_cache(cfg, batch, dtype, lead, device)
         n = _cache_len(kind, cfg, max_len)
         lens = {"k": n, "v": n}
-        if _parse_kind(kind)[0] == "xattn":
+        if mixer == "xattn":
             lens.update(kx=cfg.enc_len, vx=cfg.enc_len)
         return {name: torch.zeros(lead + (batch, n, cfg.n_kv_heads, cfg.hd), dtype=dtype,
                                   device=device)
@@ -390,7 +481,9 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> dict:
 
 
 def _cache_entry(cache: dict, where) -> dict:
-    """One layer's ``{"k", "v"[, "kx", "vx"]}`` views into the cache."""
+    """One layer's entry of views into the cache (``{"k", "v"[, "kx",
+    "vx"]}``, ``{"state", "conv"}`` or ``{"h", "conv"}``): a new dict, so a
+    layer updates its entry by writing into these views."""
     kind, key, i = where
     if kind == "blocks":
         return {name: leaf[i] for name, leaf in cache["blocks"][key].items()}
@@ -403,7 +496,9 @@ def prefill(params: dict, batch: dict, cfg):
     (last position's f32 logits (B, padded vocab), a cache holding every
     layer's keys and values: all n_prefix + S positions, a ``swa`` layer's
     last ``min(window, n_prefix + S)`` in position order, an ``xattn``
-    layer's ``kx`` / ``vx`` of the encoder output, collected once)."""
+    layer's ``kx`` / ``vx`` of the encoder output, collected once; a
+    recurrent layer's state after the prompt, computed from the block's
+    own forward: :func:`_mamba2_final_state`, :func:`_rglru_final_state`)."""
     check_supported(cfg)
     x, enc_out, _ = _inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -431,9 +526,17 @@ def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg):
     ``<= pos``; a ``swa`` layer's ring of w slots holds position p at slot
     ``p % w``, and slot i holds the latest position ``i + w * floor((pos -
     i) / w)``, valid when that is ``>= 0`` (the reference's mask).  An
-    ``xattn`` layer then attends over its cached ``kx`` / ``vx``."""
+    ``xattn`` layer then attends over its cached ``kx`` / ``vx``.  A
+    recurrent layer steps its state (``layers.mamba2_decode`` /
+    ``rglru_decode``) and copies the new one into its entry's views."""
     mixer, ffn = _parse_kind(kind)
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
+    if mixer in RECURRENT:
+        step = L.mamba2_decode if mixer == "ssm" else L.rglru_decode
+        out, new = step(_mixer_params(p, mixer, cfg), entry, h[:, 0], cfg)
+        for name, value in new.items():
+            entry[name].copy_(value)
+        return _ffn_residual(p, ffn, x + out[:, None], cfg)[0]
     positions = torch.arange(pos, pos + 1, device=x.device)
     q, k, v = L.attn_qkv(p("attn.wq"), p("attn.wk"), p("attn.wv"), h, positions, cfg)
     n_slots = entry["k"].shape[1]
@@ -456,12 +559,35 @@ def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg):
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg):
     """tokens: (B,) ids; pos: the Python int position they take.  Returns
     (f32 logits (B, padded vocab), cache).  Unlike the reference, which
-    returns a new cache, the keys and values are written into ``cache`` in
-    place and the same dict is returned; nothing is read back to the host
-    but a MoE layer's group sizes (``layers.moe_apply``)."""
+    returns a new cache, the keys, values and recurrent states are written
+    into ``cache`` in place and the same dict is returned; nothing is read
+    back to the host but a MoE layer's group sizes (``layers.moe_apply``)."""
     check_supported(cfg)
     x = _embed(params, tokens[:, None], cfg)
     for where, kind, p in _layers(params, cfg):
         x = _decode_block(p, kind, _cache_entry(cache, where), x, pos, cfg)
     h = L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps)
     return _logits(params, h, cfg)[:, 0], cache
+
+
+def _mamba2_final_state(p: dict, h: torch.Tensor, cfg) -> dict:
+    """The reference's ``_mamba2_final_state``: the cache entry of an
+    ``ssm`` block after a prompt, from its ``ssm`` leaves ``p`` (nested as
+    the reference's) and its normed input h (B, S, d): ``{"state": (B, H,
+    P, N) f32, "conv": (B, width - 1, d_inner + 2N)}``.  The state comes
+    in closed form (``layers._ssd_final_state``) where the reference scans
+    every position; the conv tail is zero-padded on the left for a prompt
+    shorter than width - 1."""
+    out: dict = {}
+    L.mamba2_apply(p, h, cfg, state_out=out)
+    return out
+
+
+def _rglru_final_state(p: dict, h: torch.Tensor, cfg) -> dict:
+    """The reference's ``_rglru_final_state``: ``{"h": (B, d_rnn) f32,
+    "conv": (B, width - 1, d_rnn)}`` of an ``rglru`` block after a prompt,
+    from its ``rglru`` leaves and normed input h (B, S, d); the conv tail
+    zero-padded as in :func:`_mamba2_final_state`."""
+    out: dict = {}
+    L.rglru_apply(p, h, cfg, state_out=out)
+    return out

@@ -1,14 +1,21 @@
 """Batched serving: prefill a prompt batch, then autoregressive decode.
 
-The reference's ``train/serve.py`` for the ``attn``, ``swa`` and ``xattn``
-mixers, with the encdec model's frames or the VLM's patches in
-``extra_batch``.  Prefill builds a cache of the prefilled length, ``n_prefix
-+ S`` (the VLM's patches, then the prompt; a ``swa`` layer's last
-``window`` positions), which is spliced into a zero cache of ``n_prefix + S
-+ max_new_tokens`` positions (a ring of ``window`` slots for ``swa``); an
-``xattn`` layer's encoder keys and values ``kx`` / ``vx`` copy through.
-Each decode step then writes one slot in place, at position ``n_prefix + S
-+ i``.  The decode loop reads nothing back to the host but each MoE layer's
+The reference's ``train/serve.py`` for every mixer, with the encdec model's
+frames or the VLM's patches in ``extra_batch``.  Prefill builds a cache of
+the prefilled length, ``n_prefix + S`` (the VLM's patches, then the prompt;
+a ``swa`` layer's last ``window`` positions), which is spliced into a zero
+cache of ``n_prefix + S + max_new_tokens`` positions (a ring of ``window``
+slots for ``swa``); an ``xattn`` layer's encoder keys and values ``kx`` /
+``vx`` and a recurrent layer's state (``ssm``: the SSD state and the conv's
+last inputs; ``rglru``: h and the conv's last inputs) copy through.  Each
+decode step then writes one slot in place, at position ``n_prefix + S +
+i``, and steps each recurrent state in place.
+
+The reference's recurrent prefill keeps only the S conv inputs of a prompt
+shorter than the conv's width - 1 (3), and its decode then raises on the
+short window; the port left-pads them with zeros, the state its causal
+conv implies.  A Mamba-2 prompt longer than 128 tokens must be a multiple
+of 128 in both packages (the SSD's chunk).  The decode loop reads nothing back to the host but each MoE layer's
 group sizes: positions are Python ints and the tokens stay on the device
 until the end.
 
@@ -123,13 +130,16 @@ def _splice_cache(big: dict, small: dict, cfg, prompt_len: int) -> dict:
     at the end of its sequence axis; a ``swa`` leaf is a ring (position p
     at slot ``p % w_big``) that prefill gave its last ``w_small`` positions
     in order, so it is padded and then rolled by ``(prompt_len - w_small) %
-    w_big``; the cross-attention's ``kx`` / ``vx`` copy through.
+    w_big``; the cross-attention's ``kx`` / ``vx`` and the recurrent states
+    copy through.
     ``prompt_len`` is the prefilled length (a VLM's patches included)."""
     T.check_supported(cfg)
 
     def splice_leaf(kind, name, big_leaf, small_leaf):
-        ring = kind.split(":")[0] == "swa"
-        if name in ("kx", "vx") or (big_leaf.shape == small_leaf.shape and not ring):
+        mixer = kind.split(":")[0]
+        ring = mixer == "swa"
+        if (mixer in T.RECURRENT or name in ("kx", "vx")
+                or (big_leaf.shape == small_leaf.shape and not ring)):
             return small_leaf.to(big_leaf.dtype)
         ax = big_leaf.dim() - 3  # seq axis of (..., S, kvh, hd)
         w_big, w_small = big_leaf.shape[ax], small_leaf.shape[ax]

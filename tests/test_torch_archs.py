@@ -9,9 +9,11 @@ minitron_4b (GQA, gated SiLU, untied SMOKE head), gemma3_1b (sliding-window
 and global attention, MQA, gated GELU), granite_moe_3b_a800m (4 experts top
 2), llama4_maverick_400b_a17b (dense and MoE blocks alternating, top 1
 with a shared expert, SGD local steps), whisper_large_v3 (an encoder over
-frame embeddings, cross-attention in every decoder block) and
+frame embeddings, cross-attention in every decoder block),
 llava_next_34b (GQA 8/2, projected patches before the text, the loss on
-the text positions), all f32, from the reference's ``init_params`` through
+the text positions), mamba2_780m (Mamba-2 SSD blocks without an FFN) and
+recurrentgemma_2b (an RG-LRU and a sliding-window block, gated GELU), all
+f32, from the reference's ``init_params`` through
 ``convert.from_jax_numpy``, on the reference's batch dicts (the
 reference's ``_smoke_batch`` shapes: frames (enc_len, d_model) beside the
 tokens, or n_patches patches before S - n_patches tokens):
@@ -57,12 +59,16 @@ tokens, or n_patches patches before S - n_patches tokens):
 For granite_moe_3b_a800m SMOKE with bf16 parameters, the routers stay f32
 (two dtype groups, every leaf's dtype the reference's), and one DSM outer
 step from the same params holds within bounds stated in its test.  Every
-ported arch's layout has the reference's leaves, dtypes and order, and a
-model whose leaves share one dtype has one group.
+arch's layout has the reference's leaves, dtypes and order, one group per
+dtype (a bf16 model's f32 routers, ``lam``, ``A_log``, ``D`` and
+``dt_bias`` in the second), and a model whose leaves share one dtype has
+one group.
 
-Every other arch id's family or block kind is not ported: building its
-layout raises ``NotImplementedError`` naming ROADMAP.md.
+Every arch id of the reference is ported; a block kind that the reference
+does not build either raises ``ValueError`` in both packages.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -88,12 +94,11 @@ from repro_torch.train import trainer as TR
 
 DENSE = ("gpt2_medium", "gpt2_large", "deepseek_67b", "granite_34b", "minitron_4b")
 PORTED = DENSE + ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b",
-                  "llava_next_34b", "whisper_large_v3")
+                  "llava_next_34b", "whisper_large_v3", "mamba2_780m", "recurrentgemma_2b")
 # the end-to-end DSM comparison: gemma3, granite_moe, llava and whisper
 # leave it (see the module docstring) for the step on the reference's
 # gradients
-END_TO_END = DENSE + ("llama4_maverick_400b_a17b",)
-UNPORTED = tuple(a for a in ARCH_IDS if a not in PORTED)
+END_TO_END = DENSE + ("llama4_maverick_400b_a17b", "mamba2_780m", "recurrentgemma_2b")
 W, TAU, BM, SEQ = 2, 2, 2, 32
 GAMMA, ETA = 1e-3, 0.5
 
@@ -277,22 +282,26 @@ def test_smoke_dsm_outer_step_on_reference_gradients(arch):
     _assert_step_close(state, m, jstate, jm, flat, lay)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_not_implemented(arch):
-    mod = load_arch(arch)
-    for cfg in (mod.SMOKE, mod.FULL):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            T.layout(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            specs.param_count(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.init_params(torch.Generator().manual_seed(0), mod.SMOKE)
+@pytest.mark.parametrize("part", ["mixer", "ffn"])
+def test_unported_families_raise_not_implemented(part):
+    """Every arch id of the reference is ported; a block kind that the
+    reference does not build either, an unknown mixer or FFN, raises
+    ``ValueError`` in both packages (the reference's ``_init_block``), from
+    the port's layout, parameter count and init alike."""
+    assert set(ARCH_IDS) <= set(PORTED)
+    kind = "lstm:dense" if part == "mixer" else "attn:glu"
+    jcfg = dataclasses.replace(j_load_arch("gpt2_small").SMOKE, pattern=(kind,))
+    with pytest.raises(ValueError, match=f"unknown {part}"):
+        JT.init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = dataclasses.replace(load_arch("gpt2_small").SMOKE, pattern=(kind,))
+    for build in (T.layout, specs.param_count,
+                  lambda c: T.init_params(torch.Generator().manual_seed(0), c)):
+        with pytest.raises(ValueError, match=f"unknown family 'lm' or block kinds \\['{kind}'\\]"):
+            build(cfg)
 
 
 def _mixed_dtype_granite():
     """granite_moe SMOKE with bf16 parameters (activations f32)."""
-    import dataclasses
-
     from repro.configs.granite_moe_3b_a800m import SMOKE as J_SMOKE
 
     kw = dict(param_dtype="bfloat16", name="granite_moe_smoke_bf16_params")
@@ -306,8 +315,9 @@ def test_layout_has_the_reference_leaves_and_dtypes(arch, size):
     """Names, shapes and dtypes of every leaf equal the reference's
     ``init_params`` (by ``jax.eval_shape``: nothing allocated); the layout
     lists the param dtype's group first, each group in ``jax.tree.leaves``
-    order, at contiguous offsets; one group when the leaves share a dtype,
-    and then exactly the order of ``jax.tree.leaves``."""
+    order, at contiguous offsets; one group per dtype, so one when the
+    leaves share a dtype, and then exactly the order of
+    ``jax.tree.leaves``."""
     jcfg, cfg = getattr(j_load_arch(arch), size), getattr(load_arch(arch), size)
     shapes = jax.eval_shape(lambda: JT.init_params(jax.random.PRNGKey(0), jcfg))
     ref = convert.flatten_tree(shapes, is_leaf=lambda x: hasattr(x, "shape"))
@@ -327,7 +337,7 @@ def test_layout_has_the_reference_leaves_and_dtypes(arch, size):
     assert lay.numel == sum(sizes) == specs.param_count(cfg)
     if len(set(ref_dtypes.values())) == 1:
         assert lay.n_groups == 1 and list(lay.names) == [k for k, _ in ref]
-    assert (lay.n_groups == 2) == ("moe" in "".join(cfg.pattern) and cfg.param_dtype != "float32")
+    assert lay.n_groups == len(set(ref_dtypes.values()))
 
 
 def test_bf16_granite_moe_keeps_routers_f32_and_steps_like_the_reference():

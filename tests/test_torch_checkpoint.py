@@ -1,8 +1,9 @@
 """The port's checkpoints against the JAX package's (``repro.checkpoint``):
 the same npz + json format both ways, atomic rotated saves, dtype- and
-shape-checked restores, bit-exact resume of ``run_training``, and a
+shape-checked restores, bit-exact resume of ``run_training``, a
 checkpoint of the reference's ``run_training`` carried into the port and
-stepped on, on the CPU."""
+stepped on, and the recurrent models' states (their f32 leaves beside bf16
+ones) read by both packages, on the CPU."""
 
 import dataclasses
 import json
@@ -16,6 +17,7 @@ import torch
 
 from benchmarks.tables import NANO as J_NANO
 from repro.checkpoint import checkpoint as JCK
+from repro.configs import load_arch as j_load_arch
 from repro.core import base_opt as JB
 from repro.core import dsm as JD
 from repro.core import schedules as JS
@@ -410,3 +412,47 @@ def test_mixed_dtype_kill_and_resume_is_bit_exact(tmp_path, kw):
     assert {t.dtype for t in tensors if t.is_floating_point()} >= {torch.bfloat16, torch.float32}
     for a, b in zip(tensors, G.state_tensors(ref["state"])):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch,f32_leaves", [("mamba2_780m", {"A_log", "D", "dt_bias"}),
+                                             ("recurrentgemma_2b", {"lam"})])
+def test_recurrent_state_roundtrips_in_both_packages(tmp_path, arch, f32_leaves):
+    """A recurrent SMOKE with bf16 parameters (its f32 leaves in a second
+    dtype group) after one DSM outer step: the port's checkpoint holds those
+    leaves of params and x0 as float32 and every other param leaf as bf16;
+    the port restores it into a fresh state bit-equal in every buffer, and
+    the reference's ``checkpoint.restore`` reads it into its own DSMState,
+    every leaf bit for bit."""
+    kw = dict(param_dtype="bfloat16", name=f"{arch}_smoke_bf16_params")
+    jcfg = dataclasses.replace(j_load_arch(arch).SMOKE, **kw)
+    cfg = dataclasses.replace(load_arch(arch).SMOKE, **kw)
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    x0 = each(lambda t: t[0], convert.from_jax_numpy(jax.tree.map(np.asarray, jp), cfg, 1))
+    lay, base = T.layout(cfg), B.adamw()
+    assert lay.n_groups == 2
+    step = D.make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg), base, D.DSMConfig(tau=2),
+                           S.constant(1e-3), lay)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                                (2, 2, 1, 1, 16)))
+    state, _ = step(D.dsm_init(x0, base, 2), {"tokens": tokens})
+    path = str(tmp_path / arch)
+    CK.save(path, convert.state_to_tree(state, cfg), step=1)
+    with open(path + ".json") as f:
+        for key, tag in json.load(f)["keys"]:
+            field, leaf = key.split("/", 1)[0], key.rsplit("/", 1)[-1]
+            want = ("int32" if field in ("t", "inner") else "float32"
+                    if field in ("m", "base_state") or leaf in f32_leaves else "__bf16__")
+            assert tag == want, key
+    fresh = D.dsm_init(each(torch.zeros_like, x0), base, 2)
+    tree, _ = CK.restore(path, convert.state_to_tree(fresh, cfg))
+    convert.load_state_tree(fresh, tree, cfg)
+    for a, b in zip(G.state_tensors(fresh), G.state_tensors(state)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    jstate, _ = JCK.restore(path, JD.dsm_init(jp, JB.adamw(), n_workers=2))
+    for field in ("x0", "m"):
+        ours = lay.views(getattr(state, field))
+        for name, leaf in convert.flatten_tree(jax.tree.map(np.asarray, getattr(jstate, field)),
+                                               is_leaf=lambda x: isinstance(x, np.ndarray)):
+            assert str(ours[name].dtype).removeprefix("torch.") == str(leaf.dtype), name
+            np.testing.assert_array_equal(ours[name].float().numpy(), leaf.astype(np.float32),
+                                          err_msg=f"{field} {name}")

@@ -1,9 +1,9 @@
 """The port's arch registry against the JAX package's: every arch module's
 FULL / SMOKE / TOPO (and PEAK_LR) field for field, the input shapes and arch
-ids, the parameter counts of the ported archs (dense, sliding-window and
-MoE), the launcher's resolution of every id, its training of the
-sliding-window and MoE SMOKE configs and its refusal of a training state
-past the device's memory, and ``get_schedule``.  Dtypes are compared by name
+ids, the parameter counts of the archs (dense, sliding-window, MoE and
+recurrent), the launcher's resolution of every id, its training of the
+sliding-window, MoE and recurrent SMOKE configs and its refusal of a
+training state past the device's memory, and ``get_schedule``.  Dtypes are compared by name
 (the port's properties return torch dtypes, the reference's numpy ones)."""
 
 import dataclasses
@@ -25,11 +25,13 @@ from repro_torch import core
 from repro_torch.configs import specs
 from repro_torch.core import schedules as S
 from repro_torch.launch import train as launch
+from repro_torch.models import transformer as T
 
 ALL_IDS = J_ARCH_IDS + J_PAPER_ARCH_IDS
 DENSE_FULL = ("gpt2_small", "gpt2_medium", "gpt2_large", "deepseek_67b", "granite_34b",
               "minitron_4b")
 NEW_FULL = ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b")
+RECURRENT = ("mamba2_780m", "recurrentgemma_2b")
 PROPERTIES = ("hd", "padded_vocab", "d_inner", "ssm_heads", "d_rnn", "n_scan_blocks",
               "n_rem_layers")
 
@@ -63,7 +65,7 @@ def test_arch_module_matches_reference(arch):
             theirs.FULL, theirs.TOPO, shape)
 
 
-@pytest.mark.parametrize("arch", DENSE_FULL + NEW_FULL)
+@pytest.mark.parametrize("arch", DENSE_FULL + NEW_FULL + RECURRENT)
 def test_param_count_matches_reference(arch):
     cfg = C.load_arch(arch).FULL
     assert specs.param_count(cfg) == JSPECS.param_count(j_load_arch(arch).FULL)
@@ -112,6 +114,38 @@ def test_launcher_trains_the_window_and_moe_smokes(arch, capsys):
                        "--n-workers", "2", "--seq", "32", "--b-micro", "1"])
     assert np.isfinite(res["final_eval"]) and len(res["history"]) == 2
     assert "final eval loss:" in capsys.readouterr().out
+
+
+def test_recurrent_full_param_counts():
+    """Both recurrent archs at full size, the reference's counts; a bf16
+    model's f32 leaves (``lam``; ``A_log``, ``D``, ``dt_bias``) in a second
+    dtype group."""
+    rg, mamba = C.load_arch("recurrentgemma_2b").FULL, C.load_arch("mamba2_780m").FULL
+    assert specs.param_count(rg) == 2_894_481_920
+    assert specs.param_count(mamba) == 780_775_680
+    assert T.layout(rg).group_numels == (2_894_481_920 - 18 * 2560, 18 * 2560)
+    assert T.layout(mamba).group_numels == (780_775_680 - 48 * 3 * 48, 48 * 3 * 48)
+
+
+@pytest.mark.parametrize("arch", [f"{a}_smoke" for a in RECURRENT])
+def test_launcher_trains_the_recurrent_smokes(arch, capsys):
+    """``--arch <id>_smoke`` of Mamba-2 and RecurrentGemma trains on the CPU
+    (DSM, AdamW): a finite final eval, printed."""
+    res = launch.main(["--device", "cpu", "--arch", arch, "--steps", "2", "--tau", "2",
+                       "--n-workers", "2", "--seq", "32", "--b-micro", "1"])
+    assert np.isfinite(res["final_eval"]) and len(res["history"]) == 2
+    assert "final eval loss:" in capsys.readouterr().out
+
+
+def test_launcher_refuses_recurrentgemma_full_on_one_card(monkeypatch):
+    """recurrentgemma_2b FULL (2,894,481,920 parameters, 156 GB of state at
+    the launcher's W=4) is refused on one 80 GB card; the count includes its
+    f32 group."""
+    monkeypatch.setattr(launch, "device_bytes", lambda device: 80 * 10 ** 9)
+    assert launch.state_bytes(C.load_arch("recurrentgemma_2b").FULL, 4) == (
+        (2_894_481_920 - 46_080) * (4 * (2 * 2 + 8) + 2 + 4) + 46_080 * (4 * (2 * 4 + 8) + 8))
+    with pytest.raises(SystemExit, match="2,894,481,920 parameters need 156.3 GB"):
+        launch.main(["--device", "cpu", "--arch", "recurrentgemma_2b", "--steps", "1"])
 
 
 def test_launcher_refuses_a_state_past_the_device():

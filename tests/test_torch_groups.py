@@ -11,7 +11,8 @@ per dtype, through every algorithm and base optimizer of the dense path.
   routers f32) trains with every algorithm and base optimizer, and with
   DSM under faults and guards, through ``run_training`` on the CPU: finite
   losses, every group in its dtype, x0 moved.  The ZeRO-sharded and
-  device-parallel ranks raise ``NotImplementedError`` for it.
+  device-parallel ranks raise ``NotImplementedError`` for it, and for
+  recurrentgemma SMOKE with bf16 parameters (its ``lam`` f32).
 """
 
 import dataclasses
@@ -151,6 +152,18 @@ def test_mixed_dtype_model_refuses_the_ranks(flag):
     s = TR.TrainSettings(n_workers=W, tau=TAU, steps=1, b_micro=BM, seq=SEQ, **{flag: True})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TR.run_training(MIXED, s, device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["zero_sharded", "device_parallel_local"])
+def test_mixed_dtype_recurrent_model_refuses_the_ranks(flag):
+    """recurrentgemma SMOKE with bf16 parameters (its ``lam`` f32: two
+    groups) takes the same refusal over ranks as granite's."""
+    cfg = dataclasses.replace(load_arch("recurrentgemma_2b").SMOKE, param_dtype="bfloat16",
+                              name="recurrentgemma_smoke_bf16_params")
+    assert T.layout(cfg).dtypes == (torch.bfloat16, F32)
+    s = TR.TrainSettings(n_workers=W, tau=TAU, steps=1, b_micro=BM, seq=SEQ, **{flag: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TR.run_training(cfg, s, device="cpu")
 
 
 def test_pick_join_and_each():

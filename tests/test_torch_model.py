@@ -126,10 +126,20 @@ def test_init_draws_the_reference_distributions():
 
 
 def test_unported_mixers_raise():
-    cfg = ModelConfig(name="x", family="lm", n_layers=2, d_model=32, n_heads=2,
-                      n_kv_heads=2, d_ff=64, vocab_size=64, pattern=("ssm:dense",))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.layout(cfg)
+    """Every mixer of the reference is ported (an ``ssm`` block with a dense
+    FFN builds the reference's leaves); a mixer that neither package
+    builds raises ``ValueError``, as the reference's ``_init_block``."""
+    kw = dict(name="x", family="lm", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+              d_ff=64, vocab_size=64, ssm_state=8, ssm_head_dim=16)
+    shapes = jax.eval_shape(lambda: JT.init_params(
+        jax.random.PRNGKey(0), JModelConfig(**kw, pattern=("ssm:dense",))))
+    ref = convert.flatten_tree(shapes, is_leaf=lambda x: hasattr(x, "shape"))
+    lay = T.layout(ModelConfig(**kw, pattern=("ssm:dense",)))
+    assert dict(zip(lay.names, lay.shapes)) == {k: tuple(v.shape) for k, v in ref}
+    for build, cfg in ((JT.init_params, JModelConfig(**kw, pattern=("lstm:dense",))),
+                       (lambda _, c: T.layout(c), ModelConfig(**kw, pattern=("lstm:dense",)))):
+        with pytest.raises(ValueError, match="unknown"):
+            build(jax.random.PRNGKey(0), cfg)
 
 
 # (S, q_block, window): whole key tiles skipped wherever q_start - window
