@@ -32,7 +32,15 @@ through both kernels with each group's launches counted and timed, each
 served on its trained x0 (Gemma's 640-token prompts past its 512-token
 window, 128 new tokens around the ring) and held against its full forward,
 and card vs CPU for the three SMOKE configs and Granite's SMOKE with bf16
-parameters, training and greedy tokens.  Then the encoder-decoder and the
+parameters, training and greedy tokens.  Then mixed-dtype models over
+ranks, each dtype group sharded, scattered and gathered on its own: that
+Granite run again as RANKS gloo ranks sharing the card with the ZeRO-sharded
+global step, held bit for bit against it, both groups of x0 and m; Granite's
+and RecurrentGemma's SMOKE with bf16 parameters (RecurrentGemma's one-row
+f32 group kept whole on every rank) under faults and guards over RANKS
+ranks with both flag sets, card against CPU and against the dense run,
+with a checkpoint resumed by one process; and Granite's in the one-rank
+NCCL run.  Then the encoder-decoder and the
 VLM: both kernels bit for bit at Whisper's shapes, Whisper-large-v3 at
 full width and ENCDEC_LAYERS of its 32 + 32 layers trained through
 make_dsm_step on batch dicts of tokens and frames (W=2, S=448) and served
@@ -200,6 +208,15 @@ WINDOW_MOE_EVAL_BATCH = 4           # eval sequences: gemma's f32 logits take 1.
 SERVE_SWA = (4, 640, 128)       # batch, prompt (past the window), new tokens (the ring wraps)
 SERVE_MOE = (4, 128, 32)
 WINDOW_MOE_SMOKES = ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b")
+# mixed-dtype models over ranks: mixed_zero_full_width runs the granite path
+# above as RANKS gloo ranks; mixed_ranks_card_vs_cpu runs these SMOKE
+# configs with bf16 parameters (two dtype groups) at a microbatch and tau
+# that keep the CPU side's ranks cheap
+MIXED_RANKS_SMOKES = ("granite_moe_3b_a800m", "recurrentgemma_2b")
+MIXED_RANKS_BATCH = dict(tau=4, b_micro=2, seq=64)
+# the replicated global step's flag set (device_parallel_local alone) runs
+# on these only: recurrentgemma's was cut for the command's time target
+MIXED_DP_SMOKES = ("granite_moe_3b_a800m",)
 # the encoder-decoder and the VLM at full width.  whisper_large_v3.FULL
 # (1,535,060,480 parameters) at ENCDEC_LAYERS of its 32 encoder and 32
 # decoder layers (whole depth at W=2 would need ~78 GB), W=2, S=448 (the
@@ -526,7 +543,7 @@ def phase_obs_full_width(torch, K, smi, main_final, main_cost):
         traces = sorted((Path(d) / "profile").glob("*.json"))
         trace = profile_summary(str(traces[0])) if traces else None
         trace_bytes = os.path.getsize(traces[0]) if traces else None
-    final = {"history": res["history"], "x0": res["state"].x0.cpu(), "m": res["state"].m.cpu()}
+    final = dense_final(torch, res)
     step_s, peak, phase_ms = res["outer_step_s"], res["peak_bytes"], res["phase_ms"]
     del res
     spans = [e for e in events if e["kind"] == "span"]
@@ -614,6 +631,20 @@ def cpu_worker_init() -> None:
     torch.set_num_threads(CPU_WORKER_THREADS)
 
 
+def shared(x0):
+    """``x0`` (a tensor or the Groups of a mixed-dtype model) with its
+    storage moved into shared memory now, in this thread.  Pickling a CPU
+    tensor for another process moves its storage there in place, and a
+    pool's feeder thread (or a second thread starting ranks) pickles while
+    a card run of this thread reads the same tensor: without this, the
+    read can meet the old buffer freed mid-copy."""
+    from repro_torch.groups import parts
+
+    for t in parts(x0):
+        t.share_memory_()
+    return x0
+
+
 def cpu_worker():
     """CPU_WORKERS processes (spawned, all started now) for the card-vs-CPU
     phases' CPU runs; the caller shuts them down."""
@@ -637,7 +668,7 @@ def phase_card_vs_cpu(torch, pool):
     from repro_torch.train.trainer import TrainSettings, run_training
 
     s = TrainSettings(tau=TOPO.tau, steps=NANO_STEPS, eval_every=NANO_STEPS, **MAIN)
-    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    x0 = shared(T.init_params(torch.Generator().manual_seed(0), NANO))
     cpu = pool.submit(cpu_run, NANO, s, x0)
     card = run_training(NANO, s, device="cuda", params=x0)
     cpu = cpu.result(timeout=CPU_RUN_TIMEOUT_S)
@@ -739,7 +770,7 @@ def phase_algorithms_card_vs_cpu(torch, K, pool):
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import TrainSettings, run_training
 
-    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    x0 = shared(T.init_params(torch.Generator().manual_seed(0), NANO))
     total = dict.fromkeys(K.launch_counts(), 0)
     rows, failures = [], []
     runs = NANO_DETERMINISTIC_RUNS + NANO_RANDOM_RUNS
@@ -862,9 +893,10 @@ def fault_layer_ms(torch, state, fr) -> dict:
     state after the run (each leaves it as it is): the guard's snapshot,
     finiteness check and select around a step that does nothing; the
     survivor-aware mean (apply_faults, finite mask, masked mean) of the
-    round ``fr`` beside the dense mean it replaces; the skip-round's x0/m
-    copies and select."""
-    from repro_torch.core.dsm import masked_worker_mean, worker_finite_mask
+    round ``fr`` beside the dense mean it replaces (``worker_mean``, as the
+    paths run it, and one ``mean(dim=0)`` call over the rows for
+    comparison); the skip-round's x0/m copies and select."""
+    from repro_torch.core.dsm import masked_worker_mean, worker_finite_mask, worker_mean
     from repro_torch.robustness.faults import apply_faults
     from repro_torch.robustness.guards import init_guard, make_guarded_step
 
@@ -885,7 +917,8 @@ def fault_layer_ms(torch, state, fr) -> dict:
 
     return {"guard": median_ms(torch, lambda: noop(state, guard), reps=10),
             "survivor_mean": median_ms(torch, survivor_mean, reps=10),
-            "dense_mean": median_ms(torch, lambda: state.params.mean(
+            "dense_mean": median_ms(torch, lambda: worker_mean(state.params), reps=10),
+            "one_call_mean": median_ms(torch, lambda: state.params.mean(
                 dim=0, dtype=torch.float32).to(state.params.dtype), reps=10),
             "skip_select": median_ms(torch, skip_select, reps=10)}
 
@@ -896,16 +929,43 @@ def n_params(cfg) -> int:
     return T.layout(cfg).numel
 
 
+def group_list(x) -> list:
+    """A run's final x0 or m as a list of each dtype group's tensor."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
 def max_gap(torch, a: dict, b: dict) -> dict:
-    """Largest differences between two runs' histories and final x0 / m."""
+    """Largest differences between two runs' histories and final x0 / m
+    (over every dtype group)."""
     return {"history": max(abs(x - y) for x, y in zip(a["history"], b["history"])),
-            "x0": (a["x0"].float() - b["x0"].float()).abs().max().item(),
-            "m": (a["m"] - b["m"]).abs().max().item()}
+            **{k: max((p.float() - q.float()).abs().max().item()
+                      for p, q in zip(group_list(a[k]), group_list(b[k]), strict=True))
+               for k in ("x0", "m")}}
 
 
 def bit_equal(torch, a: dict, b: dict) -> bool:
-    return (a["history"] == b["history"] and torch.equal(bits(torch, a["x0"]), bits(torch, b["x0"]))
-            and torch.equal(bits(torch, a["m"]), bits(torch, b["m"])))
+    """Equal histories, and x0 / m of every dtype group equal in their bits."""
+    return a["history"] == b["history"] and all(
+        torch.equal(bits(torch, p), bits(torch, q))
+        for k in ("x0", "m") for p, q in zip(group_list(a[k]), group_list(b[k]), strict=True))
+
+
+def rank_final(r) -> dict:
+    """A rank's history and its gathered x0 / m, each a list of the dtype
+    groups' tensors (``torch_ranks.flat_state`` names them ``x0`` for one
+    group, ``x0.0``, ``x0.1`` for two)."""
+    st = r["state"]
+    return {"history": r["history"],
+            **{k: [st[n] for n in sorted(st) if n.split(".")[0] == k] for k in ("x0", "m")}}
+
+
+def dense_final(torch, res) -> dict:
+    """run_training's history and final x0 / m on the host, per dtype group."""
+    from repro_torch.groups import parts
+
+    st = res["state"]
+    return {"history": res["history"], "x0": [t.cpu() for t in parts(st.x0)],
+            "m": [t.cpu() for t in parts(st.m)]}
 
 
 def phase_resume_full_width(torch, K, smi):
@@ -1000,7 +1060,7 @@ def phase_robustness_card_vs_cpu(torch, K, pool):
     from repro_torch.robustness.faults import FaultPlan, FaultSpec
     from repro_torch.train.trainer import TrainSettings, run_training
 
-    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    x0 = shared(T.init_params(torch.Generator().manual_seed(0), NANO))
     plan = fault_plan(FaultPlan, FaultSpec)
     total = dict.fromkeys(K.launch_counts(), 0)
     runs = {"faults+guards": {},
@@ -1085,7 +1145,11 @@ def ranks_summary(ranks, steps) -> dict:
 
 
 def history_rel(a, b) -> float:
-    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    return max(rel_per_round(a, b))
+
+
+def rel_per_round(a, b) -> list:
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
 
 
 def phase_ranks_full_width(torch, K, smi, main_final, name, flags, with_run_dir=False):
@@ -1118,8 +1182,7 @@ def phase_ranks_full_width(torch, K, smi, main_final, name, flags, with_run_dir=
         events = read_run(d)[1] if with_run_dir else []
     ledger = next((e for e in events if e["kind"] == "comm_ledger"), None)
     round_bytes = [sum(v["bytes"] for v in r["comm"].values()) / s.steps for r in ranks]
-    final = {"history": ranks[0]["history"], "x0": ranks[0]["state"]["x0"],
-             "m": ranks[0]["state"]["m"]}
+    final = rank_final(ranks[0])
     want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
     rel = history_rel(final["history"], main_final["history"])
     n = n_params(cfg)
@@ -1155,33 +1218,44 @@ def phase_ranks_full_width(torch, K, smi, main_final, name, flags, with_run_dir=
 
 
 def phase_zero_nccl_world1(torch, K):
-    """Nano, NCCL_STEPS outer steps, one rank over NCCL (the only NCCL group
-    one card allows) with both flags: bit-equal to the dense run on the card."""
+    """Nano and granite_moe's SMOKE with bf16 parameters (two dtype groups),
+    NCCL_STEPS outer steps each, one rank over NCCL (the only NCCL group one
+    card allows) with both flags, both models in one start of the rank:
+    each bit-equal to its dense run on the card, x0 and m of every group."""
     from repro_torch.configs.gpt2_small import TOPO
     from repro_torch.configs.nano import NANO
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import TrainSettings, run_training
 
-    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    cfgs = [NANO, mixed_smokes()[0]]
+    inits = [T.init_params(torch.Generator().manual_seed(0), cfg) for cfg in cfgs]
     kw = dict(tau=TOPO.tau, steps=NCCL_STEPS, eval_every=NCCL_STEPS, **MAIN)
     s = TrainSettings(zero_sharded=True, device_parallel_local=True, **kw)
-    K.reset_launch_counts()
-    dense = run_training(NANO, TrainSettings(**kw), device="cuda", params=x0)
-    launches = K.launch_counts()
-    rank = run_ranks(1, NANO, [s], "cuda", x0, backend="nccl")[0][0]
-    ours = {"history": rank["history"], "x0": rank["state"]["x0"], "m": rank["state"]["m"]}
-    theirs = {"history": dense["history"], "x0": dense["state"].x0.cpu(),
-              "m": dense["state"].m.cpu()}
-    same = bit_equal(torch, ours, theirs)
-    emit({"phase": "zero_nccl_world1", "config": NANO.name, "backend": "nccl", "ranks": 1,
-          "outer_steps": s.steps, "history": ours["history"], "dense_history": dense["history"],
-          "bit_equal_to_dense": same, "max_gap": max_gap(torch, ours, theirs),
-          "launches": rank["launches"], "collectives": rank["comm"]})
-    want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
-    if not same or rank["launches"] != want or launches != want:
-        raise AssertionError(f"zero_nccl_world1: bit-equal {same}, launches "
-                             f"{rank['launches']} / {launches}, want {want}")
-    return {k: launches[k] + rank["launches"][k] for k in want}
+    rank = run_ranks(1, cfgs, [s] * len(cfgs), "cuda", inits, backend="nccl")
+    total = dict.fromkeys(K.launch_counts(), 0)
+    rows, failures = [], []
+    for cfg, x0, (got,) in zip(cfgs, inits, rank):
+        groups = T.layout(cfg).n_groups
+        K.reset_launch_counts()
+        dense = run_training(cfg, TrainSettings(**kw), device="cuda", params=x0)
+        launches = K.launch_counts()
+        ours, theirs = rank_final(got), dense_final(torch, dense)
+        same = bit_equal(torch, ours, theirs)
+        rows.append({"config": cfg.name, "groups": groups, "history": ours["history"],
+                     "dense_history": dense["history"], "bit_equal_to_dense": same,
+                     "max_gap": max_gap(torch, ours, theirs), "launches": got["launches"],
+                     "collectives": got["comm"]})
+        want = {"dsm_update": s.steps * groups, "adamw_update": s.steps * s.tau * groups}
+        if not same or got["launches"] != want or launches != want:
+            failures.append(f"{cfg.name}: bit-equal {same}, launches {got['launches']} / "
+                            f"{launches}, want {want}")
+        for k in total:
+            total[k] += launches[k] + got["launches"][k]
+    emit({"phase": "zero_nccl_world1", "backend": "nccl", "ranks": 1, "outer_steps": s.steps,
+          "runs": rows})
+    if failures:
+        raise AssertionError("zero_nccl_world1: " + "; ".join(failures))
+    return total
 
 
 def phase_zero_card_vs_cpu(torch, K):
@@ -1232,13 +1306,8 @@ def phase_zero_card_vs_cpu(torch, K):
         resumed_launches = {k: n - probe[k] for k, n in K.launch_counts().items()}
         _, run_events, run_rows = read_run(f"{d}/resume_run")
 
-    def final(r, flat=True):
-        st = r["state"]
-        return {"history": r["history"], "x0": st["x0"] if flat else st.x0.cpu(),
-                "m": st["m"] if flat else st.m.cpu()}
-
-    theirs = final(dense, flat=False)
-    ours, back = final(card[0]), final(resumed, flat=False)
+    theirs = dense_final(torch, dense)
+    ours, back = rank_final(card[0]), dense_final(torch, resumed)
     rel = history_rel(card[0]["history"], cpu[0]["history"])
     row = {"phase": "zero_card_vs_cpu", "config": NANO.name, "ranks": RANKS, "backend": "gloo",
            "outer_steps": len(FAULT_ROUNDS), "card": card[0]["history"],
@@ -1483,7 +1552,7 @@ def card_vs_cpu_runs(torch, K, pool, phase, configs, serve=False):
     for cfg, topo in configs:
         s = TrainSettings(tau=topo.tau, steps=ARCH_STEPS, eval_every=ARCH_STEPS,
                           base_opt=topo.base_opt, **{**MAIN, **ARCH_BATCH})
-        x0 = T.init_params(torch.Generator().manual_seed(0), cfg)
+        x0 = shared(T.init_params(torch.Generator().manual_seed(0), cfg))
         jobs.append((cfg, s, x0, pool.submit(cpu_run, cfg, s, x0)))
     for cfg, s, x0, cpu in jobs:
         K.reset_launch_counts()
@@ -1522,10 +1591,11 @@ def card_vs_cpu_runs(torch, K, pool, phase, configs, serve=False):
 class RouteLog:
     """While active, records the top-k experts (sorted) of the last position
     of every ``layers.moe_apply`` call, recomputed from the call's own
-    inputs by the same f32 routing ops: per MoE layer, (B, K)."""
+    inputs by the same f32 routing ops: per MoE layer, (B, K); with
+    ``every_position``, those of every token, (B * S, K)."""
 
-    def __init__(self, torch):
-        self.torch, self.calls = torch, []
+    def __init__(self, torch, every_position=False):
+        self.torch, self.calls, self.every_position = torch, [], every_position
 
     def __enter__(self):
         from repro_torch.models import layers as L
@@ -1536,7 +1606,8 @@ class RouteLog:
             xt = x.reshape(-1, x.shape[-1]).to(torch.float32)
             probs = torch.softmax(xt @ p["router"].to(torch.float32), dim=-1)
             top = torch.topk(probs, cfg.top_k, dim=-1).indices.sort(dim=-1).values
-            self.calls.append(top.reshape(x.shape[0], x.shape[1], -1)[:, -1])
+            self.calls.append(top if self.every_position
+                              else top.reshape(x.shape[0], x.shape[1], -1)[:, -1])
             return orig(p, x, cfg)
 
         self.restore = lambda: setattr(L, "moe_apply", orig)
@@ -1616,6 +1687,36 @@ def one_pass_logits(torch, params, cfg, prompt, toks, extra=None):
     with torch.no_grad():
         h = T.hidden_states(params, {"tokens": seq, **extra}, cfg)[0]
         return T._logits(params, h[:, n0 - 1:n0 - 1 + toks.shape[1]], cfg)
+
+
+def routed_run(torch, cfg, settings, device, x0) -> tuple:
+    """``run_training`` under :class:`RouteLog` (every position): its result
+    and, per outer round, the sorted top-k experts of every token of every
+    MoE layer call of the round, on the host (none without a MoE layer)."""
+    from repro_torch.train.trainer import run_training
+
+    rounds = []
+    with RouteLog(torch, every_position=True) as log:
+        res = run_training(cfg, settings, device=device, params=x0, on_round=lambda *_: (
+            rounds.append([r.cpu() for r in log.take()])))
+    return res, rounds
+
+
+def other_routes(a: list, b: list) -> list:
+    """Per outer round, the tokens whose top-k experts differ between two
+    runs' :func:`routed_run` routes (the same calls in the same order)."""
+    return [sum(int((x != y).any(dim=-1).sum()) for x, y in zip(ra, rb, strict=True))
+            for ra, rb in zip(a, b, strict=True)]
+
+
+def route_rtols(other: list) -> list:
+    """Each outer round's card-vs-CPU loss bound: NANO_RTOL up to the first
+    round whose MoE routes differ between the two devices, SIGN_LIKE_RTOL
+    from it on (a token sent to another expert changes its loss and its
+    gradient, and DSM's sign turns the moved coordinates into 2 * eta *
+    gamma steps)."""
+    first = next((t for t, n in enumerate(other) if n), len(other))
+    return [NANO_RTOL if t < first else SIGN_LIKE_RTOL for t in range(len(other))]
 
 
 def route_checked(rows, atol) -> dict:
@@ -1822,7 +1923,8 @@ def phase_group_kernel_checks(torch, K, phase="group_kernel_checks", paths=None)
             for name in ("dsm_update", "adamw_update")}
 
 
-def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", paths=None):
+def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", paths=None,
+                                keep=()):
     """Each (cfg, settings, N per dtype group) of ``paths`` through
     run_training and both kernels, an eval after each outer step; by
     default the sliding-window and MoE paths: gemma3_1b.FULL (whole depth,
@@ -1833,7 +1935,8 @@ def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", pa
     the first, the peak under the card's memory; each kernel timed per
     group on the trained state's buffers beside its byte bound; one local
     step's host and device time.  Returns (launches, [(cfg, trained
-    x0)])."""
+    x0)], {name: history and x0 / m per group on the host} for the configs
+    named in ``keep``)."""
     from repro_torch.data.pipeline import TextCorpus
     from repro_torch.groups import each, parts, pick
     from repro_torch.models import transformer as T
@@ -1841,7 +1944,7 @@ def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", pa
 
     corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
     total = dict.fromkeys(K.launch_counts(), 0)
-    rows, failures, trained = [], [], []
+    rows, failures, trained, finals = [], [], [], {}
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     paths = paths or window_moe_paths()
     for cfg, s, n_want in paths:
@@ -1859,6 +1962,8 @@ def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", pa
             "outer_step_s"]
         del res
         trained.append((cfg, each(torch.clone, state.x0)))
+        if cfg.name in keep:
+            finals[cfg.name] = dense_final(torch, {"history": hist, "state": state})
         kernels = []
         for i, (dtype, n) in enumerate(zip(lay.dtypes, lay.group_numels)):
             es, w = dtype.itemsize, s.n_workers
@@ -1905,18 +2010,21 @@ def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", pa
           "card_bytes": card_bytes, "paths": rows})
     if failures:
         raise AssertionError(f"{phase}: " + "; ".join(failures))
-    return total, trained
+    return total, trained, finals
 
 
 def window_moe_phases(torch, K, smi, pool) -> tuple:
-    """The phases of sliding-window attention and MoE; returns (their runs'
+    """The phases of sliding-window attention and MoE, then those of
+    mixed-dtype models over ranks (mixed_ranks_phases, which hold granite's
+    run over ranks against its dense run here); returns (their runs'
     launches, the group kernel checks' worst errors)."""
     import dataclasses
 
     from repro_torch.configs import granite_moe_3b_a800m, load_arch
 
     errs = phase_group_kernel_checks(torch, K)
-    total, trained = phase_window_moe_full_width(torch, K, smi)
+    total, trained, finals = phase_window_moe_full_width(torch, K, smi,
+                                                         keep=(granite_cut().name,))
     for (cfg, x0), (b, prompt, new), phase in zip(trained, (SERVE_SWA, SERVE_MOE),
                                                    ("serve_swa_full_width",
                                                     "serve_moe_full_width")):
@@ -1930,7 +2038,302 @@ def window_moe_phases(torch, K, smi, pool) -> tuple:
     configs = [(load_arch(a).SMOKE, load_arch(a).TOPO) for a in WINDOW_MOE_SMOKES]
     configs.append((bf16p, granite_moe_3b_a800m.TOPO))
     more = card_vs_cpu_runs(torch, K, pool, "window_moe_card_vs_cpu", configs, serve=True)
+    total = {k: n + more[k] for k, n in total.items()}
+    more = mixed_ranks_phases(torch, K, smi, finals[granite_cut().name])
     return {k: n + more[k] for k, n in total.items()}, errs
+
+
+def mixed_smokes() -> list:
+    """The SMOKE configs of MIXED_RANKS_SMOKES with bf16 parameters (f32
+    activations, as the SMOKE's): two dtype groups each, granite's f32
+    routers of 8 rows, recurrentgemma's f32 ``lam`` of one row (kept whole
+    on every rank: ``zero.whole``)."""
+    import dataclasses
+
+    from repro_torch.configs import load_arch
+
+    return [dataclasses.replace(load_arch(a).SMOKE, param_dtype="bfloat16",
+                                name=f"{a}_smoke_bf16_params") for a in MIXED_RANKS_SMOKES]
+
+
+def round_bytes_by_count(lay, world, tau) -> int:
+    """One ZeRO round's bytes that a rank sends, counted from the layout: each
+    dtype group's (1, chunk) rows to every owner and its chunk into the
+    all-gather (a group kept whole gathers its mean's chunk instead), in the
+    group's dtype; the (tau, 1) f32 losses; the seven f32 stat sums."""
+    from repro_torch.distributed import zero
+    from repro_torch.obs.metrics import N_STAT_SUMS
+
+    chunks = [zero.chunk_size(n, world) * dt.itemsize
+              for n, dt in zip(lay.group_numels, lay.dtypes)]
+    return sum((world + 1) * c for c in chunks) + tau * 4 + N_STAT_SUMS * 4
+
+
+def phase_mixed_zero_full_width(torch, K, smi, dense):
+    """granite_moe at full width and GRANITE_LAYERS layers (bf16 blocks and
+    f32 routers: two dtype groups) with window_moe_full_width's settings, as
+    RANKS gloo processes sharing the card, one worker each, zero_sharded and
+    device_parallel_local: each group scattered, sharded, updated and
+    gathered on its own.  The history and x0 and m of both groups bit-equal
+    to window_moe_full_width's granite run (``dense``: its history and x0 /
+    m per group on the host), from the same init and corpus.  Per rank: one
+    DSM launch per group and round, tau AdamW launches per group and round;
+    DSM elements per group; peak bytes; outer-step ms; collective bytes and
+    ms per round, the bytes equal to round_bytes_by_count.  No run
+    directory: its post-run probe would clone the state (~7.5 GB more per
+    rank, past the card at four ranks) and run 8 more rounds; the comm
+    ledger is held against CommStats on two groups in
+    mixed_ranks_card_vs_cpu.  The DSM kernel timed on one rank's shard of
+    each group and the AdamW kernel on one rank's (1, n) row of each group,
+    beside their byte bounds."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.distributed import mesh, zero
+    from repro_torch.models import transformer as T
+
+    cfg, s, n_want = window_moe_paths()[1]
+    s = dataclasses.replace(s, zero_sharded=True, device_parallel_local=True)
+    lay = T.layout(cfg)
+    if lay.group_numels != n_want:
+        raise AssertionError(f"{cfg.name}: groups of {lay.group_numels}, want {n_want}")
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(RANKS, cfg, [s], "cuda", corpus=corpus, fields=("x0", "m"))[0]
+    wall = time.perf_counter() - t0
+    ours = rank_final(ranks[0])
+    same = bit_equal(torch, ours, dense)
+    topos = [mesh.Topology(s.n_workers, RANKS, 1, r) for r in range(RANKS)]
+    elements = [[b - a for a, b in (zero.my_bounds(n, t) for t in topos)]
+                for n in lay.group_numels]
+    per_round = round_bytes_by_count(lay, RANKS, s.tau)
+    shard_kernels = []
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for dt, n, n_el in zip(lay.dtypes, lay.group_numels, (e[0] for e in elements)):
+        x0 = torch.randn(n_el, generator=gen, device="cuda").to(dt)
+        m = torch.randn(n_el, generator=gen, device="cuda")
+        xt = (x0.float() - 0.01 * torch.randn(n_el, generator=gen, device="cuda")).to(dt)
+        es = dt.itemsize
+        row = {"dtype": str(dt), "shard_elements": n_el,
+               "dsm_ms": median_ms(torch, lambda: K.dsm_update(x0, m, xt, 1e-5, **DSM_HP)),
+               "dsm_bound_ms": bound_ms(n_el * (3 * es + 8), n_el * 12)[0]}
+        del x0, m, xt
+        # the rank's AdamW launch: its one worker's row of the whole group
+        pp, g, mm, v = adamw_inputs(torch, gen, (1, n), dt)
+        row["adamw_ms"] = median_ms(torch, lambda: K.adamw_update(pp, g, mm, v, 1e-5, 11,
+                                                                  **ADAMW_HP))
+        row["adamw_bound_ms"] = bound_ms(n * (3 * es + 16), n * 16)[0]
+        shard_kernels.append(row)
+        del pp, g, mm, v
+    torch.cuda.empty_cache()
+    want = {"dsm_update": s.steps * lay.n_groups, "adamw_update": s.steps * s.tau * lay.n_groups}
+    summary = ranks_summary(ranks, s.steps)
+    emit({"phase": "mixed_zero_full_width", "gpu": smi, "config": cfg.name,
+          "groups": [[str(d), n] for d, n in zip(lay.dtypes, lay.group_numels)],
+          "ranks": RANKS, "backend": "gloo", "n_workers": s.n_workers, "tau": s.tau,
+          "b_micro": s.b_micro, "seq": s.seq, "outer_steps": s.steps,
+          "dsm_elements_per_rank_and_group": elements, "history": ours["history"],
+          "dense_history": dense["history"], "bit_equal_to_dense": same,
+          "max_gap": max_gap(torch, ours, dense), "final_eval": ranks[0]["final_eval"],
+          "wall_s": wall, "round_bytes_by_count": per_round, "card_bytes": card_bytes,
+          "peak_bytes_sum": sum(r["peak_bytes"] for r in ranks),
+          "dsm_shard_kernels": shard_kernels, **summary})
+    failures = []
+    if not same:
+        failures.append("not bit-equal to window_moe_full_width's dense granite run")
+    if any(r["history"] != ours["history"] for r in ranks):
+        failures.append("the ranks' histories differ")
+    for r, got in enumerate(r["launches"] for r in ranks):
+        if got != want:
+            failures.append(f"rank {r}: launch counts {got}, want {want}")
+    if any(b != per_round for b in summary["collective_bytes_per_round"]):
+        failures.append(f"collective bytes per round {summary['collective_bytes_per_round']}, "
+                        f"counted {per_round}")
+    for r in ranks:
+        calls = {k: r["comm"][k]["calls"] for k in ("scatter_rows", "all_gather_shards")}
+        if calls != dict.fromkeys(calls, s.steps * lay.n_groups):
+            failures.append(f"scatter / all-gather calls {calls}, want one per group and round")
+    if failures:
+        raise AssertionError("mixed_zero_full_width: " + "; ".join(failures))
+    return {k: sum(r["launches"][k] for r in ranks) for k in want}
+
+
+def phase_mixed_ranks_card_vs_cpu(torch, K):
+    """The SMOKE configs of mixed_smokes (two dtype groups; recurrentgemma's
+    f32 group kept whole), the hand-built fault plan with mask_nonfinite and
+    guards, MIXED_RANKS_BATCH, RANKS gloo ranks on the card and on the CPU
+    under both flags (checkpoints every 2 rounds) and, for MIXED_DP_SMOKES,
+    under device_parallel_local alone (the replicated global step), every
+    run of one device in one start of the ranks, the CPU's beside the
+    card's.  The card ranks held against the dense run on the card bit for
+    bit (history, x0 and m of both groups), the CPU ranks against the dense
+    run on the CPU (each CPU rank runs it whole, one torch thread as the
+    ranks), the card against the CPU with equal skipped rounds and each
+    round's loss within route_rtols: NANO_RTOL until the first round whose
+    MoE routes differ between the card's and the CPU's dense runs (both
+    traced by routed_run, the CPU's again in this process), SIGN_LIKE_RTOL
+    from it on; the step-2 checkpoint of the card ranks is resumed by one
+    process (world 4 -> 1) and must end bit-equal to the dense run too.
+    Launches per rank: one DSM per group and round, tau AdamW per group and
+    round.  A one-round ZeRO run of each model on the card writes a run
+    directory whose comm ledger must equal rank 0's CommStats."""
+    import concurrent.futures
+
+    from repro_torch.checkpoint import checkpoint as CK
+    from repro_torch.models import transformer as T
+    from repro_torch.obs.sinks import read_run
+    from repro_torch.robustness.faults import FaultPlan, FaultSpec
+    from repro_torch.train.trainer import TrainSettings, run_training
+
+    cfgs = mixed_smokes()
+    inits = [shared(T.init_params(torch.Generator().manual_seed(0), cfg)) for cfg in cfgs]
+    rounds = len(FAULT_ROUNDS)
+    kw = dict(steps=rounds, eval_every=rounds, faults=fault_plan(FaultPlan, FaultSpec),
+              mask_nonfinite=True, guard_nonfinite=True, **{**MAIN, **MIXED_RANKS_BATCH})
+    flag_sets = {"zero+dp": dict(zero_sharded=True, device_parallel_local=True),
+                 "dp": dict(device_parallel_local=True)}
+    ck = dict(checkpoint_every=2, checkpoint_keep=rounds)
+    tmp_root = ROOT / "build"
+    tmp_root.mkdir(exist_ok=True)
+    total = dict.fromkeys(K.launch_counts(), 0)
+    rows, failures = [], []
+    with tempfile.TemporaryDirectory(dir=tmp_root) as d:
+        def settings(device, i, name, flags):
+            extra = ck if name == "zero+dp" else {}
+            ckpt = {"checkpoint_dir": f"{d}/{device}{i}"} if extra else {}
+            return TrainSettings(**kw, **flags, **extra, **ckpt)
+
+        runs = [(i, name) for i in range(len(cfgs)) for name in flag_sets
+                if name == "zero+dp" or MIXED_RANKS_SMOKES[i] in MIXED_DP_SMOKES]
+        run_cfgs, run_inits = [cfgs[i] for i, _ in runs], [inits[i] for i, _ in runs]
+        with concurrent.futures.ThreadPoolExecutor(1) as side:
+            cpu = side.submit(run_ranks, RANKS, run_cfgs + cfgs,
+                              [settings("cpu", i, n, flag_sets[n]) for i, n in runs]
+                              + [TrainSettings(**kw)] * len(cfgs), "cpu", run_inits + inits,
+                              fields=("x0", "m"))
+            ledger_runs = [TrainSettings(**{**kw, "steps": 1, "eval_every": 1, "faults": None},
+                                         **flag_sets["zero+dp"], run_dir=f"{d}/run{i}")
+                           for i in range(len(cfgs))]
+            card = run_ranks(RANKS, run_cfgs + cfgs,
+                             [settings("card", i, n, flag_sets[n]) for i, n in runs]
+                             + ledger_runs, "cuda", run_inits + inits, fields=("x0", "m"))
+            cpu = cpu.result(timeout=CPU_RUN_TIMEOUT_S)
+        for i, (cfg, x0) in enumerate(zip(cfgs, inits)):
+            groups = T.layout(cfg).n_groups
+            want = {"dsm_update": rounds * groups,
+                    "adamw_update": rounds * kw["tau"] * groups}
+            K.reset_launch_counts()
+            dense, card_routes = routed_run(torch, cfg, TrainSettings(**kw), "cuda", x0)
+            dense_launches = K.launch_counts()
+            theirs = dense_final(torch, dense)
+            cpu_dense = rank_final(cpu[len(runs) + i][0])
+            routes = {"other_routes_per_round": [0] * rounds}
+            if any(card_routes):
+                # the CPU ranks' dense run again, here on their one thread, for its routes
+                threads = torch.get_num_threads()
+                torch.set_num_threads(1)
+                try:
+                    traced, cpu_routes = routed_run(torch, cfg, TrainSettings(**kw), "cpu", x0)
+                finally:
+                    torch.set_num_threads(threads)
+                routes = {"other_routes_per_round": other_routes(card_routes, cpu_routes),
+                          "tokens_per_round": [sum(r.shape[0] for r in c) for c in card_routes],
+                          "cpu_run_is_cpu_dense": bit_equal(torch, dense_final(torch, traced),
+                                                            cpu_dense)}
+                if not routes["cpu_run_is_cpu_dense"]:
+                    failures.append(f"{cfg.name}: the routed CPU run is not the ranks' dense one")
+            rtols = route_rtols(routes["other_routes_per_round"])
+            os.makedirs(f"{d}/resume{i}")
+            for suffix in (".npz", ".json"):
+                shutil.copy(CK.step_path(f"{d}/card{i}", 2) + suffix, f"{d}/resume{i}")
+            K.reset_launch_counts()
+            resumed = run_training(cfg, TrainSettings(
+                checkpoint_dir=f"{d}/resume{i}", resume=True, **ck, **kw,
+                **flag_sets["zero+dp"]), device="cuda", params=x0)
+            resumed_launches = K.launch_counts()
+            back = dense_final(torch, resumed)
+            row = {"config": cfg.name, "groups": groups, "dense_card": dense["history"],
+                   "dense_cpu": cpu_dense["history"], "rtol_per_round": rtols, **routes,
+                   "dense_rel_diff_card_cpu_per_round": rel_per_round(dense["history"],
+                                                                     cpu_dense["history"]),
+                   "resumed_world1": resumed["history"],
+                   "resumed_bit_equal_to_dense": bit_equal(torch, back, theirs),
+                   "resumed_launches": resumed_launches, "flag_sets": {}}
+            for j, (_, name) in enumerate(runs):
+                if runs[j][0] != i:
+                    continue
+                ours = rank_final(card[j][0])
+                rel = rel_per_round(card[j][0]["history"], cpu[j][0]["history"])
+                row["flag_sets"][name] = {
+                    "card": card[j][0]["history"], "cpu": cpu[j][0]["history"],
+                    "max_rel_diff_card_cpu": max(rel), "bit_equal_to_dense": bit_equal(
+                        torch, ours, theirs), "max_gap": max_gap(torch, ours, theirs),
+                    "cpu_bit_equal_to_cpu_dense": bit_equal(
+                        torch, rank_final(cpu[j][0]), cpu_dense),
+                    "skipped_rounds": [card[j][0]["skipped_rounds"],
+                                       cpu[j][0]["skipped_rounds"], dense["skipped_rounds"]],
+                    "launches": [r["launches"] for r in card[j]]}
+                fs = row["flag_sets"][name]
+                if any(r > tol for r, tol in zip(rel, rtols, strict=True)):
+                    failures.append(f"{cfg.name} {name}: card and CPU differ by {rel} per "
+                                    f"round, bounds {rtols}")
+                if not fs["cpu_bit_equal_to_cpu_dense"]:
+                    failures.append(f"{cfg.name} {name}: CPU ranks differ from the CPU dense run")
+                if len(set(fs["skipped_rounds"])) != 1:
+                    failures.append(f"{cfg.name} {name}: skipped rounds {fs['skipped_rounds']}")
+                if not fs["bit_equal_to_dense"]:
+                    failures.append(f"{cfg.name} {name}: not bit-equal to the dense card run")
+                if any(r["history"] != run[0]["history"] for run in (card[j], cpu[j])
+                       for r in run):
+                    failures.append(f"{cfg.name} {name}: the ranks' histories differ")
+                for got in fs["launches"]:
+                    if got != want:
+                        failures.append(f"{cfg.name} {name}: launch counts {got}, want {want}")
+                for r in card[j]:
+                    for k in total:
+                        total[k] += r["launches"][k]
+            led_ranks = card[len(runs) + i]
+            _, events, _ = read_run(f"{d}/run{i}")
+            ledger = next((e for e in events if e["kind"] == "comm_ledger"), None)
+            comm = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                    for k, v in led_ranks[0]["comm"].items()}
+            row["comm_ledger"] = ledger and {k: ledger[k] for k in ("observed", "predicted")}
+            row["comm_ledger_equals_comm_stats"] = bool(ledger) and ledger["observed"][
+                "by_kind"] == comm
+            rows.append(row)
+            if not row["comm_ledger_equals_comm_stats"]:
+                failures.append(f"{cfg.name}: comm ledger {ledger and ledger['observed']}, "
+                                f"CommStats {comm}")
+            if not row["resumed_bit_equal_to_dense"]:
+                failures.append(f"{cfg.name}: the resumed run is not bit-equal to the dense one")
+            rest = rounds - 2
+            if resumed_launches != {"dsm_update": rest * groups,
+                                    "adamw_update": rest * kw["tau"] * groups}:
+                failures.append(f"{cfg.name}: resumed launch counts {resumed_launches}")
+            if dense_launches != want:
+                failures.append(f"{cfg.name}: dense launch counts {dense_launches}")
+            for ls in [dense_launches, resumed_launches] + [
+                    {k: r["launches"][k] + (r["probe_launches"] or {}).get(k, 0)
+                     for k in total} for r in led_ranks]:
+                for k in total:
+                    total[k] += ls[k]
+    emit({"phase": "mixed_ranks_card_vs_cpu", "ranks": RANKS, "backend": "gloo",
+          "outer_steps": rounds, **MIXED_RANKS_BATCH, "runs": rows})
+    if failures:
+        raise AssertionError("mixed_ranks_card_vs_cpu: " + "; ".join(failures))
+    return total
+
+
+def mixed_ranks_phases(torch, K, smi, granite_dense) -> dict:
+    """The phases of mixed-dtype models over ranks: mixed_zero_full_width
+    (granite over RANKS ranks, held against ``granite_dense``, the dense
+    run's history and x0 / m per group) and mixed_ranks_card_vs_cpu; returns
+    their runs' launches."""
+    total = phase_mixed_zero_full_width(torch, K, smi, granite_dense)
+    more = phase_mixed_ranks_card_vs_cpu(torch, K)
+    return {k: n + more[k] for k, n in total.items()}
 
 
 def whisper_cut():
@@ -2221,7 +2624,8 @@ def recurrent_phases(torch, K, smi, pool) -> tuple:
     paths = recurrent_paths()
     errs = phase_group_kernel_checks(torch, K, "recurrent_kernel_checks",
                                      [(cfg, s) for cfg, s, _ in paths])
-    total, trained = phase_window_moe_full_width(torch, K, smi, "recurrent_full_width", paths)
+    total, trained, _ = phase_window_moe_full_width(torch, K, smi, "recurrent_full_width",
+                                                    paths)
     for (cfg, x0), (b, prompt, new) in zip(trained, (SERVE_RG, SERVE_MAMBA)):
         serve_check(torch, smi, "serve_recurrent_full_width", cfg, x0, b, prompt, new,
                     noise_bound=cfg.name.startswith("mamba2"))

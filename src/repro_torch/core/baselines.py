@@ -20,8 +20,8 @@ the dense one on every rank, and the global update runs replicated.
 no mesh flag: each rank runs them whole.
 
 A mixed-dtype model's buffers are Groups (``repro_torch.groups``): the
-global updates run group by group, each on its group's x0 and aux; such a
-model takes no topology.
+global updates run group by group, each on its group's x0 and aux, and
+under a topology the worker mean is gathered group by group.
 
 Batches are dicts of leaves ``(W, tau, 1, B_micro, ...)`` (``tokens``, and
 ``patches`` or ``frames`` for the vlm / encdec families): the trainer's
@@ -77,8 +77,6 @@ def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
     local_phase = make_local_phase(loss_fn, base_opt, layout)
 
     def init(x0, n_workers: int) -> LocalMethodState:
-        if topo is not None:
-            Z.check_one_group(x0)
         rows = n_workers if topo is None else topo.local_workers
         params = each(lambda x: x.unsqueeze(0).repeat(rows, 1), x0)
         aux = join([init_aux(x) for x in x0]) if isinstance(x0, Groups) else init_aux(x0)

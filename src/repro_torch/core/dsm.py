@@ -33,8 +33,10 @@ path.
 A mixed-dtype model (``repro_torch.groups``) keeps one buffer per dtype
 group for params, gradients, x0, m and the base-optimizer state: the local
 updates, the worker mean and the global step run group by group, one DSM
-launch per group per round; ``stat_sums`` adds the groups' sums.  Such a
-model runs on the dense path only: a topology raises NotImplementedError.
+launch per group per round; ``stat_sums`` adds the groups' sums.  Over a
+topology each group is scattered, sharded and gathered on its own, in its
+dtype, a group too small to shard kept whole on every rank
+(``repro_torch.distributed.zero.whole``), bit-equal to the dense path.
 
 The outer step takes an optional ``FaultRound`` (``repro_torch.robustness``)
 and then makes line 7's mean survivor-aware; ``DSMConfig.mask_nonfinite``
@@ -158,10 +160,8 @@ def dsm_init(x0, base_opt: BaseOptimizer, n_workers: int, topo=None,
              global_sharded: bool = False) -> DSMState:
     """State from the flat global params ``x0`` (N,) (a tensor, or the
     Groups of a mixed-dtype model): every worker's, or under ``topo`` the
-    rank's workers and, with ``global_sharded``, the rank's shard of x0 and
-    m."""
-    if topo is not None:
-        Z.check_one_group(x0)
+    rank's workers and, with ``global_sharded``, the rank's shard of each
+    group of x0 and m (``repro_torch.distributed.zero.shard_dsm_state``)."""
     rows = n_workers if topo is None else topo.local_workers
     params = each(lambda x: x.unsqueeze(0).repeat(rows, 1), x0)
     state = DSMState(
@@ -188,10 +188,23 @@ def worker_finite_mask(params_w) -> torch.Tensor:
     return functools.reduce(torch.logical_and, ok)
 
 
+def _row_sum(rows: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of the W rows of ``(W, N)``: from +0, row after row in
+    worker order, as a sequential reduction adds them.  The order is fixed
+    whatever N: a reduction kernel over the rows may split them otherwise
+    at another N (on the card, a dense (4, 368,640) f32 buffer and a rank's
+    (4, 92,160) chunk of it), so the ranks' chunks would not reproduce the
+    dense mean bit for bit."""
+    acc = torch.zeros(rows.shape[1:], dtype=F32, device=rows.device)
+    for row in rows:
+        acc.add_(row)
+    return acc
+
+
 def worker_mean(params_w):
     """Line 7's mean of ``(W, N)`` in f32, cast back (as ``jnp.mean`` of
     bf16); group by group."""
-    return each(lambda p: p.mean(dim=0, dtype=F32).to(p.dtype), params_w)
+    return each(lambda p: (_row_sum(p) / _on(p.shape[0], p)).to(p.dtype), params_w)
 
 
 def masked_worker_mean(params_w, weights: torch.Tensor):
@@ -209,7 +222,7 @@ def _masked_mean(params_w: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     wsum = torch.clamp(weights.to(F32).sum(), min=1.0)
     w = weights.to(dt)[:, None]
     contrib = torch.where(w > 0, params_w, torch.zeros((), dtype=dt, device=params_w.device))
-    return (w * contrib).sum(dim=0, dtype=F32).to(dt) / wsum.to(dt)
+    return _row_sum(w * contrib).to(dt) / wsum.to(dt)
 
 
 def _contribution_weights(contrib: torch.Tensor, cfg: "DSMConfig", faults,
@@ -339,6 +352,8 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
     with ``cfg.zero_sharded`` the DSM kernel updates the rank's shard (one
     all-reduce for the pack's sums, one all-gather of x_{t+1,0}); without it
     every rank gathers the whole mean and runs the replicated global step.
+    A mixed-dtype model's groups go through each collective and launch one
+    by one (``repro_torch.distributed.comm`` counts the calls).
     ``cfg.device_parallel_local`` needs a topology, as the reference's needs
     a mesh.
 
@@ -356,7 +371,7 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
                          "(repro_torch.distributed.mesh.topology)")
     local_phase = make_local_phase(loss_fn, base_opt, layout)
     sharded = cfg.zero_sharded and topo is not None
-    n = layout.numel
+    numels = layout.group_numels
 
     def outer_step(state: DSMState, batch: dict,
                    rng: Optional[torch.Generator] = None, faults=None):
@@ -376,7 +391,7 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
         if faults is not None:
             own = faults if topo is None else type(faults)(
                 *(mask[topo.worker_slice] for mask in faults))
-            contrib = apply_faults(state.params, Z.gather_shards(state.x0, topo, n)
+            contrib = apply_faults(state.params, Z.gather_shards(state.x0, topo, numels)
                                    if sharded else state.x0, own)
         weights = _contribution_weights(contrib, cfg, faults, topo)
         if topo is None:
@@ -392,9 +407,10 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
             kept = parts(state.x0) + parts(state.m)
             kept = [t.clone() for t in kept]
         if sharded:
-            stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1, topo)
-            Z.sharded_global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, topo, n,
-                                                rng)
+            stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1, topo,
+                                       numels)
+            Z.sharded_global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, topo,
+                                                numels, rng)
         else:
             stat = OM.stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1)
             global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, rng)
@@ -406,16 +422,16 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
             for buf, old in zip(parts(state.x0) + parts(state.m), kept):
                 torch.where(ok, buf, old, out=buf)
 
-        # line 11: every worker restarts from x_{t+1,0} (the all-gather when
-        # sharded); AdamW state carries on
-        x0 = Z.gather_shards(state.x0, topo, n) if sharded else state.x0
+        # line 11: every worker restarts from x_{t+1,0} (the all-gather of
+        # each sharded group); AdamW state carries on
+        x0 = Z.gather_shards(state.x0, topo, numels) if sharded else state.x0
         each(lambda p, x: p.copy_(x.expand_as(p)), state.params, x0)
         state.t += 1
         state.inner += cfg.tau
 
         loss_mean, last_loss, spread = OM.loss_stats(losses)
         pack = OM.finish_pack(loss=loss_mean, last_loss=last_loss, gamma=gamma_t,
-                              worker_spread=spread, stat_sums=stat, n_elems=n,
+                              worker_spread=spread, stat_sums=stat, n_elems=layout.numel,
                               survivor_frac=None if wsum is None else wsum / losses.shape[1])
         metrics = {"loss": loss_mean, "gamma": gamma_t, "last_loss": last_loss, "pack": pack}
         if wsum is not None:

@@ -15,6 +15,18 @@ the one place exempt from the sanitizer's ban on host syncs
 lifts it for a staged collective only.  With no process group (a world of one) every collective is the
 identity.
 
+A mixed-dtype model (``repro_torch.groups``) sends each dtype group
+through its own calls of :func:`scatter_rows` and
+:func:`all_gather_shards`, in its own dtype: no byte buffer packs the
+groups together, as the reference's collectives run leaf by leaf, and a
+reinterpret across dtypes would hide a dtype bug.  So a DSM round of a
+two-group model makes 2 scatters and 2 all-gathers (under ZeRO: a sharded
+group's scatter and its all-gather of x_{t+1,0}; a group kept whole
+gathers its mean after its scatter and nothing at line 11; without ZeRO
+each group's mean is scattered and gathered), one gather of the losses,
+and under ZeRO one all-reduce of the stat sums; a one-group round makes
+one scatter and one all-gather.
+
 Each collective adds its calls and bytes sent to ``topo.stats``.  Only a
 timed ``CommStats`` (``timed=True``, which ``run_training(...,
 time_collectives=True)`` asks for) adds seconds too: host clock, with the

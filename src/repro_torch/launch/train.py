@@ -224,14 +224,15 @@ def main(argv=None):
               f"(summarize: python -m repro_torch.obs summarize {args.run_dir})")
     if args.checkpoint:
         from repro_torch.checkpoint import checkpoint as CK
-        from repro_torch.groups import parts
+        from repro_torch.groups import each, parts
         from repro_torch.models import convert
         from repro_torch.models.transformer import layout
 
         st = result["state"]
         final = st.x0 if hasattr(st, "x0") else st.params
         if sum(t.numel() for t in parts(final)) != layout(cfg).numel:
-            final = st.params[0]     # x0 is a ZeRO shard; the workers hold the whole x0
+            # x0 holds ZeRO shards; the workers hold the whole x0
+            final = each(lambda p: p[0], st.params)
         CK.save(args.checkpoint, convert.leaf_tree(layout(cfg), final), step=args.steps)
         print(f"saved checkpoint to {args.checkpoint}.npz")
     return result

@@ -31,7 +31,7 @@ On a world of one, no collective runs: the record says so
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 from repro_torch.obs.comm_model import (GATHER_CLASS, PHASES, REDUCE_CLASS,
                                         wire_bytes_for_payload)
@@ -63,9 +63,9 @@ def stats_delta(before: Dict[str, Dict[str, int]],
 def observed_ledger(
     delta: Dict[str, Dict[str, int]],
     *,
-    numel: int,
+    group_numels: Sequence[int],
     n_param_leaves: int,
-    param_bytes: int,
+    group_itemsizes: Sequence[int],
     algo: str,
     tau: int,
     phase: str,
@@ -75,12 +75,15 @@ def observed_ledger(
     """The ledger record of one outer step whose collectives ``delta``
     counted (:func:`stats_delta`), against the analytic model.
 
-    ``numel`` / ``param_bytes``: the global params x0 the phase moves;
-    ``phase``: one of ``PHASES``; ``world``: the ranks the step runs over.
+    ``group_numels`` / ``group_itemsizes``: the global params x0 the phase
+    moves, one entry per dtype group (``FlatLayout.group_numels`` and its
+    dtypes' sizes): the payload adds each group's elements times its
+    bytes, at the reduce dtype's floor of 4; ``phase``: one of ``PHASES``;
+    ``world``: the ranks the step runs over.
     """
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
-    payload = numel * max(4, param_bytes)
+    payload = sum(n * max(4, b) for n, b in zip(group_numels, group_itemsizes, strict=True))
     wire, rounds = wire_bytes_for_payload(payload, algo, tau)
     pred_reduce = payload if phase != "local" else 0
     pred_gather = payload if phase == "global_zero" else 0

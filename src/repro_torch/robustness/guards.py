@@ -20,8 +20,10 @@ trainer calls after the step, outside its sanitizer, as the reference reads
 its rollback streak outside its transfer guard.
 
 Over the ranks of a topology each rank checks the part of the state it
-holds, and one all-reduce (MIN) of the verdict makes every rank accept or
-reject the round together; each rank's snapshot and select stay local.
+holds (its shard of each dtype group of x0 and m, or the whole group where
+it is kept whole), and one all-reduce (MIN) of the verdict makes every rank
+accept or reject the round together; each rank's snapshot and select stay
+local, tensor by tensor of each group.
 """
 
 from __future__ import annotations

@@ -147,7 +147,8 @@ def build_algorithm(loss_fn, s: TrainSettings, layout, topo=None):
         sharded = s.zero_sharded and topo is not None
         return ((lambda x0, n: dsm_init(x0, base, n, topo, s.zero_sharded)), step,
                 # x0 is the rank's shard: params[0] equals x0 after the gather
-                (lambda st: st.params[0]) if sharded else (lambda st: st.x0), 1.0)
+                (lambda st: each(lambda p: p[0], st.params)) if sharded else
+                (lambda st: st.x0), 1.0)
 
     if s.algorithm in BL.LOCAL_METHODS:
         kw = {"slowmo": dict(beta=s.slow_beta, alpha=s.global_lr),
@@ -232,10 +233,10 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
     ``params``: initial params in the port's flat layout, ``(N,)`` or
     ``(W, N)``, the Groups of a mixed-dtype model (for example
     ``convert.from_jax_numpy`` of the reference's ``init_params``); by
-    default they are drawn from ``s.seed``.  A mixed-dtype model runs on
-    the dense path only: with ``zero_sharded`` or ``device_parallel_local``
-    over a topology it raises NotImplementedError.  A ``vlm`` or ``encdec``
-    config raises ValueError: the corpus gives tokens only, as the
+    default they are drawn from ``s.seed``.  A mixed-dtype model runs every
+    path, the ranks' too: each dtype group is sharded, scattered and
+    gathered on its own (``repro_torch.distributed.zero``).  A ``vlm`` or
+    ``encdec`` config raises ValueError: the corpus gives tokens only, as the
     reference's trainer feeds them (``make_dsm_step`` takes those families'
     batch dicts).
     ``outer_step_s`` holds each round's time, ended by a device sync;
@@ -359,7 +360,7 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
             tree, step_no, extra = CK.restore_latest(s.checkpoint_dir, ckpt_tree(state))
             C.load_state_tree(state, tree["state"], cfg)
         else:
-            dense = Z.dense_host(state, topo, lay.numel)
+            dense = Z.dense_host(state, topo, lay.group_numels)
             tree, step_no, extra = CK.restore_latest(s.checkpoint_dir, ckpt_tree(dense))
             C.load_state_tree(dense, tree["state"], cfg)
             Z.load_local_part(state, dense, topo)
@@ -406,7 +407,7 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
         tc = time.perf_counter()
         # shards and worker rows gathered to rank 0, which writes the dense
         # layout; the others wait until the file is complete
-        dense = state if topo is None else Z.gather_state(state, topo, lay.numel)
+        dense = state if topo is None else Z.gather_state(state, topo, lay.group_numels)
         if root:
             CK.save_checkpoint(s.checkpoint_dir, ckpt_tree(dense), step_no,
                                keep=s.checkpoint_keep, extra=ckpt_extra())
@@ -522,8 +523,9 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
                 SAN.debug_nans(t + 1, state=state, guard=guard, metrics=metrics)
             if ledger_from is not None:
                 emit("comm_ledger", **OL.observed_ledger(
-                    OL.stats_delta(ledger_from, ranks.stats.as_dict()), numel=lay.numel,
-                    n_param_leaves=len(lay.names), param_bytes=cfg.p_dtype.itemsize,
+                    OL.stats_delta(ledger_from, ranks.stats.as_dict()),
+                    group_numels=lay.group_numels, n_param_leaves=len(lay.names),
+                    group_itemsizes=tuple(dt.itemsize for dt in lay.dtypes),
                     algo="dsm" if s.algorithm in _DSM_FAMILY else s.algorithm, tau=s.tau,
                     phase="global_zero" if s.zero_sharded and topo is not None
                     else "global_dense", world=topo.world if topo is not None else 1,

@@ -10,9 +10,8 @@ per dtype, through every algorithm and base optimizer of the dense path.
 * The mixed-dtype model itself: granite_moe SMOKE with bf16 parameters (its
   routers f32) trains with every algorithm and base optimizer, and with
   DSM under faults and guards, through ``run_training`` on the CPU: finite
-  losses, every group in its dtype, x0 moved.  The ZeRO-sharded and
-  device-parallel ranks raise ``NotImplementedError`` for it, and for
-  recurrentgemma SMOKE with bf16 parameters (its ``lam`` f32).
+  losses, every group in its dtype, x0 moved.  Over the ZeRO-sharded and
+  device-parallel ranks it runs group by group: ``tests/test_torch_zero_groups.py``.
 """
 
 import dataclasses
@@ -145,25 +144,6 @@ def test_mixed_dtype_model_trains(run):
         st.params if run["algorithm"] == "perstep" else st.x0)
     assert isinstance(final, Groups) and [t.dtype for t in final] == list(lay.dtypes)
     assert all((a != b).any() for a, b in zip(final, x0))
-
-
-@pytest.mark.parametrize("flag", ["zero_sharded", "device_parallel_local"])
-def test_mixed_dtype_model_refuses_the_ranks(flag):
-    s = TR.TrainSettings(n_workers=W, tau=TAU, steps=1, b_micro=BM, seq=SEQ, **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TR.run_training(MIXED, s, device="cpu")
-
-
-@pytest.mark.parametrize("flag", ["zero_sharded", "device_parallel_local"])
-def test_mixed_dtype_recurrent_model_refuses_the_ranks(flag):
-    """recurrentgemma SMOKE with bf16 parameters (its ``lam`` f32: two
-    groups) takes the same refusal over ranks as granite's."""
-    cfg = dataclasses.replace(load_arch("recurrentgemma_2b").SMOKE, param_dtype="bfloat16",
-                              name="recurrentgemma_smoke_bf16_params")
-    assert T.layout(cfg).dtypes == (torch.bfloat16, F32)
-    s = TR.TrainSettings(n_workers=W, tau=TAU, steps=1, b_micro=BM, seq=SEQ, **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TR.run_training(cfg, s, device="cpu")
 
 
 def test_pick_join_and_each():

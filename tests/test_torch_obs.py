@@ -199,15 +199,15 @@ def test_degenerate_ledger_matches_reference(phase):
     theirs = JL.compile_time_ledger(lambda x: x * 2, (jax.numpy.zeros(n),),
                                     params={"w": jax.numpy.zeros(n, jax.numpy.bfloat16)},
                                     algo="dsm", tau=12, phase=phase)
-    ours = L.observed_ledger({}, numel=n, n_param_leaves=1, param_bytes=2, algo="dsm", tau=12,
-                             phase=phase, world=1)
+    ours = L.observed_ledger({}, group_numels=(n,), n_param_leaves=1, group_itemsizes=(2,),
+                             algo="dsm", tau=12, phase=phase, world=1)
     extra = {"source", "by_kind"}
     assert {k: v for k, v in ours["observed"].items() if k not in extra} == theirs["observed"]
     assert {k: v for k, v in ours.items() if k != "observed"} == {
         k: v for k, v in theirs.items() if k != "observed"}
     with pytest.raises(ValueError, match="phase must be one of"):
-        L.observed_ledger({}, numel=n, n_param_leaves=1, param_bytes=2, algo="dsm", tau=1,
-                          phase="nope", world=1)
+        L.observed_ledger({}, group_numels=(n,), n_param_leaves=1, group_itemsizes=(2,),
+                          algo="dsm", tau=1, phase="nope", world=1)
 
 
 def test_ledger_classes_and_delta():
@@ -218,8 +218,9 @@ def test_ledger_classes_and_delta():
                                                                             "bytes": 7}}
     delta = L.stats_delta(before, after)
     assert delta["scatter_rows"] == {"calls": 1, "bytes": 200}
-    rec = L.observed_ledger(delta, numel=100, n_param_leaves=3, param_bytes=2, algo="dsm",
-                            tau=2, phase="global_zero", world=4)
+    rec = L.observed_ledger(delta, group_numels=(100,), n_param_leaves=3,
+                            group_itemsizes=(2,), algo="dsm", tau=2, phase="global_zero",
+                            world=4)
     obs = rec["observed"]
     assert (obs["reduce_ops"], obs["reduce_bytes"]) == (2, 228)
     assert (obs["gather_ops"], obs["gather_bytes"]) == (1, 50)

@@ -13,15 +13,20 @@ import torch.distributed as dist
 from repro_torch.core.dsm import DSMConfig
 from repro_torch.distributed import mesh
 from repro_torch.distributed import zero as Z
+from repro_torch.groups import Groups, each
 from repro_torch.models.convert import state_fields
 
 
 def flat_state(state, prefix: str = "") -> dict:
     """``{dotted field name: tensor or int}`` of a training state on the
-    CPU, less its scratch buffers (``params``, ``x0``, ``base_state.m``...)."""
+    CPU, less its scratch buffers (``params``, ``x0``, ``base_state.m``...).
+    A mixed-dtype model's buffer names each group's tensor apart, in the
+    dense layout of its group: ``x0.0``, ``x0.1``, ``base_state.m.1``."""
     out = {}
     for name, v in state_fields(state):
-        if isinstance(v, torch.Tensor):
+        if isinstance(v, Groups):
+            out.update({f"{prefix}{name}.{i}": t.cpu() for i, t in enumerate(v)})
+        elif isinstance(v, torch.Tensor):
             out[prefix + name] = v.cpu()
         elif isinstance(v, int):
             out[prefix + name] = v
@@ -43,15 +48,18 @@ def train_rank(rank: int, world: int, cfg, settings: list, device: str = "cpu",
     rank 0 also ``state``, the final state in the dense layout
     (:func:`flat_state`), or only its ``fields`` of the DSM state (for
     example ``("x0", "m")``, which a full-width run gathers without the
-    workers' rows)."""
+    workers' rows).  ``cfg`` and ``params`` may be lists, one entry per
+    settings entry, so that one start of the ranks trains several models."""
     from repro_torch import kernels as K
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import run_training, splits_workers
 
     group = dist.group.WORLD
-    n = T.layout(cfg).numel
+    cfgs = cfg if isinstance(cfg, list) else [cfg] * len(settings)
+    inits = params if isinstance(params, list) else [params] * len(settings)
     out = []
-    for s in settings:
+    for cfg, params, s in zip(cfgs, inits, settings, strict=True):
+        numels = T.layout(cfg).group_numels
         K.reset_launch_counts()
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -62,10 +70,10 @@ def train_rank(rank: int, world: int, cfg, settings: list, device: str = "cpu",
         state = res.pop("state")
         topo = mesh.topology(s.n_workers, group) if splits_workers(s) else None
         if fields is not None:
-            state = {k: getattr(state, k) if topo is None else Z.gather_shards(
-                getattr(state, k), topo, n) for k in fields}
+            state = {k: getattr(state, k) if topo is None else Z.gather_state(
+                getattr(state, k), topo, numels) for k in fields}
         elif topo is not None:
-            state = Z.gather_state(state, topo, n)
+            state = Z.gather_state(state, topo, numels)
         if rank == 0:
             res["state"] = flat_state(state)
         out.append(res)
@@ -91,13 +99,13 @@ def global_step_rank(rank: int, world: int, cases: list) -> list:
         x0 = torch.from_numpy(c["x0"][a:b]).to(dt)
         m = torch.from_numpy(c["m"][a:b])
         cfg = DSMConfig(**c["cfg"])
-        stat = Z.sharded_stat_sums(x0, m, x_tau, c["gamma"], cfg.beta1, topo)
+        stat = Z.sharded_stat_sums(x0, m, x_tau, c["gamma"], cfg.beta1, topo, (n,))
         rng = torch.Generator().manual_seed(c["seed"])
-        Z.sharded_global_sign_momentum_step(x0, m, x_tau, c["gamma"], cfg, topo, n, rng)
+        Z.sharded_global_sign_momentum_step(x0, m, x_tau, c["gamma"], cfg, topo, (n,), rng)
         out.append({"bounds": (a, b), "x_tau": x_tau,
                     "x_tau_full": Z.replicated_worker_mean(rows, topo, weights),
-                    "stat": stat, "x0": Z.gather_shards(x0, topo, n),
-                    "m": Z.gather_shards(m, topo, n)})
+                    "stat": stat, "x0": Z.gather_shards(x0, topo, (n,)),
+                    "m": Z.gather_shards(m, topo, (n,))})
     return out
 
 
@@ -178,7 +186,74 @@ def batch_dict_steps_rank(rank: int, world: int, cfg, n_workers: int, flags: dic
         state, metrics = step(state, batch)
         losses.append(metrics["loss"])
     sharded = topo is not None and flags.get("zero_sharded", False)
-    n = lay.numel
+    numels = lay.group_numels
     return {"losses": losses,
-            **{k: Z.gather_shards(getattr(state, k), topo, n) if sharded else getattr(state, k)
+            **{k: Z.gather_shards(getattr(state, k), topo, numels) if sharded
+               else getattr(state, k)
                for k in ("x0", "m")}}
+
+
+def groups_step_rank(rank: int, world: int, cases: list) -> list:
+    """Each case's ZeRO pieces on a buffer of dtype groups on this rank: the
+    scattered and replicated worker means, the stat sums, the sharded global
+    step (x0 / m gathered), this rank's collectives.  A case: per group
+    (each a list) ``params`` (W, n_g), ``x0``, ``m`` (numpy f32), ``dtype``;
+    and ``gamma``, ``cfg`` (DSMConfig keywords), ``seed`` (the generator of
+    the randomized signs)."""
+    return [_groups_step(c) for c in cases]
+
+
+def _groups_step(case: dict) -> dict:
+    from repro_torch.groups import parts
+
+    n_workers = case["params"][0].shape[0]
+    topo = mesh.topology(n_workers, dist.group.WORLD)
+    numels = tuple(p.shape[1] for p in case["params"])
+    dts = [getattr(torch, d) for d in case["dtype"]]
+    rows = Groups(torch.from_numpy(p[topo.worker_slice]).to(dt)
+                  for p, dt in zip(case["params"], dts))
+    bounds = [Z.my_bounds(n, topo) for n in numels]
+    x_tau = Z.scattered_worker_mean(rows, topo)
+    x0 = Groups(torch.from_numpy(x[a:b]).to(dt) for x, (a, b), dt in
+                zip(case["x0"], bounds, dts))
+    m = Groups(torch.from_numpy(x[a:b]) for x, (a, b) in zip(case["m"], bounds))
+    cfg = DSMConfig(**case["cfg"])
+    stat = Z.sharded_stat_sums(x0, m, x_tau, case["gamma"], cfg.beta1, topo, numels)
+    rng = torch.Generator().manual_seed(case["seed"])
+    Z.sharded_global_sign_momentum_step(x0, m, x_tau, case["gamma"], cfg, topo, numels, rng)
+    return {"bounds": bounds, "x_tau": list(parts(x_tau)),
+            "x_tau_full": list(parts(Z.replicated_worker_mean(rows, topo))),
+            "stat": stat, "x0": list(parts(Z.gather_shards(x0, topo, numels))),
+            "m": list(parts(Z.gather_shards(m, topo, numels))), "comm": topo.stats.as_dict()}
+
+
+def groups_state_rank(rank: int, world: int, cfg, n_workers: int, global_sharded: bool) -> dict:
+    """A DSM + AdamW state of ``cfg`` (every buffer random, from seed 0) in
+    the dense layout, this rank's part of it loaded from a
+    :func:`~repro_torch.distributed.zero.dense_host` template through
+    ``load_local_part``, and that part gathered back to rank 0 with
+    ``gather_state``; each as :func:`flat_state`, the dense one and the
+    gathered one on rank 0 only."""
+    from repro_torch.core.base_opt import adamw
+    from repro_torch.core.dsm import dsm_init
+    from repro_torch.models import transformer as T
+    from repro_torch.robustness.guards import state_tensors
+
+    topo = mesh.topology(n_workers, dist.group.WORLD)
+    lay = T.layout(cfg)
+    gen = torch.Generator().manual_seed(0)
+    dense = dsm_init(lay.empty(), adamw(), n_workers)
+    for t in state_tensors(dense):
+        t.copy_(torch.randn(t.shape, generator=gen))
+    dense.t, dense.inner = 3, 36
+    mine = dsm_init(each(torch.zeros_like, lay.empty()), adamw(), n_workers, topo,
+                    global_sharded)
+    template = Z.dense_host(mine, topo, lay.group_numels)
+    for dst, src in zip(state_tensors(template), state_tensors(dense), strict=True):
+        dst.copy_(src)
+    template.t, template.inner = dense.t, dense.inner
+    Z.load_local_part(mine, template, topo)
+    gathered = Z.gather_state(mine, topo, lay.group_numels)
+    return {"dense": flat_state(dense) if rank == 0 else None, "mine": flat_state(mine),
+            "gathered": flat_state(gathered) if rank == 0 else None,
+            "bounds": [Z.my_bounds(n, topo) for n in lay.group_numels]}
