@@ -53,9 +53,15 @@ window) and Mamba-2 780M at whole depth (SSD, W=2, S=2048) trained through
 run_training and both kernels (bf16 blocks, f32 decay leaves: two groups),
 each served from its recurrent state on its trained x0 and held against its
 full forward, and card vs CPU for both SMOKE configs and RecurrentGemma's
-SMOKE with bf16 parameters.  algorithms_full_width and
-resume_full_width run GPT-2 small at full width with its depth cut to
-CUT_LAYERS layers.
+SMOKE with bf16 parameters.  Then activation checkpointing: Mamba-2's run
+again through make_dsm_step with loss_fn's remat=True under the "full" and
+the "dots" policies, each held bit for bit against the run without it.
+Last, every full-width run's measured peak beside the dry-run's reckoning
+of it on meta tensors (repro_torch.launch.dryrun), within DRYRUN_RTOL.
+algorithms_full_width, resume_full_width, obs_full_width and the
+full-width ranks phases run GPT-2 small at full width with its depth cut
+to CUT_LAYERS layers; the other cuts made for the command's time target
+are named beside their constants (PERF.md section 4).
 
     python3 chip_smoke.py
 
@@ -105,10 +111,14 @@ NANO_RTOL = 1e-4                # card vs CPU loss history, see phase_card_vs_cp
 # this bound is ten times the largest
 SIGN_LIKE_RTOL = 1e-3
 SIGN_LIKE_BASE_OPTS = ("lion", "sophia")
-ALGO_STEPS = 3
-# algorithms_full_width and resume_full_width run gpt2_small at full width
-# with its depth cut to this many layers, to keep the whole command well
-# inside its time limit (PERF.md section 4)
+# cut from 3 for the command's time target (PERF.md section 4), in both
+# algorithms phases alike
+ALGO_STEPS = 2
+# algorithms_full_width, resume_full_width, obs_full_width and the
+# full-width ranks phases run gpt2_small at full width with its depth cut to
+# this many layers, to keep the whole command inside its time target (PERF.md
+# section 4); obs_full_width and the ranks are held against resume_full_width's
+# uninterrupted run
 CUT_LAYERS = 2
 # the card-vs-CPU phases run their CPU side in worker processes, beside
 # their card runs (which are timed by no one); nano's small ops gain more
@@ -142,12 +152,12 @@ RESUME_STEPS = 4
 # losses (a margin of ~10%, never within rounding): the guard rejects it
 SPIKE_FACTOR = 0.9
 RANKS = 4                       # processes sharing the card over gloo, one worker each
-ZERO_RTOL = 1e-4                # ranks vs main path, loss history (bit-equal expected)
+ZERO_RTOL = 1e-4                # ranks vs the dense run, loss history (bit-equal expected)
 NCCL_STEPS = 2
 RANKS_TIMEOUT_S = 600
 # the paper's other GPT-2 sizes at full width (vocab padded to 50,688)
 PAPER_SIZES = (("gpt2_medium", 353_944_576), ("gpt2_large", 772_762_880))
-PAPER_STEPS = 3
+PAPER_STEPS = 2                 # cut from 3 for the command's time target
 # the AdamW kernel past 2^31 elements: two rows of 2^30 + RAGGED
 PAST_2G_SHAPE = (2, 2 ** 30 + RAGGED)
 INT32_EDGE = 2 ** 31
@@ -198,14 +208,18 @@ SERVE_CPU_ATOL = 1e-4           # serve_card_vs_cpu: nano f32 decode logits
 # default) applies.  gemma3_1b.FULL whole depth at W=2 (W=4 would need ~75 GB
 # of state), S=1024 so that its 512-token window binds; granite at full
 # width and GRANITE_LAYERS of its 32 layers (3.30 B parameters fit at no W
-# with AdamW).  N per dtype group: the param dtype's, then f32.
+# with AdamW; cut from 6 layers for the command's time target, where
+# group_kernel_checks keeps the 6-layer groups: AdamW over (4, 680,283,648),
+# past 2^31).  N per dtype group: the param dtype's, then f32.
 GEMMA = dict(n_workers=2, b_micro=1, seq=1024)
 GEMMA_N = (999_812_736,)
-GRANITE_LAYERS = 6
-GRANITE_N = (680_283_648, 368_640)
-WINDOW_MOE_STEPS = 3
+GRANITE_LAYERS = 3
+GRANITE_N = (378_284_544, 184_320)
+GRANITE_CHECK_LAYERS = 6
+WINDOW_MOE_STEPS = 2            # cut from 3 for the command's time target
 WINDOW_MOE_EVAL_BATCH = 4           # eval sequences: gemma's f32 logits take 1.07 GB per 1024
-SERVE_SWA = (4, 640, 128)       # batch, prompt (past the window), new tokens (the ring wraps)
+# batch, prompt (past the window: the ring wraps), new tokens (cut from 128)
+SERVE_SWA = (4, 640, 32)
 SERVE_MOE = (4, 128, 32)
 WINDOW_MOE_SMOKES = ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_a17b")
 # mixed-dtype models over ranks: mixed_zero_full_width runs the granite path
@@ -213,7 +227,7 @@ WINDOW_MOE_SMOKES = ("gemma3_1b", "granite_moe_3b_a800m", "llama4_maverick_400b_
 # configs with bf16 parameters (two dtype groups) at a microbatch and tau
 # that keep the CPU side's ranks cheap
 MIXED_RANKS_SMOKES = ("granite_moe_3b_a800m", "recurrentgemma_2b")
-MIXED_RANKS_BATCH = dict(tau=4, b_micro=2, seq=64)
+MIXED_RANKS_BATCH = dict(tau=2, b_micro=2, seq=64)     # tau cut from 4
 # the replicated global step's flag set (device_parallel_local alone) runs
 # on these only: recurrentgemma's was cut for the command's time target
 MIXED_DP_SMOKES = ("granite_moe_3b_a800m",)
@@ -225,36 +239,54 @@ MIXED_DP_SMOKES = ("granite_moe_3b_a800m",)
 # (one layer's training state alone is ~78 GB at W=2), its 2,880 patches
 # (anyres 5 x 576) before 128 text tokens.
 ENCDEC = dict(n_workers=2, b_micro=1, seq=448)
-ENCDEC_LAYERS = 16
-ENCDEC_N = 800_954_880
+ENCDEC_LAYERS = 8               # cut from 16 for the command's time target
+ENCDEC_N = 433_902_080
 ENCDEC_STEPS = 3
 ENCDEC_EVAL_BATCH = 2
-SERVE_ENCDEC = (4, 64, 64)      # batch, prompt, new tokens
-VLM_LAYERS = 8
-VLM_N = 5_431_745_536
+SERVE_ENCDEC = (4, 64, 32)      # batch, prompt, new tokens (cut from 64)
+VLM_LAYERS = 4                  # cut from 8
+VLM_N = 3_200_318_464
 SERVE_VLM = (2, 128, 32)        # 32 new tokens < 2,880 patches: where the reference raises
 ENCDEC_VLM_SMOKES = ("whisper_large_v3", "llava_next_34b")
 # the recurrent mixers at full width.  recurrentgemma_2b.FULL (2,894,481,920
-# parameters) at RG_LAYERS of its 26 layers, two (rglru, rglru, swa) groups,
-# W=2: ~60 GB at 6 layers (the state and the global step's f32 temporaries,
-# ~51 B per parameter as gemma3's peak showed), where 9 layers would need
-# ~73 GB; S=3072 so that its 2048-token window binds.  mamba2_780m.FULL at
+# parameters) at RG_LAYERS of its 26 layers, one (rglru, rglru, swa) group,
+# W=2 (cut from 6 layers, ~60 GB, for the command's time target); S=3072 so
+# that its 2048-token window binds.  mamba2_780m.FULL at
 # whole depth (48 layers), W=2, S=2048 (Mamba-2's published training
 # context).  N per dtype group: the param dtype's, then f32 (lam; A_log, D,
 # dt_bias).  Neither arch module has a PEAK_LR: MAIN's applies.
 RG = dict(n_workers=2, b_micro=1, seq=3072)
-RG_LAYERS = 6
-RG_N = (1_169_246_720, 10_240)
+RG_LAYERS = 3
+RG_N = (912_304_640, 5_120)
 MAMBA = dict(n_workers=2, b_micro=1, seq=2048)
 MAMBA_N = (780_768_768, 6_912)
-RECURRENT_STEPS = 3
+RECURRENT_STEPS = 2             # mamba2's, cut from 3 for the command's time target
+# recurrentgemma keeps 3 rounds: its bf16 decode-vs-full-forward check sits
+# near SERVE_ATOL and moves with the corpus (src/**/*.py), 0.20-0.32 after 2
+# rounds at 3 layers and 0.31 at PR 20's 6 layers and 3 rounds on one
+# corpus where 3 layers and 3 rounds read 0.15 (PERF.md section 7)
+RG_STEPS = 3
 RECURRENT_EVAL_BATCH = 2        # eval sequences: recurrentgemma's f32 logits, 2.1 GB per 2048
 SERVE_RG = (4, 2560, 128)       # batch, prompt (past the window), new tokens
-SERVE_MAMBA = (4, 512, 128)     # a prompt of four 128-position SSD chunks
+SERVE_MAMBA = (4, 512, 32)      # four 128-position SSD chunks; 32 new (cut from 128)
 RECURRENT_SMOKES = ("mamba2_780m", "recurrentgemma_2b")
+# activation checkpointing at full width: mamba2's recurrent_full_width run
+# again through make_dsm_step with loss_fn(..., remat=True, remat_policy=p)
+# for each p, REMAT_ROUNDS rounds, held bit for bit against that prefix of
+# the run without it (cut from 3 rounds, then 2, for the time target)
+REMAT_POLICIES = ("full", "dots")
+REMAT_ROUNDS = 1
+# dryrun_vs_card: every measured full-width peak within this share of the
+# dry-run's reckoning (repro_torch.launch.dryrun, on meta tensors)
+DRYRUN_RTOL = 0.20
 
 
 T0 = time.perf_counter()
+# every full-width run's measured peak, for dryrun_vs_card: (run, bytes,
+# cfg, repro_torch.launch.dryrun.reckon_train's keywords, bytes the script
+# holds on the card beside the run, the reckoning's future in the CPU pool)
+PEAKS = []
+RECKON = {"pool": None}         # the CPU pool, once main has started it
 
 
 def emit(obj) -> None:
@@ -262,6 +294,25 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
+
+
+def expect_peak(name: str, peak: int, cfg, s, held: int = 0, **kw) -> None:
+    """Record a full-width run's measured peak for dryrun_vs_card, with the
+    settings the dry-run reckons it from: by default run_training's (its
+    initial x0 kept beside the state, an eval of ``s.eval_batch``
+    sequences); ``held``: the bytes of the tensors the script keeps on the
+    card through the run (an earlier run's trained x0)."""
+    kw = {"n_workers": s.n_workers, "tau": s.tau, "b_micro": s.b_micro, "seq": s.seq,
+          "base_opt": s.base_opt, "eval_batch": s.eval_batch, **kw}
+    pool = RECKON["pool"]
+    PEAKS.append((name, peak, cfg, kw, held,
+                  pool and pool.submit(reckon_peak, cfg, kw)))    # reckoned meanwhile
+
+
+def card_bytes_of(x) -> int:
+    from repro_torch.groups import parts
+
+    return sum(t.numel() * t.element_size() for t in parts(x))
 
 
 def nvidia_smi() -> str:
@@ -497,18 +548,18 @@ def phase_main_path(torch, K, smi):
           "outer_step_ms_median_after_first": step_ms,
           "tokens_per_s": tokens_per_step / (step_ms / 1e3),
           "max_memory_allocated_bytes": peak, "launches": launches})
-    # kept for the repeat check of resume_full_width (same settings, same process)
-    final = {"history": hist, "x0": res["state"].x0.cpu(), "m": res["state"].m.cpu()}
-    return launches, {"outer_step_ms": step_ms, "max_memory_allocated_bytes": peak}, final
+    expect_peak("main_path", peak, cfg, s)
+    return launches, {"outer_step_ms": step_ms, "max_memory_allocated_bytes": peak}
 
 
-def phase_obs_full_width(torch, K, smi, main_final, main_cost):
-    """main_path's run again (gpt2_small.FULL, W=4, tau=12, MAIN_STEPS outer
-    steps, its settings and corpus) with a run directory, a metric flush
-    every round, a torch.profiler capture of outer step PROFILED_STEP and
-    the sanitizer (no implicit host sync inside the step), in a temporary
-    directory under build/.  History and final x0/m bit-equal to
-    main_path's; MAIN_STEPS DSM and MAIN_STEPS * tau AdamW launches in the
+def phase_obs_full_width(torch, K, smi, dense):
+    """resume_full_width's uninterrupted run again (gpt2_small at full width
+    and CUT_LAYERS layers, W=4, tau=12, MAIN_STEPS outer steps, the main
+    path's settings and corpus) with a run directory, a metric flush every
+    round, a torch.profiler capture of outer step PROFILED_STEP and the
+    sanitizer (no implicit host sync inside the step), in a temporary
+    directory under build/.  History and final x0/m bit-equal to that run's
+    (``dense``); MAIN_STEPS DSM and MAIN_STEPS * tau AdamW launches in the
     run, the post-run phase probe's apart; the run directory complete and
     summarized by ``python -m repro_torch.obs``; from the trace of the
     profiled step: tau AdamW and one DSM kernel launch, the device busy
@@ -521,7 +572,7 @@ def phase_obs_full_width(torch, K, smi, main_final, main_cost):
     from repro_torch.obs.tracing import profile_summary
     from repro_torch.train.trainer import TrainSettings, run_training
 
-    cfg = gpt2_small.FULL
+    cfg = gpt2_small_cut()
     corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
     tmp_root = ROOT / "build"
     tmp_root.mkdir(exist_ok=True)
@@ -556,9 +607,9 @@ def phase_obs_full_width(torch, K, smi, main_final, main_cost):
                                 if i != PROFILED_STEP) * 1e3
     row = {"phase": "obs_full_width", "gpu": smi, "config": cfg.name,
            "settings": {"log_every": 1, "profile_steps": s.profile_steps, "sanitize": True},
-           "history": final["history"], "main_path_history": main_final["history"],
-           "bit_equal_to_main_path": bit_equal(torch, final, main_final),
-           "max_gap": max_gap(torch, final, main_final),
+           "history": final["history"], "dense_history": dense["history"],
+           "bit_equal_to_dense": bit_equal(torch, final, dense),
+           "max_gap": max_gap(torch, final, dense),
            "launches": launches, "probe_launches": probe,
            "scalars_steps": [r["step"] for r in rows], "scalars_loss": [r["loss"] for r in rows],
            "manifest": {k: manifest.get(k) for k in ("backend", "device_name", "device_count",
@@ -571,16 +622,13 @@ def phase_obs_full_width(torch, K, smi, main_final, main_cost):
            "device_memory": memory, "profile_failed": failed,
            "summarize_rc": summary.returncode, "summarize": summary.stdout[-3000:],
            "phase_ms": phase_ms, "outer_step_ms": [t * 1e3 for t in step_s],
-           "outer_step_ms_median_unprofiled": step_ms,
-           "main_path_outer_step_ms_median_after_first": main_cost["outer_step_ms"],
-           "max_memory_allocated_bytes": peak,
-           "main_path_max_memory_allocated_bytes": main_cost["max_memory_allocated_bytes"],
+           "outer_step_ms_median_unprofiled": step_ms, "max_memory_allocated_bytes": peak,
            "profiled_step": PROFILED_STEP, "trace_bytes": trace_bytes, "trace_kernels": kernels,
            "trace": trace}
     emit(row)
     failures = []
-    if not row["bit_equal_to_main_path"]:
-        failures.append(f"history / x0 / m differ from main_path's by {row['max_gap']}")
+    if not row["bit_equal_to_dense"]:
+        failures.append(f"history / x0 / m differ from the dense run's by {row['max_gap']}")
     want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
     if launches != want:
         failures.append(f"launch counts {launches}, want {want}")
@@ -976,7 +1024,9 @@ def phase_resume_full_width(torch, K, smi):
     Resume, in that mode: 2 steps with checkpoint_every=2, then resume=True
     to step 4, into a temporary directory that the phase removes.  If the
     two deterministic runs agree bit for bit, the resumed history and final
-    x0 and m must too; else they must stay within the repeat gap."""
+    x0 and m must too; else they must stay within the repeat gap.  Returns
+    (launches, the first uninterrupted run's history and x0 / m on the
+    host: what obs_full_width and the ranks phases are held against)."""
     from repro_torch.configs import gpt2_small
     from repro_torch.data.pipeline import TextCorpus
     from repro_torch.train.trainer import TrainSettings, run_training
@@ -1043,7 +1093,7 @@ def phase_resume_full_width(torch, K, smi):
                              f"repeat gap {gap}")
     if resumed["steps_run"] != RESUME_STEPS - 2 or resumed["restore_s"] is None:
         raise AssertionError("resume_full_width: the resumed run did not start at step 2")
-    return total
+    return total, default
 
 
 def phase_robustness_card_vs_cpu(torch, K, pool):
@@ -1152,12 +1202,23 @@ def rel_per_round(a, b) -> list:
     return [abs(x - y) / abs(y) for x, y in zip(a, b)]
 
 
-def phase_ranks_full_width(torch, K, smi, main_final, name, flags, with_run_dir=False):
-    """gpt2_small.FULL, W=4, tau=12, MAIN_STEPS outer steps, the main path's
-    init and data, as RANKS processes sharing the card over gloo (one worker
-    each).  ``with_run_dir``: the ranks get a run directory (in build/) that
-    rank 0 writes, and its comm ledger's observed bytes must equal each
-    rank's CommStats bytes of one round.  The loss history within ZERO_RTOL of main_path's (bit-equal is
+# the full-width ranks phases: each name's flags; the first also writes a
+# run directory
+RANKS_FULL_WIDTH = (("zero_full_width", dict(zero_sharded=True, device_parallel_local=True)),
+                    ("device_parallel_full_width", dict(device_parallel_local=True)))
+
+
+def phase_ranks_full_width(torch, K, smi, dense):
+    """gpt2_small at full width and CUT_LAYERS layers, W=4, tau=12,
+    MAIN_STEPS outer steps, the main path's init and data, as RANKS
+    processes sharing the card over gloo (one worker each), once per flag
+    set of RANKS_FULL_WIDTH, all in one start of the ranks: the ZeRO-sharded
+    global step with the device-parallel local phase (zero_full_width),
+    then the device-parallel local phase alone (device_parallel_full_width).
+    The first gets a run directory (in build/) that rank 0 writes, and its
+    comm ledger's observed bytes must equal each rank's CommStats bytes of
+    one round.  Each flag set's loss history within ZERO_RTOL of the dense
+    run's (``dense``, resume_full_width's uninterrupted run; bit-equal is
     expected: each rank runs its worker as the dense process does, and the
     scattered mean is the dense mean column for column); the largest x0/m
     gap printed either way.  Per rank: MAIN_STEPS DSM launches (over the
@@ -1169,52 +1230,61 @@ def phase_ranks_full_width(torch, K, smi, main_final, name, flags, with_run_dir=
     from repro_torch.obs.sinks import read_run
     from repro_torch.train.trainer import TrainSettings
 
-    cfg = gpt2_small.FULL
+    cfg = gpt2_small_cut()
     corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
     torch.cuda.empty_cache()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-        s = TrainSettings(tau=gpt2_small.TOPO.tau, steps=MAIN_STEPS, eval_every=MAIN_STEPS,
-                          run_dir=d if with_run_dir else None, **MAIN, **flags)
+        settings = [TrainSettings(tau=gpt2_small.TOPO.tau, steps=MAIN_STEPS,
+                                  eval_every=MAIN_STEPS, run_dir=d if i == 0 else None,
+                                  **MAIN, **flags)
+                    for i, (_, flags) in enumerate(RANKS_FULL_WIDTH)]
         t0 = time.perf_counter()
-        ranks = run_ranks(RANKS, cfg, [s], "cuda", corpus=corpus, fields=("x0", "m"))[0]
+        runs = run_ranks(RANKS, cfg, settings, "cuda", corpus=corpus, fields=("x0", "m"))
         wall = time.perf_counter() - t0
-        events = read_run(d)[1] if with_run_dir else []
-    ledger = next((e for e in events if e["kind"] == "comm_ledger"), None)
-    round_bytes = [sum(v["bytes"] for v in r["comm"].values()) / s.steps for r in ranks]
-    final = rank_final(ranks[0])
-    want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
-    rel = history_rel(final["history"], main_final["history"])
-    n = n_params(cfg)
-    emit({"phase": name, "gpu": smi, "config": cfg.name, "n_params": n, "ranks": RANKS,
-          "backend": "gloo", "n_workers": s.n_workers, "tau": s.tau, "outer_steps": s.steps,
-          "flags": flags, "dsm_elements_per_rank": (
-              [b - a for a, b in zero.shard_bounds(n, RANKS)] if s.zero_sharded
-              else [n] * RANKS),
-          "history": final["history"], "main_path_history": main_final["history"],
-          "max_rel_diff": rel, "rtol": ZERO_RTOL,
-          "bit_equal_to_main_path": bit_equal(torch, final, main_final),
-          "max_gap": max_gap(torch, final, main_final), "final_eval": ranks[0]["final_eval"],
-          "wall_s": wall, **ranks_summary(ranks, s.steps),
-          "probe_launches": [r["probe_launches"] for r in ranks],
-          "comm_ledger": ledger and {k: ledger[k] for k in ("observed", "predicted", "ratio")}})
+        events = read_run(d)[1]
+    total = dict.fromkeys(K.launch_counts(), 0)
     failures = []
-    if with_run_dir:
-        observed = ledger and ledger["observed"]["reduce_bytes"] + ledger["observed"][
-            "gather_bytes"]
-        if not ledger or any(observed != b for b in round_bytes):
-            failures.append(f"comm ledger {observed} bytes, CommStats {round_bytes} per round")
-    if any(r["history"] != final["history"] for r in ranks):
-        failures.append("the ranks' histories differ")
-    if rel > ZERO_RTOL:
-        failures.append(f"history differs from main_path's by {rel}")
-    for r, got in enumerate(r["launches"] for r in ranks):
-        if got != want:
-            failures.append(f"rank {r}: launch counts {got}, want {want}")
+    n = n_params(cfg)
+    for (name, flags), s, ranks in zip(RANKS_FULL_WIDTH, settings, runs):
+        ledger = next((e for e in events if e["kind"] == "comm_ledger"),
+                      None) if s.run_dir else None
+        round_bytes = [sum(v["bytes"] for v in r["comm"].values()) / s.steps for r in ranks]
+        final = rank_final(ranks[0])
+        want = {"dsm_update": s.steps, "adamw_update": s.steps * s.tau}
+        rel = history_rel(final["history"], dense["history"])
+        emit({"phase": name, "gpu": smi, "config": cfg.name, "n_params": n, "ranks": RANKS,
+              "backend": "gloo", "n_workers": s.n_workers, "tau": s.tau,
+              "outer_steps": s.steps, "flags": flags, "dsm_elements_per_rank": (
+                  [b - a for a, b in zero.shard_bounds(n, RANKS)] if s.zero_sharded
+                  else [n] * RANKS),
+              "history": final["history"], "dense_history": dense["history"],
+              "max_rel_diff": rel, "rtol": ZERO_RTOL,
+              "bit_equal_to_dense": bit_equal(torch, final, dense),
+              "max_gap": max_gap(torch, final, dense), "final_eval": ranks[0]["final_eval"],
+              "wall_s_all_flag_sets": wall, **ranks_summary(ranks, s.steps),
+              "probe_launches": [r["probe_launches"] for r in ranks],
+              "comm_ledger": ledger and {k: ledger[k] for k in ("observed", "predicted",
+                                                                "ratio")}})
+        if s.run_dir:
+            observed = ledger and ledger["observed"]["reduce_bytes"] + ledger["observed"][
+                "gather_bytes"]
+            if not ledger or any(observed != b for b in round_bytes):
+                failures.append(f"{name}: comm ledger {observed} bytes, CommStats "
+                                f"{round_bytes} per round")
+        if any(r["history"] != final["history"] for r in ranks):
+            failures.append(f"{name}: the ranks' histories differ")
+        if rel > ZERO_RTOL:
+            failures.append(f"{name}: history differs from the dense run's by {rel}")
+        for r, got in enumerate(r["launches"] for r in ranks):
+            if got != want:
+                failures.append(f"{name}: rank {r}: launch counts {got}, want {want}")
+        for k in total:
+            total[k] += sum(r["launches"][k] + (r["probe_launches"] or {}).get(k, 0)
+                            for r in ranks)
     if failures:
-        raise AssertionError(f"{name}: " + "; ".join(failures))
-    return {k: sum(r["launches"][k] + (r["probe_launches"] or {}).get(k, 0) for r in ranks)
-            for k in want}
+        raise AssertionError("; ".join(failures))
+    return total
 
 
 def phase_zero_nccl_world1(torch, K):
@@ -1363,7 +1433,7 @@ def local_step_breakdown(torch, cfg, state, corpus, s) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.obs.tracing import profile_summary
 
-    local = make_local_phase(lambda p, mb: T.loss_fn(p, mb, cfg), get_base_optimizer("adamw"),
+    local = make_local_phase(lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), get_base_optimizer("adamw"),
                              T.layout(cfg))
     raw = next(dsm_batches(corpus, s.n_workers, 1, 1, s.b_micro, s.seq, seed=s.seed))
     batch = {"tokens": torch.as_tensor(raw["tokens"], dtype=torch.long, device="cuda")}
@@ -1417,9 +1487,10 @@ def phase_paper_sizes_full_width(torch, K, smi):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
-        res = run_training(cfg, s, corpus, device="cuda")
+        res = run_training(cfg, s, corpus, device="cuda", params=card_init(torch, cfg))
         launches = K.launch_counts()
         peak = torch.cuda.max_memory_allocated()
+        expect_peak(arch, peak, cfg, s)
         state = res.pop("state")
         hist, evals, step_s = res["history"], [e for _, e in res["eval_losses"]], res[
             "outer_step_s"]
@@ -1643,7 +1714,7 @@ def teacher_forced(torch, params, cfg, prompt, toks, extra=None):
     recurrent = [k.split(":")[0] for k in cfg.pattern if k.split(":")[0] in T.RECURRENT]
     out = []
     with torch.no_grad(), RouteLog(torch) as log:
-        logits, small = T.prefill(params, {"tokens": prompt, **extra}, cfg)
+        logits, small = T.prefill(params, {"tokens": prompt, **extra}, cfg, remat=False)
         cache = _splice_cache(T.init_cache(cfg, B, n0 + toks.shape[1], device=prompt.device),
                               small, cfg, n0)
         del small
@@ -1656,7 +1727,7 @@ def teacher_forced(torch, params, cfg, prompt, toks, extra=None):
                 continue
             dec_routes = log.take()
             seq = torch.cat([prompt, toks[:, :i]], dim=1)
-            h = T.hidden_states(params, {"tokens": seq, **extra}, cfg)[0][:, -1:]
+            h = T.hidden_states(params, {"tokens": seq, **extra}, cfg, remat=False)[0][:, -1:]
             same = torch.ones(B, dtype=torch.bool, device=prompt.device)
             for a, b in zip(dec_routes, log.take(), strict=True):
                 same &= (a == b).all(dim=-1)
@@ -1685,7 +1756,7 @@ def one_pass_logits(torch, params, cfg, prompt, toks, extra=None):
     pad = (-seq.shape[1]) % 128 if ssm and seq.shape[1] > 128 else 0
     seq = torch.cat([seq, seq.new_zeros(B, pad)], dim=1)
     with torch.no_grad():
-        h = T.hidden_states(params, {"tokens": seq, **extra}, cfg)[0]
+        h = T.hidden_states(params, {"tokens": seq, **extra}, cfg, remat=False)[0]
         return T._logits(params, h[:, n0 - 1:n0 - 1 + toks.shape[1]], cfg)
 
 
@@ -1864,14 +1935,14 @@ def phase_serve_card_vs_cpu(torch):
         raise AssertionError(f"serve_card_vs_cpu: tokens equal {same}, logits differ by {err}")
 
 
-def granite_cut():
-    """granite_moe_3b_a800m.FULL at full width and GRANITE_LAYERS layers."""
+def granite_cut(layers: int = GRANITE_LAYERS):
+    """granite_moe_3b_a800m.FULL at full width and ``layers`` layers."""
     import dataclasses
 
     from repro_torch.configs import granite_moe_3b_a800m
 
-    return dataclasses.replace(granite_moe_3b_a800m.FULL, n_layers=GRANITE_LAYERS,
-                               name=f"granite_moe_3b_a800m_{GRANITE_LAYERS}l")
+    return dataclasses.replace(granite_moe_3b_a800m.FULL, n_layers=layers,
+                               name=f"granite_moe_3b_a800m_{layers}l")
 
 
 def window_moe_paths():
@@ -1890,7 +1961,7 @@ def window_moe_paths():
 def phase_group_kernel_checks(torch, K, phase="group_kernel_checks", paths=None):
     """Both kernels bit for bit against their plain versions at the shapes
     of ``paths`` ((cfg, settings) pairs; by default the sliding-window and
-    MoE paths), group by group: the DSM step over each group's (n,), the
+    MoE paths, granite at GRANITE_CHECK_LAYERS), group by group: the DSM step over each group's (n,), the
     AdamW step over each group's (W, n) (the plain version slice by slice
     where the buffers are large); random inputs, 0 / -0 / NaN planted in
     the DSM inputs."""
@@ -1899,7 +1970,9 @@ def phase_group_kernel_checks(torch, K, phase="group_kernel_checks", paths=None)
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = []
-    for cfg, s in paths or [(cfg, s) for cfg, s, _ in window_moe_paths()]:
+    default = [(granite_cut(GRANITE_CHECK_LAYERS) if cfg.n_experts else cfg, s)
+               for cfg, s, _ in window_moe_paths()]
+    for cfg, s in paths or default:
         lay = T.layout(cfg)
         for dtype, n in zip(lay.dtypes, lay.group_numels):
             torch.cuda.empty_cache()
@@ -1924,9 +1997,10 @@ def phase_group_kernel_checks(torch, K, phase="group_kernel_checks", paths=None)
 
 
 def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", paths=None,
-                                keep=()):
-    """Each (cfg, settings, N per dtype group) of ``paths`` through
-    run_training and both kernels, an eval after each outer step; by
+                                keep=(), first=()):
+    """Each (cfg, settings, N per dtype group[, initial params]) of
+    ``paths`` through run_training and both kernels, an eval after each
+    outer step; by
     default the sliding-window and MoE paths: gemma3_1b.FULL (whole depth,
     W=2, S=1024) and granite_moe_3b_a800m at full width and GRANITE_LAYERS
     layers (W=4, S=128), tau=12, WINDOW_MOE_STEPS outer steps.  Per path: N
@@ -1936,7 +2010,8 @@ def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", pa
     group on the trained state's buffers beside its byte bound; one local
     step's host and device time.  Returns (launches, [(cfg, trained
     x0)], {name: history and x0 / m per group on the host} for the configs
-    named in ``keep``)."""
+    named in ``keep``, and for those named in ``first`` after their first
+    round, taken by run_training's ``on_round`` outside the timed step)."""
     from repro_torch.data.pipeline import TextCorpus
     from repro_torch.groups import each, parts, pick
     from repro_torch.models import transformer as T
@@ -1947,16 +2022,25 @@ def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", pa
     rows, failures, trained, finals = [], [], [], {}
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     paths = paths or window_moe_paths()
-    for cfg, s, n_want in paths:
+    for cfg, s, n_want, *init in paths:
         lay = T.layout(cfg)
         if lay.group_numels != n_want:
             raise AssertionError(f"{cfg.name}: groups of {lay.group_numels}, want {n_want}")
+        def on_round(t, state, metrics, name=cfg.name):
+            if t == 0 and name in first:
+                # copies: the run updates its state in place afterwards
+                finals[name] = {"history": [float(metrics["loss"])],
+                                **{k: [p.to("cpu", copy=True) for p in parts(getattr(state, k))]
+                                   for k in ("x0", "m")}}
+
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
-        res = run_training(cfg, s, corpus, device="cuda")
+        res = run_training(cfg, s, corpus, device="cuda", params=init[0] if init else None,
+                           on_round=on_round)
         launches = K.launch_counts()
         peak = torch.cuda.max_memory_allocated()
+        expect_peak(cfg.name, peak, cfg, s, held=sum(card_bytes_of(x) for _, x in trained))
         state = res.pop("state")
         hist, evals, step_s = res["history"], [e for _, e in res["eval_losses"]], res[
             "outer_step_s"]
@@ -1985,7 +2069,7 @@ def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", pa
                      "groups": [[str(d), n] for d, n in zip(lay.dtypes, lay.group_numels)],
                      "n_workers": s.n_workers, "tau": s.tau, "b_micro": s.b_micro,
                      "seq": s.seq, "peak_lr": s.peak_lr, "global_lr": s.global_lr,
-                     "history": hist, "evals": evals,
+                     "outer_steps": s.steps, "history": hist, "evals": evals,
                      "outer_step_ms": [t * 1e3 for t in step_s],
                      "outer_step_ms_median_after_first": step_ms,
                      "tokens_per_outer_step": tokens_per_step,
@@ -2023,7 +2107,9 @@ def window_moe_phases(torch, K, smi, pool) -> tuple:
     from repro_torch.configs import granite_moe_3b_a800m, load_arch
 
     errs = phase_group_kernel_checks(torch, K)
-    total, trained, finals = phase_window_moe_full_width(torch, K, smi,
+    paths = window_moe_paths()
+    paths[0] = (*paths[0], card_init(torch, paths[0][0]))      # gemma3's init
+    total, trained, finals = phase_window_moe_full_width(torch, K, smi, paths=paths,
                                                          keep=(granite_cut().name,))
     for (cfg, x0), (b, prompt, new), phase in zip(trained, (SERVE_SWA, SERVE_MOE),
                                                    ("serve_swa_full_width",
@@ -2105,6 +2191,7 @@ def phase_mixed_zero_full_width(torch, K, smi, dense):
     wall = time.perf_counter() - t0
     ours = rank_final(ranks[0])
     same = bit_equal(torch, ours, dense)
+    expect_peak(f"{cfg.name} rank 0 of {RANKS}", ranks[0]["peak_bytes"], cfg, s, world=RANKS)
     topos = [mesh.Topology(s.n_workers, RANKS, 1, r) for r in range(RANKS)]
     elements = [[b - a for a, b in (zero.my_bounds(n, t) for t in topos)]
                 for n in lay.group_numels]
@@ -2394,7 +2481,7 @@ def phase_encdec_full_width(torch, K, smi):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = get_base_optimizer("adamw")
-    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg), base,
+    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), base,
                          DSMConfig(tau=s.tau, global_lr=s.global_lr),
                          cosine_with_warmup(s.peak_lr, s.steps, warmup_steps=s.warmup), lay)
     state = dsm_init(T.init_params(torch.Generator(device="cuda").manual_seed(s.seed), cfg,
@@ -2406,7 +2493,7 @@ def phase_encdec_full_width(torch, K, smi):
 
     def eval_loss() -> float:
         with torch.no_grad():
-            return float(T.loss_fn(lay.views(state.x0), ev, cfg))
+            return float(T.loss_fn(lay.views(state.x0), ev, cfg, remat=False))
 
     batches = dsm_batches(corpus, s.n_workers, s.tau, 1, s.b_micro, s.seq, seed=s.seed)
     hist, evals, step_s = [], [eval_loss()], []
@@ -2425,6 +2512,7 @@ def phase_encdec_full_width(torch, K, smi):
         evals.append(eval_loss())
     launches = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    expect_peak(cfg.name, peak, cfg, s, keep_x0=False, eval_batch=ENCDEC_EVAL_BATCH)
     x0 = state.x0.clone()
     n, w, es = ENCDEC_N, s.n_workers, cfg.p_dtype.itemsize
     kernels = {
@@ -2524,13 +2612,13 @@ def encdec_vlm_smoke_run(arch: str, device: str) -> dict:
              for k, v in smoke_batch(cfg, 1, (2, 2, 1, 2), 32).items()}
     micro = {k: v[0, 0, 0] for k, v in batch.items()}
     with torch.no_grad():
-        before = T.loss_fn(lay.views(x0), micro, cfg).item()
+        before = T.loss_fn(lay.views(x0), micro, cfg, remat=False).item()
     base = get_base_optimizer("adamw")
-    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg), base,
+    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), base,
                          DSMConfig(tau=2, global_lr=0.5), constant(1e-3), lay)
     state, metrics = step(dsm_init(x0, base, 2), batch)
     with torch.no_grad():
-        after = T.loss_fn(lay.views(state.x0), micro, cfg).item()
+        after = T.loss_fn(lay.views(state.x0), micro, cfg, remat=False).item()
     prompt = {k: torch.as_tensor(v) for k, v in smoke_batch(cfg, 2, (4,), 24).items()}
     toks, _ = generate(x0, cfg, prompt.pop("tokens"), max_new_tokens=SERVE_NEW,
                        extra_batch=prompt, device=device)
@@ -2596,16 +2684,143 @@ def recurrentgemma_cut():
                                name=f"recurrentgemma_2b_{RG_LAYERS}l")
 
 
-def recurrent_paths():
-    """(cfg, settings, N per dtype group) of the recurrent training paths."""
+def recurrent_paths(torch=None):
+    """(cfg, settings, N per dtype group, initial params) of the recurrent
+    training paths: :func:`card_init`'s, or None without ``torch``."""
     from repro_torch.configs import mamba2_780m
     from repro_torch.train.trainer import TrainSettings
 
     common = dict(tau=12, steps=RECURRENT_STEPS, eval_every=1,
                   eval_batch=RECURRENT_EVAL_BATCH, peak_lr=MAIN["peak_lr"],
                   global_lr=MAIN["global_lr"])
-    return [(recurrentgemma_cut(), TrainSettings(**common, **RG), RG_N),
-            (mamba2_780m.FULL, TrainSettings(**common, **MAMBA), MAMBA_N)]
+    paths = [(recurrentgemma_cut(), TrainSettings(**{**common, "steps": RG_STEPS}, **RG), RG_N),
+             (mamba2_780m.FULL, TrainSettings(**common, **MAMBA), MAMBA_N)]
+    return [(*p, card_init(torch, p[0]) if torch else None) for p in paths]
+
+
+def card_init(torch, cfg):
+    """``cfg``'s initial params, drawn on the card (seeded: a CPU generator
+    takes seconds over a billion draws) and kept on the host, where
+    run_training copies them from: the paper sizes' and the recurrent
+    paths' runs start from them, and remat_full_width's from mamba2's."""
+    from repro_torch.groups import each
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return each(lambda t: t.cpu(), T.init_params(gen, cfg, device="cuda"))
+
+
+def phase_remat_full_width(torch, K, smi, params, dense) -> dict:
+    """mamba2_780m.FULL at whole depth with recurrent_full_width's settings
+    (W=2, B_micro=1, S=2048, tau=12, its schedule over RECURRENT_STEPS
+    outer steps, its corpus, init ``params`` and batches), once per policy
+    of REMAT_POLICIES, through make_dsm_step (``trainer.build_algorithm``:
+    the trainer's DSM config and schedule) with a loss closure that passes
+    ``remat=True, remat_policy=policy``, the reference dry-run's call form;
+    REMAT_ROUNDS rounds, no eval.  Each run's history and x0 and m (both
+    dtype groups) bit for bit those of recurrent_full_width's run without
+    remat after as many rounds (``dense``), the largest gap printed either
+    way.  Per run: the peak (reset, cache emptied), each round's ms (the
+    process has run the model: no warm-up is left in the first), one DSM
+    launch per group and round and tau AdamW launches per group and round.
+    Returns the launches."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import TextCorpus, dsm_batches
+    from repro_torch.groups import each, parts
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import build_algorithm
+
+    cfg, s, _, _ = recurrent_paths()[1]
+    lay = T.layout(cfg)
+    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    total = dict.fromkeys(K.launch_counts(), 0)
+    rows, failures = [], []
+    for policy in REMAT_POLICIES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        init, step, _, _ = build_algorithm(
+            lambda p, mb, policy=policy: T.loss_fn(p, mb, cfg, remat=True, remat_policy=policy),
+            s, lay)
+        state = init(each(lambda t: t.to("cuda"), params), s.n_workers)
+        rng = torch.Generator(device="cuda").manual_seed(s.seed)
+        batches = dsm_batches(corpus, s.n_workers, s.tau, 1, s.b_micro, s.seq, seed=s.seed,
+                              heterogeneous=s.heterogeneous)
+        losses, step_s = [], []
+        for _ in range(REMAT_ROUNDS):
+            batch = {k: torch.as_tensor(v, dtype=torch.long if k == "tokens" else None).to(
+                "cuda") for k, v in next(batches).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, rng, None)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"])
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ours = {"history": [float(x) for x in losses],
+                "x0": [t.cpu() for t in parts(state.x0)], "m": [t.cpu() for t in parts(state.m)]}
+        del state, metrics, batch
+        expect_peak(f"{cfg.name} remat {policy}", peak, cfg, s, keep_x0=False, eval_batch=0,
+                    remat=True, remat_policy=policy)
+        same = bit_equal(torch, ours, dense)
+        step_ms = statistics.median(step_s) * 1e3
+        rows.append({"config": cfg.name, "remat_policy": policy, "n_layers": cfg.n_layers,
+                     "rounds": REMAT_ROUNDS, "history": ours["history"],
+                     "dense_history": dense["history"],
+                     "bit_equal_to_no_remat": same, "max_gap": max_gap(torch, ours, dense),
+                     "outer_step_ms": [t * 1e3 for t in step_s],
+                     "outer_step_ms_median": step_ms,
+                     "tokens_per_s": s.n_workers * s.tau * s.b_micro * s.seq / (step_ms / 1e3),
+                     "max_memory_allocated_bytes": peak, "launches": launches})
+        want = expected_launches(dataclasses.replace(s, steps=REMAT_ROUNDS), lay.n_groups)
+        if launches != want:
+            failures.append(f"{policy}: launch counts {launches}, want {want}")
+        if not same:
+            failures.append(f"{policy}: not bit-equal to the run without remat: "
+                            f"{rows[-1]['max_gap']}")
+        for k in total:
+            total[k] += launches[k]
+    emit({"phase": "remat_full_width", "gpu": smi, "n_workers": s.n_workers, "tau": s.tau,
+          "b_micro": s.b_micro, "seq": s.seq, "rounds": REMAT_ROUNDS, "runs": rows})
+    if failures:
+        raise AssertionError("remat_full_width: " + "; ".join(failures))
+    return total
+
+
+def reckon_peak(cfg, kw: dict) -> dict:
+    """The dry-run's reckoning of a run's bytes on meta tensors, in a CPU
+    worker process: ``repro_torch.launch.dryrun.reckon_train``'s memory
+    components."""
+    from repro_torch.launch.dryrun import reckon_train
+
+    return reckon_train(cfg, **kw)["memory"]
+
+
+def phase_dryrun_vs_card(pool, smi) -> None:
+    """Every full-width run's measured peak (PEAKS: main_path, gpt2_medium
+    and large, gemma3_1b, granite, whisper, recurrentgemma, mamba2 with
+    and without remat, granite's rank 0 of RANKS) beside the dry-run's
+    reckoning of the same run on meta tensors (in the CPU pool): the state
+    with the round's batch, plus the largest of the local phase's, the
+    global step's and the eval's high-water marks, plus what the script
+    holds on the card beside the run; no fitted constant.  Each within
+    DRYRUN_RTOL of its measured peak."""
+    futures = [fut or pool.submit(reckon_peak, cfg, kw) for _, _, cfg, kw, _, fut in PEAKS]
+    rows, failures = [], []
+    for (name, peak, cfg, kw, held, _), fut in zip(PEAKS, futures):
+        mem = fut.result(timeout=CPU_RUN_TIMEOUT_S)
+        reckoned = mem["peak_bytes"] + held
+        rows.append({"run": name, "measured_bytes": peak, "reckoned_bytes": reckoned,
+                     "reckoned_over_measured": reckoned / peak,
+                     "components": {**mem, "held_by_the_script": held},
+                     "settings": {k: v for k, v in kw.items()}})
+        if abs(reckoned / peak - 1) > DRYRUN_RTOL:
+            failures.append(f"{name}: reckoned {reckoned} B, measured {peak} B")
+    emit({"phase": "dryrun_vs_card", "gpu": smi, "rtol": DRYRUN_RTOL, "runs": rows})
+    if failures or not rows:
+        raise AssertionError(f"dryrun_vs_card: {failures or 'no run measured a peak'}")
 
 
 def recurrent_phases(torch, K, smi, pool) -> tuple:
@@ -2621,16 +2836,19 @@ def recurrent_phases(torch, K, smi, pool) -> tuple:
 
     from repro_torch.configs import load_arch, recurrentgemma_2b
 
-    paths = recurrent_paths()
+    paths = recurrent_paths(torch)
     errs = phase_group_kernel_checks(torch, K, "recurrent_kernel_checks",
-                                     [(cfg, s) for cfg, s, _ in paths])
-    total, trained, _ = phase_window_moe_full_width(torch, K, smi, "recurrent_full_width",
-                                                    paths)
+                                     [(cfg, s) for cfg, s, *_ in paths])
+    total, trained, firsts = phase_window_moe_full_width(
+        torch, K, smi, "recurrent_full_width", paths, first=(paths[1][0].name,))
     for (cfg, x0), (b, prompt, new) in zip(trained, (SERVE_RG, SERVE_MAMBA)):
         serve_check(torch, smi, "serve_recurrent_full_width", cfg, x0, b, prompt, new,
                     noise_bound=cfg.name.startswith("mamba2"))
     del trained, x0
     torch.cuda.empty_cache()
+    more = phase_remat_full_width(torch, K, smi, paths[1][3], firsts[paths[1][0].name])
+    del paths
+    total = {k: n + more[k] for k, n in total.items()}
     # RecurrentGemma's SMOKE with bf16 parameters (activations f32, as the
     # SMOKE's): two dtype groups, lam f32
     bf16p = dataclasses.replace(recurrentgemma_2b.SMOKE, param_dtype="bfloat16",
@@ -2678,7 +2896,7 @@ def main() -> None:
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
                     for k, v in logs.items()}})
 
-    pool = cpu_worker()
+    pool = RECKON["pool"] = cpu_worker()
     try:
         launches, errs, times = all_phases(torch, K, smi, pool)
     finally:
@@ -2704,27 +2922,26 @@ def all_phases(torch, K, smi, pool):
     checks' worst errors, the kernel times)."""
     errs = phase_checks(torch, K)
     times = phase_times(torch, K, smi)
-    launches, main_cost, main_final = phase_main_path(torch, K, smi)
+    launches, main_cost = phase_main_path(torch, K, smi)
     phase_card_vs_cpu(torch, pool)
-    for more in (phase_obs_full_width(torch, K, smi, main_final, main_cost),
-                 phase_algorithms_full_width(torch, K, smi),
-                 phase_algorithms_card_vs_cpu(torch, K, pool),
-                 phase_robustness_full_width(torch, K, smi, main_cost),
-                 phase_resume_full_width(torch, K, smi),
-                 phase_robustness_card_vs_cpu(torch, K, pool),
-                 phase_ranks_full_width(torch, K, smi, main_final, "zero_full_width",
-                                        dict(zero_sharded=True, device_parallel_local=True),
-                                        with_run_dir=True),
-                 phase_ranks_full_width(torch, K, smi, main_final, "device_parallel_full_width",
-                                        dict(device_parallel_local=True)),
-                 phase_zero_nccl_world1(torch, K),
-                 phase_zero_card_vs_cpu(torch, K),
-                 slice_phases(torch, K, smi, pool)):
-        launches = {k: n + more[k] for k, n in launches.items()}
+    counts = [phase_algorithms_full_width(torch, K, smi),
+              phase_algorithms_card_vs_cpu(torch, K, pool),
+              phase_robustness_full_width(torch, K, smi, main_cost)]
+    more, dense_cut = phase_resume_full_width(torch, K, smi)
+    counts += [more,
+               phase_obs_full_width(torch, K, smi, dense_cut),
+               phase_robustness_card_vs_cpu(torch, K, pool),
+               phase_ranks_full_width(torch, K, smi, dense_cut),
+               phase_zero_nccl_world1(torch, K),
+               phase_zero_card_vs_cpu(torch, K),
+               slice_phases(torch, K, smi, pool)]
     for phases in (window_moe_phases, encdec_vlm_phases, recurrent_phases):
         more, group_errs = phases(torch, K, smi, pool)
-        launches = {k: n + more[k] for k, n in launches.items()}
+        counts.append(more)
         errs = {k: max(e, group_errs[k]) for k, e in errs.items()}
+    for more in counts:
+        launches = {k: n + more[k] for k, n in launches.items()}
+    phase_dryrun_vs_card(pool, smi)
     return launches, errs, times
 
 

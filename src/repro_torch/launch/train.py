@@ -43,6 +43,7 @@ Under ``nccl`` rank r runs on ``cuda:LOCAL_RANK``; under ``gloo`` on the
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from pathlib import Path
 
@@ -108,6 +109,39 @@ def check_fits(cfg, n_workers: int, device: str) -> None:
             "train its _smoke config or a cut depth")
 
 
+def plan(arch: str, tau: int = None) -> dict:
+    """The reference launcher's ``--plan`` fields (arch, params_B, its two
+    pod meshes, tau, base_opt, grad_accum, dryrun_cmd, here the port's
+    dry-run), and in place of its ``per_chip_peak_GB`` /
+    ``dominant_roofline_term``, read from a TPU dry-run artifact, the port's
+    own reckoning at train_4k on meta tensors for one card at
+    ``n_workers_single`` workers (``repro_torch.launch.dryrun``):
+    ``per_card_peak_GB``, ``dominant_term`` and the card they are reckoned
+    for.  Needs no card and allocates nothing."""
+    from repro_torch.configs import specs
+    from repro_torch.launch import dryrun
+
+    cfg, topo = resolve_arch(arch)
+    tau = tau or topo.tau
+    rec = dryrun.reckon(arch, "train_4k", tau)
+    return {
+        "arch": arch,
+        "params_B": round(specs.param_count(cfg) / 1e9, 3),
+        "mesh_single_pod": {"shape": [16, 16], "axes": ["data", "model"],
+                            "n_workers": topo.n_workers_single},
+        "mesh_multi_pod": {"shape": [2, 16, 16], "axes": ["pod", "data", "model"],
+                           "n_workers": topo.n_workers_multi},
+        "tau": tau,
+        "base_opt": topo.base_opt,
+        "grad_accum": topo.grad_accum,
+        "dryrun_cmd": (f"PYTHONPATH=src python -m repro_torch.launch.dryrun --arch {arch} "
+                       "--shape train_4k"),
+        "per_card_peak_GB": round(rec["memory"]["peak_bytes"] / 1e9, 2),
+        "dominant_term": rec["dominant"],
+        "card": rec["card"],
+    }
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="nano")
@@ -160,6 +194,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile-steps", default=None, metavar="A:B",
                     help="capture a torch.profiler trace for the inclusive "
                          "outer-step range A:B into <run-dir>/profile")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="accepted so that the reference's command lines run unchanged; "
+                         "the port's DSM global step always goes through the DSM kernel "
+                         "on the card (its plain version on CPU tensors)")
+    ap.add_argument("--plan", action="store_true",
+                    help="print the launch plan as JSON (the reference's fields, and the "
+                         "dry-run's peak and dominant term for one card) and exit; "
+                         "touches no device")
     # --- runtime sanitizers (the reference's docs/analysis.md) ---
     ap.add_argument("--sanitize", action="store_true",
                     help="no implicit host sync inside the outer step on the card "
@@ -190,6 +232,10 @@ def init_ranks(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.plan:
+        out = plan(args.arch, args.tau)
+        print(json.dumps(out, indent=2))
+        return out
 
     cfg, topo = resolve_arch(args.arch)
     s = TrainSettings(

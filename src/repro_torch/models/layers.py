@@ -20,6 +20,7 @@ f32.  Quirks kept on purpose:
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -162,9 +163,19 @@ def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx.reshape(-1, 1) == torch.arange(n, device=idx.device)).sum(0)
 
 
-def _host_sizes(counts: torch.Tensor) -> list:
-    """The group sizes on the host: the MoE layer's one device sync per
-    call, exempt from the sanitizer's ban on implicit host syncs."""
+def _host_sizes(counts: torch.Tensor, rows: int) -> list:
+    """The group sizes of ``rows`` sorted rows on the host: the MoE layer's
+    one device sync per call, exempt from the sanitizer's ban on implicit
+    host syncs (also where activation checkpointing runs the layer again in
+    the backward).  A
+    ``meta`` tensor holds no counts to read, so there the ``rows`` are split
+    evenly over the groups, the first ``rows % n`` one longer: the dry-run
+    (``repro_torch.launch.dryrun``) reckons :func:`grouped_mm`'s FLOPs and
+    output bytes, which are the same for every split of the same rows.
+    Card and CPU tensors are always read."""
+    if counts.is_meta:
+        n = counts.numel()
+        return [rows // n + (e < rows % n) for e in range(n)]
     if not counts.is_cuda:
         return counts.tolist()
     prev = torch.cuda.get_sync_debug_mode()
@@ -175,10 +186,23 @@ def _host_sizes(counts: torch.Tensor) -> list:
         torch.cuda.set_sync_debug_mode(prev)
 
 
+_RAGGED = threading.local()
+
+
+def in_ragged_dot() -> bool:
+    """True while :func:`grouped_mm` runs its per-expert products on this
+    thread (the ``"dots"`` remat policy leaves them unsaved)."""
+    return getattr(_RAGGED, "depth", 0) > 0
+
+
 def grouped_mm(x: torch.Tensor, w: torch.Tensor, sizes: list) -> torch.Tensor:
     """``jax.lax.ragged_dot``: the rows of ``x`` (sorted by group) in groups
     of ``sizes`` rows, group e times ``w[e]``, in x's dtype."""
-    return torch.cat([xe @ we for xe, we in zip(torch.split(x, sizes), w.unbind(0))])
+    _RAGGED.depth = getattr(_RAGGED, "depth", 0) + 1
+    try:
+        return torch.cat([xe @ we for xe, we in zip(torch.split(x, sizes), w.unbind(0))])
+    finally:
+        _RAGGED.depth -= 1
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
@@ -223,7 +247,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
         sort_idx = torch.argsort(flat_expert, stable=True)
         token_of = sort_idx // K
         xs = xt[token_of]                                   # (TK, d)
-        sizes = _host_sizes(_counts(flat_expert, E))
+        sizes = _host_sizes(_counts(flat_expert, E), T * K)
         h = act(grouped_mm(xs, p["we1"].to(dt), sizes))
         if "we3" in p:
             h = h * grouped_mm(xs, p["we3"].to(dt), sizes)

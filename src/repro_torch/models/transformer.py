@@ -28,9 +28,12 @@ reference.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.models import layers as L
 from repro_torch.models.convert import FlatLayout
@@ -354,18 +357,20 @@ def _add_aux(total, aux):
     return aux if total is None else total + aux
 
 
-def _encode(params: dict, frames: torch.Tensor, cfg) -> torch.Tensor:
+def _encode(params: dict, frames: torch.Tensor, cfg, remat: bool = True,
+            unroll: bool = False) -> torch.Tensor:
     """The encoder over the (stub) frame embeddings (B, enc_len, d): cast to
     the activation dtype, the ``encattn`` blocks with RoPE at
-    ``arange(enc_len)``, ``enc_norm``."""
+    ``arange(enc_len)``, ``enc_norm``.  ``remat`` checkpoints each block
+    (:func:`_run_stack`, the ``"full"`` policy, as the reference's
+    ``_encode``); ``unroll`` is a no-op."""
     x = frames.to(cfg.act_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    for _, kind, p in _layers(params, cfg, "encoder"):
-        x, _ = _apply_block(p, kind, x, positions, cfg)
+    x, _ = _run_stack(params, cfg, "encoder", x, positions, remat=remat)
     return L.rmsnorm(params["enc_norm.scale"], x, cfg.norm_eps)
 
 
-def _inputs(params: dict, batch: dict, cfg) -> tuple:
+def _inputs(params: dict, batch: dict, cfg, remat: bool = False) -> tuple:
     """(the decoder's input (B, n_prefix + S, d), the encoder output or
     None, n_prefix): the text embedding, after the projected patches of a
     ``vlm`` batch (``n_prefix`` of them); an ``encdec`` batch's frames
@@ -373,7 +378,7 @@ def _inputs(params: dict, batch: dict, cfg) -> tuple:
     x = _embed(params, batch["tokens"], cfg)
     enc_out, n_prefix = None, 0
     if cfg.family == "encdec":
-        enc_out = _encode(params, batch["frames"], cfg)
+        enc_out = _encode(params, batch["frames"], cfg, remat=remat)
     elif cfg.family == "vlm":
         patches = batch["patches"].to(cfg.act_dtype) @ params["patch_proj"].to(cfg.act_dtype)
         x = torch.cat([patches, x], dim=1)
@@ -381,24 +386,93 @@ def _inputs(params: dict, batch: dict, cfg) -> tuple:
     return x, enc_out, n_prefix
 
 
-def _forward(params: dict, batch: dict, cfg):
+def _repeats(params: dict, cfg, stack: str):
+    """The layers of a stack as the reference's ``_run_stack`` runs them:
+    ``(True, layers)`` for each repeat i of the pattern (``p0..p{k-1}`` of
+    block i, the scan body that remat checkpoints), then ``(False,
+    [layer])`` for each remainder layer, which it runs unchecked; a layer is
+    :func:`_layers`' ``(where, kind, p)``."""
+    layers = list(_layers(params, cfg, stack))
+    k = len(ENC_PATTERN if stack == "encoder" else cfg.pattern)
+    n = cfg.enc_layers if stack == "encoder" else cfg.n_scan_blocks
+    for i in range(n):
+        yield True, layers[i * k:(i + 1) * k]
+    for layer in layers[n * k:]:
+        yield False, [layer]
+
+
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy, ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``: save the 2-D products (an
+    activation times a weight, ``aten.mm`` after matmul's reshape) and
+    recompute the rest, the batched ones (attention's scores and values, the
+    SSD's products: ``aten.bmm``) among them.  A MoE layer's per-expert
+    products are ``aten.mm`` too, but they stand for ``ragged_dot``, which
+    the JAX policy does not save (it is no ``dot_general``):
+    ``layers.in_ragged_dot`` tells them apart."""
+    if op in _DOT_OPS and not L.in_ragged_dot():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(body, policy: str, *args):
+    """``body(*args)`` under activation checkpointing: ``"dots"`` keeps
+    :func:`_save_dots`' products, any other policy string recomputes the
+    whole body in the backward (``"full"``), as the reference's
+    ``_run_stack``.  Nothing in a block draws random numbers, so no RNG
+    state is kept."""
+    context = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+               if policy == "dots" else noop_context_fn)
+    return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=context)
+
+
+def _run_stack(params: dict, cfg, stack: str, x, positions, enc_out=None,
+               remat: bool = False, remat_policy: str = "full"):
+    """The ``decoder`` (or ``encoder``) stack over x; returns (x, the MoE
+    aux loss summed over the layers in order, or None).  With ``remat`` each
+    repeat of the pattern runs under :func:`_checkpointed`: the same
+    operations on the same inputs, so the loss and the gradients are bit
+    for bit those without it."""
+    aux = None
+    for repeat, layers in _repeats(params, cfg, stack):
+        def body(x, aux, layers=layers):
+            for _, kind, p in layers:
+                x, a = _apply_block(p, kind, x, positions, cfg, enc_out)
+                aux = _add_aux(aux, a)
+            return x, aux
+
+        if repeat and remat:
+            x, aux = _checkpointed(body, remat_policy, x, aux)
+        else:
+            x, aux = body(x, aux)
+    return x, aux
+
+
+def _forward(params: dict, batch: dict, cfg, remat: bool = False,
+             remat_policy: str = "full"):
     """(final hidden states, the MoE aux loss summed over layers or None,
     n_prefix)."""
-    x, enc_out, n_prefix = _inputs(params, batch, cfg)
+    x, enc_out, n_prefix = _inputs(params, batch, cfg, remat)
     positions = torch.arange(x.shape[1], device=x.device)
-    aux = None
-    for _, kind, p in _layers(params, cfg):
-        x, a = _apply_block(p, kind, x, positions, cfg, enc_out)
-        aux = _add_aux(aux, a)
+    x, aux = _run_stack(params, cfg, "decoder", x, positions, enc_out, remat, remat_policy)
     return L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps), aux, n_prefix
 
 
-def hidden_states(params: dict, batch: dict, cfg) -> tuple:
+def hidden_states(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = False,
+                  remat_policy: str = "full") -> tuple:
     """The full forward to the final hidden states; returns (h (B,
     n_prefix + S, d), the f32 MoE aux loss (0 without a MoE layer),
     n_prefix: the non-text positions, a ``vlm`` batch's patches, that the
-    loss leaves out)."""
-    h, aux, n_prefix = _forward(params, batch, cfg)
+    loss leaves out).  ``remat`` / ``remat_policy``: activation
+    checkpointing per pattern repeat (:func:`_run_stack`), the reference's
+    keywords and defaults.  ``unroll`` is accepted and does nothing: the
+    eager loop over the layers is unrolled already, where the reference
+    chooses between a scan and a Python loop."""
+    h, aux, n_prefix = _forward(params, batch, cfg, remat, remat_policy)
     if aux is None:
         aux = torch.zeros((), dtype=F32, device=h.device)
     return h, aux, n_prefix
@@ -411,13 +485,15 @@ def _logits(params, h, cfg):
     return h.to(F32) @ params["lm_head"].to(F32)
 
 
-def loss_fn(params: dict, batch: dict, cfg) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = False,
+            remat_policy: str = "full") -> torch.Tensor:
     """Next-token CE over ``batch["tokens"]`` (B, S) at the text positions
     (``h[:, n_prefix:]``), chunked over the sequence: the targets are
     shifted, the last position is masked, and the loss is the masked sum
     over ``mask.sum()``, plus ``MOE_AUX_COEF`` times the aux loss summed
-    over the MoE layers (a model without one adds nothing)."""
-    h, aux, n_prefix = _forward(params, batch, cfg)
+    over the MoE layers (a model without one adds nothing).  ``remat``,
+    ``unroll``, ``remat_policy``: as :func:`hidden_states`."""
+    h, aux, n_prefix = _forward(params, batch, cfg, remat, remat_policy)
     h = h[:, n_prefix:]
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -490,7 +566,7 @@ def _cache_entry(cache: dict, where) -> dict:
     return cache["rem"][key]
 
 
-def prefill(params: dict, batch: dict, cfg):
+def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = False):
     """Forward over the prompt: ``batch["tokens"]`` (B, S) after a ``vlm``
     batch's ``patches``, beside an ``encdec`` batch's ``frames``.  Returns
     (last position's f32 logits (B, padded vocab), a cache holding every
@@ -498,19 +574,30 @@ def prefill(params: dict, batch: dict, cfg):
     last ``min(window, n_prefix + S)`` in position order, an ``xattn``
     layer's ``kx`` / ``vx`` of the encoder output, collected once; a
     recurrent layer's state after the prompt, computed from the block's
-    own forward: :func:`_mamba2_final_state`, :func:`_rglru_final_state`)."""
+    own forward: :func:`_mamba2_final_state`, :func:`_rglru_final_state`).
+    ``remat`` runs each pattern repeat (and the encoder's blocks) under
+    activation checkpointing, as the reference's prefill; under
+    ``torch.no_grad`` nothing is saved and each body runs once.  ``unroll``
+    is a no-op (:func:`hidden_states`)."""
     check_supported(cfg)
-    x, enc_out, _ = _inputs(params, batch, cfg)
+    x, enc_out, _ = _inputs(params, batch, cfg, remat)
     positions = torch.arange(x.shape[1], device=x.device)
     stacked: dict = {}
     rem = []
-    for (where, key, _), kind, p in _layers(params, cfg):
-        entry: dict = {}
-        x, _ = _apply_block(p, kind, x, positions, cfg, enc_out, kv_out=entry)
-        if where == "blocks":
-            stacked.setdefault(key, []).append(entry)
-        else:
-            rem.append(entry)
+    for repeat, layers in _repeats(params, cfg, "decoder"):
+        entries = [{} for _ in layers]
+
+        def body(x, layers=layers, entries=entries):
+            for (_, kind, p), entry in zip(layers, entries):
+                x, _ = _apply_block(p, kind, x, positions, cfg, enc_out, kv_out=entry)
+            return x
+
+        x = _checkpointed(body, "full", x) if repeat and remat else body(x)
+        for ((where, key, _), _, _), entry in zip(layers, entries):
+            if where == "blocks":
+                stacked.setdefault(key, []).append(entry)
+            else:
+                rem.append(entry)
     cache = {"blocks": {key: {name: torch.stack([e[name] for e in entries])
                               for name in entries[0]}
                         for key, entries in stacked.items()},
@@ -556,12 +643,14 @@ def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg):
     return _ffn_residual(p, ffn, x, cfg)[0]
 
 
-def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg):
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg,
+                unroll: bool = False):
     """tokens: (B,) ids; pos: the Python int position they take.  Returns
     (f32 logits (B, padded vocab), cache).  Unlike the reference, which
     returns a new cache, the keys, values and recurrent states are written
     into ``cache`` in place and the same dict is returned; nothing is read
-    back to the host but a MoE layer's group sizes (``layers.moe_apply``)."""
+    back to the host but a MoE layer's group sizes (``layers.moe_apply``).
+    ``unroll`` is a no-op (:func:`hidden_states`)."""
     check_supported(cfg)
     x = _embed(params, tokens[:, None], cfg)
     for where, kind, p in _layers(params, cfg):

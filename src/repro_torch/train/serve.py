@@ -93,7 +93,7 @@ def generate(
 
     with torch.no_grad():
         t0 = _clock(dev)
-        logits, pcache = T.prefill(params, batch, cfg)
+        logits, pcache = T.prefill(params, batch, cfg, remat=False)
         cache = T.init_cache(cfg, B, max_len, cfg.act_dtype, device=dev)
         cache = _splice_cache(cache, pcache, cfg, start)
         del pcache

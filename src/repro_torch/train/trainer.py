@@ -312,7 +312,7 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
             dst.copy_(src.reshape(-1, dst.numel())[0])
 
     def loss_fn(p, microbatch):
-        return T.loss_fn(p, microbatch, cfg)
+        return T.loss_fn(p, microbatch, cfg, remat=False)   # as the reference's trainer
 
     topo = None
     if splits_workers(s):
@@ -423,7 +423,7 @@ def run_training(cfg, s: TrainSettings, corpus=None, log: Optional[Callable] = N
 
     def eval_loss() -> float:
         with torch.no_grad():
-            return float(T.loss_fn(lay.views(eval_params(state)), ev_batch, cfg))
+            return float(T.loss_fn(lay.views(eval_params(state)), ev_batch, cfg, remat=False))
 
     # --- observability (the reference's docs/observability.md): run sinks,
     # comm ledger, phase spans, profiler window.  Per-round metrics stay on

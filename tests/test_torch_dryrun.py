@@ -1,0 +1,184 @@
+"""The port's input specs and its one-card dry-run against the JAX package's
+``configs/specs.py``, on the CPU.
+
+  * ``train_batch_specs`` / ``prefill_batch_specs`` / ``decode_specs`` and
+    ``abstract_params``: every leaf's shape and dtype equal the reference's
+    ``ShapeDtypeStruct``s (by pytree path; the port's specs are ``meta``
+    tensors), for the 13 arch ids and nano, FULL configs, each input shape
+    the reference's dry-run admits (``arch_supports_shape``);
+    ``param_count`` and ``active_param_count`` equal, and the reference's
+    asserts are ``ValueError``s.
+  * ``python -m repro_torch.launch.dryrun --smoke`` runs every (arch x
+    shape) on meta to ``status: ok``, one record per admitted combination,
+    MoE archs included (``layers._host_sizes`` splits the rows evenly on
+    meta, which leaves ``grouped_mm``'s FLOPs and bytes as they are).
+  * :class:`MemoryTracker` reads the same forward-and-backward high-water
+    mark over meta tensors as over real CPU tensors of a SMOKE config.
+  * ``"full"`` remat reckons fewer activation bytes than no remat; over
+    ranks the reckoning counts the round's collectives and the high-water
+    mark of building the state.
+"""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import INPUT_SHAPES as J_INPUT_SHAPES
+from repro.configs import load_arch as j_load_arch
+from repro.configs import specs as JSPECS
+from repro_torch.configs import INPUT_SHAPES, arch_supports_shape, load_arch, specs
+from repro_torch.launch import dryrun as DR
+from repro_torch.models import convert
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+ARCHS = DR.ALL_ARCHS      # nano, the three GPT-2 sizes, the reference's ARCH_IDS
+
+
+def _configs(arch):
+    if arch == "nano":
+        from benchmarks.tables import NANO as J_NANO
+        from repro_torch.configs.nano import NANO
+
+        return J_NANO, NANO, j_load_arch("gpt2_small").TOPO, load_arch("gpt2_small").TOPO
+    jm, m = j_load_arch(arch), load_arch(arch)
+    return jm.FULL, m.FULL, jm.TOPO, m.TOPO
+
+
+def _dtype(x) -> str:
+    return str(x.dtype).replace("torch.", "") if isinstance(x, torch.Tensor) \
+        else np.dtype(x.dtype).name
+
+
+def _spec_leaves(tree) -> dict:
+    """{path: (shape, dtype name)} of a reference SDS tree or a port tree
+    of meta tensors."""
+    flat = convert.flatten_tree(tree, is_leaf=lambda x: isinstance(x, torch.Tensor)
+                                or hasattr(x, "shape") and hasattr(x, "dtype"))
+    return {k: (tuple(v.shape), _dtype(v)) for k, v in flat}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_specs_match_reference(arch):
+    jcfg, cfg, jtopo, topo = _configs(arch)
+    theirs = _spec_leaves(JSPECS.abstract_params(jcfg))
+    ours = specs.abstract_params(cfg)
+    assert all(t.is_meta for t in ours.values())
+    assert _spec_leaves(ours) == theirs
+    assert specs.param_count(cfg) == JSPECS.param_count(jcfg)
+    assert specs.active_param_count(cfg) == JSPECS.active_param_count(jcfg)
+    for name, shape in INPUT_SHAPES.items():
+        if not arch_supports_shape(cfg, topo, name):
+            continue
+        jshape = J_INPUT_SHAPES[name]
+        if shape.kind == "train":
+            W = topo.n_workers_single
+            got = specs.train_batch_specs(cfg, topo, shape, W)
+            want = JSPECS.train_batch_specs(jcfg, jtopo, jshape, W)
+        elif shape.kind == "prefill":
+            got = specs.prefill_batch_specs(cfg, shape)
+            want = JSPECS.prefill_batch_specs(jcfg, jshape)
+        else:
+            got = specs.decode_specs(cfg, shape)
+            want = JSPECS.decode_specs(jcfg, jshape)
+        assert _spec_leaves(got) == _spec_leaves(want), (arch, name)
+        assert all(t.is_meta for t in jax.tree.leaves(got)), (arch, name)
+
+
+def test_specs_refuse_what_the_reference_asserts():
+    cfg, topo = load_arch("gpt2_small").FULL, load_arch("gpt2_small").TOPO
+    with pytest.raises(ValueError):
+        specs.train_batch_specs(cfg, topo, INPUT_SHAPES["prefill_32k"], 8)
+    with pytest.raises(ValueError):
+        specs.train_batch_specs(cfg, topo, INPUT_SHAPES["train_4k"], 3)
+    with pytest.raises(ValueError):
+        specs.prefill_batch_specs(cfg, INPUT_SHAPES["decode_32k"])
+    with pytest.raises(ValueError):
+        specs.decode_specs(cfg, INPUT_SHAPES["train_4k"])
+
+
+def test_dryrun_runs_every_smoke_combination(tmp_path, capsys):
+    recs = DR.main(["--arch", "all", "--shape", "all", "--smoke", "--outdir", str(tmp_path)])
+    admitted = [(a, s) for a, s, ok in DR.combinations("all", "all", smoke=True) if ok]
+    assert len(recs) == len(admitted) == len(list(tmp_path.iterdir()))
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in recs if r["status"] != "ok"]
+    assert not bad
+    for (arch, shape), rec in zip(admitted, recs):
+        on_disk = json.loads((tmp_path / f"{arch}.{shape}.json").read_text())
+        assert on_disk["status"] == "ok" and on_disk["arch"] == arch
+        assert rec["flops"] > 0 and rec["memory"]["peak_bytes"] > 0
+        assert rec["dominant"] in ("compute", "memory") and rec["card"] == DR.CARD
+    out = capsys.readouterr().out
+    assert out.count("OK ") == len(admitted) and "ERR" not in out
+    assert any(r["arch"].startswith("granite_moe") for r in recs)
+
+
+@pytest.mark.parametrize("arch", ["gpt2_medium", "granite_moe_3b_a800m", "mamba2_780m",
+                                  "whisper_large_v3"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_tracker_reads_meta_as_cpu(arch, remat):
+    """The forward-and-backward high-water mark over meta tensors equals
+    the one over real CPU tensors (a MoE's group sizes read on the CPU,
+    split evenly on meta: the same total rows)."""
+    cfg = load_arch(arch).SMOKE
+    lay = T.layout(cfg)
+
+    def hwm(device):
+        flat = lay.empty(device=device)
+        if device == "cpu":
+            flat.normal_(generator=torch.Generator().manual_seed(0))
+        grad = torch.zeros_like(flat)
+        batch = DR._micro(cfg, 2, 32)
+        batch = {k: v.to(device) if device == "meta" else
+                 (torch.randint(0, cfg.vocab_size, v.shape) if k == "tokens" else
+                  torch.randn(v.shape, dtype=v.dtype))
+                 for k, v in batch.items()}
+        tracker = DR.MemoryTracker()
+        with tracker:
+            loss = T.loss_fn(lay.autograd_leaves(flat, grad), batch, cfg, remat=remat)
+            loss.backward()
+            del loss
+        return tracker.peak, tracker.live
+
+    assert hwm("meta") == hwm("cpu")
+
+
+def test_meta_moe_sizes_split_the_rows_evenly():
+    assert L._host_sizes(torch.empty(4, device="meta"), 10) == [3, 3, 2, 2]
+    assert L._host_sizes(torch.tensor([1, 0, 5]), 6) == [1, 0, 5]
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "gpt2_small"])
+def test_full_remat_reckons_fewer_activation_bytes(arch):
+    cfg = load_arch(arch).FULL
+    kw = dict(n_workers=2, tau=12, b_micro=1, seq=512)
+    plain = DR.reckon_train(cfg, **kw)
+    full = DR.reckon_train(cfg, remat=True, **kw)
+    dots = DR.reckon_train(cfg, remat=True, remat_policy="dots", **kw)
+    assert full["memory"]["local_bytes"] < dots["memory"]["local_bytes"] \
+        < plain["memory"]["local_bytes"]
+    assert full["memory"]["state_bytes"] == plain["memory"]["state_bytes"]
+    # the recompute runs the forward again: more FLOPs
+    assert full["flops"] > plain["flops"]
+
+
+def test_reckoning_over_ranks_counts_the_rounds_collectives():
+    """Rank 0 of four, granite SMOKE with bf16 parameters (two dtype
+    groups): one scatter and one all-gather per group, the stat sums'
+    all-reduce and the losses' gather, as ``CommStats`` counts them."""
+    import dataclasses
+
+    cfg = dataclasses.replace(load_arch("granite_moe_3b_a800m").SMOKE, param_dtype="bfloat16")
+    rec = DR.reckon_train(cfg, n_workers=4, tau=2, b_micro=2, seq=32, world=4)
+    calls = {k: v["calls"] for k, v in rec["comm"].items()}
+    assert calls == {"gather_workers": 1, "scatter_rows": 2, "all_reduce_sum": 1,
+                     "all_gather_shards": 2}
+    dense = DR.reckon_train(cfg, n_workers=4, tau=2, b_micro=2, seq=32)
+    assert rec["memory"]["state_bytes"] < dense["memory"]["state_bytes"]
+    # dsm_init holds the whole x0 and m until it keeps the rank's shards;
+    # the dense state sets no peak while it is built
+    assert rec["memory"]["init_bytes"] > rec["memory"]["state_bytes"]
+    assert dense["memory"]["peak_bytes"] > dense["memory"]["init_bytes"]

@@ -140,7 +140,7 @@ def outer_steps_rank(rank: int, world: int, n_workers: int, flags: dict, rounds:
     topo = None if world == 0 else mesh.topology(n_workers, dist.group.WORLD)
     base = base_opt.adamw()
     lay = T.layout(NANO)
-    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, NANO), base,
+    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, NANO, remat=False), base,
                          DSMConfig(tau=2, global_lr=0.3, **flags), schedules.constant(5e-3), lay,
                          topo)
     x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
@@ -174,7 +174,7 @@ def batch_dict_steps_rank(rank: int, world: int, cfg, n_workers: int, flags: dic
     base = base_opt.adamw()
     lay = T.layout(cfg)
     tau = batches[0]["tokens"].shape[1]
-    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg), base,
+    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), base,
                          DSMConfig(tau=tau, global_lr=0.5, **flags), schedules.constant(1e-3),
                          lay, topo)
     state = dsm_init(x0, base, n_workers, topo, flags.get("zero_sharded", False))
