@@ -58,6 +58,10 @@ again through make_dsm_step with loss_fn's remat=True under the "full" and
 the "dots" policies, each held bit for bit against the run without it.
 Last, every full-width run's measured peak beside the dry-run's reckoning
 of it on meta tensors (repro_torch.launch.dryrun), within DRYRUN_RTOL.
+After the ranks phases, the collective audit (audit_card): every c10d op
+of each outer-step variant recorded over RANKS gloo ranks and held against
+the paper's one-round budget, a planted extra all-reduce caught.  Every
+phase trains on the reference package's sources (training_corpus).
 algorithms_full_width, resume_full_width, obs_full_width and the
 full-width ranks phases run GPT-2 small at full width with its depth cut
 to CUT_LAYERS layers; the other cuts made for the command's time target
@@ -75,6 +79,7 @@ lists every kernel; the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import json
 import math
 import multiprocessing
@@ -155,6 +160,9 @@ RANKS = 4                       # processes sharing the card over gloo, one work
 ZERO_RTOL = 1e-4                # ranks vs the dense run, loss history (bit-equal expected)
 NCCL_STEPS = 2
 RANKS_TIMEOUT_S = 600
+# audit_card: the collective audit's steps (W = RANKS, one worker per rank)
+AUDIT_TAU = 2
+AUDIT_BATCH = dict(b_micro=MAIN["b_micro"], seq=MAIN["seq"])
 # the paper's other GPT-2 sizes at full width (vocab padded to 50,688)
 PAPER_SIZES = (("gpt2_medium", 353_944_576), ("gpt2_large", 772_762_880))
 PAPER_STEPS = 2                 # cut from 3 for the command's time target
@@ -279,6 +287,21 @@ REMAT_ROUNDS = 1
 # dryrun_vs_card: every measured full-width peak within this share of the
 # dry-run's reckoning (repro_torch.launch.dryrun, on meta tensors)
 DRYRUN_RTOL = 0.20
+
+
+# Every phase trains on the sources of the reference package, which stays as
+# it is: the same bytes in every run, while the port's own sources (and, on
+# them, every loss) would change with the port.
+CORPUS_DIR = ROOT / "src" / "repro"
+
+
+@functools.cache
+def training_corpus():
+    """The byte-level corpus of CORPUS_DIR's ``*.py`` files (one, shared by
+    every phase: ``TextCorpus`` only reads its data)."""
+    from repro_torch.data.pipeline import TextCorpus
+
+    return TextCorpus(str(CORPUS_DIR), "**/*.py")
 
 
 T0 = time.perf_counter()
@@ -514,7 +537,6 @@ def phase_times(torch, K, smi):
 
 def phase_main_path(torch, K, smi):
     from repro_torch.configs import gpt2_small
-    from repro_torch.data.pipeline import TextCorpus
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import TrainSettings, run_training
 
@@ -523,9 +545,9 @@ def phase_main_path(torch, K, smi):
     if n_params != N_GPT2_SMALL:
         raise AssertionError(f"gpt2_small.FULL has {n_params} parameters")
     s = TrainSettings(tau=gpt2_small.TOPO.tau, steps=MAIN_STEPS, eval_every=MAIN_STEPS, **MAIN)
-    # MarkovCorpus(50257) would need a ~160 GB table; the repo's own sources
+    # MarkovCorpus(50257) would need a ~160 GB table; the reference's sources
     # are a byte-level corpus (token ids < 256 of the 50,257-token vocab)
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     res = run_training(cfg, s, corpus, device="cuda")
@@ -567,13 +589,12 @@ def phase_obs_full_width(torch, K, smi, dense):
     median outer step leaves out the first and the profiled one.  Every
     number is printed before any check."""
     from repro_torch.configs import gpt2_small
-    from repro_torch.data.pipeline import TextCorpus
     from repro_torch.obs.sinks import read_run
     from repro_torch.obs.tracing import profile_summary
     from repro_torch.train.trainer import TrainSettings, run_training
 
     cfg = gpt2_small_cut()
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     tmp_root = ROOT / "build"
     tmp_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=tmp_root) as d:
@@ -769,12 +790,11 @@ def phase_algorithms_full_width(torch, K, smi):
     baseline, DSM with Sophia local steps and DSM with the randomized sign,
     ALGO_STEPS outer steps each."""
     from repro_torch.configs import gpt2_small
-    from repro_torch.data.pipeline import TextCorpus
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import TrainSettings, run_training
 
     cfg = gpt2_small_cut()
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     x0 = T.init_params(torch.Generator().manual_seed(0), cfg)
     total = dict.fromkeys(K.launch_counts(), 0)
     runs = []
@@ -870,7 +890,6 @@ def phase_robustness_full_width(torch, K, smi, main_cost):
     all-dropped round x0 and m byte-equal to copies on the card; one DSM
     launch per round (the skip-round included) and tau AdamW launches."""
     from repro_torch.configs import gpt2_small
-    from repro_torch.data.pipeline import TextCorpus
     from repro_torch.obs.metrics import IDX
     from repro_torch.robustness.faults import FaultPlan, FaultSpec
     from repro_torch.robustness.guards import state_tensors
@@ -896,7 +915,7 @@ def phase_robustness_full_width(torch, K, smi, main_cost):
             kept.update(x0=bits(torch, state.x0).clone(), m=bits(torch, state.m).clone())
         rounds.append(row)
 
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -1028,11 +1047,10 @@ def phase_resume_full_width(torch, K, smi):
     (launches, the first uninterrupted run's history and x0 / m on the
     host: what obs_full_width and the ranks phases are held against)."""
     from repro_torch.configs import gpt2_small
-    from repro_torch.data.pipeline import TextCorpus
     from repro_torch.train.trainer import TrainSettings, run_training
 
     cfg = gpt2_small_cut()
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     total = dict.fromkeys(K.launch_counts(), 0)
 
     def run(**kw):
@@ -1225,13 +1243,12 @@ def phase_ranks_full_width(torch, K, smi, dense):
     rank's shard with zero_sharded, over N without) and MAIN_STEPS * tau
     AdamW launches over (1, N), peak memory, step time, collectives."""
     from repro_torch.configs import gpt2_small
-    from repro_torch.data.pipeline import TextCorpus
     from repro_torch.distributed import zero
     from repro_torch.obs.sinks import read_run
     from repro_torch.train.trainer import TrainSettings
 
     cfg = gpt2_small_cut()
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     torch.cuda.empty_cache()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
@@ -1420,6 +1437,81 @@ def phase_zero_card_vs_cpu(torch, K):
     return {k: sum(ls[k] for ls in launch_sets) for k in want}
 
 
+def phase_audit_card(torch, K, smi) -> dict:
+    """The collective audit (``repro_torch.analysis.collective_audit.
+    standard_audit`` with its self-test) on the card: RANKS gloo processes
+    sharing it, one start of the ranks, first gpt2_small at full width and
+    CUT_LAYERS layers, then granite's SMOKE with bf16 parameters (two dtype
+    groups: the group-by-group ceilings), W = RANKS, tau AUDIT_TAU, one
+    outer step per variant.  Gate: the dense, device-parallel, ZeRO and
+    trainer steps pass their budgets, the bare local phase records no
+    collective, ZeRO gathers, the planted all-reduce (straight through
+    torch.distributed) fails on its op count and its bytes, the recorder
+    agrees with CommStats per kind (a violation otherwise), every recorded
+    step is bit-equal to the same step unrecorded (x0, m and the workers'
+    params of every group), and each rank's recorded run launches the DSM
+    kernel once and AdamW tau times per group (the local phase: AdamW
+    only).  Prints each variant's counts, bytes and ceilings and its
+    outer-step seconds recorded beside unrecorded (the dispatch mode's host
+    cost).  Returns the recorded runs' launches over the ranks."""
+    from repro_torch.analysis.collective_audit import standard_audit
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainSettings
+
+    cfgs = [gpt2_small_cut(), mixed_smokes()[0]]
+    groups = {cfg.name: len(T.layout(cfg).group_numels) for cfg in cfgs}
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    reports = standard_audit(n_workers=RANKS, tau=AUDIT_TAU, ranks=RANKS, device="cuda",
+                             self_test=True, cfg=cfgs, timeout_s=RANKS_TIMEOUT_S,
+                             work_dir=str(ROOT / "build"), **AUDIT_BATCH)
+    wall = time.perf_counter() - t0
+    total = dict.fromkeys(K.launch_counts(), 0)
+    failures, rows = [], []
+    for r in reports:
+        j = r.to_json()
+        planted = r.name.startswith("self_test")
+        want = expected_launches(TrainSettings(steps=1, tau=AUDIT_TAU), groups[r.config])
+        if r.name == "local_phase":
+            want["dsm_update"] = 0
+        rows.append({k: j[k] for k in ("config", "name", "phase", "passed", "counts",
+                                       "reduce_bytes", "gather_bytes", "metric_ops",
+                                       "outside_comm", "violations", "launches", "bit_equal",
+                                       "plain_s", "recorded_s")}
+                    | {"budget": {k: v for k, v in j["budget"].items() if k.startswith("max")},
+                       "recorded_over_plain": [a / b for a, b in zip(j["recorded_s"],
+                                                                     j["plain_s"])]})
+        where = f"{r.config} {r.name}"
+        if planted:
+            caught = [v for v in r.violations if "exceed" in v]
+            if not (any("reduction ops" in v for v in caught)
+                    and any("payload" in v for v in caught)):
+                failures.append(f"{where}: the planted all-reduce was not caught on both its "
+                                f"op count and its bytes: {r.violations}")
+            if any("CommStats" in v or "bits" in v for v in r.violations):
+                failures.append(f"{where}: {r.violations}")
+        elif not r.passed:
+            failures.append(f"{where}: {r.violations}")
+        if r.name == "local_phase" and r.counts:
+            failures.append(f"{where}: collectives in the local phase {r.counts}")
+        if r.name == "zero_sharded" and not r.counts.get("all-gather"):
+            failures.append(f"{where}: no all-gather")
+        for rank, got in enumerate(j["launches"]):
+            if got != want:
+                failures.append(f"{where}: rank {rank}: launch counts {got}, want {want}")
+            for k in total:
+                total[k] += got[k]
+    emit({"phase": "audit_card", "gpu": smi, "ranks": RANKS, "backend": "gloo",
+          "n_workers": RANKS, "tau": AUDIT_TAU, **AUDIT_BATCH,
+          "configs": {cfg.name: {"n_params": n_params(cfg), "groups": groups[cfg.name],
+                                 "layers": cfg.n_layers} for cfg in cfgs},
+          "seconds": wall, "variants": rows})
+    if failures:
+        raise AssertionError("audit_card: " + "; ".join(failures))
+    return total
+
+
 def local_step_breakdown(torch, cfg, state, corpus, s) -> dict:
     """One local step on a trained state (every worker's forward and
     backward, one AdamW launch): its host-clock ms (synced), then the same
@@ -1468,10 +1560,9 @@ def phase_paper_sizes_full_width(torch, K, smi):
     beside its byte bound; one local step's host time and device busy time.
     Returns (launches, gpt2_large's trained x0)."""
     from repro_torch.configs import load_arch, specs
-    from repro_torch.data.pipeline import TextCorpus
     from repro_torch.train.trainer import TrainSettings, run_training
 
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     total = dict.fromkeys(K.launch_counts(), 0)
     rows, failures, kept = [], [], None
     card_bytes = torch.cuda.get_device_properties(0).total_memory
@@ -1840,11 +1931,10 @@ def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new, extra=None,
 
     import numpy as np
 
-    from repro_torch.data.pipeline import TextCorpus
     from repro_torch.models import transformer as T
     from repro_torch.train.serve import generate
 
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     prompt = torch.as_tensor(corpus.sample(np.random.default_rng(7), batch, prompt_len),
                              dtype=torch.long, device="cuda")
     params = T.layout(cfg).views(x0)
@@ -2012,12 +2102,11 @@ def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", pa
     x0)], {name: history and x0 / m per group on the host} for the configs
     named in ``keep``, and for those named in ``first`` after their first
     round, taken by run_training's ``on_round`` outside the timed step)."""
-    from repro_torch.data.pipeline import TextCorpus
     from repro_torch.groups import each, parts, pick
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import run_training
 
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     total = dict.fromkeys(K.launch_counts(), 0)
     rows, failures, trained, finals = [], [], [], {}
     card_bytes = torch.cuda.get_device_properties(0).total_memory
@@ -2174,7 +2263,6 @@ def phase_mixed_zero_full_width(torch, K, smi, dense):
     beside their byte bounds."""
     import dataclasses
 
-    from repro_torch.data.pipeline import TextCorpus
     from repro_torch.distributed import mesh, zero
     from repro_torch.models import transformer as T
 
@@ -2183,7 +2271,7 @@ def phase_mixed_zero_full_width(torch, K, smi, dense):
     lay = T.layout(cfg)
     if lay.group_numels != n_want:
         raise AssertionError(f"{cfg.name}: groups of {lay.group_numels}, want {n_want}")
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2468,7 +2556,7 @@ def phase_encdec_full_width(torch, K, smi):
     buffers beside its byte bound.  Returns (launches, cfg, trained x0)."""
     from repro_torch.core import DSMConfig, dsm_init, get_base_optimizer, make_dsm_step
     from repro_torch.core.schedules import cosine_with_warmup
-    from repro_torch.data.pipeline import TextCorpus, dsm_batches, eval_batch
+    from repro_torch.data.pipeline import dsm_batches, eval_batch
     from repro_torch.models import transformer as T
 
     cfg, s = whisper_cut(), encdec_settings()
@@ -2476,7 +2564,7 @@ def phase_encdec_full_width(torch, K, smi):
     if lay.numel != ENCDEC_N or lay.n_groups != 1:
         raise AssertionError(f"{cfg.name}: N {lay.numel} in {lay.n_groups} groups, "
                              f"want {ENCDEC_N} in one")
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2726,14 +2814,14 @@ def phase_remat_full_width(torch, K, smi, params, dense) -> dict:
     Returns the launches."""
     import dataclasses
 
-    from repro_torch.data.pipeline import TextCorpus, dsm_batches
+    from repro_torch.data.pipeline import dsm_batches
     from repro_torch.groups import each, parts
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import build_algorithm
 
     cfg, s, _, _ = recurrent_paths()[1]
     lay = T.layout(cfg)
-    corpus = TextCorpus(str(ROOT / "src"), "**/*.py")
+    corpus = training_corpus()
     total = dict.fromkeys(K.launch_counts(), 0)
     rows, failures = [], []
     for policy in REMAT_POLICIES:
@@ -2934,6 +3022,7 @@ def all_phases(torch, K, smi, pool):
                phase_ranks_full_width(torch, K, smi, dense_cut),
                phase_zero_nccl_world1(torch, K),
                phase_zero_card_vs_cpu(torch, K),
+               phase_audit_card(torch, K, smi),
                slice_phases(torch, K, smi, pool)]
     for phases in (window_moe_phases, encdec_vlm_phases, recurrent_phases):
         more, group_errs = phases(torch, K, smi, pool)

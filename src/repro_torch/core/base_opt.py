@@ -65,7 +65,7 @@ def _over_groups(name: str, init: Callable, direction: Callable,
 
 def weak_scalar(c: float, dtype: torch.dtype) -> float:
     """The Python float ``c`` as JAX uses it against an array of ``dtype``."""
-    return float(torch.tensor(c, dtype=dtype))
+    return float(torch.tensor(c, dtype=dtype))  # noqa: RPR002 a CPU tensor made here from c
 
 
 def _buffers(state) -> tuple:

@@ -376,7 +376,7 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
     def outer_step(state: DSMState, batch: dict,
                    rng: Optional[torch.Generator] = None, faults=None):
         gamma_t = schedule(state.t)          # fixed for the whole outer step
-        gamma = float(gamma_t)
+        gamma = float(gamma_t)  # noqa: RPR002 schedules return 0-d CPU tensors: no device sync
         # the reference's jax.named_scope ranges, seen in a profiler trace
         with record_function("dsm_local_phase"):
             losses = local_phase(state, batch, gamma)

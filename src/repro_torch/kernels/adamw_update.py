@@ -55,9 +55,10 @@ def adamw_consts(gamma, step, *, beta1, beta2, eps, wd) -> AdamWConsts:
     c = f(step) + f(1.0)
     bc1 = f(1.0) - f(beta1) ** c
     bc2 = f(1.0) - f(beta2) ** c
-    return AdamWConsts(float(f(gamma)), float(bc1), float(bc2), float(f(beta1)),
-                       float(f(1.0 - beta1)), float(f(beta2)), float(f(1.0 - beta2)),
-                       float(f(eps)), float(f(wd)))
+    return AdamWConsts(float(f(gamma)), float(bc1), float(bc2),  # noqa: RPR002 np.float32s
+                       float(f(beta1)), float(f(1.0 - beta1)),  # noqa: RPR002 np.float32s
+                       float(f(beta2)), float(f(1.0 - beta2)),  # noqa: RPR002 np.float32s
+                       float(f(eps)), float(f(wd)))  # noqa: RPR002 np.float32s
 
 
 def moments_and_direction(p, g, m, v, k: AdamWConsts, round_direction: bool):
@@ -137,7 +138,7 @@ def adamw_update(p, g, m, v, gamma, step, *, beta1=0.9, beta2=0.95, eps=1e-8, wd
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(), *k,
-                 int(round_direction), stream)
+                 int(round_direction), stream)  # noqa: RPR002 a Python bool
     if err:
         raise RuntimeError(f"adamw_update launch failed: "
                            f"{lib.adamw_update_error_string(err).decode()}")

@@ -41,8 +41,10 @@ class DsmConsts(NamedTuple):
 def dsm_consts(gamma, *, eta, beta1, beta2, lam) -> DsmConsts:
     f = np.float32
     g = f(gamma)
-    return DsmConsts(float(g), float(f(eta) * g), float(f(beta1)), float(f(1.0 - beta1)),
-                     float(f(beta2)), float(f(1.0 - beta2)), float(f(lam)))
+    return DsmConsts(float(g), float(f(eta) * g),  # noqa: RPR002 np.float32s
+                     float(f(beta1)), float(f(1.0 - beta1)),  # noqa: RPR002 np.float32s
+                     float(f(beta2)), float(f(1.0 - beta2)),  # noqa: RPR002 np.float32s
+                     float(f(lam)))  # noqa: RPR002 np.float32s
 
 
 def sign_like_jnp(u: torch.Tensor) -> torch.Tensor:

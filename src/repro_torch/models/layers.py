@@ -177,11 +177,11 @@ def _host_sizes(counts: torch.Tensor, rows: int) -> list:
         n = counts.numel()
         return [rows // n + (e < rows % n) for e in range(n)]
     if not counts.is_cuda:
-        return counts.tolist()
+        return counts.tolist()  # noqa: RPR002 the group sizes, read on the host (a CPU tensor)
     prev = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode(0)
     try:
-        return counts.tolist()
+        return counts.tolist()  # noqa: RPR002 MoE's one sanctioned sync: grouped_mm's sizes
     finally:
         torch.cuda.set_sync_debug_mode(prev)
 

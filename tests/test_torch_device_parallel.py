@@ -101,14 +101,18 @@ def _x0():
 
 @pytest.fixture(scope="module")
 def ranks_runs(tmp_path_factory):
-    """Every path on every grid: one run of R processes per grid."""
+    """Every path on every grid: one run of R processes per grid, which then
+    audits the device-parallel local phase and outer step (under the key
+    ``"audit"``, one report pair per rank)."""
     out = {}
     for n_workers, world in GRIDS:
         d = tmp_path_factory.mktemp(f"W{n_workers}R{world}")
         settings = [_settings(p, n_workers, d / p) for p in PATHS]
-        res = spawn.run_ranks(torch_ranks.train_rank, world, (NANO, settings, "cpu", _x0()),
-                              timeout_s=300, group_timeout_s=60, work_dir=str(d))
+        res = spawn.run_ranks(torch_ranks.train_and_audit_rank, world,
+                              (NANO, settings, "cpu", _x0()), timeout_s=300,
+                              group_timeout_s=60, work_dir=str(d))
         out[(n_workers, world)] = {p: [r[i] for r in res] for i, p in enumerate(PATHS)}
+        out[(n_workers, world)]["audit"] = [r[-1] for r in res]
     return out
 
 
@@ -172,6 +176,20 @@ def test_collectives_per_round(ranks_runs, path, per_round):
         assert got == {k: n * KW["steps"] for k, n in per_round.items()}
         if "all_reduce_sum" in got:
             assert r["comm"]["all_reduce_sum"]["bytes"] == KW["steps"] * 7 * 4
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"W{g[0]}-R{g[1]}")
+def test_device_parallel_local_phase_audits_zero_collectives(ranks_runs, grid):
+    """The reference's in-test audit (tests/test_device_parallel.py): the
+    device-parallel local phase records ZERO collectives against the
+    ``local`` budget, while one outer step does communicate, within the
+    ``global_dense`` budget, the recorder agreeing with CommStats."""
+    for audit in ranks_runs[grid]["audit"]:
+        local, outer = audit["local_phase"], audit["outer_step"]
+        assert local["passed"] and local["counts"] == {}, local
+        assert outer["passed"], outer["violations"]
+        assert outer["counts"] == {"all-gather": 2, "reduce-scatter": 1}
+        assert outer["outside_comm"] == []
 
 
 def test_anchor_run_matches_the_reference_dense_history(tmp_path):

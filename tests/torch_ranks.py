@@ -257,3 +257,131 @@ def groups_state_rank(rank: int, world: int, cfg, n_workers: int, global_sharded
     return {"dense": flat_state(dense) if rank == 0 else None, "mine": flat_state(mine),
             "gathered": flat_state(gathered) if rank == 0 else None,
             "bounds": [Z.my_bounds(n, topo) for n in lay.group_numels]}
+
+
+def recorded_collectives_rank(rank: int, world: int, n_workers: int) -> dict:
+    """Each collective of ``comm`` under one ``CollectiveRecorder``, then
+    torch.distributed's own forbidden kinds under another: the recorded ops
+    and this rank's ``CommStats``."""
+    from repro_torch.analysis.collective_audit import CollectiveRecorder
+    from repro_torch.distributed import comm
+
+    topo = mesh.topology(n_workers, dist.group.WORLD)
+    rows = torch.arange(2 * 300, dtype=torch.bfloat16).reshape(2, 300)[:topo.local_workers]
+    with CollectiveRecorder() as rec:
+        comm.gather_workers(torch.ones(3, topo.local_workers), topo, dim=1)
+        comm.scatter_rows(rows, topo, Z.chunk_size(300, world))
+        comm.all_gather_shards(torch.ones(Z.chunk_size(300, world)), topo,
+                               Z.chunk_size(300, world), 300)
+        comm.all_reduce(torch.ones(7), topo, "sum")
+        comm.all_reduce(torch.ones(1, dtype=torch.int32), topo, "min")
+        comm.gather_to_root(torch.ones(5, dtype=torch.bfloat16), topo)
+        comm.barrier(topo, "cpu")
+    with CollectiveRecorder() as raw:
+        dist.barrier()
+        dist.broadcast(torch.ones(4), 0)
+        dist.all_gather_into_tensor(torch.empty(world * 4), torch.ones(4))
+        dist.all_to_all_single(torch.empty(world * 2), torch.ones(world * 2))
+        if rank == 0:
+            dist.send(torch.ones(2), 1)
+        elif rank == 1:
+            dist.recv(torch.empty(2), 0)
+    return {"ops": rec.ops, "raw": raw.ops, "stats": topo.stats.as_dict()}
+
+
+def planted_barrier_rank(rank: int, world: int, n_workers: int) -> dict:
+    """The audit of a nano device-parallel local phase whose loss calls
+    ``torch.distributed.barrier()``: a collective inside the local steps."""
+    from repro_torch.analysis.collective_audit import CollectiveBudget, audit_call
+    from repro_torch.configs.nano import NANO
+    from repro_torch.core import base_opt
+    from repro_torch.core.dsm import dsm_init, make_local_phase
+    from repro_torch.models import transformer as T
+
+    topo = mesh.topology(n_workers, dist.group.WORLD)
+    lay = T.layout(NANO)
+
+    def loss(p, mb):
+        dist.barrier()
+        return T.loss_fn(p, mb, NANO, remat=False)
+
+    base = base_opt.adamw()
+    state = dsm_init(T.init_params(torch.Generator().manual_seed(0), NANO), base, n_workers,
+                     topo)
+    local = make_local_phase(loss, base, lay)
+    tokens = torch.randint(0, NANO.vocab_size, (topo.local_workers, 2, 1, 2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    report = audit_call(local, (state, {"tokens": tokens}, 1e-3),
+                        CollectiveBudget.for_phase("local", lay, world, n_workers),
+                        "local_phase_planted_barrier", topo.stats)
+    return report.to_json()
+
+
+def dp_audit(rank: int, world: int, cfg, n_workers: int, tau: int, params) -> dict:
+    """The reference's in-test audit (``tests/test_device_parallel.py``): the
+    device-parallel local phase of ``cfg`` issues ZERO collectives (the
+    ``local`` budget), one outer step fits the ``global_dense`` budget."""
+    from repro_torch.analysis.collective_audit import CollectiveBudget, audit_call
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core.dsm import dsm_init, make_dsm_step, make_local_phase
+    from repro_torch.models import transformer as T
+
+    topo = mesh.topology(n_workers, dist.group.WORLD)
+    lay = T.layout(cfg)
+    base = base_opt.adamw()
+    tokens = torch.randint(0, cfg.vocab_size, (n_workers, tau, 1, 2, 32),
+                           generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": tokens[topo.worker_slice]}
+    state = dsm_init(params, base, n_workers, topo)
+    local = make_local_phase(lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), base, lay)
+    step = make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), base,
+                         DSMConfig(tau=tau, device_parallel_local=True),
+                         schedules.constant(2e-2), lay, topo)
+    budget = CollectiveBudget.for_phase
+    return {"local_phase": audit_call(local, (state, batch, 2e-2),
+                                      budget("local", lay, world, n_workers), "local_phase",
+                                      topo.stats).to_json(),
+            "outer_step": audit_call(step, (state, batch),
+                                     budget("global_dense", lay, world, n_workers),
+                                     "outer_step", topo.stats).to_json()}
+
+
+def oversized_chunk_rank(rank: int, world: int, n_workers: int, tau: int) -> dict:
+    """:func:`dp_audit`'s outer step at nano twice, each time with a lowering
+    that sends twice the bytes it should: a copy of ``comm.scatter_rows``
+    that pads every column chunk to twice its size, and then
+    ``zero.chunk_size`` inflated twice over (the sharding the budget must
+    not take its ceilings from).  ``{plant: outer step's report}``."""
+    from repro_torch.configs.nano import NANO
+    from repro_torch.distributed import comm
+    from repro_torch.models import transformer as T
+
+    scatter_rows, chunk_size = comm.scatter_rows, Z.chunk_size
+
+    def padded_scatter(rows, topo, chunk):
+        n_local, n = rows.shape
+        flat = rows.new_zeros(n_local, topo.world * chunk)
+        flat[:, :n] = rows
+        wide = rows.new_zeros(n_local, topo.world, 2 * chunk)
+        wide[:, :, :chunk] = flat.view(n_local, topo.world, chunk)
+        return scatter_rows(wide.view(n_local, -1), topo, 2 * chunk)[:, :chunk]
+
+    params = T.init_params(torch.Generator().manual_seed(0), NANO)
+    out = {}
+    for plant, module, name, fn in (
+            ("padded_scatter_rows", comm, "scatter_rows", padded_scatter),
+            ("inflated_chunk_size", Z, "chunk_size", lambda n, s: 2 * chunk_size(n, s))):
+        setattr(module, name, fn)
+        try:
+            out[plant] = dp_audit(rank, world, NANO, n_workers, tau, params)["outer_step"]
+        finally:
+            comm.scatter_rows, Z.chunk_size = scatter_rows, chunk_size
+    return out
+
+
+def train_and_audit_rank(rank: int, world: int, cfg, settings: list, device: str = "cpu",
+                         params=None) -> list:
+    """:func:`train_rank`'s results, then :func:`dp_audit` at the first
+    settings' worker count and tau, in the same start of the ranks."""
+    out = train_rank(rank, world, cfg, settings, device, params)
+    return out + [dp_audit(rank, world, cfg, settings[0].n_workers, settings[0].tau, params)]
