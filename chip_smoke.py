@@ -195,6 +195,14 @@ SERVE_ATOL = 0.25
 # the gap is the blocks' bf16 noise, not the patch prefix; the f32 check
 # (SERVE_F32_ATOL) holds the decode path itself
 SERVE_ULP_PER_ADD = 2.0 ** -8
+# serve_recurrent_full_width's bf16 bound for recurrentgemma: the same
+# rounding model alone, one bf16 ulp (2^-8) of the largest logit per
+# residual add, two adds per layer (its RG-LRU / local-attention mixer and
+# its FFN), with no SERVE_ATOL floor: 2 * RG_LAYERS * 2^-8 = 2.34% of the
+# largest logit.  The absolute SERVE_ATOL held logits of any size; this
+# bound scales with them, as llava's does (0.7265 on the largest logit of
+# 30.996, where the check read 0.1210; PERF.md section 6).  Its f32
+# check stays SERVE_F32_ATOL (serve_check's per_add_bound="only")
 # the same check with the trained x0 in f32 (activations f32, no TF32), over
 # the first SERVE_F32_STEPS tokens: only the summation orders differ there
 SERVE_F32_ATOL = 1e-3
@@ -216,13 +224,14 @@ SERVE_CPU_ATOL = 1e-4           # serve_card_vs_cpu: nano f32 decode logits
 # default) applies.  gemma3_1b.FULL whole depth at W=2 (W=4 would need ~75 GB
 # of state), S=1024 so that its 512-token window binds; granite at full
 # width and GRANITE_LAYERS of its 32 layers (3.30 B parameters fit at no W
-# with AdamW; cut from 6 layers for the command's time target, where
+# with AdamW; cut from 6 layers, then from 3 to 1 when
+# model_axis_full_width came in, for the command's time target, where
 # group_kernel_checks keeps the 6-layer groups: AdamW over (4, 680,283,648),
 # past 2^31).  N per dtype group: the param dtype's, then f32.
 GEMMA = dict(n_workers=2, b_micro=1, seq=1024)
 GEMMA_N = (999_812_736,)
-GRANITE_LAYERS = 3
-GRANITE_N = (378_284_544, 184_320)
+GRANITE_LAYERS = 1
+GRANITE_N = (176_951_808, 61_440)
 GRANITE_CHECK_LAYERS = 6
 WINDOW_MOE_STEPS = 2            # cut from 3 for the command's time target
 WINDOW_MOE_EVAL_BATCH = 4           # eval sequences: gemma's f32 logits take 1.07 GB per 1024
@@ -261,18 +270,21 @@ ENCDEC_VLM_SMOKES = ("whisper_large_v3", "llava_next_34b")
 # W=2 (cut from 6 layers, ~60 GB, for the command's time target); S=3072 so
 # that its 2048-token window binds.  mamba2_780m.FULL at
 # whole depth (48 layers), W=2, S=2048 (Mamba-2's published training
-# context).  N per dtype group: the param dtype's, then f32 (lam; A_log, D,
-# dt_bias).  Neither arch module has a PEAK_LR: MAIN's applies.
+# context; at 24 layers its bf16 decode sat 2.02 times its full forward's
+# distance from its f32 model, past SERVE_NOISE_FACTOR, on the card, so its
+# depth is not cut).  N per dtype group: the param dtype's, then f32 (lam;
+# A_log, D, dt_bias).  Neither arch module has a PEAK_LR: MAIN's applies.
 RG = dict(n_workers=2, b_micro=1, seq=3072)
 RG_LAYERS = 3
 RG_N = (912_304_640, 5_120)
 MAMBA = dict(n_workers=2, b_micro=1, seq=2048)
 MAMBA_N = (780_768_768, 6_912)
 RECURRENT_STEPS = 2             # mamba2's, cut from 3 for the command's time target
-# recurrentgemma keeps 3 rounds: its bf16 decode-vs-full-forward check sits
-# near SERVE_ATOL and moves with the corpus (src/**/*.py), 0.20-0.32 after 2
+# recurrentgemma keeps 3 rounds: its bf16 decode-vs-full-forward check sat
+# near SERVE_ATOL and moved with the corpus (src/**/*.py), 0.20-0.32 after 2
 # rounds at 3 layers and 0.31 at PR 20's 6 layers and 3 rounds on one
-# corpus where 3 layers and 3 rounds read 0.15 (PERF.md section 7)
+# corpus where 3 layers and 3 rounds read 0.15 (PERF.md section 7); 0.1210
+# on the frozen corpus, now held to its per-add bound (SERVE_ULP_PER_ADD)
 RG_STEPS = 3
 RECURRENT_EVAL_BATCH = 2        # eval sequences: recurrentgemma's f32 logits, 2.1 GB per 2048
 SERVE_RG = (4, 2560, 128)       # batch, prompt (past the window), new tokens
@@ -287,6 +299,33 @@ REMAT_ROUNDS = 1
 # dryrun_vs_card: every measured full-width peak within this share of the
 # dry-run's reckoning (repro_torch.launch.dryrun, on meta tensors)
 DRYRUN_RTOL = 0.20
+# model_axis_full_width: the model axis (distributed.tensor_parallel) at
+# full width, RANKS gloo ranks sharing the card, held against the dense run
+# in this process.  (a) minitron_4b.FULL (d 3072, 24 heads, 8 KV heads,
+# d_ff 9216, tied 256,000-row vocab) at MODEL_AXIS_LAYERS of its 32 layers
+# (N = 1,006,648,320, the embedding 78% of it; cut for one card: the dense
+# run's state alone is ~12 * W + 8 B per parameter) over (worker 1, zero 1,
+# model 4): each rank holds both workers' quarter, 6 query heads, 2 KV heads,
+# 64,000 vocab rows.  (b) gpt2_small.FULL at CUT_LAYERS layers over (worker
+# 2, zero 1, model 2), W = 2: the reference's grid rule puts one worker on
+# each worker row (W = 4 would need 4 rows), so each rank holds one worker's
+# half, and the worker mean and the global step run over 2-rank subgroups.
+# Both: tau 4, B_micro 4, S 128, MODEL_AXIS_ROUNDS rounds, constant gamma,
+# eta, one start of the ranks.  The bounds (PERF.md section 6, written
+# before the first run): model_axis_bounds
+MODEL_AXIS_LAYERS = 2
+MODEL_AXIS_N = 1_006_648_320
+MODEL_AXIS_CASES = (("minitron_4b", MODEL_AXIS_LAYERS, 2, 4), ("gpt2_small", CUT_LAYERS, 2, 2))
+MODEL_AXIS = dict(tau=4, b_micro=4, seq=128)
+MODEL_AXIS_ROUNDS = 2
+MODEL_AXIS_GAMMA = 1e-3
+MODEL_AXIS_ETA = MAIN["global_lr"]
+# the rounding model: one bf16 ulp (2^-8) of the largest logit per
+# row-parallel add (two per layer: attention's and the FFN's outputs, each
+# M partial sums rounded to bf16 and their f32 sum rounded once more), f32
+# logits and an exact vocab-parallel lookup; a loss moves by at most twice
+# its logits' largest move
+MODEL_AXIS_ULP = 2.0 ** -8
 
 
 # Every phase trains on the sources of the reference package, which stays as
@@ -884,7 +923,9 @@ def bits(torch, t):
 
 
 def phase_robustness_full_width(torch, K, smi, main_cost):
-    """gpt2_small.FULL, W=4, tau=12, DSM + AdamW under the hand-built fault
+    """gpt2_small at full width and CUT_LAYERS layers (whole depth until
+    model_axis_full_width came in; cut for the command's time target),
+    W=4, tau=12, DSM + AdamW under the hand-built fault
     plan with mask_nonfinite and guard_nonfinite.  After every round: every
     state tensor finite, the pack's survivor_frac the plan's; across the
     all-dropped round x0 and m byte-equal to copies on the card; one DSM
@@ -895,7 +936,7 @@ def phase_robustness_full_width(torch, K, smi, main_cost):
     from repro_torch.robustness.guards import state_tensors
     from repro_torch.train.trainer import TrainSettings, run_training
 
-    cfg = gpt2_small.FULL
+    cfg = gpt2_small_cut()
     plan = fault_plan(FaultPlan, FaultSpec)
     s = TrainSettings(tau=gpt2_small.TOPO.tau, steps=len(FAULT_ROUNDS),
                       eval_every=len(FAULT_ROUNDS), faults=plan, mask_nonfinite=True,
@@ -1916,7 +1957,8 @@ def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new, extra=None,
     seconds, decode tokens/s and the peak.  Then, teacher-forced, each
     decode step's logits against the full forward within SERVE_ATOL (with
     ``per_add_bound``, within SERVE_ULP_PER_ADD of the largest logit per
-    residual add where that is larger) on the rows whose experts agree
+    residual add where that is larger; with ``per_add_bound="only"``, that
+    bound alone) on the rows whose experts agree
     (``route_checked``: every row of a dense model), and generate's token
     equal to the full forward's argmax wherever its top-2 margin exceeds
     that bound.  With ``noise_bound`` the bf16 decode is held instead
@@ -1947,8 +1989,9 @@ def serve_check(torch, smi, phase, cfg, x0, batch, prompt_len, new, extra=None,
     peak = torch.cuda.max_memory_allocated()
     rows = teacher_forced(torch, params, cfg, prompt, toks, extra)
     top = max(full.abs().max().item() for _, full, _ in rows)
-    atol = max(SERVE_ATOL, 2 * cfg.n_layers * SERVE_ULP_PER_ADD * top) if per_add_bound else (
-        SERVE_ATOL)
+    per_add = 2 * cfg.n_layers * SERVE_ULP_PER_ADD * top
+    atol = ((per_add if per_add_bound == "only" else max(SERVE_ATOL, per_add))
+            if per_add_bound else SERVE_ATOL)
     bf16 = route_checked(rows, atol)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     params32 = {k: v.float() for k, v in params.items()}
@@ -2886,6 +2929,331 @@ def reckon_peak(cfg, kw: dict) -> dict:
     return reckon_train(cfg, **kw)["memory"]
 
 
+def adam_step_bound(t: int) -> float:
+    """The largest |m_hat / sqrt(v_hat)| of AdamW's step t (1-indexed,
+    ADAMW_HP's betas): Cauchy-Schwarz over the bias-corrected weights w_i
+    of the first moment and u_i of the second, sqrt(sum w_i^2 / u_i)."""
+    b1, b2 = ADAMW_HP["beta1"], ADAMW_HP["beta2"]
+    w = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+    u = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+    return math.sqrt(sum(a * a / c for a, c in zip(w, u)))
+
+
+def model_axis_bounds(n_layers: int, rounds: int, tau: int) -> list:
+    """Per round, the model axis against the dense run (PERF.md section 6):
+    ``loss``: a worker's round-mean loss within ``loss`` times the largest
+    logit, 2 * (2 * n_layers) * MODEL_AXIS_ULP; ``x_tau`` and ``x0`` (after
+    the round): (C, R), each element's gap within C + R * |x| (|x| the
+    larger of the two runs'); ``x0_before``: the same for x0 before it.
+
+    AdamW's direction (rounded to bf16, so within (1 + 2^-8) times
+    adam_step_bound(t)) moves by at most twice that wherever the two runs'
+    gradients differ (a sign flip at a near-zero gradient), so a
+    local step moves a parameter's gap by at most that times gamma (its
+    weight decay only shrinks the gap), and each bf16 rounding of a
+    parameter in either run by half an ulp, 2^-8 |x| each: 2^-7 |x| per
+    step and for the mean.  The global step moves x0 by eta * gamma *
+    (sign(u) + lam * x0): a flipped sign moves the gap by 2 * eta * gamma,
+    lam * eta * gamma scales the old gap, and the two runs' roundings of x0
+    add 2^-7 |x|.  m = beta2 m + (1 - beta2) (x0 - x_tau) / gamma in f32:
+    its gap is within beta2 times the old gap's bound plus (1 - beta2) /
+    gamma times the bounds of x0's (before) and x_tau's gaps, plus f32
+    rounding, 1e-6 |m| (:func:`phase_model_axis_full_width` evaluates it
+    element by element)."""
+    g, eta, lam = MODEL_AXIS_GAMMA, MODEL_AXIS_ETA, DSM_HP["lam"]
+    rnd = 2 * MODEL_AXIS_ULP
+    x0 = (0.0, 0.0)
+    out = []
+    for k in range(rounds):
+        steps = range(k * tau + 1, (k + 1) * tau + 1)
+        # the direction is rounded to bf16 before the update: (1 + 2^-8)
+        xt = (x0[0] + 2 * g * (1 + MODEL_AXIS_ULP) * sum(adam_step_bound(t) for t in steps),
+              x0[1] + (tau + 1) * rnd)
+        after = (x0[0] * (1 + eta * g * lam) + 2 * eta * g, x0[1] + rnd)
+        out.append({"loss": 2 * (2 * n_layers) * MODEL_AXIS_ULP, "x_tau": xt, "x0": after,
+                    "x0_before": x0})
+        x0 = after
+    return out
+
+
+def model_axis_cfgs():
+    """The model-axis cases: (cfg, W, M) at MODEL_AXIS_CASES' depths."""
+    import dataclasses
+
+    from repro_torch.configs import load_arch
+
+    out = []
+    for arch, layers, n_workers, model in MODEL_AXIS_CASES:
+        full = load_arch(arch).FULL
+        out.append((dataclasses.replace(full, n_layers=layers, name=f"{arch}_{layers}l"),
+                    n_workers, model))
+    return out
+
+
+def largest_logit(torch, params, cfg, tokens) -> float:
+    """The largest |logit| of ``tokens`` (B, S) under ``params``: the unit
+    of the model axis's loss bound."""
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        h, _, _ = T.hidden_states(params, {"tokens": tokens}, cfg, remat=False)
+        return T._logits(params, h, cfg).abs().max().item()
+
+
+def gap_excess(torch, a, b, ref_mags, rel: float) -> float:
+    """max_i (|a_i - b_i| - rel * mags_i) over every dtype group, with mags
+    the larger magnitude of the ``ref_mags`` tensors (element for element):
+    the check ``gap <= C + R |x|`` is ``gap_excess(..., R) <= C``."""
+    from repro_torch.groups import parts
+
+    worst = -math.inf
+    for i, (x, y) in enumerate(zip(parts(a), parts(b), strict=True)):
+        mag = functools.reduce(torch.maximum, [parts(t)[i].float().abs() for t in ref_mags])
+        worst = max(worst, ((x.float() - y.float()).abs() - rel * mag).max().item())
+        del mag
+    return worst
+
+
+def phase_model_axis_full_width(torch, K, smi, pool) -> dict:
+    """The model axis at full width (MODEL_AXIS_CASES): one start of RANKS
+    gloo ranks sharing the card runs both cases through
+    ``tests/torch_ranks.model_axis_rank`` (make_dsm_step over each rank's
+    blocks, the ZeRO-sharded global step over its (worker, zero) ranks),
+    each rank saving its blocks of x_tau, x0 and m after every round; then
+    each case's dense run in this process from the same draw and batches,
+    round by round against the ranks': each worker's round-mean loss, the
+    largest gaps of x_tau, x0 and m within model_axis_bounds, and the
+    global step from the dense x_tau, x0 and m cut to each rank's blocks
+    bit for bit the dense step's blocks (the DSM kernel).  Per rank: its
+    peak beside the dry-run's reckoning of that grid (dryrun_vs_card), its
+    collectives per name and group equal to the reckoning's to the byte, one
+    DSM and tau AdamW launches per round, each outer step's host ms.  Then
+    both kernels against their plain versions on rank 0's blocks of (a),
+    bit for bit.  Returns the dense runs' and the ranks' launches."""
+    import numpy as np
+
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core import dsm as D
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.groups import each, parts
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import metrics as OM
+
+    import torch_ranks
+
+    cfgs = model_axis_cfgs()
+    if T.layout(cfgs[0][0]).numel != MODEL_AXIS_N:
+        raise AssertionError(f"{cfgs[0][0].name}: N {T.layout(cfgs[0][0]).numel}")
+    corpus = training_corpus()
+    rng = np.random.default_rng(11)
+    tau, bm, seq = MODEL_AXIS["tau"], MODEL_AXIS["b_micro"], MODEL_AXIS["seq"]
+    cases, reckoned = [], []
+    for i, (cfg, W, M) in enumerate(cfgs):
+        batches = [{"tokens": corpus.sample(rng, W * tau * bm, seq).reshape(
+            W, tau, 1, bm, seq).astype(np.int64)} for _ in range(MODEL_AXIS_ROUNDS)]
+        cases.append((cfg, W, M, 7 + i, batches, MODEL_AXIS_GAMMA, MODEL_AXIS_ETA))
+        # every rank holds blocks of the same shapes: rank 0's reckoning
+        kw = dict(n_workers=W, tau=tau, b_micro=bm, seq=seq, world=RANKS, model=M,
+                  eval_batch=0)
+        reckoned.append((kw, pool.submit(reckon_comm, cfg, kw),
+                         pool.submit(reckon_peak, cfg, kw)))
+    total = dict.fromkeys(K.launch_counts(), 0)
+    work = ROOT / "build" / "model_axis"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch_ranks.model_axis_rank, RANKS, (cases, str(work)),
+                      timeout_s=RANKS_TIMEOUT_S, work_dir=str(ROOT / "build"))
+    ranks_s = time.perf_counter() - t0
+    rows, failures = [], []
+    for i, (cfg, W, M, seed, batches, gamma, eta) in enumerate(cases):
+        per_rank = [r[i] for r in ranks]
+        lay = T.layout(cfg)
+        lays = [TP.rank_layout(cfg, M, m) for m in range(M)]
+        kw, comm_fut, peak_fut = reckoned[i]
+        comm_round, comm_kinds = comm_fut.result(timeout=CPU_RUN_TIMEOUT_S)
+        want_comm = {k: {"calls": v["calls"] * MODEL_AXIS_ROUNDS,
+                         "bytes": v["bytes"] * MODEL_AXIS_ROUNDS} for k, v in comm_round.items()}
+        want_launch = {"dsm_update": MODEL_AXIS_ROUNDS * lay.n_groups,
+                       "adamw_update": MODEL_AXIS_ROUNDS * tau * lay.n_groups}
+        for r in per_rank:
+            PEAKS.append((f"model_axis_{cfg.name}_rank{r['rank']}", r["peak_bytes"], cfg, kw,
+                          0, peak_fut))
+            if r["comm"] != want_comm:
+                failures.append(f"{cfg.name} rank {r['rank']}: collectives {r['comm']}, "
+                                f"reckoned {want_comm}")
+            if r["launches"] != want_launch:
+                failures.append(f"{cfg.name} rank {r['rank']}: launches {r['launches']}")
+            total = {k: n + r["launches"][k] for k, n in total.items()}
+
+        # the dense run, round by round against the ranks' saved blocks
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        x0 = T.init_params(torch.Generator("cuda").manual_seed(seed), cfg, device="cuda")
+        base = base_opt.adamw()
+        dcfg = D.DSMConfig(tau=tau, global_lr=eta)
+        step = D.make_dsm_step(lambda p, mb, cfg=cfg: T.loss_fn(p, mb, cfg, remat=False),
+                               base, dcfg, schedules.constant(gamma), lay)
+        state = D.dsm_init(x0, base, W)
+        seen = {}
+        mean_fn, stats_fn = D.worker_mean, OM.loss_stats
+
+        def mean(p):
+            seen["x_tau"] = mean_fn(p)
+            return seen["x_tau"]
+
+        def loss_stats(losses):
+            seen["losses"] = losses.detach().cpu()
+            return stats_fn(losses)
+
+        bounds = model_axis_bounds(cfg.n_layers, MODEL_AXIS_ROUNDS, tau)
+        D.worker_mean, OM.loss_stats = mean, loss_stats
+        K.reset_launch_counts()
+        rounds, m_prev = [], 0.0
+        try:
+            for k, raw in enumerate(batches):
+                batch = {n: torch.from_numpy(v).to("cuda") for n, v in raw.items()}
+                top = largest_logit(torch, lay.views(state.x0), cfg, batch["tokens"][0, 0, 0])
+                before = (each(torch.clone, state.x0), each(torch.clone, state.m))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t1) * 1e3
+                launches = K.launch_counts()
+                x_tau = seen.pop("x_tau")
+                saved = [torch.load(work / f"{i}_{m}_{k}.pt", mmap=True, weights_only=False)
+                         for m in range(M)]
+                tp = {n: C.gather_flat([each(lambda t: t.to("cuda"), sv[n]) for sv in saved],
+                                       lay, lays) for n in ("x_tau", "x0", "m")}
+                del saved
+                b = bounds[k]
+                dense_loss = seen["losses"].mean(0).tolist()
+                tp_loss = [r["losses"][k].mean(0).tolist() for r in per_rank]
+                loss_gap = max(abs(x - y) for t in tp_loss for x, y in zip(t, dense_loss))
+                excess = {"x_tau": gap_excess(torch, tp["x_tau"], x_tau, [tp["x_tau"], x_tau],
+                                              b["x_tau"][1]),
+                          "x0": gap_excess(torch, tp["x0"], state.x0, [tp["x0"], state.x0],
+                                           b["x0"][1])}
+                # m's gap against its bound from the x0 (before) and x_tau bounds
+                b2 = DSM_HP["beta2"]
+                m_c = b2 * m_prev + (1 - b2) / gamma * (b["x0_before"][0] + b["x_tau"][0])
+                m_excess, m_next = -math.inf, 0.0
+                for g in range(lay.n_groups):
+                    mag = ((1 - b2) / gamma) * (
+                        b["x0_before"][1] * parts(before[0])[g].float().abs()
+                        + b["x_tau"][1] * torch.maximum(parts(tp["x_tau"])[g].float().abs(),
+                                                        parts(x_tau)[g].float().abs()))
+                    mag += 1e-6 * parts(state.m)[g].abs()
+                    gap = (parts(tp["m"])[g] - parts(state.m)[g]).abs()
+                    m_excess = max(m_excess, (gap - mag).max().item())
+                    m_next = max(m_next, mag.max().item())
+                    del mag, gap
+                m_prev = m_c + m_next
+                gaps = {n: max((p.float() - q.float()).abs().max().item() for p, q in
+                               zip(parts(tp[n]), parts(d))) for n, d in
+                        (("x_tau", x_tau), ("x0", state.x0), ("m", state.m))}
+                # the global step from the dense x_tau, x0 and m on each rank's blocks
+                bit_equal = True
+                for rl in lays:
+                    xb, mb = C.shard_flat(before[0], lay, rl), C.shard_flat(before[1], lay, rl)
+                    D.global_sign_momentum_step(xb, mb, C.shard_flat(x_tau, lay, rl), gamma,
+                                                dcfg)
+                    bit_equal &= all(same_bits(torch, p, q) for p, q in zip(
+                        parts(xb) + parts(mb), parts(C.shard_flat(state.x0, lay, rl))
+                        + parts(C.shard_flat(state.m, lay, rl))))
+                    del xb, mb
+                K.reset_launch_counts()
+                ok = (loss_gap <= b["loss"] * top and excess["x_tau"] <= b["x_tau"][0]
+                      and excess["x0"] <= b["x0"][0] and m_excess <= m_c and bit_equal)
+                rounds.append({"round": k, "largest_logit": top,
+                               "dense_loss_per_worker": dense_loss,
+                               "model_axis_loss_per_worker_by_rank": tp_loss,
+                               "loss_gap": loss_gap, "loss_bound": b["loss"] * top,
+                               "max_gap": gaps, "bound_C_R": {n: b[n] for n in
+                                                              ("x_tau", "x0", "x0_before")},
+                               "m_bound_C": m_c, "excess_over_R": {**excess, "m": m_excess},
+                               "global_step_bit_equal_from_dense_x_tau": bit_equal,
+                               "dense_step_ms": step_ms,
+                               "model_axis_step_ms_by_rank": [r["step_ms"][k]
+                                                              for r in per_rank],
+                               "ok": ok})
+                if not ok:
+                    failures.append(f"{cfg.name} round {k}: {rounds[-1]}")
+                total = {n: c + launches[n] for n, c in total.items()}
+                del tp, x_tau, before
+        finally:
+            D.worker_mean, OM.loss_stats = mean_fn, stats_fn
+        peak = torch.cuda.max_memory_allocated()
+        del state, step, x0
+        torch.cuda.empty_cache()
+        if i == 0:
+            checks = model_axis_kernel_checks(torch, K, lays[0], W)
+        rows.append({"config": cfg.name, "n_params": lay.numel, "n_workers": W,
+                     "grid": {"worker": per_rank[0]["grid"][0], "zero": per_rank[0]["grid"][1],
+                              "model": M},
+                     "rank_block_numel": lays[0].numel, "dense_peak_bytes": peak,
+                     "rank_peaks_bytes": [r["peak_bytes"] for r in per_rank],
+                     "launches_by_rank": [r["launches"] for r in per_rank],
+                     "collectives_by_rank": [r["comm"] for r in per_rank],
+                     "collectives_reckoned_per_round": comm_round,
+                     "collectives_by_kind_per_round": comm_kinds, "rounds": rounds})
+    for f in work.glob("*.pt"):
+        f.unlink()
+    emit({"phase": "model_axis_full_width", "gpu": smi, "ranks": RANKS,
+          "backend": "gloo", "tau": tau, "b_micro": bm, "seq": seq,
+          "gamma": MODEL_AXIS_GAMMA, "eta": MODEL_AXIS_ETA, "ranks_s": ranks_s,
+          "kernel_checks_on_rank0_blocks": checks, "cases": rows})
+    if failures:
+        raise AssertionError(f"model_axis_full_width: {failures}")
+    return total
+
+
+def reckon_comm(cfg, kw: dict) -> tuple:
+    """The dry-run's reckoning of one round's collectives of a rank (per
+    CommStats name, and per kind), in a CPU worker process."""
+    from repro_torch.launch.dryrun import collectives, reckon_train
+
+    comm = reckon_train(cfg, **kw)["comm"]
+    return comm, collectives(comm)
+
+
+def model_axis_kernel_checks(torch, K, lay, n_workers) -> list:
+    """Both kernels against their plain versions, bit for bit, on a model
+    rank's blocks: the DSM step over its (N / M,) buffers (0 / -0 / NaN
+    planted), AdamW over its (W, N / M) rows, both roundings."""
+    from repro_torch.kernels.adamw_update import adamw_update_plain
+    from repro_torch.kernels.dsm_update import dsm_update_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = []
+    for n, dt in zip(lay.group_numels, lay.dtypes):
+        x0, m, xt = dsm_inputs(torch, gen, n, dt)
+        ka, kb = (x0.clone(), m.clone()), (x0.clone(), m.clone())
+        K.dsm_update(ka[0], ka[1], xt, 0.02, **DSM_HP)
+        dsm_update_plain(kb[0], kb[1], xt, 0.02, **DSM_HP)
+        torch.cuda.synchronize()
+        cases.append({"kernel": "dsm_update", "shape": [n], "dtype": str(dt),
+                      "max_abs_err": compare(torch, ka, kb)})
+        del x0, m, xt, ka, kb
+        p, g, mm, v = adamw_inputs(torch, gen, (n_workers, n), dt)
+        for rd in (False, True):
+            ka, kb = (p.clone(), mm.clone(), v.clone()), (p.clone(), mm.clone(), v.clone())
+            K.adamw_update(ka[0], g, ka[1], ka[2], 1e-3, 11, round_direction=rd, **ADAMW_HP)
+            adamw_update_plain(kb[0], g, kb[1], kb[2], 1e-3, 11, round_direction=rd,
+                               **ADAMW_HP)
+            torch.cuda.synchronize()
+            cases.append({"kernel": "adamw_update", "shape": [n_workers, n], "dtype": str(dt),
+                          "round_direction": rd, "max_abs_err": compare(torch, ka, kb)})
+            del ka, kb
+        del p, g, mm, v
+        torch.cuda.empty_cache()
+    return cases
+
+
 def phase_dryrun_vs_card(pool, smi) -> None:
     """Every full-width run's measured peak (PEAKS: main_path, gpt2_medium
     and large, gemma3_1b, granite, whisper, recurrentgemma, mamba2 with
@@ -2931,6 +3299,7 @@ def recurrent_phases(torch, K, smi, pool) -> tuple:
         torch, K, smi, "recurrent_full_width", paths, first=(paths[1][0].name,))
     for (cfg, x0), (b, prompt, new) in zip(trained, (SERVE_RG, SERVE_MAMBA)):
         serve_check(torch, smi, "serve_recurrent_full_width", cfg, x0, b, prompt, new,
+                    per_add_bound="only" if cfg.name.startswith("recurrentgemma") else False,
                     noise_bound=cfg.name.startswith("mamba2"))
     del trained, x0
     torch.cuda.empty_cache()
@@ -3030,6 +3399,8 @@ def all_phases(torch, K, smi, pool):
         errs = {k: max(e, group_errs[k]) for k, e in errs.items()}
     for more in counts:
         launches = {k: n + more[k] for k, n in launches.items()}
+    more = phase_model_axis_full_width(torch, K, smi, pool)
+    launches = {k: n + more[k] for k, n in launches.items()}
     phase_dryrun_vs_card(pool, smi)
     return launches, errs, times
 

@@ -49,6 +49,15 @@ equivalence class of all-reduce and reduce-scatter: so ``global_dense``
 has a gather round in the port too.  That is the port's lowering of the
 same single round, not a wider budget.
 
+Over a model axis (``distributed.mesh.Topology.model`` > 1) each recorded
+op carries its process group, and the ops of the rank's model group are
+counted apart: they are the tensor-parallel collectives of the local
+steps (``distributed.tensor_parallel``), per layer and microbatch, and the
+stat sums' all-reduce of a global phase, and they must equal, per kind in
+calls and bytes, the count reckoned from the placements
+(:func:`reckoned_model_ops`).  The other ops, those of the ``(worker, zero)`` ranks,
+stay held to the one-round budget over the rank's blocks.
+
 ``standard_audit()`` runs the reference's matrix on R gloo ranks: the
 dense, device-parallel and ZeRO-sharded outer steps, the bare local phase,
 the trainer's step and, with ``self_test``, a planted extra all-reduce that
@@ -111,6 +120,7 @@ class CollectiveOp:
     shapes: tuple  # "dtype[dims]" of every tensor the rank sends
     bytes: int     # bytes this rank sends
     site: str      # "file:line" of the Python call that issued it
+    group: str = ""  # the process group's name (``ProcessGroup.group_name``)
 
 
 def _tensors(x) -> list:
@@ -151,7 +161,24 @@ def _record(func, args: tuple, kwargs: dict) -> CollectiveOp:
     return CollectiveOp(
         kind=kind, op=name,
         shapes=tuple(f"{str(t.dtype).removeprefix('torch.')}{list(t.shape)}" for t in sent),
-        bytes=sum(t.numel() * t.element_size() for t in sent), site=_site())
+        bytes=sum(t.numel() * t.element_size() for t in sent), site=_site(),
+        group=_group_name(bound.get("process_group")))
+
+
+def _group_name(pg) -> str:
+    """The name of a c10d op's process group (the op's argument is the
+    group boxed as a ``ScriptObject``)."""
+    if pg is None:
+        return ""
+    from torch._C._distributed_c10d import ProcessGroup
+
+    return ProcessGroup.unbox(pg).group_name
+
+
+def group_name(group) -> str:
+    """The name a recorded op carries for ``group`` (a ``torch.distributed``
+    process group)."""
+    return "" if group is None else group.group_name
 
 
 class CollectiveRecorder(TorchDispatchMode):
@@ -187,9 +214,15 @@ class CollectiveBudget:
     max_gather_bytes: int
     reduce_class: tuple = REDUCE_CLASS
     gather_class: tuple = GATHER_CLASS
+    # over a model axis: the model group's name and its ops, {kind: (calls,
+    # bytes)} (:func:`reckoned_model_ops`), held apart from the ceilings above
+    model_group: str = ""
+    model_ops: Optional[dict] = None
 
     @classmethod
-    def for_phase(cls, phase: str, layout, world: int, n_workers: int) -> "CollectiveBudget":
+    def for_phase(cls, phase: str, layout, world: int, n_workers: int,
+                  model_group: str = "", model_ops: Optional[dict] = None
+                  ) -> "CollectiveBudget":
         """The budget of ``phase`` for a model of ``layout``
         (``FlatLayout``: its groups' element counts and dtypes) over
         ``world`` ranks holding ``n_workers`` workers.
@@ -236,7 +269,33 @@ class CollectiveBudget:
             max_metric_ops=(METRIC_REDUCTIONS if rounds["reduce"] else 0) + small,
             max_reduce_bytes=nbytes["reduce"],
             max_gather_bytes=nbytes["gather"],
+            model_group=model_group,
+            model_ops=model_ops,
         )
+
+
+def reckoned_model_ops(cfg, layout, phase: str, n_local: int, tau: int, b_micro: int, seq: int,
+              accum: int = 1) -> dict:
+    """``{kind: (calls, bytes)}`` of the model group's collectives in one
+    outer step of ``phase`` on a model-parallel rank of ``layout``
+    (``distributed.tensor_parallel.rank_layout``): every local step's
+    forward and backward of each of its ``n_local`` workers' ``accum``
+    microbatches of ``(b_micro, seq)``, reckoned from the placements layer
+    by layer (``tensor_parallel.microbatch_collectives``), and in a global
+    phase the all-reduce of the seven f32 stat sums."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.obs.metrics import N_STAT_SUMS
+
+    reps = n_local * tau * accum
+    out: dict = {}
+    for name, rec in TP.microbatch_collectives(cfg, layout, b_micro, seq).items():
+        kind = KIND_CLASS[name.split("@")[0]]
+        calls, nbytes = out.get(kind, (0, 0))
+        out[kind] = (calls + rec["calls"] * reps, nbytes + rec["bytes"] * reps)
+    if phase != "local":
+        calls, nbytes = out.get("all-reduce", (0, 0))
+        out["all-reduce"] = (calls + 1, nbytes + N_STAT_SUMS * 4)
+    return out
 
 
 @dataclasses.dataclass
@@ -248,6 +307,7 @@ class AuditReport:
     config: str = ""
     degenerate: bool = False
     details: dict = dataclasses.field(default_factory=dict)
+    model_ops: list = dataclasses.field(default_factory=list)   # the model group's
 
     @property
     def passed(self) -> bool:
@@ -277,6 +337,7 @@ class AuditReport:
             "budget": dataclasses.asdict(self.budget),
             "violations": list(self.violations),
             "ops": [dataclasses.asdict(o) for o in self.ops],
+            "model_group_ops": {k: list(v) for k, v in ops_by_kind(self.model_ops).items()},
             **self.details,
         }
 
@@ -289,6 +350,13 @@ def audit_ops(ops: Sequence[CollectiveOp], budget: CollectiveBudget,
               name: str = "step") -> AuditReport:
     """Check recorded ops against a budget (the reference's ``audit_text``)."""
     viol = []
+    if budget.model_group:
+        model = [o for o in ops if o.group == budget.model_group]
+        ops = [o for o in ops if o.group != budget.model_group]
+        seen = ops_by_kind(model)
+        if seen != budget.model_ops:
+            viol.append(f"model-group collectives (calls, bytes) per kind {seen} differ from "
+                        f"the {budget.model_ops} reckoned from the placements")
     allowed = set(budget.reduce_class) | set(budget.gather_class)
     for o in ops:
         if o.kind not in allowed:
@@ -317,7 +385,8 @@ def audit_ops(ops: Sequence[CollectiveOp], budget: CollectiveBudget,
     if gbytes > budget.max_gather_bytes:
         viol.append(f"gather payload {gbytes} B exceeds the budget of "
                     f"{budget.max_gather_bytes} B")
-    return AuditReport(name=name, budget=budget, ops=list(ops), violations=viol)
+    return AuditReport(name=name, budget=budget, ops=list(ops), violations=viol,
+                       model_ops=model if budget.model_group else [])
 
 
 def ops_by_kind(ops: Sequence[CollectiveOp]) -> dict:
@@ -334,7 +403,7 @@ def stats_by_kind(delta: dict) -> dict:
     (``obs.ledger.stats_delta``), ``comm.py``'s names mapped to the kinds."""
     out: dict = {}
     for name, rec in delta.items():
-        kind = KIND_CLASS[name]
+        kind = KIND_CLASS[name.split("@")[0]]   # either group: "<name>@model"
         calls, nbytes = out.get(kind, (0, 0))
         out[kind] = (calls + rec["calls"], nbytes + rec["bytes"])
     return out
@@ -352,6 +421,7 @@ def audit_call(fn, args: Sequence, budget: CollectiveBudget, name: str = "step",
         fn(*args)
     report = audit_ops(rec.ops, budget, name=name)
     if stats is not None:
+        # both groups: CommStats counts the model group's too
         seen = ops_by_kind([o for o in rec.ops if _via_comm(o)])
         counted = stats_by_kind(stats_delta(before, stats.as_dict()))
         if seen != counted:

@@ -38,6 +38,13 @@ topology each group is scattered, sharded and gathered on its own, in its
 dtype, a group too small to shard kept whole on every rank
 (``repro_torch.distributed.zero.whole``), bit-equal to the dense path.
 
+Over a model axis (a topology with ``model`` > 1) each rank holds its
+block of every leaf (``repro_torch.distributed.tensor_parallel``): the
+local phase runs its workers' steps on its blocks, the model computing over
+its model group, and the worker mean, the global step and the re-sync run
+over the ``(worker, zero)`` ranks of its model index (``Topology.dp``), the
+code above on the block buffers; the stat sums add over the model group.
+
 The outer step takes an optional ``FaultRound`` (``repro_torch.robustness``)
 and then makes line 7's mean survivor-aware; ``DSMConfig.mask_nonfinite``
 masks non-finite workers without injected faults.
@@ -171,7 +178,7 @@ def dsm_init(x0, base_opt: BaseOptimizer, n_workers: int, topo=None,
         m=each(lambda x: torch.zeros_like(x, dtype=torch.float32), x0),
         base_state=base_opt.init(params),
     )
-    return state if topo is None else Z.shard_dsm_state(state, topo, global_sharded)
+    return state if topo is None else Z.shard_dsm_state(state, topo.dp, global_sharded)
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +243,10 @@ def _contribution_weights(contrib: torch.Tensor, cfg: "DSMConfig", faults,
     if cfg.mask_nonfinite or faults is not None:
         finite = worker_finite_mask(contrib).to(F32)
         if topo is not None:
-            finite = comm.gather_workers(finite, topo)
+            if topo.model > 1:
+                # a worker is finite when every model rank's block of it is
+                finite = comm.all_reduce(finite, topo.mp, "min")
+            finite = comm.gather_workers(finite, topo.dp)
         weights = finite if weights is None else weights * finite
     return weights
 
@@ -355,7 +365,11 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
     A mixed-dtype model's groups go through each collective and launch one
     by one (``repro_torch.distributed.comm`` counts the calls).
     ``cfg.device_parallel_local`` needs a topology, as the reference's needs
-    a mesh.
+    a mesh.  A topology with ``model`` > 1 needs its rank's ``layout``
+    (``tensor_parallel.topology_layout``); the global step then runs over
+    ``topo.dp`` on the rank's blocks, the finiteness masks take the minimum
+    over the model group, and the stat sums add over it (a leaf every model
+    rank holds whole counted once); the randomized signs raise there.
 
     ``faults`` (a ``repro_torch.robustness.FaultRound`` of all W workers)
     makes the round survivor-aware: stale and corrupt contributions are
@@ -369,9 +383,24 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
     if cfg.device_parallel_local and topo is None:
         raise ValueError("device_parallel local phase needs a topology with a 'worker' axis "
                          "(repro_torch.distributed.mesh.topology)")
+    model = 1 if topo is None else topo.model
+    if layout.model != model:
+        raise ValueError(f"a topology with model={model} needs its rank's layout "
+                         f"(distributed.tensor_parallel.topology_layout), got model="
+                         f"{layout.model}")
+    if model > 1 and cfg.sign_mode != "sign":
+        raise NotImplementedError(
+            f"sign_mode={cfg.sign_mode!r} over a model axis: the randomized signs draw over "
+            f"the dense buffer, which no rank holds (ROADMAP.md queue 1)")
     local_phase = make_local_phase(loss_fn, base_opt, layout)
     sharded = cfg.zero_sharded and topo is not None
     numels = layout.group_numels
+    # the worker mean, the global step and the re-sync run over the
+    # (worker, zero) ranks of this rank's model index, on its blocks; a
+    # leaf every model rank holds whole counts in the stat sums once
+    dtopo = None if topo is None else topo.dp
+    drop = (layout.whole_spans() if model > 1 and topo.model_index > 0
+            else ((),) * layout.n_groups)
 
     def outer_step(state: DSMState, batch: dict,
                    rng: Optional[torch.Generator] = None, faults=None):
@@ -385,13 +414,13 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
 
     def global_phase(state, losses, gamma_t, gamma, rng, faults):
         if topo is not None:
-            losses = comm.gather_workers(losses, topo, dim=1)
+            losses = comm.gather_workers(losses, dtopo, dim=1)
 
         contrib = state.params
         if faults is not None:
             own = faults if topo is None else type(faults)(
                 *(mask[topo.worker_slice] for mask in faults))
-            contrib = apply_faults(state.params, Z.gather_shards(state.x0, topo, numels)
+            contrib = apply_faults(state.params, Z.gather_shards(state.x0, dtopo, numels)
                                    if sharded else state.x0, own)
         weights = _contribution_weights(contrib, cfg, faults, topo)
         if topo is None:
@@ -399,21 +428,26 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
             x_tau = worker_mean(contrib) if weights is None else masked_worker_mean(
                 contrib, weights)
         elif sharded:
-            x_tau = Z.scattered_worker_mean(contrib, topo, weights)
+            x_tau = Z.scattered_worker_mean(contrib, dtopo, weights)
         else:
-            x_tau = Z.replicated_worker_mean(contrib, topo, weights)
+            x_tau = Z.replicated_worker_mean(contrib, dtopo, weights)
         if weights is not None:
             del contrib     # frees the faulted (W, N) copy before the x0 / m copies
             kept = parts(state.x0) + parts(state.m)
             kept = [t.clone() for t in kept]
         if sharded:
-            stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1, topo,
-                                       numels)
-            Z.sharded_global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, topo,
+            stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1, dtopo,
+                                       numels, drop if model > 1 else None)
+            Z.sharded_global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, dtopo,
                                                 numels, rng)
         else:
-            stat = OM.stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1)
+            stat = (OM.stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1) if model == 1
+                    else functools.reduce(torch.add, [
+                        Z.stat_sums_less(x, m, xt, gamma, cfg.beta1, 0, d) for x, m, xt, d in
+                        zip(parts(state.x0), parts(state.m), parts(x_tau), drop)]))
             global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, rng)
+        if model > 1:
+            stat = comm.all_reduce(stat, topo.mp, "sum")
         wsum = None
         if weights is not None:
             # skip-round: no usable contribution -> x0 / m bit-untouched
@@ -424,14 +458,15 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
 
         # line 11: every worker restarts from x_{t+1,0} (the all-gather of
         # each sharded group); AdamW state carries on
-        x0 = Z.gather_shards(state.x0, topo, numels) if sharded else state.x0
+        x0 = Z.gather_shards(state.x0, dtopo, numels) if sharded else state.x0
         each(lambda p, x: p.copy_(x.expand_as(p)), state.params, x0)
         state.t += 1
         state.inner += cfg.tau
 
         loss_mean, last_loss, spread = OM.loss_stats(losses)
         pack = OM.finish_pack(loss=loss_mean, last_loss=last_loss, gamma=gamma_t,
-                              worker_spread=spread, stat_sums=stat, n_elems=layout.numel,
+                              worker_spread=spread, stat_sums=stat,
+                              n_elems=layout.dense_numel,
                               survivor_frac=None if wsum is None else wsum / losses.shape[1])
         metrics = {"loss": loss_mean, "gamma": gamma_t, "last_loss": last_loss, "pack": pack}
         if wsum is not None:

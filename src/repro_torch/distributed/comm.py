@@ -27,6 +27,11 @@ each group's mean is scattered and gathered), one gather of the losses,
 and under ZeRO one all-reduce of the stat sums; a one-group round makes
 one scatter and one all-gather.
 
+The tensor-parallel collectives of a model group
+(``repro_torch.distributed.tensor_parallel``: :func:`all_reduce` with
+``"max"`` too, :func:`all_gather_dim`, :func:`reduce_scatter_dim`) take the
+group's view ``Topology.mp`` and count as ``<name>@model``.
+
 Each collective adds its calls and bytes sent to ``topo.stats``.  Only a
 timed ``CommStats`` (``timed=True``, which ``run_training(...,
 time_collectives=True)`` asks for) adds seconds too: host clock, with the
@@ -88,6 +93,9 @@ def _sync(t: torch.Tensor) -> None:
 
 @contextmanager
 def _counted(topo, name: str, t: torch.Tensor, nbytes: int):
+    # the model group's collectives count apart: "<name>@model"
+    axis = getattr(topo, "axis", "")
+    name = f"{name}@{axis}" if axis else name
     with _host_staging_allowed(_staged(topo, t)):
         if not topo.stats.timed:
             yield
@@ -192,11 +200,12 @@ def all_gather_shards(shard: torch.Tensor, topo, chunk: int, n: int) -> torch.Te
 
 
 def all_reduce(t: torch.Tensor, topo, op: str = "sum") -> torch.Tensor:
-    """In place: the elementwise sum (``op="sum"``) or minimum (``"min"``)
-    over the ranks."""
+    """In place: the elementwise sum (``op="sum"``), minimum (``"min"``) or
+    maximum (``"max"``) over the ranks of ``topo``'s group (the model
+    group's for :attr:`~repro_torch.distributed.mesh.Topology.mp`)."""
     if topo.group is None:
         return t
-    red = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
+    red = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}[op]
     with _counted(topo, f"all_reduce_{op}", t, t.numel() * t.element_size()):
         if _staged(topo, t):
             host = t.cpu()
@@ -205,6 +214,33 @@ def all_reduce(t: torch.Tensor, topo, op: str = "sum") -> torch.Tensor:
         else:
             dist.all_reduce(t, op=red, group=topo.group)
     return t
+
+
+def all_gather_dim(t: torch.Tensor, topo, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order (bytes
+    moved as they are, no rounding): a leaf's blocks back to the leaf."""
+    if topo.group is None:
+        return t
+    blocks = _all_gather(topo, "all_gather", t)
+    return torch.cat(list(blocks.unbind(0)), dim=dim)
+
+
+def reduce_scatter_dim(t: torch.Tensor, topo, dim: int) -> torch.Tensor:
+    """The sum over the ranks of ``t``, cut into ``world`` equal blocks
+    along ``dim``; returns block ``rank`` (each rank sends the whole of
+    ``t``)."""
+    if topo.group is None:
+        return t
+    blocks = [b.contiguous() for b in torch.chunk(t, topo.world, dim=dim)]
+    out = torch.empty_like(blocks[0])
+    with _counted(topo, "reduce_scatter", t, t.numel() * t.element_size()):
+        if _staged(topo, t):
+            host = _host_like(out)
+            dist.reduce_scatter(host, [b.cpu() for b in blocks], group=topo.group)
+            out.copy_(host)
+        else:
+            dist.reduce_scatter(out, blocks, group=topo.group)
+    return out
 
 
 def gather_to_root(t: torch.Tensor, topo) -> Optional[torch.Tensor]:

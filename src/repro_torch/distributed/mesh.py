@@ -1,12 +1,23 @@
-"""The rank grid of a multi-process run: the reference's
-``host_training_mesh`` (``launch/mesh.py``) over the ranks of a process
-group, with ``model`` = 1.
+"""The rank grids: the reference's pod meshes (``launch/mesh.py``) as grids
+of rank ids, and the ``(worker, zero, model)`` grid of a multi-process run.
 
-The reference lays its devices out as ``(worker, zero)``: each worker group
-``w`` holds ``W / worker`` of the W workers, replicated over its ``zero``
-ranks, and the global buffers x0 / m are split into ``R = worker * zero``
-contiguous shards.  Here every rank is one process; rank ``r = w * Z + z``
-holds worker group ``w`` and owns shard ``r`` (the reference's chunk order,
+The reference's production mesh is ``(data, model)`` = (16, 16) chips, or
+``(pod, data, model)`` = (2, 16, 16) over two pods; ``training_mesh``
+reshapes its ``pod * data`` rows into ``(worker, zero, model)`` and
+``serving_mesh`` into ``(data, model)``.  Here a mesh is a
+:class:`RankMesh`: a numpy array of rank ids with the same axes and shape,
+in the reference's device order (rank ``i`` is its device ``i``).
+
+The reference lays its devices out as ``(worker, zero, model)``: each worker
+group ``w`` holds ``W / worker`` of the W workers, replicated over its
+``zero`` ranks; each of those is a model-parallel group of ``model`` ranks,
+every one holding its block of each leaf by the placement rules
+(``distributed/sharding.py``).  The global buffers x0 / m of each model
+index are split into ``worker * zero`` contiguous shards.  Here every rank
+is one process; rank ``r = (w * Z + z) * M + m`` holds worker group ``w``,
+owns shard ``w * Z + z`` of its model index's buffers, and holds model
+block ``m`` (the reference's reshape of the rows; with ``model`` = 1 that
+is ``r = w * Z + z``, the reference's chunk order,
 ``distributed/zero.py:225-226``).
 """
 
@@ -15,12 +26,71 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
+
 from repro_torch.distributed.comm import CommStats
+
+MODEL_PAR = 16  # chips along the model axis (both meshes)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """A grid of rank ids over named axes (the reference's ``Mesh``, with
+    rank ids for its devices)."""
+
+    devices: np.ndarray
+    axis_names: tuple
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> RankMesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return RankMesh(np.arange(int(np.prod(shape))).reshape(shape), axes)
+
+
+def training_mesh(base_mesh: RankMesh, n_workers: int) -> RankMesh:
+    """Reshape the production mesh into (worker, zero, model): the paper's
+    worker i is one group of model-parallel rows; ``zero`` is the FSDP
+    shard inside a worker.  pod x data rows are split into ``n_workers``
+    groups of ``zero`` rows each."""
+    devices = np.asarray(base_mesh.devices)
+    model = devices.shape[-1]
+    rows = devices.reshape(-1, model)          # (pod*data, model)
+    n_rows = rows.shape[0]
+    if n_rows % n_workers != 0:
+        raise ValueError(
+            f"n_workers={n_workers} does not divide the {n_rows} model-parallel "
+            f"groups of the production mesh {tuple(devices.shape)}; pick a "
+            f"worker count from the divisors of {n_rows}"
+        )
+    zero = n_rows // n_workers
+    return RankMesh(rows.reshape(n_workers, zero, model), ("worker", "zero", "model"))
+
+
+def serving_mesh(base_mesh: RankMesh) -> RankMesh:
+    """Reshape into (data, model) with pod folded into data."""
+    devices = np.asarray(base_mesh.devices)
+    model = devices.shape[-1]
+    return RankMesh(devices.reshape(-1, model), ("data", "model"))
+
+
+def mesh_dims(mesh: RankMesh) -> dict:
+    return dict(zip(mesh.axis_names, (int(n) for n in mesh.devices.shape)))
 
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """One rank's place in the ``(worker, zero)`` grid."""
+    """One rank's place in the ``(worker, zero, model)`` grid.
+
+    ``group`` spans every rank of the grid.  With ``model`` > 1,
+    ``dp_group`` spans the ``worker * zero`` ranks of this rank's model
+    index (the worker mean, the global step and the re-sync run over it:
+    :attr:`dp`) and ``model_group`` the ``model`` ranks of this rank's
+    worker/zero row (the tensor-parallel collectives: :attr:`mp`)."""
 
     n_workers: int          # W, all workers of the run
     worker: int             # worker groups (the reference's "worker" axis)
@@ -29,18 +99,26 @@ class Topology:
     group: Any = None       # the torch.distributed process group; None: world of 1
     backend: str = "gloo"
     stats: CommStats = dataclasses.field(default_factory=CommStats, compare=False)
+    model: int = 1          # ranks per model-parallel group (its "model" axis)
+    dp_group: Any = None
+    model_group: Any = None
+    axis: str = ""          # "model": the view of the model group (CommStats keys)
 
     @property
     def world(self) -> int:
-        return self.worker * self.zero
+        return self.worker * self.zero * self.model
 
     @property
     def worker_index(self) -> int:
-        return self.rank // self.zero
+        return self.rank // (self.zero * self.model)
 
     @property
     def zero_index(self) -> int:
-        return self.rank % self.zero
+        return (self.rank // self.model) % self.zero
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     @property
     def local_workers(self) -> int:
@@ -52,35 +130,79 @@ class Topology:
         n = self.local_workers
         return slice(self.worker_index * n, (self.worker_index + 1) * n)
 
+    @property
+    def dp(self) -> "Topology":
+        """The ``(worker, zero)`` grid of this rank's model index, with
+        ``model`` = 1: what the worker mean, the ZeRO shards and the global
+        step run over (the topology itself when ``model`` = 1)."""
+        if self.model == 1:
+            return self
+        dp_world = self.worker * self.zero
+        return Topology(self.n_workers, self.worker, self.zero, self.rank // self.model,
+                        self.dp_group if dp_world > 1 else None, self.backend, self.stats)
 
-def grid(n_workers: int, world: int) -> tuple[int, int]:
-    """``(worker, zero)`` for ``world`` ranks, by the reference's rules: the
-    worker axis is ``n_workers`` when it divides the world; a world of one
-    degrades to worker = 1; anything else raises."""
-    if world < 1:
-        raise ValueError(f"host_training_mesh needs at least model=1 devices, have {world}")
-    if world % n_workers == 0:
+    @property
+    def mp(self) -> "Topology":
+        """The model group as a topology of ``model`` ranks (one worker
+        group, one zero rank): its collectives count under ``<name>@model``."""
+        return Topology(self.n_workers, 1, 1, self.model_index,
+                        self.model_group if self.model > 1 else None, self.backend,
+                        self.stats, model=self.model, axis="model")
+
+
+def grid(n_workers: int, world: int, model: int = 1) -> tuple[int, int]:
+    """``(worker, zero)`` for ``world`` ranks of which every ``model`` form
+    one model-parallel group, by the reference's ``host_training_mesh``
+    rules: the worker axis is ``n_workers`` when it divides the
+    ``world / model`` rows; one row degrades to worker = 1; anything else
+    raises."""
+    rows = world // model
+    if rows < 1:
+        raise ValueError(f"host_training_mesh needs at least model={model} devices, "
+                         f"have {world}")
+    if world % model != 0:
+        raise ValueError(f"model={model} does not divide the {world} ranks")
+    if rows % n_workers == 0:
         worker = n_workers
-    elif world == 1:
-        worker = 1  # single-rank degenerate grid
+    elif rows == 1:
+        worker = 1  # single-row degenerate grid
     else:
         raise ValueError(
             f"n_workers={n_workers} does not divide the host device grid "
-            f"({world} devices / model=1 -> {world} rows); pick "
-            f"a worker count from the divisors of {world}"
+            f"({world} devices / model={model} -> {rows} rows); pick "
+            f"a worker count from the divisors of {rows}"
         )
-    return worker, world // worker
+    return worker, rows // worker
 
 
-def topology(n_workers: int, group: Optional[Any] = None, timed: bool = False) -> Topology:
+def topology(n_workers: int, group: Optional[Any] = None, timed: bool = False,
+             model: int = 1) -> Topology:
     """The topology of this process in ``group`` (None: a world of one, the
     reference's degenerate mesh on one device).  ``timed``: its collectives
-    record their seconds (see ``comm``)."""
+    record their seconds (see ``comm``).  ``model`` > 1 builds the
+    model-group and worker/zero-group subgroups, once, on every rank (each
+    rank must call this with the same arguments)."""
     if group is None:
+        if model != 1:
+            raise ValueError("a model axis needs a process group of model ranks or more")
         return Topology(n_workers, 1, 1, 0, stats=CommStats(timed))
     import torch.distributed as dist
 
     world, rank = dist.get_world_size(group), dist.get_rank(group)
-    worker, zero = grid(n_workers, world)
-    return Topology(n_workers, worker, zero, rank, group, dist.get_backend(group),
-                    CommStats(timed))
+    worker, zero = grid(n_workers, world, model)
+    backend = dist.get_backend(group)
+    if model == 1:
+        return Topology(n_workers, worker, zero, rank, group, backend, CommStats(timed))
+    ranks = dist.get_process_group_ranks(group)
+    dp_group = model_group = None
+    # every rank creates every subgroup, in the same order
+    for m in range(model):
+        g = dist.new_group([ranks[r] for r in range(m, world, model)], backend=backend)
+        if rank % model == m:
+            dp_group = g
+    for row in range(world // model):
+        g = dist.new_group(ranks[row * model:(row + 1) * model], backend=backend)
+        if rank // model == row:
+            model_group = g
+    return Topology(n_workers, worker, zero, rank, group, backend, CommStats(timed),
+                    model, dp_group, model_group)

@@ -204,14 +204,30 @@ def sharded_global_sign_momentum_step(x0_l, m_l, xt_l, gamma, cfg, topo, numels,
     return x0_l, m_l
 
 
-def sharded_stat_sums(x0_l, m_l, xt_l, gamma, beta1: float, topo, numels) -> torch.Tensor:
+def stat_sums_less(x0, m, xt, gamma, beta1: float, start: int = 0, drop=()) -> torch.Tensor:
+    """``OM.stat_sums`` of one group's buffers (elements ``start`` on of
+    the group) less its sums over the ``drop`` ranges (group coordinates):
+    the leaves that another rank of a model-parallel group counts."""
+    s = OM.stat_sums(x0, m, xt, gamma, beta1)
+    for lo, hi in drop:
+        a, b = max(lo - start, 0), min(hi - start, x0.numel())
+        if a < b:
+            s = s - OM.stat_sums(x0[a:b], m[a:b], xt[a:b], gamma, beta1)
+    return s
+
+
+def sharded_stat_sums(x0_l, m_l, xt_l, gamma, beta1: float, topo, numels,
+                      drop=None) -> torch.Tensor:
     """The metric pack's ``(N_STAT_SUMS,)`` sums over the sharded buffers:
     each rank sums each of its group shards and adds the groups in group
     order (a group kept whole on rank 0 only, so that it counts once), then
-    ONE all-reduce of the stacked vector (reference ``:306-344``)."""
+    ONE all-reduce of the stacked vector (reference ``:306-344``).
+    ``drop``: per group, ranges left out of the sums (:func:`stat_sums_less`)."""
     R = num_shards(topo)
-    sums = [OM.stat_sums(x, m, xt, gamma, beta1)
-            for x, m, xt, n in zip(parts(x0_l), parts(m_l), parts(xt_l), numels, strict=True)
+    sums = [stat_sums_less(x, m, xt, gamma, beta1, my_bounds(n, topo)[0], drop[g])
+            if drop else OM.stat_sums(x, m, xt, gamma, beta1)
+            for g, (x, m, xt, n) in enumerate(zip(parts(x0_l), parts(m_l), parts(xt_l), numels,
+                                                  strict=True))
             if topo.rank == 0 or not whole(n, R)]
     total = (functools.reduce(torch.add, sums) if sums else
              torch.zeros(OM.N_STAT_SUMS, dtype=F32, device=parts(x0_l)[0].device))

@@ -41,12 +41,33 @@ Nothing is scaled by a fitted constant.  A combination that does not fit
 one card (a full-width config at train_4k: W=8 workers of 32 sequences of
 4096 tokens) says so in ``fits_one_card``; it is a reckoning, not a
 refusal.
+
+``--mesh card`` (the default) is that one-card reckoning.  ``--mesh
+single|multi|both`` reckons rank 0 of the reference's training grid on its
+pod meshes (``distributed.mesh.training_mesh``: (16, 16) or (2, 16, 16)
+chips, ``MODEL_PAR`` = 16 on the model axis, W = ``TOPO.n_workers_single``
+/ ``n_workers_multi``, ``zero`` = rows / W), as the reference's dry-run
+does, with one H100 SXM per rank: its blocks of every leaf by the
+placements (``distributed.tensor_parallel.rank_layout``), x0 and m
+ZeRO-sharded over its ``(worker, zero)`` ranks, one microbatch through the
+model-axis ``loss_fn`` with meta collectives (counted by ``CommStats`` per
+group, times W_local * tau * accum), and the global step.  The worker
+parameters' ``zero`` entries are held replicated (FSDP inside a worker is
+not ported: ROADMAP queue 1), so each zero rank holds its worker's blocks
+whole and runs its worker's whole microbatch.  A record carries the
+reference's fields (``flops`` per rank, ``collectives`` per kind with
+``wire_bytes`` under its ring model, ``memory``, ``t_compute_s`` /
+``t_memory_s`` / ``t_collective_s``, ``dominant``, ``n_chips``, ``mesh``)
+and ``fits_per_card``.  Prefill and decode on a pod mesh record
+``status: "not_ported"``: serving on the ``(data, model)`` mesh is
+ROADMAP queue 1's next item.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -74,11 +95,27 @@ CARD = "NVIDIA H100 SXM 80GB, 700 W"
 BF16_DENSE_FLOP_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
 CARD_BYTES = 80e9
+# the link a pod mesh's collectives cross: NVLink joins the 8 GPUs of a
+# node, so a 16-way model group spans two nodes and each rank's worker /
+# zero peers sit in other nodes; the network between nodes bounds both
+LINK = ("InfiniBand NDR, 400 Gb/s (50 GB/s) per GPU, one ConnectX-7 per GPU "
+        "(NVIDIA DGX H100 data sheet): a 16-way model group spans two 8-GPU nodes")
+LINK_BYTES_PER_S = 50e9
+ZERO_AXIS = ("held replicated: each zero rank holds its worker's blocks whole and runs its "
+             "worker's whole microbatch (FSDP of the worker params over zero is not ported, "
+             "ROADMAP queue 1)")
+# CommStats names -> the reference's collective kinds
+COMM_KINDS = {"scatter_rows": "reduce-scatter", "reduce_scatter": "reduce-scatter",
+              "all_gather_shards": "all-gather", "gather_workers": "all-gather",
+              "all_gather": "all-gather", "all_reduce_sum": "all-reduce",
+              "all_reduce_min": "all-reduce", "all_reduce_max": "all-reduce"}
+MESHES = {"single": (False,), "multi": (True,), "both": (False, True)}
 # bytes each kernel moves per element, by the group's dtype: params,
 # gradients and the two f32 moments (AdamW); x0, m and the worker mean (DSM)
 ADAMW_BYTES = {torch.bfloat16: 22, torch.float32: 28}
 DSM_BYTES = {torch.bfloat16: 14, torch.float32: 20}
 META = torch.device("meta")
+ATTN_NAMES = ("wq", "wk", "wv", "wo")   # the reference's, left whole unless TOPO.attn_tp
 ALL_ARCHS = ("nano",) + PAPER_ARCH_IDS + ARCH_IDS
 
 
@@ -139,7 +176,8 @@ def _meta_collectives():
     each call and its bytes as on a run."""
     import torch.distributed as dist
 
-    names = ("all_to_all_single", "all_gather", "all_reduce", "gather", "get_global_rank")
+    names = ("all_to_all_single", "all_gather", "all_reduce", "gather", "get_global_rank",
+             "reduce_scatter")
     saved = {n: getattr(dist, n) for n in names}
     try:
         for n in names:
@@ -160,23 +198,27 @@ def _global_step(state, losses, topo, numels, beta1: float) -> None:
     from repro_torch.distributed import zero as Z
 
     gamma = 1e-3
+    dtopo = None if topo is None else topo.dp
     if topo is not None:
-        losses = comm.gather_workers(losses, topo, dim=1)
+        losses = comm.gather_workers(losses, dtopo, dim=1)
     if topo is None:
         x_tau = D.worker_mean(state.params)
         stat = OM.stat_sums(state.x0, state.m, x_tau, gamma, beta1)
         x0 = state.x0
     else:
-        x_tau = Z.scattered_worker_mean(state.params, topo)
-        stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, beta1, topo, numels)
-        x0 = Z.gather_shards(state.x0, topo, numels)
+        x_tau = Z.scattered_worker_mean(state.params, dtopo)
+        stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, beta1, dtopo, numels)
+        if topo.model > 1:
+            stat = comm.all_reduce(stat, topo.mp, "sum")
+        x0 = Z.gather_shards(state.x0, dtopo, numels)
     each(lambda p, x: p.copy_(x.expand_as(p)), state.params, x0)
     del x_tau, stat, x0, losses
 
 
 def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int, seq: int,
                  base_opt: str = "adamw", remat: bool = False, remat_policy: str = "full",
-                 eval_batch: int = 0, keep_x0: bool = True, world: int = 1) -> dict:
+                 eval_batch: int = 0, keep_x0: bool = True, world: int = 1, model: int = 1,
+                 replicate_names: tuple = ()) -> dict:
     """One outer step's FLOPs and peak device bytes, on ``meta``.
 
     ``keep_x0``: the initial x0 stays allocated beside the state, as in
@@ -184,16 +226,24 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
     forward (0: none).  ``world`` > 1 reckons rank 0 of that many ranks with
     the ZeRO-sharded global step and the device-parallel local phase; its
     ``comm`` holds the round's collective calls and bytes as ``CommStats``
-    counts them."""
+    counts them, the model group's (``model`` > 1: ``world / model`` groups
+    of ``model`` ranks, the rank holding its blocks of every leaf, leaves
+    named in ``replicate_names`` whole) as ``<name>@model``, over one
+    microbatch times W_local * tau * accum."""
     from repro_torch.distributed import mesh
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.comm import CommStats
 
-    lay = T.layout(cfg)
     base = BO.get_base_optimizer(base_opt)
     topo = None
     if world > 1:
-        worker, zero = mesh.grid(n_workers, world)
+        worker, zero = mesh.grid(n_workers, world, model)
+        marker = object() if model > 1 else None
         topo = mesh.Topology(n_workers, worker, zero, rank=0, group=object(),
-                             backend="nccl")
+                             backend="nccl", model=model, dp_group=object(),
+                             model_group=marker)
+    lay = (T.layout(cfg) if topo is None or model == 1 else
+           TP.rank_layout(cfg, model, 0, topo.mp, replicate_names))
     w_local = n_workers if topo is None else topo.local_workers
     tracker = MemoryTracker()
     with tracker:
@@ -207,7 +257,7 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
     init_bytes, state_bytes = tracker.peak, tracker.live
 
     tracker.reset_peak()
-    with tracker, FlopCounterMode(display=False) as flops:
+    with tracker, FlopCounterMode(display=False) as flops, _meta_collectives():
         leaves = lay.autograd_leaves(each(lambda p: p[0], state.params),
                                      each(lambda g: g[0], state.grads))
         loss = T.loss_fn(leaves, D.take(batch, 0, 0, 0), cfg, remat=remat,
@@ -216,6 +266,13 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
         del loss, leaves
     local_bytes = tracker.peak - state_bytes
     micro_flops = flops.get_total_flops()
+    if topo is not None:
+        # the model group's collectives of one microbatch, for every one of
+        # the round's; the global step's are counted afresh
+        scale = w_local * tau * accum
+        comm = {k: {"calls": v["calls"] * scale, "bytes": v["bytes"] * scale}
+                for k, v in topo.stats.as_dict().items()}
+        topo = dataclasses.replace(topo, stats=CommStats())
 
     tracker.reset_peak()
     with tracker, _meta_collectives():
@@ -235,7 +292,7 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
         eval_bytes = tracker.peak - state_bytes
 
     rows = [(dt, n) for dt, n in zip(lay.dtypes, lay.group_numels)]
-    shard = (lambda n: n) if topo is None else (lambda n: -(-n // world))
+    shard = (lambda n: n) if topo is None else (lambda n: -(-n // topo.dp.world))
     kernel_bytes = sum(n * w_local * tau * ADAMW_BYTES[dt] * (base_opt == "adamw")
                        + shard(n) * DSM_BYTES[dt] for dt, n in rows)
     total_flops = micro_flops * w_local * tau * accum
@@ -250,9 +307,60 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
                           local_bytes, global_bytes, eval_bytes))},
            "kernel_bytes_per_round": kernel_bytes}
     if topo is not None:
-        rec["comm"] = topo.stats.as_dict()
+        for k, v in topo.stats.as_dict().items():
+            have = comm.setdefault(k, {"calls": 0, "bytes": 0})
+            have["calls"] += v["calls"]
+            have["bytes"] += v["bytes"]
+        rec["comm"] = comm
         rec["comm_bytes_per_round"] = sum(v["bytes"] for v in rec["comm"].values())
+        rec["model"] = model
     return _terms(rec, kernel_bytes)
+
+
+def collectives(comm: dict) -> dict:
+    """Bytes per collective kind of a ``CommStats`` dict (both groups), and
+    ``wire_bytes`` under the reference's ring model: an all-reduce moves
+    about twice its payload, the others once (``dryrun.py:75-96``)."""
+    out = {k: 0 for k in ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                          "collective-permute")}
+    for name, rec in comm.items():
+        out[COMM_KINDS[name.split("@")[0]]] += rec["bytes"]
+    out["wire_bytes"] = (2 * out["all-reduce"] + out["all-gather"] + out["reduce-scatter"]
+                         + out["all-to-all"] + out["collective-permute"])
+    return out
+
+
+def reckon_pod(arch: str, shape_name: str, multi_pod: bool, tau: int = None) -> dict:
+    """Rank 0 of the reference's training grid on its pod mesh
+    (``training_mesh(make_production_mesh(multi_pod), W)``) at train
+    shapes: the reference's record fields, per rank, for one H100 SXM per
+    rank.  Serving shapes record ``status: "not_ported"``."""
+    from repro_torch.distributed import mesh
+    from repro_torch.launch.train import resolve_arch
+
+    cfg, topo = resolve_arch(arch)
+    shape = INPUT_SHAPES[shape_name]
+    if shape.kind != "train":
+        return {"status": "not_ported", "kind": shape.kind,
+                "reason": "serving on the (data, model) mesh (prefill / decode with "
+                          "cache_pspecs) is not ported: ROADMAP.md queue 1, item 1"}
+    W = topo.n_workers_multi if multi_pod else topo.n_workers_single
+    grid = mesh.training_mesh(mesh.make_production_mesh(multi_pod=multi_pod), W)
+    dims = mesh.mesh_dims(grid)
+    lead = specs.train_batch_specs(cfg, topo, shape, W)["tokens"].shape
+    rep = () if topo.attn_tp else ATTN_NAMES
+    rec = reckon_train(cfg, n_workers=W, tau=tau or topo.tau, accum=topo.grad_accum,
+                       b_micro=lead[3], seq=shape.seq_len, base_opt=topo.base_opt,
+                       remat=topo.remat, remat_policy=topo.remat_policy, world=grid.size,
+                       model=dims["model"], replicate_names=rep)
+    coll = collectives(rec["comm"])
+    rec.update(collectives=coll, t_collective_s=coll["wire_bytes"] / LINK_BYTES_PER_S,
+               link=LINK, n_chips=grid.size, mesh=dims, multi_pod=multi_pod,
+               fits_per_card=rec["memory"]["peak_bytes"] <= CARD_BYTES, zero_axis=ZERO_AXIS,
+               state_bytes_per_rank=rec["memory"]["state_bytes"])
+    rec["dominant"] = max((("compute", rec["t_compute_s"]), ("memory", rec["t_memory_s"]),
+                           ("collective", rec["t_collective_s"])), key=lambda kv: kv[1])[0]
+    return rec
 
 
 def _terms(rec: dict, nbytes: int) -> dict:
@@ -337,13 +445,19 @@ def reckon(arch: str, shape_name: str, tau: int = None) -> dict:
     return rec
 
 
-def run_one(arch: str, shape_name: str, outdir: str) -> dict:
-    tag = f"{arch}.{shape_name}"
+def run_one(arch: str, shape_name: str, outdir: str, multi_pod=None) -> dict:
+    """One record: the one-card reckoning (``multi_pod`` None), or rank 0
+    of a pod mesh (False: single pod, True: two pods)."""
+    tag = f"{arch}.{shape_name}" + ("" if multi_pod is None else
+                                    f".{'multipod' if multi_pod else 'singlepod'}")
     t0 = time.time()
     try:
-        rec = reckon(arch, shape_name)
-        rec.update(status="ok", arch=arch, shape=shape_name,
-                   seconds=round(time.time() - t0, 1))
+        if multi_pod is None:
+            rec = reckon(arch, shape_name)
+        else:
+            rec = reckon_pod(arch, shape_name, multi_pod)
+        rec.setdefault("status", "ok")
+        rec.update(arch=arch, shape=shape_name, seconds=round(time.time() - t0, 1))
     except Exception as e:  # noqa: BLE001 — record failures, they are bugs
         rec = {"status": "error", "arch": arch, "shape": shape_name,
                "error": f"{type(e).__name__}: {e}",
@@ -377,21 +491,38 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="each id's SMOKE config (<id>_smoke; --arch also takes those names)")
     ap.add_argument("--outdir", default="build/dryrun_torch")
+    ap.add_argument("--mesh", choices=("card",) + tuple(MESHES), default="card",
+                    help="card: one H100 (default); single / multi / both: rank 0 of the "
+                         "reference's pod training grid, MODEL_PAR on the model axis")
     args = ap.parse_args(argv)
     recs = []
+    pods = (None,) if args.mesh == "card" else MESHES[args.mesh]
     for arch, shape_name, admitted in combinations(args.arch, args.shape, args.smoke):
         if not admitted:
             print(f"SKIP {arch} x {shape_name} (sub-quadratic archs only)")
             continue
-        rec = run_one(arch, shape_name, args.outdir)
-        recs.append(rec)
-        mark = "OK " if rec["status"] == "ok" else "ERR"
-        extra = (f"dom={rec['dominant']} tc={rec['t_compute_s']:.3e} "
-                 f"tm={rec['t_memory_s']:.3e} peakGB={rec['memory']['peak_bytes'] / 1e9:.2f}"
-                 f"{'' if rec['fits_one_card'] else ' (over one card)'}"
-                 if rec["status"] == "ok" else rec["error"][:200])
-        print(f"{mark} {arch:28s} {shape_name:12s} ({rec['seconds']}s) {extra}", flush=True)
+        for mp in pods:
+            rec = run_one(arch, shape_name, args.outdir, mp)
+            recs.append(rec)
+            _report(rec, mp)
     return recs
+
+
+def _report(rec: dict, multi_pod) -> None:
+    mark = {"ok": "OK ", "not_ported": "NP "}.get(rec["status"], "ERR")
+    where = "" if multi_pod is None else ("multi  " if multi_pod else "single ")
+    if rec["status"] == "ok":
+        extra = (f"dom={rec['dominant']} tc={rec['t_compute_s']:.3e} "
+                 f"tm={rec['t_memory_s']:.3e} "
+                 + (f"tn={rec['t_collective_s']:.3e} " if multi_pod is not None else "")
+                 + f"peakGB={rec['memory']['peak_bytes'] / 1e9:.2f}")
+        fits = rec["fits_one_card"] if multi_pod is None else rec["fits_per_card"]
+        extra += "" if fits else (" (over one card)" if multi_pod is None else
+                                  " (over one card per rank)")
+    else:
+        extra = rec.get("reason", rec.get("error", ""))[:200]
+    print(f"{mark} {rec['arch']:28s} {rec['shape']:12s} {where}({rec['seconds']}s) {extra}",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -112,18 +112,20 @@ def check_fits(cfg, n_workers: int, device: str) -> None:
 def plan(arch: str, tau: int = None) -> dict:
     """The reference launcher's ``--plan`` fields (arch, params_B, its two
     pod meshes, tau, base_opt, grad_accum, dryrun_cmd, here the port's
-    dry-run), and in place of its ``per_chip_peak_GB`` /
-    ``dominant_roofline_term``, read from a TPU dry-run artifact, the port's
-    own reckoning at train_4k on meta tensors for one card at
-    ``n_workers_single`` workers (``repro_torch.launch.dryrun``):
-    ``per_card_peak_GB``, ``dominant_term`` and the card they are reckoned
-    for.  Needs no card and allocates nothing."""
+    dry-run), its ``per_chip_peak_GB`` and ``dominant_roofline_term`` on the
+    single-pod mesh, which the reference reads from its single-pod dry-run
+    record, here from the port's own ``--mesh single`` reckoning of rank 0
+    (one H100 per rank), and beside them the port's one-card reckoning at
+    ``n_workers_single`` workers: ``per_card_peak_GB``, ``dominant_term``
+    and the card they are reckoned for (``repro_torch.launch.dryrun``, at
+    train_4k on meta tensors).  Needs no card and allocates nothing."""
     from repro_torch.configs import specs
     from repro_torch.launch import dryrun
 
     cfg, topo = resolve_arch(arch)
     tau = tau or topo.tau
     rec = dryrun.reckon(arch, "train_4k", tau)
+    pod = dryrun.reckon_pod(arch, "train_4k", False, tau)
     return {
         "arch": arch,
         "params_B": round(specs.param_count(cfg) / 1e9, 3),
@@ -136,6 +138,8 @@ def plan(arch: str, tau: int = None) -> dict:
         "grad_accum": topo.grad_accum,
         "dryrun_cmd": (f"PYTHONPATH=src python -m repro_torch.launch.dryrun --arch {arch} "
                        "--shape train_4k"),
+        "per_chip_peak_GB": round(pod["memory"]["peak_bytes"] / 1e9, 2),
+        "dominant_roofline_term": pod["dominant"],
         "per_card_peak_GB": round(rec["memory"]["peak_bytes"] / 1e9, 2),
         "dominant_term": rec["dominant"],
         "card": rec["card"],

@@ -10,6 +10,13 @@ leaves share one dtype has one group and one buffer; a mixed-dtype model
 (``repro_torch.groups``).  Training keeps ``(W, N)`` buffers of this layout
 for params, gradients and AdamW moments, so each optimizer kernel is one
 launch per group over all its leaves.  There is no per-leaf padding.
+
+A rank of a model-parallel group holds its block of every leaf
+(:meth:`FlatLayout.shard`: each leaf cut along the dim its placement puts
+on the ``model`` axis, ``repro_torch.distributed.sharding``), in the same
+order and dtype groups: its buffers are the dense ones with every leaf
+replaced by its block.  :func:`shard_flat` cuts a dense row into a rank's,
+:func:`gather_flat` puts the ranks' rows back together.
 """
 
 from __future__ import annotations
@@ -54,6 +61,15 @@ class FlatLayout:
     groups: tuple         # each leaf's group index
     dtypes: tuple         # each group's dtype (None for an untyped spec)
     group_numels: tuple   # each group's element count
+    # a model-parallel rank's layout (:meth:`shard`): each leaf's dim on the
+    # model axis (None: held whole), the dense shapes, the group size and
+    # this rank's index in it, and the model axis (the model group's
+    # ``Topology`` view) that ``autograd_leaves`` hands the model
+    model_dims: tuple = ()
+    dense_shapes: tuple = ()
+    model: int = 1
+    model_index: int = 0
+    axis: Any = dataclasses.field(default=None, compare=False)
 
     @classmethod
     def from_tree(cls, spec: dict, is_leaf, dtype_of=lambda leaf: None,
@@ -86,6 +102,44 @@ class FlatLayout:
     def n_groups(self) -> int:
         return len(self.dtypes)
 
+    @property
+    def dense_numel(self) -> int:
+        """The element count of the dense layout (``numel`` for a dense
+        layout)."""
+        if not self.dense_shapes:
+            return self.numel
+        return sum(math.prod(s) for s in self.dense_shapes)
+
+    def whole_spans(self) -> tuple:
+        """Per group, the ``(start, stop)`` of every leaf a model-parallel
+        rank holds whole (no dim on the model axis): each rank of the
+        group holds the same copy."""
+        spans = [[] for _ in range(self.n_groups)]
+        for (name, _, off, n, g), d in zip(self._spans(), self.model_dims):
+            if d is None:
+                spans[g].append((off, off + n))
+        return tuple(tuple(s) for s in spans)
+
+    def shard(self, dims: dict, model: int, index: int, axis=None) -> "FlatLayout":
+        """Rank ``index`` of ``model``'s layout: every leaf cut to its
+        block along ``dims[name]`` (None: whole), same order and groups.
+        ``axis``: the model group's topology view, which
+        :meth:`autograd_leaves` hands the model."""
+        shapes, offsets, sizes = [], [], [0] * self.n_groups
+        for name, shape, g in zip(self.names, self.shapes, self.groups):
+            d = dims[name]
+            if d is not None:
+                if shape[d] % model:
+                    raise ValueError(f"{name}: dim {d} of {shape} does not split {model} ways")
+                shape = shape[:d] + (shape[d] // model,) + shape[d + 1:]
+            shapes.append(shape)
+            offsets.append(sizes[g])
+            sizes[g] += math.prod(shape)
+        return dataclasses.replace(
+            self, shapes=tuple(shapes), offsets=tuple(offsets), numel=sum(sizes),
+            group_numels=tuple(sizes), model_dims=tuple(dims[n] for n in self.names),
+            dense_shapes=self.shapes, model=model, model_index=index, axis=axis)
+
     def _spans(self):
         for name, shape, off, g in zip(self.names, self.shapes, self.offsets, self.groups):
             yield name, shape, off, math.prod(shape), g
@@ -110,15 +164,39 @@ class FlatLayout:
         whose ``.grad`` is the matching view of ``grad``, so that backward
         accumulates IN PLACE into the flat gradient buffer (zero it first).
         Stacked block leaves (the decoder's and the encoder's) are split
-        into a list of per-layer leaves."""
+        into a list of per-layer leaves.  A model-parallel rank's layout
+        gives a :class:`ShardedParams`, which carries the model axis."""
         pv, gv = self.views(flat), self.views(grad)
-        out = {}
+        out = {} if self.axis is None else ShardedParams(self)
         for name in self.names:
-            if name.startswith(("decoder.blocks.", "encoder.blocks.")):
+            if name.startswith(STACKED):
                 out[name] = [_leaf(p, g) for p, g in zip(pv[name], gv[name])]
             else:
                 out[name] = _leaf(pv[name], gv[name])
         return out
+
+
+STACKED = ("decoder.blocks.", "encoder.blocks.")
+
+
+class ShardedParams(dict):
+    """A model-parallel rank's ``{path: leaf}``: each leaf its block
+    (:meth:`FlatLayout.shard`), with the rank's layout, whose ``axis`` is
+    the model group.  ``models.transformer`` computes on it
+    Megatron-split, or gathers the leaves at use."""
+
+    def __init__(self, layout: "FlatLayout", *args):
+        super().__init__(*args)
+        self.layout = layout
+        self._dims = dict(zip(layout.names, layout.model_dims))
+
+    def dim(self, name: str, layer: bool = False):
+        """The model dim of leaf ``name`` (None: held whole); ``layer``:
+        of one layer of a stacked leaf."""
+        d = self._dims[name]
+        if d is not None and layer and name.startswith(STACKED):
+            d -= 1
+        return d
 
 
 def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -127,11 +205,67 @@ def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def from_jax_numpy(tree, cfg, n_workers: int, device=None):
+def shard_leaf(t: torch.Tensor, dim, model: int, index: int) -> torch.Tensor:
+    """Block ``index`` of ``model`` of a dense leaf along ``dim`` (a view;
+    the leaf itself for ``dim`` None)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // model
+    return t.narrow(dim, index * n, n)
+
+
+def gather_leaf(blocks: list, dim) -> torch.Tensor:
+    """The dense leaf from every rank's block in rank order (the inverse of
+    :func:`shard_leaf`; the first block for ``dim`` None)."""
+    return blocks[0] if dim is None else torch.cat(list(blocks), dim=dim)
+
+
+def _like(flat, numels: tuple):
+    """Empty buffers of ``flat``'s leading dims, dtypes and device, with
+    ``numels`` elements per group (a tensor, or Groups as ``flat``)."""
+    bufs = [torch.empty(t.shape[:-1] + (n,), dtype=t.dtype, device=t.device)
+            for t, n in zip(parts(flat), numels, strict=True)]
+    return Groups(bufs) if isinstance(flat, Groups) else bufs[0]
+
+
+def shard_flat(flat, dense: FlatLayout, rank: FlatLayout):
+    """A rank's buffers (``rank``'s layout) from dense ones of ``dense``'s:
+    ``(N,)`` rows or ``(W, N)`` worker rows, a tensor or Groups, each group
+    in its own dtype (the f32 momentum of a bf16 model too)."""
+    lead = parts(flat)[0].shape[:-1]
+    out = _like(flat, rank.group_numels)
+    src, dst = parts(flat), parts(out)
+    for (name, shape, off, n, g), (_, rshape, roff, rn, _) in zip(dense._spans(),
+                                                                  rank._spans()):
+        d = rank.model_dims[rank.names.index(name)]
+        leaf = src[g][..., off:off + n].reshape(*lead, *shape)
+        block = shard_leaf(leaf, None if d is None else d + len(lead), rank.model,
+                           rank.model_index)
+        dst[g][..., roff:roff + rn].copy_(block.reshape(*lead, rn))
+    return out
+
+
+def gather_flat(flats: list, dense: FlatLayout, ranks: list):
+    """Dense buffers from every model rank's (``flats[m]`` in
+    ``ranks[m]``'s layout), the inverse of :func:`shard_flat`."""
+    lead = parts(flats[0])[0].shape[:-1]
+    out = _like(flats[0], dense.group_numels)
+    dst = parts(out)
+    for i, (name, shape, off, n, g) in enumerate(dense._spans()):
+        d = ranks[0].model_dims[i]
+        blocks = [parts(f)[g][..., lay.offsets[i]:lay.offsets[i] + math.prod(lay.shapes[i])]
+                  .reshape(*lead, *lay.shapes[i]) for f, lay in zip(flats, ranks)]
+        leaf = gather_leaf(blocks, None if d is None else d + len(lead))
+        dst[g][..., off:off + n].copy_(leaf.reshape(*lead, n))
+    return out
+
+
+def from_jax_numpy(tree, cfg, n_workers: int, device=None, rank: FlatLayout = None):
     """The JAX package's params (numpy arrays, nested as the pytree or keyed
     by dotted pytree path) as the port's ``(n_workers, N)`` flat buffers,
     each leaf in its group's dtype (the reference's); every worker row
-    holds the same params."""
+    holds the same params.  ``rank``: a model-parallel rank's layout
+    (:meth:`FlatLayout.shard`), whose blocks of each leaf are cut out."""
     from repro_torch.models.transformer import layout
 
     lay = layout(cfg)
@@ -148,6 +282,8 @@ def from_jax_numpy(tree, cfg, n_workers: int, device=None):
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, layout wants {shape}")
         views[name].copy_(torch.from_numpy(arr))
+    if rank is not None and rank.model > 1:
+        row = shard_flat(row, lay, rank)
     return each(lambda r: r.to(device).unsqueeze(0).repeat(n_workers, 1), row)
 
 

@@ -130,11 +130,15 @@ def decode_attention(q, k_cache, v_cache, valid_mask) -> torch.Tensor:
     return _gqa_out(probs, v_cache, q.dtype)
 
 
-def attn_qkv(wq, wk, wv, x, positions, cfg):
+def attn_qkv(wq, wk, wv, x, positions, cfg, heads=None):
+    """q, k, v (B, S, heads, hd) after RoPE; ``heads``: (query heads, KV
+    heads) of the given weights where they are a model-parallel rank's
+    (default: the config's)."""
     B, S, _ = x.shape
-    q = (x @ wq.to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = (x @ wk.to(x.dtype)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (x @ wv.to(x.dtype)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    nq, nkv = heads if heads is not None else (cfg.n_heads, cfg.n_kv_heads)
+    q = (x @ wq.to(x.dtype)).reshape(B, S, nq, cfg.hd)
+    k = (x @ wk.to(x.dtype)).reshape(B, S, nkv, cfg.hd)
+    v = (x @ wv.to(x.dtype)).reshape(B, S, nkv, cfg.hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

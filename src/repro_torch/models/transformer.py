@@ -24,6 +24,20 @@ leading layer axis and may also be given as a list of per-layer tensors.
 dtype group: the MoE router and the recurrences' ``lam``, ``A_log``,
 ``D`` and ``dt_bias`` are f32 whatever the param dtype, as in the
 reference.
+
+On a rank of a model-parallel group (``repro_torch.distributed.mesh``,
+``model`` > 1) the params are its :class:`~repro_torch.models.convert.
+ShardedParams`: each leaf its block by the reference's placement on the
+``model`` axis.  ``hidden_states`` and ``loss_fn`` then compute the dense
+decoder LM (``attn`` / ``swa`` mixers, dense FFNs) Megatron-split
+(:func:`_tp_block`): ``wq`` / ``wo`` over whole heads, ``w1`` / ``w3``
+column- and ``w2`` row-parallel with one all-reduce after each row-parallel
+product, ``embed`` / ``lm_head`` vocab-parallel into the vocab-parallel
+cross-entropy (``repro_torch.distributed.tensor_parallel``).  A leaf whose
+block the split does not consume (the norm scales; ``wk`` / ``wv`` where a
+rank's block cuts a head) is gathered over the model group at use and its
+gradient cut back.  Every other family gathers every leaf at use and
+computes replicated (:func:`_gathered`).  Serving takes dense params.
 """
 
 from __future__ import annotations
@@ -35,8 +49,9 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
-from repro_torch.models.convert import FlatLayout
+from repro_torch.models.convert import FlatLayout, ShardedParams
 
 F32 = torch.float32
 MOE_AUX_COEF = 0.01
@@ -253,6 +268,8 @@ def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
     ``min(window, S)``; an ``xattn`` block adds the cross-attention's ``kx``
     / ``vx`` (B, enc_len, KVH, hd); a recurrent block its state after the
     last position (``layers.mamba2_apply`` / ``rglru_apply``)."""
+    if isinstance(p.params, ShardedParams):
+        return _tp_block(p, kind, x, positions, cfg)
     mixer, ffn = _parse_kind(kind)
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
     if mixer in RECURRENT:
@@ -329,26 +346,186 @@ def _ffn_residual(p, ffn: str, x, cfg):
     return x + L.mlp_apply(p("mlp.w1"), p("mlp.w2"), h, cfg, w3=w3), None
 
 
+class _Leaves:
+    """One layer's leaves: ``p(name)`` is the leaf (layer ``i`` of a
+    stacked one); on a model-parallel rank also its model dim, whole (over
+    the group) and so on, for :func:`_tp_block`."""
+
+    def __init__(self, params: dict, pre: str, i=None):
+        self.params, self.pre, self.i = params, pre, i
+
+    def __call__(self, name: str):
+        leaf = self.params[self.pre + name]
+        return leaf if self.i is None else leaf[self.i]
+
+    def dim(self, name: str):
+        """The leaf's dim on the model axis (None: held whole)."""
+        return self.params.dim(self.pre + name, layer=True)
+
+    def full(self, name: str):
+        """The whole leaf where every rank computes alike: gathered over the
+        model group, its gradient cut back to the rank's block."""
+        d = self.dim(name)
+        return self(name) if d is None else TP.gather(self(name), self.params.layout.axis, d)
+
+    def full_partial(self, name: str):
+        """The whole leaf where each rank computes a part of its use (so
+        holds a partial gradient): gathered, the gradient reduce-scattered;
+        a leaf held whole has its gradient all-reduced."""
+        d, axis = self.dim(name), self.params.layout.axis
+        if d is None:
+            return TP.copy_to(self(name), axis)
+        return TP.gather(self(name), axis, d, "sum")
+
+
 def _layers(params: dict, cfg, stack: str = "decoder"):
     """``(where, kind, p)`` of every layer of the ``decoder`` (or
     ``encoder``) stack in order: ``where`` is ``("blocks", "p<j>", i)`` for
     layer i of the stacked pattern position j (kind ``pattern[j]``) or
     ``("rem", i, None)`` for a remainder layer (kind ``pattern[i]``);
-    ``p(name)`` returns that layer's leaf."""
+    ``p(name)`` returns that layer's leaf (:class:`_Leaves`)."""
     pattern, n_blocks, n_rem = ((ENC_PATTERN, cfg.enc_layers, 0) if stack == "encoder" else
                                 (cfg.pattern, cfg.n_scan_blocks, cfg.n_rem_layers))
     for i in range(n_blocks):
         for j, kind in enumerate(pattern):
-            pre = f"{stack}.blocks.p{j}."
-            yield ("blocks", f"p{j}", i), kind, (lambda n, pre=pre, i=i: params[pre + n][i])
+            yield ("blocks", f"p{j}", i), kind, _Leaves(params, f"{stack}.blocks.p{j}.", i)
     for i in range(n_rem):
-        pre = f"{stack}.rem.{i}."
-        yield ("rem", i, None), pattern[i], (lambda n, pre=pre: params[pre + n])
+        yield ("rem", i, None), pattern[i], _Leaves(params, f"{stack}.rem.{i}.")
+
+
+# ---------------------------------------------------------------------------
+# The model axis (a model-parallel rank's ShardedParams)
+# ---------------------------------------------------------------------------
+
+MEGATRON_KINDS = ("attn:dense", "swa:dense")
+
+
+def megatron_split(cfg) -> bool:
+    """The configs computed Megatron-split on a model-parallel rank: the
+    decoder LM of ``attn`` / ``swa`` blocks with dense FFNs.  Every other
+    family gathers its leaves and computes replicated."""
+    return cfg.family == "lm" and all(
+        f"{_parse_kind(k)[0]}:{_parse_kind(k)[1]}" in MEGATRON_KINDS for k in cfg.pattern)
+
+
+def _gathered(params: ShardedParams) -> dict:
+    """Every leaf whole (stacked leaves as per-layer lists), gathered over
+    the model group, the gradients cut back: the replicated compute."""
+    axis, out = params.layout.axis, {}
+    for name, leaf in params.items():
+        d = params.dim(name, layer=True)
+        if d is None:
+            out[name] = leaf
+        elif isinstance(leaf, list):
+            out[name] = [TP.gather(t, axis, d) for t in leaf]
+        else:
+            out[name] = TP.gather(leaf, axis, d)
+    return out
+
+
+def _resolve(params: dict, cfg) -> dict:
+    """The params a forward computes on: a model-parallel rank's as they
+    are for :func:`megatron_split` configs, gathered for the others."""
+    if isinstance(params, ShardedParams) and not megatron_split(cfg):
+        return _gathered(params)
+    return params
+
+
+def _dense_only(params: dict, what: str) -> None:
+    if isinstance(params, ShardedParams):
+        raise NotImplementedError(
+            f"{what} on a model-parallel rank's params: serving on the (data, model) mesh "
+            f"is not ported (ROADMAP.md queue 1); gather the params first")
+
+
+def _full(params: dict, name: str):
+    """A whole top-level leaf (gathered on a model-parallel rank)."""
+    if not isinstance(params, ShardedParams) or params.dim(name) is None:
+        return params[name]
+    return TP.gather(params[name], params.layout.axis, params.dim(name))
+
+
+def _tp_block(p: _Leaves, kind: str, x, positions, cfg):
+    """One ``attn`` / ``swa`` block with a dense FFN on a model-parallel
+    rank; returns (x, None) with x the same on every rank of the group."""
+    mixer, _ = _parse_kind(kind)
+    axis = p.params.layout.axis
+    h = L.rmsnorm(p.full("ln1.scale"), x, cfg.norm_eps)
+    window = cfg.window if mixer == "swa" else None
+    x = x + _tp_attention(p, h, positions, cfg, window, axis)
+    h = L.rmsnorm(p.full("ln2.scale"), x, cfg.norm_eps)
+    return x + _tp_mlp(p, h, cfg, axis), None
+
+
+def _kv_heads(cfg, model: int, index: int) -> tuple:
+    """(first KV head, KV heads) that model rank ``index``'s query heads
+    attend with: its ``H / M`` query heads are whole groups of ``H / KVH``,
+    or lie in one group."""
+    hl, rep = cfg.n_heads // model, cfg.n_heads // cfg.n_kv_heads
+    h0 = index * hl
+    if hl % rep == 0:
+        return h0 // rep, hl // rep
+    if rep % hl == 0:
+        return h0 // rep, 1
+    raise NotImplementedError(f"{cfg.name}: {hl} query heads per rank cut the KV groups of "
+                              f"{rep} heads across ranks")
+
+
+def _tp_attention(p: _Leaves, h, positions, cfg, window, axis):
+    """Attention over the rank's whole query heads (``wq`` column- and
+    ``wo`` row-parallel, one all-reduce of the output); replicated over
+    gathered leaves where ``wq`` / ``wo``'s blocks are not whole heads."""
+    M, H, KVH, hd = axis.world, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if not (p.dim("attn.wq") == 1 and p.dim("attn.wo") == 0 and H % M == 0):
+        q, k, v = L.attn_qkv(p.full("attn.wq"), p.full("attn.wk"), p.full("attn.wv"), h,
+                             positions, cfg)
+        out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
+        return L.attn_proj_out(p.full("attn.wo"), out)
+    hc = TP.copy_to(h, axis)
+    if KVH % M == 0 and p.dim("attn.wk") == 1 and p.dim("attn.wv") == 1:
+        wk, wv, nkv = p("attn.wk"), p("attn.wv"), KVH // M
+    else:
+        # the rank's block of wk / wv cuts a head (or is not on the model
+        # axis): take the KV heads its query heads use from the whole leaf
+        kv0, nkv = _kv_heads(cfg, M, axis.rank)
+        wk = p.full_partial("attn.wk")[:, kv0 * hd:(kv0 + nkv) * hd]
+        wv = p.full_partial("attn.wv")[:, kv0 * hd:(kv0 + nkv) * hd]
+    q, k, v = L.attn_qkv(p("attn.wq"), wk, wv, hc, positions, cfg, heads=(H // M, nkv))
+    out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
+    return TP.reduce_from(L.attn_proj_out(p("attn.wo"), out), axis)
+
+
+def _tp_mlp(p: _Leaves, h, cfg, axis):
+    """The dense FFN, ``w1`` / ``w3`` column- and ``w2`` row-parallel with
+    one all-reduce; replicated over gathered leaves where the blocks do not
+    split d_ff."""
+    gated = cfg.mlp_gated
+    if not (p.dim("mlp.w1") == 1 and p.dim("mlp.w2") == 0
+            and (not gated or p.dim("mlp.w3") == 1)):
+        w3 = p.full("mlp.w3") if gated else None
+        return L.mlp_apply(p.full("mlp.w1"), p.full("mlp.w2"), h, cfg, w3=w3)
+    hc = TP.copy_to(h, axis)
+    w3 = p("mlp.w3") if gated else None
+    return TP.reduce_from(L.mlp_apply(p("mlp.w1"), p("mlp.w2"), hc, cfg, w3=w3), axis)
+
+
+def _vocab_split(params: dict, cfg) -> bool:
+    """The output table is vocab-sharded on this model-parallel rank."""
+    if not isinstance(params, ShardedParams):
+        return False
+    return (params.dim("embed") == 0 if cfg.tie_embeddings
+            else params.dim("lm_head") == 1)
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Embedding rows cast to the activation dtype, scaled by sqrt(d_model)."""
-    return params["embed"][tokens].to(cfg.act_dtype) * math.sqrt(cfg.d_model)
+    """Embedding rows cast to the activation dtype, scaled by sqrt(d_model)
+    (vocab-parallel on a model-parallel rank whose ``embed`` block is a
+    range of rows)."""
+    if isinstance(params, ShardedParams) and params.dim("embed") == 0:
+        rows = TP.vocab_embed(params["embed"], tokens, params.layout.axis)
+    else:
+        rows = _full(params, "embed")[tokens]
+    return rows.to(cfg.act_dtype) * math.sqrt(cfg.d_model)
 
 
 def _add_aux(total, aux):
@@ -456,10 +633,11 @@ def _forward(params: dict, batch: dict, cfg, remat: bool = False,
              remat_policy: str = "full"):
     """(final hidden states, the MoE aux loss summed over layers or None,
     n_prefix)."""
+    params = _resolve(params, cfg)
     x, enc_out, n_prefix = _inputs(params, batch, cfg, remat)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _run_stack(params, cfg, "decoder", x, positions, enc_out, remat, remat_policy)
-    return L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps), aux, n_prefix
+    return L.rmsnorm(_full(params, "final_norm.scale"), x, cfg.norm_eps), aux, n_prefix
 
 
 def hidden_states(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = False,
@@ -479,10 +657,14 @@ def hidden_states(params: dict, batch: dict, cfg, remat: bool = True, unroll: bo
 
 
 def _logits(params, h, cfg):
-    """f32 logits over the PADDED vocab (the padded rows are live weights)."""
+    """f32 logits over the PADDED vocab (the padded rows are live weights);
+    on a model-parallel rank with a vocab-sharded table, its block of the
+    vocab (:func:`_vocab_split`), else over the gathered table."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    w = params[name] if _vocab_split(params, cfg) else _full(params, name)
     if cfg.tie_embeddings:
-        return h.to(F32) @ params["embed"].to(F32).T
-    return h.to(F32) @ params["lm_head"].to(F32)
+        return h.to(F32) @ w.to(F32).T
+    return h.to(F32) @ w.to(F32)
 
 
 def loss_fn(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = False,
@@ -493,6 +675,7 @@ def loss_fn(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
     over ``mask.sum()``, plus ``MOE_AUX_COEF`` times the aux loss summed
     over the MoE layers (a model without one adds nothing).  ``remat``,
     ``unroll``, ``remat_policy``: as :func:`hidden_states`."""
+    params = _resolve(params, cfg)
     h, aux, n_prefix = _forward(params, batch, cfg, remat, remat_policy)
     h = h[:, n_prefix:]
     tokens = batch["tokens"]
@@ -501,12 +684,20 @@ def loss_fn(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
     mask = torch.cat([torch.ones(B, S - 1, dtype=F32, device=tokens.device),
                       torch.zeros(B, 1, dtype=F32, device=tokens.device)], dim=1)
     total = torch.zeros((), dtype=F32, device=tokens.device)
+    split = _vocab_split(params, cfg)
+    if split:
+        # the vocab-parallel head: each rank's logits are its block of rows
+        axis = params.layout.axis
+        h = TP.copy_to(h, axis)
     for c0 in range(0, S, min(CE_CHUNK, S)):
         c1 = min(c0 + CE_CHUNK, S)
         logits = _logits(params, h[:, c0:c1], cfg)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets[:, c0:c1, None])[..., 0]
-        total = total + ((lse - gold) * mask[:, c0:c1]).sum()
+        if split:
+            per_token = TP.vocab_cross_entropy(logits, targets[:, c0:c1], axis)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            per_token = lse - torch.gather(logits, -1, targets[:, c0:c1, None])[..., 0]
+        total = total + (per_token * mask[:, c0:c1]).sum()
     loss = total / torch.clamp(mask.sum(), min=1.0)
     return loss if aux is None else loss + MOE_AUX_COEF * aux
 
@@ -580,6 +771,7 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
     ``torch.no_grad`` nothing is saved and each body runs once.  ``unroll``
     is a no-op (:func:`hidden_states`)."""
     check_supported(cfg)
+    _dense_only(params, "prefill")
     x, enc_out, _ = _inputs(params, batch, cfg, remat)
     positions = torch.arange(x.shape[1], device=x.device)
     stacked: dict = {}
@@ -652,6 +844,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg,
     back to the host but a MoE layer's group sizes (``layers.moe_apply``).
     ``unroll`` is a no-op (:func:`hidden_states`)."""
     check_supported(cfg)
+    _dense_only(params, "decode_step")
     x = _embed(params, tokens[:, None], cfg)
     for where, kind, p in _layers(params, cfg):
         x = _decode_block(p, kind, _cache_entry(cache, where), x, pos, cfg)

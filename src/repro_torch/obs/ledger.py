@@ -44,6 +44,10 @@ KIND_CLASS = {
     "all_gather_shards": "all-gather",
     "gather_workers": "all-gather",
     "gather_to_root": "gather",
+    # the model group's (``distributed.tensor_parallel``; ``<name>@model``)
+    "all_reduce_max": "all-reduce",
+    "all_gather": "all-gather",
+    "reduce_scatter": "reduce-scatter",
 }
 
 

@@ -201,3 +201,27 @@ def test_audit_world_of_one_is_degenerate(capsys):
     payload = json.loads(capsys.readouterr().out)
     assert payload["degenerate"] and all(r["degenerate"] and r["counts"] == {}
                                          for r in payload["reports"])
+
+
+def test_model_axis_audit():
+    """Four gloo ranks of (worker 2, zero 1, model 2), minitron_4b SMOKE:
+    every recorded op carries its group; the model group's ops of the outer
+    step equal, per kind, the count reckoned from the placements, and the
+    (worker, zero) ranks' ops fit the one-round budget over the rank's
+    blocks; an all-reduce of the rank's x0 blocks over its (worker, zero)
+    ranks planted inside the local phase is caught on count and bytes,
+    while the local phase's model-group ops still match."""
+    cfg = load_arch("minitron_4b").SMOKE
+    ranks = spawn.run_ranks(torch_ranks.tp_audit_rank, 4, (cfg, 2, 2, 2), timeout_s=300)
+    for r in ranks:
+        step = r["outer_step"]
+        assert step["passed"], step["violations"]
+        assert step["model_group_ops"]["all-reduce"][0] > 0
+        groups = {o["group"] for o in step["ops"]}
+        assert len(groups) == 1 and "" not in groups
+        planted = r["planted_local_phase"]
+        assert not planted["passed"]
+        assert any("reduction ops" in v and "exceed" in v for v in planted["violations"])
+        assert any("payload" in v and f"{r['planted_bytes']} B" in v
+                   for v in planted["violations"])
+        assert not any("model-group" in v for v in planted["violations"])

@@ -182,3 +182,95 @@ def test_reckoning_over_ranks_counts_the_rounds_collectives():
     # the dense state sets no peak while it is built
     assert rec["memory"]["init_bytes"] > rec["memory"]["state_bytes"]
     assert dense["memory"]["peak_bytes"] > dense["memory"]["init_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# The pod meshes (--mesh single | multi | both)
+# ---------------------------------------------------------------------------
+
+POD_DENSE = ("nano", "gpt2_small_smoke", "minitron_4b_smoke", "granite_34b_smoke",
+             "deepseek_67b_smoke", "gemma3_1b_smoke")
+
+
+def test_pod_mesh_records(tmp_path, capsys):
+    """Every dense arch's train_4k under ``--mesh single`` is ``ok`` (the
+    SMOKE configs, and minitron_4b at full width), with the reference's
+    fields; serving shapes say ``not_ported``; ``--mesh card`` records are
+    as before."""
+    recs = DR.main(["--arch", ",".join(POD_DENSE + ("minitron_4b",)), "--shape", "all",
+                    "--mesh", "single", "--outdir", str(tmp_path)])
+    train = [r for r in recs if r["shape"] == "train_4k"]
+    assert len(train) == len(POD_DENSE) + 1
+    for r in train:
+        assert r["status"] == "ok", r.get("error")
+        assert r["mesh"]["model"] == 16 and r["n_chips"] == 256 and not r["multi_pod"]
+        assert r["mesh"]["worker"] * r["mesh"]["zero"] == 16
+        assert set(r["collectives"]) == {"all-reduce", "all-gather", "reduce-scatter",
+                                         "all-to-all", "collective-permute", "wire_bytes"}
+        assert r["dominant"] in ("compute", "memory", "collective")
+        assert r["t_collective_s"] == r["collectives"]["wire_bytes"] / DR.LINK_BYTES_PER_S
+        assert r["link"] == DR.LINK and "zero" in r["zero_axis"]
+        assert r["fits_per_card"] == (r["memory"]["peak_bytes"] <= DR.CARD_BYTES)
+        assert (tmp_path / f"{r['arch']}.train_4k.singlepod.json").exists()
+    serving = [r for r in recs if r["shape"] != "train_4k"]
+    assert serving and all(r["status"] == "not_ported" and "ROADMAP" in r["reason"]
+                           for r in serving)
+    out = capsys.readouterr().out
+    assert "ERR" not in out and out.count("NP ") == len(serving)
+    card = DR.main(["--arch", "nano", "--shape", "train_4k", "--outdir", str(tmp_path)])
+    assert "mesh" not in card[0] and card[0]["fits_one_card"]
+    assert (tmp_path / "nano.train_4k.json").exists()
+
+
+@pytest.mark.parametrize("arch,multi", [("minitron_4b_smoke", False),
+                                        ("granite_34b_smoke", True)])
+def test_reckoned_rank_state_is_its_placements_blocks(arch, multi):
+    """The reckoned rank's state bytes, to the byte: its blocks (the
+    reference's placements at MODEL_PAR) in bf16 / f32 params, gradients
+    and AdamW moments per local worker, the kept initial x0, its ZeRO chunk
+    of x0 and m over the (worker, zero) ranks, and its round's tokens."""
+    from repro_torch.distributed import mesh as M
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import zero as Z
+    from repro_torch.launch.train import resolve_arch
+
+    cfg, topo = resolve_arch(arch)
+    rec = DR.reckon_pod(arch, "train_4k", multi)
+    W = topo.n_workers_multi if multi else topo.n_workers_single
+    dims = M.mesh_dims(M.training_mesh(M.make_production_mesh(multi_pod=multi), W))
+    lay = T.layout(cfg)
+    specs_ = SH.param_pspecs(dict(zip(lay.names, lay.shapes)), model=dims["model"])
+    n = 0
+    for name, shape in zip(lay.names, lay.shapes):
+        d = SH.model_dim(specs_[name])
+        n += int(np.prod(shape)) // (dims["model"] if d is not None else 1)
+    p = lay.dtypes[0].itemsize
+    w_local = W // dims["worker"]
+    chunk = Z.chunk_size(n, dims["worker"] * dims["zero"])
+    batch = specs.train_batch_specs(cfg, topo, INPUT_SHAPES["train_4k"], W)["tokens"]
+    tokens = w_local * int(np.prod(batch.shape[1:])) * 8
+    want = n * w_local * (2 * p + 8) + n * p + chunk * (p + 4) + tokens
+    assert rec["memory"]["state_bytes"] == rec["state_bytes_per_rank"] == want
+
+
+def test_meta_collectives_equal_a_real_run():
+    """The reckoning's collectives of one round, per name, kind and group,
+    equal rank 0's of a real run of the same step on 4 gloo ranks of
+    (worker 2, zero 1, model 2), minitron_4b SMOKE."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.distributed.spawn import run_ranks
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_ranks
+
+    cfg = load_arch("minitron_4b").SMOKE
+    rec = DR.reckon_train(cfg, n_workers=2, tau=2, b_micro=2, seq=32, world=4, model=2)
+    row = T.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2, 1, 2, 32))
+    ranks = run_ranks(torch_ranks.tp_dsm_rank, 4,
+                      (cfg, 2, 2, {"zero_sharded": True, "device_parallel_local": True}, row,
+                       [{"tokens": tokens}]), timeout_s=300)
+    assert ranks[0]["comm"] == rec["comm"]
+    assert DR.collectives(ranks[0]["comm"]) == DR.collectives(rec["comm"])

@@ -5,6 +5,7 @@ rank's process.
 process, which imports the function it runs by name; these live apart from
 the test files so that a rank imports neither JAX nor the JAX package."""
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -385,3 +386,245 @@ def train_and_audit_rank(rank: int, world: int, cfg, settings: list, device: str
     settings' worker count and tau, in the same start of the ranks."""
     out = train_rank(rank, world, cfg, settings, device, params)
     return out + [dp_audit(rank, world, cfg, settings[0].n_workers, settings[0].tau, params)]
+
+
+def tp_losses_rank(rank: int, world: int, cases: list) -> list:
+    """:func:`tp_loss_rank` for each ``(cfg, row, batches)`` of ``cases``
+    over all ``world`` ranks as one model group, in one start of the ranks."""
+    return [tp_loss_rank(rank, world, cfg, world, row, batches) for cfg, row, batches in cases]
+
+
+def tp_loss_rank(rank: int, world: int, cfg, model: int, row, batches: list,
+                 n_workers: int = 1) -> dict:
+    """The model-axis ``loss_fn`` and its gradient on this rank, for each
+    microbatch of ``batches`` (dicts of CPU tensors): ``row`` is the dense
+    ``(N,)`` params, cut to the rank's blocks.  Returns the losses, the
+    rank's gradient rows (its layout) and its ``CommStats``."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+
+    torch.set_num_threads(1)
+    topo = mesh.topology(n_workers, dist.group.WORLD, model=model)
+    lay = TP.topology_layout(cfg, topo)
+    mine = C.shard_flat(row, T.layout(cfg), lay)
+    out = {"losses": [], "grads": [], "index": topo.model_index}
+    for mb in batches:
+        grad = each(torch.zeros_like, mine)
+        leaves = lay.autograd_leaves(mine, grad)
+        loss = T.loss_fn(leaves, mb, cfg, remat=False)
+        loss.backward()
+        out["losses"].append(loss.detach())
+        out["grads"].append(grad)
+    out["comm"] = topo.stats.as_dict()
+    return out
+
+
+def tp_dsm_rank(rank: int, world: int, cfg, n_workers: int, model: int, flags: dict, row,
+                batches: list, gamma: float = 1e-3) -> dict:
+    """DSM outer steps (AdamW, constant ``gamma``, eta 0.5) of ``cfg`` over
+    the ``(worker, zero, model)`` grid of ``world`` ranks, from the dense
+    ``(N,)`` params ``row`` cut to this rank's blocks, on the batch dicts of
+    ``batches`` (numpy leaves (W, tau, 1, B_micro, ...), this rank's
+    workers' rows taken).  Returns per round the losses and this rank's
+    x_tau (the worker mean of its blocks, whole), x0 and m (its blocks,
+    whole: gathered over its ``(worker, zero)`` ranks under ZeRO), its
+    ``CommStats`` and kernel launches; ``world == 0`` runs the dense path
+    in this process."""
+    from repro_torch import kernels as K
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core import dsm as D
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+
+    torch.set_num_threads(1)
+    topo = None if world == 0 else mesh.topology(n_workers, dist.group.WORLD, model=model)
+    lay = TP.topology_layout(cfg, topo)
+    x0 = row if topo is None or model == 1 else C.shard_flat(row, T.layout(cfg), lay)
+    base = base_opt.adamw()
+    tau = batches[0]["tokens"].shape[1]
+    step = D.make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), base,
+                           DSMConfig(tau=tau, global_lr=0.5, **flags),
+                           schedules.constant(gamma), lay, topo)
+    state = D.dsm_init(x0, base, n_workers, topo, flags.get("zero_sharded", False))
+    rows = slice(None) if topo is None else topo.worker_slice
+    dtopo = None if topo is None else topo.dp
+    sharded = topo is not None and flags.get("zero_sharded", False)
+    means = []
+    mean_fns = {name: getattr(Z, name) for name in ("scattered_worker_mean",
+                                                   "replicated_worker_mean")}
+
+    # the whole blocks are gathered over ranks whose CommStats are apart
+    quiet = None if dtopo is None else dataclasses.replace(dtopo, stats=type(dtopo.stats)())
+
+    def whole(t):
+        return Z.gather_shards(t, quiet, lay.group_numels) if sharded else t
+
+    def recording(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            means.append(out)
+            return out
+        return wrapped
+
+    dense_mean = D.worker_mean
+    D.worker_mean = lambda p: means.append(dense_mean(p)) or means[-1]
+    for name, fn in mean_fns.items():
+        setattr(Z, name, recording(fn))
+    K.reset_launch_counts()
+    out = {"losses": [], "x_tau": [], "x0": [], "m": [], "index": 0 if topo is None
+           else topo.model_index, "rank": rank}
+    try:
+        for raw in batches:
+            batch = {k: torch.from_numpy(v[rows]) for k, v in raw.items()}
+            batch["tokens"] = batch["tokens"].long()
+            state, metrics = step(state, batch)
+            out["losses"].append(metrics["loss"])
+            out["x_tau"].append(each(torch.clone, whole(means[-1])))
+            out["x0"].append(each(torch.clone, whole(state.x0)))
+            out["m"].append(each(torch.clone, whole(state.m)))
+            out.setdefault("packs", []).append(metrics["pack"])
+    finally:
+        D.worker_mean = dense_mean
+        for name, fn in mean_fns.items():
+            setattr(Z, name, fn)
+    out["comm"] = None if topo is None else topo.stats.as_dict()
+    out["launches"] = K.launch_counts()
+    return out
+
+
+def tp_audit_rank(rank: int, world: int, cfg, n_workers: int, model: int, tau: int) -> dict:
+    """The collective audit of a model-axis outer step of ``cfg`` (ZeRO,
+    device-parallel local phase) over the ``(worker, zero, model)`` grid of
+    ``world`` ranks, and of a local phase whose loss also all-reduces the
+    rank's x0 blocks over its ``(worker, zero)`` ranks: ``{name: report}``."""
+    from repro_torch.analysis.collective_audit import (CollectiveBudget, audit_call,
+                                                       group_name, reckoned_model_ops)
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core.dsm import dsm_init, make_dsm_step, make_local_phase
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+
+    torch.set_num_threads(1)
+    topo = mesh.topology(n_workers, dist.group.WORLD, model=model)
+    lay = TP.topology_layout(cfg, topo)
+    x0 = C.shard_flat(T.init_params(torch.Generator().manual_seed(0), cfg), T.layout(cfg), lay)
+    base = base_opt.adamw()
+    tokens = torch.randint(0, cfg.vocab_size, (n_workers, tau, 1, 2, 32),
+                           generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": tokens[topo.worker_slice]}
+
+    def loss(p, mb):
+        return T.loss_fn(p, mb, cfg, remat=False)
+
+    def budget(phase):
+        return CollectiveBudget.for_phase(
+            phase, lay, topo.dp.world, n_workers, group_name(topo.model_group),
+            reckoned_model_ops(cfg, lay, phase, topo.local_workers, tau, 2, 32))
+
+    step = make_dsm_step(loss, base, DSMConfig(tau=tau, zero_sharded=True,
+                                               device_parallel_local=True),
+                         schedules.constant(2e-2), lay, topo)
+    state = dsm_init(x0, base, n_workers, topo, True)
+    out = {"outer_step": audit_call(step, (state, batch), budget("global_zero"),
+                                    "outer_step", topo.stats).to_json()}
+
+    def planted(p, mb):
+        buf = x0.clone()
+        dist.all_reduce(buf, group=topo.dp_group)
+        return loss(p, mb)
+
+    local = make_local_phase(planted, base, lay)
+    state = dsm_init(x0, base, n_workers, topo, True)
+    out["planted_local_phase"] = audit_call(local, (state, batch, 2e-2), budget("local"),
+                                            "planted_local_phase").to_json()
+    # one all-reduce per local step and worker
+    out["planted_bytes"] = tau * topo.local_workers * x0.numel() * x0.element_size()
+    return out
+
+
+def model_axis_rank(rank: int, world: int, cases: list, out_dir: str) -> list:
+    """``chip_smoke.py``'s model-axis runs on this rank, one per case:
+    ``(cfg, n_workers, model, seed, batches, gamma, eta)``.  Each draws the
+    dense initial params on the card from ``seed`` (the dense run's draw),
+    keeps this rank's blocks and runs ``len(batches)`` DSM outer steps
+    (AdamW, ZeRO-sharded global step, device-parallel local phase) over the
+    ``(worker, zero, model)`` grid of ``world`` ranks.  After each round the
+    first ``(worker, zero)`` rank of each model index saves its blocks of
+    x_tau, x0 and m, whole, to ``out_dir`` (``<case>_<model index>_<round>.pt``,
+    CPU tensors).  Returns per case the per-worker losses (tau, W) of each
+    round, the peak (``max_memory_allocated`` from the state's build on),
+    the collectives, the kernel launches and each outer step's host ms."""
+    import os
+    import time
+
+    from repro_torch import kernels as K
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core import dsm as D
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import metrics as OM
+
+    out = []
+    for i, (cfg, n_workers, model, seed, batches, gamma, eta) in enumerate(cases):
+        topo = mesh.topology(n_workers, dist.group.WORLD, model=model)
+        lay = TP.topology_layout(cfg, topo)
+        row = T.init_params(torch.Generator("cuda").manual_seed(seed), cfg, device="cuda")
+        x0 = C.shard_flat(row, T.layout(cfg), lay)
+        del row
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = base_opt.adamw()
+        tau = batches[0]["tokens"].shape[1]
+        flags = dict(zero_sharded=True, device_parallel_local=True)
+        step = D.make_dsm_step(lambda p, mb, cfg=cfg: T.loss_fn(p, mb, cfg, remat=False),
+                               base, DSMConfig(tau=tau, global_lr=eta, **flags),
+                               schedules.constant(gamma), lay, topo)
+        state = D.dsm_init(x0, base, n_workers, topo, True)
+        dtopo = topo.dp
+        quiet = dataclasses.replace(dtopo, stats=type(dtopo.stats)())
+        saves = dtopo.rank == 0
+        seen = {}
+        mean_fn, stats_fn = Z.scattered_worker_mean, OM.loss_stats
+
+        def mean(*a, **k):
+            seen["x_tau"] = mean_fn(*a, **k)
+            return seen["x_tau"]
+
+        def loss_stats(losses):
+            seen["losses"] = losses.detach().cpu()
+            return stats_fn(losses)
+
+        Z.scattered_worker_mean, OM.loss_stats = mean, loss_stats
+        K.reset_launch_counts()
+        res = {"losses": [], "step_ms": [], "index": topo.model_index, "rank": rank,
+               "grid": (topo.worker, topo.zero)}
+        try:
+            for k, raw in enumerate(batches):
+                batch = {n: torch.from_numpy(v[topo.worker_slice]).to("cuda")
+                         for n, v in raw.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+                res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                res["losses"].append(seen["losses"])
+                blocks = {n: Z.gather_shards(t, quiet, lay.group_numels)
+                          for n, t in (("x_tau", seen.pop("x_tau")), ("x0", state.x0),
+                                       ("m", state.m))}
+                if saves:
+                    torch.save({n: each(lambda t: t.cpu(), t) for n, t in blocks.items()},
+                               os.path.join(out_dir, f"{i}_{topo.model_index}_{k}.pt"))
+                del blocks
+        finally:
+            Z.scattered_worker_mean, OM.loss_stats = mean_fn, stats_fn
+        res["launches"] = K.launch_counts()
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["comm"] = topo.stats.as_dict()
+        out.append(res)
+        del state, x0, step
+        torch.cuda.empty_cache()
+    return out
