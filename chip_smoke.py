@@ -58,6 +58,12 @@ again through make_dsm_step with loss_fn's remat=True under the "full" and
 the "dots" policies, each held bit for bit against the run without it.
 Last, every full-width run's measured peak beside the dry-run's reckoning
 of it on meta tensors (repro_torch.launch.dryrun), within DRYRUN_RTOL.
+Before that, the model axis (model_axis_full_width: Minitron-4B and GPT-2
+small over gloo ranks sharing the card, Megatron-split DSM steps held
+against the dense run) and serving on the (data, model) grid in the same
+start of the ranks (serve_model_axis_full_width: Minitron-4B at whole depth
+in bf16 over four model ranks and at 8 layers in f32, GPT-2 small over (2,
+2), each held against the dense model and its f32 logits).
 After the ranks phases, the collective audit (audit_card): every c10d op
 of each outer-step variant recorded over RANKS gloo ranks and held against
 the paper's one-round budget, a planted extra all-reduce caught.  Every
@@ -258,7 +264,7 @@ MIXED_DP_SMOKES = ("granite_moe_3b_a800m",)
 ENCDEC = dict(n_workers=2, b_micro=1, seq=448)
 ENCDEC_LAYERS = 8               # cut from 16 for the command's time target
 ENCDEC_N = 433_902_080
-ENCDEC_STEPS = 3
+ENCDEC_STEPS = 2                # cut from 3 for the command's time target
 ENCDEC_EVAL_BATCH = 2
 SERVE_ENCDEC = (4, 64, 32)      # batch, prompt, new tokens (cut from 64)
 VLM_LAYERS = 4                  # cut from 8
@@ -280,12 +286,12 @@ RG_N = (912_304_640, 5_120)
 MAMBA = dict(n_workers=2, b_micro=1, seq=2048)
 MAMBA_N = (780_768_768, 6_912)
 RECURRENT_STEPS = 2             # mamba2's, cut from 3 for the command's time target
-# recurrentgemma keeps 3 rounds: its bf16 decode-vs-full-forward check sat
-# near SERVE_ATOL and moved with the corpus (src/**/*.py), 0.20-0.32 after 2
-# rounds at 3 layers and 0.31 at PR 20's 6 layers and 3 rounds on one
-# corpus where 3 layers and 3 rounds read 0.15 (PERF.md section 7); 0.1210
-# on the frozen corpus, now held to its per-add bound (SERVE_ULP_PER_ADD)
-RG_STEPS = 3
+# recurrentgemma kept 3 rounds while its bf16 decode-vs-full-forward check
+# sat near SERVE_ATOL and moved with the corpus (src/**/*.py), 0.20-0.32
+# after 2 rounds at 3 layers (PERF.md section 7); now held to its per-add
+# bound (SERVE_ULP_PER_ADD), 0.1210 against 0.7265, it is cut to 2 for the
+# command's time target
+RG_STEPS = 2
 RECURRENT_EVAL_BATCH = 2        # eval sequences: recurrentgemma's f32 logits, 2.1 GB per 2048
 SERVE_RG = (4, 2560, 128)       # batch, prompt (past the window), new tokens
 SERVE_MAMBA = (4, 512, 32)      # four 128-position SSD chunks; 32 new (cut from 128)
@@ -326,6 +332,38 @@ MODEL_AXIS_ETA = MAIN["global_lr"]
 # logits and an exact vocab-parallel lookup; a loss moves by at most twice
 # its logits' largest move
 MODEL_AXIS_ULP = 2.0 ** -8
+# serve_model_axis_full_width: serving on the (data, model) grid
+# (mesh.serving_topology) at full width, in model_axis_full_width's start of
+# RANKS gloo ranks sharing the card (tests/torch_ranks.serve_full_width_rank),
+# each case against the dense model in this process from the same card draw
+# and prompts.  (a) minitron_4b.FULL at whole depth in bf16 (32 layers,
+# 4,309,847,040 parameters, the dense model ~8.6 GB) over (data 1, model 4):
+# 6 query heads, 2 KV heads and 64,000 vocab rows per rank, ~2.15 GB of
+# blocks; (a') the same in f32 (params and activations) at SERVE_MA_F32_LAYERS
+# of its 32 layers (cut: four ranks each drawing the dense f32 model at whole
+# depth, ~17 GB and its f32 draw of the embedding, would not fit the card at
+# once); (b) gpt2_small.FULL at whole depth over (data 2, model 2), two
+# sequences per data row.  Each: SERVE_MA = (batch, prompt, new) corpus
+# prompts, greedy.  Gates (PERF.md section 6, written before the first run):
+# a bf16 case's logits at every step within SERVE_NOISE_FACTOR times the
+# dense bf16 logits' distance from the dense f32 model's at that step (the
+# training phase's depth-linear rounding bound, 2 * (2 * 32) * 2^-8 of the
+# largest logit, is vacuous at 32 layers); (a') within SERVE_MA_F32_RTOL of
+# the dense f32 model's largest |logit| at each step; every token, at every
+# step, exactly the argmax (lowest id on ties) of the ranks' own assembled
+# logits over the unpadded vocab (the vocab-parallel pick, with no noise
+# margin); against the dense model, a token is decided where the dense
+# logits' top-2 margin exceeds that step's gate, and is then the dense argmax
+# (serve_check's noise_bound rule; twice the gap the gate admits between the
+# two paths decided no token of (a) at whole depth in bf16, PERF.md section
+# 6); every rank of a model group returns the same tokens; each rank's peak
+# within DRYRUN_RTOL of dryrun.reckon_serve's; its collectives
+# serve_collectives' to the byte (the params resolved once per generate)
+SERVE_MA_CASES = (("minitron_4b", None, None, 4), ("minitron_4b", "f32", "float32", 4),
+                  ("gpt2_small", None, None, 2))     # (arch, layers, dtype, model ranks)
+SERVE_MA_F32_LAYERS = 8
+SERVE_MA = (4, 256, 16)
+SERVE_MA_F32_RTOL = 1e-3
 
 
 # Every phase trains on the sources of the reference package, which stays as
@@ -1825,35 +1863,47 @@ class RouteLog:
         return out
 
 
-def teacher_forced(torch, params, cfg, prompt, toks, extra=None):
-    """Every decode step's logits (prefill's for the first token, then
-    decode_step fed ``toks``) beside a full forward over prompt +
-    toks[:, :i] at its last position; rows of (decode, full) f32 logits and
-    a (B,) bool: the row's experts equal in both at every MoE layer (all
-    True without one).  ``extra``: the batch's frames or patches; a VLM's
-    patches come before the prompt, so its decode positions start after
-    them.  A model with a recurrent layer takes one full forward over
-    prompt + toks and reads each step's position from it (causal: a
-    position sees nothing after it), its tokens padded on the right to a
-    multiple of the SSD's 128-position chunk where Mamba-2 needs one: one
-    forward in place of one per step, at lengths the SSD accepts."""
+def forced_steps(torch, params, cfg, prompt, toks, extra=None):
+    """Each generate step's logits along ``toks`` (B, new), as generate runs
+    them (call under ``torch.no_grad``): prefill's, then decode_step fed
+    ``toks[:, i - 1]`` on the spliced cache.  ``extra``: the batch's frames
+    or patches; a VLM's patches come before the prompt, so its decode
+    positions start after them."""
     from repro_torch.models import transformer as T
     from repro_torch.train.serve import _splice_cache
 
     extra = extra or {}
     B, S = prompt.shape
     n0 = S + (extra["patches"].shape[1] if "patches" in extra else 0)
+    logits, small = T.prefill(params, {"tokens": prompt, **extra}, cfg, remat=False)
+    cache = _splice_cache(T.init_cache(cfg, B, n0 + toks.shape[1], device=prompt.device),
+                          small, cfg, n0)
+    del small
+    for i in range(toks.shape[1]):
+        if i:
+            logits, cache = T.decode_step(params, cache, toks[:, i - 1], n0 + i - 1, cfg)
+        yield logits
+
+
+def teacher_forced(torch, params, cfg, prompt, toks, extra=None):
+    """Every decode step's logits (:func:`forced_steps`) beside a full
+    forward over prompt + toks[:, :i] at its last position; rows of
+    (decode, full) f32 logits and a (B,) bool: the row's experts equal in
+    both at every MoE layer (all True without one).  A model with a
+    recurrent layer takes one full forward over prompt + toks and reads
+    each step's position from it (causal: a position sees nothing after
+    it), its tokens padded on the right to a multiple of the SSD's
+    128-position chunk where Mamba-2 needs one: one forward in place of one
+    per step, at lengths the SSD accepts."""
+    from repro_torch.models import transformer as T
+
+    extra = extra or {}
+    B = prompt.shape[0]
     recurrent = [k.split(":")[0] for k in cfg.pattern if k.split(":")[0] in T.RECURRENT]
     out = []
     with torch.no_grad(), RouteLog(torch) as log:
-        logits, small = T.prefill(params, {"tokens": prompt, **extra}, cfg, remat=False)
-        cache = _splice_cache(T.init_cache(cfg, B, n0 + toks.shape[1], device=prompt.device),
-                              small, cfg, n0)
-        del small
         decoded = []
-        for i in range(toks.shape[1]):
-            if i:
-                logits, cache = T.decode_step(params, cache, toks[:, i - 1], n0 + i - 1, cfg)
+        for i, logits in enumerate(forced_steps(torch, params, cfg, prompt, toks, extra)):
             if recurrent:
                 decoded.append(logits.clone())
                 continue
@@ -1865,7 +1915,6 @@ def teacher_forced(torch, params, cfg, prompt, toks, extra=None):
                 same &= (a == b).all(dim=-1)
             out.append((logits.clone(), T._logits(params, h, cfg)[:, 0], same))
         if recurrent:
-            del cache
             full = one_pass_logits(torch, params, cfg, prompt, toks, extra)
             every = torch.ones(B, dtype=torch.bool, device=prompt.device)
             out = [(dec, full[:, i], every) for i, dec in enumerate(decoded)]
@@ -3014,12 +3063,13 @@ def gap_excess(torch, a, b, ref_mags, rel: float) -> float:
     return worst
 
 
-def phase_model_axis_full_width(torch, K, smi, pool) -> dict:
+def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
     """The model axis at full width (MODEL_AXIS_CASES): one start of RANKS
     gloo ranks sharing the card runs both cases through
     ``tests/torch_ranks.model_axis_rank`` (make_dsm_step over each rank's
     blocks, the ZeRO-sharded global step over its (worker, zero) ranks),
-    each rank saving its blocks of x_tau, x0 and m after every round; then
+    each rank saving its blocks of x_tau, x0 and m after every round, and
+    then serve_model_axis_full_width's serving cases (SERVE_MA_CASES); then
     each case's dense run in this process from the same draw and batches,
     round by round against the ranks': each worker's round-mean loss, the
     largest gaps of x_tau, x0 and m within model_axis_bounds, and the
@@ -3029,7 +3079,9 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> dict:
     collectives per name and group equal to the reckoning's to the byte, one
     DSM and tau AdamW launches per round, each outer step's host ms.  Then
     both kernels against their plain versions on rank 0's blocks of (a),
-    bit for bit.  Returns the dense runs' and the ranks' launches."""
+    bit for bit.  Returns the dense runs' and the ranks' launches, and the
+    serving cases with the ranks' results for
+    :func:`phase_serve_model_axis_full_width`."""
     import numpy as np
 
     from repro_torch.core import base_opt, schedules
@@ -3059,15 +3111,19 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> dict:
                   eval_batch=0)
         reckoned.append((kw, pool.submit(reckon_comm, cfg, kw),
                          pool.submit(reckon_peak, cfg, kw)))
+    serving = serve_model_axis_cases(torch, pool)
     total = dict.fromkeys(K.launch_counts(), 0)
     work = ROOT / "build" / "model_axis"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = run_ranks(torch_ranks.model_axis_rank, RANKS, (cases, str(work)),
-                      timeout_s=RANKS_TIMEOUT_S, work_dir=str(ROOT / "build"))
+    both = run_ranks(torch_ranks.model_axis_serve_rank, RANKS,
+                     (cases, str(work), [case for case, _ in serving]),
+                     timeout_s=RANKS_TIMEOUT_S, work_dir=str(ROOT / "build"))
     ranks_s = time.perf_counter() - t0
+    ranks = [r["train"] for r in both]
+    served = (serving, [[r["serve"][i] for r in both] for i in range(len(serving))], ranks_s)
     rows, failures = [], []
     for i, (cfg, W, M, seed, batches, gamma, eta) in enumerate(cases):
         per_rank = [r[i] for r in ranks]
@@ -3209,7 +3265,189 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> dict:
           "kernel_checks_on_rank0_blocks": checks, "cases": rows})
     if failures:
         raise AssertionError(f"model_axis_full_width: {failures}")
-    return total
+    return total, served
+
+
+def serve_model_axis_cases(torch, pool) -> list:
+    """SERVE_MA_CASES as ``((cfg, model ranks, seed, prompt, new), the
+    future of dryrun.reckon_serve's reckoning of a rank's generate)``: the
+    prompts SERVE_MA's corpus tokens (CPU int64), the reckonings running in
+    the CPU pool meanwhile."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import load_arch
+
+    rng = np.random.default_rng(13)
+    batch, prompt_len, new = SERVE_MA
+    out = []
+    for i, (arch, cut, dtype, model) in enumerate(SERVE_MA_CASES):
+        cfg = load_arch(arch).FULL
+        if cut:
+            cfg = dataclasses.replace(cfg, n_layers=SERVE_MA_F32_LAYERS, dtype=dtype,
+                                      param_dtype=dtype,
+                                      name=f"{arch}_{SERVE_MA_F32_LAYERS}l_{cut}")
+        prompt = torch.as_tensor(training_corpus().sample(rng, batch, prompt_len),
+                                 dtype=torch.long)
+        out.append(((cfg, model, 31 + i, prompt, new),
+                     pool.submit(reckon_serve_generate, cfg, batch, prompt_len,
+                                 RANKS // model, model, new)))
+    return out
+
+
+def reckon_serve_generate(cfg, batch, prompt_len, data, model, new) -> dict:
+    """dryrun.reckon_serve's reckoning of rank 0's generate, in a CPU worker
+    process."""
+    from repro_torch.launch.dryrun import reckon_serve
+
+    return reckon_serve(cfg, "generate", batch, prompt_len, data=data, model=model, new=new)
+
+
+def phase_serve_model_axis_full_width(torch, smi, served) -> None:
+    """generate on the (data, model) grid at full width (SERVE_MA_CASES),
+    served in model_axis_full_width's start of the ranks, each case held
+    against the dense model drawn here from the same seed: the ranks'
+    per-step logits (prefill's, then each decode step's; assembled over
+    data rows and vocab blocks) against the dense f32 model's at every
+    step (a bf16 case within SERVE_NOISE_FACTOR times the dense bf16
+    model's distance from it; the f32 case within SERVE_MA_F32_RTOL of its
+    largest |logit|), the dense model teacher-forced along the ranks'
+    tokens; every token the argmax (lowest id on ties) of the ranks' own
+    assembled logits over the unpadded vocab, at every step; every token
+    whose dense top-2 margin exceeds its step's gate the dense argmax, at
+    least one so decided; the model group's tokens alike; per rank its
+    peak beside reckon_serve's reckoning plus the bytes it holds beside its
+    blocks when the call starts (DRYRUN_RTOL), its collectives equal to
+    serve_collectives' to the byte, its cache bytes beside the reference
+    placement's; per rank and dense, prefill seconds and decode tokens/s
+    (host clock after cuda.synchronize)."""
+    import dataclasses
+
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.comm import scaled_sum
+    from repro_torch.launch.dryrun import cache_bytes, collectives
+    from repro_torch.models import transformer as T
+    from repro_torch.train.serve import generate
+    from repro_torch.train.trainer import set_matmul_precision
+
+    set_matmul_precision()
+    serving, per_case, ranks_s = served
+    rows, failures = [], []
+    for ((cfg, M, seed, prompt, new), fut), ranks in zip(serving, per_case):
+        B, S = prompt.shape
+        D, V = RANKS // M, cfg.padded_vocab
+        f32 = cfg.param_dtype == "float32"
+        toks = ranks[0]["tokens"]
+        agree = all(torch.equal(r["tokens"], toks) for r in ranks)
+        tp = [torch.full((B, V), float("nan")) for _ in range(new)]
+        for r in ranks:
+            n = r["logits"][0].shape[-1]
+            cols = (slice(r["model_index"] * n, (r["model_index"] + 1) * n) if n < V
+                    else slice(None))
+            for i, lg in enumerate(r["logits"]):
+                tp[i][slice(*r["rows"]), cols] = lg
+        # the ranks' own pick, exactly: each token the argmax (lowest id on
+        # ties) of the ranks' assembled logits over the unpadded vocab
+        covered = not any(t.isnan().any() for t in tp)
+        own_pick = covered and torch.equal(
+            torch.stack([t[:, :cfg.vocab_size].argmax(-1) for t in tp], dim=1), toks)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        x0 = T.init_params(torch.Generator("cuda").manual_seed(seed), cfg, device="cuda")
+        params = T.layout(cfg).views(x0)
+        pc, tc = prompt.to("cuda"), toks.to("cuda")
+        generate(params, cfg, pc[:, :8], 2, device="cuda")       # warm-up
+        dtoks, dstats = generate(params, cfg, pc, new, device="cuda")
+        with torch.no_grad():
+            dense = list(forced_steps(torch, params, cfg, pc, tc))
+        tp_c = [t.to("cuda") for t in tp]
+        if f32:
+            gate = [SERVE_MA_F32_RTOL * d.abs().max().item() for d in dense]
+            tp_err = [(a - d).abs().max().item() for a, d in zip(tp_c, dense)]
+            dense_err = None
+        else:
+            cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+            params32 = {k: v.float() for k, v in params.items()}
+            ref = one_pass_logits(torch, params32, cfg32, pc, tc)
+            del params32
+            dense_err = [(d - ref[:, i]).abs().max().item() for i, d in enumerate(dense)]
+            tp_err = [(a - ref[:, i]).abs().max().item() for i, a in enumerate(tp_c)]
+            del ref
+            gate = [SERVE_NOISE_FACTOR * e for e in dense_err]
+        decided = equal = 0
+        margins = []
+        for i, d in enumerate(dense):
+            lg = d[:, :cfg.vocab_size]
+            top2 = torch.topk(lg, 2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            margins.append(margin.tolist())
+            sure = margin > gate[i]
+            decided += int(sure.sum())
+            equal += int((sure & (lg.argmax(-1) == tc[:, i])).sum())
+        same_prefix = [int(torch.cumprod((dtoks.cpu() == toks).long(), dim=1)[b].sum())
+                       for b in range(B)]
+        dense_peak = torch.cuda.max_memory_allocated()
+        del x0, params, dense, tp_c, pc, tc, dtoks
+        torch.cuda.empty_cache()
+
+        rec = fut.result(timeout=CPU_RUN_TIMEOUT_S)
+        lay0 = TP.rank_layout(cfg, M, 0)
+        b = B // D
+        layout_cache = cache_bytes(T.init_cache(cfg, b, S + new, device="meta", layout=lay0))
+        per_rank, comm_ok, peak_ok = [], True, True
+        for r in ranks:
+            lay = TP.rank_layout(cfg, M, r["model_index"])
+            parts_ = [(1, TP.serve_collectives(cfg, lay, b, S, "serving_params")),
+                      (1, TP.serve_collectives(cfg, lay, b, S, "prefill")),
+                      (new - 1, TP.serve_collectives(cfg, lay, b, S, "decode")),
+                      (new, TP.serve_collectives(cfg, lay, b, S, "pick"))]
+            if D > 1:
+                parts_.append((1, {"all_gather@data": {"calls": 1, "bytes": b * new * 8}}))
+            want = scaled_sum(*parts_)
+            # the reckoning of the call, plus what the rank holds beside its
+            # blocks when it starts (the prompt, the cuBLAS workspace)
+            ratio = (rec["memory"]["peak_bytes"] + r["held_bytes"]) / r["peak_bytes"]
+            comm_ok &= r["comm"] == want == rec["comm"]
+            peak_ok &= abs(ratio - 1) <= DRYRUN_RTOL
+            per_rank.append({"rank": r["rank"], "data_index": r["data_index"],
+                             "model_index": r["model_index"], "rows": r["rows"],
+                             "prefill_s": r["prefill_s"], "decode_s": r["decode_s"],
+                             "decode_tok_per_s": r["tok_per_s"], "peak_bytes": r["peak_bytes"],
+                             "params_bytes": r["params_bytes"], "held_bytes": r["held_bytes"],
+                             "reckoned_over_measured_peak": ratio,
+                             "collectives": r["comm"], "collectives_by_kind": collectives(
+                                 r["comm"])})
+        ok = (agree and own_pick and all(e <= g for e, g in zip(tp_err, gate)) and decided > 0
+              and equal == decided and comm_ok and peak_ok
+              and rec["memory"]["cache_bytes_per_rank"] == layout_cache)
+        rows.append({"config": cfg.name, "n_layers": cfg.n_layers, "param_dtype": cfg.param_dtype,
+                     "grid": {"data": D, "model": M}, "n_params": T.layout(cfg).numel,
+                     "rank_block_numel": lay0.numel, "batch": B, "prompt_tokens": S,
+                     "new_tokens": new, "model_group_tokens_agree": agree,
+                     "tokens_are_argmax_of_ranks_logits": own_pick,
+                     "per_step_gap": tp_err, "per_step_gate": gate,
+                     "dense_bf16_vs_f32_per_step": dense_err,
+                     "dense_top2_margin_per_step": margins,
+                     "tokens_decided": decided, "tokens_equal_where_decided": equal,
+                     "dense_generate_same_prefix_by_row": same_prefix,
+                     "dense": {"prefill_s": dstats["prefill_s"], "decode_s": dstats["decode_s"],
+                               "decode_tok_per_s": dstats["tok_per_s"],
+                               "peak_bytes": dense_peak},
+                     "ranks": per_rank, "reckoned_peak_bytes": rec["memory"]["peak_bytes"],
+                     "cache_bytes_per_rank": {"layout": layout_cache,
+                                              "reckoned": rec["memory"]["cache_bytes_per_rank"],
+                                              "reference_placement": rec["memory"][
+                                                  "cache_bytes_per_rank_reference_placement"]},
+                     "collectives_reckoned": rec["comm"], "tokens": toks[0].tolist(), "ok": ok})
+        if not ok:
+            failures.append(rows[-1])
+    emit({"phase": "serve_model_axis_full_width", "gpu": smi, "ranks": RANKS, "backend": "gloo",
+          "factor": SERVE_NOISE_FACTOR, "f32_rtol": SERVE_MA_F32_RTOL,
+          "ranks_s_with_model_axis_full_width": ranks_s, "cases": rows})
+    if failures:
+        raise AssertionError(f"serve_model_axis_full_width: {failures}")
 
 
 def reckon_comm(cfg, kw: dict) -> tuple:
@@ -3399,8 +3637,10 @@ def all_phases(torch, K, smi, pool):
         errs = {k: max(e, group_errs[k]) for k, e in errs.items()}
     for more in counts:
         launches = {k: n + more[k] for k, n in launches.items()}
-    more = phase_model_axis_full_width(torch, K, smi, pool)
+    more, served = phase_model_axis_full_width(torch, K, smi, pool)
     launches = {k: n + more[k] for k, n in launches.items()}
+    phase_serve_model_axis_full_width(torch, smi, served)
+    del served
     phase_dryrun_vs_card(pool, smi)
     return launches, errs, times
 

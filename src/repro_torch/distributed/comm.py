@@ -75,6 +75,24 @@ class CommStats:
                     **({"seconds": self.seconds[k]} if self.timed else {})}
                 for k in self.calls}
 
+    def reset(self) -> None:
+        """Forget every count (in place: the topology's views share it)."""
+        self.calls.clear()
+        self.bytes.clear()
+        self.seconds.clear()
+
+
+def scaled_sum(*parts) -> dict:
+    """``sum_i n_i * comm_i`` of ``(n_i, comm_i)`` pairs of
+    :meth:`CommStats.as_dict` counts (calls and bytes)."""
+    out: dict = {}
+    for n, stats in parts:
+        for k, v in stats.items():
+            rec = out.setdefault(k, {"calls": 0, "bytes": 0})
+            rec["calls"] += n * v["calls"]
+            rec["bytes"] += n * v["bytes"]
+    return out
+
 
 def init_group(backend: str, init_method: str, rank: int, world: int,
                timeout_s: float = DEFAULT_TIMEOUT_S):

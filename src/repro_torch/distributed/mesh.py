@@ -7,6 +7,7 @@ reshapes its ``pod * data`` rows into ``(worker, zero, model)`` and
 ``serving_mesh`` into ``(data, model)``.  Here a mesh is a
 :class:`RankMesh`: a numpy array of rank ids with the same axes and shape,
 in the reference's device order (rank ``i`` is its device ``i``).
+A serving rank's place in ``(data, model)`` is :func:`serving_topology`.
 
 The reference lays its devices out as ``(worker, zero, model)``: each worker
 group ``w`` holds ``W / worker`` of the W workers, replicated over its
@@ -142,12 +143,39 @@ class Topology:
                         self.dp_group if dp_world > 1 else None, self.backend, self.stats)
 
     @property
+    def data(self) -> "Topology":
+        """A serving rank's data group (:func:`serving_topology`: the D ranks
+        of its model index) as a topology whose collectives count under
+        ``<name>@data``."""
+        return dataclasses.replace(self.dp, axis="data")
+
+    @property
     def mp(self) -> "Topology":
         """The model group as a topology of ``model`` ranks (one worker
         group, one zero rank): its collectives count under ``<name>@model``."""
         return Topology(self.n_workers, 1, 1, self.model_index,
                         self.model_group if self.model > 1 else None, self.backend,
                         self.stats, model=self.model, axis="model")
+
+
+def serving_topology(group: Optional[Any] = None, model: int = 1,
+                     timed: bool = False) -> Topology:
+    """This process's rank of the reference's ``(data, model)`` serving grid
+    (``serving_mesh``) over the ranks of ``group``: rank ``r = d * model +
+    m``, D = world / model data rows.  It is a :class:`Topology` whose
+    worker axis is the data axis (``worker`` = D, ``zero`` = 1):
+    ``model_group`` spans the M ranks of its data row (:attr:`Topology.mp`,
+    ``<name>@model``), ``dp_group`` the D ranks of its model index
+    (:attr:`Topology.data`, ``<name>@data``); both built once, on every rank,
+    in the same order (:func:`topology`)."""
+    if group is None:
+        return topology(1, None, timed, model)
+    import torch.distributed as dist
+
+    world = dist.get_world_size(group)
+    if world % model:
+        raise ValueError(f"model={model} does not divide the {world} ranks")
+    return topology(world // model, group, timed, model)
 
 
 def grid(n_workers: int, world: int, model: int = 1) -> tuple[int, int]:

@@ -17,7 +17,8 @@ one process per rank, so the model (``models/transformer.py``) calls these
     rank computes the same thing, so every rank holds the whole gradient)
     or a reduce-scatter (``"sum"``: every rank holds a partial gradient);
   * :func:`vocab_embed` and :func:`vocab_cross_entropy` over a vocab-sharded
-    table.
+    table, and :func:`vocab_argmax`, serving's greedy (and Gumbel) pick over
+    vocab-sharded logits.
 
 A bf16 activation is all-reduced in f32 and rounded once: each rank's
 partial sum is rounded to bf16 by its product, the sum of the M partials
@@ -149,6 +150,45 @@ def vocab_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, axis) -> to
     return _VocabCE.apply(logits, targets, axis)
 
 
+def vocab_argmax(logits: torch.Tensor, axis, valid: int) -> torch.Tensor:
+    """(B,) int64 global ids: the argmax over the whole vocab of this rank's
+    ``(B, V / M)`` block of logits (vocab rows ``[rank * V/M, (rank + 1) *
+    V/M)``), rows at or past ``valid`` (the unpadded vocab) masked out on
+    the rank that holds them: the largest logit all-reduced over the group,
+    then the lowest global id that attains it, also all-reduced
+    (``torch.argmax``'s tie rule on the dense logits)."""
+    n = logits.shape[-1]
+    ids = torch.arange(n, device=logits.device) + axis.rank * n
+    x = logits.masked_fill(ids >= valid, float("-inf"))
+    top = _all_reduce(x.max(dim=-1).values, axis, "max")
+    first = torch.where(x == top[:, None], ids, torch.iinfo(torch.int64).max).min(dim=-1).values
+    return _all_reduce(first, axis, "min")
+
+
+def noise_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator of model rank ``index``'s sampling noise: seeded by
+    ``(seed, index)``, so that the ranks draw independent noise for their
+    vocab blocks."""
+    import numpy as np
+
+    state = int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(state)
+
+
+def serve_rows(batch: int, topo) -> slice:
+    """The rows of a ``batch``-sequence batch that a serving rank serves:
+    its data row's ``batch / D`` where the reference's ``serve_batch_pspecs``
+    puts the batch on ``data`` (``batch % D == 0``, ``batch >= D``), else
+    every row (the reference's sequence split of a prefill is not ported:
+    each data row serves the whole batch)."""
+    data = 1 if topo is None else topo.worker
+    spec = sharding.serve_batch_pspecs({"tokens": ((batch, 1), torch.int64)}, data, 1)
+    if data == 1 or spec["tokens"][0] != "data":
+        return slice(0, batch)
+    n = batch // data
+    return slice(topo.worker_index * n, (topo.worker_index + 1) * n)
+
+
 def shard_leaf(t: torch.Tensor, spec: tuple, model: int, index: int) -> torch.Tensor:
     """Rank ``index``'s block of a dense leaf by its placement ``spec``
     (the dim on the ``model`` axis cut ``model`` ways; a view)."""
@@ -198,6 +238,76 @@ def topology_layout(cfg, topo, replicate_names: tuple = ()) -> FlatLayout:
     return rank_layout(cfg, topo.model, topo.model_index, topo.mp, replicate_names)
 
 
+class _Reckoning:
+    """The model group's collectives of a rank's layout, added up as
+    ``CommStats`` counts them: ``{"<name>@model": {"calls", "bytes"}}``."""
+
+    def __init__(self, layout: FlatLayout):
+        self.layout, self.out = layout, {}
+        self._index = {n: i for i, n in enumerate(layout.names)}
+
+    def add(self, name: str, nbytes: int, calls: int = 1) -> None:
+        rec = self.out.setdefault(f"{name}@model", {"calls": 0, "bytes": 0})
+        rec["calls"] += calls
+        rec["bytes"] += nbytes * calls
+
+    def stacked(self, name: str) -> bool:
+        return name.startswith(C.STACKED)
+
+    def dim(self, name: str):
+        d = self.layout.model_dims[self._index[name]]
+        return None if d is None else d - self.stacked(name)
+
+    def layer_count(self, name: str) -> int:
+        return self.layout.shapes[self._index[name]][0] if self.stacked(name) else 1
+
+    def block_numel(self, name: str) -> int:
+        shape = self.layout.shapes[self._index[name]]
+        return math.prod(shape[1:] if self.stacked(name) else shape)
+
+    def itemsize(self, name: str) -> int:
+        return self.layout.dtypes[self.layout.groups[self._index[name]]].itemsize
+
+    def gather(self, name: str) -> None:
+        """A leaf gathered at use, layer by layer: each rank sends its block."""
+        if self.dim(name) is not None:
+            self.add("all_gather", self.block_numel(name) * self.itemsize(name),
+                     self.layer_count(name))
+
+    def gather_all(self) -> dict:
+        """Every leaf gathered once: the replicated compute of a family the
+        model axis does not split (``transformer._gathered``)."""
+        for name in self.layout.names:
+            self.gather(name)
+        return self.out
+
+    def attention_layers(self):
+        """``(prefix, layers)`` of each decoder attention leaf group."""
+        for wq in (n for n in self.layout.names
+                   if n.startswith("decoder.") and n.endswith(".attn.wq")):
+            yield wq[:-len("attn.wq")], self.layer_count(wq)
+
+    def heads_split(self, pre: str, cfg) -> bool:
+        return (self.dim(pre + "attn.wq") == 1 and self.dim(pre + "attn.wo") == 0
+                and cfg.n_heads % self.layout.model == 0)
+
+    def kv_direct(self, pre: str, cfg) -> bool:
+        return (cfg.n_kv_heads % self.layout.model == 0 and self.dim(pre + "attn.wk") == 1
+                and self.dim(pre + "attn.wv") == 1)
+
+    def ffn_split(self, pre: str, cfg) -> bool:
+        return (self.dim(pre + "mlp.w1") == 1 and self.dim(pre + "mlp.w2") == 0
+                and (not cfg.mlp_gated or self.dim(pre + "mlp.w3") == 1))
+
+    def ffn_names(self, pre: str, cfg) -> tuple:
+        return tuple(pre + w for w in ("mlp.w1", "mlp.w2") + (("mlp.w3",) if cfg.mlp_gated
+                                                               else ()))
+
+    def head_split(self, cfg) -> bool:
+        head = "embed" if cfg.tie_embeddings else "lm_head"
+        return self.dim(head) == (0 if cfg.tie_embeddings else 1)
+
+
 def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int) -> dict:
     """The model group's collectives of one forward and backward of
     ``loss_fn`` (no remat) on a ``(batch, seq)`` microbatch, reckoned from
@@ -209,77 +319,130 @@ def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int) -> dic
     all-reduced."""
     from repro_torch.models import transformer as T
 
-    out: dict = {}
-    index = {n: i for i, n in enumerate(layout.names)}
-
-    def add(name: str, nbytes: int, calls: int = 1) -> None:
-        rec = out.setdefault(f"{name}@model", {"calls": 0, "bytes": 0})
-        rec["calls"] += calls
-        rec["bytes"] += nbytes * calls
-
-    def stacked(name: str) -> bool:
-        return name.startswith(C.STACKED)
-
-    def dim(name: str):
-        d = layout.model_dims[index[name]]
-        return None if d is None else d - stacked(name)
-
-    def layer_count(name: str) -> int:
-        return layout.shapes[index[name]][0] if stacked(name) else 1
-
-    def block_numel(name: str) -> int:
-        shape = layout.shapes[index[name]]
-        return math.prod(shape[1:] if stacked(name) else shape)
-
-    def itemsize(name: str) -> int:
-        return layout.dtypes[layout.groups[index[name]]].itemsize
-
-    def gather(name: str) -> None:
-        if dim(name) is not None:
-            add("all_gather", block_numel(name) * itemsize(name), layer_count(name))
-
+    r = _Reckoning(layout)
     if not T.megatron_split(cfg):
-        for name in layout.names:
-            gather(name)
-        return out
-    M, H, KVH = layout.model, cfg.n_heads, cfg.n_kv_heads
+        return r.gather_all()
+    M = layout.model
     act = batch * seq * cfg.d_model * 4
-    if dim("embed") == 0:
-        add("all_reduce_sum", act)
+    if r.dim("embed") == 0:
+        r.add("all_reduce_sum", act)
     else:
-        gather("embed")
-    for wq in (n for n in layout.names if n.startswith("decoder.") and n.endswith(".attn.wq")):
-        pre, reps = wq[:-len("attn.wq")], layer_count(wq)
-        gather(pre + "ln1.scale")
-        gather(pre + "ln2.scale")
-        if dim(pre + "attn.wq") == 1 and dim(pre + "attn.wo") == 0 and H % M == 0:
-            add("all_reduce_sum", act, 2 * reps)       # the input's gradient, the output
-            if not (KVH % M == 0 and dim(pre + "attn.wk") == 1
-                    and dim(pre + "attn.wv") == 1):
+        r.gather("embed")
+    for pre, reps in r.attention_layers():
+        r.gather(pre + "ln1.scale")
+        r.gather(pre + "ln2.scale")
+        if r.heads_split(pre, cfg):
+            r.add("all_reduce_sum", act, 2 * reps)     # the input's gradient, the output
+            if not r.kv_direct(pre, cfg):
                 for w in (pre + "attn.wk", pre + "attn.wv"):
-                    if dim(w) is None:
-                        add("all_reduce_sum", block_numel(w) * 4, reps)
+                    if r.dim(w) is None:
+                        r.add("all_reduce_sum", r.block_numel(w) * 4, reps)
                     else:
-                        add("all_gather", block_numel(w) * itemsize(w), reps)
-                        add("reduce_scatter", block_numel(w) * M * itemsize(w), reps)
+                        r.add("all_gather", r.block_numel(w) * r.itemsize(w), reps)
+                        r.add("reduce_scatter", r.block_numel(w) * M * r.itemsize(w), reps)
         else:
             for w in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
-                gather(pre + w)
-        ffn = ("mlp.w1", "mlp.w2") + (("mlp.w3",) if cfg.mlp_gated else ())
-        if (dim(pre + "mlp.w1") == 1 and dim(pre + "mlp.w2") == 0
-                and (not cfg.mlp_gated or dim(pre + "mlp.w3") == 1)):
-            add("all_reduce_sum", act, 2 * reps)
+                r.gather(pre + w)
+        if r.ffn_split(pre, cfg):
+            r.add("all_reduce_sum", act, 2 * reps)
         else:
-            for w in ffn:
-                gather(pre + w)
-    gather("final_norm.scale")
-    head = "embed" if cfg.tie_embeddings else "lm_head"
-    if dim(head) == (0 if cfg.tie_embeddings else 1):
-        add("all_reduce_sum", act)                     # the head input's gradient
+            for w in r.ffn_names(pre, cfg):
+                r.gather(w)
+    r.gather("final_norm.scale")
+    if r.head_split(cfg):
+        r.add("all_reduce_sum", act)                   # the head input's gradient
         for c0 in range(0, seq, min(T.CE_CHUNK, seq)):
             rows = batch * (min(c0 + T.CE_CHUNK, seq) - c0) * 4
-            add("all_reduce_max", rows)
-            add("all_reduce_sum", rows, 2)             # the sum of exponentials, the gold
+            r.add("all_reduce_max", rows)
+            r.add("all_reduce_sum", rows, 2)           # the sum of exponentials, the gold
     else:
-        gather(head)
-    return out
+        r.gather("embed" if cfg.tie_embeddings else "lm_head")
+    return r.out
+
+
+def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) -> dict:
+    """The model group's collectives of one serving call on a rank's
+    ``batch`` rows, reckoned from its placements as
+    :func:`microbatch_collectives` (forward only): ``kind``
+    ``"serving_params"`` (``transformer.serving_params``, once per
+    ``generate``: a Megatron-split config gathers each norm scale, a
+    stacked one in one call; every other family gathers every leaf, layer
+    by layer), ``"prefill"`` over ``seq`` positions (a VLM's patches
+    included) or ``"decode"`` (one ``decode_step``; ``seq`` is not read),
+    both on resolved params (a call on params not yet resolved adds
+    ``"serving_params"``'s), or ``"pick"`` (one :func:`vocab_argmax`: an f32
+    maximum and an int64 minimum per row where the logits are the rank's
+    vocab block, nothing where they are whole).  A Megatron-split config's
+    call all-reduces the vocab-parallel lookup and each attention and FFN
+    output (f32), and gathers ``wk`` / ``wv`` where a rank's block cuts a
+    head; every other family's call computes on the gathered leaves."""
+    from repro_torch.models import transformer as T
+
+    if kind not in ("serving_params", "prefill", "decode", "pick"):
+        raise ValueError(f"kind must be 'serving_params', 'prefill', 'decode' or 'pick', "
+                         f"got {kind!r}")
+    r = _Reckoning(layout)
+    split = T.megatron_split(cfg)
+    if kind == "pick":
+        if split and r.head_split(cfg):
+            r.add("all_reduce_max", batch * 4)
+            r.add("all_reduce_min", batch * 8)
+        return r.out
+    if kind == "serving_params":
+        if not split:
+            return r.gather_all()
+        for name in layout.names:
+            if name.endswith(T.NORM_SCALES) and r.dim(name) is not None:
+                r.add("all_gather", r.layer_count(name) * r.block_numel(name) * r.itemsize(name))
+        return r.out
+    if not split:
+        return r.out
+    act = batch * (seq if kind == "prefill" else 1) * cfg.d_model * 4
+    if r.dim("embed") == 0:
+        r.add("all_reduce_sum", act)
+    else:
+        r.gather("embed")
+    for pre, reps in r.attention_layers():
+        if r.heads_split(pre, cfg):
+            if not r.kv_direct(pre, cfg):
+                r.gather(pre + "attn.wk")
+                r.gather(pre + "attn.wv")
+            r.add("all_reduce_sum", act, reps)
+        else:
+            for w in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
+                r.gather(pre + w)
+        if r.ffn_split(pre, cfg):
+            r.add("all_reduce_sum", act, reps)
+        else:
+            for w in r.ffn_names(pre, cfg):
+                r.gather(w)
+    if not r.head_split(cfg):
+        r.gather("embed" if cfg.tie_embeddings else "lm_head")
+    return r.out
+    if not split:
+        return r.gather_all()
+    act = batch * (seq if kind == "prefill" else 1) * cfg.d_model * 4
+    if r.dim("embed") == 0:
+        r.add("all_reduce_sum", act)
+    else:
+        r.gather("embed")
+    for pre, reps in r.attention_layers():
+        r.gather(pre + "ln1.scale")
+        if r.heads_split(pre, cfg):
+            if not r.kv_direct(pre, cfg):
+                r.gather(pre + "attn.wk")
+                r.gather(pre + "attn.wv")
+            r.add("all_reduce_sum", act, reps)
+        else:
+            for w in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
+                r.gather(pre + w)
+        r.gather(pre + "ln2.scale")
+        if r.ffn_split(pre, cfg):
+            r.add("all_reduce_sum", act, reps)
+        else:
+            for w in r.ffn_names(pre, cfg):
+                r.gather(w)
+    r.gather("final_norm.scale")
+    if not r.head_split(cfg):
+        r.gather("embed" if cfg.tie_embeddings else "lm_head")
+    return r.out

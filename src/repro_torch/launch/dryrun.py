@@ -58,9 +58,18 @@ whole and runs its worker's whole microbatch.  A record carries the
 reference's fields (``flops`` per rank, ``collectives`` per kind with
 ``wire_bytes`` under its ring model, ``memory``, ``t_compute_s`` /
 ``t_memory_s`` / ``t_collective_s``, ``dominant``, ``n_chips``, ``mesh``)
-and ``fits_per_card``.  Prefill and decode on a pod mesh record
-``status: "not_ported"``: serving on the ``(data, model)`` mesh is
-ROADMAP queue 1's next item.
+and ``fits_per_card``.
+
+Prefill and decode on a pod mesh reckon rank 0 of the reference's serving
+grid (``distributed.mesh.serving_mesh``: (16, 16), or (32, 16) with the
+pod folded into data) through the rank's ``prefill`` / ``decode_step``
+(:func:`reckon_serve`): its blocks of every leaf by the serving placement's
+``model`` entries (the ``data`` entries held replicated: FSDP over data is
+not ported, ``DATA_AXIS``), its data row's ``B / D`` sequences where the
+batch splits over data (else the whole batch, ``batch_over_data``), its
+cache (the KV heads it computes: ``cache_bytes_per_rank``, beside the
+reference's ``cache_pspecs`` placement's), meta collectives counted per
+group, and the training records' fields.
 """
 
 from __future__ import annotations
@@ -86,6 +95,7 @@ from repro_torch.core import dsm as D
 from repro_torch.groups import each
 from repro_torch.launch.train import resolve_arch
 from repro_torch.models import transformer as T
+from repro_torch.models.convert import flatten_tree
 from repro_torch.obs import metrics as OM
 
 # NVIDIA H100 SXM 80GB at its 700 W power limit (NVIDIA data sheet): the
@@ -104,6 +114,7 @@ LINK_BYTES_PER_S = 50e9
 ZERO_AXIS = ("held replicated: each zero rank holds its worker's blocks whole and runs its "
              "worker's whole microbatch (FSDP of the worker params over zero is not ported, "
              "ROADMAP queue 1)")
+DATA_AXIS = "replicated (not ported)"    # the serving params' data entries (ROADMAP queue 1)
 # CommStats names -> the reference's collective kinds
 COMM_KINDS = {"scatter_rows": "reduce-scatter", "reduce_scatter": "reduce-scatter",
               "all_gather_shards": "all-gather", "gather_workers": "all-gather",
@@ -284,7 +295,7 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
     eval_bytes = 0
     if eval_batch:
         tracker.reset_peak()
-        with tracker, torch.no_grad():
+        with tracker, torch.no_grad(), _meta_collectives():
             # run_training's eval_params: x0, or over ranks the worker row
             x0v = lay.views(state.x0 if topo is None else each(lambda p: p[0], state.params))
             T.loss_fn(x0v, _micro(cfg, eval_batch, seq), cfg, remat=False)
@@ -331,21 +342,25 @@ def collectives(comm: dict) -> dict:
 
 
 def reckon_pod(arch: str, shape_name: str, multi_pod: bool, tau: int = None) -> dict:
-    """Rank 0 of the reference's training grid on its pod mesh
-    (``training_mesh(make_production_mesh(multi_pod), W)``) at train
-    shapes: the reference's record fields, per rank, for one H100 SXM per
-    rank.  Serving shapes record ``status: "not_ported"``."""
+    """Rank 0 of the reference's grid on its pod mesh, for one H100 SXM per
+    rank, with the reference's record fields: at train shapes its training
+    grid (``training_mesh(make_production_mesh(multi_pod), W)``), at
+    serving shapes its serving grid (``serving_mesh``, :func:`reckon_serve`)."""
     from repro_torch.distributed import mesh
     from repro_torch.launch.train import resolve_arch
 
     cfg, topo = resolve_arch(arch)
     shape = INPUT_SHAPES[shape_name]
+    base = mesh.make_production_mesh(multi_pod=multi_pod)
     if shape.kind != "train":
-        return {"status": "not_ported", "kind": shape.kind,
-                "reason": "serving on the (data, model) mesh (prefill / decode with "
-                          "cache_pspecs) is not ported: ROADMAP.md queue 1, item 1"}
+        grid = mesh.serving_mesh(base)
+        dims = mesh.mesh_dims(grid)
+        rec = reckon_serve(cfg, shape.kind, shape.global_batch, shape.seq_len, dims["data"],
+                           dims["model"])
+        rec.update(data_axis=DATA_AXIS)
+        return _pod_terms(rec, grid, multi_pod)
     W = topo.n_workers_multi if multi_pod else topo.n_workers_single
-    grid = mesh.training_mesh(mesh.make_production_mesh(multi_pod=multi_pod), W)
+    grid = mesh.training_mesh(base, W)
     dims = mesh.mesh_dims(grid)
     lead = specs.train_batch_specs(cfg, topo, shape, W)["tokens"].shape
     rep = () if topo.attn_tp else ATTN_NAMES
@@ -353,14 +368,121 @@ def reckon_pod(arch: str, shape_name: str, multi_pod: bool, tau: int = None) -> 
                        b_micro=lead[3], seq=shape.seq_len, base_opt=topo.base_opt,
                        remat=topo.remat, remat_policy=topo.remat_policy, world=grid.size,
                        model=dims["model"], replicate_names=rep)
+    rec.update(zero_axis=ZERO_AXIS, state_bytes_per_rank=rec["memory"]["state_bytes"])
+    return _pod_terms(rec, grid, multi_pod)
+
+
+def _pod_terms(rec: dict, grid, multi_pod: bool) -> dict:
+    """A rank's record on a pod mesh: its collectives per kind, their time
+    over ``LINK``, the dominant of the three terms, whether it fits a card."""
+    from repro_torch.distributed import mesh
+
     coll = collectives(rec["comm"])
     rec.update(collectives=coll, t_collective_s=coll["wire_bytes"] / LINK_BYTES_PER_S,
-               link=LINK, n_chips=grid.size, mesh=dims, multi_pod=multi_pod,
-               fits_per_card=rec["memory"]["peak_bytes"] <= CARD_BYTES, zero_axis=ZERO_AXIS,
-               state_bytes_per_rank=rec["memory"]["state_bytes"])
+               link=LINK, n_chips=grid.size, mesh=mesh.mesh_dims(grid), multi_pod=multi_pod,
+               fits_per_card=rec["memory"]["peak_bytes"] <= CARD_BYTES)
     rec["dominant"] = max((("compute", rec["t_compute_s"]), ("memory", rec["t_memory_s"]),
                            ("collective", rec["t_collective_s"])), key=lambda kv: kv[1])[0]
     return rec
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+
+
+def reference_cache_bytes(cfg, batch: int, max_len: int, data: int, model: int) -> int:
+    """A rank's bytes of the whole batch's cache of ``max_len`` positions
+    under the reference's placement (``sharding.cache_pspecs``: the batch
+    dim, else the next divisible one, over data; the last divisible dim
+    over model)."""
+    from repro_torch.distributed import sharding
+
+    cache = T.init_cache(cfg, batch, max_len, cfg.act_dtype, device=META)
+    leaves = dict(flatten_tree(cache, is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    sizes = {"data": data, "model": model}
+    total = 0
+    for path, spec in sharding.cache_pspecs(cache, data, model).items():
+        cut = 1
+        for entry in spec:
+            for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                cut *= sizes.get(ax, 1)
+        total += leaves[path].numel() * leaves[path].element_size() // cut
+    return total
+
+
+def reckon_serve(cfg, kind: str, batch: int, seq: int, data: int = 1, model: int = 1,
+                 new: int = 0) -> dict:
+    """Rank 0 of a ``(data, model)`` serving grid on ``meta``, its FLOPs,
+    peak bytes and collectives: ``kind`` ``"prefill"`` (one ``prefill``, as
+    the reference's ``build_prefill``: remat on, a ``batch`` x ``seq``
+    batch of the family's spec, on the rank's blocks as they are),
+    ``"decode"`` (one ``decode_step`` on a cache of ``seq`` positions, at
+    its last, on params ``transformer.serving_params`` resolved beforehand,
+    as ``generate``'s every step) or ``"generate"``
+    (``train.serve.generate`` of ``new`` tokens after a ``seq``-token
+    prompt, a VLM's patches or an encdec's frames beside it, greedy).  The
+    rank holds its blocks of every leaf (``tensor_parallel.rank_layout``
+    with ``model`` > 1) and serves its rows (``tensor_parallel.serve_rows``);
+    ``comm`` is its ``CommStats`` (``<name>@model``, ``<name>@data``)."""
+    from repro_torch.distributed import mesh
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.train.serve import generate
+
+    if kind not in ("prefill", "decode", "generate"):
+        raise ValueError(f"kind must be 'prefill', 'decode' or 'generate', got {kind!r}")
+    topo = mesh.Topology(data, data, 1, rank=0, group=object(), backend="nccl", model=model,
+                         dp_group=object(), model_group=object() if model > 1 else None)
+    lay = T.layout(cfg) if model == 1 else TP.rank_layout(cfg, model, 0, topo.mp)
+    rows = TP.serve_rows(batch, topo)
+    b = rows.stop - rows.start
+    n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    length = n_prefix + seq + new if kind == "generate" else seq
+    tracker = MemoryTracker()
+    cache = None
+    with tracker, torch.no_grad(), _meta_collectives():
+        params = lay.views(lay.empty(device=META))
+        if kind == "decode":
+            # generate resolves its params once, then decodes token by token
+            params = T.serving_params(params, cfg)
+            cache = T.init_cache(cfg, b, seq, cfg.act_dtype, device=META, layout=lay)
+    topo.stats.reset()
+    base = tracker.reset_peak()
+    params_bytes = sum(n * dt.itemsize for dt, n in zip(lay.dtypes, lay.group_numels))
+    rank_cache = T.init_cache(cfg, b, length, cfg.act_dtype, device=META, layout=lay)
+    want = _shapes(rank_cache)
+    vocab = cfg.padded_vocab // model if T.logits_split(params, cfg) else cfg.padded_vocab
+    with tracker, FlopCounterMode(display=False) as flops, torch.no_grad(), _meta_collectives():
+        if kind == "prefill":
+            inputs = _as_model_batch(specs.batch_specs(cfg, (b,), seq))
+            logits, cache = T.prefill(params, inputs, cfg, remat=True)
+            if _shapes(cache) != want:
+                raise ValueError("prefill cache shapes differ from the rank's init_cache's")
+        elif kind == "decode":
+            tokens = torch.empty(b, dtype=torch.long, device=META)
+            logits, cache = T.decode_step(params, cache, tokens, seq - 1, cfg)
+            if _shapes(cache) != want:
+                raise ValueError("decode changed the cache's shapes")
+        else:
+            prompt = _as_model_batch(specs.batch_specs(cfg, (batch,), seq + n_prefix))
+            toks, _ = generate(params, cfg, prompt.pop("tokens"), new, extra_batch=prompt,
+                               device=META, topo=topo)
+            logits = torch.empty(b, vocab, device=META)
+            if tuple(toks.shape) != (batch, new):
+                raise ValueError(f"generate tokens {tuple(toks.shape)}")
+            del toks
+        if tuple(logits.shape) != (b, vocab):
+            raise ValueError(f"{kind} logits {tuple(logits.shape)}, want {(b, vocab)}")
+        del logits, cache
+    nbytes = cache_bytes(rank_cache)
+    rec = {"kind": kind, "batch": batch, "batch_per_rank": b, "seq": seq, "new_tokens": new,
+           "data": data, "model": model, "batch_over_data": batch % data == 0 and batch >= data,
+           "flops": flops.get_total_flops(),
+           "memory": {"params_bytes": params_bytes, "cache_bytes_per_rank": nbytes,
+                      "cache_bytes_per_rank_reference_placement": reference_cache_bytes(
+                          cfg, batch, length, data, model),
+                      "call_bytes": tracker.peak - base, "peak_bytes": tracker.peak},
+           "comm": topo.stats.as_dict()}
+    return _terms(rec, params_bytes + nbytes)
 
 
 def _terms(rec: dict, nbytes: int) -> dict:
@@ -509,7 +631,7 @@ def main(argv=None):
 
 
 def _report(rec: dict, multi_pod) -> None:
-    mark = {"ok": "OK ", "not_ported": "NP "}.get(rec["status"], "ERR")
+    mark = "OK " if rec["status"] == "ok" else "ERR"
     where = "" if multi_pod is None else ("multi  " if multi_pod else "single ")
     if rec["status"] == "ok":
         extra = (f"dom={rec['dominant']} tc={rec['t_compute_s']:.3e} "

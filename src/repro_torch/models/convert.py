@@ -154,10 +154,12 @@ class FlatLayout:
 
     def views(self, flat) -> dict:
         """``{path: view}`` into one ``(N,)`` row (a tensor, or
-        :class:`Groups` of the groups' rows)."""
+        :class:`Groups` of the groups' rows); a :class:`ShardedParams` for a
+        model-parallel rank's layout with its model axis."""
         bufs = parts(flat)
-        return {name: bufs[g][off:off + n].view(shape)
-                for name, shape, off, n, g in self._spans()}
+        out = {name: bufs[g][off:off + n].view(shape)
+               for name, shape, off, n, g in self._spans()}
+        return out if self.axis is None else ShardedParams(self, out)
 
     def autograd_leaves(self, flat, grad) -> dict:
         """``{path: leaf}`` views of the row ``flat`` that require grad and
@@ -189,6 +191,15 @@ class ShardedParams(dict):
         super().__init__(*args)
         self.layout = layout
         self._dims = dict(zip(layout.names, layout.model_dims))
+        self.resolved = False    # transformer.serving_params has run on it
+
+    def replace(self, leaves: dict, whole: bool = False) -> "ShardedParams":
+        """A copy with ``leaves`` in place of its own; ``whole``: they are
+        the dense leaves, held whole from now on (model dim None)."""
+        out = ShardedParams(self.layout, {**self, **leaves})
+        out._dims = {**self._dims, **(dict.fromkeys(leaves) if whole else {})}
+        out.resolved = self.resolved
+        return out
 
     def dim(self, name: str, layer: bool = False):
         """The model dim of leaf ``name`` (None: held whole); ``layer``:

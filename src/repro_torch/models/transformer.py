@@ -37,7 +37,18 @@ cross-entropy (``repro_torch.distributed.tensor_parallel``).  A leaf whose
 block the split does not consume (the norm scales; ``wk`` / ``wv`` where a
 rank's block cuts a head) is gathered over the model group at use and its
 gradient cut back.  Every other family gathers every leaf at use and
-computes replicated (:func:`_gathered`).  Serving takes dense params.
+computes replicated (:func:`_gathered`).
+
+Serving on a rank of the ``(data, model)`` grid takes the same
+``ShardedParams`` and the rank's batch rows.  ``prefill`` and
+``decode_step`` of a Megatron-split config run :func:`_tp_block` /
+:func:`_tp_decode_block`: the rank's cache holds the KV heads its query
+heads read (:func:`_kv_heads`), and the logits are its vocab block, the
+reference's ``P("data", "model")`` (:func:`logits_split`).  Every other
+family serves through the gathered leaves, its cache whole over model and
+its logits whole on every rank.  :func:`serving_params` resolves a rank's
+params once (``generate`` calls it once per call).  ``init_cache(...,
+layout=)`` gives a rank's cache.
 """
 
 from __future__ import annotations
@@ -51,7 +62,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
-from repro_torch.models.convert import FlatLayout, ShardedParams
+from repro_torch.models.convert import STACKED, FlatLayout, ShardedParams
 
 F32 = torch.float32
 MOE_AUX_COEF = 0.01
@@ -269,7 +280,7 @@ def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
     / ``vx`` (B, enc_len, KVH, hd); a recurrent block its state after the
     last position (``layers.mamba2_apply`` / ``rglru_apply``)."""
     if isinstance(p.params, ShardedParams):
-        return _tp_block(p, kind, x, positions, cfg)
+        return _tp_block(p, kind, x, positions, cfg, kv_out)
     mixer, ffn = _parse_kind(kind)
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
     if mixer in RECURRENT:
@@ -418,6 +429,9 @@ def _gathered(params: ShardedParams) -> dict:
             out[name] = leaf
         elif isinstance(leaf, list):
             out[name] = [TP.gather(t, axis, d) for t in leaf]
+        elif name.startswith(STACKED):
+            # a stacked leaf as one tensor (a layout's views): layer by layer
+            out[name] = [TP.gather(t, axis, d) for t in leaf.unbind(0)]
         else:
             out[name] = TP.gather(leaf, axis, d)
     return out
@@ -431,11 +445,37 @@ def _resolve(params: dict, cfg) -> dict:
     return params
 
 
-def _dense_only(params: dict, what: str) -> None:
-    if isinstance(params, ShardedParams):
-        raise NotImplementedError(
-            f"{what} on a model-parallel rank's params: serving on the (data, model) mesh "
-            f"is not ported (ROADMAP.md queue 1); gather the params first")
+NORM_SCALES = ("ln1.scale", "ln2.scale", "final_norm.scale")
+
+
+def serving_params(params: dict, cfg) -> dict:
+    """The params ``prefill`` / ``decode_step`` compute on, resolved once
+    (``train.serve.generate`` does it once per call; each of the two does
+    it on params not yet resolved): dense ones as they are; a
+    Megatron-split rank's ``ShardedParams`` once every attention layer's KV
+    heads are known to be servable (:func:`_rank_kv`), its norm scales
+    gathered (a stacked one in one call) and held whole from then on; the
+    other families' every leaf gathered (:func:`_gathered`)."""
+    if not isinstance(params, ShardedParams) or params.resolved:
+        return params
+    if not megatron_split(cfg):
+        return _gathered(params)
+    for _, _, p in _layers(params, cfg):
+        _rank_kv(p, cfg)
+    axis = params.layout.axis
+    out = params.replace({name: TP.gather(leaf, axis, params.dim(name))
+                          for name, leaf in params.items()
+                          if name.endswith(NORM_SCALES) and params.dim(name) is not None},
+                         whole=True)
+    out.resolved = True
+    return out
+
+
+def logits_split(params: dict, cfg) -> bool:
+    """``prefill`` / ``decode_step`` on ``params`` return the rank's vocab
+    block of the logits (a Megatron-split config on a rank whose output
+    table is vocab-sharded), not the whole padded vocab."""
+    return megatron_split(cfg) and _vocab_split(params, cfg)
 
 
 def _full(params: dict, name: str):
@@ -445,16 +485,34 @@ def _full(params: dict, name: str):
     return TP.gather(params[name], params.layout.axis, params.dim(name))
 
 
-def _tp_block(p: _Leaves, kind: str, x, positions, cfg):
+def _tp_block(p: _Leaves, kind: str, x, positions, cfg, kv_out=None):
     """One ``attn`` / ``swa`` block with a dense FFN on a model-parallel
-    rank; returns (x, None) with x the same on every rank of the group."""
+    rank; returns (x, None) with x the same on every rank of the group.
+    With a dict ``kv_out`` the rank's keys and values land in it, as
+    :func:`_apply_block`'s (its KV heads: :func:`_rank_kv`)."""
     mixer, _ = _parse_kind(kind)
     axis = p.params.layout.axis
     h = L.rmsnorm(p.full("ln1.scale"), x, cfg.norm_eps)
     window = cfg.window if mixer == "swa" else None
-    x = x + _tp_attention(p, h, positions, cfg, window, axis)
+    x = x + _tp_attention(p, h, positions, cfg, window, axis, kv_out)
     h = L.rmsnorm(p.full("ln2.scale"), x, cfg.norm_eps)
     return x + _tp_mlp(p, h, cfg, axis), None
+
+
+def _tp_decode_block(p: _Leaves, kind: str, entry: dict, x, pos: int, cfg):
+    """:func:`_decode_block` of an ``attn`` / ``swa`` block with a dense FFN
+    on a model-parallel rank: the rank's query heads, its KV heads written
+    into its cache ``entry`` and attended over (the ``swa`` ring as the
+    dense block's), ``wo`` row-parallel with one all-reduce, the FFN as
+    :func:`_tp_mlp`."""
+    mixer, _ = _parse_kind(kind)
+    axis = p.params.layout.axis
+    h = L.rmsnorm(p.full("ln1.scale"), x, cfg.norm_eps)
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    q, k, v, split = _tp_qkv(p, h, positions, cfg, axis)
+    x = x + _tp_out(p, _cache_attend(entry, mixer, q, k, v, pos), axis, split)
+    h = L.rmsnorm(p.full("ln2.scale"), x, cfg.norm_eps)
+    return x + _tp_mlp(p, h, cfg, axis)
 
 
 def _kv_heads(cfg, model: int, index: int) -> tuple:
@@ -467,20 +525,37 @@ def _kv_heads(cfg, model: int, index: int) -> tuple:
         return h0 // rep, hl // rep
     if rep % hl == 0:
         return h0 // rep, 1
-    raise NotImplementedError(f"{cfg.name}: {hl} query heads per rank cut the KV groups of "
-                              f"{rep} heads across ranks")
+    raise NotImplementedError(
+        f"{cfg.name}: {hl} query heads per rank cut the KV groups of {rep} heads across "
+        f"ranks; such a split is neither trained nor served over the model axis "
+        f"(ROADMAP.md queue 1, 'Refused')")
 
 
-def _tp_attention(p: _Leaves, h, positions, cfg, window, axis):
-    """Attention over the rank's whole query heads (``wq`` column- and
-    ``wo`` row-parallel, one all-reduce of the output); replicated over
-    gathered leaves where ``wq`` / ``wo``'s blocks are not whole heads."""
-    M, H, KVH, hd = axis.world, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    if not (p.dim("attn.wq") == 1 and p.dim("attn.wo") == 0 and H % M == 0):
+def _heads_split(p: _Leaves, cfg, model: int) -> bool:
+    """The rank holds whole query heads of ``wq`` (column-parallel) and
+    their rows of ``wo`` (row-parallel): attention is split by heads."""
+    return p.dim("attn.wq") == 1 and p.dim("attn.wo") == 0 and cfg.n_heads % model == 0
+
+
+def _rank_kv(p: _Leaves, cfg) -> tuple:
+    """(first KV head, KV heads) a model-parallel rank computes and caches
+    for this layer: those of :func:`_kv_heads` where attention is split by
+    heads, else all of them (the replicated compute over gathered leaves)."""
+    lay = p.params.layout
+    if not _heads_split(p, cfg, lay.model):
+        return 0, cfg.n_kv_heads
+    return _kv_heads(cfg, lay.model, lay.model_index)
+
+
+def _tp_qkv(p: _Leaves, h, positions, cfg, axis) -> tuple:
+    """(q, k, v, split): the rank's query heads (``wq`` column-parallel) and
+    the KV heads they read, or every head over gathered leaves where
+    ``wq`` / ``wo``'s blocks are not whole heads (``split`` False)."""
+    M, KVH, hd = axis.world, cfg.n_kv_heads, cfg.hd
+    if not _heads_split(p, cfg, M):
         q, k, v = L.attn_qkv(p.full("attn.wq"), p.full("attn.wk"), p.full("attn.wv"), h,
                              positions, cfg)
-        out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
-        return L.attn_proj_out(p.full("attn.wo"), out)
+        return q, k, v, False
     hc = TP.copy_to(h, axis)
     if KVH % M == 0 and p.dim("attn.wk") == 1 and p.dim("attn.wv") == 1:
         wk, wv, nkv = p("attn.wk"), p("attn.wv"), KVH // M
@@ -490,9 +565,29 @@ def _tp_attention(p: _Leaves, h, positions, cfg, window, axis):
         kv0, nkv = _kv_heads(cfg, M, axis.rank)
         wk = p.full_partial("attn.wk")[:, kv0 * hd:(kv0 + nkv) * hd]
         wv = p.full_partial("attn.wv")[:, kv0 * hd:(kv0 + nkv) * hd]
-    q, k, v = L.attn_qkv(p("attn.wq"), wk, wv, hc, positions, cfg, heads=(H // M, nkv))
-    out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
+    q, k, v = L.attn_qkv(p("attn.wq"), wk, wv, hc, positions, cfg,
+                         heads=(cfg.n_heads // M, nkv))
+    return q, k, v, True
+
+
+def _tp_out(p: _Leaves, out, axis, split: bool):
+    """The attention output's projection: ``wo`` row-parallel with one
+    all-reduce, or over the gathered ``wo``."""
+    if not split:
+        return L.attn_proj_out(p.full("attn.wo"), out)
     return TP.reduce_from(L.attn_proj_out(p("attn.wo"), out), axis)
+
+
+def _tp_attention(p: _Leaves, h, positions, cfg, window, axis, kv_out=None):
+    """Attention over the rank's whole query heads (``wq`` column- and
+    ``wo`` row-parallel, one all-reduce of the output); replicated over
+    gathered leaves where ``wq`` / ``wo``'s blocks are not whole heads."""
+    q, k, v, split = _tp_qkv(p, h, positions, cfg, axis)
+    if kv_out is not None:
+        w = k.shape[1] if window is None else min(window, k.shape[1])
+        kv_out.update(k=k[:, -w:], v=v[:, -w:])
+    out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
+    return _tp_out(p, out, axis, split)
 
 
 def _tp_mlp(p: _Leaves, h, cfg, axis):
@@ -713,7 +808,8 @@ def _cache_len(kind: str, cfg, max_len: int) -> int:
     return min(cfg.window, max_len) if _parse_kind(kind)[0] == "swa" else max_len
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> dict:
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
+               layout: FlatLayout = None) -> dict:
     """Zero cache with the reference's structure: ``{"blocks": {"p<j>":
     entry}, "rem": (entry, ...)}``, stacked leaves with a leading
     (n_scan_blocks,) axis, in ``dtype`` (default the activation dtype)
@@ -723,11 +819,18 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> dict:
     ``kx`` / ``vx`` (batch, enc_len, KVH, hd); an ``ssm`` layer's is
     ``{"state": (batch, H, P, N) f32, "conv": (batch, width - 1, d_inner +
     2N)}``, an ``rglru`` layer's ``{"h": (batch, d_rnn) f32, "conv":
-    (batch, width - 1, d_rnn)}``."""
+    (batch, width - 1, d_rnn)}``.
+
+    A serving rank passes its batch rows as ``batch`` and its ``layout``
+    (``tensor_parallel.rank_layout``): a Megatron-split config's attention
+    layers then cache the KV heads the rank computes (:func:`_rank_kv`) in
+    place of KVH; every other family's cache is whole over the model axis."""
     check_supported(cfg)
     dtype = dtype or cfg.act_dtype
+    rank = (ShardedParams(layout) if layout is not None and layout.model > 1
+            and megatron_split(cfg) else None)
 
-    def entry(kind, lead=()):
+    def entry(kind, pre, lead=()):
         mixer = _parse_kind(kind)[0]
         if mixer == "ssm":
             return L.mamba2_init_cache(cfg, batch, dtype, lead, device)
@@ -737,14 +840,15 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> dict:
         lens = {"k": n, "v": n}
         if mixer == "xattn":
             lens.update(kx=cfg.enc_len, vx=cfg.enc_len)
-        return {name: torch.zeros(lead + (batch, n, cfg.n_kv_heads, cfg.hd), dtype=dtype,
-                                  device=device)
+        kvh = cfg.n_kv_heads if rank is None else _rank_kv(_Leaves(rank, pre), cfg)[1]
+        return {name: torch.zeros(lead + (batch, n, kvh, cfg.hd), dtype=dtype, device=device)
                 for name, n in lens.items()}
 
-    blocks = ({f"p{j}": entry(kind, (cfg.n_scan_blocks,)) for j, kind in enumerate(cfg.pattern)}
-              if cfg.n_scan_blocks > 0 else {})
+    blocks = ({f"p{j}": entry(kind, f"decoder.blocks.p{j}.", (cfg.n_scan_blocks,))
+               for j, kind in enumerate(cfg.pattern)} if cfg.n_scan_blocks > 0 else {})
     return {"blocks": blocks,
-            "rem": tuple(entry(cfg.pattern[i]) for i in range(cfg.n_rem_layers))}
+            "rem": tuple(entry(cfg.pattern[i], f"decoder.rem.{i}.")
+                         for i in range(cfg.n_rem_layers))}
 
 
 def _cache_entry(cache: dict, where) -> dict:
@@ -769,9 +873,12 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
     ``remat`` runs each pattern repeat (and the encoder's blocks) under
     activation checkpointing, as the reference's prefill; under
     ``torch.no_grad`` nothing is saved and each body runs once.  ``unroll``
-    is a no-op (:func:`hidden_states`)."""
+    is a no-op (:func:`hidden_states`).  On a serving rank (``params`` its
+    ``ShardedParams``, ``batch`` its rows): the rank's cache
+    (:func:`init_cache`'s ``layout``) and, where :func:`logits_split`, its
+    vocab block of the logits (B, padded vocab / model)."""
     check_supported(cfg)
-    _dense_only(params, "prefill")
+    params = serving_params(params, cfg)
     x, enc_out, _ = _inputs(params, batch, cfg, remat)
     positions = torch.arange(x.shape[1], device=x.device)
     stacked: dict = {}
@@ -794,7 +901,7 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
                               for name in entries[0]}
                         for key, entries in stacked.items()},
              "rem": tuple(rem)}
-    h = L.rmsnorm(params["final_norm.scale"], x[:, -1:], cfg.norm_eps)
+    h = L.rmsnorm(_full(params, "final_norm.scale"), x[:, -1:], cfg.norm_eps)
     return _logits(params, h, cfg)[:, 0], cache
 
 
@@ -818,8 +925,18 @@ def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg):
         return _ffn_residual(p, ffn, x + out[:, None], cfg)[0]
     positions = torch.arange(pos, pos + 1, device=x.device)
     q, k, v = L.attn_qkv(p("attn.wq"), p("attn.wk"), p("attn.wv"), h, positions, cfg)
+    x = x + L.attn_proj_out(p("attn.wo"), _cache_attend(entry, mixer, q, k, v, pos))
+    if mixer == "xattn":
+        x = _cross_residual(p, x, entry["kx"], entry["vx"], cfg)
+    return _ffn_residual(p, ffn, x, cfg)[0]
+
+
+def _cache_attend(entry: dict, mixer: str, q, k, v, pos: int):
+    """One token's key and value written into its slot of the entry's
+    ``k`` / ``v`` and its query attended over the valid slots
+    (:func:`_decode_block`'s full-attention slots or ``swa`` ring)."""
     n_slots = entry["k"].shape[1]
-    idx = torch.arange(n_slots, device=x.device)
+    idx = torch.arange(n_slots, device=q.device)
     if mixer == "swa":
         slot = pos % n_slots
         valid = idx + n_slots * torch.div(pos - idx, n_slots, rounding_mode="floor") >= 0
@@ -828,11 +945,7 @@ def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg):
         valid = idx <= pos
     entry["k"][:, slot:slot + 1].copy_(k)
     entry["v"][:, slot:slot + 1].copy_(v)
-    out = L.decode_attention(q, entry["k"], entry["v"], valid)
-    x = x + L.attn_proj_out(p("attn.wo"), out)
-    if mixer == "xattn":
-        x = _cross_residual(p, x, entry["kx"], entry["vx"], cfg)
-    return _ffn_residual(p, ffn, x, cfg)[0]
+    return L.decode_attention(q, entry["k"], entry["v"], valid)
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg,
@@ -842,13 +955,16 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg,
     returns a new cache, the keys, values and recurrent states are written
     into ``cache`` in place and the same dict is returned; nothing is read
     back to the host but a MoE layer's group sizes (``layers.moe_apply``).
-    ``unroll`` is a no-op (:func:`hidden_states`)."""
+    ``unroll`` is a no-op (:func:`hidden_states`).  On a serving rank: its
+    rows, its cache (:func:`init_cache`'s ``layout``) and, where
+    :func:`logits_split`, its vocab block of the logits, as :func:`prefill`."""
     check_supported(cfg)
-    _dense_only(params, "decode_step")
+    params = serving_params(params, cfg)
+    block = _tp_decode_block if isinstance(params, ShardedParams) else _decode_block
     x = _embed(params, tokens[:, None], cfg)
     for where, kind, p in _layers(params, cfg):
-        x = _decode_block(p, kind, _cache_entry(cache, where), x, pos, cfg)
-    h = L.rmsnorm(params["final_norm.scale"], x, cfg.norm_eps)
+        x = block(p, kind, _cache_entry(cache, where), x, pos, cfg)
+    h = L.rmsnorm(_full(params, "final_norm.scale"), x, cfg.norm_eps)
     return _logits(params, h, cfg)[:, 0], cache
 
 

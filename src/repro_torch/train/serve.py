@@ -19,6 +19,14 @@ of 128 in both packages (the SSD's chunk).  The decode loop reads nothing back t
 group sizes: positions are Python ints and the tokens stay on the device
 until the end.
 
+On a rank of the ``(data, model)`` serving grid (``topo``, from
+``distributed.mesh.serving_topology``) ``generate`` takes the rank's params
+(its blocks: ``tensor_parallel.topology_layout``) and the whole prompt
+batch, serves its data row's rows (``tensor_parallel.serve_rows``) from its
+cache, picks each token over the model group (``vocab_argmax`` where the
+logits are the rank's vocab block) and gathers the rows' tokens over the
+data group: every rank returns the whole batch's tokens.
+
 The reference sizes the cache ``S + max_new_tokens`` whatever the prefix
 (``src/repro/train/serve.py:30``), so a VLM's prefill overruns it: its
 splice raises when ``max_new_tokens < n_patches``, and otherwise its decode
@@ -42,8 +50,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import comm
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.groups import Groups, each
 from repro_torch.models import transformer as T
+from repro_torch.models.convert import ShardedParams
 
 
 def _clock(dev: torch.device) -> float:
@@ -61,6 +72,7 @@ def generate(
     rng: Optional[torch.Generator] = None,
     extra_batch: Optional[dict] = None,  # {"frames": ...} (encdec) / {"patches": ...} (vlm)
     device="cuda",
+    topo=None,
 ):
     """Greedy (or temperature) decoding.  Returns (tokens (B, new) int64 on
     ``device``, stats with ``prefill_s``, ``decode_s`` and ``tok_per_s``).
@@ -76,38 +88,57 @@ def generate(
     reference's batch dict, an encdec model's ``frames`` (B, enc_len,
     d_model) or a VLM's ``patches`` (B, n_patches, d_model), moved to
     ``device``.
-    """
+
+    ``topo``: a serving rank's topology (``mesh.serving_topology``); the
+    params are then the rank's blocks (its flat buffers or its
+    ``ShardedParams``) and every rank passes the same whole batch.  Each
+    token is the vocab-parallel argmax over the model group where the
+    logits are the rank's vocab block, with the rank's Gumbel noise for
+    its block from ``rng``, by default ``tensor_parallel.noise_generator(0,
+    model index)`` (pass ``noise_generator(seed, topo.model_index, device)``
+    for another seed); where the logits are whole on every rank, the dense
+    pick with ``noise_generator(0, 0)``.  Each pick draws the whole batch's
+    ``(B, block)`` noise and keeps the rank's rows, so every row of the
+    batch has noise of its own and the tokens do not depend on the data
+    split.  The stats are the rank's."""
     T.check_supported(cfg)
     dev = torch.device(device)
-    if isinstance(params, (torch.Tensor, Groups)):
-        params = T.layout(cfg).views(each(lambda t: t.to(dev), params))
-    else:
-        params = {k: v.to(dev) for k, v in params.items()}
+    params = T.serving_params(_device_params(params, cfg, topo, dev), cfg)
     prompt = torch.as_tensor(prompt_tokens, dtype=torch.long).to(dev)
     batch = {"tokens": prompt, **{k: torch.as_tensor(v).to(dev)
                                   for k, v in (extra_batch or {}).items()}}
-    B, S = prompt.shape
+    rows = TP.serve_rows(prompt.shape[0], topo)
+    batch = {k: v[rows] for k, v in batch.items()}
+    B, S = batch["tokens"].shape
     n_prefix = batch["patches"].shape[1] if cfg.family == "vlm" else 0
     start = n_prefix + S                 # the first decoded position
     max_len = start + max_new_tokens
+    split = topo is not None and T.logits_split(params, cfg)
+    rank_layout = params.layout if isinstance(params, ShardedParams) else None
 
     with torch.no_grad():
         t0 = _clock(dev)
         logits, pcache = T.prefill(params, batch, cfg, remat=False)
-        cache = T.init_cache(cfg, B, max_len, cfg.act_dtype, device=dev)
+        cache = T.init_cache(cfg, B, max_len, cfg.act_dtype, device=dev, layout=rank_layout)
         cache = _splice_cache(cache, pcache, cfg, start)
         del pcache
         prefill_s = _clock(dev) - t0
 
-        rng = rng if rng is not None else torch.Generator(device=dev).manual_seed(0)
+        if temperature > 0.0 and rng is None:
+            rng = (torch.Generator(device=dev).manual_seed(0) if topo is None else
+                   TP.noise_generator(0, topo.model_index if split else 0, dev))
 
         def pick(logits):
-            logits = logits[:, : cfg.vocab_size]
-            if temperature <= 0.0:
-                return torch.argmax(logits, dim=-1)
-            u = torch.rand(logits.shape, generator=rng, dtype=torch.float32, device=dev)
-            gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-            return torch.argmax(logits / temperature + gumbel, dim=-1)
+            if not split:
+                logits = logits[:, : cfg.vocab_size]
+            if temperature > 0.0:
+                # the whole batch's noise for this vocab block, the rank's
+                # rows cut from it: every row of the batch draws its own
+                noise = gumbel((prompt.shape[0], logits.shape[-1]), rng, dev)[rows]
+                logits = logits / temperature + noise
+            if split:
+                return TP.vocab_argmax(logits, topo.mp, cfg.vocab_size)
+            return torch.argmax(logits, dim=-1)
 
         tok = pick(logits)
         out = [tok]
@@ -117,11 +148,34 @@ def generate(
             tok = pick(logits)
             out.append(tok)
         decode_s = _clock(dev) - t0
-    return torch.stack(out, dim=1), {
+    toks = torch.stack(out, dim=1)
+    if topo is not None and rows.stop - rows.start < prompt.shape[0]:
+        toks = comm.all_gather_dim(toks, topo.data, 0)
+    return toks, {
         "prefill_s": prefill_s,
         "decode_s": decode_s,
         "tok_per_s": (max_new_tokens - 1) * B / max(decode_s, 1e-9),
     }
+
+
+def gumbel(shape, rng: torch.Generator, dev) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape`` (f32) from ``rng``'s uniforms."""
+    u = torch.rand(shape, generator=rng, dtype=torch.float32, device=dev)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def _device_params(params, cfg, topo, dev):
+    """``params`` as ``{path: view}`` on ``dev``: a serving rank's as its
+    ``ShardedParams`` (``tensor_parallel.topology_layout``)."""
+    if isinstance(params, ShardedParams):
+        return params.replace({k: v.to(dev) for k, v in params.items()})
+    if isinstance(params, (torch.Tensor, Groups)):
+        lay = TP.topology_layout(cfg, topo) if topo is not None else T.layout(cfg)
+        return lay.views(each(lambda t: t.to(dev), params))
+    if topo is not None and topo.model > 1:
+        raise TypeError("a serving rank's params are its flat buffers or its ShardedParams "
+                        "(a plain dict holds no rank layout)")
+    return {k: v.to(dev) for k, v in params.items()}
 
 
 def _splice_cache(big: dict, small: dict, cfg, prompt_len: int) -> dict:

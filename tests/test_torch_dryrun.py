@@ -30,6 +30,7 @@ from repro.configs import INPUT_SHAPES as J_INPUT_SHAPES
 from repro.configs import load_arch as j_load_arch
 from repro.configs import specs as JSPECS
 from repro_torch.configs import INPUT_SHAPES, arch_supports_shape, load_arch, specs
+from repro_torch.distributed.comm import scaled_sum
 from repro_torch.launch import dryrun as DR
 from repro_torch.models import convert
 from repro_torch.models import layers as L
@@ -195,8 +196,8 @@ POD_DENSE = ("nano", "gpt2_small_smoke", "minitron_4b_smoke", "granite_34b_smoke
 def test_pod_mesh_records(tmp_path, capsys):
     """Every dense arch's train_4k under ``--mesh single`` is ``ok`` (the
     SMOKE configs, and minitron_4b at full width), with the reference's
-    fields; serving shapes say ``not_ported``; ``--mesh card`` records are
-    as before."""
+    fields; so are its serving shapes, on the (data, model) serving grid;
+    ``--mesh card`` records are as before."""
     recs = DR.main(["--arch", ",".join(POD_DENSE + ("minitron_4b",)), "--shape", "all",
                     "--mesh", "single", "--outdir", str(tmp_path)])
     train = [r for r in recs if r["shape"] == "train_4k"]
@@ -213,10 +214,11 @@ def test_pod_mesh_records(tmp_path, capsys):
         assert r["fits_per_card"] == (r["memory"]["peak_bytes"] <= DR.CARD_BYTES)
         assert (tmp_path / f"{r['arch']}.train_4k.singlepod.json").exists()
     serving = [r for r in recs if r["shape"] != "train_4k"]
-    assert serving and all(r["status"] == "not_ported" and "ROADMAP" in r["reason"]
-                           for r in serving)
+    assert len(serving) == 2 * len(train) + 1         # gemma3 admits long_500k
+    for r in serving:
+        _assert_serving_record(r, multi=False)
     out = capsys.readouterr().out
-    assert "ERR" not in out and out.count("NP ") == len(serving)
+    assert "ERR" not in out and out.count("OK ") == len(recs)
     card = DR.main(["--arch", "nano", "--shape", "train_4k", "--outdir", str(tmp_path)])
     assert "mesh" not in card[0] and card[0]["fits_one_card"]
     assert (tmp_path / "nano.train_4k.json").exists()
@@ -274,3 +276,125 @@ def test_meta_collectives_equal_a_real_run():
                        [{"tokens": tokens}]), timeout_s=300)
     assert ranks[0]["comm"] == rec["comm"]
     assert DR.collectives(ranks[0]["comm"]) == DR.collectives(rec["comm"])
+
+
+def _assert_serving_record(r: dict, multi: bool) -> None:
+    """A pod mesh's serving record: ``ok``, rank 0 of (16, 16) or (32, 16)
+    with the training records' fields and the serving ones."""
+    assert r["status"] == "ok", (r["arch"], r["shape"], r.get("error"))
+    assert r["mesh"] == {"data": 32 if multi else 16, "model": 16}
+    assert r["n_chips"] == 512 if multi else 256
+    assert r["kind"] == INPUT_SHAPES[r["shape"]].kind and r["flops"] > 0
+    mem = r["memory"]
+    assert set(mem) >= {"params_bytes", "cache_bytes_per_rank", "peak_bytes",
+                        "cache_bytes_per_rank_reference_placement"}
+    assert mem["peak_bytes"] >= mem["params_bytes"] + mem["cache_bytes_per_rank"] * (
+        r["kind"] == "decode")
+    assert r["data_axis"] == DR.DATA_AXIS
+    B = INPUT_SHAPES[r["shape"]].global_batch
+    assert r["batch_over_data"] == (B % r["mesh"]["data"] == 0)
+    assert r["batch_per_rank"] == (B // r["mesh"]["data"] if r["batch_over_data"] else B)
+    assert set(r["collectives"]) == {"all-reduce", "all-gather", "reduce-scatter",
+                                     "all-to-all", "collective-permute", "wire_bytes"}
+    assert r["t_collective_s"] == r["collectives"]["wire_bytes"] / DR.LINK_BYTES_PER_S
+    assert r["dominant"] in ("compute", "memory", "collective")
+    assert r["fits_per_card"] == (mem["peak_bytes"] <= DR.CARD_BYTES)
+    # the meta run's collectives are the placement's reckoning, split by
+    # heads or not (every SMOKE config's attention at 16 model ranks is not)
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch.train import resolve_arch
+
+    cfg = resolve_arch(r["arch"])[0]
+    lay = TP.rank_layout(cfg, r["mesh"]["model"], 0)
+    call = TP.serve_collectives(cfg, lay, r["batch_per_rank"], r["seq"], r["kind"])
+    # a prefill on the rank's blocks resolves them first; a decode step
+    # runs on params resolved once before it, as generate's steps
+    resolve = TP.serve_collectives(cfg, lay, r["batch_per_rank"], r["seq"], "serving_params")
+    assert r["comm"] == (scaled_sum((1, resolve), (1, call)) if r["kind"] == "prefill" else call)
+
+
+def test_pod_serving_records_for_every_arch(tmp_path):
+    """prefill_32k and decode_32k under ``--mesh single`` are ``ok`` for every
+    arch id (SMOKE configs), and long_500k where the reference admits it."""
+    recs = DR.main(["--arch", "all", "--shape", "prefill_32k,decode_32k,long_500k", "--smoke",
+                    "--mesh", "single", "--outdir", str(tmp_path)])
+    admitted = [(a, s) for a, s, ok in DR.combinations(
+        "all", "prefill_32k,decode_32k,long_500k", smoke=True) if ok]
+    assert [(r["arch"], r["shape"]) for r in recs] == admitted
+    assert {s for _, s in admitted} == {"prefill_32k", "decode_32k", "long_500k"}
+    for r in recs:
+        _assert_serving_record(r, multi=False)
+        assert (tmp_path / f"{r['arch']}.{r['shape']}.singlepod.json").exists()
+
+
+@pytest.mark.parametrize("arch,shape,multi", [("minitron_4b", "decode_32k", False),
+                                              ("granite_34b", "prefill_32k", True),
+                                              ("gemma3_1b", "long_500k", False),
+                                              ("mamba2_780m", "decode_32k", False)])
+def test_serving_record_cache_bytes_are_the_rank_init_cache(arch, shape, multi):
+    """A serving record's cache bytes per rank equal the bytes of the rank's
+    ``init_cache`` (its rows, its KV heads on the Megatron path) to the
+    byte; the reference placement's equal each leaf's bytes over the mesh
+    axes ``cache_pspecs`` puts on it.  minitron_4b at 16 model ranks: its 24
+    query heads do not split 16 ways, so every rank computes every head and
+    holds all 8 KV heads; granite_34b's one KV head is on every rank (the
+    reference splits its head dim instead)."""
+    from repro_torch.distributed import mesh as M
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TP
+
+    cfg = load_arch(arch).FULL
+    rec = DR.reckon_pod(arch, shape, multi)
+    dims = M.mesh_dims(M.serving_mesh(M.make_production_mesh(multi_pod=multi)))
+    s = INPUT_SHAPES[shape]
+    b = rec["batch_per_rank"]
+    lay = TP.rank_layout(cfg, dims["model"], 0)
+    mine = T.init_cache(cfg, b, s.seq_len, device="meta", layout=lay)
+    assert rec["memory"]["cache_bytes_per_rank"] == DR.cache_bytes(mine)
+    dense = T.init_cache(cfg, s.global_batch, s.seq_len, device="meta")
+    leaves = dict(convert.flatten_tree(dense, is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    want = 0
+    for path, spec in SH.cache_pspecs(dense, dims["data"], dims["model"]).items():
+        cut = (dims["data"] if "data" in spec else 1) * (dims["model"] if "model" in spec else 1)
+        want += leaves[path].numel() * leaves[path].element_size() // cut
+    assert rec["memory"]["cache_bytes_per_rank_reference_placement"] == want
+    if arch == "granite_34b":
+        assert rec["memory"]["cache_bytes_per_rank"] == 16 * want   # MQA: 1 head, hd / 16
+    if arch == "mamba2_780m":
+        assert rec["memory"]["cache_bytes_per_rank"] == want * 16   # state whole over model
+
+
+def test_meta_serving_collectives_equal_a_real_run():
+    """The serving reckoning's collectives (prefill, decode, generate), per
+    name and group and per kind, equal rank 0's of a real run of the same
+    calls on 4 gloo ranks of (data 2, model 2), minitron_4b SMOKE."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.spawn import run_ranks
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_ranks
+
+    cfg = load_arch("minitron_4b").SMOKE
+    Bt, S, steps, new = 4, 16, 2, 3
+    rng = np.random.default_rng(0)
+    case = {"cfg": cfg, "model": 2, "row": T.init_params(torch.Generator().manual_seed(0), cfg),
+            "batch": {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (Bt, S)))},
+            "dec_tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (steps, Bt))),
+            "new": new, "temperature": 0.0}
+    rank0 = run_ranks(torch_ranks.serve_rank, 4, ([case],), timeout_s=300)[0][0]
+    prefill = DR.reckon_serve(cfg, "prefill", Bt, S, data=2, model=2)
+    decode = DR.reckon_serve(cfg, "decode", Bt, S + new, data=2, model=2)
+    gen = DR.reckon_serve(cfg, "generate", Bt, S, data=2, model=2, new=new)
+    scaled = {k: {"calls": steps * v["calls"], "bytes": steps * v["bytes"]}
+              for k, v in decode["comm"].items()}
+    assert rank0["prefill"]["comm"] == prefill["comm"]
+    assert rank0["decode"]["comm"] == scaled
+    assert rank0["generate"]["comm"] == gen["comm"]
+    assert "all_gather@data" in gen["comm"] and "all_reduce_sum@model" in prefill["comm"]
+    for ours, theirs in ((rank0["prefill"]["comm"], prefill), (rank0["generate"]["comm"], gen)):
+        assert DR.collectives(ours) == DR.collectives(theirs["comm"])
+    assert gen["memory"]["cache_bytes_per_rank"] == DR.cache_bytes(T.init_cache(
+        cfg, Bt // 2, S + new, layout=TP.rank_layout(cfg, 2, 0)))

@@ -151,14 +151,20 @@ def test_model_axis_loss_and_grads_match_jax(model_axis_runs, arch, M):
 def test_a_split_config_splits():
     """minitron_4b SMOKE at 4 ranks: whole query heads, d_ff and vocab rows
     on each rank; wk / wv (2 KV heads of 32 over 4 ranks) cut a head, so
-    they are gathered (their gradient reduce-scattered)."""
+    they are gathered (their gradient reduce-scattered).  Serving a rank's
+    params refuses only a head split that cuts KV groups (6 query heads on
+    3 KV heads over 2 ranks), before it reads the batch; serving itself is
+    held in ``test_torch_serve_model_axis.py``."""
+    import dataclasses
+
     cfg = load_arch("minitron_4b").SMOKE
     comm = TP.microbatch_collectives(cfg, TP.rank_layout(cfg, 4, 0), B, S)
     assert comm["reduce_scatter@model"]["calls"] == 2 * cfg.n_layers
     assert "reduce_scatter@model" not in TP.microbatch_collectives(
         cfg, TP.rank_layout(cfg, 2, 0), B, S)
+    cut = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3, name="kv_cut")
     with pytest.raises(NotImplementedError):
-        T.prefill(convert.ShardedParams(TP.rank_layout(cfg, 2, 0)), {}, cfg)
+        T.prefill(convert.ShardedParams(TP.rank_layout(cut, 2, 0)), {}, cut)
 
 
 def _adam_bound(t: int, b1: float = 0.9, b2: float = 0.95) -> float:

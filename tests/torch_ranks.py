@@ -628,3 +628,162 @@ def model_axis_rank(rank: int, world: int, cases: list, out_dir: str) -> list:
         del state, x0, step
         torch.cuda.empty_cache()
     return out
+
+
+def _recording(fn, into: list, at=None):
+    """``fn`` that appends each result (or its item ``at``) to ``into``."""
+    def wrapped(*a, **k):
+        r = fn(*a, **k)
+        into.append(r if at is None else r[at])
+        return r
+    return wrapped
+
+
+def serve_rank(rank: int, world: int, cases: list) -> list:
+    """Each serving case on this rank of the ``(data, model)`` grid of
+    ``world`` ranks (``mesh.serving_topology``).  A case is a dict: ``cfg``,
+    ``model`` (M), ``row`` (the dense ``(N,)`` params, cut to the rank's
+    blocks), ``batch`` (the whole batch dict of CPU tensors), ``dec_tokens``
+    ((steps, B) teacher-forced decode tokens), ``new`` (generate's tokens)
+    and ``temperature`` (0: greedy).  Returns per case: the rank's grid
+    place and rows; its prefill logits and cache; its init_cache of the
+    decode length and each teacher-forced ``decode_step``'s logits and the
+    cache after them (on params ``serving_params`` resolved first, its
+    collectives apart); generate's tokens (the whole batch's); each phase's
+    ``CommStats``; with a temperature, each pick's logits and the Gumbel
+    noise of each draw (the whole batch's rows for the rank's block)."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.comm import CommStats
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve as S
+
+    torch.set_num_threads(1)
+    out = []
+    for case in cases:
+        cfg, batch, dec = case["cfg"], case["batch"], case["dec_tokens"]
+        topo = mesh.serving_topology(dist.group.WORLD, model=case["model"])
+        mine = C.shard_flat(case["row"], T.layout(cfg), TP.topology_layout(cfg, topo))
+
+        def fresh():
+            t = dataclasses.replace(topo, stats=CommStats())
+            return t, TP.topology_layout(cfg, t).views(mine)
+
+        rows = TP.serve_rows(batch["tokens"].shape[0], topo)
+        local = {k: v[rows] for k, v in batch.items()}
+        b, s = local["tokens"].shape
+        n0 = s + (cfg.n_patches if cfg.family == "vlm" else 0)
+        res = {"rank": rank, "data_index": topo.worker_index, "model_index": topo.model_index,
+               "rows": (rows.start, rows.stop)}
+        with torch.no_grad():
+            t, params = fresh()
+            logits, small = T.prefill(params, local, cfg, remat=False)
+            # a copy: the splice passes recurrent states through, and decode
+            # then steps them in place
+            kept_cache = torch.utils._pytree.tree_map(torch.clone, small)
+            res["prefill"] = {"logits": logits, "cache": kept_cache, "comm": t.stats.as_dict()}
+            t, params = fresh()
+            params = T.serving_params(params, cfg)
+            resolved = t.stats.as_dict()
+            t.stats.reset()
+            cache = T.init_cache(cfg, b, n0 + case["new"], layout=getattr(params, "layout", None))
+            res["init_cache"] = {k: tuple(v.shape) for k, v in C.flatten_tree(
+                cache, is_leaf=lambda x: isinstance(x, torch.Tensor))}
+            cache = S._splice_cache(cache, small, cfg, n0)
+            steps = []
+            for i, tok in enumerate(dec):
+                logits, cache = T.decode_step(params, cache, tok[rows], n0 + i, cfg)
+                steps.append(logits)
+            res["decode"] = {"logits": steps, "cache": cache, "comm": t.stats.as_dict(),
+                             "serving_params_comm": resolved}
+        t, params = fresh()
+        extra = {k: v for k, v in batch.items() if k != "tokens"}
+        picks = {"logits": [], "noise": []}
+        gumbel, prefill, decode_step = S.gumbel, T.prefill, T.decode_step
+        if case["temperature"] > 0:
+            S.gumbel = _recording(gumbel, picks["noise"])
+            T.prefill = _recording(prefill, picks["logits"], 0)
+            T.decode_step = _recording(decode_step, picks["logits"], 0)
+        try:
+            toks, _ = S.generate(params, cfg, batch["tokens"], case["new"],
+                                 temperature=case["temperature"], extra_batch=extra,
+                                 device="cpu", topo=t)
+        finally:
+            S.gumbel, T.prefill, T.decode_step = gumbel, prefill, decode_step
+        res["generate"] = {"tokens": toks, "comm": t.stats.as_dict(), **picks}
+        out.append(res)
+    return out
+
+
+def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
+    """``chip_smoke.py``'s serving cases on this rank of the ``(data, model)``
+    grid of ``world`` ranks, one per case: ``(cfg, model, seed, prompt,
+    new)``.  Each draws the dense params on the card from ``seed`` (the
+    dense run's draw; one rank at a time), keeps this rank's blocks, warms
+    up with a 2-token
+    ``generate`` and then generates ``new`` greedy tokens for the whole
+    ``prompt`` batch (its data row's rows served here), its collectives
+    counted apart (the warm-up on the prompts' first 8 tokens).  Returns per
+    case: the rank's grid place and rows, the tokens (the whole batch's),
+    each pick's logits (its rows, and its vocab block where they are split;
+    on the CPU), ``generate``'s seconds and tokens/s, the peak
+    (``max_memory_allocated`` over the timed call, the blocks included), the
+    blocks' bytes, the bytes held beside them when the call starts (the
+    prompt, the cuBLAS workspace) and the ``CommStats``."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.comm import CommStats
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve as S
+    from repro_torch.train.trainer import set_matmul_precision
+
+    set_matmul_precision()
+    out = []
+    for cfg, model, seed, prompt, new in cases:
+        topo = mesh.serving_topology(dist.group.WORLD, model=model)
+        # one rank draws at a time: four whole-depth draws at once (each the
+        # dense model and an f32 draw of its largest leaf) need not fit
+        # beside what the calling process holds on the card
+        for turn in range(world):
+            if turn == rank:
+                row = T.init_params(torch.Generator("cuda").manual_seed(seed), cfg,
+                                    device="cuda")
+                mine = C.shard_flat(row, T.layout(cfg), TP.topology_layout(cfg, topo))
+                del row
+                torch.cuda.empty_cache()
+            dist.barrier()
+        prompt = prompt.to("cuda")
+        S.generate(mine, cfg, prompt[:, :8], 2, device="cuda",
+                   topo=dataclasses.replace(topo, stats=CommStats()))
+        timed = dataclasses.replace(topo, stats=CommStats())
+        logits = []
+        prefill, decode_step = T.prefill, T.decode_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params_bytes = mine.numel() * mine.element_size()
+        held = torch.cuda.memory_allocated() - params_bytes
+        T.prefill = _recording(prefill, logits, 0)
+        T.decode_step = _recording(decode_step, logits, 0)
+        try:
+            toks, stats = S.generate(mine, cfg, prompt, new, device="cuda", topo=timed)
+        finally:
+            T.prefill, T.decode_step = prefill, decode_step
+        peak = torch.cuda.max_memory_allocated()
+        rows = TP.serve_rows(prompt.shape[0], topo)
+        out.append({"rank": rank, "data_index": topo.worker_index,
+                    "model_index": topo.model_index, "rows": (rows.start, rows.stop),
+                    "tokens": toks.cpu(), "logits": [t.cpu() for t in logits], **stats,
+                    "peak_bytes": peak, "params_bytes": params_bytes, "held_bytes": held,
+                    "comm": timed.stats.as_dict()})
+        del mine, logits, prompt
+        torch.cuda.empty_cache()
+    return out
+
+
+def model_axis_serve_rank(rank: int, world: int, cases: list, out_dir: str,
+                          serve_cases: list) -> dict:
+    """:func:`model_axis_rank`'s training cases, then
+    :func:`serve_full_width_rank`'s serving cases, in one start of the
+    ranks."""
+    return {"train": model_axis_rank(rank, world, cases, out_dir),
+            "serve": serve_full_width_rank(rank, world, serve_cases)}
