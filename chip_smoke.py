@@ -63,7 +63,12 @@ small over gloo ranks sharing the card, Megatron-split DSM steps held
 against the dense run) and serving on the (data, model) grid in the same
 start of the ranks (serve_model_axis_full_width: Minitron-4B at whole depth
 in bf16 over four model ranks and at 8 layers in f32, GPT-2 small over (2,
-2), each held against the dense model and its f32 logits).
+2), each held against the dense model and its f32 logits), and FSDP in the
+same start (fsdp_full_width: GPT-2 small at whole depth with each rank's
+zero block gathered per layer over its zero group, against its dense run;
+Minitron-4B at 2 layers over (worker 1, zero 2, model 2) against the same
+grid without FSDP; GPT-2 small served with the data entries cut, bit-equal
+to the replicated-data run).
 After the ranks phases, the collective audit (audit_card): every c10d op
 of each outer-step variant recorded over RANKS gloo ranks and held against
 the paper's one-round budget, a planted extra all-reduce caught.  Every
@@ -364,6 +369,41 @@ SERVE_MA_CASES = (("minitron_4b", None, None, 4), ("minitron_4b", "f32", "float3
 SERVE_MA_F32_LAYERS = 8
 SERVE_MA = (4, 256, 16)
 SERVE_MA_F32_RTOL = 1e-3
+# fsdp_full_width: FSDP over zero (mesh.topology(..., fsdp=True): each rank
+# holds its zero block of its blocks, gathers each layer at use over its
+# zero group and runs its B_micro / Z rows where they split) at full width,
+# in model_axis_full_width's start of the RANKS gloo ranks sharing the card
+# (tests/torch_ranks.fsdp_full_width_rank), MODEL_AXIS' tau and S,
+# MODEL_AXIS_GAMMA, MODEL_AXIS_ETA, ZeRO, device-parallel local phase.
+# (a) gpt2_small.FULL at whole depth (12 layers) over (worker 2, zero 2,
+# model 1), W = 2, B_micro FSDP_B_MICRO (2 rows per zero rank),
+# FSDP_ROUNDS rounds, held against its dense run here from the same card
+# draw and batches within model_axis_bounds (PERF.md section 6, written
+# before the first run: FSDP rounds no parameter that the dense run does not
+# round, each gradient is summed over the zero ranks in f32 and rounded once,
+# and AdamW's direction bound covers any gap of the gradients), the global
+# step bit-equal from the dense x_tau on each rank's zero block.  (b)
+# minitron_4b.FULL at MODEL_AXIS_LAYERS of its 32 layers over (worker 1,
+# zero 2, model 2), W = 1, FSDP_B_ROUNDS round of FSDP_B_TAU local step
+# (both cut for the time target: its tied 256,000-row table's f32
+# gradient, reduce-scattered at each of its two uses, puts ~3.6 GB per local
+# step and rank through gloo's host staging; 2 steps took 22.9 s per rank,
+# PR 25 run A): B_micro 1 (whole over zero)
+# bit-equal to the same grid without FSDP, and B_micro FSDP_B_MICRO within
+# model_axis_bounds of the same grid without FSDP (its loss gap in units of
+# the largest logit of the dense draw on the round's tokens, computed here:
+# its one round starts from the draw).  (c) serve_model_axis_full_width's (b), gpt2_small over (data 2,
+# model 2), with the data entries cut: logits and tokens bit-equal to that
+# case's.  Per rank: its peak within DRYRUN_RTOL of the dry-run's reckoning
+# (dryrun_vs_card), its state bytes the reckoning's, its collectives the
+# reckoning's to the byte per group, one DSM and tau AdamW launches per
+# round and dtype group
+FSDP_A = ("gpt2_small", None, 2, 1)               # (arch, layers, W, model)
+FSDP_B = ("minitron_4b", MODEL_AXIS_LAYERS, 1, 2)
+FSDP_B_MICRO = 4
+FSDP_ROUNDS = 2
+FSDP_B_ROUNDS = 1
+FSDP_B_TAU = 1
 
 
 # Every phase trains on the sources of the reference package, which stays as
@@ -1843,13 +1883,13 @@ class RouteLog:
 
         torch, orig = self.torch, L.moe_apply
 
-        def recorded(p, x, cfg):
+        def recorded(p, x, cfg, **kw):
             xt = x.reshape(-1, x.shape[-1]).to(torch.float32)
             probs = torch.softmax(xt @ p["router"].to(torch.float32), dim=-1)
             top = torch.topk(probs, cfg.top_k, dim=-1).indices.sort(dim=-1).values
             self.calls.append(top if self.every_position
                               else top.reshape(x.shape[0], x.shape[1], -1)[:, -1])
-            return orig(p, x, cfg)
+            return orig(p, x, cfg, **kw)
 
         self.restore = lambda: setattr(L, "moe_apply", orig)
         L.moe_apply = recorded
@@ -3049,20 +3089,6 @@ def largest_logit(torch, params, cfg, tokens) -> float:
         return T._logits(params, h, cfg).abs().max().item()
 
 
-def gap_excess(torch, a, b, ref_mags, rel: float) -> float:
-    """max_i (|a_i - b_i| - rel * mags_i) over every dtype group, with mags
-    the larger magnitude of the ``ref_mags`` tensors (element for element):
-    the check ``gap <= C + R |x|`` is ``gap_excess(..., R) <= C``."""
-    from repro_torch.groups import parts
-
-    worst = -math.inf
-    for i, (x, y) in enumerate(zip(parts(a), parts(b), strict=True)):
-        mag = functools.reduce(torch.maximum, [parts(t)[i].float().abs() for t in ref_mags])
-        worst = max(worst, ((x.float() - y.float()).abs() - rel * mag).max().item())
-        del mag
-    return worst
-
-
 def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
     """The model axis at full width (MODEL_AXIS_CASES): one start of RANKS
     gloo ranks sharing the card runs both cases through
@@ -3112,18 +3138,27 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
         reckoned.append((kw, pool.submit(reckon_comm, cfg, kw),
                          pool.submit(reckon_peak, cfg, kw)))
     serving = serve_model_axis_cases(torch, pool)
+    fsdp = fsdp_cases(pool, corpus)
+    # (c): serving's (b), gpt2_small over (data 2, model 2), with the data entries cut
+    plain_serve = next(i for i, (arch, *_) in enumerate(SERVE_MA_CASES) if arch == "gpt2_small")
+    fsdp_serve = serving[plain_serve][0] + (True,)
     total = dict.fromkeys(K.launch_counts(), 0)
     work = ROOT / "build" / "model_axis"
     shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
+    (work / "fsdp").mkdir(parents=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     both = run_ranks(torch_ranks.model_axis_serve_rank, RANKS,
-                     (cases, str(work), [case for case, _ in serving]),
+                     (cases, str(work), [case for case, _ in serving] + [fsdp_serve],
+                      fsdp["cases"]),
                      timeout_s=RANKS_TIMEOUT_S, work_dir=str(ROOT / "build"))
     ranks_s = time.perf_counter() - t0
     ranks = [r["train"] for r in both]
     served = (serving, [[r["serve"][i] for r in both] for i in range(len(serving))], ranks_s)
+    fsdp.update(ranks=[r["fsdp"] for r in both], work=work / "fsdp", ranks_s=ranks_s,
+                served=([r["serve"][len(serving)] for r in both],
+                        [r["serve"][plain_serve] for r in both]),
+                serve_case=fsdp_serve)
     rows, failures = [], []
     for i, (cfg, W, M, seed, batches, gamma, eta) in enumerate(cases):
         per_rank = [r[i] for r in ranks]
@@ -3190,28 +3225,9 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
                 dense_loss = seen["losses"].mean(0).tolist()
                 tp_loss = [r["losses"][k].mean(0).tolist() for r in per_rank]
                 loss_gap = max(abs(x - y) for t in tp_loss for x, y in zip(t, dense_loss))
-                excess = {"x_tau": gap_excess(torch, tp["x_tau"], x_tau, [tp["x_tau"], x_tau],
-                                              b["x_tau"][1]),
-                          "x0": gap_excess(torch, tp["x0"], state.x0, [tp["x0"], state.x0],
-                                           b["x0"][1])}
-                # m's gap against its bound from the x0 (before) and x_tau bounds
-                b2 = DSM_HP["beta2"]
-                m_c = b2 * m_prev + (1 - b2) / gamma * (b["x0_before"][0] + b["x_tau"][0])
-                m_excess, m_next = -math.inf, 0.0
-                for g in range(lay.n_groups):
-                    mag = ((1 - b2) / gamma) * (
-                        b["x0_before"][1] * parts(before[0])[g].float().abs()
-                        + b["x_tau"][1] * torch.maximum(parts(tp["x_tau"])[g].float().abs(),
-                                                        parts(x_tau)[g].float().abs()))
-                    mag += 1e-6 * parts(state.m)[g].abs()
-                    gap = (parts(tp["m"])[g] - parts(state.m)[g]).abs()
-                    m_excess = max(m_excess, (gap - mag).max().item())
-                    m_next = max(m_next, mag.max().item())
-                    del mag, gap
-                m_prev = m_c + m_next
-                gaps = {n: max((p.float() - q.float()).abs().max().item() for p, q in
-                               zip(parts(tp[n]), parts(d))) for n, d in
-                        (("x_tau", x_tau), ("x0", state.x0), ("m", state.m))}
+                check, m_prev = torch_ranks.round_check(
+                    tp, {"x_tau": x_tau, "x0": state.x0, "m": state.m}, before[0], b, gamma,
+                    DSM_HP["beta2"], m_prev)
                 # the global step from the dense x_tau, x0 and m on each rank's blocks
                 bit_equal = True
                 for rl in lays:
@@ -3223,15 +3239,12 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
                         + parts(C.shard_flat(state.m, lay, rl))))
                     del xb, mb
                 K.reset_launch_counts()
-                ok = (loss_gap <= b["loss"] * top and excess["x_tau"] <= b["x_tau"][0]
-                      and excess["x0"] <= b["x0"][0] and m_excess <= m_c and bit_equal)
+                ok = loss_gap <= b["loss"] * top and check.pop("ok") and bit_equal
                 rounds.append({"round": k, "largest_logit": top,
                                "dense_loss_per_worker": dense_loss,
                                "model_axis_loss_per_worker_by_rank": tp_loss,
-                               "loss_gap": loss_gap, "loss_bound": b["loss"] * top,
-                               "max_gap": gaps, "bound_C_R": {n: b[n] for n in
-                                                              ("x_tau", "x0", "x0_before")},
-                               "m_bound_C": m_c, "excess_over_R": {**excess, "m": m_excess},
+                               "loss_gap": loss_gap, "loss_bound": b["loss"] * top, **check,
+                               "bound_C_R": {n: b[n] for n in ("x_tau", "x0", "x0_before")},
                                "global_step_bit_equal_from_dense_x_tau": bit_equal,
                                "dense_step_ms": step_ms,
                                "model_axis_step_ms_by_rank": [r["step_ms"][k]
@@ -3265,7 +3278,324 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
           "kernel_checks_on_rank0_blocks": checks, "cases": rows})
     if failures:
         raise AssertionError(f"model_axis_full_width: {failures}")
-    return total, served
+    return total, served, fsdp
+
+
+def fsdp_cfgs():
+    """FSDP_A's and FSDP_B's configs (FSDP_B cut to its layers)."""
+    import dataclasses
+
+    from repro_torch.configs import load_arch
+
+    out = []
+    for arch, layers, n_workers, model in (FSDP_A, FSDP_B):
+        cfg = load_arch(arch).FULL
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers, name=f"{arch}_{layers}l")
+        out.append((cfg, n_workers, model))
+    return out
+
+
+def fsdp_cases(pool, corpus) -> dict:
+    """The FSDP runs of fsdp_full_width for tests/torch_ranks.
+    fsdp_full_width_rank, with corpus batches (tau and S of MODEL_AXIS), and
+    the dry-run's reckonings of each (its memory, its round's collectives,
+    and the same grid's peak without FSDP) submitted to the CPU pool."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    tau, seq = MODEL_AXIS["tau"], MODEL_AXIS["seq"]
+    (cfg_a, w_a, m_a), (cfg_b, w_b, m_b) = fsdp_cfgs()
+
+    def batches(n_workers, b_micro, rounds, tau=tau):
+        return [{"tokens": corpus.sample(rng, n_workers * tau * b_micro, seq).reshape(
+            n_workers, tau, 1, b_micro, seq).astype(np.int64)} for _ in range(rounds)]
+
+    common = dict(gamma=MODEL_AXIS_GAMMA, eta=MODEL_AXIS_ETA)
+    b_whole = batches(w_b, 1, FSDP_B_ROUNDS, FSDP_B_TAU)
+    b_split = batches(w_b, FSDP_B_MICRO, FSDP_B_ROUNDS, FSDP_B_TAU)
+    bounds = model_axis_bounds(cfg_b.n_layers, FSDP_B_ROUNDS, FSDP_B_TAU)
+    cases = [
+        dict(name="a", cfg=cfg_a, n_workers=w_a, model=m_a, fsdp=True, seed=41, save=True,
+             batches=batches(w_a, FSDP_B_MICRO, FSDP_ROUNDS), **common),
+        dict(name="b_plain_whole", cfg=cfg_b, n_workers=w_b, model=m_b, fsdp=False, seed=43,
+             keep=True, batches=b_whole, **common),
+        dict(name="b_whole", cfg=cfg_b, n_workers=w_b, model=m_b, fsdp=True, seed=43,
+             against=("b_plain_whole", None), batches=b_whole, **common),
+        dict(name="b_plain", cfg=cfg_b, n_workers=w_b, model=m_b, fsdp=False, seed=43,
+             keep=True, batches=b_split, **common),
+        dict(name="b", cfg=cfg_b, n_workers=w_b, model=m_b, fsdp=True, seed=43,
+             against=("b_plain", bounds), batches=b_split, **common)]
+    reckoned = []
+    for c in cases:
+        lead = c["batches"][0]["tokens"].shape
+        kw = dict(n_workers=c["n_workers"], tau=lead[1], b_micro=lead[3], seq=seq, world=RANKS,
+                  model=c["model"], eval_batch=0, fsdp=c["fsdp"])
+        plain = dict(kw, fsdp=False)
+        reckoned.append((kw, pool.submit(reckon_comm, c["cfg"], kw),
+                         pool.submit(reckon_peak, c["cfg"], kw),
+                         pool.submit(reckon_peak, c["cfg"], plain) if c["fsdp"] else None))
+    return {"cases": cases, "reckoned": reckoned}
+
+
+def fsdp_kernel_times(torch, K, lay, dsm_n: int, n_workers: int) -> list:
+    """Both kernels on an FSDP rank's rows: bit for bit against their plain
+    versions (model_axis_kernel_checks), and timed with theirs (CUDA events,
+    median) beside the byte bound: the DSM step on the rank's chunk of its
+    zero block over its worker peers (dsm_n elements), AdamW on its
+    (n_workers, N_rank) rows."""
+    from repro_torch.kernels.adamw_update import adamw_update_plain
+    from repro_torch.kernels.dsm_update import dsm_update_plain
+
+    checks = model_axis_kernel_checks(torch, K, lay, n_workers)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = []
+    for n, dt in zip(lay.group_numels, lay.dtypes):
+        es = torch.empty((), dtype=dt).element_size()
+        x0, m, xt = dsm_inputs(torch, gen, dsm_n, dt)
+        row = {"kernel": "dsm_update", "shape": [dsm_n], "dtype": str(dt),
+               "ms": median_ms(torch, lambda: K.dsm_update(x0, m, xt, 0.02, **DSM_HP)),
+               "plain_ms": median_ms(torch, lambda: dsm_update_plain(x0, m, xt, 0.02,
+                                                                     **DSM_HP))}
+        row["bound_ms"], row["bound_by"] = bound_ms(dsm_n * (3 * es + 2 * 4), dsm_n * 12)
+        out.append(row)
+        del x0, m, xt
+        p, g, mm, v = adamw_inputs(torch, gen, (n_workers, n), dt)
+        row = {"kernel": "adamw_update", "shape": [n_workers, n], "dtype": str(dt),
+               "ms": median_ms(torch, lambda: K.adamw_update(p, g, mm, v, 1e-3, 11,
+                                                             **ADAMW_HP)),
+               "plain_ms": median_ms(torch, lambda: adamw_update_plain(p, g, mm, v, 1e-3, 11,
+                                                                       **ADAMW_HP))}
+        row["bound_ms"], row["bound_by"] = bound_ms(n_workers * n * (3 * es + 4 * 4),
+                                                    n_workers * n * 16)
+        out.append(row)
+        del p, g, mm, v
+        torch.cuda.empty_cache()
+    return checks + out
+
+
+def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
+    """FSDP at full width (FSDP_A, FSDP_B and serving's (b) with the data
+    entries cut), run in model_axis_full_width's start of the ranks: per case
+    and rank its collectives against the dry-run's reckoning to the byte,
+    its launches, its state bytes against the reckoning's, its peak beside
+    the reckoning (dryrun_vs_card) and the same grid's without FSDP, its
+    step ms; (a) against its dense run here round by round
+    (model_axis_bounds, the global step bit for bit from the dense x_tau on
+    each rank's zero block); (b) as its ranks held it (bit for bit, or
+    within model_axis_bounds, its loss gap in units of the largest logit
+    of the dense draw here); (c) bit for bit against serving's (b), its
+    collectives serve_collectives' on the data-cut layout; then both
+    kernels on (a)'s rank rows.  Returns the launches of the ranks' and the
+    dense runs."""
+
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core import dsm as D
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed import zero as Z
+    from repro_torch.distributed.comm import scaled_sum
+    from repro_torch.groups import each, parts
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import metrics as OM
+
+    import torch_ranks
+
+    cases, ranks, work = fsdp["cases"], fsdp["ranks"], fsdp["work"]
+    total = dict.fromkeys(K.launch_counts(), 0)
+    rows, failures = [], []
+    for i, case in enumerate(cases):
+        per_rank = [r[i] for r in ranks]
+        cfg, rounds = case["cfg"], len(case["batches"])
+        kw, comm_fut, peak_fut, plain_fut = fsdp["reckoned"][i]
+        tau = kw["tau"]
+        comm_round, kinds = comm_fut.result(timeout=CPU_RUN_TIMEOUT_S)
+        mem = peak_fut.result(timeout=CPU_RUN_TIMEOUT_S)
+        want_comm = scaled_sum((rounds, comm_round))
+        groups = TP.topology_layout(cfg, None).n_groups
+        want_launch = {"dsm_update": rounds * groups, "adamw_update": rounds * tau * groups}
+        for r in per_rank:
+            PEAKS.append((f"fsdp_{case['name']}_{cfg.name}_rank{r['rank']}", r["peak_bytes"],
+                          cfg, kw, r["held_bytes"], peak_fut))
+            if r["comm"] != want_comm:
+                failures.append(f"{case['name']} rank {r['rank']}: collectives {r['comm']}, "
+                                f"reckoned {want_comm}")
+            if r["launches"] != want_launch:
+                failures.append(f"{case['name']} rank {r['rank']}: launches {r['launches']}")
+            # the reckoning is rank 0's: its chunk of x0 and m is the first, a full one
+            if r["rank"] == 0 and r["state_bytes"] != mem["state_bytes"]:
+                failures.append(f"{case['name']} rank {r['rank']}: state {r['state_bytes']} B, "
+                                f"reckoned {mem['state_bytes']} B")
+            if not all(c["ok"] for c in r["rounds"]):
+                failures.append(f"{case['name']} rank {r['rank']}: {r['rounds']}")
+            total = {k: n + r["launches"][k] for k, n in total.items()}
+        rows.append({"case": case["name"], "config": cfg.name, "fsdp": case["fsdp"],
+                     "n_workers": case["n_workers"], "grid": per_rank[0]["grid"],
+                     "b_micro": kw["b_micro"], "rounds": rounds,
+                     "rank_block_numel": per_rank[0]["block_numel"],
+                     "rank_peaks_bytes": [r["peak_bytes"] for r in per_rank],
+                     "held_bytes_by_rank": [r["held_bytes"] for r in per_rank],
+                     "reckoned_peak_bytes": mem["peak_bytes"],
+                     "reckoned_peak_bytes_without_fsdp":
+                         plain_fut.result(timeout=CPU_RUN_TIMEOUT_S)["peak_bytes"]
+                         if plain_fut else None,
+                     "state_bytes_by_rank": [r["state_bytes"] for r in per_rank],
+                     "reckoned_state_bytes": mem["state_bytes"],
+                     "collectives_reckoned_per_round": comm_round,
+                     "collectives_by_kind_per_round": kinds,
+                     "collectives_by_rank": [r["comm"] for r in per_rank],
+                     "launches_by_rank": [r["launches"] for r in per_rank],
+                     "step_ms_by_rank": [r["step_ms"] for r in per_rank],
+                     "run_s_by_rank": [r["run_s"] for r in per_rank],
+                     "case_s_by_rank": [r["case_s"] for r in per_rank],
+                     "held_against": case.get("against", (None,))[0],
+                     "checks_by_rank": [r["rounds"] for r in per_rank]})
+
+    # a case held within bounds ((b) at B_micro FSDP_B_MICRO): each rank's
+    # loss gap within the round's loss bound times the largest logit, that
+    # of the dense draw on the round's tokens (its one round starts there)
+    for case, row in zip(cases, rows):
+        bounds = case.get("against", (None, None))[1]
+        if bounds is None:
+            continue
+        if len(case["batches"]) != 1:
+            failures.append(f"{case['name']}: the loss bound's unit is the draw's, one round")
+            continue
+        cfg = case["cfg"]
+        x = T.init_params(torch.Generator("cuda").manual_seed(case["seed"]), cfg, device="cuda")
+        tokens = torch.from_numpy(case["batches"][0]["tokens"][0, 0, 0]).to("cuda")
+        top = largest_logit(torch, T.layout(cfg).views(x), cfg, tokens)
+        del x, tokens
+        torch.cuda.empty_cache()
+        row.update(largest_logit=top, loss_bound=bounds[0]["loss"] * top)
+        for checks in row["checks_by_rank"]:
+            if checks[0]["loss_gap"] > row["loss_bound"]:
+                failures.append(f"{case['name']}: loss gap {checks[0]['loss_gap']} over "
+                                f"{row['loss_bound']}")
+
+    # (a): the dense run here, from the same draw and batches, round by round
+    case = cases[0]
+    tau = MODEL_AXIS["tau"]
+    cfg, W = case["cfg"], case["n_workers"]
+    lay = T.layout(cfg)
+    lays = [TP.rank_layout(cfg, 1, 0, zero=2, zero_index=z) for z in range(2)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x0 = T.init_params(torch.Generator("cuda").manual_seed(case["seed"]), cfg, device="cuda")
+    base = base_opt.adamw()
+    dcfg = D.DSMConfig(tau=tau, global_lr=case["eta"])
+    step = D.make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), base, dcfg,
+                           schedules.constant(case["gamma"]), lay)
+    state = D.dsm_init(x0, base, W)
+    bounds = model_axis_bounds(cfg.n_layers, len(case["batches"]), tau)
+    seen, dense_rounds, m_prev = {}, [], 0.0
+    mean_fn, stats_fn = D.worker_mean, OM.loss_stats
+
+    def mean(p):
+        seen["x_tau"] = mean_fn(p)
+        return seen["x_tau"]
+
+    def loss_stats(losses):
+        seen["losses"] = losses.detach().cpu()
+        return stats_fn(losses)
+
+    D.worker_mean, OM.loss_stats = mean, loss_stats
+    K.reset_launch_counts()
+    try:
+        for k, raw in enumerate(case["batches"]):
+            batch = {n: torch.from_numpy(v).to("cuda") for n, v in raw.items()}
+            top = largest_logit(torch, lay.views(state.x0), cfg, batch["tokens"][0, 0, 0])
+            before = (each(torch.clone, state.x0), each(torch.clone, state.m))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t1) * 1e3
+            total = {n: c + K.launch_counts()[n] for n, c in total.items()}
+            x_tau = seen.pop("x_tau")
+            saved = [torch.load(work / f"a_0_{z}_{k}.pt", mmap=True, weights_only=False)
+                     for z in range(2)]
+            tp = {n: C.gather_flat([each(lambda t: t.to("cuda"), sv[n]) for sv in saved],
+                                   lay, lays) for n in ("x_tau", "x0", "m")}
+            ours = [sv["losses"].mean(0).tolist() for sv in saved]
+            del saved
+            b = bounds[k]
+            dense_loss = seen["losses"].mean(0).tolist()
+            loss_gap = max(abs(x - y) for t in ours for x, y in zip(t, dense_loss))
+            check, m_prev = torch_ranks.round_check(
+                tp, {"x_tau": x_tau, "x0": state.x0, "m": state.m}, before[0], b,
+                case["gamma"], DSM_HP["beta2"], m_prev)
+            bit_equal = True
+            for rl in lays:
+                xb, mb = C.shard_flat(before[0], lay, rl), C.shard_flat(before[1], lay, rl)
+                D.global_sign_momentum_step(xb, mb, C.shard_flat(x_tau, lay, rl),
+                                            case["gamma"], dcfg)
+                bit_equal &= all(same_bits(torch, p, q) for p, q in zip(
+                    parts(xb) + parts(mb), parts(C.shard_flat(state.x0, lay, rl))
+                    + parts(C.shard_flat(state.m, lay, rl))))
+                del xb, mb
+            K.reset_launch_counts()         # the checks' launches are no run's
+            ok = check["ok"] and loss_gap <= b["loss"] * top and bit_equal
+            dense_rounds.append({"round": k, "largest_logit": top, "loss_gap": loss_gap,
+                                 "loss_bound": b["loss"] * top,
+                                 "dense_loss_per_worker": dense_loss,
+                                 "fsdp_loss_per_worker_by_zero_rank": ours, **check,
+                                 "bound_C_R": {n: b[n] for n in ("x_tau", "x0", "x0_before")},
+                                 "global_step_bit_equal_from_dense_x_tau": bit_equal,
+                                 "dense_step_ms": step_ms, "ok": ok})
+            if not ok:
+                failures.append(f"a round {k}: {dense_rounds[-1]}")
+            del tp, x_tau, before
+    finally:
+        D.worker_mean, OM.loss_stats = mean_fn, stats_fn
+    dense_peak = torch.cuda.max_memory_allocated()
+    del state, step, x0
+    torch.cuda.empty_cache()
+
+    # (c): serving with the data entries cut against serving's (b)
+    served, plain = fsdp["served"]
+    scfg, model, _, prompt, new, _ = fsdp["serve_case"]
+    serve_rows = []
+    for r, q in zip(served, plain):
+        slay = TP.rank_layout(scfg, model, r["model_index"], zero=RANKS // model,
+                              zero_index=r["data_index"], zero_axes=("data",))
+        bm = r["rows"][1] - r["rows"][0]
+        parts_ = [(1, TP.serve_collectives(scfg, slay, bm, prompt.shape[1], k)) for k in
+                  ("serving_params", "prefill")]
+        parts_ += [(new - 1, TP.serve_collectives(scfg, slay, bm, prompt.shape[1], "decode")),
+                   (new, TP.serve_collectives(scfg, slay, bm, prompt.shape[1], "pick"))]
+        if bm < prompt.shape[0]:
+            parts_.append((1, {"all_gather@data": {"calls": 1, "bytes": bm * new * 8}}))
+        want = scaled_sum(*parts_)
+        same = torch.equal(r["tokens"], q["tokens"]) and len(r["logits"]) == len(q["logits"]) \
+            and all(same_bits(torch, a, b) for a, b in zip(r["logits"], q["logits"]))
+        serve_rows.append({"rank": r["rank"], "tokens_and_logits_bit_equal": same,
+                           "params_bytes": r["params_bytes"],
+                           "params_bytes_data_replicated": q["params_bytes"],
+                           "peak_bytes": r["peak_bytes"], "peak_bytes_data_replicated":
+                           q["peak_bytes"], "prefill_s": r["prefill_s"],
+                           "tok_per_s": r["tok_per_s"], "tok_per_s_data_replicated":
+                           q["tok_per_s"], "collectives": r["comm"], "reckoned": want})
+        if not same or r["comm"] != want:
+            failures.append(f"serving rank {r['rank']}: bit equal {same}, collectives "
+                            f"{r['comm']}, reckoned {want}")
+
+    # both kernels on (a)'s rank rows: its zero block, its chunk over its peers
+    worker = ranks[0][0]["grid"][0]
+    kernels = fsdp_kernel_times(torch, K, lays[0], Z.chunk_size(lays[0].numel, worker),
+                                W // worker)
+    for c in kernels:
+        if c.get("max_abs_err", 0.0) != 0.0:
+            failures.append(f"kernel on the rank rows: {c}")
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "fsdp_full_width", "gpu": smi, "ranks": RANKS, "backend": "gloo",
+          "tau": {"a": tau, "b": FSDP_B_TAU}, "seq": MODEL_AXIS["seq"], "gamma": MODEL_AXIS_GAMMA,
+          "eta": MODEL_AXIS_ETA, "ranks_s_with_model_axis_full_width": fsdp["ranks_s"],
+          "cases": rows, "a_against_dense": dense_rounds, "a_dense_peak_bytes": dense_peak,
+          "serving_data_cut": serve_rows, "kernels_on_rank_rows": kernels})
+    if failures:
+        raise AssertionError(f"fsdp_full_width: {failures}")
+    return total
 
 
 def serve_model_axis_cases(torch, pool) -> list:
@@ -3637,10 +3967,13 @@ def all_phases(torch, K, smi, pool):
         errs = {k: max(e, group_errs[k]) for k, e in errs.items()}
     for more in counts:
         launches = {k: n + more[k] for k, n in launches.items()}
-    more, served = phase_model_axis_full_width(torch, K, smi, pool)
+    more, served, fsdp = phase_model_axis_full_width(torch, K, smi, pool)
     launches = {k: n + more[k] for k, n in launches.items()}
     phase_serve_model_axis_full_width(torch, smi, served)
     del served
+    more = phase_fsdp_full_width(torch, K, smi, fsdp)
+    launches = {k: n + more[k] for k, n in launches.items()}
+    del fsdp
     phase_dryrun_vs_card(pool, smi)
     return launches, errs, times
 

@@ -55,8 +55,15 @@ counted apart: they are the tensor-parallel collectives of the local
 steps (``distributed.tensor_parallel``), per layer and microbatch, and the
 stat sums' all-reduce of a global phase, and they must equal, per kind in
 calls and bytes, the count reckoned from the placements
-(:func:`reckoned_model_ops`).  The other ops, those of the ``(worker, zero)`` ranks,
-stay held to the one-round budget over the rank's blocks.
+(:func:`reckoned_model_ops`).  Under FSDP the ops of the rank's zero group
+(the gathers of each layer's zero blocks, their gradients' reduce-scatters,
+the round's loss all-reduce: ``tensor_parallel.local_phase_collectives``)
+are counted apart the same way and must equal their reckoning
+(:func:`reckoned_zero_ops`): the local phase admits them by count, as it
+admits the model group's, and a stray one is caught.  The other ops, those
+of the ``(worker, zero)`` ranks (under FSDP the worker peers and the stat
+sums' all-reduce), stay held to the one-round budget over the rank's
+blocks.
 
 ``standard_audit()`` runs the reference's matrix on R gloo ranks: the
 dense, device-parallel and ZeRO-sharded outer steps, the bare local phase,
@@ -215,13 +222,17 @@ class CollectiveBudget:
     reduce_class: tuple = REDUCE_CLASS
     gather_class: tuple = GATHER_CLASS
     # over a model axis: the model group's name and its ops, {kind: (calls,
-    # bytes)} (:func:`reckoned_model_ops`), held apart from the ceilings above
+    # bytes)} (:func:`reckoned_model_ops`), held apart from the ceilings above;
+    # under FSDP the zero group's the same way (:func:`reckoned_zero_ops`)
     model_group: str = ""
     model_ops: Optional[dict] = None
+    zero_group: str = ""
+    zero_ops: Optional[dict] = None
 
     @classmethod
     def for_phase(cls, phase: str, layout, world: int, n_workers: int,
-                  model_group: str = "", model_ops: Optional[dict] = None
+                  model_group: str = "", model_ops: Optional[dict] = None,
+                  zero_group: str = "", zero_ops: Optional[dict] = None
                   ) -> "CollectiveBudget":
         """The budget of ``phase`` for a model of ``layout``
         (``FlatLayout``: its groups' element counts and dtypes) over
@@ -271,6 +282,8 @@ class CollectiveBudget:
             max_gather_bytes=nbytes["gather"],
             model_group=model_group,
             model_ops=model_ops,
+            zero_group=zero_group,
+            zero_ops=zero_ops,
         )
 
 
@@ -283,18 +296,37 @@ def reckoned_model_ops(cfg, layout, phase: str, n_local: int, tau: int, b_micro:
     microbatches of ``(b_micro, seq)``, reckoned from the placements layer
     by layer (``tensor_parallel.microbatch_collectives``), and in a global
     phase the all-reduce of the seven f32 stat sums."""
-    from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.obs.metrics import N_STAT_SUMS
 
-    reps = n_local * tau * accum
-    out: dict = {}
-    for name, rec in TP.microbatch_collectives(cfg, layout, b_micro, seq).items():
-        kind = KIND_CLASS[name.split("@")[0]]
-        calls, nbytes = out.get(kind, (0, 0))
-        out[kind] = (calls + rec["calls"] * reps, nbytes + rec["bytes"] * reps)
+    out = _reckoned_ops(cfg, layout, "model", n_local, tau, b_micro, seq, accum)
     if phase != "local":
         calls, nbytes = out.get("all-reduce", (0, 0))
         out["all-reduce"] = (calls + 1, nbytes + N_STAT_SUMS * 4)
+    return out
+
+
+def reckoned_zero_ops(cfg, layout, phase: str, n_local: int, tau: int, b_micro: int, seq: int,
+                      accum: int = 1) -> dict:
+    """``{kind: (calls, bytes)}`` of an FSDP rank's zero-group collectives in
+    one outer step of ``phase`` (``layout``: its zero blocks,
+    ``tensor_parallel.topology_layout``): the local phase's
+    (``tensor_parallel.local_phase_collectives``); a global phase without
+    faults adds none (the stat sums add over the ``(worker, zero)`` ranks)."""
+    return _reckoned_ops(cfg, layout, "zero", n_local, tau, b_micro, seq, accum)
+
+
+def _reckoned_ops(cfg, layout, axis: str, n_local, tau, b_micro, seq, accum) -> dict:
+    from repro_torch.distributed import tensor_parallel as TP
+
+    out: dict = {}
+    for name, rec in TP.local_phase_collectives(cfg, layout, n_local, tau, b_micro, seq,
+                                                accum).items():
+        base, _, group = name.partition("@")
+        if group != axis:
+            continue
+        kind = KIND_CLASS[base]
+        calls, nbytes = out.get(kind, (0, 0))
+        out[kind] = (calls + rec["calls"], nbytes + rec["bytes"])
     return out
 
 
@@ -308,6 +340,7 @@ class AuditReport:
     degenerate: bool = False
     details: dict = dataclasses.field(default_factory=dict)
     model_ops: list = dataclasses.field(default_factory=list)   # the model group's
+    zero_ops: list = dataclasses.field(default_factory=list)    # the zero group's
 
     @property
     def passed(self) -> bool:
@@ -338,6 +371,7 @@ class AuditReport:
             "violations": list(self.violations),
             "ops": [dataclasses.asdict(o) for o in self.ops],
             "model_group_ops": {k: list(v) for k, v in ops_by_kind(self.model_ops).items()},
+            "zero_group_ops": {k: list(v) for k, v in ops_by_kind(self.zero_ops).items()},
             **self.details,
         }
 
@@ -350,13 +384,17 @@ def audit_ops(ops: Sequence[CollectiveOp], budget: CollectiveBudget,
               name: str = "step") -> AuditReport:
     """Check recorded ops against a budget (the reference's ``audit_text``)."""
     viol = []
-    if budget.model_group:
-        model = [o for o in ops if o.group == budget.model_group]
-        ops = [o for o in ops if o.group != budget.model_group]
-        seen = ops_by_kind(model)
-        if seen != budget.model_ops:
-            viol.append(f"model-group collectives (calls, bytes) per kind {seen} differ from "
-                        f"the {budget.model_ops} reckoned from the placements")
+    apart = {}
+    for axis, group, want in (("model", budget.model_group, budget.model_ops),
+                              ("zero", budget.zero_group, budget.zero_ops)):
+        if not group:
+            continue
+        apart[axis] = [o for o in ops if o.group == group]
+        ops = [o for o in ops if o.group != group]
+        seen = ops_by_kind(apart[axis])
+        if seen != want:
+            viol.append(f"{axis}-group collectives (calls, bytes) per kind {seen} differ from "
+                        f"the {want} reckoned from the placements")
     allowed = set(budget.reduce_class) | set(budget.gather_class)
     for o in ops:
         if o.kind not in allowed:
@@ -386,7 +424,7 @@ def audit_ops(ops: Sequence[CollectiveOp], budget: CollectiveBudget,
         viol.append(f"gather payload {gbytes} B exceeds the budget of "
                     f"{budget.max_gather_bytes} B")
     return AuditReport(name=name, budget=budget, ops=list(ops), violations=viol,
-                       model_ops=model if budget.model_group else [])
+                       model_ops=apart.get("model", []), zero_ops=apart.get("zero", []))
 
 
 def ops_by_kind(ops: Sequence[CollectiveOp]) -> dict:

@@ -73,12 +73,13 @@ def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
     place.  Returns ``(init(x0, n_workers) -> state,
     outer_step(state, batch) -> (state, metrics))``.  Under ``topo`` the
     state and ``batch`` hold the rank's own workers.  A model axis is
-    DSM's only (``core.dsm.make_dsm_step``): a topology with ``model`` > 1
-    raises.
+    DSM's only (``core.dsm.make_dsm_step``): a topology with ``model`` > 1,
+    or with FSDP, raises.
     """
-    if topo is not None and topo.model > 1:
-        raise NotImplementedError("the baselines over a model axis are not ported; "
-                                  "DSM runs over (worker, zero, model) ranks")
+    if topo is not None and (topo.model > 1 or topo.fsdp):
+        raise NotImplementedError("the baselines over a model axis or FSDP are not ported "
+                                  "(ROADMAP.md queue 1); DSM runs over (worker, zero, model) "
+                                  "ranks")
     local_phase = make_local_phase(loss_fn, base_opt, layout)
 
     def init(x0, n_workers: int) -> LocalMethodState:

@@ -45,6 +45,22 @@ its model group, and the worker mean, the global step and the re-sync run
 over the ``(worker, zero)`` ranks of its model index (``Topology.dp``), the
 code above on the block buffers; the stat sums add over the model group.
 
+Under FSDP (``Topology.fsdp == "zero"``) a rank holds its zero block of each
+model block (``tensor_parallel.topology_layout``): its workers' params,
+gradients and AdamW moments are ``(W_local, N_rank)`` rows of its zero
+blocks, and the model gathers each block at use over the zero group.  Where
+the reference's ``train_batch_pspecs`` puts ``B_micro`` on ``zero`` the rank
+computes its ``B_micro / Z`` rows of each microbatch, its gradients are
+reduce-scattered over the zero group and divided by Z after it (the
+gradient of the whole microbatch's mean), and a worker's loss is the mean
+of its zero ranks' (one all-reduce of the round's losses over the zero
+group); else every zero rank computes the whole microbatch and keeps its
+slice of the gradient.  x0 and m are the rank's chunk of its zero block
+over its worker peers (``Topology.dp``), which the worker mean, the global
+step and the re-sync run over; the stat sums add over the ``(worker,
+zero)`` ranks of its model index, and a worker's finiteness mask is the
+minimum over its zero group.
+
 The outer step takes an optional ``FaultRound`` (``repro_torch.robustness``)
 and then makes line 7's mean survivor-aware; ``DSMConfig.mask_nonfinite``
 masks non-finite workers without injected faults.
@@ -65,6 +81,7 @@ from torch.profiler import record_function
 
 from repro_torch.core.base_opt import BaseOptimizer
 from repro_torch.distributed import comm
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed import zero as Z
 from repro_torch.groups import Groups, each, parts
 from repro_torch.kernels.dsm_update import dsm_update, dsm_update_plain, sign_like_jnp
@@ -246,6 +263,9 @@ def _contribution_weights(contrib: torch.Tensor, cfg: "DSMConfig", faults,
             if topo.model > 1:
                 # a worker is finite when every model rank's block of it is
                 finite = comm.all_reduce(finite, topo.mp, "min")
+            if topo.fsdp == "zero" and topo.zero > 1:
+                # and every zero rank's block of that
+                finite = comm.all_reduce(finite, topo.zp, "min")
             finite = comm.gather_workers(finite, topo.dp)
         weights = finite if weights is None else weights * finite
     return weights
@@ -302,18 +322,27 @@ def worker_grads(loss_fn: Callable, layout: FlatLayout, params, grads, batch: di
     mean loss into ``losses[w]``.  The buffers are tensors or Groups."""
     for g in parts(grads):
         g.zero_()
-    accum = lead_dims(batch)[1]
+    accum, b_micro = lead_dims(batch)[1:3]
+    split = TP.zero_split(layout, b_micro)
+    rows = TP.zero_rows(layout, b_micro)
     for w in range(parts(grads)[0].shape[0]):
         leaves = layout.autograd_leaves(each(lambda p: p if p.dim() == 1 else p[w], params),
                                         each(lambda g: g[w], grads))
+        if layout.zero > 1:
+            leaves.zero_mode = "sum" if split else "slice"
         loss_sum = torch.zeros((), dtype=F32, device=losses.device)
         for a in range(accum):
-            loss = loss_fn(leaves, take(batch, w, a))
+            loss = loss_fn(leaves, take(batch, w, a, rows))
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         if accum > 1:
             for g in parts(grads):
                 g[w].div_(accum)
+        if split:
+            # the zero ranks' gradients of their rows' means, summed by the
+            # reduce-scatters: the whole microbatch's mean is their mean
+            for g in parts(grads):
+                g[w].div_(layout.zero)
         losses[w] = loss_sum / accum
 
 
@@ -325,7 +354,10 @@ def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLay
     ``batch``: a dict of leaves (W, tau, accum, B_micro, ...), the state's
     workers' rows.  Each local step runs every worker's forward and backward
     (:func:`worker_grads`), then one base-optimizer update over all of them
-    at step index ``state.inner + k``.
+    at step index ``state.inner + k``.  On an FSDP rank whose zero ranks
+    compute their own rows, the losses are then averaged over the zero group
+    (one all-reduce, ``<name>@zero``), the only collective besides the
+    model's own.
     """
 
     def local_phase(state, batch: dict, gamma: float) -> torch.Tensor:
@@ -336,6 +368,8 @@ def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLay
                          take(batch, slice(None), k), losses[k])
             base_opt.update(state.params, state.grads, state.base_state, gamma,
                             state.inner + k)
+        if TP.zero_split(layout, lead_dims(batch)[3]):
+            comm.all_reduce(losses, layout.zero_axis, "sum").div_(_on(layout.zero, losses))
         return losses
 
     return local_phase
@@ -369,7 +403,12 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
     (``tensor_parallel.topology_layout``); the global step then runs over
     ``topo.dp`` on the rank's blocks, the finiteness masks take the minimum
     over the model group, and the stat sums add over it (a leaf every model
-    rank holds whole counted once); the randomized signs raise there.
+    rank holds whole counted once); the randomized signs raise there.  So
+    does an FSDP topology (``fsdp="zero"``), whose layout cuts the blocks
+    over ``zero`` too: the global step runs over the worker peers on the
+    rank's zero blocks, the masks take the minimum over the zero group as
+    well, and the stat sums add over the ``(worker, zero)`` ranks (a leaf
+    held whole over zero counted once).
 
     ``faults`` (a ``repro_torch.robustness.FaultRound`` of all W workers)
     makes the round survivor-aware: stale and corrupt contributions are
@@ -384,23 +423,25 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
         raise ValueError("device_parallel local phase needs a topology with a 'worker' axis "
                          "(repro_torch.distributed.mesh.topology)")
     model = 1 if topo is None else topo.model
-    if layout.model != model:
-        raise ValueError(f"a topology with model={model} needs its rank's layout "
-                         f"(distributed.tensor_parallel.topology_layout), got model="
-                         f"{layout.model}")
-    if model > 1 and cfg.sign_mode != "sign":
+    zero = 1 if topo is None or topo.fsdp != "zero" else topo.zero
+    if layout.model != model or layout.zero != zero:
+        raise ValueError(f"a topology with model={model} and FSDP over zero={zero} needs its "
+                         f"rank's layout (distributed.tensor_parallel.topology_layout), got "
+                         f"model={layout.model}, zero={layout.zero}")
+    if (model > 1 or zero > 1) and cfg.sign_mode != "sign":
         raise NotImplementedError(
-            f"sign_mode={cfg.sign_mode!r} over a model axis: the randomized signs draw over "
-            f"the dense buffer, which no rank holds (ROADMAP.md queue 1)")
+            f"sign_mode={cfg.sign_mode!r} over a model axis or FSDP: the randomized signs draw "
+            f"over the dense buffer, which no rank holds (ROADMAP.md queue 1)")
     local_phase = make_local_phase(loss_fn, base_opt, layout)
     sharded = cfg.zero_sharded and topo is not None
     numels = layout.group_numels
     # the worker mean, the global step and the re-sync run over the
-    # (worker, zero) ranks of this rank's model index, on its blocks; a
-    # leaf every model rank holds whole counts in the stat sums once
+    # (worker, zero) ranks of this rank's model index (under FSDP its worker
+    # peers), on its blocks; a leaf every model (zero) rank holds whole
+    # counts in the stat sums once
     dtopo = None if topo is None else topo.dp
-    drop = (layout.whole_spans() if model > 1 and topo.model_index > 0
-            else ((),) * layout.n_groups)
+    blocks = model > 1 or zero > 1
+    drop = layout.uncounted_spans() if blocks else ((),) * layout.n_groups
 
     def outer_step(state: DSMState, batch: dict,
                    rng: Optional[torch.Generator] = None, faults=None):
@@ -437,14 +478,17 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
             kept = [t.clone() for t in kept]
         if sharded:
             stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1, dtopo,
-                                       numels, drop if model > 1 else None)
+                                       numels, drop if blocks else None,
+                                       topo.wz if zero > 1 else None)
             Z.sharded_global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, dtopo,
                                                 numels, rng)
         else:
-            stat = (OM.stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1) if model == 1
+            stat = (OM.stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1) if not blocks
                     else functools.reduce(torch.add, [
                         Z.stat_sums_less(x, m, xt, gamma, cfg.beta1, 0, d) for x, m, xt, d in
                         zip(parts(state.x0), parts(state.m), parts(x_tau), drop)]))
+            if zero > 1:
+                stat = comm.all_reduce(stat, topo.zp, "sum")
             global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, rng)
         if model > 1:
             stat = comm.all_reduce(stat, topo.mp, "sum")

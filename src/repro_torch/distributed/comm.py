@@ -30,7 +30,9 @@ one scatter and one all-gather.
 The tensor-parallel collectives of a model group
 (``repro_torch.distributed.tensor_parallel``: :func:`all_reduce` with
 ``"max"`` too, :func:`all_gather_dim`, :func:`reduce_scatter_dim`) take the
-group's view ``Topology.mp`` and count as ``<name>@model``.
+group's view ``Topology.mp`` and count as ``<name>@model``; FSDP's, over a
+rank's zero group (``Topology.zp``) or a serving rank's data group
+(``Topology.data``), as ``<name>@zero`` / ``<name>@data``.
 
 Each collective adds its calls and bytes sent to ``topo.stats``.  Only a
 timed ``CommStats`` (``timed=True``, which ``run_training(...,
@@ -111,7 +113,7 @@ def _sync(t: torch.Tensor) -> None:
 
 @contextmanager
 def _counted(topo, name: str, t: torch.Tensor, nbytes: int):
-    # the model group's collectives count apart: "<name>@model"
+    # a model, zero or data group's collectives count apart: "<name>@model"
     axis = getattr(topo, "axis", "")
     name = f"{name}@{axis}" if axis else name
     with _host_staging_allowed(_staged(topo, t)):
@@ -246,7 +248,8 @@ def all_gather_dim(t: torch.Tensor, topo, dim: int) -> torch.Tensor:
 def reduce_scatter_dim(t: torch.Tensor, topo, dim: int) -> torch.Tensor:
     """The sum over the ranks of ``t``, cut into ``world`` equal blocks
     along ``dim``; returns block ``rank`` (each rank sends the whole of
-    ``t``)."""
+    ``t``).  The sum is in ``t``'s dtype: ``tensor_parallel.gather`` widens
+    a bf16 gradient to f32 first and rounds the rank's block once."""
     if topo.group is None:
         return t
     blocks = [b.contiguous() for b in torch.chunk(t, topo.world, dim=dim)]

@@ -20,6 +20,16 @@ owns shard ``w * Z + z`` of its model index's buffers, and holds model
 block ``m`` (the reference's reshape of the rows; with ``model`` = 1 that
 is ``r = w * Z + z``, the reference's chunk order,
 ``distributed/zero.py:225-226``).
+
+FSDP (``fsdp="zero"``, the reference's ``param_pspecs(..., zero=Z)`` on the
+worker params and base state) cuts each model block once more over the
+rank's **zero group** (the ``zero`` ranks of its worker group and model
+index, :attr:`Topology.zp`, ``<name>@zero``): the rank then holds its zero
+block of its workers' params, gradients and AdamW moments, and its x0 and m
+are its chunk of that block over its **worker peers** (the ``worker`` ranks
+with its zero and model index), which the worker mean, the global step and
+the re-sync run over (:attr:`Topology.dp`).  A serving rank's FSDP group
+(``fsdp="data"``) is its data group (:attr:`Topology.data`).
 """
 
 from __future__ import annotations
@@ -91,7 +101,13 @@ class Topology:
     ``dp_group`` spans the ``worker * zero`` ranks of this rank's model
     index (the worker mean, the global step and the re-sync run over it:
     :attr:`dp`) and ``model_group`` the ``model`` ranks of this rank's
-    worker/zero row (the tensor-parallel collectives: :attr:`mp`)."""
+    worker/zero row (the tensor-parallel collectives: :attr:`mp`).
+
+    ``fsdp``: ``""`` (each zero rank holds its worker's blocks whole),
+    ``"zero"`` (a training rank's blocks cut over its zero group,
+    ``zero_group``, :attr:`zp`; the global step over its worker peers,
+    ``peer_group``) or ``"data"`` (a serving rank's blocks cut over its data
+    group, :attr:`data`).  A group of one rank is None."""
 
     n_workers: int          # W, all workers of the run
     worker: int             # worker groups (the reference's "worker" axis)
@@ -104,6 +120,9 @@ class Topology:
     dp_group: Any = None
     model_group: Any = None
     axis: str = ""          # "model": the view of the model group (CommStats keys)
+    fsdp: str = ""          # "", "zero" (training) or "data" (serving)
+    zero_group: Any = None
+    peer_group: Any = None
 
     @property
     def world(self) -> int:
@@ -132,10 +151,9 @@ class Topology:
         return slice(self.worker_index * n, (self.worker_index + 1) * n)
 
     @property
-    def dp(self) -> "Topology":
+    def wz(self) -> "Topology":
         """The ``(worker, zero)`` grid of this rank's model index, with
-        ``model`` = 1: what the worker mean, the ZeRO shards and the global
-        step run over (the topology itself when ``model`` = 1)."""
+        ``model`` = 1 (the topology itself when ``model`` = 1)."""
         if self.model == 1:
             return self
         dp_world = self.worker * self.zero
@@ -143,11 +161,31 @@ class Topology:
                         self.dp_group if dp_world > 1 else None, self.backend, self.stats)
 
     @property
+    def dp(self) -> "Topology":
+        """What the worker mean, the ZeRO shards and the global step run
+        over: the ``(worker, zero)`` grid of this rank's model index
+        (:attr:`wz`), or under ``fsdp="zero"`` its worker peers, one rank per
+        worker group (``zero`` = 1)."""
+        if self.fsdp != "zero":
+            return self.wz
+        return Topology(self.n_workers, self.worker, 1, self.worker_index,
+                        self.peer_group if self.worker > 1 else None, self.backend,
+                        self.stats)
+
+    @property
+    def zp(self) -> "Topology":
+        """The zero group as a topology of ``zero`` ranks (one worker group,
+        one model rank): its collectives count under ``<name>@zero``."""
+        return Topology(self.n_workers, 1, self.zero, self.zero_index,
+                        self.zero_group if self.zero > 1 else None, self.backend,
+                        self.stats, axis="zero")
+
+    @property
     def data(self) -> "Topology":
         """A serving rank's data group (:func:`serving_topology`: the D ranks
         of its model index) as a topology whose collectives count under
         ``<name>@data``."""
-        return dataclasses.replace(self.dp, axis="data")
+        return dataclasses.replace(self.wz, axis="data")
 
     @property
     def mp(self) -> "Topology":
@@ -159,7 +197,7 @@ class Topology:
 
 
 def serving_topology(group: Optional[Any] = None, model: int = 1,
-                     timed: bool = False) -> Topology:
+                     timed: bool = False, fsdp: bool = False) -> Topology:
     """This process's rank of the reference's ``(data, model)`` serving grid
     (``serving_mesh``) over the ranks of ``group``: rank ``r = d * model +
     m``, D = world / model data rows.  It is a :class:`Topology` whose
@@ -167,7 +205,9 @@ def serving_topology(group: Optional[Any] = None, model: int = 1,
     ``model_group`` spans the M ranks of its data row (:attr:`Topology.mp`,
     ``<name>@model``), ``dp_group`` the D ranks of its model index
     (:attr:`Topology.data`, ``<name>@data``); both built once, on every rank,
-    in the same order (:func:`topology`)."""
+    in the same order (:func:`topology`).  ``fsdp``: the rank holds its
+    data block of every leaf the serving placement cuts over ``data``
+    (``fsdp="data"``) and gathers it at use."""
     if group is None:
         return topology(1, None, timed, model)
     import torch.distributed as dist
@@ -175,7 +215,8 @@ def serving_topology(group: Optional[Any] = None, model: int = 1,
     world = dist.get_world_size(group)
     if world % model:
         raise ValueError(f"model={model} does not divide the {world} ranks")
-    return topology(world // model, group, timed, model)
+    topo = topology(world // model, group, timed, model)
+    return dataclasses.replace(topo, fsdp="data") if fsdp else topo
 
 
 def grid(n_workers: int, world: int, model: int = 1) -> tuple[int, int]:
@@ -204,33 +245,52 @@ def grid(n_workers: int, world: int, model: int = 1) -> tuple[int, int]:
 
 
 def topology(n_workers: int, group: Optional[Any] = None, timed: bool = False,
-             model: int = 1) -> Topology:
+             model: int = 1, fsdp: bool = False) -> Topology:
     """The topology of this process in ``group`` (None: a world of one, the
     reference's degenerate mesh on one device).  ``timed``: its collectives
     record their seconds (see ``comm``).  ``model`` > 1 builds the
     model-group and worker/zero-group subgroups, once, on every rank (each
-    rank must call this with the same arguments)."""
+    rank must call this with the same arguments); ``fsdp`` (``fsdp="zero"``)
+    then the zero groups (with ``zero`` > 1) and the worker-peer groups
+    (with ``worker`` > 1 and ``zero`` > 1; with ``zero`` = 1 the peers are
+    the ``(worker, zero)`` ranks), the same way."""
     if group is None:
         if model != 1:
             raise ValueError("a model axis needs a process group of model ranks or more")
-        return Topology(n_workers, 1, 1, 0, stats=CommStats(timed))
+        return Topology(n_workers, 1, 1, 0, stats=CommStats(timed), fsdp="zero" if fsdp else "")
     import torch.distributed as dist
 
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     worker, zero = grid(n_workers, world, model)
     backend = dist.get_backend(group)
-    if model == 1:
-        return Topology(n_workers, worker, zero, rank, group, backend, CommStats(timed))
+    topo = Topology(n_workers, worker, zero, rank, group, backend, CommStats(timed), model,
+                    fsdp="zero" if fsdp else "")
     ranks = dist.get_process_group_ranks(group)
-    dp_group = model_group = None
-    # every rank creates every subgroup, in the same order
-    for m in range(model):
-        g = dist.new_group([ranks[r] for r in range(m, world, model)], backend=backend)
-        if rank % model == m:
-            dp_group = g
-    for row in range(world // model):
-        g = dist.new_group(ranks[row * model:(row + 1) * model], backend=backend)
-        if rank // model == row:
-            model_group = g
-    return Topology(n_workers, worker, zero, rank, group, backend, CommStats(timed),
-                    model, dp_group, model_group)
+
+    def subgroups(members):
+        """One group per member list, made on every rank in the same order;
+        returns the one that holds this rank (None where it is alone)."""
+        mine = None
+        for m in members:
+            g = dist.new_group([ranks[r] for r in m], backend=backend) if len(m) > 1 else None
+            if rank in m:
+                mine = g
+        return mine
+
+    at = [[[(w * zero + z) * model + m for m in range(model)] for z in range(zero)]
+          for w in range(worker)]
+    if model > 1:
+        topo = dataclasses.replace(
+            topo, dp_group=subgroups([[at[w][z][m] for w in range(worker) for z in range(zero)]
+                                      for m in range(model)]),
+            model_group=subgroups([at[w][z] for w in range(worker) for z in range(zero)]))
+    if fsdp and zero > 1:
+        topo = dataclasses.replace(
+            topo, zero_group=subgroups([[at[w][z][m] for z in range(zero)]
+                                        for w in range(worker) for m in range(model)]),
+            peer_group=subgroups([[at[w][z][m] for w in range(worker)]
+                                  for z in range(zero) for m in range(model)])
+            if worker > 1 else None)
+    elif fsdp:
+        topo = dataclasses.replace(topo, peer_group=topo.wz.group)
+    return topo

@@ -23,8 +23,20 @@ one process per rank, so the model (``models/transformer.py``) calls these
 A bf16 activation is all-reduced in f32 and rounded once: each rank's
 partial sum is rounded to bf16 by its product, the sum of the M partials
 is exact to f32 and rounded to bf16 again (the rounding model PERF.md
-states).  Every collective goes through ``distributed/comm.py``, so
-``CommStats`` counts it under ``<name>@model``.
+states).  A bf16 gradient is reduce-scattered the same way (``"sum"``
+backward of :func:`gather`): each rank's partial gradient, rounded to bf16
+by its product, is widened to f32, the partials summed in f32 and the
+rank's block rounded to bf16 once.  Every collective goes through
+``distributed/comm.py``, so ``CommStats`` counts it under ``<name>@model``
+(``<name>@zero`` / ``<name>@data`` over the zero / data group).
+
+FSDP uses the same functions over the rank's zero group
+(``Topology.zp``) or, serving, its data group (``Topology.data``): a leaf
+that the placement cuts over ``zero`` is gathered at use to the rank's
+model block (:func:`gather`, ``"sum"`` where the zero ranks compute their
+own rows of the microbatch, ``"slice"`` where each computes the whole
+microbatch), and one it holds whole is :func:`copy_to` where the rows are
+split.
 """
 
 from __future__ import annotations
@@ -77,7 +89,9 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if ctx.mode == "sum":
-            return comm.reduce_scatter_dim(g.contiguous(), ctx.axis, ctx.dim), None, None, None
+            wide = g.to(F32) if g.dtype in (torch.bfloat16, torch.float16) else g
+            out = comm.reduce_scatter_dim(wide.contiguous(), ctx.axis, ctx.dim)
+            return out.to(g.dtype), None, None, None
         n = g.shape[ctx.dim] // ctx.axis.world
         return g.narrow(ctx.dim, ctx.axis.rank * n, n).contiguous(), None, None, None
 
@@ -96,7 +110,8 @@ def reduce_from(x: torch.Tensor, axis) -> torch.Tensor:
 def gather(x: torch.Tensor, axis, dim: int, mode: str = "slice") -> torch.Tensor:
     """Every rank's block of a leaf along ``dim``, concatenated: the leaf.
     Backward: the rank's block of the gradient (``"slice"``) or the
-    reduce-scatter of the partial gradients (``"sum"``)."""
+    reduce-scatter of the partial gradients (``"sum"``; bf16 summed in
+    f32, rounded once)."""
     if mode not in ("slice", "sum"):
         raise ValueError(f"mode must be 'slice' or 'sum', got {mode!r}")
     return _Gather.apply(x, axis, dim, mode)
@@ -210,44 +225,100 @@ def model_dims(cfg, model: int, replicate_names: tuple = ()) -> dict:
     the reference's ``param_pspecs(..., model=model)`` on the dense shapes
     (the same dims as its per-worker and global placements, less the
     worker dim)."""
+    return _placement_dims(cfg, model, 1, ("zero",), replicate_names, "model")
+
+
+def zero_dims(cfg, model: int, zero: int, zero_axes: tuple = ("zero",),
+              replicate_names: tuple = ()) -> dict:
+    """``{leaf: its dim on the zero axis, or None}``: the dim the
+    reference's ``param_pspecs(..., model=model, zero=zero)`` puts on
+    ``zero_axes`` (``("zero",)`` for the worker params and base state,
+    ``("data",)`` for the serving params): the largest dim divisible by
+    ``zero`` that is neither the model dim nor a stacked layer dim."""
+    return _placement_dims(cfg, model, zero, zero_axes, replicate_names, zero_axes[0])
+
+
+def _placement_dims(cfg, model, zero, zero_axes, replicate_names, axis) -> dict:
     from repro_torch.models.transformer import layout
 
     lay = layout(cfg)
-    specs = sharding.param_pspecs(dict(zip(lay.names, lay.shapes)), model=model,
-                                  replicate_names=replicate_names)
-    return {name: sharding.model_dim(spec) for name, spec in specs.items()}
+    specs = sharding.param_pspecs(dict(zip(lay.names, lay.shapes)), model=model, zero=zero,
+                                  zero_axes=zero_axes, replicate_names=replicate_names)
+    return {name: sharding.model_dim(spec, axis) for name, spec in specs.items()}
 
 
-def rank_layout(cfg, model: int, index: int, axis=None,
-                replicate_names: tuple = ()) -> FlatLayout:
+def rank_layout(cfg, model: int, index: int, axis=None, replicate_names: tuple = (),
+                zero: int = 1, zero_index: int = 0, zero_axis=None,
+                zero_axes: tuple = ("zero",)) -> FlatLayout:
     """Model rank ``index`` of ``model``'s flat layout: every leaf cut by
     its placement (:func:`model_dims`).  ``axis``: the rank's model group
-    (``topo.mp``), which the model then computes over."""
+    (``topo.mp``), which the model then computes over.  With ``zero`` > 1
+    (FSDP) each block is cut once more by :func:`zero_dims` into zero rank
+    ``zero_index``'s, gathered at use over ``zero_axis``."""
     from repro_torch.models.transformer import layout
 
-    return layout(cfg).shard(model_dims(cfg, model, replicate_names), model, index, axis)
+    lay = layout(cfg).shard(model_dims(cfg, model, replicate_names), model, index, axis)
+    if zero == 1:
+        return lay
+    return lay.cut_zero(zero_dims(cfg, model, zero, zero_axes, replicate_names), zero,
+                        zero_index, zero_axis)
 
 
 def topology_layout(cfg, topo, replicate_names: tuple = ()) -> FlatLayout:
     """The layout of ``topo``'s rank: the dense layout for ``model`` = 1,
-    else :func:`rank_layout` over ``topo.mp``."""
+    else :func:`rank_layout` over ``topo.mp``; under FSDP its blocks cut
+    over the zero group (``fsdp="zero"``: ``zero`` ways, gathered over
+    ``topo.zp``) or the data group (``fsdp="data"``: the D data rows,
+    ``topo.data``)."""
     from repro_torch.models.transformer import layout
 
-    if topo is None or topo.model == 1:
+    if topo is None:
         return layout(cfg)
-    return rank_layout(cfg, topo.model, topo.model_index, topo.mp, replicate_names)
+    Z, index, view, axes = {"zero": (topo.zero, topo.zero_index, "zp", ("zero",)),
+                            "data": (topo.worker, topo.worker_index, "data", ("data",)),
+                            "": (1, 0, None, ("zero",))}[topo.fsdp]
+    if topo.model == 1 and Z == 1:
+        return layout(cfg)
+    return rank_layout(cfg, topo.model, topo.model_index,
+                       topo.mp if topo.model > 1 else None, replicate_names, Z, index,
+                       getattr(topo, view) if Z > 1 else None, axes)
+
+
+def zero_split(layout: FlatLayout, b_micro: int) -> bool:
+    """The zero ranks of an FSDP layout each compute their ``b_micro / Z``
+    rows of a microbatch: the reference's ``train_batch_pspecs`` puts
+    ``B_micro`` on ``zero`` (``b_micro % Z == 0``); else each computes the
+    whole microbatch."""
+    if layout.zero == 1:
+        return False
+    spec = sharding.train_batch_pspecs({"tokens": ((1, 1, 1, b_micro, 1), torch.int64)},
+                                       zero=layout.zero)
+    return spec["tokens"][3] == "zero"
+
+
+def zero_rows(layout: FlatLayout, b_micro: int) -> slice:
+    """The rows of a ``b_micro``-row microbatch that this zero rank
+    computes (:func:`zero_split`; every row where the batch is whole over
+    zero)."""
+    if not zero_split(layout, b_micro):
+        return slice(0, b_micro)
+    n = b_micro // layout.zero
+    return slice(layout.zero_index * n, (layout.zero_index + 1) * n)
 
 
 class _Reckoning:
-    """The model group's collectives of a rank's layout, added up as
-    ``CommStats`` counts them: ``{"<name>@model": {"calls", "bytes"}}``."""
+    """The collectives of a rank's layout, added up as ``CommStats`` counts
+    them: ``{"<name>@model": {"calls", "bytes"}}``, and under FSDP the zero
+    (or data) group's as ``<name>@zero`` (``@data``)."""
 
-    def __init__(self, layout: FlatLayout):
-        self.layout, self.out = layout, {}
+    def __init__(self, layout: FlatLayout, zero_axis: str = "zero"):
+        self.layout, self.out, self.zero_axis = layout, {}, zero_axis
         self._index = {n: i for i, n in enumerate(layout.names)}
 
-    def add(self, name: str, nbytes: int, calls: int = 1) -> None:
-        rec = self.out.setdefault(f"{name}@model", {"calls": 0, "bytes": 0})
+    def add(self, name: str, nbytes: int, calls: int = 1, axis: str = "model") -> None:
+        if calls == 0:
+            return
+        rec = self.out.setdefault(f"{name}@{axis}", {"calls": 0, "bytes": 0})
         rec["calls"] += calls
         rec["bytes"] += nbytes * calls
 
@@ -258,21 +329,33 @@ class _Reckoning:
         d = self.layout.model_dims[self._index[name]]
         return None if d is None else d - self.stacked(name)
 
+    def zdim(self, name: str):
+        if self.layout.zero == 1:
+            return None
+        return self.layout.zero_dims[self._index[name]]
+
     def layer_count(self, name: str) -> int:
         return self.layout.shapes[self._index[name]][0] if self.stacked(name) else 1
 
-    def block_numel(self, name: str) -> int:
+    def zero_numel(self, name: str) -> int:
+        """Elements of one layer of the rank's zero block of the leaf (its
+        model block where it is whole over zero)."""
         shape = self.layout.shapes[self._index[name]]
         return math.prod(shape[1:] if self.stacked(name) else shape)
+
+    def block_numel(self, name: str) -> int:
+        """Elements of one layer of the rank's model block of the leaf."""
+        return self.zero_numel(name) * (self.layout.zero if self.zdim(name) is not None else 1)
 
     def itemsize(self, name: str) -> int:
         return self.layout.dtypes[self.layout.groups[self._index[name]]].itemsize
 
-    def gather(self, name: str) -> None:
-        """A leaf gathered at use, layer by layer: each rank sends its block."""
+    def gather(self, name: str, calls: int = None) -> None:
+        """A leaf gathered at use over the model group, layer by layer: each
+        rank sends its model block."""
         if self.dim(name) is not None:
             self.add("all_gather", self.block_numel(name) * self.itemsize(name),
-                     self.layer_count(name))
+                     self.layer_count(name) if calls is None else calls)
 
     def gather_all(self) -> dict:
         """Every leaf gathered once: the replicated compute of a family the
@@ -281,11 +364,38 @@ class _Reckoning:
             self.gather(name)
         return self.out
 
+    def zero_use(self, name: str, fwd: int, bwd: int = 0, mode: str = "slice") -> None:
+        """A leaf's zero block gathered over the zero group at each of
+        ``fwd`` forward uses (each rank sends its zero block); in ``"sum"``
+        mode each of ``bwd`` backward uses reduce-scatters its gradient, or
+        all-reduces it for a leaf held whole over zero (f32, the model
+        block's elements)."""
+        if self.layout.zero == 1:
+            return
+        ax = self.zero_axis
+        if self.zdim(name) is not None:
+            self.add("all_gather", self.zero_numel(name) * self.itemsize(name), fwd, ax)
+            if mode == "sum":
+                self.add("reduce_scatter", self.block_numel(name) * 4, bwd, ax)
+        elif mode == "sum":
+            self.add("all_reduce_sum", self.block_numel(name) * 4, bwd, ax)
+
+    def zero_all(self, mode: str, bwd: bool = True) -> None:
+        """Every leaf's zero block gathered once per layer (the families
+        that gather every leaf up front, ``transformer._gathered``)."""
+        for name in self.layout.names:
+            n = self.layer_count(name)
+            self.zero_use(name, n, n if bwd else 0, mode)
+
     def attention_layers(self):
         """``(prefix, layers)`` of each decoder attention leaf group."""
         for wq in (n for n in self.layout.names
                    if n.startswith("decoder.") and n.endswith(".attn.wq")):
             yield wq[:-len("attn.wq")], self.layer_count(wq)
+
+    def layer_leaves(self, pre: str) -> list:
+        """The names of a decoder layer group's leaves (``pre``: its prefix)."""
+        return [n for n in self.layout.names if n.startswith(pre)]
 
     def heads_split(self, pre: str, cfg) -> bool:
         return (self.dim(pre + "attn.wq") == 1 and self.dim(pre + "attn.wo") == 0
@@ -308,88 +418,154 @@ class _Reckoning:
         return self.dim(head) == (0 if cfg.tie_embeddings else 1)
 
 
-def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int) -> dict:
-    """The model group's collectives of one forward and backward of
-    ``loss_fn`` (no remat) on a ``(batch, seq)`` microbatch, reckoned from
-    the rank's placements, layer by layer: ``{"<name>@model": {"calls",
-    "bytes"}}`` as ``CommStats`` counts them (the bytes this rank sends).
-    Activations are all-reduced in f32 (4 bytes per element); a gather sends
-    the rank's block; a reduce-scatter the whole gradient; a leaf held whole
-    but used where each rank computes a part has its f32 gradient
-    all-reduced."""
+def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int,
+                           remat: bool = False) -> dict:
+    """The collectives of one forward and backward of ``loss_fn`` on a
+    ``(batch, seq)`` microbatch on a rank of ``layout``, reckoned from its
+    placements, layer by layer: ``{"<name>@model": {"calls", "bytes"}}`` as
+    ``CommStats`` counts them (the bytes this rank sends).  Activations are
+    all-reduced in f32 (4 bytes per element); a gather sends the rank's
+    block; a reduce-scatter the whole f32 gradient; a leaf held whole but
+    used where each rank computes a part has its f32 gradient all-reduced.
+    ``remat``: each pattern repeat is recomputed in the backward
+    (``transformer._run_stack``), so its forward collectives run twice, up
+    to its last saved tensor (``torch.utils.checkpoint`` stops there: the
+    all-reduce of the repeat's last FFN output runs once).
+
+    Under FSDP (``layout.zero`` > 1) the rank computes its ``batch / Z``
+    rows where :func:`zero_split` (else all ``batch``), and the zero group's
+    collectives count as ``<name>@zero``: each zero-cut leaf gathered at
+    every use (a Megatron-split config's layer leaves inside the layer, so
+    twice under remat; ``embed`` at the lookup and, tied, at the head; the
+    head and ``final_norm`` once; every other family's leaves once, up
+    front), and with the rows split its gradient reduce-scattered once per
+    use (a leaf held whole over zero: all-reduced), and each MoE layer's
+    aux-loss statistics all-reduced (``layers.moe_apply``)."""
     from repro_torch.models import transformer as T
 
     r = _Reckoning(layout)
+    mode = "sum" if zero_split(layout, batch) else "slice"
     if not T.megatron_split(cfg):
+        r.zero_all(mode)
+        if mode == "sum":
+            # a MoE layer's aux loss over the whole microbatch: its top-1
+            # counts (int64) and router probability sums (f32) all-reduced
+            for name in layout.names:
+                if name.endswith("moe.router"):
+                    n = r.layer_count(name) * (2 if remat and r.stacked(name) else 1)
+                    r.add("all_reduce_sum", cfg.n_experts * 8, n, "zero")
+                    r.add("all_reduce_sum", cfg.n_experts * 4, n, "zero")
         return r.gather_all()
+    rows = batch // layout.zero if mode == "sum" else batch
     M = layout.model
-    act = batch * seq * cfg.d_model * 4
-    if r.dim("embed") == 0:
-        r.add("all_reduce_sum", act)
+    act = rows * seq * cfg.d_model * 4
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    r.zero_use("embed", 1, 1, mode)
+    r.zero_use("final_norm.scale", 1, 1, mode)
+    if not cfg.tie_embeddings:
+        r.zero_use(head, 1, 1, mode)
     else:
-        r.gather("embed")
+        r.zero_use("embed", 1, 1, mode)
+    if M > 1:
+        if r.dim("embed") == 0:
+            r.add("all_reduce_sum", act)
+        else:
+            r.gather("embed")
+    tail = f"decoder.blocks.p{len(cfg.pattern) - 1}."
     for pre, reps in r.attention_layers():
-        r.gather(pre + "ln1.scale")
-        r.gather(pre + "ln2.scale")
+        fwd = reps * (2 if remat and r.stacked(pre) else 1)
+        for name in r.layer_leaves(pre):
+            r.zero_use(name, fwd, reps, mode)
+        if M == 1:
+            continue
+        # the recompute stops at the repeat's last saved tensor
+        # (torch.utils.checkpoint's early stop): the all-reduce of its last
+        # layer's FFN output is not run again
+        ffn_fwd = fwd - (reps if remat and pre == tail else 0)
+        r.gather(pre + "ln1.scale", fwd)
+        r.gather(pre + "ln2.scale", fwd)
         if r.heads_split(pre, cfg):
-            r.add("all_reduce_sum", act, 2 * reps)     # the input's gradient, the output
+            r.add("all_reduce_sum", act, reps + fwd)   # the input's gradient, the output
             if not r.kv_direct(pre, cfg):
                 for w in (pre + "attn.wk", pre + "attn.wv"):
                     if r.dim(w) is None:
                         r.add("all_reduce_sum", r.block_numel(w) * 4, reps)
                     else:
-                        r.add("all_gather", r.block_numel(w) * r.itemsize(w), reps)
-                        r.add("reduce_scatter", r.block_numel(w) * M * r.itemsize(w), reps)
+                        r.add("all_gather", r.block_numel(w) * r.itemsize(w), fwd)
+                        r.add("reduce_scatter", r.block_numel(w) * M * 4, reps)
         else:
             for w in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
-                r.gather(pre + w)
+                r.gather(pre + w, fwd)
         if r.ffn_split(pre, cfg):
-            r.add("all_reduce_sum", act, 2 * reps)
+            r.add("all_reduce_sum", act, reps + ffn_fwd)
         else:
             for w in r.ffn_names(pre, cfg):
-                r.gather(w)
+                r.gather(w, fwd)
+    if M == 1:
+        return r.out
     r.gather("final_norm.scale")
     if r.head_split(cfg):
         r.add("all_reduce_sum", act)                   # the head input's gradient
         for c0 in range(0, seq, min(T.CE_CHUNK, seq)):
-            rows = batch * (min(c0 + T.CE_CHUNK, seq) - c0) * 4
-            r.add("all_reduce_max", rows)
-            r.add("all_reduce_sum", rows, 2)           # the sum of exponentials, the gold
+            n = rows * (min(c0 + T.CE_CHUNK, seq) - c0) * 4
+            r.add("all_reduce_max", n)
+            r.add("all_reduce_sum", n, 2)              # the sum of exponentials, the gold
     else:
-        r.gather("embed" if cfg.tie_embeddings else "lm_head")
+        r.gather(head)
     return r.out
 
 
+def local_phase_collectives(cfg, layout: FlatLayout, n_local: int, tau: int, b_micro: int,
+                            seq: int, accum: int = 1, remat: bool = False) -> dict:
+    """The local phase's collectives of one outer step on a rank of
+    ``layout`` (its ``n_local`` workers, ``tau`` local steps of ``accum``
+    microbatches of ``(b_micro, seq)``): :func:`microbatch_collectives` for
+    each, and with the rows split over zero the one all-reduce of the
+    (tau, n_local) f32 losses over the zero group that makes each worker's
+    loss the mean over its zero ranks."""
+    micro = microbatch_collectives(cfg, layout, b_micro, seq, remat)
+    losses = ({"all_reduce_sum@zero": {"calls": 1, "bytes": tau * n_local * 4}}
+              if zero_split(layout, b_micro) else {})
+    return comm.scaled_sum((n_local * tau * accum, micro), (1, losses))
+
+
 def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) -> dict:
-    """The model group's collectives of one serving call on a rank's
-    ``batch`` rows, reckoned from its placements as
-    :func:`microbatch_collectives` (forward only): ``kind``
-    ``"serving_params"`` (``transformer.serving_params``, once per
-    ``generate``: a Megatron-split config gathers each norm scale, a
-    stacked one in one call; every other family gathers every leaf, layer
-    by layer), ``"prefill"`` over ``seq`` positions (a VLM's patches
-    included) or ``"decode"`` (one ``decode_step``; ``seq`` is not read),
-    both on resolved params (a call on params not yet resolved adds
-    ``"serving_params"``'s), or ``"pick"`` (one :func:`vocab_argmax`: an f32
-    maximum and an int64 minimum per row where the logits are the rank's
-    vocab block, nothing where they are whole).  A Megatron-split config's
-    call all-reduces the vocab-parallel lookup and each attention and FFN
-    output (f32), and gathers ``wk`` / ``wv`` where a rank's block cuts a
-    head; every other family's call computes on the gathered leaves."""
+    """The collectives of one serving call on a rank's ``batch`` rows,
+    reckoned from its placements as :func:`microbatch_collectives` (forward
+    only): ``kind`` ``"serving_params"`` (``transformer.serving_params``,
+    once per ``generate``: a Megatron-split config gathers each norm scale
+    over the model group, a stacked one in one call; every other family
+    gathers every leaf, layer by layer), ``"prefill"`` over ``seq``
+    positions (a VLM's patches included) or ``"decode"`` (one
+    ``decode_step``; ``seq`` is not read), both on resolved params (a call
+    on params not yet resolved adds ``"serving_params"``'s), or ``"pick"``
+    (one :func:`vocab_argmax`: an f32 maximum and an int64 minimum per row
+    where the logits are the rank's vocab block, nothing where they are
+    whole).  A Megatron-split config's call all-reduces the vocab-parallel
+    lookup and each attention and FFN output (f32), and gathers ``wk`` /
+    ``wv`` where a rank's block cuts a head; every other family's call
+    computes on the gathered leaves.  Under FSDP over data (``layout.zero``
+    > 1, the serving placement's ``data`` entries) a Megatron-split
+    config's call gathers each data-cut leaf over the data group where it
+    is used (``<name>@data``: every layer's leaves, ``embed`` at the lookup
+    and, tied, at the head, the head, ``final_norm`` where no model gather
+    resolved it); every other family gathers every leaf over data, once,
+    in ``"serving_params"``."""
     from repro_torch.models import transformer as T
 
     if kind not in ("serving_params", "prefill", "decode", "pick"):
         raise ValueError(f"kind must be 'serving_params', 'prefill', 'decode' or 'pick', "
                          f"got {kind!r}")
-    r = _Reckoning(layout)
+    r = _Reckoning(layout, "data")
     split = T.megatron_split(cfg)
     if kind == "pick":
-        if split and r.head_split(cfg):
+        if split and layout.model > 1 and r.head_split(cfg):
             r.add("all_reduce_max", batch * 4)
             r.add("all_reduce_min", batch * 8)
         return r.out
     if kind == "serving_params":
         if not split:
+            r.zero_all("slice")
             return r.gather_all()
         for name in layout.names:
             if name.endswith(T.NORM_SCALES) and r.dim(name) is not None:
@@ -397,6 +573,13 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) 
         return r.out
     if not split:
         return r.out
+    # the norm scales a model gather resolved are held whole from then on
+    resolved = {n for n in layout.names if n.endswith(T.NORM_SCALES) and r.dim(n) is not None}
+    for name in layout.names:
+        if name not in resolved:
+            r.zero_use(name, r.layer_count(name) * (1 + (name == "embed" and cfg.tie_embeddings)))
+    if layout.model == 1:
+        return r.out
     act = batch * (seq if kind == "prefill" else 1) * cfg.d_model * 4
     if r.dim("embed") == 0:
         r.add("all_reduce_sum", act)
@@ -416,33 +599,6 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) 
         else:
             for w in r.ffn_names(pre, cfg):
                 r.gather(w)
-    if not r.head_split(cfg):
-        r.gather("embed" if cfg.tie_embeddings else "lm_head")
-    return r.out
-    if not split:
-        return r.gather_all()
-    act = batch * (seq if kind == "prefill" else 1) * cfg.d_model * 4
-    if r.dim("embed") == 0:
-        r.add("all_reduce_sum", act)
-    else:
-        r.gather("embed")
-    for pre, reps in r.attention_layers():
-        r.gather(pre + "ln1.scale")
-        if r.heads_split(pre, cfg):
-            if not r.kv_direct(pre, cfg):
-                r.gather(pre + "attn.wk")
-                r.gather(pre + "attn.wv")
-            r.add("all_reduce_sum", act, reps)
-        else:
-            for w in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
-                r.gather(pre + w)
-        r.gather(pre + "ln2.scale")
-        if r.ffn_split(pre, cfg):
-            r.add("all_reduce_sum", act, reps)
-        else:
-            for w in r.ffn_names(pre, cfg):
-                r.gather(w)
-    r.gather("final_norm.scale")
     if not r.head_split(cfg):
         r.gather("embed" if cfg.tie_embeddings else "lm_head")
     return r.out

@@ -217,12 +217,14 @@ def stat_sums_less(x0, m, xt, gamma, beta1: float, start: int = 0, drop=()) -> t
 
 
 def sharded_stat_sums(x0_l, m_l, xt_l, gamma, beta1: float, topo, numels,
-                      drop=None) -> torch.Tensor:
+                      drop=None, over=None) -> torch.Tensor:
     """The metric pack's ``(N_STAT_SUMS,)`` sums over the sharded buffers:
     each rank sums each of its group shards and adds the groups in group
     order (a group kept whole on rank 0 only, so that it counts once), then
-    ONE all-reduce of the stacked vector (reference ``:306-344``).
-    ``drop``: per group, ranges left out of the sums (:func:`stat_sums_less`)."""
+    ONE all-reduce of the stacked vector (reference ``:306-344``), over
+    ``topo`` or ``over`` (an FSDP rank's ``(worker, zero)`` ranks, whose zero
+    blocks ``topo``'s shards cut).  ``drop``: per group, ranges left out of
+    the sums (:func:`stat_sums_less`)."""
     R = num_shards(topo)
     sums = [stat_sums_less(x, m, xt, gamma, beta1, my_bounds(n, topo)[0], drop[g])
             if drop else OM.stat_sums(x, m, xt, gamma, beta1)
@@ -231,7 +233,7 @@ def sharded_stat_sums(x0_l, m_l, xt_l, gamma, beta1: float, topo, numels,
             if topo.rank == 0 or not whole(n, R)]
     total = (functools.reduce(torch.add, sums) if sums else
              torch.zeros(OM.N_STAT_SUMS, dtype=F32, device=parts(x0_l)[0].device))
-    return comm.all_reduce(total, topo, "sum")
+    return comm.all_reduce(total, topo if over is None else over, "sum")
 
 
 # ---------------------------------------------------------------------------

@@ -52,9 +52,11 @@ placements (``distributed.tensor_parallel.rank_layout``), x0 and m
 ZeRO-sharded over its ``(worker, zero)`` ranks, one microbatch through the
 model-axis ``loss_fn`` with meta collectives (counted by ``CommStats`` per
 group, times W_local * tau * accum), and the global step.  The worker
-parameters' ``zero`` entries are held replicated (FSDP inside a worker is
-not ported: ROADMAP queue 1), so each zero rank holds its worker's blocks
-whole and runs its worker's whole microbatch.  A record carries the
+parameters' and base state's ``zero`` entries are sharded (FSDP,
+``ZERO_AXIS``): the rank holds its zero block of its blocks, gathers each
+layer at use over its zero group, runs its ``B_micro / Z`` rows where the
+batch splits over zero (``batch_over_zero``), and its x0 and m are its chunk
+of its zero block over its worker peers.  A record carries the
 reference's fields (``flops`` per rank, ``collectives`` per kind with
 ``wire_bytes`` under its ring model, ``memory``, ``t_compute_s`` /
 ``t_memory_s`` / ``t_collective_s``, ``dominant``, ``n_chips``, ``mesh``)
@@ -64,8 +66,9 @@ Prefill and decode on a pod mesh reckon rank 0 of the reference's serving
 grid (``distributed.mesh.serving_mesh``: (16, 16), or (32, 16) with the
 pod folded into data) through the rank's ``prefill`` / ``decode_step``
 (:func:`reckon_serve`): its blocks of every leaf by the serving placement's
-``model`` entries (the ``data`` entries held replicated: FSDP over data is
-not ported, ``DATA_AXIS``), its data row's ``B / D`` sequences where the
+``model`` entries, cut once more by its ``data`` entries (FSDP over data,
+``DATA_AXIS``: gathered at use per layer and call), its data row's ``B /
+D`` sequences where the
 batch splits over data (else the whole batch, ``batch_over_data``), its
 cache (the KV heads it computes: ``cache_bytes_per_rank``, beside the
 reference's ``cache_pspecs`` placement's), meta collectives counted per
@@ -111,10 +114,13 @@ CARD_BYTES = 80e9
 LINK = ("InfiniBand NDR, 400 Gb/s (50 GB/s) per GPU, one ConnectX-7 per GPU "
         "(NVIDIA DGX H100 data sheet): a 16-way model group spans two 8-GPU nodes")
 LINK_BYTES_PER_S = 50e9
-ZERO_AXIS = ("held replicated: each zero rank holds its worker's blocks whole and runs its "
-             "worker's whole microbatch (FSDP of the worker params over zero is not ported, "
-             "ROADMAP queue 1)")
-DATA_AXIS = "replicated (not ported)"    # the serving params' data entries (ROADMAP queue 1)
+ZERO_AXIS = ("sharded (FSDP): each rank holds its zero block of its worker params, gradients "
+             "and AdamW moments (param_pspecs(..., zero=Z, worker_axis=True)), gathers each "
+             "layer at use over its zero group, and runs its B_micro / Z rows where "
+             "train_batch_pspecs puts B_micro on zero (else the whole microbatch)")
+DATA_AXIS = ("sharded (FSDP over data): each serving rank holds its data block of every leaf "
+             "that param_pspecs(..., zero=D, zero_axes=('data',)) cuts, gathered at use per "
+             "layer and call")
 # CommStats names -> the reference's collective kinds
 COMM_KINDS = {"scatter_rows": "reduce-scatter", "reduce_scatter": "reduce-scatter",
               "all_gather_shards": "all-gather", "gather_workers": "all-gather",
@@ -218,7 +224,9 @@ def _global_step(state, losses, topo, numels, beta1: float) -> None:
         x0 = state.x0
     else:
         x_tau = Z.scattered_worker_mean(state.params, dtopo)
-        stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, beta1, dtopo, numels)
+        over = topo.wz if topo.fsdp and topo.zero > 1 else None
+        stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, beta1, dtopo, numels,
+                                   over=over)
         if topo.model > 1:
             stat = comm.all_reduce(stat, topo.mp, "sum")
         x0 = Z.gather_shards(state.x0, dtopo, numels)
@@ -229,7 +237,7 @@ def _global_step(state, losses, topo, numels, beta1: float) -> None:
 def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int, seq: int,
                  base_opt: str = "adamw", remat: bool = False, remat_policy: str = "full",
                  eval_batch: int = 0, keep_x0: bool = True, world: int = 1, model: int = 1,
-                 replicate_names: tuple = ()) -> dict:
+                 replicate_names: tuple = (), fsdp: bool = False) -> dict:
     """One outer step's FLOPs and peak device bytes, on ``meta``.
 
     ``keep_x0``: the initial x0 stays allocated beside the state, as in
@@ -240,7 +248,11 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
     counts them, the model group's (``model`` > 1: ``world / model`` groups
     of ``model`` ranks, the rank holding its blocks of every leaf, leaves
     named in ``replicate_names`` whole) as ``<name>@model``, over one
-    microbatch times W_local * tau * accum."""
+    microbatch times W_local * tau * accum.  ``fsdp``: the rank's blocks
+    cut over its ``zero`` ranks too (``<name>@zero``; the losses'
+    all-reduce over them once per round where ``B_micro`` splits), its x0
+    and m its chunk over its worker peers."""
+    from repro_torch.distributed import comm as CM
     from repro_torch.distributed import mesh
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.distributed.comm import CommStats
@@ -250,12 +262,15 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
     if world > 1:
         worker, zero = mesh.grid(n_workers, world, model)
         marker = object() if model > 1 else None
+        cut = fsdp and zero > 1
         topo = mesh.Topology(n_workers, worker, zero, rank=0, group=object(),
                              backend="nccl", model=model, dp_group=object(),
-                             model_group=marker)
-    lay = (T.layout(cfg) if topo is None or model == 1 else
-           TP.rank_layout(cfg, model, 0, topo.mp, replicate_names))
+                             model_group=marker, fsdp="zero" if cut else "",
+                             zero_group=object() if cut else None,
+                             peer_group=object() if cut and worker > 1 else None)
+    lay = (T.layout(cfg) if topo is None else TP.topology_layout(cfg, topo, replicate_names))
     w_local = n_workers if topo is None else topo.local_workers
+    split = TP.zero_split(lay, b_micro)
     tracker = MemoryTracker()
     with tracker:
         x0 = lay.empty(device=META)
@@ -271,8 +286,10 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
     with tracker, FlopCounterMode(display=False) as flops, _meta_collectives():
         leaves = lay.autograd_leaves(each(lambda p: p[0], state.params),
                                      each(lambda g: g[0], state.grads))
-        loss = T.loss_fn(leaves, D.take(batch, 0, 0, 0), cfg, remat=remat,
-                         remat_policy=remat_policy)
+        if lay.zero > 1:
+            leaves.zero_mode = "sum" if split else "slice"
+        loss = T.loss_fn(leaves, D.take(batch, 0, 0, 0, TP.zero_rows(lay, b_micro)), cfg,
+                         remat=remat, remat_policy=remat_policy)
         loss.backward()
         del loss, leaves
     local_bytes = tracker.peak - state_bytes
@@ -288,6 +305,9 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
     tracker.reset_peak()
     with tracker, _meta_collectives():
         losses = torch.empty(tau, w_local, device=META)
+        if split:
+            # the local phase's end: a worker's loss, the mean of its zero ranks'
+            CM.all_reduce(losses, topo.zp, "sum")
         _global_step(state, losses, topo, lay.group_numels, D.DSMConfig().beta1)
         del losses
     global_bytes = tracker.peak - state_bytes
@@ -325,6 +345,8 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
         rec["comm"] = comm
         rec["comm_bytes_per_round"] = sum(v["bytes"] for v in rec["comm"].values())
         rec["model"] = model
+        if fsdp:
+            rec.update(fsdp=True, zero=zero, batch_over_zero=split)
     return _terms(rec, kernel_bytes)
 
 
@@ -345,7 +367,8 @@ def reckon_pod(arch: str, shape_name: str, multi_pod: bool, tau: int = None) -> 
     """Rank 0 of the reference's grid on its pod mesh, for one H100 SXM per
     rank, with the reference's record fields: at train shapes its training
     grid (``training_mesh(make_production_mesh(multi_pod), W)``), at
-    serving shapes its serving grid (``serving_mesh``, :func:`reckon_serve`)."""
+    serving shapes its serving grid (``serving_mesh``, :func:`reckon_serve`),
+    with the reference's FSDP placement over zero (data)."""
     from repro_torch.distributed import mesh
     from repro_torch.launch.train import resolve_arch
 
@@ -356,7 +379,7 @@ def reckon_pod(arch: str, shape_name: str, multi_pod: bool, tau: int = None) -> 
         grid = mesh.serving_mesh(base)
         dims = mesh.mesh_dims(grid)
         rec = reckon_serve(cfg, shape.kind, shape.global_batch, shape.seq_len, dims["data"],
-                           dims["model"])
+                           dims["model"], fsdp=True)
         rec.update(data_axis=DATA_AXIS)
         return _pod_terms(rec, grid, multi_pod)
     W = topo.n_workers_multi if multi_pod else topo.n_workers_single
@@ -367,8 +390,9 @@ def reckon_pod(arch: str, shape_name: str, multi_pod: bool, tau: int = None) -> 
     rec = reckon_train(cfg, n_workers=W, tau=tau or topo.tau, accum=topo.grad_accum,
                        b_micro=lead[3], seq=shape.seq_len, base_opt=topo.base_opt,
                        remat=topo.remat, remat_policy=topo.remat_policy, world=grid.size,
-                       model=dims["model"], replicate_names=rep)
-    rec.update(zero_axis=ZERO_AXIS, state_bytes_per_rank=rec["memory"]["state_bytes"])
+                       model=dims["model"], replicate_names=rep, fsdp=True)
+    rec.update(zero_axis=ZERO_AXIS,
+               state_bytes_per_rank=rec["memory"]["state_bytes"])
     return _pod_terms(rec, grid, multi_pod)
 
 
@@ -411,7 +435,7 @@ def reference_cache_bytes(cfg, batch: int, max_len: int, data: int, model: int) 
 
 
 def reckon_serve(cfg, kind: str, batch: int, seq: int, data: int = 1, model: int = 1,
-                 new: int = 0) -> dict:
+                 new: int = 0, fsdp: bool = False) -> dict:
     """Rank 0 of a ``(data, model)`` serving grid on ``meta``, its FLOPs,
     peak bytes and collectives: ``kind`` ``"prefill"`` (one ``prefill``, as
     the reference's ``build_prefill``: remat on, a ``batch`` x ``seq``
@@ -423,7 +447,9 @@ def reckon_serve(cfg, kind: str, batch: int, seq: int, data: int = 1, model: int
     prompt, a VLM's patches or an encdec's frames beside it, greedy).  The
     rank holds its blocks of every leaf (``tensor_parallel.rank_layout``
     with ``model`` > 1) and serves its rows (``tensor_parallel.serve_rows``);
-    ``comm`` is its ``CommStats`` (``<name>@model``, ``<name>@data``)."""
+    ``comm`` is its ``CommStats`` (``<name>@model``, ``<name>@data``).
+    ``fsdp``: the blocks cut over data too, gathered at use per layer and
+    call (``mesh.serving_topology(..., fsdp=True)``)."""
     from repro_torch.distributed import mesh
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.train.serve import generate
@@ -431,8 +457,9 @@ def reckon_serve(cfg, kind: str, batch: int, seq: int, data: int = 1, model: int
     if kind not in ("prefill", "decode", "generate"):
         raise ValueError(f"kind must be 'prefill', 'decode' or 'generate', got {kind!r}")
     topo = mesh.Topology(data, data, 1, rank=0, group=object(), backend="nccl", model=model,
-                         dp_group=object(), model_group=object() if model > 1 else None)
-    lay = T.layout(cfg) if model == 1 else TP.rank_layout(cfg, model, 0, topo.mp)
+                         dp_group=object(), model_group=object() if model > 1 else None,
+                         fsdp="data" if fsdp else "")
+    lay = TP.topology_layout(cfg, topo)
     rows = TP.serve_rows(batch, topo)
     b = rows.stop - rows.start
     n_prefix = cfg.n_patches if cfg.family == "vlm" else 0

@@ -15,7 +15,10 @@ A rank of a model-parallel group holds its block of every leaf
 (:meth:`FlatLayout.shard`: each leaf cut along the dim its placement puts
 on the ``model`` axis, ``repro_torch.distributed.sharding``), in the same
 order and dtype groups: its buffers are the dense ones with every leaf
-replaced by its block.  :func:`shard_flat` cuts a dense row into a rank's,
+replaced by its block.  Under FSDP (:meth:`FlatLayout.cut_zero`) each block
+is cut once more, along the dim the placement puts on ``zero`` (a serving
+rank's: on ``data``), into the rank's zero block; a leaf with no such dim
+stays whole.  :func:`shard_flat` cuts a dense row into a rank's,
 :func:`gather_flat` puts the ranks' rows back together.
 """
 
@@ -70,6 +73,13 @@ class FlatLayout:
     model: int = 1
     model_index: int = 0
     axis: Any = dataclasses.field(default=None, compare=False)
+    # an FSDP rank's layout (:meth:`cut_zero`): each leaf's dim on the zero
+    # (or data) axis (None: whole over it), the group size, this rank's
+    # index in it and the zero group's ``Topology`` view
+    zero_dims: tuple = ()
+    zero: int = 1
+    zero_index: int = 0
+    zero_axis: Any = dataclasses.field(default=None, compare=False)
 
     @classmethod
     def from_tree(cls, spec: dict, is_leaf, dtype_of=lambda leaf: None,
@@ -110,35 +120,65 @@ class FlatLayout:
             return self.numel
         return sum(math.prod(s) for s in self.dense_shapes)
 
-    def whole_spans(self) -> tuple:
-        """Per group, the ``(start, stop)`` of every leaf a model-parallel
-        rank holds whole (no dim on the model axis): each rank of the
-        group holds the same copy."""
+    @property
+    def sharded(self) -> bool:
+        """A rank's layout that computes over a model or a zero group:
+        :meth:`views` and :meth:`autograd_leaves` give a
+        :class:`ShardedParams`."""
+        return self.axis is not None or self.zero_axis is not None
+
+    def uncounted_spans(self) -> tuple:
+        """Per group, the ``(start, stop)`` of every leaf another rank
+        counts in the stat sums: one held whole over the model axis on a
+        model rank past the first, or whole over the zero axis on a zero
+        rank past the first (each rank of such a group holds the same
+        copy)."""
         spans = [[] for _ in range(self.n_groups)]
-        for (name, _, off, n, g), d in zip(self._spans(), self.model_dims):
-            if d is None:
+        none = (None,) * len(self.names)
+        for (name, _, off, n, g), d, zd in zip(self._spans(), self.model_dims or none,
+                                               self.zero_dims or none):
+            if (d is None and self.model_index > 0) or (zd is None and self.zero_index > 0):
                 spans[g].append((off, off + n))
         return tuple(tuple(s) for s in spans)
+
+    def _cut(self, dims: dict, ways: int) -> tuple:
+        """(shapes, offsets, group sizes) with every leaf cut ``ways`` ways
+        along ``dims[name]`` (None: whole)."""
+        shapes, offsets, sizes = [], [], [0] * self.n_groups
+        for name, shape, g in zip(self.names, self.shapes, self.groups):
+            d = dims[name]
+            if d is not None:
+                if shape[d] % ways:
+                    raise ValueError(f"{name}: dim {d} of {shape} does not split {ways} ways")
+                shape = shape[:d] + (shape[d] // ways,) + shape[d + 1:]
+            shapes.append(shape)
+            offsets.append(sizes[g])
+            sizes[g] += math.prod(shape)
+        return tuple(shapes), tuple(offsets), tuple(sizes)
 
     def shard(self, dims: dict, model: int, index: int, axis=None) -> "FlatLayout":
         """Rank ``index`` of ``model``'s layout: every leaf cut to its
         block along ``dims[name]`` (None: whole), same order and groups.
         ``axis``: the model group's topology view, which
         :meth:`autograd_leaves` hands the model."""
-        shapes, offsets, sizes = [], [], [0] * self.n_groups
-        for name, shape, g in zip(self.names, self.shapes, self.groups):
-            d = dims[name]
-            if d is not None:
-                if shape[d] % model:
-                    raise ValueError(f"{name}: dim {d} of {shape} does not split {model} ways")
-                shape = shape[:d] + (shape[d] // model,) + shape[d + 1:]
-            shapes.append(shape)
-            offsets.append(sizes[g])
-            sizes[g] += math.prod(shape)
+        shapes, offsets, sizes = self._cut(dims, model)
         return dataclasses.replace(
-            self, shapes=tuple(shapes), offsets=tuple(offsets), numel=sum(sizes),
-            group_numels=tuple(sizes), model_dims=tuple(dims[n] for n in self.names),
+            self, shapes=shapes, offsets=offsets, numel=sum(sizes),
+            group_numels=sizes, model_dims=tuple(dims[n] for n in self.names),
             dense_shapes=self.shapes, model=model, model_index=index, axis=axis)
+
+    def cut_zero(self, dims: dict, zero: int, index: int, axis=None) -> "FlatLayout":
+        """FSDP: zero rank ``index`` of ``zero``'s layout of this (model
+        block) layout: every leaf's block cut once more along ``dims[name]``
+        (its dim on the zero axis; None: whole over it), same order and
+        groups.  ``axis``: the zero group's topology view, which the model
+        gathers each block over at use."""
+        lay = self if self.model_dims else self.shard(dict.fromkeys(self.names), 1, 0)
+        shapes, offsets, sizes = lay._cut(dims, zero)
+        return dataclasses.replace(
+            lay, shapes=shapes, offsets=offsets, numel=sum(sizes), group_numels=sizes,
+            zero_dims=tuple(dims[n] for n in self.names), zero=zero, zero_index=index,
+            zero_axis=axis)
 
     def _spans(self):
         for name, shape, off, g in zip(self.names, self.shapes, self.offsets, self.groups):
@@ -159,7 +199,7 @@ class FlatLayout:
         bufs = parts(flat)
         out = {name: bufs[g][off:off + n].view(shape)
                for name, shape, off, n, g in self._spans()}
-        return out if self.axis is None else ShardedParams(self, out)
+        return ShardedParams(self, out) if self.sharded else out
 
     def autograd_leaves(self, flat, grad) -> dict:
         """``{path: leaf}`` views of the row ``flat`` that require grad and
@@ -169,7 +209,7 @@ class FlatLayout:
         into a list of per-layer leaves.  A model-parallel rank's layout
         gives a :class:`ShardedParams`, which carries the model axis."""
         pv, gv = self.views(flat), self.views(grad)
-        out = {} if self.axis is None else ShardedParams(self)
+        out = ShardedParams(self) if self.sharded else {}
         for name in self.names:
             if name.startswith(STACKED):
                 out[name] = [_leaf(p, g) for p, g in zip(pv[name], gv[name])]
@@ -182,32 +222,47 @@ STACKED = ("decoder.blocks.", "encoder.blocks.")
 
 
 class ShardedParams(dict):
-    """A model-parallel rank's ``{path: leaf}``: each leaf its block
-    (:meth:`FlatLayout.shard`), with the rank's layout, whose ``axis`` is
-    the model group.  ``models.transformer`` computes on it
-    Megatron-split, or gathers the leaves at use."""
+    """A model-parallel or FSDP rank's ``{path: leaf}``: each leaf its block
+    (:meth:`FlatLayout.shard`, :meth:`FlatLayout.cut_zero`), with the rank's
+    layout, whose ``axis`` is the model group and ``zero_axis`` the zero
+    (or data) group.  ``models.transformer`` gathers a zero block over the
+    zero group where it is used, then computes on the model block
+    Megatron-split, or gathers it too.  ``zero_mode``: the backward of that
+    gather, ``"sum"`` where the zero ranks compute their own rows of the
+    microbatch (the gradient reduce-scattered), ``"slice"`` where each
+    computes the whole microbatch (each keeps its slice)."""
 
     def __init__(self, layout: "FlatLayout", *args):
         super().__init__(*args)
         self.layout = layout
-        self._dims = dict(zip(layout.names, layout.model_dims))
+        n = len(layout.names)
+        self._dims = dict(zip(layout.names, layout.model_dims or (None,) * n))
+        self._zdims = dict(zip(layout.names, layout.zero_dims or (None,) * n))
         self.resolved = False    # transformer.serving_params has run on it
+        self.zero_mode = "slice"
 
     def replace(self, leaves: dict, whole: bool = False) -> "ShardedParams":
         """A copy with ``leaves`` in place of its own; ``whole``: they are
-        the dense leaves, held whole from now on (model dim None)."""
+        the dense leaves, held whole from now on (model and zero dims None)."""
         out = ShardedParams(self.layout, {**self, **leaves})
         out._dims = {**self._dims, **(dict.fromkeys(leaves) if whole else {})}
-        out.resolved = self.resolved
+        out._zdims = {**self._zdims, **(dict.fromkeys(leaves) if whole else {})}
+        out.resolved, out.zero_mode = self.resolved, self.zero_mode
         return out
 
     def dim(self, name: str, layer: bool = False):
         """The model dim of leaf ``name`` (None: held whole); ``layer``:
         of one layer of a stacked leaf."""
-        d = self._dims[name]
-        if d is not None and layer and name.startswith(STACKED):
-            d -= 1
-        return d
+        return _layer_dim(self._dims[name], name, layer)
+
+    def zdim(self, name: str, layer: bool = False):
+        """The zero dim of leaf ``name`` (None: whole over the zero axis);
+        ``layer``: of one layer of a stacked leaf."""
+        return _layer_dim(self._zdims[name], name, layer)
+
+
+def _layer_dim(d, name: str, layer: bool):
+    return d - 1 if d is not None and layer and name.startswith(STACKED) else d
 
 
 def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -239,34 +294,46 @@ def _like(flat, numels: tuple):
     return Groups(bufs) if isinstance(flat, Groups) else bufs[0]
 
 
+def _lead(d, lead) -> Any:
+    return None if d is None else d + len(lead)
+
+
 def shard_flat(flat, dense: FlatLayout, rank: FlatLayout):
     """A rank's buffers (``rank``'s layout) from dense ones of ``dense``'s:
     ``(N,)`` rows or ``(W, N)`` worker rows, a tensor or Groups, each group
-    in its own dtype (the f32 momentum of a bf16 model too)."""
+    in its own dtype (the f32 momentum of a bf16 model too); each leaf cut
+    to its model block, then to its zero block."""
     lead = parts(flat)[0].shape[:-1]
     out = _like(flat, rank.group_numels)
     src, dst = parts(flat), parts(out)
-    for (name, shape, off, n, g), (_, rshape, roff, rn, _) in zip(dense._spans(),
-                                                                  rank._spans()):
-        d = rank.model_dims[rank.names.index(name)]
+    for i, ((_, shape, off, n, g), (_, _, roff, rn, _)) in enumerate(zip(dense._spans(),
+                                                                         rank._spans())):
         leaf = src[g][..., off:off + n].reshape(*lead, *shape)
-        block = shard_leaf(leaf, None if d is None else d + len(lead), rank.model,
-                           rank.model_index)
+        block = shard_leaf(leaf, _lead(rank.model_dims[i], lead), rank.model, rank.model_index)
+        if rank.zero_dims:
+            block = shard_leaf(block, _lead(rank.zero_dims[i], lead), rank.zero,
+                               rank.zero_index)
         dst[g][..., roff:roff + rn].copy_(block.reshape(*lead, rn))
     return out
 
 
 def gather_flat(flats: list, dense: FlatLayout, ranks: list):
-    """Dense buffers from every model rank's (``flats[m]`` in
-    ``ranks[m]``'s layout), the inverse of :func:`shard_flat`."""
+    """Dense buffers from every rank's (``flats[r]`` in ``ranks[r]``'s
+    layout: each model rank's, or under FSDP each (model, zero) rank's, in
+    any order), the inverse of :func:`shard_flat`."""
     lead = parts(flats[0])[0].shape[:-1]
     out = _like(flats[0], dense.group_numels)
     dst = parts(out)
+    at = {(lay.model_index, lay.zero_index): (f, lay) for f, lay in zip(flats, ranks)}
+    models, zeros = sorted({m for m, _ in at}), sorted({z for _, z in at})
     for i, (name, shape, off, n, g) in enumerate(dense._spans()):
-        d = ranks[0].model_dims[i]
-        blocks = [parts(f)[g][..., lay.offsets[i]:lay.offsets[i] + math.prod(lay.shapes[i])]
-                  .reshape(*lead, *lay.shapes[i]) for f, lay in zip(flats, ranks)]
-        leaf = gather_leaf(blocks, None if d is None else d + len(lead))
+        zd = ranks[0].zero_dims[i] if ranks[0].zero_dims else None
+        blocks = []
+        for m in models:
+            zs = [parts(f)[g][..., lay.offsets[i]:lay.offsets[i] + math.prod(lay.shapes[i])]
+                  .reshape(*lead, *lay.shapes[i]) for f, lay in (at[(m, z)] for z in zeros)]
+            blocks.append(gather_leaf(zs, _lead(zd, lead)))
+        leaf = gather_leaf(blocks, _lead(ranks[0].model_dims[i], lead))
         dst[g][..., off:off + n].copy_(leaf.reshape(*lead, n))
     return out
 
@@ -276,7 +343,8 @@ def from_jax_numpy(tree, cfg, n_workers: int, device=None, rank: FlatLayout = No
     by dotted pytree path) as the port's ``(n_workers, N)`` flat buffers,
     each leaf in its group's dtype (the reference's); every worker row
     holds the same params.  ``rank``: a model-parallel rank's layout
-    (:meth:`FlatLayout.shard`), whose blocks of each leaf are cut out."""
+    (:meth:`FlatLayout.shard`, under FSDP :meth:`FlatLayout.cut_zero`),
+    whose blocks of each leaf are cut out."""
     from repro_torch.models.transformer import layout
 
     lay = layout(cfg)
@@ -293,7 +361,7 @@ def from_jax_numpy(tree, cfg, n_workers: int, device=None, rank: FlatLayout = No
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, layout wants {shape}")
         views[name].copy_(torch.from_numpy(arr))
-    if rank is not None and rank.model > 1:
+    if rank is not None and (rank.model > 1 or rank.zero > 1):
         row = shard_flat(row, lay, rank)
     return each(lambda r: r.to(device).unsqueeze(0).repeat(n_workers, 1), row)
 

@@ -209,7 +209,7 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor, sizes: list) -> torch.Tensor:
         _RAGGED.depth -= 1
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
+def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None) -> tuple:
     """The reference's ``moe_apply``: returns (out (B, S, d), f32 aux loss).
 
     ``p``: ``router`` (d, E) f32, ``we1`` / ``we3`` (E, d, d_ff), ``we2``
@@ -223,6 +223,14 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
     combine adds each token's K weighted outputs in sorted order, one
     rounding per add in the activation dtype as the reference's scatter-add
     applies them; ``ksum`` contracts them with the gates.
+
+    ``rows``: the zero group (``Topology.zp``) of an FSDP rank that holds
+    its rows of the microbatch.  The aux loss is then the whole
+    microbatch's: the top-1 counts and the sums of the router's
+    probabilities all-reduced over it (``<name>@zero``), the same value on
+    every zero rank; its gradient reaches the rank's own tokens scaled by Z,
+    so that the zero ranks' gradients, summed and divided by Z
+    (``core.dsm.worker_grads``), are the whole microbatch's.
     """
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -236,8 +244,19 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
     # load-balance aux loss (Switch-style), from the top-1 expert
-    density = _counts(expert_idx[:, 0], E).to(F32) / T
-    aux = E * torch.sum(density * probs.mean(dim=0))
+    if rows is None:
+        density = _counts(expert_idx[:, 0], E).to(F32) / T
+        aux = E * torch.sum(density * probs.mean(dim=0))
+    else:
+        from repro_torch.distributed import comm
+
+        n = T * rows.world
+        density = comm.all_reduce(_counts(expert_idx[:, 0], E), rows).to(F32) / n
+        psum = probs.sum(dim=0)
+        whole = comm.all_reduce(psum.detach().clone(), rows)
+        # the whole microbatch's sums, the gradient of the rank's own Z times
+        psum = whole + rows.world * (psum - psum.detach())
+        aux = E * torch.sum(density * (psum / n))
 
     if cfg.moe_impl == "dense":
         gates = torch.zeros(T, E, dtype=dt, device=x.device).scatter(

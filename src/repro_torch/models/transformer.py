@@ -49,6 +49,23 @@ family serves through the gathered leaves, its cache whole over model and
 its logits whole on every rank.  :func:`serving_params` resolves a rank's
 params once (``generate`` calls it once per call).  ``init_cache(...,
 layout=)`` gives a rank's cache.
+
+Under FSDP (the layout's ``zero_axis``: a training rank's zero group, a
+serving rank's data group) each leaf that the placement cuts over
+``zero`` / ``data`` is the rank's zero block of its model block, and
+:func:`_zblock` gathers it to the model block where it is used: a layer's
+leaves inside the layer (``_Leaves``, so inside the checkpointed body, and
+again in its recompute under remat), ``embed`` at the lookup and at a tied
+head, the head once per ``loss_fn`` call, ``final_norm`` once; the code
+downstream then computes on the model block as above.  Its backward
+(``ShardedParams.zero_mode``) reduce-scatters the gradient where the zero
+ranks compute their own rows of the microbatch (``"sum"``; a leaf held whole
+over zero has its gradient all-reduced) and keeps the rank's slice where
+each computes the whole microbatch (``"slice"``).  Without remat a gathered
+weight is saved for its product's backward, so the gathered model blocks of
+every layer live until the backward passes them.  The families that
+:func:`_gathered` computes replicated gather every leaf over zero and model
+up front, the whole model block for the whole forward and backward.
 """
 
 from __future__ import annotations
@@ -279,7 +296,7 @@ def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
     ``min(window, S)``; an ``xattn`` block adds the cross-attention's ``kx``
     / ``vx`` (B, enc_len, KVH, hd); a recurrent block its state after the
     last position (``layers.mamba2_apply`` / ``rglru_apply``)."""
-    if isinstance(p.params, ShardedParams):
+    if _model_split(p.params):
         return _tp_block(p, kind, x, positions, cfg, kv_out)
     mixer, ffn = _parse_kind(kind)
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
@@ -351,7 +368,8 @@ def _ffn_residual(p, ffn: str, x, cfg):
         return x, None
     h = L.rmsnorm(p("ln2.scale"), x, cfg.norm_eps)
     if ffn == "moe":
-        out, aux = L.moe_apply(_moe_params(p, cfg), h, cfg)
+        out, aux = L.moe_apply(_moe_params(p, cfg), h, cfg,
+                               rows=getattr(p.params, "rows", None))
         return x + out, aux
     w3 = p("mlp.w3") if cfg.mlp_gated else None
     return x + L.mlp_apply(p("mlp.w1"), p("mlp.w2"), h, cfg, w3=w3), None
@@ -367,7 +385,9 @@ class _Leaves:
 
     def __call__(self, name: str):
         leaf = self.params[self.pre + name]
-        return leaf if self.i is None else leaf[self.i]
+        if self.i is not None:
+            leaf = leaf[self.i]
+        return _zblock(self.params, self.pre + name, leaf, self.i is not None)
 
     def dim(self, name: str):
         """The leaf's dim on the model axis (None: held whole)."""
@@ -419,21 +439,57 @@ def megatron_split(cfg) -> bool:
         f"{_parse_kind(k)[0]}:{_parse_kind(k)[1]}" in MEGATRON_KINDS for k in cfg.pattern)
 
 
+def _model_split(params) -> bool:
+    """A model-parallel rank's params (``model`` > 1), which the split code
+    paths compute on; an FSDP rank with ``model`` = 1 computes the dense
+    way on its gathered blocks."""
+    return isinstance(params, ShardedParams) and params.layout.model > 1
+
+
+def _zblock(params, name: str, leaf, layer: bool = False):
+    """The rank's model block of ``leaf`` (leaf ``name`` of ``params``, or
+    one layer of it with ``layer``): on an FSDP rank its zero block gathered
+    over the zero group (``"sum"``: the gradient reduce-scattered;
+    ``"slice"``: the rank's slice of it kept), a leaf held whole over zero
+    as it is (``"sum"``: its gradient all-reduced); ``leaf`` itself
+    elsewhere."""
+    if not isinstance(params, ShardedParams) or params.layout.zero_axis is None:
+        return leaf
+    axis, d = params.layout.zero_axis, params.zdim(name, layer)
+    if d is None:
+        return TP.copy_to(leaf, axis) if params.zero_mode == "sum" else leaf
+    return TP.gather(leaf, axis, d, params.zero_mode)
+
+
+class _Gathered(dict):
+    """:func:`_gathered`'s leaves; ``rows``: the zero group where the zero
+    ranks compute their own rows of the microbatch (``layers.moe_apply``
+    then reduces its aux loss's statistics over it), else None."""
+
+    rows = None
+
+
 def _gathered(params: ShardedParams) -> dict:
     """Every leaf whole (stacked leaves as per-layer lists), gathered over
-    the model group, the gradients cut back: the replicated compute."""
-    axis, out = params.layout.axis, {}
+    the zero group (:func:`_zblock`) and the model group, the gradients
+    reduce-scattered or cut back: the replicated compute."""
+    axis, out = params.layout.axis, _Gathered()
+    if params.zero_mode == "sum":
+        out.rows = params.layout.zero_axis
+
+    def whole(name, t, d, layer):
+        t = _zblock(params, name, t, layer)
+        return t if d is None else TP.gather(t, axis, d)
+
     for name, leaf in params.items():
         d = params.dim(name, layer=True)
-        if d is None:
-            out[name] = leaf
-        elif isinstance(leaf, list):
-            out[name] = [TP.gather(t, axis, d) for t in leaf]
-        elif name.startswith(STACKED):
+        if isinstance(leaf, list):
+            out[name] = [whole(name, t, d, True) for t in leaf]
+        elif name.startswith(STACKED) and (d is not None or params.zdim(name) is not None):
             # a stacked leaf as one tensor (a layout's views): layer by layer
-            out[name] = [TP.gather(t, axis, d) for t in leaf.unbind(0)]
+            out[name] = [whole(name, t, d, True) for t in leaf.unbind(0)]
         else:
-            out[name] = TP.gather(leaf, axis, d)
+            out[name] = whole(name, leaf, d, False)
     return out
 
 
@@ -479,10 +535,11 @@ def logits_split(params: dict, cfg) -> bool:
 
 
 def _full(params: dict, name: str):
-    """A whole top-level leaf (gathered on a model-parallel rank)."""
+    """A whole top-level leaf (gathered on a model-parallel or FSDP rank)."""
+    leaf = _zblock(params, name, params[name])
     if not isinstance(params, ShardedParams) or params.dim(name) is None:
-        return params[name]
-    return TP.gather(params[name], params.layout.axis, params.dim(name))
+        return leaf
+    return TP.gather(leaf, params.layout.axis, params.dim(name))
 
 
 def _tp_block(p: _Leaves, kind: str, x, positions, cfg, kv_out=None):
@@ -606,7 +663,7 @@ def _tp_mlp(p: _Leaves, h, cfg, axis):
 
 def _vocab_split(params: dict, cfg) -> bool:
     """The output table is vocab-sharded on this model-parallel rank."""
-    if not isinstance(params, ShardedParams):
+    if not _model_split(params):
         return False
     return (params.dim("embed") == 0 if cfg.tie_embeddings
             else params.dim("lm_head") == 1)
@@ -616,8 +673,9 @@ def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """Embedding rows cast to the activation dtype, scaled by sqrt(d_model)
     (vocab-parallel on a model-parallel rank whose ``embed`` block is a
     range of rows)."""
-    if isinstance(params, ShardedParams) and params.dim("embed") == 0:
-        rows = TP.vocab_embed(params["embed"], tokens, params.layout.axis)
+    if _model_split(params) and params.dim("embed") == 0:
+        rows = TP.vocab_embed(_zblock(params, "embed", params["embed"]), tokens,
+                              params.layout.axis)
     else:
         rows = _full(params, "embed")[tokens]
     return rows.to(cfg.act_dtype) * math.sqrt(cfg.d_model)
@@ -751,12 +809,22 @@ def hidden_states(params: dict, batch: dict, cfg, remat: bool = True, unroll: bo
     return h, aux, n_prefix
 
 
-def _logits(params, h, cfg):
+def _head(params, cfg):
+    """The output table: on a model-parallel rank with a vocab-sharded
+    table its vocab block (:func:`_vocab_split`), else the gathered table."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    if _vocab_split(params, cfg):
+        return _zblock(params, name, params[name])
+    return _full(params, name)
+
+
+def _logits(params, h, cfg, w=None):
     """f32 logits over the PADDED vocab (the padded rows are live weights);
     on a model-parallel rank with a vocab-sharded table, its block of the
-    vocab (:func:`_vocab_split`), else over the gathered table."""
-    name = "embed" if cfg.tie_embeddings else "lm_head"
-    w = params[name] if _vocab_split(params, cfg) else _full(params, name)
+    vocab (:func:`_vocab_split`), else over the gathered table.  ``w``: the
+    table :func:`_head` gave (a caller that takes several chunks' logits
+    gathers it once)."""
+    w = _head(params, cfg) if w is None else w
     if cfg.tie_embeddings:
         return h.to(F32) @ w.to(F32).T
     return h.to(F32) @ w.to(F32)
@@ -784,9 +852,10 @@ def loss_fn(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
         # the vocab-parallel head: each rank's logits are its block of rows
         axis = params.layout.axis
         h = TP.copy_to(h, axis)
+    head = _head(params, cfg)
     for c0 in range(0, S, min(CE_CHUNK, S)):
         c1 = min(c0 + CE_CHUNK, S)
-        logits = _logits(params, h[:, c0:c1], cfg)
+        logits = _logits(params, h[:, c0:c1], cfg, head)
         if split:
             per_token = TP.vocab_cross_entropy(logits, targets[:, c0:c1], axis)
         else:
@@ -960,7 +1029,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg,
     :func:`logits_split`, its vocab block of the logits, as :func:`prefill`."""
     check_supported(cfg)
     params = serving_params(params, cfg)
-    block = _tp_decode_block if isinstance(params, ShardedParams) else _decode_block
+    block = _tp_decode_block if _model_split(params) else _decode_block
     x = _embed(params, tokens[:, None], cfg)
     for where, kind, p in _layers(params, cfg):
         x = block(p, kind, _cache_entry(cache, where), x, pos, cfg)

@@ -225,3 +225,23 @@ def test_model_axis_audit():
         assert any("payload" in v and f"{r['planted_bytes']} B" in v
                    for v in planted["violations"])
         assert not any("model-group" in v for v in planted["violations"])
+
+
+def test_fsdp_audit():
+    """Four gloo ranks of (worker 2, zero 2, model 1) under FSDP,
+    minitron_4b SMOKE, B_micro 2 over zero: the zero group's ops of the
+    outer step (each layer's gathers and reduce-scatters, the losses'
+    all-reduce) equal the reckoning per kind, and the rest (the worker
+    peers' round, the stat sums' all-reduce) fit the one-round budget over
+    the rank's zero blocks; an extra all-gather over the zero group planted
+    in the local phase is caught on the zero group's count alone."""
+    cfg = load_arch("minitron_4b").SMOKE
+    ranks = spawn.run_ranks(torch_ranks.fsdp_audit_rank, 4, (cfg, 2, 1, 2), timeout_s=300)
+    for r in ranks:
+        step = r["outer_step"]
+        assert step["passed"], step["violations"]
+        assert step["zero_group_ops"]["all-gather"][0] > 0
+        assert step["zero_group_ops"]["reduce-scatter"][0] > 0
+        planted = r["planted_local_phase"]
+        assert not planted["passed"]
+        assert [v for v in planted["violations"] if "zero-group" in v] == planted["violations"]

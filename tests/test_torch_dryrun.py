@@ -210,7 +210,8 @@ def test_pod_mesh_records(tmp_path, capsys):
                                          "all-to-all", "collective-permute", "wire_bytes"}
         assert r["dominant"] in ("compute", "memory", "collective")
         assert r["t_collective_s"] == r["collectives"]["wire_bytes"] / DR.LINK_BYTES_PER_S
-        assert r["link"] == DR.LINK and "zero" in r["zero_axis"]
+        assert r["link"] == DR.LINK and r["zero_axis"] == DR.ZERO_AXIS
+        assert r["zero_axis"].startswith("sharded (FSDP)") and r["fsdp"]
         assert r["fits_per_card"] == (r["memory"]["peak_bytes"] <= DR.CARD_BYTES)
         assert (tmp_path / f"{r['arch']}.train_4k.singlepod.json").exists()
     serving = [r for r in recs if r["shape"] != "train_4k"]
@@ -227,10 +228,11 @@ def test_pod_mesh_records(tmp_path, capsys):
 @pytest.mark.parametrize("arch,multi", [("minitron_4b_smoke", False),
                                         ("granite_34b_smoke", True)])
 def test_reckoned_rank_state_is_its_placements_blocks(arch, multi):
-    """The reckoned rank's state bytes, to the byte: its blocks (the
-    reference's placements at MODEL_PAR) in bf16 / f32 params, gradients
-    and AdamW moments per local worker, the kept initial x0, its ZeRO chunk
-    of x0 and m over the (worker, zero) ranks, and its round's tokens."""
+    """The reckoned rank's state bytes, to the byte: its zero blocks of its
+    blocks (the reference's placements at MODEL_PAR and zero) in bf16 / f32
+    params, gradients and AdamW moments per local worker, the kept initial
+    x0, its ZeRO chunk of x0 and m over its worker peers (over the (worker,
+    zero) ranks where zero is 1), and its round's tokens."""
     from repro_torch.distributed import mesh as M
     from repro_torch.distributed import sharding as SH
     from repro_torch.distributed import zero as Z
@@ -241,14 +243,18 @@ def test_reckoned_rank_state_is_its_placements_blocks(arch, multi):
     W = topo.n_workers_multi if multi else topo.n_workers_single
     dims = M.mesh_dims(M.training_mesh(M.make_production_mesh(multi_pod=multi), W))
     lay = T.layout(cfg)
-    specs_ = SH.param_pspecs(dict(zip(lay.names, lay.shapes)), model=dims["model"])
+    rep = () if topo.attn_tp else DR.ATTN_NAMES
+    specs_ = SH.param_pspecs(dict(zip(lay.names, lay.shapes)), model=dims["model"],
+                             zero=dims["zero"], replicate_names=rep)
     n = 0
     for name, shape in zip(lay.names, lay.shapes):
-        d = SH.model_dim(specs_[name])
-        n += int(np.prod(shape)) // (dims["model"] if d is not None else 1)
+        d, zd = SH.model_dim(specs_[name]), SH.model_dim(specs_[name], "zero")
+        n += (int(np.prod(shape)) // (dims["model"] if d is not None else 1)
+              // (dims["zero"] if zd is not None else 1))
     p = lay.dtypes[0].itemsize
     w_local = W // dims["worker"]
-    chunk = Z.chunk_size(n, dims["worker"] * dims["zero"])
+    chunk = Z.chunk_size(n, dims["worker"])
+    assert rec["batch_over_zero"] == (dims["zero"] > 1)
     batch = specs.train_batch_specs(cfg, topo, INPUT_SHAPES["train_4k"], W)["tokens"]
     tokens = w_local * int(np.prod(batch.shape[1:])) * 8
     want = n * w_local * (2 * p + 8) + n * p + chunk * (p + 4) + tokens
@@ -278,6 +284,127 @@ def test_meta_collectives_equal_a_real_run():
     assert DR.collectives(ranks[0]["comm"]) == DR.collectives(rec["comm"])
 
 
+def test_fsdp_meta_state_and_collectives_equal_a_real_run():
+    """Under FSDP the reckoning's state bytes and collectives of one round,
+    per name and group (``@zero`` too), equal rank 0's of a real run of the
+    same step on 4 gloo ranks of (worker 1, zero 2, model 2), minitron_4b
+    SMOKE, B_micro 2 over zero."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.distributed.spawn import run_ranks
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_ranks
+
+    cfg = load_arch("minitron_4b").SMOKE
+    rec = DR.reckon_train(cfg, n_workers=1, tau=2, b_micro=2, seq=32, world=4, model=2,
+                          fsdp=True)
+    assert rec["batch_over_zero"] and rec["zero"] == 2
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 2, 1, 2, 32))
+    case = dict(cfg=cfg, n_workers=1, model=2, fsdp=True, row=T.init_params(
+        torch.Generator().manual_seed(0), cfg), batches=[{"tokens": tokens}], gamma=1e-3,
+        flags={"zero_sharded": True, "device_parallel_local": True})
+    rank0 = run_ranks(torch_ranks.fsdp_dsm_rank, 4, ([case],), timeout_s=300)[0][0]
+    assert rank0["comm"] == rec["comm"]
+    assert rank0["state_bytes"] == rec["memory"]["state_bytes"]
+    plain = DR.reckon_train(cfg, n_workers=1, tau=2, b_micro=2, seq=32, world=4, model=2)
+    assert rec["memory"]["state_bytes"] < 0.6 * plain["memory"]["state_bytes"]
+
+
+# minitron_4b train_4k rank-0 records as `python -m repro_torch.launch.dryrun
+# --arch minitron_4b --shape train_4k --mesh both` reckoned them at commit
+# 15cbd72, before FSDP: its pod meshes put zero = 1, so FSDP must move none
+# of these numbers
+MINITRON_TRAIN_4K_AT_15CBD72 = {
+    "single": {
+        "memory": {
+            "eval_bytes": 0,
+            "global_bytes": 1077470000,
+            "init_bytes": 5488321536,
+            "local_bytes": 52154748936,
+            "peak_bytes": 56033169288,
+            "state_bytes": 3878420352,
+        },
+        "comm": {
+            "all_gather@model": {"bytes": 2416513536, "calls": 4620},
+            "all_gather_shards": {"bytes": 33670912, "calls": 1},
+            "all_reduce_max@model": {"bytes": 3145728, "calls": 24},
+            "all_reduce_sum": {"bytes": 28, "calls": 1},
+            "all_reduce_sum@model": {"bytes": 637808934940, "calls": 841},
+            "gather_workers": {"bytes": 48, "calls": 1},
+            "scatter_rows": {"bytes": 538734592, "calls": 1},
+        },
+        "flops": 9444736163119104,
+        "collectives": {
+            "all-gather": 2450184496,
+            "all-reduce": 637812080696,
+            "all-to-all": 0,
+            "collective-permute": 0,
+            "reduce-scatter": 538734592,
+            "wire_bytes": 1278613080480,
+        },
+        "t_collective_s": 25.5722616096,
+        "t_compute_s": 9.54978378475137,
+        "fits_per_card": True,
+        "kernel_bytes_per_round": 71348170920,
+    },
+    "multi": {
+        "memory": {
+            "eval_bytes": 0,
+            "global_bytes": 1077478960,
+            "init_bytes": 5437815552,
+            "local_bytes": 26149638152,
+            "peak_bytes": 29974406792,
+            "state_bytes": 3824768640,
+        },
+        "comm": {
+            "all_gather@model": {"bytes": 2416513536, "calls": 4620},
+            "all_gather_shards": {"bytes": 16835584, "calls": 1},
+            "all_reduce_max@model": {"bytes": 1572864, "calls": 24},
+            "all_reduce_sum": {"bytes": 28, "calls": 1},
+            "all_reduce_sum@model": {"bytes": 318904467484, "calls": 841},
+            "gather_workers": {"bytes": 48, "calls": 1},
+            "scatter_rows": {"bytes": 538738688, "calls": 1},
+        },
+        "flops": 4722368081559552,
+        "collectives": {
+            "all-gather": 2433349168,
+            "all-reduce": 318906040376,
+            "all-to-all": 0,
+            "collective-permute": 0,
+            "reduce-scatter": 538738688,
+            "wire_bytes": 640784168608,
+        },
+        "t_collective_s": 12.81568337216,
+        "t_compute_s": 4.774891892375685,
+        "fits_per_card": True,
+        "kernel_bytes_per_round": 71230323540,
+    },
+}
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_fsdp_leaves_minitron_4b_train_records_as_they_were(multi):
+    """minitron_4b's pod meshes put zero = 1: its train_4k record's numbers
+    equal, to the byte, those reckoned at 15cbd72, before FSDP."""
+    rec = DR.reckon_pod("minitron_4b", "train_4k", multi)
+    assert rec["mesh"]["zero"] == 1 and not rec["batch_over_zero"]
+    before = MINITRON_TRAIN_4K_AT_15CBD72["multi" if multi else "single"]
+    for key, value in before.items():
+        assert rec[key] == value, key
+
+
+def test_fsdp_deepseek_67b_train_4k_fits_one_card_per_rank():
+    """deepseek_67b at train_4k on the single pod, (worker 2, zero 8, model
+    16): B_micro 8 splits over zero, and the rank's reckoned peak falls
+    from over 120 GB (blocks whole over zero) to under one card."""
+    rec = DR.reckon_pod("deepseek_67b", "train_4k", False)
+    assert rec["mesh"] == {"worker": 2, "zero": 8, "model": 16} and rec["batch_over_zero"]
+    assert rec["fits_per_card"] and rec["memory"]["peak_bytes"] < 0.25 * 122.43e9
+    assert rec["comm"]["all_gather@zero"]["calls"] > 0
+
+
 def _assert_serving_record(r: dict, multi: bool) -> None:
     """A pod mesh's serving record: ``ok``, rank 0 of (16, 16) or (32, 16)
     with the training records' fields and the serving ones."""
@@ -290,7 +417,7 @@ def _assert_serving_record(r: dict, multi: bool) -> None:
                         "cache_bytes_per_rank_reference_placement"}
     assert mem["peak_bytes"] >= mem["params_bytes"] + mem["cache_bytes_per_rank"] * (
         r["kind"] == "decode")
-    assert r["data_axis"] == DR.DATA_AXIS
+    assert r["data_axis"] == DR.DATA_AXIS and r["data_axis"].startswith("sharded (FSDP")
     B = INPUT_SHAPES[r["shape"]].global_batch
     assert r["batch_over_data"] == (B % r["mesh"]["data"] == 0)
     assert r["batch_per_rank"] == (B // r["mesh"]["data"] if r["batch_over_data"] else B)
@@ -305,7 +432,10 @@ def _assert_serving_record(r: dict, multi: bool) -> None:
     from repro_torch.launch.train import resolve_arch
 
     cfg = resolve_arch(r["arch"])[0]
-    lay = TP.rank_layout(cfg, r["mesh"]["model"], 0)
+    lay = TP.rank_layout(cfg, r["mesh"]["model"], 0, zero=r["mesh"]["data"],
+                         zero_axes=("data",))
+    assert mem["params_bytes"] == sum(n * dt.itemsize
+                                      for n, dt in zip(lay.group_numels, lay.dtypes))
     call = TP.serve_collectives(cfg, lay, r["batch_per_rank"], r["seq"], r["kind"])
     # a prefill on the rank's blocks resolves them first; a decode step
     # runs on params resolved once before it, as generate's steps

@@ -431,24 +431,67 @@ def tp_dsm_rank(rank: int, world: int, cfg, n_workers: int, model: int, flags: d
     whole: gathered over its ``(worker, zero)`` ranks under ZeRO), its
     ``CommStats`` and kernel launches; ``world == 0`` runs the dense path
     in this process."""
+    torch.set_num_threads(1)
+    topo = None if world == 0 else mesh.topology(n_workers, dist.group.WORLD, model=model)
+    return dsm_case(topo, cfg, n_workers, flags, row, batches, gamma)
+
+
+def fsdp_dsm_rank(rank: int, world: int, cases: list) -> list:
+    """:func:`dsm_case` for each case of ``cases``, dicts of ``cfg``,
+    ``n_workers``, ``model``, ``fsdp`` (the blocks cut over the zero group),
+    ``flags``, ``row``, ``batches``, ``gamma`` and optionally ``nan_rank``,
+    over the grid of all ``world`` ranks, in one start of the ranks."""
+    torch.set_num_threads(1)
+    out = []
+    for c in cases:
+        topo = mesh.topology(c["n_workers"], dist.group.WORLD, model=c["model"],
+                             fsdp=c["fsdp"])
+        out.append(dsm_case(topo, c["cfg"], c["n_workers"], c["flags"], c["row"],
+                            c["batches"], c["gamma"], c.get("nan_rank")))
+    return out
+
+
+def dsm_case(topo, cfg, n_workers: int, flags: dict, row, batches: list, gamma: float,
+             nan_rank: Optional[int] = None) -> dict:
+    """:func:`tp_dsm_rank`'s run on ``topo`` (None: the dense path), its
+    blocks by ``tensor_parallel.topology_layout`` (under FSDP its zero
+    blocks: x_tau, x0 and m whole over its worker peers).  ``nan_rank``: that
+    rank sets one element of its first worker's block to NaN after each
+    local phase.  Each round also returns the metrics' ``survivors``."""
     from repro_torch import kernels as K
     from repro_torch.core import base_opt, schedules
     from repro_torch.core import dsm as D
     from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.groups import parts
     from repro_torch.models import convert as C
     from repro_torch.models import transformer as T
 
-    torch.set_num_threads(1)
-    topo = None if world == 0 else mesh.topology(n_workers, dist.group.WORLD, model=model)
     lay = TP.topology_layout(cfg, topo)
-    x0 = row if topo is None or model == 1 else C.shard_flat(row, T.layout(cfg), lay)
+    x0 = C.shard_flat(row, T.layout(cfg), lay) if lay.sharded else row
     base = base_opt.adamw()
     tau = batches[0]["tokens"].shape[1]
-    step = D.make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), base,
-                           DSMConfig(tau=tau, global_lr=0.5, **flags),
-                           schedules.constant(gamma), lay, topo)
+    make_local = D.make_local_phase
+
+    def poisoned(*a, **k):
+        local = make_local(*a, **k)
+
+        def run(state, batch, g):
+            losses = local(state, batch, g)
+            parts(state.params)[0][0, 0] = float("nan")
+            return losses
+        return run
+
+    if topo is not None and topo.rank == nan_rank:
+        D.make_local_phase = poisoned
+    try:
+        step = D.make_dsm_step(lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), base,
+                               DSMConfig(tau=tau, global_lr=0.5, **flags),
+                               schedules.constant(gamma), lay, topo)
+    finally:
+        D.make_local_phase = make_local
     state = D.dsm_init(x0, base, n_workers, topo, flags.get("zero_sharded", False))
     rows = slice(None) if topo is None else topo.worker_slice
+    state_bytes = state_nbytes(state, x0, batches[0]["tokens"][rows])
     dtopo = None if topo is None else topo.dp
     sharded = topo is not None and flags.get("zero_sharded", False)
     means = []
@@ -473,14 +516,18 @@ def tp_dsm_rank(rank: int, world: int, cfg, n_workers: int, model: int, flags: d
     for name, fn in mean_fns.items():
         setattr(Z, name, recording(fn))
     K.reset_launch_counts()
-    out = {"losses": [], "x_tau": [], "x0": [], "m": [], "index": 0 if topo is None
-           else topo.model_index, "rank": rank}
+    out = {"losses": [], "x_tau": [], "x0": [], "m": [], "survivors": [],
+           "state_bytes": state_bytes,
+           "index": 0 if topo is None else topo.model_index,
+           "zero_index": 0 if topo is None else topo.zero_index,
+           "rank": 0 if topo is None else topo.rank}
     try:
         for raw in batches:
             batch = {k: torch.from_numpy(v[rows]) for k, v in raw.items()}
             batch["tokens"] = batch["tokens"].long()
             state, metrics = step(state, batch)
             out["losses"].append(metrics["loss"])
+            out["survivors"].append(metrics.get("survivors"))
             out["x_tau"].append(each(torch.clone, whole(means[-1])))
             out["x0"].append(each(torch.clone, whole(state.x0)))
             out["m"].append(each(torch.clone, whole(state.m)))
@@ -491,6 +538,54 @@ def tp_dsm_rank(rank: int, world: int, cfg, n_workers: int, model: int, flags: d
             setattr(Z, name, fn)
     out["comm"] = None if topo is None else topo.stats.as_dict()
     out["launches"] = K.launch_counts()
+    return out
+
+
+def state_nbytes(state, x0, tokens) -> int:
+    """A rank's state as the dry-run counts it: the state's buffers (its
+    scratch gradients too), the kept x0 and its round of tokens (int64)."""
+    held = ([t for _, v in state_fields(state) if not isinstance(v, int) for t in _tensors(v)]
+            + _tensors(state.grads) + _tensors(x0))
+    return sum(t.numel() * t.element_size() for t in held) + int(tokens.size) * 8
+
+
+def _tensors(v) -> list:
+    """Every tensor of a state field: a tensor, Groups or a state of them."""
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, Groups):
+        return list(v)
+    return [t for _, x in state_fields(v) for t in _tensors(x)]
+
+
+def fsdp_grads_rank(rank: int, world: int, model: int, cases: list) -> list:
+    """One microbatch's forward and backward through ``core.dsm.worker_grads``
+    on an FSDP rank of (worker 1, zero world / model, model) for each case
+    ``(cfg, row, batch, remat)``: ``row`` the dense ``(N,)`` params, cut to
+    the rank's zero blocks, ``batch`` the whole microbatch (a dict of
+    (B_micro, ...) CPU tensors; the rank takes its rows where they split
+    over zero).  Returns per case the rank's loss (its rows' mean), its
+    gradient (its layout), its grid place and its ``CommStats``; one
+    topology for every case."""
+    from repro_torch.core import dsm as D
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+
+    torch.set_num_threads(1)
+    topo = mesh.topology(1, dist.group.WORLD, model=model, fsdp=True)
+    out = []
+    for cfg, row, batch, remat in cases:
+        topo.stats.reset()
+        lay = TP.topology_layout(cfg, topo)
+        params = each(lambda t: t.unsqueeze(0), C.shard_flat(row, T.layout(cfg), lay))
+        grads = each(torch.zeros_like, params)
+        losses = torch.zeros(1)
+        D.worker_grads(lambda p, mb, cfg=cfg, remat=remat: T.loss_fn(p, mb, cfg, remat=remat),
+                       lay, params, grads, {k: v[None, None] for k, v in batch.items()}, losses)
+        out.append({"loss": losses[0], "grads": each(lambda g: g[0], grads),
+                    "model_index": topo.model_index, "zero_index": topo.zero_index,
+                    "comm": topo.stats.as_dict()})
     return out
 
 
@@ -542,6 +637,60 @@ def tp_audit_rank(rank: int, world: int, cfg, n_workers: int, model: int, tau: i
                                             "planted_local_phase").to_json()
     # one all-reduce per local step and worker
     out["planted_bytes"] = tau * topo.local_workers * x0.numel() * x0.element_size()
+    return out
+
+
+def fsdp_audit_rank(rank: int, world: int, cfg, n_workers: int, model: int, tau: int) -> dict:
+    """The collective audit of an FSDP outer step of ``cfg`` (ZeRO,
+    device-parallel local phase, ``B_micro`` 2 over zero 2) over the
+    ``(worker, zero, model)`` grid of ``world`` ranks, and of a local phase
+    whose loss also all-gathers a small buffer over the rank's zero group:
+    ``{name: report}``."""
+    from repro_torch.analysis.collective_audit import (CollectiveBudget, audit_call,
+                                                       group_name, reckoned_model_ops,
+                                                       reckoned_zero_ops)
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core.dsm import dsm_init, make_dsm_step, make_local_phase
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+
+    torch.set_num_threads(1)
+    topo = mesh.topology(n_workers, dist.group.WORLD, model=model, fsdp=True)
+    lay = TP.topology_layout(cfg, topo)
+    x0 = C.shard_flat(T.init_params(torch.Generator().manual_seed(0), cfg), T.layout(cfg), lay)
+    base = base_opt.adamw()
+    tokens = torch.randint(0, cfg.vocab_size, (n_workers, tau, 1, 2, 32),
+                           generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": tokens[topo.worker_slice]}
+
+    def loss(p, mb):
+        return T.loss_fn(p, mb, cfg, remat=False)
+
+    def budget(phase):
+        args = (cfg, lay, phase, topo.local_workers, tau, 2, 32)
+        return CollectiveBudget.for_phase(
+            phase, lay, topo.dp.world, n_workers, group_name(topo.model_group),
+            reckoned_model_ops(*args) if model > 1 else None, group_name(topo.zero_group),
+            reckoned_zero_ops(*args))
+
+    step = make_dsm_step(loss, base, DSMConfig(tau=tau, zero_sharded=True,
+                                               device_parallel_local=True),
+                         schedules.constant(2e-2), lay, topo)
+    state = dsm_init(x0, base, n_workers, topo, True)
+    out = {"outer_step": audit_call(step, (state, batch), budget("global_zero"),
+                                    "outer_step", topo.stats).to_json()}
+
+    def planted(p, mb):
+        small = torch.zeros(4)
+        dist.all_gather([torch.empty(4) for _ in range(topo.zero)], small,
+                        group=topo.zero_group)
+        return loss(p, mb)
+
+    local = make_local_phase(planted, base, lay)
+    state = dsm_init(x0, base, n_workers, topo, True)
+    out["planted_local_phase"] = audit_call(local, (state, batch, 2e-2), budget("local"),
+                                            "planted_local_phase").to_json()
     return out
 
 
@@ -644,8 +793,10 @@ def serve_rank(rank: int, world: int, cases: list) -> list:
     ``world`` ranks (``mesh.serving_topology``).  A case is a dict: ``cfg``,
     ``model`` (M), ``row`` (the dense ``(N,)`` params, cut to the rank's
     blocks), ``batch`` (the whole batch dict of CPU tensors), ``dec_tokens``
-    ((steps, B) teacher-forced decode tokens), ``new`` (generate's tokens)
-    and ``temperature`` (0: greedy).  Returns per case: the rank's grid
+    ((steps, B) teacher-forced decode tokens), ``new`` (generate's tokens),
+    ``temperature`` (0: greedy) and optionally ``fsdp`` (the rank holds its
+    data block of each leaf the placement cuts over ``data``).  Returns per
+    case: the rank's grid
     place and rows; its prefill logits and cache; its init_cache of the
     decode length and each teacher-forced ``decode_step``'s logits and the
     cache after them (on params ``serving_params`` resolved first, its
@@ -662,7 +813,8 @@ def serve_rank(rank: int, world: int, cases: list) -> list:
     out = []
     for case in cases:
         cfg, batch, dec = case["cfg"], case["batch"], case["dec_tokens"]
-        topo = mesh.serving_topology(dist.group.WORLD, model=case["model"])
+        topo = mesh.serving_topology(dist.group.WORLD, model=case["model"],
+                                     fsdp=case.get("fsdp", False))
         mine = C.shard_flat(case["row"], T.layout(cfg), TP.topology_layout(cfg, topo))
 
         def fresh():
@@ -718,7 +870,8 @@ def serve_rank(rank: int, world: int, cases: list) -> list:
 def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
     """``chip_smoke.py``'s serving cases on this rank of the ``(data, model)``
     grid of ``world`` ranks, one per case: ``(cfg, model, seed, prompt,
-    new)``.  Each draws the dense params on the card from ``seed`` (the
+    new[, fsdp])`` (``fsdp``: the data entries cut, ``serving_topology(...,
+    fsdp=True)``).  Each draws the dense params on the card from ``seed`` (the
     dense run's draw; one rank at a time), keeps this rank's blocks, warms
     up with a 2-token
     ``generate`` and then generates ``new`` greedy tokens for the whole
@@ -739,8 +892,8 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
 
     set_matmul_precision()
     out = []
-    for cfg, model, seed, prompt, new in cases:
-        topo = mesh.serving_topology(dist.group.WORLD, model=model)
+    for cfg, model, seed, prompt, new, *fsdp in cases:
+        topo = mesh.serving_topology(dist.group.WORLD, model=model, fsdp=bool(fsdp and fsdp[0]))
         # one rank draws at a time: four whole-depth draws at once (each the
         # dense model and an f32 draw of its largest leaf) need not fit
         # beside what the calling process holds on the card
@@ -781,9 +934,247 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
 
 
 def model_axis_serve_rank(rank: int, world: int, cases: list, out_dir: str,
-                          serve_cases: list) -> dict:
+                          serve_cases: list, fsdp_cases: tuple = ()) -> dict:
     """:func:`model_axis_rank`'s training cases, then
-    :func:`serve_full_width_rank`'s serving cases, in one start of the
-    ranks."""
+    :func:`serve_full_width_rank`'s serving cases, then
+    :func:`fsdp_full_width_rank`'s (saving under ``out_dir/fsdp``), in one
+    start of the ranks."""
+    import os
+
     return {"train": model_axis_rank(rank, world, cases, out_dir),
-            "serve": serve_full_width_rank(rank, world, serve_cases)}
+            "serve": serve_full_width_rank(rank, world, serve_cases),
+            "fsdp": fsdp_full_width_rank(rank, world, fsdp_cases, os.path.join(out_dir, "fsdp"))}
+
+
+def gap_excess(a, b, ref_mags, rel: float) -> float:
+    """max_i (|a_i - b_i| - rel * mags_i) over every dtype group, with mags
+    the larger magnitude of the ``ref_mags`` tensors (element for element):
+    the check ``gap <= C + R |x|`` is ``gap_excess(..., R) <= C``."""
+    import functools
+    import math
+
+    from repro_torch.groups import parts
+
+    worst = -math.inf
+    for i, (x, y) in enumerate(zip(parts(a), parts(b), strict=True)):
+        mag = functools.reduce(torch.maximum, [parts(t)[i].float().abs() for t in ref_mags])
+        worst = max(worst, ((x.float() - y.float()).abs() - rel * mag).max().item())
+        del mag
+    return worst
+
+
+def round_check(ours: dict, theirs: dict, x0_before, b: dict, gamma: float, beta2: float,
+                m_prev: float) -> tuple:
+    """One round of a run against another from the same ``x0_before``
+    (``ours`` / ``theirs``: ``x_tau``, ``x0`` and ``m``, whole buffers of the
+    same layout) within a round ``b`` of ``chip_smoke.model_axis_bounds``:
+    x_tau's and x0's gaps within C + R |x|; m's, element by element, within
+    beta2 times the last round's bound (``m_prev``) plus (1 - beta2) /
+    gamma times x0's (before) and x_tau's bounds, plus 1e-6 |m|.  Returns
+    (the round's readings with ``ok``, the next round's ``m_prev``)."""
+    import math
+
+    from repro_torch.groups import parts
+
+    excess = {n: gap_excess(ours[n], theirs[n], [ours[n], theirs[n]], b[n][1])
+              for n in ("x_tau", "x0")}
+    m_c = beta2 * m_prev + (1 - beta2) / gamma * (b["x0_before"][0] + b["x_tau"][0])
+    m_excess, m_next = -math.inf, 0.0
+    for g, (mo, mt) in enumerate(zip(parts(ours["m"]), parts(theirs["m"]), strict=True)):
+        mag = ((1 - beta2) / gamma) * (
+            b["x0_before"][1] * parts(x0_before)[g].float().abs()
+            + b["x_tau"][1] * torch.maximum(parts(ours["x_tau"])[g].float().abs(),
+                                            parts(theirs["x_tau"])[g].float().abs()))
+        mag += 1e-6 * mt.abs()
+        m_excess = max(m_excess, ((mo - mt).abs() - mag).max().item())
+        m_next = max(m_next, mag.max().item())
+        del mag
+    gaps = {n: max((p.float() - q.float()).abs().max().item() for p, q in
+                   zip(parts(ours[n]), parts(theirs[n]))) for n in ("x_tau", "x0", "m")}
+    ok = excess["x_tau"] <= b["x_tau"][0] and excess["x0"] <= b["x0"][0] and m_excess <= m_c
+    return ({"max_gap": gaps, "excess_over_R": {**excess, "m": m_excess}, "m_bound_C": m_c,
+             "ok": ok}, m_c + m_next)
+
+
+def zero_cut(flat, mlay, zlay):
+    """``zlay``'s zero block of buffers in ``mlay``'s layout (the model
+    block it cuts), in their dtypes: each leaf narrowed along its zero
+    dim."""
+    from repro_torch.models import convert as C
+
+    out = C._like(flat, zlay.group_numels)
+    src, dst = mlay.views(flat), zlay.views(out)
+    for i, name in enumerate(zlay.names):
+        dst[name].copy_(C.shard_leaf(src[name], zlay.zero_dims[i], zlay.zero, zlay.zero_index))
+    return out
+
+
+def fsdp_full_width_rank(rank: int, world: int, cases, out_dir: str) -> list:
+    """``chip_smoke.py``'s FSDP runs on this rank, one per case, a dict:
+    ``name``, ``cfg``, ``n_workers``, ``model``, ``fsdp``, ``seed``,
+    ``batches``, ``gamma``, ``eta``, and optionally ``save`` (the first
+    worker peer of each (model, zero) index saves its zero blocks of x_tau,
+    x0 and m, whole, to ``out_dir`` as ``<name>_<model>_<zero>_<round>.pt``),
+    ``keep`` (this rank's zero blocks of each round kept on the host for a
+    later case) and ``against`` (``(kept case, bounds)``: each round held
+    against that case's, bit for bit where ``bounds`` is None, else within
+    :func:`round_check` of ``bounds[round]``).  Each draws the dense params
+    on the card from ``seed``, one rank at a time (once per config and seed:
+    the rank keeps its model block on the host), keeps this rank's blocks
+    (under FSDP its zero blocks; a run without FSDP is cut to the zero blocks
+    of the same grid's FSDP layout for the comparisons) and runs the DSM
+    outer steps (AdamW, ZeRO-sharded global step, device-parallel local
+    phase).  Returns per case the per-worker losses (tau, W) of each round,
+    the peak (``max_memory_allocated`` from the state's build on), the bytes
+    held beside the run's x0 block when it starts, the state bytes as the
+    dry-run counts them, the collectives, the kernel launches, each outer
+    step's host ms, the comparisons, and the case's seconds to the end of
+    its run (``run_s``) and of its comparisons (``case_s``).  The ranks
+    build one set of subgroups per grid (``fsdp=True``); a run without FSDP
+    takes that topology's view without it."""
+    import os
+    import time
+
+    from repro_torch import kernels as K
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core import dsm as D
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import metrics as OM
+
+    out, kept, drawn, grids = [], {}, {}, {}
+    for case in cases:
+        t_case = time.perf_counter()
+        cfg, W, name = case["cfg"], case["n_workers"], case["name"]
+        grid = (W, case["model"])
+        if grid not in grids:
+            # one set of subgroups per grid: a run without FSDP takes its view
+            grids[grid] = mesh.topology(W, dist.group.WORLD, model=case["model"], fsdp=True)
+        topo = dataclasses.replace(grids[grid], stats=type(grids[grid].stats)(),
+                                   **({} if case["fsdp"] else
+                                      dict(fsdp="", zero_group=None, peer_group=None)))
+        lay = TP.topology_layout(cfg, topo)
+        mlay = TP.rank_layout(cfg, topo.model, topo.model_index)
+        zlay = TP.rank_layout(cfg, topo.model, topo.model_index, zero=topo.zero,
+                              zero_index=topo.zero_index)
+        key = (cfg.name, case["seed"], topo.model_index)
+        if key not in drawn:
+            # the rank's model block of the dense draw, kept on the host for
+            # the cases that start from the same draw; one rank draws at a time
+            for turn in range(world):
+                if turn == rank:
+                    row = T.init_params(torch.Generator("cuda").manual_seed(case["seed"]), cfg,
+                                        device="cuda")
+                    drawn[key] = each(lambda t: t.cpu(), C.shard_flat(row, T.layout(cfg), mlay))
+                    del row
+                    torch.cuda.empty_cache()
+                dist.barrier()
+        x0 = each(lambda t: t.to("cuda"), drawn[key])
+        if lay.zero > 1:
+            x0 = zero_cut(x0, mlay, lay)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res_held = torch.cuda.memory_allocated() - sum(t.numel() * t.element_size()
+                                                       for t in _tensors(x0))
+        base = base_opt.adamw()
+        tau = case["batches"][0]["tokens"].shape[1]
+        flags = dict(zero_sharded=True, device_parallel_local=True)
+        step = D.make_dsm_step(lambda p, mb, cfg=cfg: T.loss_fn(p, mb, cfg, remat=False),
+                               base, DSMConfig(tau=tau, global_lr=case["eta"], **flags),
+                               schedules.constant(case["gamma"]), lay, topo)
+        state = D.dsm_init(x0, base, W, topo, True)
+        state_bytes = state_nbytes(state, x0, case["batches"][0]["tokens"][topo.worker_slice])
+        dtopo = topo.dp
+        quiet = dataclasses.replace(dtopo, stats=type(dtopo.stats)())
+
+        def mine(t):
+            """This rank's zero block of a block buffer of ``lay``."""
+            return t if lay.zero > 1 else zero_cut(t, lay, zlay)
+
+        before = each(lambda t: t.cpu(), mine(x0))
+        seen = {}
+        mean_fn, stats_fn = Z.scattered_worker_mean, OM.loss_stats
+
+        def mean(*a, **k):
+            seen["x_tau"] = mean_fn(*a, **k)
+            return seen["x_tau"]
+
+        def loss_stats(losses):
+            seen["losses"] = losses.detach().cpu()
+            return stats_fn(losses)
+
+        Z.scattered_worker_mean, OM.loss_stats = mean, loss_stats
+        K.reset_launch_counts()
+        res = {"name": name, "losses": [], "step_ms": [], "rank": rank,
+               "grid": (topo.worker, topo.zero, topo.model), "index": topo.model_index,
+               "zero_index": topo.zero_index, "rounds": [], "state_bytes": state_bytes,
+               "held_bytes": res_held}
+        m_prev, rounds = 0.0, []
+        try:
+            for k, raw in enumerate(case["batches"]):
+                batch = {n: torch.from_numpy(v[topo.worker_slice]).to("cuda")
+                         for n, v in raw.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+                res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                res["losses"].append(seen["losses"])
+                blocks = {n: each(lambda t: t.cpu(), mine(Z.gather_shards(t, quiet,
+                                                                          lay.group_numels)))
+                          for n, t in (("x_tau", seen.pop("x_tau")), ("x0", state.x0),
+                                       ("m", state.m))}
+                blocks["losses"] = seen["losses"]
+                if case.get("save") and dtopo.rank == 0:
+                    torch.save(blocks, os.path.join(
+                        out_dir, f"{name}_{topo.model_index}_{topo.zero_index}_{k}.pt"))
+                if case.get("keep") or case.get("against"):
+                    rounds.append((before, blocks))
+                before = blocks["x0"]
+                del blocks
+        finally:
+            Z.scattered_worker_mean, OM.loss_stats = mean_fn, stats_fn
+        res["launches"] = K.launch_counts()
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["comm"] = topo.stats.as_dict()
+        res["block_numel"] = lay.numel
+        del state, x0, step, batch
+        torch.cuda.empty_cache()
+        res["run_s"] = time.perf_counter() - t_case
+        if case.get("keep"):
+            kept[name] = rounds
+        if case.get("against"):
+            ref, bounds = case["against"]
+            for k, ((_, ours), (ref_before, theirs)) in enumerate(zip(rounds, kept[ref])):
+                res["rounds"].append(_held_against(ours, theirs, ref_before, bounds and bounds[k],
+                                                   case["gamma"], m_prev))
+                m_prev = res["rounds"][-1].pop("m_next", 0.0)
+        res["case_s"] = time.perf_counter() - t_case
+        out.append(res)
+    return out
+
+
+def _held_against(ours: dict, theirs: dict, before, bound, gamma: float, m_prev: float) -> dict:
+    """One round's blocks (host tensors) against another run's on the card:
+    bit for bit (``bound`` None) or within :func:`round_check`'s ``bound``."""
+    if bound is None:
+        same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for n in ("x_tau", "x0", "m", "losses")
+                   for a, b in zip(_flat_parts(ours[n]), _flat_parts(theirs[n]), strict=True))
+        return {"bit_equal": same, "ok": same}
+    card = [{n: each(lambda t: t.to("cuda"), v) for n, v in d.items() if n != "losses"}
+            for d in (ours, theirs)]
+    check, m_next = round_check(*card, each(lambda t: t.to("cuda"), before), bound, gamma,
+                                DSMConfig().beta2, m_prev)
+    del card
+    torch.cuda.empty_cache()
+    return {**check, "loss_gap": (ours["losses"] - theirs["losses"]).abs().max().item(),
+            "m_next": m_next}
+
+
+def _flat_parts(t) -> list:
+    """A tensor or Groups as a list of contiguous tensors."""
+    from repro_torch.groups import parts
+
+    return [p.contiguous() for p in parts(t)]
