@@ -58,12 +58,14 @@ again through make_dsm_step with loss_fn's remat=True under the "full" and
 the "dots" policies, each held bit for bit against the run without it.
 Last, every full-width run's measured peak beside the dry-run's reckoning
 of it on meta tensors (repro_torch.launch.dryrun), within DRYRUN_RTOL.
-Before that, the model axis (model_axis_full_width: Minitron-4B and GPT-2
-small over gloo ranks sharing the card, Megatron-split DSM steps held
-against the dense run) and serving on the (data, model) grid in the same
+Before that, the model axis (model_axis_full_width: Minitron-4B, GPT-2
+small, Granite-MoE and LLaVA over gloo ranks sharing the card,
+Megatron-split DSM steps held against the dense run, the MoE one made to
+take the ranks' routes) and serving on the (data, model) grid in the same
 start of the ranks (serve_model_axis_full_width: Minitron-4B at whole depth
 in bf16 over four model ranks and at 8 layers in f32, GPT-2 small over (2,
-2), each held against the dense model and its f32 logits), and FSDP in the
+2), Granite-MoE and LLaVA over four model ranks, each held against the
+dense model and its f32 logits), and FSDP in the
 same start (fsdp_full_width: GPT-2 small at whole depth with each rank's
 zero block gathered per layer over its zero group, against its dense run;
 Minitron-4B at 2 layers over (worker 1, zero 2, model 2) against the same
@@ -321,14 +323,39 @@ DRYRUN_RTOL = 0.20
 # 2, zero 1, model 2), W = 2: the reference's grid rule puts one worker on
 # each worker row (W = 4 would need 4 rows), so each rank holds one worker's
 # half, and the worker mean and the global step run over 2-rank subgroups.
-# Both: tau 4, B_micro 4, S 128, MODEL_AXIS_ROUNDS rounds, constant gamma,
-# eta, one start of the ranks.  The bounds (PERF.md section 6, written
-# before the first run): model_axis_bounds
+# (d) granite_moe_3b_a800m.FULL at MOE_VLM_LAYERS of its 32 layers over
+# (worker 1, zero 1, model 4), W = 2: its 40 experts' router on E (10 per
+# rank), every expert's d_ff cut to 128 per rank, the (T K, d) partial
+# outputs all-reduced before the combine; each MoE layer call's routes
+# recorded on the ranks (torch_ranks.recorded_routes), the same on every
+# rank of the group, and the dense run made to take them (forced_routes):
+# held within model_axis_bounds at every round; the tokens whose own top-k
+# the dense run would have taken otherwise counted per local step.  (Left
+# to route freely, the two bf16 runs part after the first local step: 140
+# of 2,048 token routes differed at step 0, 942-2,021 at every later step,
+# and the losses 3.8% apart after two rounds; PERF.md section 6.)
+# (e) llava_next_34b.FULL at VLM_AXIS_LAYERS of its 60 layers over (1, 1,
+# 4), W = 1, B_micro 1, S 128 text tokens after its 2,880 random patches
+# (f32, seeded), one round: patch_proj column-parallel (the (B, P, d / 4)
+# prefix gathered), within model_axis_bounds (cut from 2 layers for the
+# card: four ranks sharing it reckon 19.97 GB each at 2 layers, the global
+# step's f32 temporaries 9.38 GB of it, and ran it out of memory; 14.67 GB
+# each at 1 layer).  All: tau 4, S 128, B_micro 4 unless named,
+# MODEL_AXIS_ROUNDS rounds unless named, constant gamma, eta, one start of
+# the ranks; each case's global step bit-equal from the dense x_tau.  The
+# bounds (PERF.md section 6, written before the first run):
+# model_axis_bounds
 MODEL_AXIS_LAYERS = 2
 MODEL_AXIS_N = 1_006_648_320
-MODEL_AXIS_CASES = (("minitron_4b", MODEL_AXIS_LAYERS, 2, 4), ("gpt2_small", CUT_LAYERS, 2, 2))
-MODEL_AXIS = dict(tau=4, b_micro=4, seq=128)
-MODEL_AXIS_ROUNDS = 2
+MODEL_AXIS_ROUNDS = 1           # cut from 2 for the time target
+MOE_VLM_LAYERS = 2
+VLM_AXIS_LAYERS = 1
+MODEL_AXIS_CASES = (   # (arch, layers, W, model ranks, B_micro, rounds)
+    ("minitron_4b", MODEL_AXIS_LAYERS, 2, 4, 4, MODEL_AXIS_ROUNDS),
+    ("gpt2_small", CUT_LAYERS, 2, 2, 4, MODEL_AXIS_ROUNDS),
+    ("granite_moe_3b_a800m", MOE_VLM_LAYERS, 2, 4, 4, MODEL_AXIS_ROUNDS),
+    ("llava_next_34b", VLM_AXIS_LAYERS, 1, 4, 1, 1))
+MODEL_AXIS = dict(tau=4, seq=128)
 MODEL_AXIS_GAMMA = 1e-3
 MODEL_AXIS_ETA = MAIN["global_lr"]
 # the rounding model: one bf16 ulp (2^-8) of the largest logit per
@@ -363,11 +390,19 @@ MODEL_AXIS_ULP = 2.0 ** -8
 # two paths decided no token of (a) at whole depth in bf16, PERF.md section
 # 6); every rank of a model group returns the same tokens; each rank's peak
 # within DRYRUN_RTOL of dryrun.reckon_serve's; its collectives
-# serve_collectives' to the byte (the params resolved once per generate)
-SERVE_MA_CASES = (("minitron_4b", None, None, 4), ("minitron_4b", "f32", "float32", 4),
-                  ("gpt2_small", None, None, 2))     # (arch, layers, dtype, model ranks)
+# serve_collectives' to the byte (the params resolved once per generate).
+# (c) granite_moe_3b_a800m.FULL at MOE_VLM_LAYERS layers in bf16 over
+# (data 1, model 4), SERVE_MA's prompts; (d) llava_next_34b.FULL at
+# VLM_LAYERS layers over (1, 4), SERVE_VLM's 2 prompts after the config's
+# 2,880 seeded random patches (f32), the same rule
 SERVE_MA_F32_LAYERS = 8
 SERVE_MA = (4, 256, 16)
+SERVE_MA_CASES = (   # (arch, layers (None: whole depth), dtype, model ranks, (B, prompt, new))
+    ("minitron_4b", None, None, 4, SERVE_MA),
+    ("minitron_4b", SERVE_MA_F32_LAYERS, "float32", 4, SERVE_MA),
+    ("gpt2_small", None, None, 2, SERVE_MA),
+    ("granite_moe_3b_a800m", MOE_VLM_LAYERS, None, 4, SERVE_MA),
+    ("llava_next_34b", VLM_LAYERS, None, 4, SERVE_VLM))
 SERVE_MA_F32_RTOL = 1e-3
 # fsdp_full_width: FSDP over zero (mesh.topology(..., fsdp=True): each rank
 # holds its zero block of its blocks, gathers each layer at use over its
@@ -401,7 +436,7 @@ SERVE_MA_F32_RTOL = 1e-3
 FSDP_A = ("gpt2_small", None, 2, 1)               # (arch, layers, W, model)
 FSDP_B = ("minitron_4b", MODEL_AXIS_LAYERS, 1, 2)
 FSDP_B_MICRO = 4
-FSDP_ROUNDS = 2
+FSDP_ROUNDS = 1                 # (a)'s rounds, cut from 2 for the time target
 FSDP_B_ROUNDS = 1
 FSDP_B_TAU = 1
 
@@ -3066,27 +3101,67 @@ def model_axis_bounds(n_layers: int, rounds: int, tau: int) -> list:
 
 
 def model_axis_cfgs():
-    """The model-axis cases: (cfg, W, M) at MODEL_AXIS_CASES' depths."""
+    """The model-axis cases: (cfg, W, M, B_micro, rounds) at
+    MODEL_AXIS_CASES' depths."""
     import dataclasses
 
     from repro_torch.configs import load_arch
 
     out = []
-    for arch, layers, n_workers, model in MODEL_AXIS_CASES:
+    for arch, layers, n_workers, model, b_micro, rounds in MODEL_AXIS_CASES:
         full = load_arch(arch).FULL
         out.append((dataclasses.replace(full, n_layers=layers, name=f"{arch}_{layers}l"),
-                    n_workers, model))
+                    n_workers, model, b_micro, rounds))
     return out
 
 
-def largest_logit(torch, params, cfg, tokens) -> float:
-    """The largest |logit| of ``tokens`` (B, S) under ``params``: the unit
-    of the model axis's loss bound."""
+def largest_logit(torch, params, cfg, batch) -> float:
+    """The largest |logit| of a microbatch (``tokens`` (B, S), or its dict
+    with a VLM's ``patches``) under ``params``: the unit of the model
+    axis's loss bound."""
     from repro_torch.models import transformer as T
 
+    batch = batch if isinstance(batch, dict) else {"tokens": batch}
     with torch.no_grad():
-        h, _, _ = T.hidden_states(params, {"tokens": tokens}, cfg, remat=False)
-        return T._logits(params, h, cfg).abs().max().item()
+        h, _, n_prefix = T.hidden_states(params, batch, cfg, remat=False)
+        return T._logits(params, h[:, n_prefix:], cfg).abs().max().item()
+
+
+class forced_routes:
+    """While active, every ``layers.route`` call takes the next of
+    ``routes`` ((T, K) experts, in the calls' order: another run's, from
+    ``torch_ranks.recorded_routes``) with the call's own probabilities at
+    them, and keeps the experts it would have taken itself (``own``)."""
+
+    def __init__(self, routes: list):
+        self.routes, self.own = list(routes), []
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        orig, todo = L.route, iter(self.routes)
+
+        def route(probs, k):
+            self.own.append(orig(probs, k)[1])
+            idx = next(todo).to(probs.device)
+            return probs.gather(-1, idx), idx
+
+        self.restore = lambda: setattr(L, "route", orig)
+        L.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.restore()
+
+    def other_per_step(self, tau: int) -> list:
+        """Per local step, the tokens whose own top-k experts (as a set)
+        differ from the ones taken; every call's route taken once."""
+        if len(self.own) != len(self.routes):
+            raise AssertionError(f"{len(self.own)} MoE calls took {len(self.routes)} routes")
+        diff = [int((a.cpu().sort(dim=-1).values != b.sort(dim=-1).values).any(dim=-1).sum())
+                for a, b in zip(self.own, self.routes)]
+        n = len(diff) // tau
+        return [sum(diff[t * n:(t + 1) * n]) for t in range(tau)]
 
 
 def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
@@ -3126,14 +3201,22 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
         raise AssertionError(f"{cfgs[0][0].name}: N {T.layout(cfgs[0][0]).numel}")
     corpus = training_corpus()
     rng = np.random.default_rng(11)
-    tau, bm, seq = MODEL_AXIS["tau"], MODEL_AXIS["b_micro"], MODEL_AXIS["seq"]
+    tau, seq = MODEL_AXIS["tau"], MODEL_AXIS["seq"]
     cases, reckoned = [], []
-    for i, (cfg, W, M) in enumerate(cfgs):
-        batches = [{"tokens": corpus.sample(rng, W * tau * bm, seq).reshape(
-            W, tau, 1, bm, seq).astype(np.int64)} for _ in range(MODEL_AXIS_ROUNDS)]
+    for i, (cfg, W, M, bm, n_rounds) in enumerate(cfgs):
+        batches = []
+        for _ in range(n_rounds):
+            batch = {"tokens": corpus.sample(rng, W * tau * bm, seq).reshape(
+                W, tau, 1, bm, seq).astype(np.int64)}
+            if cfg.family == "vlm":
+                batch["patches"] = rng.standard_normal((W, tau, 1, bm, cfg.n_patches,
+                                                        cfg.d_model), dtype=np.float32)
+            batches.append(batch)
         cases.append((cfg, W, M, 7 + i, batches, MODEL_AXIS_GAMMA, MODEL_AXIS_ETA))
-        # every rank holds blocks of the same shapes: rank 0's reckoning
-        kw = dict(n_workers=W, tau=tau, b_micro=bm, seq=seq, world=RANKS, model=M,
+        # every rank holds blocks of the same shapes: rank 0's reckoning (a
+        # VLM's sequence is its patches and its text)
+        n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
+        kw = dict(n_workers=W, tau=tau, b_micro=bm, seq=seq + n_prefix, world=RANKS, model=M,
                   eval_batch=0)
         reckoned.append((kw, pool.submit(reckon_comm, cfg, kw),
                          pool.submit(reckon_peak, cfg, kw)))
@@ -3165,11 +3248,12 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
         lay = T.layout(cfg)
         lays = [TP.rank_layout(cfg, M, m) for m in range(M)]
         kw, comm_fut, peak_fut = reckoned[i]
+        n_rounds = len(batches)
         comm_round, comm_kinds = comm_fut.result(timeout=CPU_RUN_TIMEOUT_S)
-        want_comm = {k: {"calls": v["calls"] * MODEL_AXIS_ROUNDS,
-                         "bytes": v["bytes"] * MODEL_AXIS_ROUNDS} for k, v in comm_round.items()}
-        want_launch = {"dsm_update": MODEL_AXIS_ROUNDS * lay.n_groups,
-                       "adamw_update": MODEL_AXIS_ROUNDS * tau * lay.n_groups}
+        want_comm = {k: {"calls": v["calls"] * n_rounds,
+                         "bytes": v["bytes"] * n_rounds} for k, v in comm_round.items()}
+        want_launch = {"dsm_update": n_rounds * lay.n_groups,
+                       "adamw_update": n_rounds * tau * lay.n_groups}
         for r in per_rank:
             PEAKS.append((f"model_axis_{cfg.name}_rank{r['rank']}", r["peak_bytes"], cfg, kw,
                           0, peak_fut))
@@ -3181,6 +3265,7 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
             total = {k: n + r["launches"][k] for k, n in total.items()}
 
         # the dense run, round by round against the ranks' saved blocks
+        t_dense = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         x0 = T.init_params(torch.Generator("cuda").manual_seed(seed), cfg, device="cuda")
@@ -3189,6 +3274,7 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
         step = D.make_dsm_step(lambda p, mb, cfg=cfg: T.loss_fn(p, mb, cfg, remat=False),
                                base, dcfg, schedules.constant(gamma), lay)
         state = D.dsm_init(x0, base, W)
+        del x0                          # the state holds its own copy
         seen = {}
         mean_fn, stats_fn = D.worker_mean, OM.loss_stats
 
@@ -3200,34 +3286,27 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
             seen["losses"] = losses.detach().cpu()
             return stats_fn(losses)
 
-        bounds = model_axis_bounds(cfg.n_layers, MODEL_AXIS_ROUNDS, tau)
+        bounds = model_axis_bounds(cfg.n_layers, n_rounds, tau)
         D.worker_mean, OM.loss_stats = mean, loss_stats
         K.reset_launch_counts()
         rounds, m_prev = [], 0.0
         try:
             for k, raw in enumerate(batches):
                 batch = {n: torch.from_numpy(v).to("cuda") for n, v in raw.items()}
-                top = largest_logit(torch, lay.views(state.x0), cfg, batch["tokens"][0, 0, 0])
+                top = largest_logit(torch, lay.views(state.x0), cfg,
+                                    {n: v[0, 0, 0] for n, v in batch.items()})
                 before = (each(torch.clone, state.x0), each(torch.clone, state.m))
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
-                state, _ = step(state, batch)
+                # the dense run takes the routes the ranks took (none without a MoE layer)
+                with forced_routes(per_rank[0]["routes"][k]) as forced:
+                    state, _ = step(state, batch)
                 torch.cuda.synchronize()
                 step_ms = (time.perf_counter() - t1) * 1e3
+                other = forced.other_per_step(tau)
+                del batch, forced
                 launches = K.launch_counts()
                 x_tau = seen.pop("x_tau")
-                saved = [torch.load(work / f"{i}_{m}_{k}.pt", mmap=True, weights_only=False)
-                         for m in range(M)]
-                tp = {n: C.gather_flat([each(lambda t: t.to("cuda"), sv[n]) for sv in saved],
-                                       lay, lays) for n in ("x_tau", "x0", "m")}
-                del saved
-                b = bounds[k]
-                dense_loss = seen["losses"].mean(0).tolist()
-                tp_loss = [r["losses"][k].mean(0).tolist() for r in per_rank]
-                loss_gap = max(abs(x - y) for t in tp_loss for x, y in zip(t, dense_loss))
-                check, m_prev = torch_ranks.round_check(
-                    tp, {"x_tau": x_tau, "x0": state.x0, "m": state.m}, before[0], b, gamma,
-                    DSM_HP["beta2"], m_prev)
                 # the global step from the dense x_tau, x0 and m on each rank's blocks
                 bit_equal = True
                 for rl in lays:
@@ -3239,12 +3318,32 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
                         + parts(C.shard_flat(state.m, lay, rl))))
                     del xb, mb
                 K.reset_launch_counts()
-                ok = loss_gap <= b["loss"] * top and check.pop("ok") and bit_equal
+                before = before[0]          # m's copy is not needed past the bit check
+                saved = [torch.load(work / f"{i}_{m}_{k}.pt", mmap=True, weights_only=False)
+                         for m in range(M)]
+                tp = {n: C.gather_flat([each(lambda t: t.to("cuda"), sv[n]) for sv in saved],
+                                       lay, lays) for n in ("x_tau", "x0", "m")}
+                del saved
+                b = bounds[k]
+                # every rank of the model group took the same routes
+                same_routes = all(len(r["routes"][k]) == len(per_rank[0]["routes"][k]) and all(
+                    torch.equal(x, y) for x, y in zip(r["routes"][k], per_rank[0]["routes"][k]))
+                    for r in per_rank)
+                dense_loss = seen["losses"].mean(0).tolist()
+                tp_loss = [r["losses"][k].mean(0).tolist() for r in per_rank]
+                loss_gap = max(abs(x - y) for t in tp_loss for x, y in zip(t, dense_loss))
+                check, m_prev = torch_ranks.round_check(
+                    tp, {"x_tau": x_tau, "x0": state.x0, "m": state.m}, before, b, gamma,
+                    DSM_HP["beta2"], m_prev)
+                ok = (loss_gap <= b["loss"] * top and check.pop("ok") and bit_equal
+                      and same_routes)
                 rounds.append({"round": k, "largest_logit": top,
                                "dense_loss_per_worker": dense_loss,
                                "model_axis_loss_per_worker_by_rank": tp_loss,
                                "loss_gap": loss_gap, "loss_bound": b["loss"] * top, **check,
                                "bound_C_R": {n: b[n] for n in ("x_tau", "x0", "x0_before")},
+                               "tokens_routed_otherwise_by_dense_per_step": other,
+                               "model_group_routes_agree": same_routes,
                                "global_step_bit_equal_from_dense_x_tau": bit_equal,
                                "dense_step_ms": step_ms,
                                "model_axis_step_ms_by_rank": [r["step_ms"][k]
@@ -3257,11 +3356,21 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
         finally:
             D.worker_mean, OM.loss_stats = mean_fn, stats_fn
         peak = torch.cuda.max_memory_allocated()
-        del state, step, x0
+        del state, step
         torch.cuda.empty_cache()
-        if i == 0:
+        # both kernels on rank 0's blocks, bit for bit; timed on granite's
+        if cfg.n_experts:
+            checks = fsdp_kernel_times(torch, K, lays[0], lays[0].group_numels, W)
+        elif i == 0 or cfg.family == "vlm":
             checks = model_axis_kernel_checks(torch, K, lays[0], W)
+        else:
+            checks = []
+        for c in checks:
+            if c.get("max_abs_err", 0.0) != 0.0:
+                failures.append(f"{cfg.name}: kernel on rank 0's blocks: {c}")
         rows.append({"config": cfg.name, "n_params": lay.numel, "n_workers": W,
+                     "dense_and_checks_s": time.perf_counter() - t_dense,
+                     "case_s_by_rank": [r["case_s"] for r in per_rank],
                      "grid": {"worker": per_rank[0]["grid"][0], "zero": per_rank[0]["grid"][1],
                               "model": M},
                      "rank_block_numel": lays[0].numel, "dense_peak_bytes": peak,
@@ -3269,13 +3378,13 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
                      "launches_by_rank": [r["launches"] for r in per_rank],
                      "collectives_by_rank": [r["comm"] for r in per_rank],
                      "collectives_reckoned_per_round": comm_round,
-                     "collectives_by_kind_per_round": comm_kinds, "rounds": rounds})
+                     "collectives_by_kind_per_round": comm_kinds, "b_micro": kw["b_micro"],
+                     "kernels_on_rank0_blocks": checks, "rounds": rounds})
     for f in work.glob("*.pt"):
         f.unlink()
     emit({"phase": "model_axis_full_width", "gpu": smi, "ranks": RANKS,
-          "backend": "gloo", "tau": tau, "b_micro": bm, "seq": seq,
-          "gamma": MODEL_AXIS_GAMMA, "eta": MODEL_AXIS_ETA, "ranks_s": ranks_s,
-          "kernel_checks_on_rank0_blocks": checks, "cases": rows})
+          "backend": "gloo", "tau": tau, "seq": seq, "gamma": MODEL_AXIS_GAMMA,
+          "eta": MODEL_AXIS_ETA, "ranks_s": ranks_s, "cases": rows})
     if failures:
         raise AssertionError(f"model_axis_full_width: {failures}")
     return total, served, fsdp
@@ -3338,19 +3447,19 @@ def fsdp_cases(pool, corpus) -> dict:
     return {"cases": cases, "reckoned": reckoned}
 
 
-def fsdp_kernel_times(torch, K, lay, dsm_n: int, n_workers: int) -> list:
-    """Both kernels on an FSDP rank's rows: bit for bit against their plain
-    versions (model_axis_kernel_checks), and timed with theirs (CUDA events,
-    median) beside the byte bound: the DSM step on the rank's chunk of its
-    zero block over its worker peers (dsm_n elements), AdamW on its
-    (n_workers, N_rank) rows."""
+def fsdp_kernel_times(torch, K, lay, dsm_ns: list, n_workers: int) -> list:
+    """Both kernels on a model or FSDP rank's rows: bit for bit against
+    their plain versions (model_axis_kernel_checks), and timed with theirs
+    (CUDA events, median) beside the byte bound: the DSM step on the rank's
+    chunk of each dtype group over its worker peers (``dsm_ns`` elements
+    per group), AdamW on its (n_workers, N_rank) rows."""
     from repro_torch.kernels.adamw_update import adamw_update_plain
     from repro_torch.kernels.dsm_update import dsm_update_plain
 
     checks = model_axis_kernel_checks(torch, K, lay, n_workers)
     gen = torch.Generator(device="cuda").manual_seed(6)
     out = []
-    for n, dt in zip(lay.group_numels, lay.dtypes):
+    for n, dt, dsm_n in zip(lay.group_numels, lay.dtypes, dsm_ns, strict=True):
         es = torch.empty((), dtype=dt).element_size()
         x0, m, xt = dsm_inputs(torch, gen, dsm_n, dt)
         row = {"kernel": "dsm_update", "shape": [dsm_n], "dtype": str(dt),
@@ -3554,7 +3663,7 @@ def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
 
     # (c): serving with the data entries cut against serving's (b)
     served, plain = fsdp["served"]
-    scfg, model, _, prompt, new, _ = fsdp["serve_case"]
+    scfg, model, _, prompt, new, _, _ = fsdp["serve_case"]
     serve_rows = []
     for r, q in zip(served, plain):
         slay = TP.rank_layout(scfg, model, r["model_index"], zero=RANKS // model,
@@ -3582,7 +3691,7 @@ def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
 
     # both kernels on (a)'s rank rows: its zero block, its chunk over its peers
     worker = ranks[0][0]["grid"][0]
-    kernels = fsdp_kernel_times(torch, K, lays[0], Z.chunk_size(lays[0].numel, worker),
+    kernels = fsdp_kernel_times(torch, K, lays[0], [Z.chunk_size(lays[0].numel, worker)],
                                 W // worker)
     for c in kernels:
         if c.get("max_abs_err", 0.0) != 0.0:
@@ -3599,10 +3708,10 @@ def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
 
 
 def serve_model_axis_cases(torch, pool) -> list:
-    """SERVE_MA_CASES as ``((cfg, model ranks, seed, prompt, new), the
-    future of dryrun.reckon_serve's reckoning of a rank's generate)``: the
-    prompts SERVE_MA's corpus tokens (CPU int64), the reckonings running in
-    the CPU pool meanwhile."""
+    """SERVE_MA_CASES as ``((cfg, model ranks, seed, prompt, new, extra),
+    the future of dryrun.reckon_serve's reckoning of a rank's generate)``:
+    the prompts corpus tokens (CPU int64), a VLM's ``extra`` its seeded f32
+    patches (CPU), the reckonings running in the CPU pool meanwhile."""
     import dataclasses
 
     import numpy as np
@@ -3610,17 +3719,21 @@ def serve_model_axis_cases(torch, pool) -> list:
     from repro_torch.configs import load_arch
 
     rng = np.random.default_rng(13)
-    batch, prompt_len, new = SERVE_MA
     out = []
-    for i, (arch, cut, dtype, model) in enumerate(SERVE_MA_CASES):
+    for i, (arch, layers, dtype, model, (batch, prompt_len, new)) in enumerate(SERVE_MA_CASES):
         cfg = load_arch(arch).FULL
-        if cut:
-            cfg = dataclasses.replace(cfg, n_layers=SERVE_MA_F32_LAYERS, dtype=dtype,
-                                      param_dtype=dtype,
-                                      name=f"{arch}_{SERVE_MA_F32_LAYERS}l_{cut}")
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers, name=f"{arch}_{layers}l")
+        if dtype:
+            cfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype,
+                                      name=f"{cfg.name}_{dtype}")
         prompt = torch.as_tensor(training_corpus().sample(rng, batch, prompt_len),
                                  dtype=torch.long)
-        out.append(((cfg, model, 31 + i, prompt, new),
+        extra = {}
+        if cfg.family == "vlm":
+            extra["patches"] = torch.from_numpy(rng.standard_normal(
+                (batch, cfg.n_patches, cfg.d_model), dtype=np.float32))
+        out.append(((cfg, model, 31 + i, prompt, new, extra),
                      pool.submit(reckon_serve_generate, cfg, batch, prompt_len,
                                  RANKS // model, model, new)))
     return out
@@ -3664,9 +3777,11 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
     set_matmul_precision()
     serving, per_case, ranks_s = served
     rows, failures = [], []
-    for ((cfg, M, seed, prompt, new), fut), ranks in zip(serving, per_case):
+    for ((cfg, M, seed, prompt, new, extra), fut), ranks in zip(serving, per_case):
+        t_dense = time.perf_counter()
         B, S = prompt.shape
         D, V = RANKS // M, cfg.padded_vocab
+        n0 = S + (cfg.n_patches if cfg.family == "vlm" else 0)     # the prefill's positions
         f32 = cfg.param_dtype == "float32"
         toks = ranks[0]["tokens"]
         agree = all(torch.equal(r["tokens"], toks) for r in ranks)
@@ -3688,10 +3803,11 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
         x0 = T.init_params(torch.Generator("cuda").manual_seed(seed), cfg, device="cuda")
         params = T.layout(cfg).views(x0)
         pc, tc = prompt.to("cuda"), toks.to("cuda")
-        generate(params, cfg, pc[:, :8], 2, device="cuda")       # warm-up
-        dtoks, dstats = generate(params, cfg, pc, new, device="cuda")
+        ec = {k: v.to("cuda") for k, v in extra.items()} or None
+        generate(params, cfg, pc[:, :8], 2, extra_batch=ec, device="cuda")       # warm-up
+        dtoks, dstats = generate(params, cfg, pc, new, extra_batch=ec, device="cuda")
         with torch.no_grad():
-            dense = list(forced_steps(torch, params, cfg, pc, tc))
+            dense = list(forced_steps(torch, params, cfg, pc, tc, ec))
         tp_c = [t.to("cuda") for t in tp]
         if f32:
             gate = [SERVE_MA_F32_RTOL * d.abs().max().item() for d in dense]
@@ -3700,7 +3816,7 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
         else:
             cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
             params32 = {k: v.float() for k, v in params.items()}
-            ref = one_pass_logits(torch, params32, cfg32, pc, tc)
+            ref = one_pass_logits(torch, params32, cfg32, pc, tc, ec)
             del params32
             dense_err = [(d - ref[:, i]).abs().max().item() for i, d in enumerate(dense)]
             tp_err = [(a - ref[:, i]).abs().max().item() for i, a in enumerate(tp_c)]
@@ -3719,20 +3835,20 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
         same_prefix = [int(torch.cumprod((dtoks.cpu() == toks).long(), dim=1)[b].sum())
                        for b in range(B)]
         dense_peak = torch.cuda.max_memory_allocated()
-        del x0, params, dense, tp_c, pc, tc, dtoks
+        del x0, params, dense, tp_c, pc, tc, dtoks, ec
         torch.cuda.empty_cache()
 
         rec = fut.result(timeout=CPU_RUN_TIMEOUT_S)
         lay0 = TP.rank_layout(cfg, M, 0)
         b = B // D
-        layout_cache = cache_bytes(T.init_cache(cfg, b, S + new, device="meta", layout=lay0))
+        layout_cache = cache_bytes(T.init_cache(cfg, b, n0 + new, device="meta", layout=lay0))
         per_rank, comm_ok, peak_ok = [], True, True
         for r in ranks:
             lay = TP.rank_layout(cfg, M, r["model_index"])
-            parts_ = [(1, TP.serve_collectives(cfg, lay, b, S, "serving_params")),
-                      (1, TP.serve_collectives(cfg, lay, b, S, "prefill")),
-                      (new - 1, TP.serve_collectives(cfg, lay, b, S, "decode")),
-                      (new, TP.serve_collectives(cfg, lay, b, S, "pick"))]
+            parts_ = [(1, TP.serve_collectives(cfg, lay, b, n0, "serving_params")),
+                      (1, TP.serve_collectives(cfg, lay, b, n0, "prefill")),
+                      (new - 1, TP.serve_collectives(cfg, lay, b, n0, "decode")),
+                      (new, TP.serve_collectives(cfg, lay, b, n0, "pick"))]
             if D > 1:
                 parts_.append((1, {"all_gather@data": {"calls": 1, "bytes": b * new * 8}}))
             want = scaled_sum(*parts_)
@@ -3744,6 +3860,7 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
             per_rank.append({"rank": r["rank"], "data_index": r["data_index"],
                              "model_index": r["model_index"], "rows": r["rows"],
                              "prefill_s": r["prefill_s"], "decode_s": r["decode_s"],
+                             "case_s": r["case_s"],
                              "decode_tok_per_s": r["tok_per_s"], "peak_bytes": r["peak_bytes"],
                              "params_bytes": r["params_bytes"], "held_bytes": r["held_bytes"],
                              "reckoned_over_measured_peak": ratio,
@@ -3770,7 +3887,8 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
                                               "reckoned": rec["memory"]["cache_bytes_per_rank"],
                                               "reference_placement": rec["memory"][
                                                   "cache_bytes_per_rank_reference_placement"]},
-                     "collectives_reckoned": rec["comm"], "tokens": toks[0].tolist(), "ok": ok})
+                     "collectives_reckoned": rec["comm"], "tokens": toks[0].tolist(),
+                     "dense_and_checks_s": time.perf_counter() - t_dense, "ok": ok})
         if not ok:
             failures.append(rows[-1])
     emit({"phase": "serve_model_axis_full_width", "gpu": smi, "ranks": RANKS, "backend": "gloo",

@@ -406,12 +406,71 @@ class _Reckoning:
                 and self.dim(pre + "attn.wv") == 1)
 
     def ffn_split(self, pre: str, cfg) -> bool:
-        return (self.dim(pre + "mlp.w1") == 1 and self.dim(pre + "mlp.w2") == 0
-                and (not cfg.mlp_gated or self.dim(pre + "mlp.w3") == 1))
+        """The MLP under ``pre`` (``"<layer>mlp."``, ``"<layer>moe.shared."``)
+        splits d_ff (``transformer._mlp_split``)."""
+        return (self.dim(pre + "w1") == 1 and self.dim(pre + "w2") == 0
+                and (not cfg.mlp_gated or self.dim(pre + "w3") == 1))
 
-    def ffn_names(self, pre: str, cfg) -> tuple:
-        return tuple(pre + w for w in ("mlp.w1", "mlp.w2") + (("mlp.w3",) if cfg.mlp_gated
-                                                               else ()))
+    def ffn_names(self, pre: str, cfg, names=("w1", "w2", "w3")) -> tuple:
+        return tuple(pre + w for w in names[:2] + (names[2:] if cfg.mlp_gated else ()))
+
+    def is_moe(self, pre: str) -> bool:
+        return pre + "moe.router" in self._index
+
+    def moe(self, pre: str, cfg, tokens: int, fwd: int, reps: int = 0, skip: int = 0) -> None:
+        """A MoE FFN's model-group collectives over ``tokens`` rows
+        (``layers.moe_apply`` with ``transformer._tp_moe``'s split): the
+        router's (T, E / M) f32 logits gathered or its (T, E) partial logits
+        all-reduced, the experts' partial outputs all-reduced ((TK, d) for
+        the ``scatter`` combine, (T, d) for ``ksum`` and ``moe_impl="dense"``)
+        or their leaves gathered, the shared experts' output all-reduced or
+        their leaves gathered, each ``fwd`` times; backward (``reps``
+        layers) the input's gradient all-reduced where anything is split,
+        and the (T, K) f32 gates' where the experts' output is reduced after
+        the combine.  ``skip``: of the ``fwd``, the calls of the layer's
+        last all-reduce that a checkpointed repeat's recompute does not run
+        again (the shared experts', else the combined experts')."""
+        d, M, K, E = cfg.d_model, self.layout.model, cfg.top_k, cfg.n_experts
+        act = tokens * d * 4
+        router = self.dim(pre + "moe.router")
+        experts = (self.dim(pre + "moe.we1") == 2 and self.dim(pre + "moe.we2") == 1
+                   and (not cfg.mlp_gated or self.dim(pre + "moe.we3") == 2))
+        shared = cfg.n_shared_experts > 0 and self.ffn_split(pre + "moe.shared.", cfg)
+        if router == 1:
+            self.add("all_gather", tokens * (E // M) * 4, fwd)
+        elif router == 0:
+            self.add("all_reduce_sum", tokens * E * 4, fwd)
+        if router is not None or experts or shared:
+            self.add("all_reduce_sum", act, reps)
+        if not experts:
+            for w in self.ffn_names(pre + "moe.", cfg, ("we1", "we2", "we3")):
+                self.gather(w, fwd)
+        elif cfg.moe_impl != "dense" and cfg.moe_combine != "ksum":
+            self.add("all_reduce_sum", tokens * K * d * 4, fwd)
+        else:
+            self.add("all_reduce_sum", act, fwd - (0 if cfg.n_shared_experts else skip))
+            self.add("all_reduce_sum", tokens * K * 4, reps)
+        if shared:
+            self.add("all_reduce_sum", act, fwd - skip)
+        elif cfg.n_shared_experts:
+            for w in self.ffn_names(pre + "moe.shared.", cfg):
+                self.gather(w, fwd)
+
+    def moe_stats(self, pre: str, cfg, fwd: int) -> None:
+        """A MoE layer's aux loss over the whole microbatch, ``fwd`` times:
+        its top-1 counts (int64) and router probability sums (f32)
+        all-reduced over the zero group (``layers.moe_apply``'s ``rows``)."""
+        if self.is_moe(pre):
+            self.add("all_reduce_sum", cfg.n_experts * 8, fwd, "zero")
+            self.add("all_reduce_sum", cfg.n_experts * 4, fwd, "zero")
+
+    def prefix(self, cfg, batch: int) -> None:
+        """A VLM's (batch, P, d / M) patch prefix gathered over the model
+        group where ``patch_proj`` is column-parallel
+        (``transformer._patch_prefix``)."""
+        if cfg.family == "vlm" and self.dim("patch_proj") == 1:
+            self.add("all_gather", batch * cfg.n_patches * (cfg.d_model // self.layout.model)
+                     * cfg.act_dtype.itemsize)
 
     def head_split(self, cfg) -> bool:
         head = "embed" if cfg.tie_embeddings else "lm_head"
@@ -430,7 +489,10 @@ def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int,
     ``remat``: each pattern repeat is recomputed in the backward
     (``transformer._run_stack``), so its forward collectives run twice, up
     to its last saved tensor (``torch.utils.checkpoint`` stops there: the
-    all-reduce of the repeat's last FFN output runs once).
+    all-reduce of the repeat's last FFN output runs once).  A MoE FFN's
+    collectives are :meth:`_Reckoning.moe`'s; a VLM's ``seq`` text tokens
+    follow its ``n_patches`` patches, whose projection is gathered once per
+    microbatch (:meth:`_Reckoning.prefix`).
 
     Under FSDP (``layout.zero`` > 1) the rank computes its ``batch / Z``
     rows where :func:`zero_split` (else all ``batch``), and the zero group's
@@ -447,18 +509,11 @@ def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int,
     mode = "sum" if zero_split(layout, batch) else "slice"
     if not T.megatron_split(cfg):
         r.zero_all(mode)
-        if mode == "sum":
-            # a MoE layer's aux loss over the whole microbatch: its top-1
-            # counts (int64) and router probability sums (f32) all-reduced
-            for name in layout.names:
-                if name.endswith("moe.router"):
-                    n = r.layer_count(name) * (2 if remat and r.stacked(name) else 1)
-                    r.add("all_reduce_sum", cfg.n_experts * 8, n, "zero")
-                    r.add("all_reduce_sum", cfg.n_experts * 4, n, "zero")
         return r.gather_all()
     rows = batch // layout.zero if mode == "sum" else batch
     M = layout.model
-    act = rows * seq * cfg.d_model * 4
+    tokens = rows * (seq + (cfg.n_patches if cfg.family == "vlm" else 0))
+    act = tokens * cfg.d_model * 4
     head = "embed" if cfg.tie_embeddings else "lm_head"
     r.zero_use("embed", 1, 1, mode)
     r.zero_use("final_norm.scale", 1, 1, mode)
@@ -466,16 +521,21 @@ def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int,
         r.zero_use(head, 1, 1, mode)
     else:
         r.zero_use("embed", 1, 1, mode)
+    if cfg.family == "vlm":
+        r.zero_use("patch_proj", 1, 1, mode)
     if M > 1:
         if r.dim("embed") == 0:
-            r.add("all_reduce_sum", act)
+            r.add("all_reduce_sum", rows * seq * cfg.d_model * 4)
         else:
             r.gather("embed")
+        r.prefix(cfg, rows)
     tail = f"decoder.blocks.p{len(cfg.pattern) - 1}."
     for pre, reps in r.attention_layers():
         fwd = reps * (2 if remat and r.stacked(pre) else 1)
         for name in r.layer_leaves(pre):
             r.zero_use(name, fwd, reps, mode)
+        if mode == "sum":
+            r.moe_stats(pre, cfg, fwd)
         if M == 1:
             continue
         # the recompute stops at the repeat's last saved tensor
@@ -496,16 +556,19 @@ def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int,
         else:
             for w in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
                 r.gather(pre + w, fwd)
-        if r.ffn_split(pre, cfg):
+        if r.is_moe(pre):
+            r.moe(pre, cfg, tokens, fwd, reps, fwd - ffn_fwd)
+        elif r.ffn_split(pre + "mlp.", cfg):
             r.add("all_reduce_sum", act, reps + ffn_fwd)
         else:
-            for w in r.ffn_names(pre, cfg):
+            for w in r.ffn_names(pre + "mlp.", cfg):
                 r.gather(w, fwd)
     if M == 1:
         return r.out
     r.gather("final_norm.scale")
     if r.head_split(cfg):
-        r.add("all_reduce_sum", act)                   # the head input's gradient
+        # the head input's gradient, the text positions'
+        r.add("all_reduce_sum", rows * seq * cfg.d_model * 4)
         for c0 in range(0, seq, min(T.CE_CHUNK, seq)):
             n = rows * (min(c0 + T.CE_CHUNK, seq) - c0) * 4
             r.add("all_reduce_max", n)
@@ -573,18 +636,26 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) 
         return r.out
     if not split:
         return r.out
-    # the norm scales a model gather resolved are held whole from then on
+    # the norm scales a model gather resolved are held whole from then on;
+    # a decode step projects no patches
     resolved = {n for n in layout.names if n.endswith(T.NORM_SCALES) and r.dim(n) is not None}
+    if kind == "decode":
+        resolved.add("patch_proj")
     for name in layout.names:
         if name not in resolved:
             r.zero_use(name, r.layer_count(name) * (1 + (name == "embed" and cfg.tie_embeddings)))
     if layout.model == 1:
         return r.out
-    act = batch * (seq if kind == "prefill" else 1) * cfg.d_model * 4
+    tokens = batch * (seq if kind == "prefill" else 1)
+    act = tokens * cfg.d_model * 4
+    n_prefix = cfg.n_patches if kind == "prefill" and cfg.family == "vlm" else 0
     if r.dim("embed") == 0:
-        r.add("all_reduce_sum", act)
+        r.add("all_reduce_sum", batch * (seq - n_prefix if kind == "prefill" else 1)
+              * cfg.d_model * 4)
     else:
         r.gather("embed")
+    if kind == "prefill":
+        r.prefix(cfg, batch)
     for pre, reps in r.attention_layers():
         if r.heads_split(pre, cfg):
             if not r.kv_direct(pre, cfg):
@@ -594,10 +665,12 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) 
         else:
             for w in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
                 r.gather(pre + w)
-        if r.ffn_split(pre, cfg):
+        if r.is_moe(pre):
+            r.moe(pre, cfg, tokens, reps)
+        elif r.ffn_split(pre + "mlp.", cfg):
             r.add("all_reduce_sum", act, reps)
         else:
-            for w in r.ffn_names(pre, cfg):
+            for w in r.ffn_names(pre + "mlp.", cfg):
                 r.gather(w)
     if not r.head_split(cfg):
         r.gather("embed" if cfg.tie_embeddings else "lm_head")

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -209,20 +209,57 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor, sizes: list) -> torch.Tensor:
         _RAGGED.depth -= 1
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None) -> tuple:
+class MoESplit(NamedTuple):
+    """How a model-parallel rank holds a MoE layer's leaves
+    (:func:`moe_apply`'s ``tp``): ``axis`` the model group; ``router``
+    ``"E"`` (its (d, E / M) block of experts), ``"d"`` (its (d / M, E) rows)
+    or None (whole); ``experts`` True where ``we1`` / ``we3`` are its (E, d,
+    d_ff / M) and ``we2`` its (E, d_ff / M, d) blocks, False where they are
+    whole; ``shared`` the same for the shared experts' ``w1`` / ``w3`` /
+    ``w2``."""
+
+    axis: object
+    router: Optional[str]
+    experts: bool
+    shared: bool
+
+
+def route(probs: torch.Tensor, k: int) -> tuple:
+    """(the top-``k`` probabilities, their experts), each (T, k): the
+    routing decision of :func:`moe_apply`."""
+    return torch.topk(probs, k, dim=-1)
+
+
+def _router_logits(router, xt, xc, tp) -> torch.Tensor:
+    """The (T, E) f32 router logits, the same on every rank of a model
+    group: a (d, E / M) block's logits gathered over the group (each rank
+    holds the whole logits' gradient and keeps its columns), a (d / M, E)
+    block's partial logits of its rows of ``xc`` all-reduced in f32."""
+    from repro_torch.distributed import tensor_parallel as TP
+
+    if tp.router is None:
+        return xt.to(F32) @ router.to(F32)
+    if tp.router == "E":
+        return TP.gather(xc.to(F32) @ router.to(F32), tp.axis, 1)
+    n = router.shape[0]
+    rows = xc[:, tp.axis.rank * n:(tp.axis.rank + 1) * n]
+    return TP.reduce_from(rows.to(F32) @ router.to(F32), tp.axis)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None, tp: MoESplit = None) -> tuple:
     """The reference's ``moe_apply``: returns (out (B, S, d), f32 aux loss).
 
     ``p``: ``router`` (d, E) f32, ``we1`` / ``we3`` (E, d, d_ff), ``we2``
     (E, d_ff, d) and, with shared experts, ``shared`` = ``{"w1", "w2"[,
-    "w3"]}``.  Routing in f32: softmax over ``x @ router``, top-k, gates
-    renormalised with a 1e-9 floor; the Switch aux loss from the top-1
-    expert.  ``moe_impl="ragged"`` sorts the token-expert pairs by expert
-    (stable, as ``jnp.argsort``) and runs one product per expert
-    (:func:`grouped_mm`: the group sizes are read on the host once per
-    call); ``"dense"`` runs every expert on every token.  The ``scatter``
-    combine adds each token's K weighted outputs in sorted order, one
-    rounding per add in the activation dtype as the reference's scatter-add
-    applies them; ``ksum`` contracts them with the gates.
+    "w3"]}``.  Routing in f32: softmax over ``x @ router``, top-k
+    (:func:`route`), gates renormalised with a 1e-9 floor; the Switch aux
+    loss from the top-1 expert.  ``moe_impl="ragged"`` sorts the
+    token-expert pairs by expert (stable, as ``jnp.argsort``) and runs one
+    product per expert (:func:`grouped_mm`: the group sizes are read on the
+    host once per call); ``"dense"`` runs every expert on every token.  The
+    ``scatter`` combine adds each token's K weighted outputs in sorted
+    order, one rounding per add in the activation dtype as the reference's
+    scatter-add applies them; ``ksum`` contracts them with the gates.
 
     ``rows``: the zero group (``Topology.zp``) of an FSDP rank that holds
     its rows of the microbatch.  The aux loss is then the whole
@@ -231,16 +268,34 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None) -> tuple:
     every zero rank; its gradient reaches the rank's own tokens scaled by Z,
     so that the zero ranks' gradients, summed and divided by Z
     (``core.dsm.worker_grads``), are the whole microbatch's.
-    """
+
+    ``tp``: on a model-parallel rank, which of ``p``'s leaves are its
+    blocks (:class:`MoESplit`); x is the same on every rank of the group.
+    The router's logits come whole to every rank (:func:`_router_logits`),
+    so the probabilities, routes, gates, aux loss and group sizes are the
+    same on each.  With ``experts`` each rank runs every expert's d_ff
+    slice: ``we1`` / ``we3`` column- and ``we2`` row-parallel, the partial
+    outputs all-reduced (f32, rounded once): for ``scatter`` the (TK, d)
+    products before the combine, so each add rounds as the reference's; for
+    ``ksum`` and ``moe_impl="dense"`` the (T, d) combined output, whose
+    gates then pass through ``copy_to`` (their gradient from each rank's
+    partial output is partial).  The shared experts are the dense MLP split
+    (one all-reduce of their output).  One ``copy_to`` of the layer's (T,
+    d) input sums the partial gradients of every split product."""
+    from repro_torch.distributed import tensor_parallel as TP
+
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     xt = x.reshape(B * S, d)
     T, dt = B * S, xt.dtype
     act = act_fn(cfg.act)
+    split = tp if tp is not None else MoESplit(None, None, False, False)
+    xc = (TP.copy_to(xt, split.axis) if split.router or split.experts or split.shared
+          else xt)
 
-    logits = xt.to(F32) @ p["router"].to(F32)               # (T, E)
+    logits = _router_logits(p["router"], xt, xc, split)     # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)    # (T, K)
+    gate_vals, expert_idx = route(probs, K)                 # (T, K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
     # load-balance aux loss (Switch-style), from the top-1 expert
@@ -258,18 +313,24 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None) -> tuple:
         psum = whole + rows.world * (psum - psum.detach())
         aux = E * torch.sum(density * (psum / n))
 
+    xe = xc if split.experts else xt
+    if split.experts and (cfg.moe_impl == "dense" or cfg.moe_combine == "ksum"):
+        # each rank's partial output makes the gates' gradient partial
+        gate_vals = TP.copy_to(gate_vals, split.axis)
     if cfg.moe_impl == "dense":
         gates = torch.zeros(T, E, dtype=dt, device=x.device).scatter(
             1, expert_idx, gate_vals.to(dt))
-        h = act(torch.einsum("td,edf->tef", xt, p["we1"].to(dt)))
+        h = act(torch.einsum("td,edf->tef", xe, p["we1"].to(dt)))
         if "we3" in p:
-            h = h * torch.einsum("td,edf->tef", xt, p["we3"].to(dt))
+            h = h * torch.einsum("td,edf->tef", xe, p["we3"].to(dt))
         out = torch.einsum("tef,efd,te->td", h, p["we2"].to(dt), gates)
+        if split.experts:
+            out = TP.reduce_from(out, split.axis)
     else:
         flat_expert = expert_idx.reshape(T * K)
         sort_idx = torch.argsort(flat_expert, stable=True)
         token_of = sort_idx // K
-        xs = xt[token_of]                                   # (TK, d)
+        xs = xe[token_of]                                   # (TK, d)
         sizes = _host_sizes(_counts(flat_expert, E), T * K)
         h = act(grouped_mm(xs, p["we1"].to(dt), sizes))
         if "we3" in p:
@@ -278,7 +339,11 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None) -> tuple:
         inv = torch.argsort(sort_idx)
         if cfg.moe_combine == "ksum":
             out = torch.einsum("tkd,tk->td", y[inv].reshape(T, K, d), gate_vals.to(dt))
+            if split.experts:
+                out = TP.reduce_from(out, split.axis)
         else:
+            if split.experts:
+                y = TP.reduce_from(y, split.axis)
             w = gate_vals.reshape(T * K)[sort_idx].to(dt)
             # each token's K products in sorted order: its pairs by expert id
             contrib = (y * w[:, None])[inv].reshape(T, K, d)
@@ -289,7 +354,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None) -> tuple:
                 out = out + contrib[:, k]
     if "shared" in p:
         sh = p["shared"]
-        out = out + mlp_apply(sh["w1"], sh["w2"], xt, cfg, w3=sh.get("w3"))
+        shared = mlp_apply(sh["w1"], sh["w2"], xc if split.shared else xt, cfg, w3=sh.get("w3"))
+        out = out + (TP.reduce_from(shared, split.axis) if split.shared else shared)
     return out.reshape(B, S, d), aux
 
 

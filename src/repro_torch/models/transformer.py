@@ -28,16 +28,20 @@ reference.
 On a rank of a model-parallel group (``repro_torch.distributed.mesh``,
 ``model`` > 1) the params are its :class:`~repro_torch.models.convert.
 ShardedParams`: each leaf its block by the reference's placement on the
-``model`` axis.  ``hidden_states`` and ``loss_fn`` then compute the dense
-decoder LM (``attn`` / ``swa`` mixers, dense FFNs) Megatron-split
-(:func:`_tp_block`): ``wq`` / ``wo`` over whole heads, ``w1`` / ``w3``
-column- and ``w2`` row-parallel with one all-reduce after each row-parallel
-product, ``embed`` / ``lm_head`` vocab-parallel into the vocab-parallel
-cross-entropy (``repro_torch.distributed.tensor_parallel``).  A leaf whose
-block the split does not consume (the norm scales; ``wk`` / ``wv`` where a
-rank's block cuts a head) is gathered over the model group at use and its
-gradient cut back.  Every other family gathers every leaf at use and
-computes replicated (:func:`_gathered`).
+``model`` axis.  ``hidden_states`` and ``loss_fn`` then compute the
+decoder LM and the VLM of ``attn`` / ``swa`` mixers with dense or MoE FFNs
+Megatron-split (:func:`_tp_block`): ``wq`` / ``wo`` over whole heads, ``w1``
+/ ``w3`` column- and ``w2`` row-parallel with one all-reduce after each
+row-parallel product, a MoE FFN's router by experts or by rows and its
+experts' and shared experts' d_ff slices (:func:`_tp_moe`), a VLM's
+``patch_proj`` column-parallel (:func:`_patch_prefix`), ``embed`` /
+``lm_head`` vocab-parallel into the vocab-parallel cross-entropy
+(``repro_torch.distributed.tensor_parallel``).  A leaf whose block the split
+does not consume (the norm scales; ``wk`` / ``wv`` where a rank's block cuts
+a head; the experts where their blocks do not cut d_ff) is gathered over the
+model group at use and its gradient cut back.  Every other family (``ssm``,
+``rglru``, ``encdec``) gathers every leaf at use and computes replicated
+(:func:`_gathered`).
 
 Serving on a rank of the ``(data, model)`` grid takes the same
 ``ShardedParams`` and the rank's batch rows.  ``prefill`` and
@@ -351,12 +355,15 @@ def _cross_residual(p, x, kx, vx, cfg):
     return x + L.attn_proj_out(p("xattn.wo"), L.full_attention(qx, kx, vx))
 
 
-def _moe_params(p, cfg) -> dict:
-    """A block's MoE leaves in ``layers.moe_apply``'s form."""
-    names = ("router", "we1", "we2") + (("we3",) if cfg.mlp_gated else ())
-    out = {n: p(f"moe.{n}") for n in names}
+def _moe_params(p, cfg, experts=None, shared=None) -> dict:
+    """A block's MoE leaves in ``layers.moe_apply``'s form; ``experts`` /
+    ``shared``: how the experts' and the shared experts' leaves are taken
+    (default ``p``, the block's leaf; ``_Leaves.full`` gathers it)."""
+    experts, shared = experts or p, shared or p
+    gated = ("we3",) if cfg.mlp_gated else ()
+    out = {"router": p("moe.router"), **{n: experts(f"moe.{n}") for n in ("we1", "we2") + gated}}
     if cfg.n_shared_experts:
-        out["shared"] = {n: p(f"moe.shared.{n}")
+        out["shared"] = {n: shared(f"moe.shared.{n}")
                          for n in ("w1", "w2") + (("w3",) if cfg.mlp_gated else ())}
     return out
 
@@ -368,8 +375,7 @@ def _ffn_residual(p, ffn: str, x, cfg):
         return x, None
     h = L.rmsnorm(p("ln2.scale"), x, cfg.norm_eps)
     if ffn == "moe":
-        out, aux = L.moe_apply(_moe_params(p, cfg), h, cfg,
-                               rows=getattr(p.params, "rows", None))
+        out, aux = L.moe_apply(_moe_params(p, cfg), h, cfg, rows=_rows(p.params))
         return x + out, aux
     w3 = p("mlp.w3") if cfg.mlp_gated else None
     return x + L.mlp_apply(p("mlp.w1"), p("mlp.w2"), h, cfg, w3=w3), None
@@ -428,14 +434,15 @@ def _layers(params: dict, cfg, stack: str = "decoder"):
 # The model axis (a model-parallel rank's ShardedParams)
 # ---------------------------------------------------------------------------
 
-MEGATRON_KINDS = ("attn:dense", "swa:dense")
+MEGATRON_KINDS = ("attn:dense", "swa:dense", "attn:moe", "swa:moe")
 
 
 def megatron_split(cfg) -> bool:
     """The configs computed Megatron-split on a model-parallel rank: the
-    decoder LM of ``attn`` / ``swa`` blocks with dense FFNs.  Every other
-    family gathers its leaves and computes replicated."""
-    return cfg.family == "lm" and all(
+    decoder LM and the VLM of ``attn`` / ``swa`` blocks with dense or MoE
+    FFNs.  Every other family (``ssm``, ``rglru``, ``encdec``) gathers its
+    leaves and computes replicated."""
+    return cfg.family in ("lm", "vlm") and all(
         f"{_parse_kind(k)[0]}:{_parse_kind(k)[1]}" in MEGATRON_KINDS for k in cfg.pattern)
 
 
@@ -459,6 +466,15 @@ def _zblock(params, name: str, leaf, layer: bool = False):
     if d is None:
         return TP.copy_to(leaf, axis) if params.zero_mode == "sum" else leaf
     return TP.gather(leaf, axis, d, params.zero_mode)
+
+
+def _rows(params):
+    """The zero group whose ranks compute their own rows of the microbatch
+    (``layers.moe_apply`` then reduces its aux loss's statistics over it),
+    else None."""
+    if isinstance(params, ShardedParams):
+        return params.layout.zero_axis if params.zero_mode == "sum" else None
+    return getattr(params, "rows", None)
 
 
 class _Gathered(dict):
@@ -543,33 +559,35 @@ def _full(params: dict, name: str):
 
 
 def _tp_block(p: _Leaves, kind: str, x, positions, cfg, kv_out=None):
-    """One ``attn`` / ``swa`` block with a dense FFN on a model-parallel
-    rank; returns (x, None) with x the same on every rank of the group.
-    With a dict ``kv_out`` the rank's keys and values land in it, as
-    :func:`_apply_block`'s (its KV heads: :func:`_rank_kv`)."""
-    mixer, _ = _parse_kind(kind)
+    """One ``attn`` / ``swa`` block with a dense or MoE FFN on a
+    model-parallel rank; returns (x, the MoE aux loss or None) with x the
+    same on every rank of the group.  With a dict ``kv_out`` the rank's
+    keys and values land in it, as :func:`_apply_block`'s (its KV heads:
+    :func:`_rank_kv`)."""
+    mixer, ffn = _parse_kind(kind)
     axis = p.params.layout.axis
     h = L.rmsnorm(p.full("ln1.scale"), x, cfg.norm_eps)
     window = cfg.window if mixer == "swa" else None
     x = x + _tp_attention(p, h, positions, cfg, window, axis, kv_out)
     h = L.rmsnorm(p.full("ln2.scale"), x, cfg.norm_eps)
-    return x + _tp_mlp(p, h, cfg, axis), None
+    out, aux = _tp_ffn(p, ffn, h, cfg, axis)
+    return x + out, aux
 
 
 def _tp_decode_block(p: _Leaves, kind: str, entry: dict, x, pos: int, cfg):
-    """:func:`_decode_block` of an ``attn`` / ``swa`` block with a dense FFN
-    on a model-parallel rank: the rank's query heads, its KV heads written
-    into its cache ``entry`` and attended over (the ``swa`` ring as the
-    dense block's), ``wo`` row-parallel with one all-reduce, the FFN as
-    :func:`_tp_mlp`."""
-    mixer, _ = _parse_kind(kind)
+    """:func:`_decode_block` of an ``attn`` / ``swa`` block with a dense or
+    MoE FFN on a model-parallel rank: the rank's query heads, its KV heads
+    written into its cache ``entry`` and attended over (the ``swa`` ring as
+    the dense block's), ``wo`` row-parallel with one all-reduce, the FFN as
+    :func:`_tp_ffn`."""
+    mixer, ffn = _parse_kind(kind)
     axis = p.params.layout.axis
     h = L.rmsnorm(p.full("ln1.scale"), x, cfg.norm_eps)
     positions = torch.arange(pos, pos + 1, device=x.device)
     q, k, v, split = _tp_qkv(p, h, positions, cfg, axis)
     x = x + _tp_out(p, _cache_attend(entry, mixer, q, k, v, pos), axis, split)
     h = L.rmsnorm(p.full("ln2.scale"), x, cfg.norm_eps)
-    return x + _tp_mlp(p, h, cfg, axis)
+    return x + _tp_ffn(p, ffn, h, cfg, axis)[0]
 
 
 def _kv_heads(cfg, model: int, index: int) -> tuple:
@@ -647,18 +665,56 @@ def _tp_attention(p: _Leaves, h, positions, cfg, window, axis, kv_out=None):
     return _tp_out(p, out, axis, split)
 
 
+def _mlp_split(p: _Leaves, pre: str, cfg) -> bool:
+    """The rank's blocks of the MLP under ``pre`` (``"mlp."``,
+    ``"moe.shared."``) split d_ff: ``w1`` / ``w3`` column-, ``w2``
+    row-parallel."""
+    return (p.dim(pre + "w1") == 1 and p.dim(pre + "w2") == 0
+            and (not cfg.mlp_gated or p.dim(pre + "w3") == 1))
+
+
+def _experts_split(p: _Leaves, cfg) -> bool:
+    """The rank's blocks of the experts split d_ff: ``we1`` / ``we3`` (E,
+    d, d_ff / M), ``we2`` (E, d_ff / M, d)."""
+    return (p.dim("moe.we1") == 2 and p.dim("moe.we2") == 1
+            and (not cfg.mlp_gated or p.dim("moe.we3") == 2))
+
+
+def _tp_ffn(p: _Leaves, ffn: str, h, cfg, axis) -> tuple:
+    """(the block's FFN of h, the MoE aux loss or None) on a model-parallel
+    rank: :func:`_tp_mlp` or :func:`_tp_moe`."""
+    if ffn == "moe":
+        return _tp_moe(p, h, cfg, axis)
+    return _tp_mlp(p, h, cfg, axis), None
+
+
 def _tp_mlp(p: _Leaves, h, cfg, axis):
     """The dense FFN, ``w1`` / ``w3`` column- and ``w2`` row-parallel with
     one all-reduce; replicated over gathered leaves where the blocks do not
     split d_ff."""
     gated = cfg.mlp_gated
-    if not (p.dim("mlp.w1") == 1 and p.dim("mlp.w2") == 0
-            and (not gated or p.dim("mlp.w3") == 1)):
+    if not _mlp_split(p, "mlp.", cfg):
         w3 = p.full("mlp.w3") if gated else None
         return L.mlp_apply(p.full("mlp.w1"), p.full("mlp.w2"), h, cfg, w3=w3)
     hc = TP.copy_to(h, axis)
     w3 = p("mlp.w3") if gated else None
     return TP.reduce_from(L.mlp_apply(p("mlp.w1"), p("mlp.w2"), hc, cfg, w3=w3), axis)
+
+
+ROUTER_SPLIT = {1: "E", 0: "d"}       # the router's (d, E) dim on the model axis
+
+
+def _tp_moe(p: _Leaves, h, cfg, axis) -> tuple:
+    """The MoE FFN on a model-parallel rank (``layers.moe_apply`` with its
+    :class:`~repro_torch.models.layers.MoESplit`): the router's block of
+    experts or rows, the experts' and the shared experts' d_ff blocks where
+    the placement cuts d_ff (:func:`_experts_split`, :func:`_mlp_split`),
+    else those leaves gathered and computed replicated."""
+    experts = _experts_split(p, cfg)
+    shared = cfg.n_shared_experts > 0 and _mlp_split(p, "moe.shared.", cfg)
+    params = _moe_params(p, cfg, p if experts else p.full, p if shared else p.full)
+    split = L.MoESplit(axis, ROUTER_SPLIT.get(p.dim("moe.router")), experts, shared)
+    return L.moe_apply(params, h, cfg, rows=_rows(p.params), tp=split)
 
 
 def _vocab_split(params: dict, cfg) -> bool:
@@ -679,6 +735,19 @@ def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     else:
         rows = _full(params, "embed")[tokens]
     return rows.to(cfg.act_dtype) * math.sqrt(cfg.d_model)
+
+
+def _patch_prefix(params: dict, patches: torch.Tensor, cfg) -> torch.Tensor:
+    """A ``vlm`` batch's patches (B, P, d) projected by ``patch_proj``: on
+    a model-parallel rank whose block is a range of output columns,
+    column-parallel, the rank's (B, P, d / M) columns gathered over the
+    group (each rank keeps its columns of the gradient); else over the
+    whole leaf."""
+    x = patches.to(cfg.act_dtype)
+    if _model_split(params) and params.dim("patch_proj") == 1:
+        w = _zblock(params, "patch_proj", params["patch_proj"])
+        return TP.gather(x @ w.to(x.dtype), params.layout.axis, x.dim() - 1)
+    return x @ _full(params, "patch_proj").to(x.dtype)
 
 
 def _add_aux(total, aux):
@@ -710,7 +779,7 @@ def _inputs(params: dict, batch: dict, cfg, remat: bool = False) -> tuple:
     if cfg.family == "encdec":
         enc_out = _encode(params, batch["frames"], cfg, remat=remat)
     elif cfg.family == "vlm":
-        patches = batch["patches"].to(cfg.act_dtype) @ params["patch_proj"].to(cfg.act_dtype)
+        patches = _patch_prefix(params, batch["patches"], cfg)
         x = torch.cat([patches, x], dim=1)
         n_prefix = patches.shape[1]
     return x, enc_out, n_prefix

@@ -211,12 +211,23 @@ def test_model_axis_audit():
     blocks; an all-reduce of the rank's x0 blocks over its (worker, zero)
     ranks planted inside the local phase is caught on count and bytes,
     while the local phase's model-group ops still match."""
-    cfg = load_arch("minitron_4b").SMOKE
+    _model_axis_audit(load_arch("minitron_4b").SMOKE)
+
+
+def test_model_axis_audit_moe():
+    """:func:`test_model_axis_audit` on granite_moe SMOKE: its MoE layers
+    split over the model group (the router's logits gathered, the experts'
+    outputs all-reduced) count as the placements' reckoning."""
+    _model_axis_audit(load_arch("granite_moe_3b_a800m").SMOKE)
+
+
+def _model_axis_audit(cfg) -> None:
     ranks = spawn.run_ranks(torch_ranks.tp_audit_rank, 4, (cfg, 2, 2, 2), timeout_s=300)
     for r in ranks:
         step = r["outer_step"]
         assert step["passed"], step["violations"]
         assert step["model_group_ops"]["all-reduce"][0] > 0
+        assert step["model_group_ops"]["all-gather"][0] > 0
         groups = {o["group"] for o in step["ops"]}
         assert len(groups) == 1 and "" not in groups
         planted = r["planted_local_phase"]

@@ -395,6 +395,71 @@ def test_fsdp_leaves_minitron_4b_train_records_as_they_were(multi):
         assert rec[key] == value, key
 
 
+# rank 0's peak per card of the single pod's records, in GB, as
+# `python -m repro_torch.launch.dryrun --arch llama4_maverick_400b_a17b,
+# llava_next_34b --shape train_4k,prefill_32k,decode_32k --mesh single`
+# reckoned them at commit c1b9463, before the model axis split the MoE FFN
+# and the VLM: every rank gathered every leaf whole and computed replicated
+GATHERED_PEAK_GB_AT_C1B9463 = {
+    ("llama4_maverick_400b_a17b", "train_4k"): 1624.52,
+    ("llama4_maverick_400b_a17b", "prefill_32k"): 857.06,
+    ("llava_next_34b", "train_4k"): 188.02,
+    ("llava_next_34b", "prefill_32k"): 148.29,
+    ("llava_next_34b", "decode_32k"): 135.51,
+}
+
+
+@pytest.mark.parametrize("arch,shape", list(GATHERED_PEAK_GB_AT_C1B9463),
+                         ids=[f"{a}-{s}" for a, s in GATHERED_PEAK_GB_AT_C1B9463])
+def test_split_moe_and_vlm_records_reckon_less_per_rank(arch, shape):
+    """The MoE FFN and the VLM split over the model axis: each of these
+    single-pod records reckons a lower peak per rank than the gathered
+    compute did, and its collectives are the placements' reckoning."""
+    rec = DR.reckon_pod(arch, shape, False)
+    assert rec["memory"]["peak_bytes"] < GATHERED_PEAK_GB_AT_C1B9463[(arch, shape)] * 1e9
+    assert T.megatron_split(load_arch(arch).FULL)
+    assert rec["collectives"]["all-reduce"] > 0
+
+
+# sha256 (first 16 hex digits) of json.dumps({"memory", "comm", "flops"},
+# sort_keys=True) of the dense configs' single-pod records, as
+# DR.reckon_pod gave them at commit c1b9463
+DENSE_RECORDS_AT_C1B9463 = {
+    "nano.train_4k": "e25916e42ad00cf6",
+    "nano.prefill_32k": "929a7f4471235fdd",
+    "nano.decode_32k": "0fa99d7713931e0d",
+    "gpt2_small_smoke.train_4k": "7fb877630cc6389a",
+    "gpt2_small_smoke.prefill_32k": "1e873d4c7dd8ddc3",
+    "gpt2_small_smoke.decode_32k": "06386c04248aed2b",
+    "minitron_4b_smoke.train_4k": "24e7c9074240b760",
+    "minitron_4b_smoke.prefill_32k": "8cca553f81a0248e",
+    "minitron_4b_smoke.decode_32k": "f4520686f89a89d4",
+    "granite_34b_smoke.train_4k": "ba8b7cdc6155d9d8",
+    "granite_34b_smoke.prefill_32k": "4478b8112400bfd8",
+    "granite_34b_smoke.decode_32k": "dc6dc0adcbf33dc0",
+    "deepseek_67b_smoke.train_4k": "e1b72e1ae861f27a",
+    "deepseek_67b_smoke.prefill_32k": "8cca553f81a0248e",
+    "deepseek_67b_smoke.decode_32k": "f4520686f89a89d4",
+    "gemma3_1b_smoke.train_4k": "1fa40a5604e26997",
+    "gemma3_1b_smoke.prefill_32k": "6d20118d4981df0b",
+    "gemma3_1b_smoke.decode_32k": "d0a3f02319ba50a1",
+}
+
+
+def test_split_moe_and_vlm_leave_dense_records_as_they_were():
+    """The dense configs' single-pod records (training and serving) are
+    those reckoned at c1b9463, to the byte (so is minitron_4b's at full
+    width: :func:`test_fsdp_leaves_minitron_4b_train_records_as_they_were`)."""
+    import hashlib
+
+    for key, digest in DENSE_RECORDS_AT_C1B9463.items():
+        arch, shape = key.split(".")
+        rec = DR.reckon_pod(arch, shape, False)
+        keep = {k: rec[k] for k in ("memory", "comm", "flops")}
+        assert hashlib.sha256(json.dumps(keep, sort_keys=True).encode()).hexdigest()[:16] == \
+            digest, key
+
+
 def test_fsdp_deepseek_67b_train_4k_fits_one_card_per_rank():
     """deepseek_67b at train_4k on the single pod, (worker 2, zero 8, model
     16): B_micro 8 splits over zero, and the rank's reckoned peak falls

@@ -9,10 +9,12 @@ package and the port's own paths without it, on gloo ranks on the CPU
     JAX package's ``loss_fn`` and ``jax.grad`` on the whole microbatch, with
     ``test_model_axis_loss_and_grads_match_jax``'s tolerances: loss rtol
     1e-6, each gradient leaf within 3e-5 of its largest magnitude.  nano,
-    minitron_4b (GQA), deepseek_67b (untied head) and gemma3_1b (``swa``)
-    with ``B_micro`` = 2 on zero, nano with the batch whole over zero (1
-    row), granite_moe through ``transformer._gathered`` (its aux loss over
-    the whole microbatch), and minitron_4b under remat.  Each rank's
+    minitron_4b (GQA), deepseek_67b (untied head), gemma3_1b (``swa``),
+    granite_moe (its MoE layers' leaves gathered over zero per layer, its
+    aux loss over the whole microbatch) and llava (``patch_proj`` gathered
+    over zero, column-parallel over model) with ``B_micro`` = 2 on zero,
+    nano with the batch whole over zero (1 row), and minitron_4b and
+    granite_moe under remat.  Each rank's
     ``CommStats`` equals ``tensor_parallel.microbatch_collectives``' to the
     byte, per group.
   * **The DSM step** (AdamW, tau 2, gamma 1e-3, eta 0.5, ZeRO-sharded
@@ -72,8 +74,10 @@ S = 32
 ZERO = 2
 # (arch, model ranks, B_micro, remat)
 GRAD_CASES = [(a, m, 2, False) for m in (1, 2) for a in ("nano", "minitron_4b", "deepseek_67b",
-                                                          "gemma3_1b", "granite_moe_3b_a800m")]
-GRAD_CASES += [("nano", m, 1, False) for m in (1, 2)] + [("minitron_4b", 2, 2, True)]
+                                                          "gemma3_1b", "granite_moe_3b_a800m",
+                                                          "llava_next_34b")]
+GRAD_CASES += [("nano", m, 1, False) for m in (1, 2)] + [("minitron_4b", 2, 2, True),
+                                                         ("granite_moe_3b_a800m", 2, 2, True)]
 TAU, GAMMA, ETA, ROUNDS, W = 2, 1e-3, 0.5, 2, 2
 ZERO_FLAGS = {"zero_sharded": True, "device_parallel_local": True}
 
@@ -144,8 +148,11 @@ def test_fsdp_loss_and_grads_match_jax(grads_runs, case):
         assert r["comm"] == TP.microbatch_collectives(cfg, rl, b, S, remat), r["comm"]
     # the rank holds its zero block: about a Z-th of its model block
     assert lays[0].numel < 0.6 * TP.rank_layout(cfg, M, 0).numel
-    if not T.megatron_split(cfg):
-        assert "all_reduce_sum@zero" in ranks[0]["comm"]     # the MoE aux statistics
+    if cfg.n_experts:
+        # the MoE aux statistics; each layer's leaves gathered in the layer
+        assert "all_reduce_sum@zero" in ranks[0]["comm"]
+        n_leaves = sum(name.startswith("decoder.") for name in lay.names)
+        assert ranks[0]["comm"]["all_gather@zero"]["calls"] >= n_leaves * cfg.n_layers // 2
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,10 @@ beside them.
   * Grids (data 1, model 2), (data 2, model 2) and (data 1, model 4) for the
     Megatron-split configs: nano (tied), minitron_4b (GQA; at 4 ranks its 2
     KV heads are cut: two ranks read each), granite_34b (MQA),
-    deepseek_67b (untied ``lm_head``) and gemma3_1b (``swa``); every other
-    family (granite_moe, mamba2, recurrentgemma, whisper, llava) on (2, 2),
-    gathered at use.
+    deepseek_67b (untied ``lm_head``), gemma3_1b (``swa``), granite_moe
+    and llama4 (MoE FFNs split over the model axis, llama4's shared experts
+    too) and llava (``patch_proj`` column-parallel); every other family
+    (mamba2, recurrentgemma, whisper) on (2, 2), gathered at use.
   * Prefill: each rank's logits (its rows, and its vocab block where the
     logits are split) and cache (its rows, and on the Megatron path the KV
     heads its query heads read) against the slices of the JAX package's
@@ -74,9 +75,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_ranks  # noqa: E402
 
 GRIDS = {"1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
-MEGATRON = ("nano", "minitron_4b", "granite_34b", "deepseek_67b", "gemma3_1b")
-FAMILIES = ("granite_moe_3b_a800m", "mamba2_780m", "recurrentgemma_2b", "whisper_large_v3",
-            "llava_next_34b")
+MEGATRON = ("nano", "minitron_4b", "granite_34b", "deepseek_67b", "gemma3_1b",
+            "granite_moe_3b_a800m", "llama4_maverick_400b_a17b", "llava_next_34b")
+FAMILIES = ("mamba2_780m", "recurrentgemma_2b", "whisper_large_v3")
 CASES = [(a, g) for g in GRIDS for a in MEGATRON] + [(a, "2x2") for a in FAMILIES]
 IDS = [f"{a}-{g}" for a, g in CASES]
 SAMPLED = ("minitron_4b", "2x2")           # the temperature case

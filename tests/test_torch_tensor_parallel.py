@@ -9,7 +9,14 @@ gloo ranks on the CPU (``tests/torch_ranks.py``), all f32 at SMOKE widths.
     configs compute Megatron-split: nano (GPT-2 shape, tied), minitron_4b
     (GQA; at 4 ranks a rank's block of wk / wv cuts a head), granite_34b
     (MQA: the one KV head cut), deepseek_67b (untied ``lm_head``) and
-    gemma3_1b (``swa``).  Every other family gathers its leaves at use
+    gemma3_1b (``swa``).  So do the MoE FFNs and the VLM: granite_moe (40
+    experts cut to 4 at SMOKE, top-2: the router on E), llama4 (an
+    ``attn:dense`` / ``attn:moe`` pattern, top-1, shared experts) and llava
+    (``patch_proj`` column-parallel, the patch prefix gathered), and the
+    variants built with ``dataclasses.replace`` on both sides
+    (``VARIANTS``): the ``ksum`` combine, ``moe_impl="dense"`` and 6
+    experts, which at 4 ranks put the router on d.  ``ssm``, ``rglru`` and
+    ``encdec`` gather their leaves at use
     (``test_torch_tensor_parallel_families.py``, 2 ranks).  Each rank's
     ``CommStats`` equals the count that ``tensor_parallel.
     microbatch_collectives`` reckons from the placements, layer by layer.
@@ -32,6 +39,7 @@ two runs whose gradients differ anywhere can differ by at most 2 * gamma *
 B_t per step (plus gamma * wd times the gap, negligible at tau 2).
 """
 
+import dataclasses
 import math
 import sys
 from pathlib import Path
@@ -62,6 +70,13 @@ import torch_ranks  # noqa: E402
 
 DENSE = ("nano", "minitron_4b", "granite_34b", "deepseek_67b", "gemma3_1b")
 CASES = [(a, m) for m in (2, 4) for a in DENSE]
+# the MoE FFNs and the VLM, and MoE variants: name -> (arch, replaced fields)
+MOE_VLM = ("granite_moe_3b_a800m", "llama4_maverick_400b_a17b", "llava_next_34b")
+VARIANTS = {"granite_moe_ksum": ("granite_moe_3b_a800m", {"moe_combine": "ksum"}),
+            "granite_moe_dense": ("granite_moe_3b_a800m", {"moe_impl": "dense"}),
+            "granite_moe_6e": ("granite_moe_3b_a800m", {"n_experts": 6}),
+            "llama4_ksum": ("llama4_maverick_400b_a17b", {"moe_combine": "ksum"})}
+SPLIT_CASES = [(a, m) for m in (2, 4) for a in MOE_VLM + tuple(VARIANTS)]
 B, S = 2, 32
 TAU, GAMMA, ETA = 2, 1e-3, 0.5
 
@@ -74,6 +89,9 @@ def _full_f32_matmuls():
 def _configs(arch):
     if arch == "nano":
         return J_NANO, NANO
+    if arch in VARIANTS:
+        base, fields = VARIANTS[arch]
+        return tuple(dataclasses.replace(c, **fields) for c in _configs(base))
     return j_load_arch(arch).SMOKE, load_arch(arch).SMOKE
 
 
@@ -148,6 +166,53 @@ def test_model_axis_loss_and_grads_match_jax(model_axis_runs, arch, M):
     assert T.megatron_split(model_axis_runs[(arch, M)][2])
 
 
+@pytest.fixture(scope="module")
+def split_runs():
+    return run_cases(SPLIT_CASES)
+
+
+@pytest.mark.parametrize("arch,M", SPLIT_CASES, ids=[f"{a}-{m}ranks" for a, m in SPLIT_CASES])
+def test_moe_and_vlm_split_match_jax(split_runs, arch, M):
+    check_case(split_runs[(arch, M)], M)
+    cfg = split_runs[(arch, M)][2]
+    assert T.megatron_split(cfg)
+    # the rank's blocks: the router by experts (by rows where E / M is not
+    # whole), every expert's d_ff slice, the patch projection's columns;
+    # it gathers a fraction of what gathering every leaf would
+    lay = TP.rank_layout(cfg, M, 0)
+    comm = TP.microbatch_collectives(cfg, lay, B, S)
+    whole = TP._Reckoning(lay).gather_all()["all_gather@model"]["bytes"]
+    assert comm["all_gather@model"]["bytes"] < 0.1 * whole
+    dims = TP.model_dims(cfg, M)
+    if cfg.n_experts:
+        pre = f"decoder.blocks.p{len(cfg.pattern) - 1}.moe."
+        assert dims[pre + "router"] == (2 if cfg.n_experts % M == 0 else 1)
+        assert dims[pre + "we1"] == 3 and dims[pre + "we2"] == 2
+    else:
+        assert dims["patch_proj"] == 1
+
+
+def test_moe_and_vlm_never_gather_up_front(monkeypatch):
+    """A MoE or VLM config on a model rank computes on its blocks:
+    ``transformer._gathered`` is never reached, by training or serving."""
+    def refuse(params):
+        raise AssertionError("gathered up front")
+
+    monkeypatch.setattr(T, "_gathered", refuse)
+    monkeypatch.setattr(TP, "gather", lambda t, *a, **k: t)    # no group here
+    for arch in MOE_VLM:
+        cfg = load_arch(arch).SMOKE
+        lay = TP.rank_layout(cfg, 2, 0)
+        params = convert.ShardedParams(lay, lay.views(lay.empty()))
+        assert T._resolve(params, cfg) is params
+        assert T.serving_params(params, cfg).resolved
+    for arch in ("mamba2_780m", "recurrentgemma_2b", "whisper_large_v3"):
+        cfg = load_arch(arch).SMOKE
+        lay = TP.rank_layout(cfg, 2, 0)
+        with pytest.raises(AssertionError, match="up front"):
+            T._resolve(convert.ShardedParams(lay, lay.views(lay.empty())), cfg)
+
+
 def test_a_split_config_splits():
     """minitron_4b SMOKE at 4 ranks: whole query heads, d_ff and vocab rows
     on each rank; wk / wv (2 KV heads of 32 over 4 ranks) cut a head, so
@@ -155,8 +220,6 @@ def test_a_split_config_splits():
     params refuses only a head split that cuts KV groups (6 query heads on
     3 KV heads over 2 ranks), before it reads the batch; serving itself is
     held in ``test_torch_serve_model_axis.py``."""
-    import dataclasses
-
     cfg = load_arch("minitron_4b").SMOKE
     comm = TP.microbatch_collectives(cfg, TP.rank_layout(cfg, 4, 0), B, S)
     assert comm["reduce_scatter@model"]["calls"] == 2 * cfg.n_layers

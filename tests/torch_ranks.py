@@ -5,6 +5,7 @@ rank's process.
 process, which imports the function it runs by name; these live apart from
 the test files so that a rank imports neither JAX nor the JAX package."""
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -696,7 +697,8 @@ def fsdp_audit_rank(rank: int, world: int, cfg, n_workers: int, model: int, tau:
 
 def model_axis_rank(rank: int, world: int, cases: list, out_dir: str) -> list:
     """``chip_smoke.py``'s model-axis runs on this rank, one per case:
-    ``(cfg, n_workers, model, seed, batches, gamma, eta)``.  Each draws the
+    ``(cfg, n_workers, model, seed, batches, gamma, eta)`` (a batch's leaves
+    (W, tau, 1, B_micro, ...): ``tokens``, a VLM's ``patches``).  Each draws the
     dense initial params on the card from ``seed`` (the dense run's draw),
     keeps this rank's blocks and runs ``len(batches)`` DSM outer steps
     (AdamW, ZeRO-sharded global step, device-parallel local phase) over the
@@ -705,7 +707,10 @@ def model_axis_rank(rank: int, world: int, cases: list, out_dir: str) -> list:
     x_tau, x0 and m, whole, to ``out_dir`` (``<case>_<model index>_<round>.pt``,
     CPU tensors).  Returns per case the per-worker losses (tau, W) of each
     round, the peak (``max_memory_allocated`` from the state's build on),
-    the collectives, the kernel launches and each outer step's host ms."""
+    the collectives, the kernel launches, each outer step's host ms, the
+    case's seconds (``case_s``, the draw included) and, per round, the
+    routes of every MoE layer call (:func:`recorded_routes`, on the host;
+    none without a MoE layer)."""
     import os
     import time
 
@@ -719,6 +724,7 @@ def model_axis_rank(rank: int, world: int, cases: list, out_dir: str) -> list:
 
     out = []
     for i, (cfg, n_workers, model, seed, batches, gamma, eta) in enumerate(cases):
+        t_case = time.perf_counter()
         topo = mesh.topology(n_workers, dist.group.WORLD, model=model)
         lay = TP.topology_layout(cfg, topo)
         row = T.init_params(torch.Generator("cuda").manual_seed(seed), cfg, device="cuda")
@@ -749,18 +755,21 @@ def model_axis_rank(rank: int, world: int, cases: list, out_dir: str) -> list:
 
         Z.scattered_worker_mean, OM.loss_stats = mean, loss_stats
         K.reset_launch_counts()
-        res = {"losses": [], "step_ms": [], "index": topo.model_index, "rank": rank,
-               "grid": (topo.worker, topo.zero)}
+        res = {"losses": [], "step_ms": [], "routes": [], "index": topo.model_index,
+               "rank": rank, "grid": (topo.worker, topo.zero)}
         try:
             for k, raw in enumerate(batches):
                 batch = {n: torch.from_numpy(v[topo.worker_slice]).to("cuda")
                          for n, v in raw.items()}
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                state, _ = step(state, batch)
+                with recorded_routes([]) as routes:
+                    state, _ = step(state, batch)
                 torch.cuda.synchronize()
                 res["step_ms"].append((time.perf_counter() - t0) * 1e3)
                 res["losses"].append(seen["losses"])
+                res["routes"].append([r.cpu() for r in routes])
+                del batch, routes
                 blocks = {n: Z.gather_shards(t, quiet, lay.group_numels)
                           for n, t in (("x_tau", seen.pop("x_tau")), ("x0", state.x0),
                                        ("m", state.m))}
@@ -773,6 +782,7 @@ def model_axis_rank(rank: int, world: int, cases: list, out_dir: str) -> list:
         res["launches"] = K.launch_counts()
         res["peak_bytes"] = torch.cuda.max_memory_allocated()
         res["comm"] = topo.stats.as_dict()
+        res["case_s"] = time.perf_counter() - t_case
         out.append(res)
         del state, x0, step
         torch.cuda.empty_cache()
@@ -870,11 +880,11 @@ def serve_rank(rank: int, world: int, cases: list) -> list:
 def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
     """``chip_smoke.py``'s serving cases on this rank of the ``(data, model)``
     grid of ``world`` ranks, one per case: ``(cfg, model, seed, prompt,
-    new[, fsdp])`` (``fsdp``: the data entries cut, ``serving_topology(...,
-    fsdp=True)``).  Each draws the dense params on the card from ``seed`` (the
-    dense run's draw; one rank at a time), keeps this rank's blocks, warms
-    up with a 2-token
-    ``generate`` and then generates ``new`` greedy tokens for the whole
+    new, extra[, fsdp])`` (``extra``: the batch's other leaves, a VLM's
+    ``patches``, on the host; ``fsdp``: the data entries cut,
+    ``serving_topology(..., fsdp=True)``).  Each draws the dense params on
+    the card from ``seed`` (the dense run's draw; one rank at a time), keeps
+    this rank's blocks, warms up with a 2-token ``generate`` and then generates ``new`` greedy tokens for the whole
     ``prompt`` batch (its data row's rows served here), its collectives
     counted apart (the warm-up on the prompts' first 8 tokens).  Returns per
     case: the rank's grid place and rows, the tokens (the whole batch's),
@@ -883,8 +893,11 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
     (``max_memory_allocated`` over the timed call, the blocks included), the
     blocks' bytes, the bytes held beside them when the call starts (the
     prompt, the cuBLAS workspace) and the ``CommStats``."""
+    import time
+
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.distributed.comm import CommStats
+    from repro_torch.groups import parts
     from repro_torch.models import convert as C
     from repro_torch.models import transformer as T
     from repro_torch.train import serve as S
@@ -892,7 +905,8 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
 
     set_matmul_precision()
     out = []
-    for cfg, model, seed, prompt, new, *fsdp in cases:
+    for cfg, model, seed, prompt, new, extra, *fsdp in cases:
+        t_case = time.perf_counter()
         topo = mesh.serving_topology(dist.group.WORLD, model=model, fsdp=bool(fsdp and fsdp[0]))
         # one rank draws at a time: four whole-depth draws at once (each the
         # dense model and an f32 draw of its largest leaf) need not fit
@@ -906,19 +920,21 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
                 torch.cuda.empty_cache()
             dist.barrier()
         prompt = prompt.to("cuda")
-        S.generate(mine, cfg, prompt[:, :8], 2, device="cuda",
+        extra = {k: v.to("cuda") for k, v in extra.items()} or None
+        S.generate(mine, cfg, prompt[:, :8], 2, extra_batch=extra, device="cuda",
                    topo=dataclasses.replace(topo, stats=CommStats()))
         timed = dataclasses.replace(topo, stats=CommStats())
         logits = []
         prefill, decode_step = T.prefill, T.decode_step
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        params_bytes = mine.numel() * mine.element_size()
+        params_bytes = sum(t.numel() * t.element_size() for t in parts(mine))
         held = torch.cuda.memory_allocated() - params_bytes
         T.prefill = _recording(prefill, logits, 0)
         T.decode_step = _recording(decode_step, logits, 0)
         try:
-            toks, stats = S.generate(mine, cfg, prompt, new, device="cuda", topo=timed)
+            toks, stats = S.generate(mine, cfg, prompt, new, extra_batch=extra, device="cuda",
+                                     topo=timed)
         finally:
             T.prefill, T.decode_step = prefill, decode_step
         peak = torch.cuda.max_memory_allocated()
@@ -926,9 +942,10 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
         out.append({"rank": rank, "data_index": topo.worker_index,
                     "model_index": topo.model_index, "rows": (rows.start, rows.stop),
                     "tokens": toks.cpu(), "logits": [t.cpu() for t in logits], **stats,
+                    "case_s": time.perf_counter() - t_case,
                     "peak_bytes": peak, "params_bytes": params_bytes, "held_bytes": held,
                     "comm": timed.stats.as_dict()})
-        del mine, logits, prompt
+        del mine, logits, prompt, extra
         torch.cuda.empty_cache()
     return out
 
@@ -946,10 +963,20 @@ def model_axis_serve_rank(rank: int, world: int, cases: list, out_dir: str,
             "fsdp": fsdp_full_width_rank(rank, world, fsdp_cases, os.path.join(out_dir, "fsdp"))}
 
 
+CHECK_CHUNK = 1 << 26          # elements per slice of a check's temporaries
+
+
+def _slices(n: int):
+    for c0 in range(0, n, CHECK_CHUNK):
+        yield slice(c0, min(n, c0 + CHECK_CHUNK))
+
+
 def gap_excess(a, b, ref_mags, rel: float) -> float:
     """max_i (|a_i - b_i| - rel * mags_i) over every dtype group, with mags
     the larger magnitude of the ``ref_mags`` tensors (element for element):
-    the check ``gap <= C + R |x|`` is ``gap_excess(..., R) <= C``."""
+    the check ``gap <= C + R |x|`` is ``gap_excess(..., R) <= C``.  Taken
+    in slices of CHECK_CHUNK elements on ``b``'s device, so that the f32
+    temporaries of a model of billions of parameters fit beside it."""
     import functools
     import math
 
@@ -957,9 +984,12 @@ def gap_excess(a, b, ref_mags, rel: float) -> float:
 
     worst = -math.inf
     for i, (x, y) in enumerate(zip(parts(a), parts(b), strict=True)):
-        mag = functools.reduce(torch.maximum, [parts(t)[i].float().abs() for t in ref_mags])
-        worst = max(worst, ((x.float() - y.float()).abs() - rel * mag).max().item())
-        del mag
+        for s in _slices(y.shape[-1]):
+            mag = functools.reduce(torch.maximum, [parts(t)[i][..., s].to(y.device).float().abs()
+                                                   for t in ref_mags])
+            gap = (x[..., s].to(y.device).float() - y[..., s].float()).abs()
+            worst = max(worst, (gap - rel * mag).max().item())
+            del mag, gap
     return worst
 
 
@@ -967,11 +997,12 @@ def round_check(ours: dict, theirs: dict, x0_before, b: dict, gamma: float, beta
                 m_prev: float) -> tuple:
     """One round of a run against another from the same ``x0_before``
     (``ours`` / ``theirs``: ``x_tau``, ``x0`` and ``m``, whole buffers of the
-    same layout) within a round ``b`` of ``chip_smoke.model_axis_bounds``:
-    x_tau's and x0's gaps within C + R |x|; m's, element by element, within
-    beta2 times the last round's bound (``m_prev``) plus (1 - beta2) /
-    gamma times x0's (before) and x_tau's bounds, plus 1e-6 |m|.  Returns
-    (the round's readings with ``ok``, the next round's ``m_prev``)."""
+    same layout; checked in slices on ``theirs``' device) within a round ``b`` of
+    ``chip_smoke.model_axis_bounds``: x_tau's and x0's gaps within C + R
+    |x|; m's, element by element, within beta2 times the last round's bound
+    (``m_prev``) plus (1 - beta2) / gamma times x0's (before) and x_tau's
+    bounds, plus 1e-6 |m|.  Returns (the round's readings with ``ok``, the
+    next round's ``m_prev``)."""
     import math
 
     from repro_torch.groups import parts
@@ -981,19 +1012,43 @@ def round_check(ours: dict, theirs: dict, x0_before, b: dict, gamma: float, beta
     m_c = beta2 * m_prev + (1 - beta2) / gamma * (b["x0_before"][0] + b["x_tau"][0])
     m_excess, m_next = -math.inf, 0.0
     for g, (mo, mt) in enumerate(zip(parts(ours["m"]), parts(theirs["m"]), strict=True)):
-        mag = ((1 - beta2) / gamma) * (
-            b["x0_before"][1] * parts(x0_before)[g].float().abs()
-            + b["x_tau"][1] * torch.maximum(parts(ours["x_tau"])[g].float().abs(),
-                                            parts(theirs["x_tau"])[g].float().abs()))
-        mag += 1e-6 * mt.abs()
-        m_excess = max(m_excess, ((mo - mt).abs() - mag).max().item())
-        m_next = max(m_next, mag.max().item())
-        del mag
-    gaps = {n: max((p.float() - q.float()).abs().max().item() for p, q in
-                   zip(parts(ours[n]), parts(theirs[n]))) for n in ("x_tau", "x0", "m")}
+        dev = mt.device
+        for s in _slices(mt.shape[-1]):
+            mag = ((1 - beta2) / gamma) * (
+                b["x0_before"][1] * parts(x0_before)[g][s].to(dev).float().abs()
+                + b["x_tau"][1] * torch.maximum(parts(ours["x_tau"])[g][s].to(dev).float().abs(),
+                                                parts(theirs["x_tau"])[g][s].float().abs()))
+            mag += 1e-6 * mt[s].abs()
+            m_excess = max(m_excess, ((mo[s].to(dev) - mt[s]).abs() - mag).max().item())
+            m_next = max(m_next, mag.max().item())
+            del mag
+    gaps = {n: max((p[..., s].to(q.device).float() - q[..., s].float()).abs().max().item()
+                   for p, q in zip(parts(ours[n]), parts(theirs[n]))
+                   for s in _slices(q.shape[-1])) for n in ("x_tau", "x0", "m")}
     ok = excess["x_tau"] <= b["x_tau"][0] and excess["x0"] <= b["x0"][0] and m_excess <= m_c
     return ({"max_gap": gaps, "excess_over_R": {**excess, "m": m_excess}, "m_bound_C": m_c,
              "ok": ok}, m_c + m_next)
+
+
+@contextlib.contextmanager
+def recorded_routes(into: list):
+    """While active, each ``layers.route`` call's experts ((T, K) in top-k
+    order, on the call's device) appended to ``into``: the routes a MoE
+    layer took, on the dense path and on a model rank alike."""
+    from repro_torch.models import layers as L
+
+    orig = L.route
+
+    def route(probs, k):
+        vals, idx = orig(probs, k)
+        into.append(idx)
+        return vals, idx
+
+    L.route = route
+    try:
+        yield into
+    finally:
+        L.route = orig
 
 
 def zero_cut(flat, mlay, zlay):
