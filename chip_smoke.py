@@ -53,20 +53,22 @@ window) and Mamba-2 780M at whole depth (SSD, W=2, S=2048) trained through
 run_training and both kernels (bf16 blocks, f32 decay leaves: two groups),
 each served from its recurrent state on its trained x0 and held against its
 full forward, and card vs CPU for both SMOKE configs and RecurrentGemma's
-SMOKE with bf16 parameters.  Then activation checkpointing: Mamba-2's run
-again through make_dsm_step with loss_fn's remat=True under the "full" and
-the "dots" policies, each held bit for bit against the run without it.
+SMOKE with bf16 parameters.  Then activation checkpointing: Mamba-2 at
+REMAT_LAYERS layers with that run's settings through make_dsm_step, once
+without remat and with loss_fn's remat=True under the "full" and the
+"dots" policies, each held bit for bit against the run without it.
 Last, every full-width run's measured peak beside the dry-run's reckoning
 of it on meta tensors (repro_torch.launch.dryrun), within DRYRUN_RTOL.
 Before that, the model axis (model_axis_full_width: Minitron-4B, GPT-2
-small, Granite-MoE and LLaVA over gloo ranks sharing the card,
+small, Granite-MoE, LLaVA, Mamba-2, RecurrentGemma and Whisper over gloo
+ranks sharing the card,
 Megatron-split DSM steps held against the dense run, the MoE one made to
 take the ranks' routes) and serving on the (data, model) grid in the same
-start of the ranks (serve_model_axis_full_width: Minitron-4B at whole depth
+start of the ranks (serve_model_axis_full_width: Minitron-4B at 16 layers
 in bf16 over four model ranks and at 8 layers in f32, GPT-2 small over (2,
-2), Granite-MoE and LLaVA over four model ranks, each held against the
-dense model and its f32 logits), and FSDP in the
-same start (fsdp_full_width: GPT-2 small at whole depth with each rank's
+2), Granite-MoE, LLaVA, Mamba-2, RecurrentGemma and Whisper over four model
+ranks, each held against the dense model and its f32 logits), and FSDP in
+the same start (fsdp_full_width: GPT-2 small at whole depth with each rank's
 zero block gathered per layer over its zero group, against its dense run;
 Minitron-4B at 2 layers over (worker 1, zero 2, model 2) against the same
 grid without FSDP; GPT-2 small served with the data entries cut, bit-equal
@@ -303,12 +305,16 @@ RECURRENT_EVAL_BATCH = 2        # eval sequences: recurrentgemma's f32 logits, 2
 SERVE_RG = (4, 2560, 128)       # batch, prompt (past the window), new tokens
 SERVE_MAMBA = (4, 512, 32)      # four 128-position SSD chunks; 32 new (cut from 128)
 RECURRENT_SMOKES = ("mamba2_780m", "recurrentgemma_2b")
-# activation checkpointing at full width: mamba2's recurrent_full_width run
-# again through make_dsm_step with loss_fn(..., remat=True, remat_policy=p)
-# for each p, REMAT_ROUNDS rounds, held bit for bit against that prefix of
-# the run without it (cut from 3 rounds, then 2, for the time target)
+# activation checkpointing at full width: mamba2 with recurrent_full_width's
+# settings at REMAT_LAYERS of its 48 layers through make_dsm_step with
+# loss_fn(..., remat=True, remat_policy=p) for each p, REMAT_ROUNDS rounds,
+# held bit for bit against the same rounds without remat (rounds cut from 3,
+# then 2, and depth from 48, where it was held against recurrent_full_width's
+# own run and took 71.2 s, its rounds 23.6 s under "full" and 33.5 s under
+# "dots", for the time target: PERF.md section 4)
 REMAT_POLICIES = ("full", "dots")
 REMAT_ROUNDS = 1
+REMAT_LAYERS = 8
 # dryrun_vs_card: every measured full-width peak within this share of the
 # dry-run's reckoning (repro_torch.launch.dryrun, on meta tensors)
 DRYRUN_RTOL = 0.20
@@ -340,7 +346,16 @@ DRYRUN_RTOL = 0.20
 # prefix gathered), within model_axis_bounds (cut from 2 layers for the
 # card: four ranks sharing it reckon 19.97 GB each at 2 layers, the global
 # step's f32 temporaries 9.38 GB of it, and ran it out of memory; 14.67 GB
-# each at 1 layer).  All: tau 4, S 128, B_micro 4 unless named,
+# each at 1 layer).  Over (1, 1, 4), W = 2: (g) mamba2_780m.FULL at
+# MAMBA_AXIS_LAYERS of its 48 layers, 12 of its 48 heads per rank (in_proj
+# and conv taken whole per layer and sliced: their placed blocks cut the z /
+# x / B / C / dt segments); (h) recurrentgemma_2b.FULL at RG_LAYERS of its 26
+# layers (one pattern repeat: rglru, rglru, swa), 640 RG-LRU channels and
+# 1,920 of d_ff per rank, the swa layer's 10 heads over gathered leaves; (i)
+# whisper_large_v3.FULL at ENCDEC_AXIS_LAYERS + ENCDEC_AXIS_LAYERS of its 32 +
+# 32 layers, B_micro 2, 128 text tokens beside its 1,500 random frames (f32,
+# seeded, whole on every rank), 5 heads per rank in the encoder, the decoder
+# and the cross-attention.  All: tau 4, S 128, B_micro 4 unless named,
 # MODEL_AXIS_ROUNDS rounds unless named, constant gamma, eta, one start of
 # the ranks; each case's global step bit-equal from the dense x_tau.  The
 # bounds (PERF.md section 6, written before the first run):
@@ -350,11 +365,16 @@ MODEL_AXIS_N = 1_006_648_320
 MODEL_AXIS_ROUNDS = 1           # cut from 2 for the time target
 MOE_VLM_LAYERS = 2
 VLM_AXIS_LAYERS = 1
+MAMBA_AXIS_LAYERS = 4
+ENCDEC_AXIS_LAYERS = 2          # encoder and decoder layers each
 MODEL_AXIS_CASES = (   # (arch, layers, W, model ranks, B_micro, rounds)
     ("minitron_4b", MODEL_AXIS_LAYERS, 2, 4, 4, MODEL_AXIS_ROUNDS),
     ("gpt2_small", CUT_LAYERS, 2, 2, 4, MODEL_AXIS_ROUNDS),
     ("granite_moe_3b_a800m", MOE_VLM_LAYERS, 2, 4, 4, MODEL_AXIS_ROUNDS),
-    ("llava_next_34b", VLM_AXIS_LAYERS, 1, 4, 1, 1))
+    ("llava_next_34b", VLM_AXIS_LAYERS, 1, 4, 1, 1),
+    ("mamba2_780m", MAMBA_AXIS_LAYERS, 2, 4, 4, MODEL_AXIS_ROUNDS),
+    ("recurrentgemma_2b", RG_LAYERS, 2, 4, 4, MODEL_AXIS_ROUNDS),
+    ("whisper_large_v3", ENCDEC_AXIS_LAYERS, 2, 4, 2, MODEL_AXIS_ROUNDS))
 MODEL_AXIS = dict(tau=4, seq=128)
 MODEL_AXIS_GAMMA = 1e-3
 MODEL_AXIS_ETA = MAIN["global_lr"]
@@ -368,10 +388,12 @@ MODEL_AXIS_ULP = 2.0 ** -8
 # (mesh.serving_topology) at full width, in model_axis_full_width's start of
 # RANKS gloo ranks sharing the card (tests/torch_ranks.serve_full_width_rank),
 # each case against the dense model in this process from the same card draw
-# and prompts.  (a) minitron_4b.FULL at whole depth in bf16 (32 layers,
-# 4,309,847,040 parameters, the dense model ~8.6 GB) over (data 1, model 4):
-# 6 query heads, 2 KV heads and 64,000 vocab rows per rank, ~2.15 GB of
-# blocks; (a') the same in f32 (params and activations) at SERVE_MA_F32_LAYERS
+# and prompts.  (a) minitron_4b.FULL in bf16 at SERVE_MA_BF16_LAYERS of its
+# 32 layers (cut from whole depth, 4,309,847,040 parameters and ~2.15 GB of
+# blocks per rank, for the time target: 16.7 s of the ranks' start, where
+# the gate decided 1 of its 64 tokens; PERF.md section 4) over (data 1,
+# model 4): 6 query heads, 2 KV heads and 64,000 vocab rows per rank; (a')
+# the same in f32 (params and activations) at SERVE_MA_F32_LAYERS
 # of its 32 layers (cut: four ranks each drawing the dense f32 model at whole
 # depth, ~17 GB and its f32 draw of the embedding, would not fit the card at
 # once); (b) gpt2_small.FULL at whole depth over (data 2, model 2), two
@@ -387,22 +409,32 @@ MODEL_AXIS_ULP = 2.0 ** -8
 # margin); against the dense model, a token is decided where the dense
 # logits' top-2 margin exceeds that step's gate, and is then the dense argmax
 # (serve_check's noise_bound rule; twice the gap the gate admits between the
-# two paths decided no token of (a) at whole depth in bf16, PERF.md section
-# 6); every rank of a model group returns the same tokens; each rank's peak
+# two paths decided 0-1 of (a)'s 64 tokens at whole depth in bf16, PERF.md
+# section 6); every rank of a model group returns the same tokens; each rank's peak
 # within DRYRUN_RTOL of dryrun.reckon_serve's; its collectives
 # serve_collectives' to the byte (the params resolved once per generate).
 # (c) granite_moe_3b_a800m.FULL at MOE_VLM_LAYERS layers in bf16 over
 # (data 1, model 4), SERVE_MA's prompts; (d) llava_next_34b.FULL at
 # VLM_LAYERS layers over (1, 4), SERVE_VLM's 2 prompts after the config's
-# 2,880 seeded random patches (f32), the same rule
+# 2,880 seeded random patches (f32), the same rule; over (1, 4) in bf16,
+# the same rule: (e) mamba2_780m at MAMBA_AXIS_LAYERS layers and (f)
+# recurrentgemma_2b at RG_LAYERS layers, SERVE_MA's prompts (each rank's
+# cache its heads' or channels' state); (g) whisper_large_v3 at
+# ENCDEC_AXIS_LAYERS + ENCDEC_AXIS_LAYERS layers, SERVE_ENCDEC's prompts
+# after 1,500 seeded random frames (f32), SERVE_MA_ENCDEC_NEW new tokens
+SERVE_MA_BF16_LAYERS = 16
 SERVE_MA_F32_LAYERS = 8
 SERVE_MA = (4, 256, 16)
+SERVE_MA_ENCDEC_NEW = 16
 SERVE_MA_CASES = (   # (arch, layers (None: whole depth), dtype, model ranks, (B, prompt, new))
-    ("minitron_4b", None, None, 4, SERVE_MA),
+    ("minitron_4b", SERVE_MA_BF16_LAYERS, None, 4, SERVE_MA),
     ("minitron_4b", SERVE_MA_F32_LAYERS, "float32", 4, SERVE_MA),
     ("gpt2_small", None, None, 2, SERVE_MA),
     ("granite_moe_3b_a800m", MOE_VLM_LAYERS, None, 4, SERVE_MA),
-    ("llava_next_34b", VLM_LAYERS, None, 4, SERVE_VLM))
+    ("llava_next_34b", VLM_LAYERS, None, 4, SERVE_VLM),
+    ("mamba2_780m", MAMBA_AXIS_LAYERS, None, 4, SERVE_MA),
+    ("recurrentgemma_2b", RG_LAYERS, None, 4, SERVE_MA),
+    ("whisper_large_v3", ENCDEC_AXIS_LAYERS, None, 4, SERVE_ENCDEC[:2] + (SERVE_MA_ENCDEC_NEW,)))
 SERVE_MA_F32_RTOL = 1e-3
 # fsdp_full_width: FSDP over zero (mesh.topology(..., fsdp=True): each rank
 # holds its zero block of its blocks, gathers each layer at use over its
@@ -2254,7 +2286,7 @@ def phase_group_kernel_checks(torch, K, phase="group_kernel_checks", paths=None)
 
 
 def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", paths=None,
-                                keep=(), first=()):
+                                keep=()):
     """Each (cfg, settings, N per dtype group[, initial params]) of
     ``paths`` through run_training and both kernels, an eval after each
     outer step; by
@@ -2267,8 +2299,7 @@ def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", pa
     group on the trained state's buffers beside its byte bound; one local
     step's host and device time.  Returns (launches, [(cfg, trained
     x0)], {name: history and x0 / m per group on the host} for the configs
-    named in ``keep``, and for those named in ``first`` after their first
-    round, taken by run_training's ``on_round`` outside the timed step)."""
+    named in ``keep``)."""
     from repro_torch.groups import each, parts, pick
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import run_training
@@ -2282,18 +2313,10 @@ def phase_window_moe_full_width(torch, K, smi, phase="window_moe_full_width", pa
         lay = T.layout(cfg)
         if lay.group_numels != n_want:
             raise AssertionError(f"{cfg.name}: groups of {lay.group_numels}, want {n_want}")
-        def on_round(t, state, metrics, name=cfg.name):
-            if t == 0 and name in first:
-                # copies: the run updates its state in place afterwards
-                finals[name] = {"history": [float(metrics["loss"])],
-                                **{k: [p.to("cpu", copy=True) for p in parts(getattr(state, k))]
-                                   for k in ("x0", "m")}}
-
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
-        res = run_training(cfg, s, corpus, device="cuda", params=init[0] if init else None,
-                           on_round=on_round)
+        res = run_training(cfg, s, corpus, device="cuda", params=init[0] if init else None)
         launches = K.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         expect_peak(cfg.name, peak, cfg, s, held=sum(card_bytes_of(x) for _, x in trained))
@@ -2965,20 +2988,21 @@ def card_init(torch, cfg):
     return each(lambda t: t.cpu(), T.init_params(gen, cfg, device="cuda"))
 
 
-def phase_remat_full_width(torch, K, smi, params, dense) -> dict:
-    """mamba2_780m.FULL at whole depth with recurrent_full_width's settings
-    (W=2, B_micro=1, S=2048, tau=12, its schedule over RECURRENT_STEPS
-    outer steps, its corpus, init ``params`` and batches), once per policy
-    of REMAT_POLICIES, through make_dsm_step (``trainer.build_algorithm``:
-    the trainer's DSM config and schedule) with a loss closure that passes
-    ``remat=True, remat_policy=policy``, the reference dry-run's call form;
-    REMAT_ROUNDS rounds, no eval.  Each run's history and x0 and m (both
-    dtype groups) bit for bit those of recurrent_full_width's run without
-    remat after as many rounds (``dense``), the largest gap printed either
-    way.  Per run: the peak (reset, cache emptied), each round's ms (the
-    process has run the model: no warm-up is left in the first), one DSM
-    launch per group and round and tau AdamW launches per group and round.
-    Returns the launches."""
+def phase_remat_full_width(torch, K, smi) -> dict:
+    """mamba2_780m.FULL at full width and REMAT_LAYERS layers with
+    recurrent_full_width's settings (W=2, B_micro=1, S=2048, tau=12, its
+    schedule over RECURRENT_STEPS outer steps, its corpus and batches),
+    initial params drawn on the card, once without remat and once per
+    policy of REMAT_POLICIES, each through make_dsm_step
+    (``trainer.build_algorithm``: the trainer's DSM config and schedule)
+    with a loss closure that passes ``remat=True, remat_policy=policy``,
+    the reference dry-run's call form; REMAT_ROUNDS rounds, no eval.  Each
+    remat run's history and x0 and m (both dtype groups) bit for bit those
+    of the run without remat, the largest gap printed either way.  Per run:
+    the peak (reset, cache emptied) beside the dry-run's reckoning, each
+    round's ms (the process has run the model: no warm-up is left in the
+    first), one DSM launch per group and round and tau AdamW launches per
+    group and round.  Returns the launches."""
     import dataclasses
 
     from repro_torch.data.pipeline import dsm_batches
@@ -2986,17 +3010,20 @@ def phase_remat_full_width(torch, K, smi, params, dense) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import build_algorithm
 
-    cfg, s, _, _ = recurrent_paths()[1]
+    s = recurrent_paths()[1][1]
+    cfg = depth_cut("mamba2_780m", REMAT_LAYERS)
+    params = card_init(torch, cfg)
     lay = T.layout(cfg)
     corpus = training_corpus()
     total = dict.fromkeys(K.launch_counts(), 0)
-    rows, failures = [], []
-    for policy in REMAT_POLICIES:
+    rows, failures, dense = [], [], None
+    for policy in (None,) + REMAT_POLICIES:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         init, step, _, _ = build_algorithm(
-            lambda p, mb, policy=policy: T.loss_fn(p, mb, cfg, remat=True, remat_policy=policy),
+            lambda p, mb, policy=policy: T.loss_fn(p, mb, cfg, remat=policy is not None,
+                                                   remat_policy=policy or "full"),
             s, lay)
         state = init(each(lambda t: t.to("cuda"), params), s.n_workers)
         rng = torch.Generator(device="cuda").manual_seed(s.seed)
@@ -3018,7 +3045,8 @@ def phase_remat_full_width(torch, K, smi, params, dense) -> dict:
                 "x0": [t.cpu() for t in parts(state.x0)], "m": [t.cpu() for t in parts(state.m)]}
         del state, metrics, batch
         expect_peak(f"{cfg.name} remat {policy}", peak, cfg, s, keep_x0=False, eval_batch=0,
-                    remat=True, remat_policy=policy)
+                    remat=policy is not None, remat_policy=policy or "full")
+        dense = dense or ours
         same = bit_equal(torch, ours, dense)
         step_ms = statistics.median(step_s) * 1e3
         rows.append({"config": cfg.name, "remat_policy": policy, "n_layers": cfg.n_layers,
@@ -3032,13 +3060,14 @@ def phase_remat_full_width(torch, K, smi, params, dense) -> dict:
         want = expected_launches(dataclasses.replace(s, steps=REMAT_ROUNDS), lay.n_groups)
         if launches != want:
             failures.append(f"{policy}: launch counts {launches}, want {want}")
-        if not same:
+        if policy and not same:
             failures.append(f"{policy}: not bit-equal to the run without remat: "
                             f"{rows[-1]['max_gap']}")
         for k in total:
             total[k] += launches[k]
-    emit({"phase": "remat_full_width", "gpu": smi, "n_workers": s.n_workers, "tau": s.tau,
-          "b_micro": s.b_micro, "seq": s.seq, "rounds": REMAT_ROUNDS, "runs": rows})
+    emit({"phase": "remat_full_width", "gpu": smi, "n_layers": cfg.n_layers,
+          "n_workers": s.n_workers, "tau": s.tau, "b_micro": s.b_micro, "seq": s.seq,
+          "rounds": REMAT_ROUNDS, "runs": rows})
     if failures:
         raise AssertionError("remat_full_width: " + "; ".join(failures))
     return total
@@ -3100,19 +3129,25 @@ def model_axis_bounds(n_layers: int, rounds: int, tau: int) -> list:
     return out
 
 
-def model_axis_cfgs():
-    """The model-axis cases: (cfg, W, M, B_micro, rounds) at
-    MODEL_AXIS_CASES' depths."""
+def depth_cut(arch: str, layers: int):
+    """``arch``'s FULL config at ``layers`` layers (an encdec model's
+    encoder too): full width."""
     import dataclasses
 
     from repro_torch.configs import load_arch
 
-    out = []
-    for arch, layers, n_workers, model, b_micro, rounds in MODEL_AXIS_CASES:
-        full = load_arch(arch).FULL
-        out.append((dataclasses.replace(full, n_layers=layers, name=f"{arch}_{layers}l"),
-                    n_workers, model, b_micro, rounds))
-    return out
+    full = load_arch(arch).FULL
+    if full.family == "encdec":
+        return dataclasses.replace(full, n_layers=layers, enc_layers=layers,
+                                   name=f"{arch}_{layers}+{layers}l")
+    return dataclasses.replace(full, n_layers=layers, name=f"{arch}_{layers}l")
+
+
+def model_axis_cfgs():
+    """The model-axis cases: (cfg, W, M, B_micro, rounds) at
+    MODEL_AXIS_CASES' depths."""
+    return [(depth_cut(arch, layers), n_workers, model, b_micro, rounds)
+            for arch, layers, n_workers, model, b_micro, rounds in MODEL_AXIS_CASES]
 
 
 def largest_logit(torch, params, cfg, batch) -> float:
@@ -3187,7 +3222,9 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
 
     from repro_torch.core import base_opt, schedules
     from repro_torch.core import dsm as D
+    from repro_torch.distributed import mesh
     from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed import zero as Z
     from repro_torch.distributed.spawn import run_ranks
     from repro_torch.groups import each, parts
     from repro_torch.models import convert as C
@@ -3211,6 +3248,9 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
             if cfg.family == "vlm":
                 batch["patches"] = rng.standard_normal((W, tau, 1, bm, cfg.n_patches,
                                                         cfg.d_model), dtype=np.float32)
+            elif cfg.family == "encdec":
+                batch["frames"] = rng.standard_normal((W, tau, 1, bm, cfg.enc_len,
+                                                       cfg.d_model), dtype=np.float32)
             batches.append(batch)
         cases.append((cfg, W, M, 7 + i, batches, MODEL_AXIS_GAMMA, MODEL_AXIS_ETA))
         # every rank holds blocks of the same shapes: rank 0's reckoning (a
@@ -3358,13 +3398,12 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
         peak = torch.cuda.max_memory_allocated()
         del state, step
         torch.cuda.empty_cache()
-        # both kernels on rank 0's blocks, bit for bit; timed on granite's
-        if cfg.n_experts:
-            checks = fsdp_kernel_times(torch, K, lays[0], lays[0].group_numels, W)
-        elif i == 0 or cfg.family == "vlm":
-            checks = model_axis_kernel_checks(torch, K, lays[0], W)
-        else:
-            checks = []
+        # both kernels on rank 0's blocks, bit for bit and timed: DSM on its
+        # ZeRO chunk over its (worker, zero) ranks, AdamW on its workers' rows
+        worker, zero = mesh.grid(W, RANKS, M)
+        chunks = [n if worker * zero == 1 else Z.chunk_size(n, worker * zero)
+                  for n in lays[0].group_numels]
+        checks = rank_kernel_times(torch, K, lays[0], chunks, W // worker)
         for c in checks:
             if c.get("max_abs_err", 0.0) != 0.0:
                 failures.append(f"{cfg.name}: kernel on rank 0's blocks: {c}")
@@ -3447,7 +3486,7 @@ def fsdp_cases(pool, corpus) -> dict:
     return {"cases": cases, "reckoned": reckoned}
 
 
-def fsdp_kernel_times(torch, K, lay, dsm_ns: list, n_workers: int) -> list:
+def rank_kernel_times(torch, K, lay, dsm_ns: list, n_workers: int) -> list:
     """Both kernels on a model or FSDP rank's rows: bit for bit against
     their plain versions (model_axis_kernel_checks), and timed with theirs
     (CUDA events, median) beside the byte bound: the DSM step on the rank's
@@ -3691,7 +3730,7 @@ def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
 
     # both kernels on (a)'s rank rows: its zero block, its chunk over its peers
     worker = ranks[0][0]["grid"][0]
-    kernels = fsdp_kernel_times(torch, K, lays[0], [Z.chunk_size(lays[0].numel, worker)],
+    kernels = rank_kernel_times(torch, K, lays[0], [Z.chunk_size(lays[0].numel, worker)],
                                 W // worker)
     for c in kernels:
         if c.get("max_abs_err", 0.0) != 0.0:
@@ -3721,9 +3760,7 @@ def serve_model_axis_cases(torch, pool) -> list:
     rng = np.random.default_rng(13)
     out = []
     for i, (arch, layers, dtype, model, (batch, prompt_len, new)) in enumerate(SERVE_MA_CASES):
-        cfg = load_arch(arch).FULL
-        if layers:
-            cfg = dataclasses.replace(cfg, n_layers=layers, name=f"{arch}_{layers}l")
+        cfg = depth_cut(arch, layers) if layers else load_arch(arch).FULL
         if dtype:
             cfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype,
                                       name=f"{cfg.name}_{dtype}")
@@ -3733,6 +3770,9 @@ def serve_model_axis_cases(torch, pool) -> list:
         if cfg.family == "vlm":
             extra["patches"] = torch.from_numpy(rng.standard_normal(
                 (batch, cfg.n_patches, cfg.d_model), dtype=np.float32))
+        elif cfg.family == "encdec":
+            extra["frames"] = torch.from_numpy(rng.standard_normal(
+                (batch, cfg.enc_len, cfg.d_model), dtype=np.float32))
         out.append(((cfg, model, 31 + i, prompt, new, extra),
                      pool.submit(reckon_serve_generate, cfg, batch, prompt_len,
                                  RANKS // model, model, new)))
@@ -3981,16 +4021,15 @@ def recurrent_phases(torch, K, smi, pool) -> tuple:
     paths = recurrent_paths(torch)
     errs = phase_group_kernel_checks(torch, K, "recurrent_kernel_checks",
                                      [(cfg, s) for cfg, s, *_ in paths])
-    total, trained, firsts = phase_window_moe_full_width(
-        torch, K, smi, "recurrent_full_width", paths, first=(paths[1][0].name,))
+    total, trained, _ = phase_window_moe_full_width(torch, K, smi, "recurrent_full_width",
+                                                    paths)
     for (cfg, x0), (b, prompt, new) in zip(trained, (SERVE_RG, SERVE_MAMBA)):
         serve_check(torch, smi, "serve_recurrent_full_width", cfg, x0, b, prompt, new,
                     per_add_bound="only" if cfg.name.startswith("recurrentgemma") else False,
                     noise_bound=cfg.name.startswith("mamba2"))
-    del trained, x0
+    del trained, x0, paths
     torch.cuda.empty_cache()
-    more = phase_remat_full_width(torch, K, smi, paths[1][3], firsts[paths[1][0].name])
-    del paths
+    more = phase_remat_full_width(torch, K, smi)
     total = {k: n + more[k] for k, n in total.items()}
     # RecurrentGemma's SMOKE with bf16 parameters (activations f32, as the
     # SMOKE's): two dtype groups, lam f32

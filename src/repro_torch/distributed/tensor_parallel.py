@@ -357,13 +357,6 @@ class _Reckoning:
             self.add("all_gather", self.block_numel(name) * self.itemsize(name),
                      self.layer_count(name) if calls is None else calls)
 
-    def gather_all(self) -> dict:
-        """Every leaf gathered once: the replicated compute of a family the
-        model axis does not split (``transformer._gathered``)."""
-        for name in self.layout.names:
-            self.gather(name)
-        return self.out
-
     def zero_use(self, name: str, fwd: int, bwd: int = 0, mode: str = "slice") -> None:
         """A leaf's zero block gathered over the zero group at each of
         ``fwd`` forward uses (each rank sends its zero block); in ``"sum"``
@@ -380,36 +373,128 @@ class _Reckoning:
         elif mode == "sum":
             self.add("all_reduce_sum", self.block_numel(name) * 4, bwd, ax)
 
-    def zero_all(self, mode: str, bwd: bool = True) -> None:
-        """Every leaf's zero block gathered once per layer (the families
-        that gather every leaf up front, ``transformer._gathered``)."""
-        for name in self.layout.names:
-            n = self.layer_count(name)
-            self.zero_use(name, n, n if bwd else 0, mode)
+    def layer_groups(self, cfg):
+        """``(prefix, kind, layers)`` of each layer group: the decoder's
+        stacked pattern positions and remainder layers, then an ``encdec``
+        model's encoder blocks (``transformer._layers``)."""
+        from repro_torch.models import transformer as T
 
-    def attention_layers(self):
-        """``(prefix, layers)`` of each decoder attention leaf group."""
-        for wq in (n for n in self.layout.names
-                   if n.startswith("decoder.") and n.endswith(".attn.wq")):
-            yield wq[:-len("attn.wq")], self.layer_count(wq)
+        if cfg.n_scan_blocks:
+            for j, kind in enumerate(cfg.pattern):
+                yield f"decoder.blocks.p{j}.", kind, cfg.n_scan_blocks
+        for i in range(cfg.n_rem_layers):
+            yield f"decoder.rem.{i}.", cfg.pattern[i], 1
+        if cfg.family == "encdec" and cfg.enc_layers:
+            yield "encoder.blocks.p0.", T.ENC_PATTERN[0], cfg.enc_layers
+
+    def tail(self, cfg, pre: str) -> bool:
+        """``pre`` is the last layer of its stack's pattern repeat, the end
+        of a checkpointed body (``transformer._run_stack``)."""
+        last = 0 if pre.startswith("encoder.") else len(cfg.pattern) - 1
+        return pre.endswith(f".blocks.p{last}.")
 
     def layer_leaves(self, pre: str) -> list:
         """The names of a decoder layer group's leaves (``pre``: its prefix)."""
         return [n for n in self.layout.names if n.startswith(pre)]
 
-    def heads_split(self, pre: str, cfg) -> bool:
-        return (self.dim(pre + "attn.wq") == 1 and self.dim(pre + "attn.wo") == 0
-                and cfg.n_heads % self.layout.model == 0)
+    def partial(self, name: str, fwd: int, bwd: int) -> None:
+        """A leaf taken whole where each rank uses a part of it
+        (``transformer._Leaves.full_partial``): gathered at each of ``fwd``
+        forward uses, its f32 gradient reduce-scattered at each of ``bwd``
+        backward ones; one held whole has its gradient all-reduced."""
+        if self.dim(name) is None:
+            self.add("all_reduce_sum", self.block_numel(name) * 4, bwd)
+        else:
+            self.add("all_gather", self.block_numel(name) * self.itemsize(name), fwd)
+            self.add("reduce_scatter", self.block_numel(name) * self.layout.model * 4, bwd)
 
-    def kv_direct(self, pre: str, cfg) -> bool:
-        return (cfg.n_kv_heads % self.layout.model == 0 and self.dim(pre + "attn.wk") == 1
-                and self.dim(pre + "attn.wv") == 1)
+    def attention(self, pre: str, cfg, tokens: int, fwd: int, bwd: int, kv: bool = True,
+                  last: int = 0) -> None:
+        """Attention under ``pre`` over ``tokens`` query rows
+        (``transformer._tp_qkv`` / ``_tp_cross_residual``): split by heads,
+        the output all-reduced (f32) at each of ``fwd`` forward uses minus
+        ``last`` (a checkpointed repeat's recompute that stops before it),
+        the queries' input gradient at each of ``bwd``, ``wk`` / ``wv``
+        taken whole where the rank's blocks are not its KV heads; else every
+        leaf gathered.  ``kv``: the keys and values are computed (not a
+        decode step's cached ``kx`` / ``vx``)."""
+        from repro_torch.models import transformer as T
 
-    def ffn_split(self, pre: str, cfg) -> bool:
-        """The MLP under ``pre`` (``"<layer>mlp."``, ``"<layer>moe.shared."``)
-        splits d_ff (``transformer._mlp_split``)."""
-        return (self.dim(pre + "w1") == 1 and self.dim(pre + "w2") == 0
-                and (not cfg.mlp_gated or self.dim(pre + "w3") == 1))
+        names = ("wq", "wk", "wv", "wo") if kv else ("wq", "wo")
+        if not T._heads_split(self, cfg, self.layout.model, pre):
+            for w in names:
+                self.gather(pre + w, fwd)
+            return
+        self.add("all_reduce_sum", tokens * cfg.d_model * 4, bwd + fwd - last)
+        if kv and not T._kv_direct(self, cfg, self.layout.model, pre):
+            self.partial(pre + "wk", fwd, bwd)
+            self.partial(pre + "wv", fwd, bwd)
+
+    def recurrent(self, pre: str, mixer: str, cfg, tokens: int, fwd: int, bwd: int,
+                  last: int = 0) -> None:
+        """A recurrent mixer over ``tokens`` rows (``transformer.
+        _tp_recurrent``): by heads or channels, each leaf the rank's block or
+        taken whole (``transformer._part``); the input's gradient
+        all-reduced; Mamba-2's (T, 1) f32 sums of squares all-reduced
+        forward and their gradient backward, the RG-LRU's (T, d_rnn / M)
+        conv output gathered and its f32 gradient reduce-scattered; the
+        output all-reduced (f32) at each of ``fwd`` minus ``last``; where
+        the heads or channels do not divide, every leaf gathered."""
+        from repro_torch.models import transformer as T
+
+        M, d = self.layout.model, cfg.d_model
+        n = T._rank_width(mixer, cfg, M)
+        if n is None:
+            for name in self.layer_leaves(f"{pre}{mixer}."):
+                self.gather(name, fwd)
+            return
+        for leaf, (dim, ranges) in T.mixer_parts(mixer, cfg, M, 0).items():
+            if len(ranges) > 1 or self.dim(f"{pre}{mixer}.{leaf}") != dim:
+                self.partial(f"{pre}{mixer}.{leaf}", fwd, bwd)
+        self.add("all_reduce_sum", tokens * d * 4, bwd + fwd - last)
+        if mixer == "ssm":
+            self.add("all_reduce_sum", tokens * 4, fwd + bwd)
+        else:
+            self.add("all_gather", tokens * n * cfg.act_dtype.itemsize, fwd)
+            self.add("reduce_scatter", tokens * n * M * 4, bwd)
+
+    def layer(self, pre: str, kind: str, cfg, tokens: int, fwd: int, bwd: int,
+              last: int = 0, norms: bool = True, cross_kv: bool = True) -> None:
+        """One layer group's model-group collectives (``transformer.
+        _tp_block`` / ``_tp_decode_block``) over ``tokens`` rows: ``fwd``
+        forward and ``bwd`` backward uses; ``last``: the uses of its last
+        all-reduce that a checkpointed recompute does not run again;
+        ``norms``: its norm scales are gathered (not resolved by
+        ``serving_params``); ``cross_kv``: an ``xattn`` block computes its
+        keys and values (prefill, training)."""
+        from repro_torch.models import transformer as T
+
+        mixer, ffn = T._parse_kind(kind)
+        # the block's last all-reduce: the FFN's, else the cross-attention's
+        # or the mixer's
+        mixer_last = last if ffn == "none" else 0
+        if norms:
+            self.gather(pre + "ln1.scale", fwd)
+            if ffn != "none":
+                self.gather(pre + "ln2.scale", fwd)
+            if mixer == "xattn":
+                self.gather(pre + "lnx.scale", fwd)
+        if mixer in T.RECURRENT:
+            self.recurrent(pre, mixer, cfg, tokens, fwd, bwd, mixer_last)
+        else:
+            self.attention(pre + "attn.", cfg, tokens, fwd, bwd,
+                           last=0 if mixer == "xattn" else mixer_last)
+        if mixer == "xattn":
+            self.attention(pre + "xattn.", cfg, tokens, fwd, bwd, cross_kv, mixer_last)
+        act = tokens * cfg.d_model * 4
+        if ffn == "moe":
+            self.moe(pre, cfg, tokens, fwd, bwd, last)
+        elif ffn == "dense":
+            if T._mlp_split(self, pre + "mlp.", cfg):
+                self.add("all_reduce_sum", act, bwd + fwd - last)
+            else:
+                for w in self.ffn_names(pre + "mlp.", cfg):
+                    self.gather(w, fwd)
 
     def ffn_names(self, pre: str, cfg, names=("w1", "w2", "w3")) -> tuple:
         return tuple(pre + w for w in names[:2] + (names[2:] if cfg.mlp_gated else ()))
@@ -430,12 +515,13 @@ class _Reckoning:
         the combine.  ``skip``: of the ``fwd``, the calls of the layer's
         last all-reduce that a checkpointed repeat's recompute does not run
         again (the shared experts', else the combined experts')."""
+        from repro_torch.models import transformer as T
+
         d, M, K, E = cfg.d_model, self.layout.model, cfg.top_k, cfg.n_experts
         act = tokens * d * 4
         router = self.dim(pre + "moe.router")
-        experts = (self.dim(pre + "moe.we1") == 2 and self.dim(pre + "moe.we2") == 1
-                   and (not cfg.mlp_gated or self.dim(pre + "moe.we3") == 2))
-        shared = cfg.n_shared_experts > 0 and self.ffn_split(pre + "moe.shared.", cfg)
+        experts = T._experts_split(self, cfg, pre + "moe.")
+        shared = cfg.n_shared_experts > 0 and T._mlp_split(self, pre + "moe.shared.", cfg)
         if router == 1:
             self.add("all_gather", tokens * (E // M) * 4, fwd)
         elif router == 0:
@@ -481,94 +567,75 @@ def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int,
                            remat: bool = False) -> dict:
     """The collectives of one forward and backward of ``loss_fn`` on a
     ``(batch, seq)`` microbatch on a rank of ``layout``, reckoned from its
-    placements, layer by layer: ``{"<name>@model": {"calls", "bytes"}}`` as
-    ``CommStats`` counts them (the bytes this rank sends).  Activations are
-    all-reduced in f32 (4 bytes per element); a gather sends the rank's
-    block; a reduce-scatter the whole f32 gradient; a leaf held whole but
-    used where each rank computes a part has its f32 gradient all-reduced.
-    ``remat``: each pattern repeat is recomputed in the backward
-    (``transformer._run_stack``), so its forward collectives run twice, up
-    to its last saved tensor (``torch.utils.checkpoint`` stops there: the
-    all-reduce of the repeat's last FFN output runs once).  A MoE FFN's
-    collectives are :meth:`_Reckoning.moe`'s; a VLM's ``seq`` text tokens
-    follow its ``n_patches`` patches, whose projection is gathered once per
-    microbatch (:meth:`_Reckoning.prefix`).
+    placements, layer by layer (:meth:`_Reckoning.layer`): ``{"<name>@model":
+    {"calls", "bytes"}}`` as ``CommStats`` counts them (the bytes this rank
+    sends).  Activations are all-reduced in f32 (4 bytes per element); a
+    gather sends the rank's block; a reduce-scatter the whole f32 gradient;
+    a leaf held whole but used where each rank computes a part has its f32
+    gradient all-reduced.  ``remat``: each pattern repeat (and each encoder
+    block) is recomputed in the backward (``transformer._run_stack``), so
+    its forward collectives run twice, up to its last saved tensor
+    (``torch.utils.checkpoint`` stops there: the all-reduce of the repeat's
+    last block's output runs once).  A MoE FFN's collectives are
+    :meth:`_Reckoning.moe`'s; a VLM's ``seq`` text tokens follow its
+    ``n_patches`` patches, whose projection is gathered once per microbatch
+    (:meth:`_Reckoning.prefix`); an ``encdec`` model's encoder runs over
+    ``enc_len`` frames per row, ``enc_norm`` gathered once and, where the
+    cross-attention is split by heads, the encoder output's f32 gradient
+    all-reduced once.
 
     Under FSDP (``layout.zero`` > 1) the rank computes its ``batch / Z``
     rows where :func:`zero_split` (else all ``batch``), and the zero group's
     collectives count as ``<name>@zero``: each zero-cut leaf gathered at
-    every use (a Megatron-split config's layer leaves inside the layer, so
-    twice under remat; ``embed`` at the lookup and, tied, at the head; the
-    head and ``final_norm`` once; every other family's leaves once, up
-    front), and with the rows split its gradient reduce-scattered once per
-    use (a leaf held whole over zero: all-reduced), and each MoE layer's
-    aux-loss statistics all-reduced (``layers.moe_apply``)."""
+    every use (a layer's leaves inside the layer, so twice under remat;
+    ``embed`` at the lookup and, tied, at the head; the head,
+    ``final_norm`` and ``enc_norm`` once), and with the rows split its
+    gradient reduce-scattered once per use (a leaf held whole over zero:
+    all-reduced), and each MoE layer's aux-loss statistics all-reduced
+    (``layers.moe_apply``)."""
     from repro_torch.models import transformer as T
 
     r = _Reckoning(layout)
     mode = "sum" if zero_split(layout, batch) else "slice"
-    if not T.megatron_split(cfg):
-        r.zero_all(mode)
-        return r.gather_all()
     rows = batch // layout.zero if mode == "sum" else batch
-    M = layout.model
+    M, d = layout.model, cfg.d_model
     tokens = rows * (seq + (cfg.n_patches if cfg.family == "vlm" else 0))
-    act = tokens * cfg.d_model * 4
+    enc_tokens = rows * cfg.enc_len if cfg.family == "encdec" else 0
     head = "embed" if cfg.tie_embeddings else "lm_head"
     r.zero_use("embed", 1, 1, mode)
     r.zero_use("final_norm.scale", 1, 1, mode)
-    if not cfg.tie_embeddings:
-        r.zero_use(head, 1, 1, mode)
-    else:
-        r.zero_use("embed", 1, 1, mode)
+    r.zero_use(head, 1, 1, mode)
     if cfg.family == "vlm":
         r.zero_use("patch_proj", 1, 1, mode)
+    if cfg.family == "encdec":
+        r.zero_use("enc_norm.scale", 1, 1, mode)
     if M > 1:
         if r.dim("embed") == 0:
-            r.add("all_reduce_sum", rows * seq * cfg.d_model * 4)
+            r.add("all_reduce_sum", rows * seq * d * 4)
         else:
             r.gather("embed")
         r.prefix(cfg, rows)
-    tail = f"decoder.blocks.p{len(cfg.pattern) - 1}."
-    for pre, reps in r.attention_layers():
-        fwd = reps * (2 if remat and r.stacked(pre) else 1)
+        if cfg.family == "encdec":
+            r.gather("enc_norm.scale")
+            if any(T._heads_split(r, cfg, M, pre + "xattn.") for pre, kind, _ in r.layer_groups(cfg)
+                   if kind.startswith("xattn")):
+                r.add("all_reduce_sum", enc_tokens * d * 4)
+    for pre, kind, reps in r.layer_groups(cfg):
+        checkpointed = remat and r.stacked(pre)
+        fwd = reps * (2 if checkpointed else 1)
         for name in r.layer_leaves(pre):
             r.zero_use(name, fwd, reps, mode)
         if mode == "sum":
             r.moe_stats(pre, cfg, fwd)
-        if M == 1:
-            continue
-        # the recompute stops at the repeat's last saved tensor
-        # (torch.utils.checkpoint's early stop): the all-reduce of its last
-        # layer's FFN output is not run again
-        ffn_fwd = fwd - (reps if remat and pre == tail else 0)
-        r.gather(pre + "ln1.scale", fwd)
-        r.gather(pre + "ln2.scale", fwd)
-        if r.heads_split(pre, cfg):
-            r.add("all_reduce_sum", act, reps + fwd)   # the input's gradient, the output
-            if not r.kv_direct(pre, cfg):
-                for w in (pre + "attn.wk", pre + "attn.wv"):
-                    if r.dim(w) is None:
-                        r.add("all_reduce_sum", r.block_numel(w) * 4, reps)
-                    else:
-                        r.add("all_gather", r.block_numel(w) * r.itemsize(w), fwd)
-                        r.add("reduce_scatter", r.block_numel(w) * M * 4, reps)
-        else:
-            for w in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
-                r.gather(pre + w, fwd)
-        if r.is_moe(pre):
-            r.moe(pre, cfg, tokens, fwd, reps, fwd - ffn_fwd)
-        elif r.ffn_split(pre + "mlp.", cfg):
-            r.add("all_reduce_sum", act, reps + ffn_fwd)
-        else:
-            for w in r.ffn_names(pre + "mlp.", cfg):
-                r.gather(w, fwd)
+        if M > 1:
+            n = enc_tokens if pre.startswith("encoder.") else tokens
+            r.layer(pre, kind, cfg, n, fwd, reps, reps if checkpointed and r.tail(cfg, pre) else 0)
     if M == 1:
         return r.out
     r.gather("final_norm.scale")
     if r.head_split(cfg):
         # the head input's gradient, the text positions'
-        r.add("all_reduce_sum", rows * seq * cfg.d_model * 4)
+        r.add("all_reduce_sum", rows * seq * d * 4)
         for c0 in range(0, seq, min(T.CE_CHUNK, seq)):
             n = rows * (min(c0 + T.CE_CHUNK, seq) - c0) * 4
             r.add("all_reduce_max", n)
@@ -596,58 +663,56 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) 
     """The collectives of one serving call on a rank's ``batch`` rows,
     reckoned from its placements as :func:`microbatch_collectives` (forward
     only): ``kind`` ``"serving_params"`` (``transformer.serving_params``,
-    once per ``generate``: a Megatron-split config gathers each norm scale
-    over the model group, a stacked one in one call; every other family
-    gathers every leaf, layer by layer), ``"prefill"`` over ``seq``
-    positions (a VLM's patches included) or ``"decode"`` (one
-    ``decode_step``; ``seq`` is not read), both on resolved params (a call
-    on params not yet resolved adds ``"serving_params"``'s), or ``"pick"``
-    (one :func:`vocab_argmax`: an f32 maximum and an int64 minimum per row
-    where the logits are the rank's vocab block, nothing where they are
-    whole).  A Megatron-split config's call all-reduces the vocab-parallel
-    lookup and each attention and FFN output (f32), and gathers ``wk`` /
-    ``wv`` where a rank's block cuts a head; every other family's call
-    computes on the gathered leaves.  Under FSDP over data (``layout.zero``
-    > 1, the serving placement's ``data`` entries) a Megatron-split
-    config's call gathers each data-cut leaf over the data group where it
-    is used (``<name>@data``: every layer's leaves, ``embed`` at the lookup
-    and, tied, at the head, the head, ``final_norm`` where no model gather
-    resolved it); every other family gathers every leaf over data, once,
-    in ``"serving_params"``."""
+    once per ``generate``: each norm scale gathered over the model group, a
+    stacked one in one call), ``"prefill"`` over ``seq`` positions (a VLM's
+    patches included; an ``encdec`` model's encoder over its ``enc_len``
+    frames) or ``"decode"`` (one ``decode_step``; ``seq`` is not read; the
+    encoder does not run, the cross-attention reads its cached keys and
+    values), both on resolved params (a call on params not yet resolved
+    adds ``"serving_params"``'s), or ``"pick"`` (one :func:`vocab_argmax`:
+    an f32 maximum and an int64 minimum per row where the logits are the
+    rank's vocab block, nothing where they are whole).  A call all-reduces
+    the vocab-parallel lookup and each row-parallel output (f32), gathers
+    Mamba-2's norm sums and the RG-LRU's conv output as
+    :meth:`_Reckoning.layer` does, and gathers each leaf the split does not
+    consume.  Under FSDP over data (``layout.zero`` > 1, the serving
+    placement's ``data`` entries) each data-cut leaf is gathered over the
+    data group where it is used (``<name>@data``: every layer's leaves that
+    the call reads, ``embed`` at the lookup and, tied, at the head, the
+    head, ``final_norm`` and ``enc_norm`` where no model gather resolved
+    them)."""
     from repro_torch.models import transformer as T
 
     if kind not in ("serving_params", "prefill", "decode", "pick"):
         raise ValueError(f"kind must be 'serving_params', 'prefill', 'decode' or 'pick', "
                          f"got {kind!r}")
     r = _Reckoning(layout, "data")
-    split = T.megatron_split(cfg)
     if kind == "pick":
-        if split and layout.model > 1 and r.head_split(cfg):
+        if layout.model > 1 and r.head_split(cfg):
             r.add("all_reduce_max", batch * 4)
             r.add("all_reduce_min", batch * 8)
         return r.out
+    resolved = {n for n in layout.names if n.endswith(T.NORM_SCALES) and r.dim(n) is not None}
     if kind == "serving_params":
-        if not split:
-            r.zero_all("slice")
-            return r.gather_all()
         for name in layout.names:
-            if name.endswith(T.NORM_SCALES) and r.dim(name) is not None:
-                r.add("all_gather", r.layer_count(name) * r.block_numel(name) * r.itemsize(name))
-        return r.out
-    if not split:
+            if name in resolved:
+                r.add("all_gather",
+                      r.layer_count(name) * r.block_numel(name) * r.itemsize(name))
         return r.out
     # the norm scales a model gather resolved are held whole from then on;
-    # a decode step projects no patches
-    resolved = {n for n in layout.names if n.endswith(T.NORM_SCALES) and r.dim(n) is not None}
+    # a decode step projects no patches, runs no encoder and reads the
+    # cross-attention's keys and values from the cache
+    unused = set(resolved)
     if kind == "decode":
-        resolved.add("patch_proj")
+        unused |= {n for n in layout.names
+                   if n == "patch_proj" or n.startswith("encoder.") or n == "enc_norm.scale"
+                   or n.endswith(("xattn.wk", "xattn.wv"))}
     for name in layout.names:
-        if name not in resolved:
+        if name not in unused:
             r.zero_use(name, r.layer_count(name) * (1 + (name == "embed" and cfg.tie_embeddings)))
     if layout.model == 1:
         return r.out
     tokens = batch * (seq if kind == "prefill" else 1)
-    act = tokens * cfg.d_model * 4
     n_prefix = cfg.n_patches if kind == "prefill" and cfg.family == "vlm" else 0
     if r.dim("embed") == 0:
         r.add("all_reduce_sum", batch * (seq - n_prefix if kind == "prefill" else 1)
@@ -656,22 +721,12 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) 
         r.gather("embed")
     if kind == "prefill":
         r.prefix(cfg, batch)
-    for pre, reps in r.attention_layers():
-        if r.heads_split(pre, cfg):
-            if not r.kv_direct(pre, cfg):
-                r.gather(pre + "attn.wk")
-                r.gather(pre + "attn.wv")
-            r.add("all_reduce_sum", act, reps)
-        else:
-            for w in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
-                r.gather(pre + w)
-        if r.is_moe(pre):
-            r.moe(pre, cfg, tokens, reps)
-        elif r.ffn_split(pre + "mlp.", cfg):
-            r.add("all_reduce_sum", act, reps)
-        else:
-            for w in r.ffn_names(pre + "mlp.", cfg):
-                r.gather(w)
+    for pre, block, reps in r.layer_groups(cfg):
+        if pre.startswith("encoder."):
+            if kind == "prefill":
+                r.layer(pre, block, cfg, batch * cfg.enc_len, reps, 0, norms=False)
+            continue
+        r.layer(pre, block, cfg, tokens, reps, 0, norms=False, cross_kv=kind == "prefill")
     if not r.head_split(cfg):
         r.gather("embed" if cfg.tie_embeddings else "lm_head")
     return r.out

@@ -359,6 +359,27 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None, tp: MoESplit = None) -> 
     return out.reshape(B, S, d), aux
 
 
+def _column_input(x: torch.Tensor, tp) -> torch.Tensor:
+    """x as the input of column-parallel products: on a model-parallel rank
+    (``tp`` its model group) through ``copy_to``, its gradient all-reduced."""
+    if tp is None:
+        return x
+    from repro_torch.distributed import tensor_parallel as TP
+
+    return TP.copy_to(x, tp)
+
+
+def _row_parallel(y: torch.Tensor, w, tp) -> torch.Tensor:
+    """y @ w; on a model-parallel rank (``tp`` its model group) w is its
+    rows and the partial products are all-reduced."""
+    out = y @ w.to(y.dtype)
+    if tp is None:
+        return out
+    from repro_torch.distributed import tensor_parallel as TP
+
+    return TP.reduce_from(out, tp)
+
+
 # ---------------------------------------------------------------------------
 # Depthwise causal conv (the Mamba-2 and RG-LRU front conv)
 # ---------------------------------------------------------------------------
@@ -479,20 +500,39 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
 
 def _mamba2_split(p: dict, x: torch.Tensor, cfg) -> tuple:
     """The in-projection of x (..., d), split: z, the conv's input (x, B, C
-    streams) and dt before its softplus."""
-    di, N = cfg.d_inner, cfg.ssm_state
+    streams) and dt before its softplus, at the widths of ``p``'s heads
+    (all of them, or a model-parallel rank's)."""
+    di, H = p["norm"]["scale"].shape[-1], p["A_log"].shape[-1]
     proj = x @ p["in_proj"].to(x.dtype)
-    z, conv_in, dt = torch.split(proj, [di, di + 2 * N, cfg.ssm_heads], dim=-1)
+    z, conv_in, dt = torch.split(proj, [di, di + 2 * cfg.ssm_state, H], dim=-1)
     return z, conv_in, dt
 
 
-def _mamba2_out(p: dict, y: torch.Tensor, z: torch.Tensor, x_dtype) -> torch.Tensor:
-    """The gated RMSNorm of y (f32) and the out-projection."""
-    y = rmsnorm(p["norm"]["scale"], y.to(x_dtype) * F.silu(z))
-    return y @ p["out_proj"].to(x_dtype)
+def _mamba2_out(p: dict, y: torch.Tensor, z: torch.Tensor, x_dtype, cfg,
+                tp=None) -> torch.Tensor:
+    """The gated RMSNorm of y (f32) and the out-projection; on a
+    model-parallel rank (``tp`` its model group) over its heads' channels:
+    the norm's mean of squares over every head's (:func:`_split_rmsnorm`),
+    ``out_proj`` row-parallel with one all-reduce."""
+    g, scale = y.to(x_dtype) * F.silu(z), p["norm"]["scale"]
+    g = rmsnorm(scale, g) if tp is None else _split_rmsnorm(scale, g, cfg.d_inner, tp)
+    return _row_parallel(g, p["out_proj"], tp)
 
 
-def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None):
+def _split_rmsnorm(scale, x: torch.Tensor, width: int, tp, eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm` of a vector whose ``width`` elements lie across the
+    model group ``tp``, x (..., width / M) this rank's: the (..., 1) f32
+    sums of squares all-reduced (forward; their gradient, partial on each
+    rank, all-reduced backward), then this rank's elements scaled."""
+    from repro_torch.distributed import tensor_parallel as TP
+
+    xf = x.to(F32)
+    sq = TP.copy_to(TP.reduce_from(torch.sum(xf * xf, dim=-1, keepdim=True), tp), tp)
+    out = xf * torch.rsqrt(sq / width + eps) * (1.0 + scale.to(F32))
+    return out.to(x.dtype)
+
+
+def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None, tp=None):
     """The training / prefill path, x (B, S, d) -> (B, S, d).  ``p``: the
     block's ``ssm`` leaves nested as the reference's (``in_proj``, ``conv``
     {``w``, ``b``}, ``A_log``, ``D``, ``dt_bias``, ``norm`` {``scale``},
@@ -500,9 +540,21 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None
     ``state_out`` the state after the last position lands in it, as the
     reference's ``_mamba2_final_state`` computes it: ``state`` (B, H, P, N)
     f32 and ``conv`` (B, width - 1, d_inner + 2N), the conv's input tail
-    (:func:`conv_tail`)."""
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, conv_in, dt = _mamba2_split(p, x, cfg)
+    (:func:`conv_tail`).
+
+    ``tp``: on a model-parallel rank its model group, x the same on every
+    rank, and ``p`` the rank's slices for its H / M heads: ``in_proj``'s
+    columns of their z, x and dt and all of B and C, ``conv``'s channels of
+    their x and all of B and C, their ``A_log``, ``D``, ``dt_bias``,
+    ``norm`` and ``out_proj`` rows.  The conv, the SSD and the skip run on
+    those heads (the SSD is per head), the gated norm and the out-projection
+    as :func:`_mamba2_out`; x passes through ``copy_to``, and the state is
+    the rank's heads' (B, H / M, P, N) and channels' (B, width - 1, d_inner
+    / M + 2N)."""
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    H = p["A_log"].shape[-1]
+    di = H * P
+    z, conv_in, dt = _mamba2_split(p, _column_input(x, tp), cfg)
     conv_out = F.silu(conv1d_apply(p["conv"], conv_in))
     xs, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
     dt = F.softplus(dt.to(F32) + p["dt_bias"])             # (B, S, H)
@@ -513,7 +565,7 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None
     if state_out is not None:
         state_out.update(state=_ssd_final_state(xh, dt, A, Bm),
                          conv=conv_tail(conv_in, p["conv"]["w"].shape[0]))
-    return _mamba2_out(p, y.reshape(*xs.shape[:2], di), z, x.dtype)
+    return _mamba2_out(p, y.reshape(*xs.shape[:2], di), z, x.dtype, cfg, tp)
 
 
 def _ssd_final_state(xh, dt, A, Bm) -> torch.Tensor:
@@ -526,11 +578,14 @@ def _ssd_final_state(xh, dt, A, Bm) -> torch.Tensor:
     return wx.permute(0, 2, 3, 1) @ Bm.to(F32)[:, None]           # (B, H, P, N)
 
 
-def mamba2_decode(p: dict, cache: dict, x_t: torch.Tensor, cfg) -> tuple:
+def mamba2_decode(p: dict, cache: dict, x_t: torch.Tensor, cfg, tp=None) -> tuple:
     """One-token recurrent step, x_t (B, d); cache ``{"state": (B, H, P, N)
     f32, "conv": (B, width - 1, C)}``.  Returns (out (B, d), the new
-    cache dict); the caller writes it back."""
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    cache dict); the caller writes it back.  ``tp``: as
+    :func:`mamba2_apply`'s, the cache the rank's heads' and channels'."""
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    H = p["A_log"].shape[-1]
+    di = H * P
     z, conv_in, dt = _mamba2_split(p, x_t, cfg)
     conv_y, new_conv = conv1d_step(p["conv"], cache["conv"], conv_in)
     xs, Bm, Cm = torch.split(F.silu(conv_y), [di, N, N], dim=-1)
@@ -542,16 +597,18 @@ def mamba2_decode(p: dict, cache: dict, x_t: torch.Tensor, cfg) -> tuple:
     new_state = cache["state"] * dA[..., None, None] + dBx
     y = (new_state @ Cm.to(F32)[:, None, :, None])[..., 0]  # (B, H, P)
     y = y + p["D"][None, :, None] * xh
-    out = _mamba2_out(p, y.reshape(-1, di), z, x_t.dtype)
+    out = _mamba2_out(p, y.reshape(-1, di), z, x_t.dtype, cfg, tp)
     return out, {"state": new_state, "conv": new_conv}
 
 
-def mamba2_init_cache(cfg, batch: int, dtype, lead: tuple = (), device=None) -> dict:
+def mamba2_init_cache(cfg, batch: int, dtype, lead: tuple = (), device=None,
+                      heads: int = None) -> dict:
     """Zero ``{"state": (*lead, B, H, P, N) f32, "conv": (*lead, B, width -
-    1, d_inner + 2N) dtype}``."""
-    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    1, d_inner + 2N) dtype}``; ``heads``: a model-parallel rank's H / M
+    in place of H (and its H / M * P of d_inner)."""
+    H, P, N = heads or cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     return {"state": torch.zeros(lead + (batch, H, P, N), dtype=F32, device=device),
-            "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, cfg.d_inner + 2 * N),
+            "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, H * P + 2 * N),
                                 dtype=dtype, device=device)}
 
 
@@ -562,11 +619,19 @@ def mamba2_init_cache(cfg, batch: int, dtype, lead: tuple = (), device=None) -> 
 _RGLRU_C = 8.0
 
 
-def _rglru_coeffs(p: dict, xc: torch.Tensor) -> tuple:
+def _rglru_coeffs(p: dict, xc: torch.Tensor, tp=None) -> tuple:
     """xc (..., d_rnn), the conv's output -> (a, b) of h = a * h_prev + b,
-    f32."""
-    r = torch.sigmoid((xc @ p["w_a"].to(xc.dtype)).to(F32))
-    i = torch.sigmoid((xc @ p["w_x"].to(xc.dtype)).to(F32))
+    f32.  ``tp``: on a model-parallel rank its model group, xc its channels'
+    (..., d_rnn / M) and ``w_a`` / ``w_x`` its (d_rnn, d_rnn / M) output
+    columns: the gates read every channel, so xc is gathered over the group
+    (its gradient reduce-scattered)."""
+    xw = xc
+    if tp is not None:
+        from repro_torch.distributed import tensor_parallel as TP
+
+        xw = TP.gather(xc, tp, xc.dim() - 1, "sum")
+    r = torch.sigmoid((xw @ p["w_a"].to(xc.dtype)).to(F32))
+    i = torch.sigmoid((xw @ p["w_x"].to(xc.dtype)).to(F32))
     log_a = -_RGLRU_C * r * F.softplus(p["lam"])           # <= 0
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) * (i * xc.to(F32))
@@ -607,7 +672,7 @@ def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
     return torch.cat([pairs, even[:, n_odd:]], dim=1) if even.shape[1] > n_odd else pairs
 
 
-def rglru_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None):
+def rglru_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None, tp=None):
     """The training / prefill path, x (B, S, d) -> (B, S, d): the tanh-GELU
     gate, the conv, the RG-LRU recurrence over S (:func:`linear_scan`).
     ``p``: the block's ``rglru`` leaves nested as the reference's
@@ -615,33 +680,46 @@ def rglru_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None)
     ``lam``, ``out``).  With a dict ``state_out`` the state after the last
     position lands in it, as the reference's ``_rglru_final_state``
     computes it: ``h`` (B, d_rnn) f32 and ``conv`` (B, width - 1, d_rnn),
-    the conv's input tail (:func:`conv_tail`)."""
-    gate = F.gelu((x @ p["in_gate"].to(x.dtype)).to(F32), approximate="tanh")
-    xr = x @ p["in_x"].to(x.dtype)
-    a, b = _rglru_coeffs(p, conv1d_apply(p["conv"], xr))   # (B, S, d_rnn)
+    the conv's input tail (:func:`conv_tail`).
+
+    ``tp``: on a model-parallel rank its model group, x the same on every
+    rank, and ``p`` the rank's slices for its d_rnn / M channels: ``in_x``
+    / ``in_gate`` / ``w_a`` / ``w_x`` columns, ``conv`` and ``lam``
+    channels, ``out`` rows.  The gate, the conv, the scan (per channel) run
+    on those channels, ``w_a`` / ``w_x`` over the gathered conv output
+    (:func:`_rglru_coeffs`), ``out`` row-parallel with one all-reduce; x
+    passes through ``copy_to``, and the state is the rank's channels'."""
+    x_in = _column_input(x, tp)
+    gate = F.gelu((x_in @ p["in_gate"].to(x.dtype)).to(F32), approximate="tanh")
+    xr = x_in @ p["in_x"].to(x.dtype)
+    a, b = _rglru_coeffs(p, conv1d_apply(p["conv"], xr), tp)   # (B, S, d_rnn)
     h = linear_scan(a, b)
     if state_out is not None:
         state_out.update(h=h[:, -1], conv=conv_tail(xr, p["conv"]["w"].shape[0]))
     y = (h * gate).to(x.dtype)
-    return y @ p["out"].to(x.dtype)
+    return _row_parallel(y, p["out"], tp)
 
 
-def rglru_decode(p: dict, cache: dict, x_t: torch.Tensor, cfg) -> tuple:
+def rglru_decode(p: dict, cache: dict, x_t: torch.Tensor, cfg, tp=None) -> tuple:
     """x_t (B, d); cache ``{"h": (B, d_rnn) f32, "conv": (B, width - 1,
     d_rnn)}``.  Returns (out (B, d), the new cache dict); the caller
-    writes it back."""
+    writes it back.  ``tp``: as :func:`rglru_apply`'s, the cache the
+    rank's channels'."""
     gate = F.gelu((x_t @ p["in_gate"].to(x_t.dtype)).to(F32), approximate="tanh")
     xr = x_t @ p["in_x"].to(x_t.dtype)
     xc, new_conv = conv1d_step(p["conv"], cache["conv"], xr)
-    a, b = _rglru_coeffs(p, xc)                            # (B, d_rnn)
+    a, b = _rglru_coeffs(p, xc, tp)                        # (B, d_rnn)
     new_h = a * cache["h"] + b
     y = (new_h * gate).to(x_t.dtype)
-    return y @ p["out"].to(x_t.dtype), {"h": new_h, "conv": new_conv}
+    return _row_parallel(y, p["out"], tp), {"h": new_h, "conv": new_conv}
 
 
-def rglru_init_cache(cfg, batch: int, dtype, lead: tuple = (), device=None) -> dict:
+def rglru_init_cache(cfg, batch: int, dtype, lead: tuple = (), device=None,
+                     channels: int = None) -> dict:
     """Zero ``{"h": (*lead, B, d_rnn) f32, "conv": (*lead, B, width - 1,
-    d_rnn) dtype}``."""
-    return {"h": torch.zeros(lead + (batch, cfg.d_rnn), dtype=F32, device=device),
-            "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, cfg.d_rnn), dtype=dtype,
+    d_rnn) dtype}``; ``channels``: a model-parallel rank's d_rnn / M in
+    place of d_rnn."""
+    n = channels or cfg.d_rnn
+    return {"h": torch.zeros(lead + (batch, n), dtype=F32, device=device),
+            "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, n), dtype=dtype,
                                 device=device)}

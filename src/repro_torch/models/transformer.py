@@ -28,30 +28,35 @@ reference.
 On a rank of a model-parallel group (``repro_torch.distributed.mesh``,
 ``model`` > 1) the params are its :class:`~repro_torch.models.convert.
 ShardedParams`: each leaf its block by the reference's placement on the
-``model`` axis.  ``hidden_states`` and ``loss_fn`` then compute the
-decoder LM and the VLM of ``attn`` / ``swa`` mixers with dense or MoE FFNs
-Megatron-split (:func:`_tp_block`): ``wq`` / ``wo`` over whole heads, ``w1``
-/ ``w3`` column- and ``w2`` row-parallel with one all-reduce after each
-row-parallel product, a MoE FFN's router by experts or by rows and its
-experts' and shared experts' d_ff slices (:func:`_tp_moe`), a VLM's
-``patch_proj`` column-parallel (:func:`_patch_prefix`), ``embed`` /
-``lm_head`` vocab-parallel into the vocab-parallel cross-entropy
-(``repro_torch.distributed.tensor_parallel``).  A leaf whose block the split
-does not consume (the norm scales; ``wk`` / ``wv`` where a rank's block cuts
-a head; the experts where their blocks do not cut d_ff) is gathered over the
-model group at use and its gradient cut back.  Every other family (``ssm``,
-``rglru``, ``encdec``) gathers every leaf at use and computes replicated
-(:func:`_gathered`).
+``model`` axis.  ``hidden_states`` and ``loss_fn`` then compute every
+family Megatron-split (:func:`_tp_block`): ``wq`` / ``wo`` over whole heads
+(the encoder's ``encattn`` bidirectional, an ``xattn`` block's
+cross-attention over the encoder output too), ``w1`` / ``w3`` column- and
+``w2`` row-parallel with one all-reduce after each row-parallel product, a
+MoE FFN's router by experts or by rows and its experts' and shared experts'
+d_ff slices (:func:`_tp_moe`), Mamba-2's SSD by heads and the RG-LRU by
+channels (:func:`_tp_recurrent`), a VLM's ``patch_proj`` column-parallel
+(:func:`_patch_prefix`), ``embed`` / ``lm_head`` vocab-parallel into the
+vocab-parallel cross-entropy (``repro_torch.distributed.tensor_parallel``).
+A leaf whose block the split does not consume (the norm scales; ``wk`` /
+``wv`` where a rank's block cuts a head; Mamba-2's ``in_proj`` and
+``conv``, whose blocks cut its z / x / B / C / dt segments; the experts
+where their blocks do not cut d_ff; a mixer's leaves where its heads or
+channels do not divide over the group) is gathered over the model group at
+use, layer by layer, and its gradient cut back.  An ``encdec`` batch's
+``frames`` are whole on every rank (the reference's ``train_batch_pspecs``
+cuts their feature dim over ``model``); the encoder's output is the same
+on every rank.
 
 Serving on a rank of the ``(data, model)`` grid takes the same
 ``ShardedParams`` and the rank's batch rows.  ``prefill`` and
-``decode_step`` of a Megatron-split config run :func:`_tp_block` /
-:func:`_tp_decode_block`: the rank's cache holds the KV heads its query
-heads read (:func:`_kv_heads`), and the logits are its vocab block, the
-reference's ``P("data", "model")`` (:func:`logits_split`).  Every other
-family serves through the gathered leaves, its cache whole over model and
-its logits whole on every rank.  :func:`serving_params` resolves a rank's
-params once (``generate`` calls it once per call).  ``init_cache(...,
+``decode_step`` run :func:`_tp_block` / :func:`_tp_decode_block`: the
+rank's cache holds the KV heads its query heads read (:func:`_kv_heads`;
+an ``xattn`` layer's ``kx`` / ``vx`` too), an ``ssm`` layer's state of its
+heads and conv tail of its channels, an ``rglru`` layer's of its channels,
+and the logits are its vocab block, the reference's ``P("data", "model")``
+(:func:`logits_split`).  :func:`serving_params` resolves a rank's params
+once (``generate`` calls it once per call).  ``init_cache(...,
 layout=)`` gives a rank's cache.
 
 Under FSDP (the layout's ``zero_axis``: a training rank's zero group, a
@@ -60,16 +65,14 @@ serving rank's data group) each leaf that the placement cuts over
 :func:`_zblock` gathers it to the model block where it is used: a layer's
 leaves inside the layer (``_Leaves``, so inside the checkpointed body, and
 again in its recompute under remat), ``embed`` at the lookup and at a tied
-head, the head once per ``loss_fn`` call, ``final_norm`` once; the code
-downstream then computes on the model block as above.  Its backward
-(``ShardedParams.zero_mode``) reduce-scatters the gradient where the zero
-ranks compute their own rows of the microbatch (``"sum"``; a leaf held whole
-over zero has its gradient all-reduced) and keeps the rank's slice where
-each computes the whole microbatch (``"slice"``).  Without remat a gathered
-weight is saved for its product's backward, so the gathered model blocks of
-every layer live until the backward passes them.  The families that
-:func:`_gathered` computes replicated gather every leaf over zero and model
-up front, the whole model block for the whole forward and backward.
+head, the head once per ``loss_fn`` call, ``final_norm`` and ``enc_norm``
+once; the code downstream then computes on the model block as above.  Its
+backward (``ShardedParams.zero_mode``) reduce-scatters the gradient where
+the zero ranks compute their own rows of the microbatch (``"sum"``; a leaf
+held whole over zero has its gradient all-reduced) and keeps the rank's
+slice where each computes the whole microbatch (``"slice"``).  Without
+remat a gathered weight is saved for its product's backward, so the
+gathered model blocks of every layer live until the backward passes them.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
-from repro_torch.models.convert import STACKED, FlatLayout, ShardedParams
+from repro_torch.models.convert import FlatLayout, ShardedParams
 
 F32 = torch.float32
 MOE_AUX_COEF = 0.01
@@ -301,7 +304,7 @@ def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
     / ``vx`` (B, enc_len, KVH, hd); a recurrent block its state after the
     last position (``layers.mamba2_apply`` / ``rglru_apply``)."""
     if _model_split(p.params):
-        return _tp_block(p, kind, x, positions, cfg, kv_out)
+        return _tp_block(p, kind, x, positions, cfg, enc_out, kv_out)
     mixer, ffn = _parse_kind(kind)
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
     if mixer in RECURRENT:
@@ -329,18 +332,22 @@ def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
 def _mixer_params(p, mixer: str, cfg) -> dict:
     """A recurrent block's ``ssm`` / ``rglru`` leaves nested as the
     reference's tree (``{"conv": {"w", "b"}, ...}``: the mixer's spec, one
-    level deep), the form of ``layers.mamba2_apply`` / ``rglru_apply``."""
+    level deep), the form of ``layers.mamba2_apply`` / ``rglru_apply``;
+    ``p(name)`` takes each leaf (a layer's :class:`_Leaves`, or its
+    ``full``: gathered)."""
     spec = (_mamba2_spec if mixer == "ssm" else _rglru_spec)(cfg, ())
     return {k: {n: p(f"{mixer}.{k}.{n}") for n in v} if isinstance(v, dict)
             else p(f"{mixer}.{k}") for k, v in spec.items()}
 
 
-def _cross_kv(p, enc_out, cfg) -> tuple:
+def _cross_kv(p, enc_out, cfg, kv=None) -> tuple:
     """The cross-attention's keys and values of the encoder output, without
-    RoPE: (B, enc_len, KVH, hd) each."""
+    RoPE: (B, enc_len, KVH, hd) each; ``kv``: a model-parallel rank's
+    (``wk``, ``wv``, KV heads) (:func:`_kv_weights`)."""
+    wk, wv, nkv = kv or (p("xattn.wk"), p("xattn.wv"), cfg.n_kv_heads)
     B, Se, _ = enc_out.shape
-    kx = (enc_out @ p("xattn.wk").to(enc_out.dtype)).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
-    vx = (enc_out @ p("xattn.wv").to(enc_out.dtype)).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    kx = (enc_out @ wk.to(enc_out.dtype)).reshape(B, Se, nkv, cfg.hd)
+    vx = (enc_out @ wv.to(enc_out.dtype)).reshape(B, Se, nkv, cfg.hd)
     return kx, vx
 
 
@@ -348,7 +355,8 @@ def _cross_residual(p, x, kx, vx, cfg):
     """x + the cross-attention of ``lnx(x)``'s queries over every encoder
     position's ``kx`` / ``vx``.  Decode calls it on one query row: the
     reference masks that call with an all-true mask, which hides nothing,
-    so no mask is built."""
+    so no mask is built.  ``p(name)`` takes each leaf (a layer's
+    :class:`_Leaves`, or its ``full``: gathered)."""
     hx = L.rmsnorm(p("lnx.scale"), x, cfg.norm_eps)
     B, S, _ = hx.shape
     qx = (hx @ p("xattn.wq").to(hx.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
@@ -434,18 +442,6 @@ def _layers(params: dict, cfg, stack: str = "decoder"):
 # The model axis (a model-parallel rank's ShardedParams)
 # ---------------------------------------------------------------------------
 
-MEGATRON_KINDS = ("attn:dense", "swa:dense", "attn:moe", "swa:moe")
-
-
-def megatron_split(cfg) -> bool:
-    """The configs computed Megatron-split on a model-parallel rank: the
-    decoder LM and the VLM of ``attn`` / ``swa`` blocks with dense or MoE
-    FFNs.  Every other family (``ssm``, ``rglru``, ``encdec``) gathers its
-    leaves and computes replicated."""
-    return cfg.family in ("lm", "vlm") and all(
-        f"{_parse_kind(k)[0]}:{_parse_kind(k)[1]}" in MEGATRON_KINDS for k in cfg.pattern)
-
-
 def _model_split(params) -> bool:
     """A model-parallel rank's params (``model`` > 1), which the split code
     paths compute on; an FSDP rank with ``model`` = 1 computes the dense
@@ -472,68 +468,30 @@ def _rows(params):
     """The zero group whose ranks compute their own rows of the microbatch
     (``layers.moe_apply`` then reduces its aux loss's statistics over it),
     else None."""
-    if isinstance(params, ShardedParams):
-        return params.layout.zero_axis if params.zero_mode == "sum" else None
-    return getattr(params, "rows", None)
+    if isinstance(params, ShardedParams) and params.zero_mode == "sum":
+        return params.layout.zero_axis
+    return None
 
 
-class _Gathered(dict):
-    """:func:`_gathered`'s leaves; ``rows``: the zero group where the zero
-    ranks compute their own rows of the microbatch (``layers.moe_apply``
-    then reduces its aux loss's statistics over it), else None."""
-
-    rows = None
-
-
-def _gathered(params: ShardedParams) -> dict:
-    """Every leaf whole (stacked leaves as per-layer lists), gathered over
-    the zero group (:func:`_zblock`) and the model group, the gradients
-    reduce-scattered or cut back: the replicated compute."""
-    axis, out = params.layout.axis, _Gathered()
-    if params.zero_mode == "sum":
-        out.rows = params.layout.zero_axis
-
-    def whole(name, t, d, layer):
-        t = _zblock(params, name, t, layer)
-        return t if d is None else TP.gather(t, axis, d)
-
-    for name, leaf in params.items():
-        d = params.dim(name, layer=True)
-        if isinstance(leaf, list):
-            out[name] = [whole(name, t, d, True) for t in leaf]
-        elif name.startswith(STACKED) and (d is not None or params.zdim(name) is not None):
-            # a stacked leaf as one tensor (a layout's views): layer by layer
-            out[name] = [whole(name, t, d, True) for t in leaf.unbind(0)]
-        else:
-            out[name] = whole(name, leaf, d, False)
-    return out
-
-
-def _resolve(params: dict, cfg) -> dict:
-    """The params a forward computes on: a model-parallel rank's as they
-    are for :func:`megatron_split` configs, gathered for the others."""
-    if isinstance(params, ShardedParams) and not megatron_split(cfg):
-        return _gathered(params)
-    return params
-
-
-NORM_SCALES = ("ln1.scale", "ln2.scale", "final_norm.scale")
+NORM_SCALES = ("ln1.scale", "ln2.scale", "lnx.scale", "final_norm.scale", "enc_norm.scale")
 
 
 def serving_params(params: dict, cfg) -> dict:
     """The params ``prefill`` / ``decode_step`` compute on, resolved once
     (``train.serve.generate`` does it once per call; each of the two does
-    it on params not yet resolved): dense ones as they are; a
-    Megatron-split rank's ``ShardedParams`` once every attention layer's KV
-    heads are known to be servable (:func:`_rank_kv`), its norm scales
-    gathered (a stacked one in one call) and held whole from then on; the
-    other families' every leaf gathered (:func:`_gathered`)."""
+    it on params not yet resolved): dense ones as they are; a rank's
+    ``ShardedParams`` once every attention layer's KV heads (and
+    cross-attention's) are known to be servable (:func:`_rank_kv`), its
+    norm scales gathered (a stacked one in one call) and held whole from
+    then on."""
     if not isinstance(params, ShardedParams) or params.resolved:
         return params
-    if not megatron_split(cfg):
-        return _gathered(params)
-    for _, _, p in _layers(params, cfg):
-        _rank_kv(p, cfg)
+    for _, kind, p in _layers(params, cfg):
+        mixer = _parse_kind(kind)[0]
+        if mixer not in RECURRENT:
+            _rank_kv(p, cfg)
+        if mixer == "xattn":
+            _rank_kv(p, cfg, "xattn.")
     axis = params.layout.axis
     out = params.replace({name: TP.gather(leaf, axis, params.dim(name))
                           for name, leaf in params.items()
@@ -545,9 +503,9 @@ def serving_params(params: dict, cfg) -> dict:
 
 def logits_split(params: dict, cfg) -> bool:
     """``prefill`` / ``decode_step`` on ``params`` return the rank's vocab
-    block of the logits (a Megatron-split config on a rank whose output
-    table is vocab-sharded), not the whole padded vocab."""
-    return megatron_split(cfg) and _vocab_split(params, cfg)
+    block of the logits (a rank whose output table is vocab-sharded), not
+    the whole padded vocab."""
+    return _vocab_split(params, cfg)
 
 
 def _full(params: dict, name: str):
@@ -558,34 +516,60 @@ def _full(params: dict, name: str):
     return TP.gather(leaf, params.layout.axis, params.dim(name))
 
 
-def _tp_block(p: _Leaves, kind: str, x, positions, cfg, kv_out=None):
-    """One ``attn`` / ``swa`` block with a dense or MoE FFN on a
-    model-parallel rank; returns (x, the MoE aux loss or None) with x the
-    same on every rank of the group.  With a dict ``kv_out`` the rank's
-    keys and values land in it, as :func:`_apply_block`'s (its KV heads:
-    :func:`_rank_kv`)."""
+def _tp_block(p: _Leaves, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
+    """One block on a model-parallel rank; returns (x, the MoE aux loss or
+    None) with x the same on every rank of the group: the mixer split
+    (attention by heads, :func:`_tp_attention`; ``encattn`` bidirectional;
+    a recurrence by heads or channels, :func:`_tp_recurrent`; an ``xattn``
+    block's cross-attention by heads, :func:`_tp_cross_kv` /
+    :func:`_tp_cross_residual`), then the FFN (:func:`_tp_ffn`).  With a
+    dict ``kv_out`` the rank's cache entry lands in it, as
+    :func:`_apply_block`'s: its KV heads (:func:`_rank_kv`), its heads' or
+    channels' recurrent state."""
     mixer, ffn = _parse_kind(kind)
     axis = p.params.layout.axis
     h = L.rmsnorm(p.full("ln1.scale"), x, cfg.norm_eps)
-    window = cfg.window if mixer == "swa" else None
-    x = x + _tp_attention(p, h, positions, cfg, window, axis, kv_out)
+    if mixer in RECURRENT:
+        x = x + _tp_recurrent(p, mixer, h, cfg, axis, state_out=kv_out)
+    else:
+        window = cfg.window if mixer == "swa" else None
+        x = x + _tp_attention(p, h, positions, cfg, window, axis, kv_out, mixer == "encattn")
+    if mixer == "xattn":
+        kx, vx = _tp_cross_kv(p, enc_out, cfg, axis)
+        if kv_out is not None:
+            kv_out.update(kx=kx, vx=vx)
+        x = _tp_cross_residual(p, x, kx, vx, cfg, axis)
+    if ffn == "none":
+        return x, None
     h = L.rmsnorm(p.full("ln2.scale"), x, cfg.norm_eps)
     out, aux = _tp_ffn(p, ffn, h, cfg, axis)
     return x + out, aux
 
 
 def _tp_decode_block(p: _Leaves, kind: str, entry: dict, x, pos: int, cfg):
-    """:func:`_decode_block` of an ``attn`` / ``swa`` block with a dense or
-    MoE FFN on a model-parallel rank: the rank's query heads, its KV heads
-    written into its cache ``entry`` and attended over (the ``swa`` ring as
-    the dense block's), ``wo`` row-parallel with one all-reduce, the FFN as
+    """:func:`_decode_block` on a model-parallel rank: attention over the
+    rank's query heads, its KV heads written into its cache ``entry`` and
+    attended over (the ``swa`` ring as the dense block's), ``wo``
+    row-parallel with one all-reduce; a recurrence's step on the rank's
+    heads or channels and their state (:func:`_tp_recurrent`); the
+    cross-attention over the entry's ``kx`` / ``vx``; the FFN as
     :func:`_tp_ffn`."""
     mixer, ffn = _parse_kind(kind)
     axis = p.params.layout.axis
     h = L.rmsnorm(p.full("ln1.scale"), x, cfg.norm_eps)
-    positions = torch.arange(pos, pos + 1, device=x.device)
-    q, k, v, split = _tp_qkv(p, h, positions, cfg, axis)
-    x = x + _tp_out(p, _cache_attend(entry, mixer, q, k, v, pos), axis, split)
+    if mixer in RECURRENT:
+        out, new = _tp_recurrent(p, mixer, h[:, 0], cfg, axis, cache=entry)
+        for name, value in new.items():
+            entry[name].copy_(value)
+        x = x + out[:, None]
+    else:
+        positions = torch.arange(pos, pos + 1, device=x.device)
+        q, k, v, split = _tp_qkv(p, h, positions, cfg, axis)
+        x = x + _tp_out(p, _cache_attend(entry, mixer, q, k, v, pos), axis, split)
+    if mixer == "xattn":
+        x = _tp_cross_residual(p, x, entry["kx"], entry["vx"], cfg, axis)
+    if ffn == "none":
+        return x
     h = L.rmsnorm(p.full("ln2.scale"), x, cfg.norm_eps)
     return x + _tp_ffn(p, ffn, h, cfg, axis)[0]
 
@@ -606,40 +590,56 @@ def _kv_heads(cfg, model: int, index: int) -> tuple:
         f"(ROADMAP.md queue 1, 'Refused')")
 
 
-def _heads_split(p: _Leaves, cfg, model: int) -> bool:
+def _heads_split(p: _Leaves, cfg, model: int, pre: str = "attn.") -> bool:
     """The rank holds whole query heads of ``wq`` (column-parallel) and
-    their rows of ``wo`` (row-parallel): attention is split by heads."""
-    return p.dim("attn.wq") == 1 and p.dim("attn.wo") == 0 and cfg.n_heads % model == 0
+    their rows of ``wo`` (row-parallel) under ``pre`` (``"attn."``, the
+    cross-attention's ``"xattn."``): attention is split by heads."""
+    return p.dim(pre + "wq") == 1 and p.dim(pre + "wo") == 0 and cfg.n_heads % model == 0
 
 
-def _rank_kv(p: _Leaves, cfg) -> tuple:
+def _rank_kv(p: _Leaves, cfg, pre: str = "attn.") -> tuple:
     """(first KV head, KV heads) a model-parallel rank computes and caches
-    for this layer: those of :func:`_kv_heads` where attention is split by
-    heads, else all of them (the replicated compute over gathered leaves)."""
+    for this layer's attention under ``pre``: those of :func:`_kv_heads`
+    where it is split by heads, else all of them (the replicated compute
+    over gathered leaves)."""
     lay = p.params.layout
-    if not _heads_split(p, cfg, lay.model):
+    if not _heads_split(p, cfg, lay.model, pre):
         return 0, cfg.n_kv_heads
     return _kv_heads(cfg, lay.model, lay.model_index)
 
 
+def _kv_direct(p: _Leaves, cfg, model: int, pre: str = "attn.") -> bool:
+    """The rank's blocks of ``wk`` / ``wv`` under ``pre`` are the KV heads
+    its query heads read: whole KV heads cut on the column dim."""
+    return cfg.n_kv_heads % model == 0 and p.dim(pre + "wk") == 1 and p.dim(pre + "wv") == 1
+
+
+def _kv_weights(p: _Leaves, cfg, axis, pre: str = "attn.") -> tuple:
+    """(wk, wv, KV heads) of the KV heads the rank's query heads read under
+    ``pre``: its blocks of ``wk`` / ``wv`` where they are those heads, else
+    those heads' columns of the whole leaves (gathered, the gradient
+    reduce-scattered: the rank's block cuts a head, or is not on the model
+    axis)."""
+    M, hd = axis.world, cfg.hd
+    if _kv_direct(p, cfg, M, pre):
+        return p(pre + "wk"), p(pre + "wv"), cfg.n_kv_heads // M
+    kv0, nkv = _kv_heads(cfg, M, axis.rank)
+    cols = slice(kv0 * hd, (kv0 + nkv) * hd)
+    return p.full_partial(pre + "wk")[:, cols], p.full_partial(pre + "wv")[:, cols], nkv
+
+
 def _tp_qkv(p: _Leaves, h, positions, cfg, axis) -> tuple:
     """(q, k, v, split): the rank's query heads (``wq`` column-parallel) and
-    the KV heads they read, or every head over gathered leaves where
-    ``wq`` / ``wo``'s blocks are not whole heads (``split`` False)."""
-    M, KVH, hd = axis.world, cfg.n_kv_heads, cfg.hd
+    the KV heads they read (:func:`_kv_weights`), or every head over
+    gathered leaves where ``wq`` / ``wo``'s blocks are not whole heads
+    (``split`` False)."""
+    M = axis.world
     if not _heads_split(p, cfg, M):
         q, k, v = L.attn_qkv(p.full("attn.wq"), p.full("attn.wk"), p.full("attn.wv"), h,
                              positions, cfg)
         return q, k, v, False
     hc = TP.copy_to(h, axis)
-    if KVH % M == 0 and p.dim("attn.wk") == 1 and p.dim("attn.wv") == 1:
-        wk, wv, nkv = p("attn.wk"), p("attn.wv"), KVH // M
-    else:
-        # the rank's block of wk / wv cuts a head (or is not on the model
-        # axis): take the KV heads its query heads use from the whole leaf
-        kv0, nkv = _kv_heads(cfg, M, axis.rank)
-        wk = p.full_partial("attn.wk")[:, kv0 * hd:(kv0 + nkv) * hd]
-        wv = p.full_partial("attn.wv")[:, kv0 * hd:(kv0 + nkv) * hd]
+    wk, wv, nkv = _kv_weights(p, cfg, axis)
     q, k, v = L.attn_qkv(p("attn.wq"), wk, wv, hc, positions, cfg,
                          heads=(cfg.n_heads // M, nkv))
     return q, k, v, True
@@ -653,16 +653,137 @@ def _tp_out(p: _Leaves, out, axis, split: bool):
     return TP.reduce_from(L.attn_proj_out(p("attn.wo"), out), axis)
 
 
-def _tp_attention(p: _Leaves, h, positions, cfg, window, axis, kv_out=None):
+def _tp_attention(p: _Leaves, h, positions, cfg, window, axis, kv_out=None,
+                  bidirectional: bool = False):
     """Attention over the rank's whole query heads (``wq`` column- and
     ``wo`` row-parallel, one all-reduce of the output); replicated over
-    gathered leaves where ``wq`` / ``wo``'s blocks are not whole heads."""
+    gathered leaves where ``wq`` / ``wo``'s blocks are not whole heads.
+    Causal (``window``: sliding), or over every position (the encoder's
+    ``bidirectional``)."""
     q, k, v, split = _tp_qkv(p, h, positions, cfg, axis)
     if kv_out is not None:
         w = k.shape[1] if window is None else min(window, k.shape[1])
         kv_out.update(k=k[:, -w:], v=v[:, -w:])
-    out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
+    if bidirectional:
+        out = L.full_attention(q, k, v)
+    else:
+        out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
     return _tp_out(p, out, axis, split)
+
+
+def _cross_split(params: dict, cfg) -> bool:
+    """An ``encdec`` model's cross-attention is split by heads on this
+    model-parallel rank (every ``xattn`` layer's placement is the same):
+    each rank's gradient of the encoder output is then partial."""
+    if not _model_split(params) or cfg.family != "encdec":
+        return False
+    return any(_parse_kind(kind)[0] == "xattn"
+               and _heads_split(p, cfg, params.layout.model, "xattn.")
+               for _, kind, p in _layers(params, cfg))
+
+
+def _tp_cross_kv(p: _Leaves, enc_out, cfg, axis) -> tuple:
+    """(kx, vx) of the cross-attention on a model-parallel rank: its KV
+    heads' (``xattn.wk`` / ``wv`` column-parallel over the encoder output,
+    which every rank holds alike and whose gradient :func:`_inputs`
+    all-reduces once), or every head's over the gathered leaves where
+    ``xattn``'s blocks are not whole heads."""
+    if not _heads_split(p, cfg, axis.world, "xattn."):
+        return _cross_kv(p.full, enc_out, cfg)
+    return _cross_kv(p, enc_out, cfg, _kv_weights(p, cfg, axis, "xattn."))
+
+
+def _tp_cross_residual(p: _Leaves, x, kx, vx, cfg, axis):
+    """:func:`_cross_residual` on a model-parallel rank: ``lnx`` gathered,
+    the rank's query heads (``xattn.wq`` column-parallel) over its ``kx`` /
+    ``vx``, ``xattn.wo`` row-parallel with one all-reduce; replicated over
+    the gathered leaves where the blocks are not whole heads."""
+    if not _heads_split(p, cfg, axis.world, "xattn."):
+        return _cross_residual(p.full, x, kx, vx, cfg)
+    hx = TP.copy_to(L.rmsnorm(p.full("lnx.scale"), x, cfg.norm_eps), axis)
+    B, S, _ = hx.shape
+    qx = (hx @ p("xattn.wq").to(hx.dtype)).reshape(B, S, cfg.n_heads // axis.world, cfg.hd)
+    out = L.attn_proj_out(p("xattn.wo"), L.full_attention(qx, kx, vx))
+    return x + TP.reduce_from(out, axis)
+
+
+def _rank_width(mixer: str, cfg, model: int):
+    """The heads (``ssm``) or channels (``rglru``) a model-parallel rank
+    computes of a recurrent mixer: its ``1 / model`` share, or None where
+    they do not divide (mamba2 SMOKE's 8 heads over the pod's 16 model
+    ranks): the placement then holds the mixer's leaves whole or in blocks
+    no rank can compute from, and every rank computes every head or channel
+    over its leaves gathered one at a time (:func:`_tp_recurrent`)."""
+    width = cfg.ssm_heads if mixer == "ssm" else cfg.d_rnn
+    return width // model if width % model == 0 else None
+
+
+def mixer_parts(mixer: str, cfg, model: int, index: int) -> dict:
+    """``{leaf: (dim, ranges)}`` of a recurrent mixer on model rank
+    ``index``: the (start, stop) ranges along ``dim`` of each whole leaf
+    (one layer's) that its heads (``ssm``: ``in_proj``'s columns of their z,
+    x and dt and all of B and C, ``conv``'s channels of their x and all of
+    B and C, their ``A_log``, ``D``, ``dt_bias``, ``norm`` channels and
+    ``out_proj`` rows) or channels (``rglru``: ``in_x`` / ``in_gate`` /
+    ``w_a`` / ``w_x`` columns, ``conv`` and ``lam`` channels, ``out`` rows)
+    read.  The reference's placements cut ``in_proj`` and ``conv`` into
+    contiguous blocks that are not these (:func:`_part`)."""
+    n = _rank_width(mixer, cfg, model)
+    if mixer == "rglru":
+        ch = [(index * n, (index + 1) * n)]
+        return {leaf: (d, ch) for leaf, d in (
+            ("in_x", 1), ("in_gate", 1), ("conv.w", 1), ("conv.b", 0), ("w_a", 1),
+            ("w_x", 1), ("lam", 0), ("out", 0))}
+    di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    heads, ch = (index * n, (index + 1) * n), (index * n * P, (index + 1) * n * P)
+    bc = (2 * di, 2 * di + 2 * N)
+    dt = tuple(2 * di + 2 * N + h for h in heads)
+    conv = [ch, (di, di + 2 * N)]
+    return {"in_proj": (1, [ch, (di + ch[0], di + ch[1]), bc, dt]),
+            "conv.w": (1, conv), "conv.b": (0, conv), "A_log": (0, [heads]),
+            "D": (0, [heads]), "dt_bias": (0, [heads]), "norm.scale": (0, [ch]),
+            "out_proj": (0, [ch])}
+
+
+def _part(p: _Leaves, name: str, dim: int, ranges: list):
+    """The rank's part of one layer's leaf ``name``: the whole leaf's
+    ``ranges`` along ``dim``, concatenated.  Its block as it is where that
+    is the one range and the placement cuts ``dim`` (so the block is that
+    range); else cut from the whole leaf (:meth:`_Leaves.full_partial`:
+    gathered, its gradient reduce-scattered, or all-reduced for a leaf held
+    whole)."""
+    if len(ranges) == 1 and p.dim(name) == dim:
+        return p(name)
+    whole = p.full_partial(name)
+    return torch.cat([whole.narrow(dim, a, b - a) for a, b in ranges], dim=dim)
+
+
+def _rank_mixer(p: _Leaves, mixer: str, cfg) -> dict:
+    """A recurrent mixer's leaves for the rank's heads or channels
+    (:func:`mixer_parts`), nested as :func:`_mixer_params`."""
+    lay, out = p.params.layout, {}
+    for leaf, (dim, ranges) in mixer_parts(mixer, cfg, lay.model, lay.model_index).items():
+        head, _, key = leaf.rpartition(".")
+        (out.setdefault(head, {}) if head else out)[key] = _part(p, f"{mixer}.{leaf}", dim,
+                                                                 ranges)
+    return out
+
+
+def _tp_recurrent(p: _Leaves, mixer: str, h, cfg, axis, state_out=None, cache=None):
+    """A recurrent mixer on a model-parallel rank (``layers.mamba2_apply``
+    / ``rglru_apply`` with ``tp``): Mamba-2 by heads, the RG-LRU by
+    channels (:func:`_rank_mixer`); replicated over its leaves, each
+    gathered at use, where they do not divide over the group
+    (:func:`_rank_width`).  With a ``cache`` entry, one decode step
+    (``mamba2_decode`` / ``rglru_decode``): (out, the new state)."""
+    split = _rank_width(mixer, cfg, axis.world) is not None
+    params = _rank_mixer(p, mixer, cfg) if split else _mixer_params(p.full, mixer, cfg)
+    tp = axis if split else None
+    if cache is not None:
+        step = L.mamba2_decode if mixer == "ssm" else L.rglru_decode
+        return step(params, cache, h, cfg, tp=tp)
+    apply = L.mamba2_apply if mixer == "ssm" else L.rglru_apply
+    return apply(params, h, cfg, state_out=state_out, tp=tp)
 
 
 def _mlp_split(p: _Leaves, pre: str, cfg) -> bool:
@@ -673,11 +794,11 @@ def _mlp_split(p: _Leaves, pre: str, cfg) -> bool:
             and (not cfg.mlp_gated or p.dim(pre + "w3") == 1))
 
 
-def _experts_split(p: _Leaves, cfg) -> bool:
-    """The rank's blocks of the experts split d_ff: ``we1`` / ``we3`` (E,
-    d, d_ff / M), ``we2`` (E, d_ff / M, d)."""
-    return (p.dim("moe.we1") == 2 and p.dim("moe.we2") == 1
-            and (not cfg.mlp_gated or p.dim("moe.we3") == 2))
+def _experts_split(p: _Leaves, cfg, pre: str = "moe.") -> bool:
+    """The rank's blocks of the experts under ``pre`` split d_ff: ``we1`` /
+    ``we3`` (E, d, d_ff / M), ``we2`` (E, d_ff / M, d)."""
+    return (p.dim(pre + "we1") == 2 and p.dim(pre + "we2") == 1
+            and (not cfg.mlp_gated or p.dim(pre + "we3") == 2))
 
 
 def _tp_ffn(p: _Leaves, ffn: str, h, cfg, axis) -> tuple:
@@ -766,18 +887,22 @@ def _encode(params: dict, frames: torch.Tensor, cfg, remat: bool = True,
     x = frames.to(cfg.act_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run_stack(params, cfg, "encoder", x, positions, remat=remat)
-    return L.rmsnorm(params["enc_norm.scale"], x, cfg.norm_eps)
+    return L.rmsnorm(_full(params, "enc_norm.scale"), x, cfg.norm_eps)
 
 
 def _inputs(params: dict, batch: dict, cfg, remat: bool = False) -> tuple:
     """(the decoder's input (B, n_prefix + S, d), the encoder output or
     None, n_prefix): the text embedding, after the projected patches of a
     ``vlm`` batch (``n_prefix`` of them); an ``encdec`` batch's frames
-    through the encoder."""
+    through the encoder (whole on every model-parallel rank), its output
+    through ``copy_to`` where the cross-attention is split
+    (:func:`_cross_split`)."""
     x = _embed(params, batch["tokens"], cfg)
     enc_out, n_prefix = None, 0
     if cfg.family == "encdec":
         enc_out = _encode(params, batch["frames"], cfg, remat=remat)
+        if _cross_split(params, cfg):
+            enc_out = TP.copy_to(enc_out, params.layout.axis)
     elif cfg.family == "vlm":
         patches = _patch_prefix(params, batch["patches"], cfg)
         x = torch.cat([patches, x], dim=1)
@@ -855,7 +980,6 @@ def _forward(params: dict, batch: dict, cfg, remat: bool = False,
              remat_policy: str = "full"):
     """(final hidden states, the MoE aux loss summed over layers or None,
     n_prefix)."""
-    params = _resolve(params, cfg)
     x, enc_out, n_prefix = _inputs(params, batch, cfg, remat)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _run_stack(params, cfg, "decoder", x, positions, enc_out, remat, remat_policy)
@@ -907,7 +1031,6 @@ def loss_fn(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
     over ``mask.sum()``, plus ``MOE_AUX_COEF`` times the aux loss summed
     over the MoE layers (a model without one adds nothing).  ``remat``,
     ``unroll``, ``remat_policy``: as :func:`hidden_states`."""
-    params = _resolve(params, cfg)
     h, aux, n_prefix = _forward(params, batch, cfg, remat, remat_policy)
     h = h[:, n_prefix:]
     tokens = batch["tokens"]
@@ -960,27 +1083,33 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
     (batch, width - 1, d_rnn)}``.
 
     A serving rank passes its batch rows as ``batch`` and its ``layout``
-    (``tensor_parallel.rank_layout``): a Megatron-split config's attention
-    layers then cache the KV heads the rank computes (:func:`_rank_kv`) in
-    place of KVH; every other family's cache is whole over the model axis."""
+    (``tensor_parallel.rank_layout``): its attention layers then cache the
+    KV heads the rank computes (:func:`_rank_kv`) in place of KVH (and its
+    cross-attention's, ``kx`` / ``vx``), its ``ssm`` layers its H / M heads'
+    state and d_inner / M + 2N conv channels, its ``rglru`` layers its d_rnn
+    / M channels (:func:`_rank_width`; all of them where they do not
+    divide)."""
     check_supported(cfg)
     dtype = dtype or cfg.act_dtype
-    rank = (ShardedParams(layout) if layout is not None and layout.model > 1
-            and megatron_split(cfg) else None)
+    rank = ShardedParams(layout) if layout is not None and layout.model > 1 else None
 
     def entry(kind, pre, lead=()):
         mixer = _parse_kind(kind)[0]
+        width = None if rank is None else _rank_width(mixer, cfg, layout.model)
         if mixer == "ssm":
-            return L.mamba2_init_cache(cfg, batch, dtype, lead, device)
+            return L.mamba2_init_cache(cfg, batch, dtype, lead, device, heads=width)
         if mixer == "rglru":
-            return L.rglru_init_cache(cfg, batch, dtype, lead, device)
+            return L.rglru_init_cache(cfg, batch, dtype, lead, device, channels=width)
         n = _cache_len(kind, cfg, max_len)
-        lens = {"k": n, "v": n}
+        p = None if rank is None else _Leaves(rank, pre)
+        kvh = cfg.n_kv_heads if p is None else _rank_kv(p, cfg)[1]
+        shapes = {"k": (n, kvh), "v": (n, kvh)}
         if mixer == "xattn":
-            lens.update(kx=cfg.enc_len, vx=cfg.enc_len)
-        kvh = cfg.n_kv_heads if rank is None else _rank_kv(_Leaves(rank, pre), cfg)[1]
-        return {name: torch.zeros(lead + (batch, n, kvh, cfg.hd), dtype=dtype, device=device)
-                for name, n in lens.items()}
+            xkv = cfg.n_kv_heads if p is None else _rank_kv(p, cfg, "xattn.")[1]
+            shapes.update(kx=(cfg.enc_len, xkv), vx=(cfg.enc_len, xkv))
+        return {name: torch.zeros(lead + (batch,) + shape + (cfg.hd,), dtype=dtype,
+                                  device=device)
+                for name, shape in shapes.items()}
 
     blocks = ({f"p{j}": entry(kind, f"decoder.blocks.p{j}.", (cfg.n_scan_blocks,))
                for j, kind in enumerate(cfg.pattern)} if cfg.n_scan_blocks > 0 else {})

@@ -221,6 +221,14 @@ def test_model_axis_audit_moe():
     _model_axis_audit(load_arch("granite_moe_3b_a800m").SMOKE)
 
 
+def test_model_axis_audit_recurrent():
+    """:func:`test_model_axis_audit` on recurrentgemma SMOKE: its RG-LRU
+    layers split by channels over the model group (the conv output
+    gathered, its gradient reduce-scattered, the output all-reduced) count
+    as the placements' reckoning."""
+    _model_axis_audit(load_arch("recurrentgemma_2b").SMOKE)
+
+
 def _model_axis_audit(cfg) -> None:
     ranks = spawn.run_ranks(torch_ranks.tp_audit_rank, 4, (cfg, 2, 2, 2), timeout_s=300)
     for r in ranks:

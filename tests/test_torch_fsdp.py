@@ -13,8 +13,10 @@ package and the port's own paths without it, on gloo ranks on the CPU
     granite_moe (its MoE layers' leaves gathered over zero per layer, its
     aux loss over the whole microbatch) and llava (``patch_proj`` gathered
     over zero, column-parallel over model) with ``B_micro`` = 2 on zero,
-    nano with the batch whole over zero (1 row), and minitron_4b and
-    granite_moe under remat.  Each rank's
+    nano with the batch whole over zero (1 row), minitron_4b and
+    granite_moe under remat, and the recurrent and encoder-decoder families
+    (mamba2, recurrentgemma, whisper; each layer's leaves gathered over zero
+    inside the layer, mamba2 under remat too).  Each rank's
     ``CommStats`` equals ``tensor_parallel.microbatch_collectives``' to the
     byte, per group.
   * **The DSM step** (AdamW, tau 2, gamma 1e-3, eta 0.5, ZeRO-sharded
@@ -78,6 +80,11 @@ GRAD_CASES = [(a, m, 2, False) for m in (1, 2) for a in ("nano", "minitron_4b", 
                                                           "llava_next_34b")]
 GRAD_CASES += [("nano", m, 1, False) for m in (1, 2)] + [("minitron_4b", 2, 2, True),
                                                          ("granite_moe_3b_a800m", 2, 2, True)]
+# the recurrent and encoder-decoder families, each layer's leaves gathered
+# over zero inside the layer
+GRAD_CASES += [(a, m, 2, False) for m in (1, 2) for a in ("mamba2_780m", "recurrentgemma_2b",
+                                                          "whisper_large_v3")]
+GRAD_CASES += [("mamba2_780m", 2, 2, True)]
 TAU, GAMMA, ETA, ROUNDS, W = 2, 1e-3, 0.5, 2, 2
 ZERO_FLAGS = {"zero_sharded": True, "device_parallel_local": True}
 

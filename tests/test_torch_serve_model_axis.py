@@ -9,16 +9,20 @@ of a 4-sequence batch: 19 prompt tokens (past gemma3's 16-slot window, so
 its ring wraps during decode), a VLM's 16 patches or an encdec's frames
 beside them.
 
-  * Grids (data 1, model 2), (data 2, model 2) and (data 1, model 4) for the
-    Megatron-split configs: nano (tied), minitron_4b (GQA; at 4 ranks its 2
-    KV heads are cut: two ranks read each), granite_34b (MQA),
+  * Grids (data 1, model 2), (data 2, model 2) and (data 1, model 4) for
+    every family, Megatron-split: nano (tied), minitron_4b (GQA; at 4
+    ranks its 2 KV heads are cut: two ranks read each), granite_34b (MQA),
     deepseek_67b (untied ``lm_head``), gemma3_1b (``swa``), granite_moe
     and llama4 (MoE FFNs split over the model axis, llama4's shared experts
-    too) and llava (``patch_proj`` column-parallel); every other family
-    (mamba2, recurrentgemma, whisper) on (2, 2), gathered at use.
+    too), llava (``patch_proj`` column-parallel), mamba2 (its SSD by
+    heads), recurrentgemma (the RG-LRU by channels) and whisper (the
+    encoder and the cross-attention by heads).  Grid (data 1, model 3)
+    for mamba2 and recurrentgemma, whose heads and channels do not divide
+    over it: the mixer computed whole on every rank, each leaf gathered.
   * Prefill: each rank's logits (its rows, and its vocab block where the
-    logits are split) and cache (its rows, and on the Megatron path the KV
-    heads its query heads read) against the slices of the JAX package's
+    logits are split) and cache (its rows; the KV heads its query heads
+    read, the cross-attention's too; a recurrent layer's state of its heads
+    or channels) against the slices of the JAX package's
     ``prefill``; the blocks cover the whole (B, padded vocab).  Then
     ``N_DEC`` teacher-forced ``decode_step``s against JAX's ``decode_step``,
     every step's logits and the cache after them.  Tolerances:
@@ -74,11 +78,15 @@ from test_torch_tensor_parallel import _batch, _configs, _torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_ranks  # noqa: E402
 
-GRIDS = {"1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
+GRIDS = {"1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4), "1x3": (1, 3)}
 MEGATRON = ("nano", "minitron_4b", "granite_34b", "deepseek_67b", "gemma3_1b",
-            "granite_moe_3b_a800m", "llama4_maverick_400b_a17b", "llava_next_34b")
-FAMILIES = ("mamba2_780m", "recurrentgemma_2b", "whisper_large_v3")
-CASES = [(a, g) for g in GRIDS for a in MEGATRON] + [(a, "2x2") for a in FAMILIES]
+            "granite_moe_3b_a800m", "llama4_maverick_400b_a17b", "llava_next_34b",
+            "mamba2_780m", "recurrentgemma_2b", "whisper_large_v3")
+# over 3 model ranks mamba2's 8 heads and recurrentgemma's 128 RG-LRU
+# channels do not divide: each rank serves the whole mixer over its leaves
+UNDIVIDED = ("mamba2_780m", "recurrentgemma_2b")
+CASES = ([(a, g) for g in ("1x2", "2x2", "1x4") for a in MEGATRON]
+         + [(a, "1x3") for a in UNDIVIDED])
 IDS = [f"{a}-{g}" for a, g in CASES]
 SAMPLED = ("minitron_4b", "2x2")           # the temperature case
 TEMPERATURE = 1.5
@@ -164,11 +172,10 @@ def served() -> dict:
 
 
 def _kv_range(cfg, M: int, m: int) -> range:
-    """The KV heads model rank m of M caches on the Megatron path: those its
-    query heads [m H/M, (m + 1) H/M) read; all of them where H / M is not
-    whole."""
+    """The KV heads model rank m of M caches: those its query heads [m H/M,
+    (m + 1) H/M) read; all of them where H / M is not whole."""
     H, KVH = cfg.n_heads, cfg.n_kv_heads
-    if not T.megatron_split(cfg) or H % M:
+    if H % M:
         return range(KVH)
     rep = H // KVH
     heads = sorted({h // rep for h in range(m * H // M, (m + 1) * H // M)})
@@ -176,13 +183,25 @@ def _kv_range(cfg, M: int, m: int) -> range:
 
 
 def _rank_slice(path: str, leaf: np.ndarray, r: dict, cfg, M: int) -> np.ndarray:
-    """The slice of a dense cache leaf that rank ``r`` holds: its rows and,
-    for a key or value on the Megatron path, its KV heads."""
+    """The slice of a dense cache leaf that rank ``r`` holds: its rows and
+    its KV heads of a key or value (the cross-attention's too); an ``ssm``
+    layer's state of its heads and conv tail of its heads' x channels and
+    every B and C channel, an ``rglru`` layer's of its channels
+    (``transformer.mixer_parts``)."""
     lead = 1 if path.startswith("blocks") else 0
     out = leaf[(slice(None),) * lead + (slice(*r["rows"]),)]
-    if path.rsplit(".", 1)[-1] in ("k", "v"):
+    _, layer, name = path.split(".")
+    mixer = cfg.pattern[int(layer.lstrip("p"))].split(":")[0]
+    if name in ("k", "v", "kx", "vx"):
         heads = _kv_range(cfg, M, r["model_index"])
-        out = out[..., heads.start:heads.stop, :]
+        return out[..., heads.start:heads.stop, :]
+    if mixer in T.RECURRENT and T._rank_width(mixer, cfg, M) is not None:
+        parts = T.mixer_parts(mixer, cfg, M, r["model_index"])
+        if name == "state":
+            ((a, b),) = parts["A_log"][1]
+            return out[..., a:b, :, :]
+        ranges = parts["conv.b" if name == "conv" else "lam"][1]
+        return np.concatenate([out[..., a:b] for a, b in ranges], axis=-1)
     return out
 
 
@@ -223,7 +242,7 @@ def _assert_rank_logits(blocks: list, theirs: np.ndarray, arch: str, M: int) -> 
     for r, lg in blocks:
         n = lg.shape[-1]
         split = n < cfg.padded_vocab
-        assert split == (T.megatron_split(cfg) and cfg.padded_vocab % M == 0), (n, M)
+        assert split == (cfg.padded_vocab % M == 0), (n, M)
         cols = slice(r["model_index"] * n, (r["model_index"] + 1) * n) if split else slice(None)
         rows = slice(*r["rows"])
         np.testing.assert_allclose(lg.numpy(), theirs[rows, cols],

@@ -390,17 +390,20 @@ def train_and_audit_rank(rank: int, world: int, cfg, settings: list, device: str
 
 
 def tp_losses_rank(rank: int, world: int, cases: list) -> list:
-    """:func:`tp_loss_rank` for each ``(cfg, row, batches)`` of ``cases``
-    over all ``world`` ranks as one model group, in one start of the ranks."""
-    return [tp_loss_rank(rank, world, cfg, world, row, batches) for cfg, row, batches in cases]
+    """:func:`tp_loss_rank` for each ``(cfg, row, batches[, remat])`` of
+    ``cases`` over all ``world`` ranks as one model group, in one start of
+    the ranks."""
+    return [tp_loss_rank(rank, world, cfg, world, row, batches, remat=bool(remat and remat[0]))
+            for cfg, row, batches, *remat in cases]
 
 
 def tp_loss_rank(rank: int, world: int, cfg, model: int, row, batches: list,
-                 n_workers: int = 1) -> dict:
-    """The model-axis ``loss_fn`` and its gradient on this rank, for each
-    microbatch of ``batches`` (dicts of CPU tensors): ``row`` is the dense
-    ``(N,)`` params, cut to the rank's blocks.  Returns the losses, the
-    rank's gradient rows (its layout) and its ``CommStats``."""
+                 n_workers: int = 1, remat: bool = False) -> dict:
+    """The model-axis ``loss_fn`` (``remat``: each pattern repeat
+    checkpointed) and its gradient on this rank, for each microbatch of
+    ``batches`` (dicts of CPU tensors): ``row`` is the dense ``(N,)``
+    params, cut to the rank's blocks.  Returns the losses, the rank's
+    gradient rows (its layout) and its ``CommStats``."""
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.models import convert as C
     from repro_torch.models import transformer as T
@@ -413,7 +416,7 @@ def tp_loss_rank(rank: int, world: int, cfg, model: int, row, batches: list,
     for mb in batches:
         grad = each(torch.zeros_like, mine)
         leaves = lay.autograd_leaves(mine, grad)
-        loss = T.loss_fn(leaves, mb, cfg, remat=False)
+        loss = T.loss_fn(leaves, mb, cfg, remat=remat)
         loss.backward()
         out["losses"].append(loss.detach())
         out["grads"].append(grad)
