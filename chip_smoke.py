@@ -64,11 +64,14 @@ small, Granite-MoE, LLaVA, Mamba-2, RecurrentGemma and Whisper over gloo
 ranks sharing the card,
 Megatron-split DSM steps held against the dense run, the MoE one made to
 take the ranks' routes) and serving on the (data, model) grid in the same
-start of the ranks (serve_model_axis_full_width: Minitron-4B at 16 layers
+start of the ranks (serve_model_axis_full_width: Minitron-4B at 8 layers
 in bf16 over four model ranks and at 8 layers in f32, GPT-2 small over (2,
 2), Granite-MoE, LLaVA, Mamba-2, RecurrentGemma and Whisper over four model
-ranks, each held against the dense model and its f32 logits), and FSDP in
-the same start (fsdp_full_width: GPT-2 small at whole depth with each rank's
+ranks; one prompt that does not split over data, its positions and its
+global caches' slots over data: Gemma-3 1B at whole depth in f32 over (4,
+1), Mamba-2 and RecurrentGemma over (2, 2); each held against the dense
+model and its f32 logits), and FSDP in
+the same start (fsdp_full_width: GPT-2 small at 2 layers with each rank's
 zero block gathered per layer over its zero group, against its dense run;
 Minitron-4B at 2 layers over (worker 1, zero 2, model 2) against the same
 grid without FSDP; GPT-2 small served with the data entries cut, bit-equal
@@ -311,10 +314,10 @@ RECURRENT_SMOKES = ("mamba2_780m", "recurrentgemma_2b")
 # held bit for bit against the same rounds without remat (rounds cut from 3,
 # then 2, and depth from 48, where it was held against recurrent_full_width's
 # own run and took 71.2 s, its rounds 23.6 s under "full" and 33.5 s under
-# "dots", for the time target: PERF.md section 4)
+# "dots", then 12, 8 and 4, for the time target: PERF.md section 4)
 REMAT_POLICIES = ("full", "dots")
 REMAT_ROUNDS = 1
-REMAT_LAYERS = 8
+REMAT_LAYERS = 4
 # dryrun_vs_card: every measured full-width peak within this share of the
 # dry-run's reckoning (repro_torch.launch.dryrun, on meta tensors)
 DRYRUN_RTOL = 0.20
@@ -355,7 +358,8 @@ DRYRUN_RTOL = 0.20
 # whisper_large_v3.FULL at ENCDEC_AXIS_LAYERS + ENCDEC_AXIS_LAYERS of its 32 +
 # 32 layers, B_micro 2, 128 text tokens beside its 1,500 random frames (f32,
 # seeded, whole on every rank), 5 heads per rank in the encoder, the decoder
-# and the cross-attention.  All: tau 4, S 128, B_micro 4 unless named,
+# and the cross-attention.  All: tau 2 (cut from 4 for the time target:
+# PERF.md section 4), S 128, B_micro 4 unless named,
 # MODEL_AXIS_ROUNDS rounds unless named, constant gamma, eta, one start of
 # the ranks; each case's global step bit-equal from the dense x_tau.  The
 # bounds (PERF.md section 6, written before the first run):
@@ -375,7 +379,7 @@ MODEL_AXIS_CASES = (   # (arch, layers, W, model ranks, B_micro, rounds)
     ("mamba2_780m", MAMBA_AXIS_LAYERS, 2, 4, 4, MODEL_AXIS_ROUNDS),
     ("recurrentgemma_2b", RG_LAYERS, 2, 4, 4, MODEL_AXIS_ROUNDS),
     ("whisper_large_v3", ENCDEC_AXIS_LAYERS, 2, 4, 2, MODEL_AXIS_ROUNDS))
-MODEL_AXIS = dict(tau=4, seq=128)
+MODEL_AXIS = dict(tau=2, seq=128)
 MODEL_AXIS_GAMMA = 1e-3
 MODEL_AXIS_ETA = MAIN["global_lr"]
 # the rounding model: one bf16 ulp (2^-8) of the largest logit per
@@ -415,26 +419,44 @@ MODEL_AXIS_ULP = 2.0 ** -8
 # serve_collectives' to the byte (the params resolved once per generate).
 # (c) granite_moe_3b_a800m.FULL at MOE_VLM_LAYERS layers in bf16 over
 # (data 1, model 4), SERVE_MA's prompts; (d) llava_next_34b.FULL at
-# VLM_LAYERS layers over (1, 4), SERVE_VLM's 2 prompts after the config's
+# SERVE_MA_VLM_LAYERS layers over (1, 4), SERVE_VLM's 2 prompts after the config's
 # 2,880 seeded random patches (f32), the same rule; over (1, 4) in bf16,
 # the same rule: (e) mamba2_780m at MAMBA_AXIS_LAYERS layers and (f)
 # recurrentgemma_2b at RG_LAYERS layers, SERVE_MA's prompts (each rank's
 # cache its heads' or channels' state); (g) whisper_large_v3 at
 # ENCDEC_AXIS_LAYERS + ENCDEC_AXIS_LAYERS layers, SERVE_ENCDEC's prompts
-# after 1,500 seeded random frames (f32), SERVE_MA_ENCDEC_NEW new tokens
-SERVE_MA_BF16_LAYERS = 16
+# after 1,500 seeded random frames (f32), SERVE_MA_ENCDEC_NEW new tokens.
+# A batch that does not split over data (tensor_parallel.serve_split: each
+# data row serves every sequence, the prefill over its chunk of the
+# prompt's positions, a full-attention cache's slots in D blocks), one
+# prompt, the same rule: (j) gemma3_1b.FULL at whole depth in f32 over
+# (data 4, model 1), SERVE_SPLIT_GEMMA (4 chunks of 1,024 positions, its 4
+# global layers' caches 4 blocks of 1,040 slots; f32, as (a'): in bf16 the
+# dense model's bf16-vs-f32 distance, 1.1-2.1 logits per step at 262,144
+# vocab rows, passed every top-2 margin, so the gate decided none of its 64
+# tokens, PERF.md section 6); over (2, 2), SERVE_SPLIT's:
+# (k) mamba2_780m at MAMBA_AXIS_LAYERS layers (two 256-position chunks, the
+# SSD state carried across them) and (l) recurrentgemma_2b at RG_LAYERS
+# layers (the RG-LRU's); every data rank's logits the same bits
+SERVE_MA_BF16_LAYERS = 8        # cut from 32, then 16 (PERF.md section 4)
+SERVE_MA_VLM_LAYERS = 2         # (d)'s, cut from VLM_LAYERS (4)
 SERVE_MA_F32_LAYERS = 8
 SERVE_MA = (4, 256, 16)
 SERVE_MA_ENCDEC_NEW = 16
+SERVE_SPLIT_GEMMA = (1, 4096, 64)
+SERVE_SPLIT = (1, 512, 32)
 SERVE_MA_CASES = (   # (arch, layers (None: whole depth), dtype, model ranks, (B, prompt, new))
     ("minitron_4b", SERVE_MA_BF16_LAYERS, None, 4, SERVE_MA),
     ("minitron_4b", SERVE_MA_F32_LAYERS, "float32", 4, SERVE_MA),
     ("gpt2_small", None, None, 2, SERVE_MA),
     ("granite_moe_3b_a800m", MOE_VLM_LAYERS, None, 4, SERVE_MA),
-    ("llava_next_34b", VLM_LAYERS, None, 4, SERVE_VLM),
+    ("llava_next_34b", SERVE_MA_VLM_LAYERS, None, 4, SERVE_VLM),
     ("mamba2_780m", MAMBA_AXIS_LAYERS, None, 4, SERVE_MA),
     ("recurrentgemma_2b", RG_LAYERS, None, 4, SERVE_MA),
-    ("whisper_large_v3", ENCDEC_AXIS_LAYERS, None, 4, SERVE_ENCDEC[:2] + (SERVE_MA_ENCDEC_NEW,)))
+    ("whisper_large_v3", ENCDEC_AXIS_LAYERS, None, 4, SERVE_ENCDEC[:2] + (SERVE_MA_ENCDEC_NEW,)),
+    ("gemma3_1b", None, "float32", 1, SERVE_SPLIT_GEMMA),
+    ("mamba2_780m", MAMBA_AXIS_LAYERS, None, 2, SERVE_SPLIT),
+    ("recurrentgemma_2b", RG_LAYERS, None, 2, SERVE_SPLIT))
 SERVE_MA_F32_RTOL = 1e-3
 # fsdp_full_width: FSDP over zero (mesh.topology(..., fsdp=True): each rank
 # holds its zero block of its blocks, gathers each layer at use over its
@@ -442,7 +464,8 @@ SERVE_MA_F32_RTOL = 1e-3
 # in model_axis_full_width's start of the RANKS gloo ranks sharing the card
 # (tests/torch_ranks.fsdp_full_width_rank), MODEL_AXIS' tau and S,
 # MODEL_AXIS_GAMMA, MODEL_AXIS_ETA, ZeRO, device-parallel local phase.
-# (a) gpt2_small.FULL at whole depth (12 layers) over (worker 2, zero 2,
+# (a) gpt2_small.FULL at CUT_LAYERS of its 12 layers (cut from whole depth
+# for the time target: PERF.md section 4) over (worker 2, zero 2,
 # model 1), W = 2, B_micro FSDP_B_MICRO (2 rows per zero rank),
 # FSDP_ROUNDS rounds, held against its dense run here from the same card
 # draw and batches within model_axis_bounds (PERF.md section 6, written
@@ -465,7 +488,7 @@ SERVE_MA_F32_RTOL = 1e-3
 # (dryrun_vs_card), its state bytes the reckoning's, its collectives the
 # reckoning's to the byte per group, one DSM and tau AdamW launches per
 # round and dtype group
-FSDP_A = ("gpt2_small", None, 2, 1)               # (arch, layers, W, model)
+FSDP_A = ("gpt2_small", CUT_LAYERS, 2, 1)         # (arch, layers, W, model)
 FSDP_B = ("minitron_4b", MODEL_AXIS_LAYERS, 1, 2)
 FSDP_B_MICRO = 4
 FSDP_ROUNDS = 1                 # (a)'s rounds, cut from 2 for the time target
@@ -3799,7 +3822,10 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
     tokens; every token the argmax (lowest id on ties) of the ranks' own
     assembled logits over the unpadded vocab, at every step; every token
     whose dense top-2 margin exceeds its step's gate the dense argmax, at
-    least one so decided; the model group's tokens alike; per rank its
+    least one so decided; the model group's tokens alike; where the batch
+    does not split over data (cases (j)-(l): the prompt's positions and the
+    global caches' slots over data, ``tensor_parallel.serve_split``) every data rank's
+    logits the same bits at every step; per rank its
     peak beside reckon_serve's reckoning plus the bytes it holds beside its
     blocks when the call starts (DRYRUN_RTOL), its collectives equal to
     serve_collectives' to the byte, its cache bytes beside the reference
@@ -3825,6 +3851,13 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
         f32 = cfg.param_dtype == "float32"
         toks = ranks[0]["tokens"]
         agree = all(torch.equal(r["tokens"], toks) for r in ranks)
+        # the ranks that serve the same rows at one model index (every data
+        # rank where the batch does not split) hold the same logits' bits
+        by_place: dict = {}
+        for r in ranks:
+            by_place.setdefault((r["rows"], r["model_index"]), []).append(r["logits"])
+        data_alike = all(all(torch.equal(a, b) for a, b in zip(g[0], o))
+                         for g in by_place.values() for o in g[1:])
         tp = [torch.full((B, V), float("nan")) for _ in range(new)]
         for r in ranks:
             n = r["logits"][0].shape[-1]
@@ -3880,16 +3913,19 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
 
         rec = fut.result(timeout=CPU_RUN_TIMEOUT_S)
         lay0 = TP.rank_layout(cfg, M, 0)
-        b = B // D
-        layout_cache = cache_bytes(T.init_cache(cfg, b, n0 + new, device="meta", layout=lay0))
+        b = ranks[0]["rows"][1] - ranks[0]["rows"][0]
+        chunk0, slots0 = TP.serve_split(B, n0, new, cfg, D, 0)
+        layout_cache = cache_bytes(T.init_cache(cfg, b, n0 + new, device="meta", layout=lay0,
+                                                slots=slots0))
         per_rank, comm_ok, peak_ok = [], True, True
         for r in ranks:
             lay = TP.rank_layout(cfg, M, r["model_index"])
+            chunk, slots = TP.serve_split(B, n0, new, cfg, D, r["data_index"])
             parts_ = [(1, TP.serve_collectives(cfg, lay, b, n0, "serving_params")),
-                      (1, TP.serve_collectives(cfg, lay, b, n0, "prefill")),
-                      (new - 1, TP.serve_collectives(cfg, lay, b, n0, "decode")),
+                      (1, TP.serve_collectives(cfg, lay, b, n0, "prefill", chunk=chunk)),
+                      (new - 1, TP.serve_collectives(cfg, lay, b, n0, "decode", slots=slots)),
                       (new, TP.serve_collectives(cfg, lay, b, n0, "pick"))]
-            if D > 1:
+            if b < B:
                 parts_.append((1, {"all_gather@data": {"calls": 1, "bytes": b * new * 8}}))
             want = scaled_sum(*parts_)
             # the reckoning of the call, plus what the rank holds beside its
@@ -3907,10 +3943,13 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
                              "collectives": r["comm"], "collectives_by_kind": collectives(
                                  r["comm"])})
         ok = (agree and own_pick and all(e <= g for e, g in zip(tp_err, gate)) and decided > 0
-              and equal == decided and comm_ok and peak_ok
+              and equal == decided and comm_ok and peak_ok and data_alike
               and rec["memory"]["cache_bytes_per_rank"] == layout_cache)
         rows.append({"config": cfg.name, "n_layers": cfg.n_layers, "param_dtype": cfg.param_dtype,
                      "grid": {"data": D, "model": M}, "n_params": T.layout(cfg).numel,
+                     "seq_over_data": chunk0 is not None,
+                     "cache_slots_over_data": slots0 is not None,
+                     "data_ranks_logits_bit_equal": data_alike,
                      "rank_block_numel": lay0.numel, "batch": B, "prompt_tokens": S,
                      "new_tokens": new, "model_group_tokens_agree": agree,
                      "tokens_are_argmax_of_ranks_logits": own_pick,

@@ -42,6 +42,7 @@ split.
 from __future__ import annotations
 
 import math
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -194,14 +195,80 @@ def serve_rows(batch: int, topo) -> slice:
     """The rows of a ``batch``-sequence batch that a serving rank serves:
     its data row's ``batch / D`` where the reference's ``serve_batch_pspecs``
     puts the batch on ``data`` (``batch % D == 0``, ``batch >= D``), else
-    every row (the reference's sequence split of a prefill is not ported:
-    each data row serves the whole batch)."""
+    every row (the sequence may then lie over data: :func:`serve_split`)."""
     data = 1 if topo is None else topo.worker
     spec = sharding.serve_batch_pspecs({"tokens": ((batch, 1), torch.int64)}, data, 1)
     if data == 1 or spec["tokens"][0] != "data":
         return slice(0, batch)
     n = batch // data
     return slice(topo.worker_index * n, (topo.worker_index + 1) * n)
+
+
+class SeqSplit(NamedTuple):
+    """A sequence of ``length`` positions (a prefill's decoder sequence, or
+    the slots of a full-attention layer's cache) over the ``world`` ranks
+    of a serving rank's data group in contiguous blocks of ``n``: data
+    rank ``index`` holds ``[start, stop)``.  ``axis``: the data group
+    (``Topology.data``) the model's collectives run over (None where only
+    the positions are reckoned)."""
+
+    length: int
+    world: int
+    index: int
+    axis: Any = None
+
+    @property
+    def n(self) -> int:
+        return self.length // self.world
+
+    @property
+    def start(self) -> int:
+        return self.index * self.n
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.n
+
+
+def _seq_split(batch: int, length: int, data: int, index: int, axis) -> Optional[SeqSplit]:
+    """Data rank ``index``'s block of ``length`` positions, or None: where
+    D = 1, where there are none, where the batch splits over data
+    (:func:`serve_rows`) or where ``length`` does not divide into D
+    blocks (the sequence is then whole on every data row, the reference's
+    own rule)."""
+    spec = sharding.serve_batch_pspecs({"tokens": ((batch, 1), torch.int64)}, data, 1)
+    if data == 1 or not length or length % data or spec["tokens"][0] == "data":
+        return None
+    return SeqSplit(length, data, index, axis)
+
+
+def serve_split(batch: int, n0: int, new: int, cfg, data: int = 1, index: int = 0,
+                axis=None) -> tuple:
+    """(the prefill's chunk of its ``n0`` positions, each full-attention
+    cache's block of its ``n0 + new`` slots) of data rank ``index`` of
+    ``data``, where a serving call's sequence lies over its data group
+    (``axis``, ``Topology.data``): the reference's fallback when a
+    ``batch``-sequence batch does not split (``serve_batch_pspecs``: B over
+    data, else S; ``cache_pspecs``: the first dim that divides).  Each is
+    None where it stays whole (:func:`_seq_split`); ``n0`` 0: a decode
+    alone, over a cache of ``new`` slots.
+
+    The prefill's positions (a VLM's ``n_patches`` and the prompt) are
+    what an ``ssm`` model's SSD chunks: like the dense path it refuses
+    ``n0`` past ``layers.SSD_CHUNK`` and no multiple of it (ValueError),
+    and a block past the chunk and no multiple of it is not split (whole,
+    as D blocks it cannot scan).  A cache's slots are read block by block
+    (``transformer.decode_step``), never held to that."""
+    from repro_torch.models.layers import SSD_CHUNK
+
+    seq = _seq_split(batch, n0, data, index, axis)
+    if any(k.startswith("ssm") for k in cfg.pattern):
+        if n0 > SSD_CHUNK and n0 % SSD_CHUNK:
+            raise ValueError(f"sequence length must be divisible by ssd chunk: S={n0}, "
+                             f"chunk={SSD_CHUNK}")
+        if seq is not None and seq.n > SSD_CHUNK and seq.n % SSD_CHUNK:
+            seq = None
+    return seq, _seq_split(batch, n0 + new, data, index, axis)
 
 
 def shard_leaf(t: torch.Tensor, spec: tuple, model: int, index: int) -> torch.Tensor:
@@ -550,13 +617,73 @@ class _Reckoning:
             self.add("all_reduce_sum", cfg.n_experts * 8, fwd, "zero")
             self.add("all_reduce_sum", cfg.n_experts * 4, fwd, "zero")
 
-    def prefix(self, cfg, batch: int) -> None:
+    def prefix(self, cfg, batch: int, patches: int = None) -> None:
         """A VLM's (batch, P, d / M) patch prefix gathered over the model
         group where ``patch_proj`` is column-parallel
-        (``transformer._patch_prefix``)."""
+        (``transformer._patch_prefix``); ``patches``: P where not all
+        ``n_patches`` (a rank's chunk of the sequence)."""
+        n = cfg.n_patches if patches is None else patches
         if cfg.family == "vlm" and self.dim("patch_proj") == 1:
-            self.add("all_gather", batch * cfg.n_patches * (cfg.d_model // self.layout.model)
+            self.add("all_gather", batch * n * (cfg.d_model // self.layout.model)
                      * cfg.act_dtype.itemsize)
+
+    def rank_heads(self, pre: str, cfg) -> tuple:
+        """(query heads, KV heads) the rank computes of the attention under
+        ``pre`` (``transformer._rank_kv``)."""
+        from repro_torch.models import transformer as T
+
+        M = self.layout.model
+        if M == 1 or not T._heads_split(self, cfg, M, pre):
+            return cfg.n_heads, cfg.n_kv_heads
+        return cfg.n_heads // M, T._kv_heads(cfg, M, self.layout.model_index)[1]
+
+    def chunk(self, cfg, batch: int, seq) -> None:
+        """The data group's collectives of a prefill over the rank's chunk
+        ``seq`` (``SeqSplit``) of the decoder sequence, each ``<name>@data``:
+        per attention layer its chunk's keys and values all-gathered
+        (``transformer._self_attend``: one call, the rank's KV heads); per
+        recurrent layer every rank's last ``min(n, width - 1)`` conv inputs
+        (``layers.conv_edges``) and its f32 chunk decay and state
+        (``layers._carried``: Mamba-2's (B, H, 1 + P N), the RG-LRU's (B,
+        d_rnn, 2), the rank's heads or channels) all-gathered; then the
+        last position's (B, 1, d) hidden state."""
+        from repro_torch.models import transformer as T
+
+        act, M, n = cfg.act_dtype.itemsize, self.layout.model, seq.n
+        t = min(n, cfg.conv_width - 1)
+        for pre, kind, reps in self.layer_groups(cfg):
+            if pre.startswith("encoder."):
+                continue
+            mixer = T._parse_kind(kind)[0]
+            width = T._rank_width(mixer, cfg, M) if mixer in T.RECURRENT else None
+            if mixer == "ssm":
+                heads = width or cfg.ssm_heads
+                P, N = cfg.ssm_head_dim, cfg.ssm_state
+                self.add("all_gather", batch * t * (heads * P + 2 * N) * act, reps, "data")
+                self.add("all_gather", batch * heads * (1 + P * N) * 4, reps, "data")
+            elif mixer == "rglru":
+                ch = width or cfg.d_rnn
+                self.add("all_gather", batch * t * ch * act, reps, "data")
+                self.add("all_gather", batch * ch * 2 * 4, reps, "data")
+            else:
+                kvh = self.rank_heads(pre + "attn.", cfg)[1]
+                self.add("all_gather", 2 * batch * n * kvh * cfg.hd * act, reps, "data")
+        self.add("all_gather", batch * cfg.d_model * act, 1, "data")
+
+    def slots(self, cfg, batch: int) -> None:
+        """The data group's collectives of a decode step whose
+        full-attention caches lie over it in blocks (``layers.
+        split_decode_attention``): per such layer the (B, H_rank) f32
+        maxima all-reduced (max), then the (B, H_rank, 1 + hd) f32 sums and
+        weighted values (sum)."""
+        from repro_torch.models import transformer as T
+
+        for pre, kind, reps in self.layer_groups(cfg):
+            if pre.startswith("encoder.") or T._parse_kind(kind)[0] not in ("attn", "xattn"):
+                continue
+            heads = self.rank_heads(pre + "attn.", cfg)[0]
+            self.add("all_reduce_max", batch * heads * 4, reps, "data")
+            self.add("all_reduce_sum", batch * heads * (1 + cfg.hd) * 4, reps, "data")
 
     def head_split(self, cfg) -> bool:
         head = "embed" if cfg.tie_embeddings else "lm_head"
@@ -659,7 +786,9 @@ def local_phase_collectives(cfg, layout: FlatLayout, n_local: int, tau: int, b_m
     return comm.scaled_sum((n_local * tau * accum, micro), (1, losses))
 
 
-def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) -> dict:
+def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str,
+                      chunk: Optional[SeqSplit] = None,
+                      slots: Optional[SeqSplit] = None) -> dict:
     """The collectives of one serving call on a rank's ``batch`` rows,
     reckoned from its placements as :func:`microbatch_collectives` (forward
     only): ``kind`` ``"serving_params"`` (``transformer.serving_params``,
@@ -680,7 +809,14 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) 
     data group where it is used (``<name>@data``: every layer's leaves that
     the call reads, ``embed`` at the lookup and, tied, at the head, the
     head, ``final_norm`` and ``enc_norm`` where no model gather resolved
-    them)."""
+    them).
+
+    Where the batch does not split over data (:func:`serve_split`):
+    ``chunk``, a prefill's rank chunk of the ``seq`` positions (the model
+    group's collectives over its tokens, the lookup over its text tokens,
+    the patch projection over its patches, each where it has any; the data
+    group's as :meth:`_Reckoning.chunk` counts them); ``slots``, a decode
+    step's full-attention caches over data (:meth:`_Reckoning.slots`)."""
     from repro_torch.models import transformer as T
 
     if kind not in ("serving_params", "prefill", "decode", "pick"):
@@ -699,6 +835,12 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) 
                 r.add("all_gather",
                       r.layer_count(name) * r.block_numel(name) * r.itemsize(name))
         return r.out
+    # the rank's positions, its patches and text tokens among them
+    n_prefix = cfg.n_patches if kind == "prefill" and cfg.family == "vlm" else 0
+    a, b = ((0, seq if kind == "prefill" else 1) if chunk is None
+            else (chunk.start, chunk.stop))
+    patches = min(b, n_prefix) - min(a, n_prefix)
+    text = b - a - patches
     # the norm scales a model gather resolved are held whole from then on;
     # a decode step projects no patches, runs no encoder and reads the
     # cross-attention's keys and values from the cache
@@ -707,26 +849,30 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str) 
         unused |= {n for n in layout.names
                    if n == "patch_proj" or n.startswith("encoder.") or n == "enc_norm.scale"
                    or n.endswith(("xattn.wk", "xattn.wv"))}
+    # every data rank gathers embed and patch_proj over data, whatever its
+    # chunk holds (transformer._inputs)
     for name in layout.names:
         if name not in unused:
             r.zero_use(name, r.layer_count(name) * (1 + (name == "embed" and cfg.tie_embeddings)))
-    if layout.model == 1:
-        return r.out
-    tokens = batch * (seq if kind == "prefill" else 1)
-    n_prefix = cfg.n_patches if kind == "prefill" and cfg.family == "vlm" else 0
-    if r.dim("embed") == 0:
-        r.add("all_reduce_sum", batch * (seq - n_prefix if kind == "prefill" else 1)
-              * cfg.d_model * 4)
-    else:
-        r.gather("embed")
-    if kind == "prefill":
-        r.prefix(cfg, batch)
-    for pre, block, reps in r.layer_groups(cfg):
-        if pre.startswith("encoder."):
-            if kind == "prefill":
-                r.layer(pre, block, cfg, batch * cfg.enc_len, reps, 0, norms=False)
-            continue
-        r.layer(pre, block, cfg, tokens, reps, 0, norms=False, cross_kv=kind == "prefill")
-    if not r.head_split(cfg):
-        r.gather("embed" if cfg.tie_embeddings else "lm_head")
+    if layout.model > 1:
+        if r.dim("embed") == 0:
+            if text:
+                r.add("all_reduce_sum", batch * text * cfg.d_model * 4)
+        elif text:
+            r.gather("embed")
+        if kind == "prefill" and patches:
+            r.prefix(cfg, batch, patches)
+        for pre, block, reps in r.layer_groups(cfg):
+            if pre.startswith("encoder."):
+                if kind == "prefill":
+                    r.layer(pre, block, cfg, batch * cfg.enc_len, reps, 0, norms=False)
+                continue
+            r.layer(pre, block, cfg, batch * (b - a), reps, 0, norms=False,
+                    cross_kv=kind == "prefill")
+        if not r.head_split(cfg):
+            r.gather("embed" if cfg.tie_embeddings else "lm_head")
+    if kind == "prefill" and chunk is not None:
+        r.chunk(cfg, batch, chunk)
+    if kind == "decode" and slots is not None:
+        r.slots(cfg, batch)
     return r.out

@@ -69,8 +69,10 @@ pod folded into data) through the rank's ``prefill`` / ``decode_step``
 ``model`` entries, cut once more by its ``data`` entries (FSDP over data,
 ``DATA_AXIS``: gathered at use per layer and call), its data row's ``B /
 D`` sequences where the
-batch splits over data (else the whole batch, ``batch_over_data``), its
-cache (the KV heads it computes: ``cache_bytes_per_rank``, beside the
+batch splits over data (else the whole batch, ``batch_over_data``, with the prompt's positions
+and the full-attention caches' slots over data where they divide:
+``seq_over_data``, ``cache_slots_over_data``), its cache (the KV heads it
+computes, its block of slots: ``cache_bytes_per_rank``, beside the
 reference's ``cache_pspecs`` placement's), meta collectives counted per
 group, and the training records' fields.
 """
@@ -449,7 +451,12 @@ def reckon_serve(cfg, kind: str, batch: int, seq: int, data: int = 1, model: int
     with ``model`` > 1) and serves its rows (``tensor_parallel.serve_rows``);
     ``comm`` is its ``CommStats`` (``<name>@model``, ``<name>@data``).
     ``fsdp``: the blocks cut over data too, gathered at use per layer and
-    call (``mesh.serving_topology(..., fsdp=True)``)."""
+    call (``mesh.serving_topology(..., fsdp=True)``).  Where the batch does
+    not split over data (``batch_over_data`` false) the rank serves the
+    whole batch over the split ``tensor_parallel.serve_split`` gives: a
+    prefill's chunk of the sequence, a full-attention cache's block of
+    slots, each where it divides (``seq_over_data``,
+    ``cache_slots_over_data``)."""
     from repro_torch.distributed import mesh
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.train.serve import generate
@@ -464,6 +471,9 @@ def reckon_serve(cfg, kind: str, batch: int, seq: int, data: int = 1, model: int
     b = rows.stop - rows.start
     n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
     length = n_prefix + seq + new if kind == "generate" else seq
+    # the positions the call prefills (none: a decode step alone)
+    n0 = {"prefill": seq, "decode": 0, "generate": n_prefix + seq}[kind]
+    chunk, slots = TP.serve_split(batch, n0, length - n0, cfg, data, 0, topo.data)
     tracker = MemoryTracker()
     cache = None
     with tracker, torch.no_grad(), _meta_collectives():
@@ -471,22 +481,24 @@ def reckon_serve(cfg, kind: str, batch: int, seq: int, data: int = 1, model: int
         if kind == "decode":
             # generate resolves its params once, then decodes token by token
             params = T.serving_params(params, cfg)
-            cache = T.init_cache(cfg, b, seq, cfg.act_dtype, device=META, layout=lay)
+            cache = T.init_cache(cfg, b, seq, cfg.act_dtype, device=META, layout=lay,
+                                 slots=slots)
     topo.stats.reset()
     base = tracker.reset_peak()
     params_bytes = sum(n * dt.itemsize for dt, n in zip(lay.dtypes, lay.group_numels))
-    rank_cache = T.init_cache(cfg, b, length, cfg.act_dtype, device=META, layout=lay)
+    rank_cache = T.init_cache(cfg, b, length, cfg.act_dtype, device=META, layout=lay,
+                              slots=slots)
     want = _shapes(rank_cache)
     vocab = cfg.padded_vocab // model if T.logits_split(params, cfg) else cfg.padded_vocab
     with tracker, FlopCounterMode(display=False) as flops, torch.no_grad(), _meta_collectives():
         if kind == "prefill":
             inputs = _as_model_batch(specs.batch_specs(cfg, (b,), seq))
-            logits, cache = T.prefill(params, inputs, cfg, remat=True)
+            logits, cache = T.prefill(params, inputs, cfg, remat=True, seq=chunk, slots=slots)
             if _shapes(cache) != want:
                 raise ValueError("prefill cache shapes differ from the rank's init_cache's")
         elif kind == "decode":
             tokens = torch.empty(b, dtype=torch.long, device=META)
-            logits, cache = T.decode_step(params, cache, tokens, seq - 1, cfg)
+            logits, cache = T.decode_step(params, cache, tokens, seq - 1, cfg, slots=slots)
             if _shapes(cache) != want:
                 raise ValueError("decode changed the cache's shapes")
         else:
@@ -509,6 +521,10 @@ def reckon_serve(cfg, kind: str, batch: int, seq: int, data: int = 1, model: int
                           cfg, batch, length, data, model),
                       "call_bytes": tracker.peak - base, "peak_bytes": tracker.peak},
            "comm": topo.stats.as_dict()}
+    if not rec["batch_over_data"]:
+        full = any(T._parse_kind(k)[0] in ("attn", "xattn") for k in cfg.pattern)
+        rec.update(seq_over_data=chunk is not None,
+                   cache_slots_over_data=slots is not None and full)
     return _terms(rec, params_bytes + nbytes)
 
 

@@ -82,26 +82,31 @@ def _gqa_out(probs, v, out_dtype):
 
 
 def causal_attention(q, k, v, window: Optional[int] = None,
-                     q_block: int = 1024) -> torch.Tensor:
+                     q_block: int = 1024, q_start: int = 0) -> torch.Tensor:
     """Blockwise causal (optionally sliding-window) attention as explicit
     masked softmax (no fused attention op, so the precision path is the
     reference's).  Each query tile attends only to the block-aligned keys
-    it can see: with a window it starts at ``(q_start - window) // qb * qb``."""
+    it can see: with a window it starts at ``(q_start - window) // qb * qb``.
+    ``q_start``: the queries are positions ``q_start, q_start + 1, ...`` of
+    the sequence whose keys ``k`` / ``v`` hold positions ``0, 1, ...`` (a
+    serving rank's chunk of a prompt over data; the window holds across
+    the chunk's edge)."""
     B, S, H, hd = q.shape
     qb = min(q_block, S)
     outs = []
-    for q_start in range(0, S, qb):
-        q_end = min(q_start + qb, S)
-        k_start = 0 if window is None else max(0, (q_start - window) // qb * qb)
-        scores = _gqa_scores(q[:, q_start:q_end], k[:, k_start:q_end])
-        q_pos = torch.arange(q_start, q_end, device=q.device)[:, None]
-        k_pos = torch.arange(k_start, q_end, device=q.device)[None, :]
+    for t0 in range(0, S, qb):
+        t1 = min(t0 + qb, S)
+        q0, q1 = q_start + t0, q_start + t1
+        k_start = 0 if window is None else max(0, (q0 - window) // qb * qb)
+        scores = _gqa_scores(q[:, t0:t1], k[:, k_start:q1])
+        q_pos = torch.arange(q0, q1, device=q.device)[:, None]
+        k_pos = torch.arange(k_start, q1, device=q.device)[None, :]
         hidden = k_pos > q_pos
         if window is not None:
             hidden |= k_pos <= q_pos - window
         scores = scores.masked_fill(hidden, float("-inf"))
         probs = torch.softmax(scores, dim=-1)
-        outs.append(_gqa_out(probs, v[:, k_start:q_end], q.dtype))
+        outs.append(_gqa_out(probs, v[:, k_start:q1], q.dtype))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
@@ -128,6 +133,29 @@ def decode_attention(q, k_cache, v_cache, valid_mask) -> torch.Tensor:
     scores = scores.masked_fill(~m, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     return _gqa_out(probs, v_cache, q.dtype)
+
+
+def split_decode_attention(q, k_cache, v_cache, valid_mask, axis) -> torch.Tensor:
+    """:func:`decode_attention` over a cache whose slots lie over the data
+    group ``axis`` (each rank its block; ``valid_mask`` (S_block,) its
+    slots the query sees): each rank's f32 scores of its block, their
+    maximum all-reduced (max), then one all-reduce (sum) of each rank's
+    sum of ``exp(score - max)`` and those weights times its values, packed
+    in one f32 buffer; the output is the summed values over the summed
+    weights.  Every rank ends with the same bits.  The weights stay f32
+    where the dense path rounds its probabilities to ``v``'s dtype."""
+    from repro_torch.distributed import comm
+
+    scores = _gqa_scores(q, k_cache).masked_fill(
+        ~valid_mask[None, None, None, None, :], float("-inf"))   # (B, g, r, 1, S)
+    top = comm.all_reduce(scores.amax(dim=-1), axis, "max")
+    w = torch.exp(scores - top[..., None])
+    B, KVH, rep, _, _ = w.shape
+    hd = v_cache.shape[-1]
+    vals = torch.einsum("bgrqk,bkgh->bgrqh", w, v_cache.to(F32))    # (B, g, r, 1, hd)
+    packed = comm.all_reduce(torch.cat([w.sum(dim=-1, keepdim=True), vals], dim=-1), axis)
+    out = packed[..., 1:] / packed[..., :1]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, KVH * rep, hd).to(q.dtype)
 
 
 def attn_qkv(wq, wk, wv, x, positions, cfg, heads=None):
@@ -384,13 +412,14 @@ def _row_parallel(y: torch.Tensor, w, tp) -> torch.Tensor:
 # Depthwise causal conv (the Mamba-2 and RG-LRU front conv)
 # ---------------------------------------------------------------------------
 
-def conv1d_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+def conv1d_apply(p: dict, x: torch.Tensor, history: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal depthwise conv over x (B, S, C): ``p["w"]`` (width, C),
     ``p["b"]`` (C,).  The reference's sum of ``width`` shifted products in
     x's dtype, added in its order (``F.conv1d`` would accumulate otherwise
-    in bf16); the causal padding is zeros."""
+    in bf16); the causal padding is zeros, or ``history`` (B, width - 1, C),
+    the inputs of the width - 1 positions before x (:func:`conv_edges`)."""
     width, S = p["w"].shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    xp = F.pad(x, (0, 0, width - 1, 0)) if history is None else torch.cat([history, x], dim=1)
     w = p["w"].to(x.dtype)
     out = xp[:, 0:S] * w[0]
     for i in range(1, width):
@@ -414,6 +443,41 @@ def conv_tail(x: torch.Tensor, width: int) -> torch.Tensor:
     its decode then fails on a prompt shorter than width - 1."""
     tail = x[:, -(width - 1):]
     return F.pad(tail, (0, 0, width - 1 - tail.shape[1], 0))
+
+
+def conv_edges(x: torch.Tensor, width: int, seq) -> tuple:
+    """x (B, n, C): a serving rank's chunk of a sequence over its data group
+    (``seq``: ``tensor_parallel.SeqSplit``).  Returns (the conv inputs of
+    the width - 1 positions before the chunk, the whole sequence's conv
+    tail), each (B, width - 1, C), zero-padded on the left where the
+    sequence before is shorter: every rank's last ``min(n, width - 1)``
+    rows are all-gathered (one call), so a chunk shorter than width - 1
+    reads the ranks before it too.  Every rank holds the same tail."""
+    from repro_torch.distributed import comm
+
+    t = min(x.shape[1], width - 1)
+    tails = comm.all_gather_dim(x[:, x.shape[1] - t:].contiguous(), seq.axis, 1)  # (B, D t, C)
+    return conv_tail(tails[:, :seq.index * t], width), conv_tail(tails, width)
+
+
+def _carried(decay: torch.Tensor, state: torch.Tensor, seq) -> tuple:
+    """A linear recurrence h = decay * h + ... across the chunks of a
+    sequence over a serving rank's data group (``seq``): ``decay`` (B, G)
+    f32 is the product of the rank's chunk's decays, ``state`` (B, G, K)
+    f32 its state after the chunk from zero.  Every rank's pair is
+    all-gathered (one f32 call) and folded in rank order from zero, h =
+    decay_j * h + state_j.  Returns (the state carried into the rank's
+    chunk, the state after the whole sequence); every rank folds the same
+    numbers in the same order, so every rank holds the same final state."""
+    from repro_torch.distributed import comm
+
+    both = comm.all_gather_dim(torch.cat([decay[..., None], state], dim=-1)[None], seq.axis, 0)
+    h = torch.zeros_like(state)
+    for j in range(seq.world):
+        if j == seq.index:
+            before = h
+        h = h * both[j, ..., :1] + both[j, ..., 1:]
+    return before, h
 
 
 # ---------------------------------------------------------------------------
@@ -444,7 +508,11 @@ def _suffix_sums(x: torch.Tensor, dim: int) -> torch.Tensor:
                      dim=dim)
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
+SSD_CHUNK = 128         # the SSD's chunk (the reference's): a longer sequence is a multiple
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = SSD_CHUNK,
+                initial_state: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The Mamba-2 SSD scan, chunked (the reference's minimal version of the
     paper's Listing 1), in f32.
 
@@ -453,7 +521,9 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
     The reference's four-operand einsums are pairwise products in a fixed
     order (``torch.einsum`` would let ``opt_einsum``, where installed, pick
     the order); the inter-chunk recurrence is a loop over the S / chunk
-    chunks.  S must be a multiple of ``chunk``, as the reference asserts."""
+    chunks, from ``initial_state`` (B, H, P, N) f32 (default zeros: the
+    state the earlier chunks of a sequence over data carry in).  S must be
+    a multiple of ``chunk``, as the reference asserts."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     if S % chunk:
@@ -484,7 +554,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
 
     # 3) inter-chunk recurrence: the state before each chunk
     chunk_decay = torch.exp(A_cum[..., -1])                # (B, nc, H)
-    carry = torch.zeros(Bsz, H, P, N, dtype=F32, device=x.device)
+    carry = (torch.zeros(Bsz, H, P, N, dtype=F32, device=x.device) if initial_state is None
+             else initial_state)
     prev = []
     for i in range(nc):
         prev.append(carry)
@@ -532,7 +603,8 @@ def _split_rmsnorm(scale, x: torch.Tensor, width: int, tp, eps: float = 1e-6) ->
     return out.to(x.dtype)
 
 
-def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None, tp=None):
+def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None, tp=None,
+                 seq=None):
     """The training / prefill path, x (B, S, d) -> (B, S, d).  ``p``: the
     block's ``ssm`` leaves nested as the reference's (``in_proj``, ``conv``
     {``w``, ``b``}, ``A_log``, ``D``, ``dt_bias``, ``norm`` {``scale``},
@@ -550,21 +622,41 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None
     those heads (the SSD is per head), the gated norm and the out-projection
     as :func:`_mamba2_out`; x passes through ``copy_to``, and the state is
     the rank's heads' (B, H / M, P, N) and channels' (B, width - 1, d_inner
-    / M + 2N)."""
+    / M + 2N).
+
+    ``seq``: x is a serving rank's chunk of a sequence over its data group
+    (``tensor_parallel.SeqSplit``).  The conv reads the inputs before the
+    chunk (:func:`conv_edges`); the rank's chunk state from zero
+    (:func:`_ssd_final_state`) and its decay are carried across the ranks
+    (:func:`_carried`), and the SSD runs from the state carried in; the
+    state and conv tail after the whole sequence, the same on every rank,
+    land in ``state_out``."""
     N, P = cfg.ssm_state, cfg.ssm_head_dim
     H = p["A_log"].shape[-1]
     di = H * P
+    width = p["conv"]["w"].shape[0]
     z, conv_in, dt = _mamba2_split(p, _column_input(x, tp), cfg)
-    conv_out = F.silu(conv1d_apply(p["conv"], conv_in))
+    history = tail = None
+    if seq is not None:
+        history, tail = conv_edges(conv_in, width, seq)
+    conv_out = F.silu(conv1d_apply(p["conv"], conv_in, history))
     xs, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
     dt = F.softplus(dt.to(F32) + p["dt_bias"])             # (B, S, H)
     A = torch.exp(p["A_log"])                              # (H,) > 0
     xh = xs.reshape(*xs.shape[:2], H, P)
-    y = ssd_chunked(xh, dt, A, Bm, Cm, chunk=min(128, xs.shape[1]))
+    before = state = None
+    if seq is not None:
+        B = xh.shape[0]
+        decay = torch.exp(-A[None] * dt.sum(dim=1))        # (B, H): the chunk's decay
+        before, state = _carried(decay, _ssd_final_state(xh, dt, A, Bm).reshape(B, H, P * N),
+                                 seq)
+        before, state = before.reshape(B, H, P, N), state.reshape(B, H, P, N)
+    y = ssd_chunked(xh, dt, A, Bm, Cm, chunk=min(SSD_CHUNK, xs.shape[1]), initial_state=before)
     y = y + p["D"][None, None, :, None] * xh.to(F32)
     if state_out is not None:
-        state_out.update(state=_ssd_final_state(xh, dt, A, Bm),
-                         conv=conv_tail(conv_in, p["conv"]["w"].shape[0]))
+        if seq is None:
+            state, tail = _ssd_final_state(xh, dt, A, Bm), conv_tail(conv_in, width)
+        state_out.update(state=state, conv=tail)
     return _mamba2_out(p, y.reshape(*xs.shape[:2], di), z, x.dtype, cfg, tp)
 
 
@@ -672,7 +764,8 @@ def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
     return torch.cat([pairs, even[:, n_odd:]], dim=1) if even.shape[1] > n_odd else pairs
 
 
-def rglru_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None, tp=None):
+def rglru_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None, tp=None,
+                seq=None):
     """The training / prefill path, x (B, S, d) -> (B, S, d): the tanh-GELU
     gate, the conv, the RG-LRU recurrence over S (:func:`linear_scan`).
     ``p``: the block's ``rglru`` leaves nested as the reference's
@@ -688,14 +781,31 @@ def rglru_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None,
     channels, ``out`` rows.  The gate, the conv, the scan (per channel) run
     on those channels, ``w_a`` / ``w_x`` over the gathered conv output
     (:func:`_rglru_coeffs`), ``out`` row-parallel with one all-reduce; x
-    passes through ``copy_to``, and the state is the rank's channels'."""
+    passes through ``copy_to``, and the state is the rank's channels'.
+
+    ``seq``: x is a serving rank's chunk of a sequence over its data group,
+    as :func:`mamba2_apply`'s: the conv reads the inputs before the chunk,
+    the rank scans its chunk from zero, and its (product of a, h at its
+    end) is carried across the ranks (:func:`_carried`): h plus the
+    carried state times the running product of a."""
     x_in = _column_input(x, tp)
+    width = p["conv"]["w"].shape[0]
     gate = F.gelu((x_in @ p["in_gate"].to(x.dtype)).to(F32), approximate="tanh")
     xr = x_in @ p["in_x"].to(x.dtype)
-    a, b = _rglru_coeffs(p, conv1d_apply(p["conv"], xr), tp)   # (B, S, d_rnn)
-    h = linear_scan(a, b)
-    if state_out is not None:
-        state_out.update(h=h[:, -1], conv=conv_tail(xr, p["conv"]["w"].shape[0]))
+    history = tail = None
+    if seq is not None:
+        history, tail = conv_edges(xr, width, seq)
+    a, b = _rglru_coeffs(p, conv1d_apply(p["conv"], xr, history), tp)   # (B, S, d_rnn)
+    if seq is None:
+        h = linear_scan(a, b)
+        if state_out is not None:
+            state_out.update(h=h[:, -1], conv=conv_tail(xr, width))
+    else:
+        prod, h = _scan(a, b)
+        before, last = _carried(prod[:, -1], h[:, -1, :, None], seq)
+        h = h + prod * before[:, None, :, 0]
+        if state_out is not None:
+            state_out.update(h=last[..., 0], conv=tail)
     y = (h * gate).to(x.dtype)
     return _row_parallel(y, p["out"], tp)
 

@@ -84,6 +84,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
+from repro_torch.distributed import comm
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models.convert import FlatLayout, ShardedParams
@@ -292,7 +293,7 @@ def init_params(gen: torch.Generator, cfg, device=None):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
+def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None, seq=None):
     """One block of ``kind``; ``p(name)`` returns the block's leaf.  Returns
     (x, the MoE aux loss or None).  ``encattn`` attends bidirectionally;
     ``xattn`` attends causally, then its queries attend over ``enc_out``
@@ -302,31 +303,50 @@ def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
     ``k`` / ``v`` (B, S', KVH, hd), every position or a ``swa`` layer's last
     ``min(window, S)``; an ``xattn`` block adds the cross-attention's ``kx``
     / ``vx`` (B, enc_len, KVH, hd); a recurrent block its state after the
-    last position (``layers.mamba2_apply`` / ``rglru_apply``)."""
+    last position (``layers.mamba2_apply`` / ``rglru_apply``).  ``seq``: x
+    is a serving rank's chunk of the decoder sequence over its data group
+    (``tensor_parallel.SeqSplit``; ``positions`` its positions):
+    :func:`_self_attend`, and the recurrences carried across the chunks."""
     if _model_split(p.params):
-        return _tp_block(p, kind, x, positions, cfg, enc_out, kv_out)
+        return _tp_block(p, kind, x, positions, cfg, enc_out, kv_out, seq)
     mixer, ffn = _parse_kind(kind)
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
     if mixer in RECURRENT:
         apply = L.mamba2_apply if mixer == "ssm" else L.rglru_apply
-        x = x + apply(_mixer_params(p, mixer, cfg), h, cfg, state_out=kv_out)
+        x = x + apply(_mixer_params(p, mixer, cfg), h, cfg, state_out=kv_out, seq=seq)
         return _ffn_residual(p, ffn, x, cfg)
-    window = cfg.window if mixer == "swa" else None
     q, k, v = L.attn_qkv(p("attn.wq"), p("attn.wk"), p("attn.wv"), h, positions, cfg)
-    if kv_out is not None:
-        w = k.shape[1] if window is None else min(window, k.shape[1])
-        kv_out.update(k=k[:, -w:], v=v[:, -w:])
-    if mixer == "encattn":
-        out = L.full_attention(q, k, v)
-    else:
-        out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
-    x = x + L.attn_proj_out(p("attn.wo"), out)
+    x = x + L.attn_proj_out(p("attn.wo"), _self_attend(q, k, v, mixer, cfg, kv_out, seq))
     if mixer == "xattn":
         kx, vx = _cross_kv(p, enc_out, cfg)
         if kv_out is not None:
             kv_out.update(kx=kx, vx=vx)
         x = _cross_residual(p, x, kx, vx, cfg)
     return _ffn_residual(p, ffn, x, cfg)
+
+
+def _self_attend(q, k, v, mixer: str, cfg, kv_out=None, seq=None):
+    """A block's self-attention of q over k / v (B, S, heads, hd): causal
+    (``swa``: over its window) or, for ``encattn``, over every position.
+    With a dict ``kv_out`` the keys and values of every position (a
+    ``swa`` layer's last ``min(window, S)``) land in it, the block's cache
+    entry.  ``seq``: q, k and v are a serving rank's chunk of a sequence
+    over its data group (``tensor_parallel.SeqSplit``): every rank's keys
+    and values are all-gathered over it (one call of both, the rank's KV
+    heads), and the queries attend from their offset over the positions
+    up to the chunk's end (the window holds across the chunk's edge)."""
+    window = cfg.window if mixer == "swa" else None
+    if seq is not None:
+        k, v = comm.all_gather_dim(torch.stack([k, v]), seq.axis, 2).unbind(0)
+    if kv_out is not None:
+        w = k.shape[1] if window is None else min(window, k.shape[1])
+        kv_out.update(k=k[:, -w:], v=v[:, -w:])
+    if mixer == "encattn":
+        return L.full_attention(q, k, v)
+    if seq is None:
+        return L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
+    return L.causal_attention(q, k[:, :seq.stop], v[:, :seq.stop], window, cfg.q_block,
+                              q_start=seq.start)
 
 
 def _mixer_params(p, mixer: str, cfg) -> dict:
@@ -516,7 +536,7 @@ def _full(params: dict, name: str):
     return TP.gather(leaf, params.layout.axis, params.dim(name))
 
 
-def _tp_block(p: _Leaves, kind: str, x, positions, cfg, enc_out=None, kv_out=None):
+def _tp_block(p: _Leaves, kind: str, x, positions, cfg, enc_out=None, kv_out=None, seq=None):
     """One block on a model-parallel rank; returns (x, the MoE aux loss or
     None) with x the same on every rank of the group: the mixer split
     (attention by heads, :func:`_tp_attention`; ``encattn`` bidirectional;
@@ -525,15 +545,15 @@ def _tp_block(p: _Leaves, kind: str, x, positions, cfg, enc_out=None, kv_out=Non
     :func:`_tp_cross_residual`), then the FFN (:func:`_tp_ffn`).  With a
     dict ``kv_out`` the rank's cache entry lands in it, as
     :func:`_apply_block`'s: its KV heads (:func:`_rank_kv`), its heads' or
-    channels' recurrent state."""
+    channels' recurrent state.  ``seq``: x is the rank's chunk of the
+    decoder sequence over its data group, as :func:`_apply_block`'s."""
     mixer, ffn = _parse_kind(kind)
     axis = p.params.layout.axis
     h = L.rmsnorm(p.full("ln1.scale"), x, cfg.norm_eps)
     if mixer in RECURRENT:
-        x = x + _tp_recurrent(p, mixer, h, cfg, axis, state_out=kv_out)
+        x = x + _tp_recurrent(p, mixer, h, cfg, axis, state_out=kv_out, seq=seq)
     else:
-        window = cfg.window if mixer == "swa" else None
-        x = x + _tp_attention(p, h, positions, cfg, window, axis, kv_out, mixer == "encattn")
+        x = x + _tp_attention(p, h, positions, cfg, mixer, axis, kv_out, seq)
     if mixer == "xattn":
         kx, vx = _tp_cross_kv(p, enc_out, cfg, axis)
         if kv_out is not None:
@@ -546,7 +566,7 @@ def _tp_block(p: _Leaves, kind: str, x, positions, cfg, enc_out=None, kv_out=Non
     return x + out, aux
 
 
-def _tp_decode_block(p: _Leaves, kind: str, entry: dict, x, pos: int, cfg):
+def _tp_decode_block(p: _Leaves, kind: str, entry: dict, x, pos: int, cfg, slots=None):
     """:func:`_decode_block` on a model-parallel rank: attention over the
     rank's query heads, its KV heads written into its cache ``entry`` and
     attended over (the ``swa`` ring as the dense block's), ``wo``
@@ -565,7 +585,7 @@ def _tp_decode_block(p: _Leaves, kind: str, entry: dict, x, pos: int, cfg):
     else:
         positions = torch.arange(pos, pos + 1, device=x.device)
         q, k, v, split = _tp_qkv(p, h, positions, cfg, axis)
-        x = x + _tp_out(p, _cache_attend(entry, mixer, q, k, v, pos), axis, split)
+        x = x + _tp_out(p, _cache_attend(entry, mixer, q, k, v, pos, slots), axis, split)
     if mixer == "xattn":
         x = _tp_cross_residual(p, x, entry["kx"], entry["vx"], cfg, axis)
     if ffn == "none":
@@ -653,22 +673,14 @@ def _tp_out(p: _Leaves, out, axis, split: bool):
     return TP.reduce_from(L.attn_proj_out(p("attn.wo"), out), axis)
 
 
-def _tp_attention(p: _Leaves, h, positions, cfg, window, axis, kv_out=None,
-                  bidirectional: bool = False):
+def _tp_attention(p: _Leaves, h, positions, cfg, mixer: str, axis, kv_out=None, seq=None):
     """Attention over the rank's whole query heads (``wq`` column- and
     ``wo`` row-parallel, one all-reduce of the output); replicated over
     gathered leaves where ``wq`` / ``wo``'s blocks are not whole heads.
-    Causal (``window``: sliding), or over every position (the encoder's
-    ``bidirectional``)."""
+    Causal (``swa``: sliding), or over every position (the encoder's
+    ``encattn``): :func:`_self_attend`."""
     q, k, v, split = _tp_qkv(p, h, positions, cfg, axis)
-    if kv_out is not None:
-        w = k.shape[1] if window is None else min(window, k.shape[1])
-        kv_out.update(k=k[:, -w:], v=v[:, -w:])
-    if bidirectional:
-        out = L.full_attention(q, k, v)
-    else:
-        out = L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
-    return _tp_out(p, out, axis, split)
+    return _tp_out(p, _self_attend(q, k, v, mixer, cfg, kv_out, seq), axis, split)
 
 
 def _cross_split(params: dict, cfg) -> bool:
@@ -769,13 +781,14 @@ def _rank_mixer(p: _Leaves, mixer: str, cfg) -> dict:
     return out
 
 
-def _tp_recurrent(p: _Leaves, mixer: str, h, cfg, axis, state_out=None, cache=None):
+def _tp_recurrent(p: _Leaves, mixer: str, h, cfg, axis, state_out=None, cache=None, seq=None):
     """A recurrent mixer on a model-parallel rank (``layers.mamba2_apply``
     / ``rglru_apply`` with ``tp``): Mamba-2 by heads, the RG-LRU by
     channels (:func:`_rank_mixer`); replicated over its leaves, each
     gathered at use, where they do not divide over the group
     (:func:`_rank_width`).  With a ``cache`` entry, one decode step
-    (``mamba2_decode`` / ``rglru_decode``): (out, the new state)."""
+    (``mamba2_decode`` / ``rglru_decode``): (out, the new state).
+    ``seq``: h is the rank's chunk of a sequence over its data group."""
     split = _rank_width(mixer, cfg, axis.world) is not None
     params = _rank_mixer(p, mixer, cfg) if split else _mixer_params(p.full, mixer, cfg)
     tp = axis if split else None
@@ -783,7 +796,7 @@ def _tp_recurrent(p: _Leaves, mixer: str, h, cfg, axis, state_out=None, cache=No
         step = L.mamba2_decode if mixer == "ssm" else L.rglru_decode
         return step(params, cache, h, cfg, tp=tp)
     apply = L.mamba2_apply if mixer == "ssm" else L.rglru_apply
-    return apply(params, h, cfg, state_out=state_out, tp=tp)
+    return apply(params, h, cfg, state_out=state_out, tp=tp, seq=seq)
 
 
 def _mlp_split(p: _Leaves, pre: str, cfg) -> bool:
@@ -890,23 +903,36 @@ def _encode(params: dict, frames: torch.Tensor, cfg, remat: bool = True,
     return L.rmsnorm(_full(params, "enc_norm.scale"), x, cfg.norm_eps)
 
 
-def _inputs(params: dict, batch: dict, cfg, remat: bool = False) -> tuple:
+def _inputs(params: dict, batch: dict, cfg, remat: bool = False, seq=None) -> tuple:
     """(the decoder's input (B, n_prefix + S, d), the encoder output or
     None, n_prefix): the text embedding, after the projected patches of a
     ``vlm`` batch (``n_prefix`` of them); an ``encdec`` batch's frames
     through the encoder (whole on every model-parallel rank), its output
     through ``copy_to`` where the cross-attention is split
-    (:func:`_cross_split`)."""
-    x = _embed(params, batch["tokens"], cfg)
-    enc_out, n_prefix = None, 0
+    (:func:`_cross_split`).  ``seq``: the rank's chunk ``[start, stop)`` of
+    the n_prefix + S positions over its data group, its patches and tokens
+    alone projected and embedded (the encoder runs whole); a rank whose
+    chunk holds no tokens (no patches) still takes its part in the data
+    group's gather of ``embed`` (``patch_proj``) on an FSDP rank, in the
+    same order as the ranks that use it."""
+    tokens = batch["tokens"]
+    n_prefix = batch["patches"].shape[1] if cfg.family == "vlm" else 0
+    a, b = (0, n_prefix + tokens.shape[1]) if seq is None else (seq.start, seq.stop)
+    x = None
+    if b > n_prefix:
+        x = _embed(params, tokens[:, max(a - n_prefix, 0):b - n_prefix], cfg)
+    else:
+        _zblock(params, "embed", params["embed"])
+    enc_out = None
     if cfg.family == "encdec":
         enc_out = _encode(params, batch["frames"], cfg, remat=remat)
         if _cross_split(params, cfg):
             enc_out = TP.copy_to(enc_out, params.layout.axis)
+    elif cfg.family == "vlm" and a < n_prefix:
+        patches = _patch_prefix(params, batch["patches"][:, a:min(b, n_prefix)], cfg)
+        x = patches if x is None else torch.cat([patches, x], dim=1)
     elif cfg.family == "vlm":
-        patches = _patch_prefix(params, batch["patches"], cfg)
-        x = torch.cat([patches, x], dim=1)
-        n_prefix = patches.shape[1]
+        _zblock(params, "patch_proj", params["patch_proj"])
     return x, enc_out, n_prefix
 
 
@@ -1070,7 +1096,7 @@ def _cache_len(kind: str, cfg, max_len: int) -> int:
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
-               layout: FlatLayout = None) -> dict:
+               layout: FlatLayout = None, slots=None) -> dict:
     """Zero cache with the reference's structure: ``{"blocks": {"p<j>":
     entry}, "rem": (entry, ...)}``, stacked leaves with a leading
     (n_scan_blocks,) axis, in ``dtype`` (default the activation dtype)
@@ -1088,8 +1114,14 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
     cross-attention's, ``kx`` / ``vx``), its ``ssm`` layers its H / M heads'
     state and d_inner / M + 2N conv channels, its ``rglru`` layers its d_rnn
     / M channels (:func:`_rank_width`; all of them where they do not
-    divide)."""
+    divide).  ``slots``: the ``max_len`` slots of a full-attention layer
+    (``attn``, an ``xattn`` layer's ``k`` / ``v``) over the rank's data
+    group (``tensor_parallel.serve_split``): it holds its block of
+    ``max_len / D`` (``swa`` rings, recurrent states and ``kx`` / ``vx``
+    stay whole)."""
     check_supported(cfg)
+    if slots is not None and slots.length != max_len:
+        raise ValueError(f"slots over {slots.length} positions for a cache of {max_len}")
     dtype = dtype or cfg.act_dtype
     rank = ShardedParams(layout) if layout is not None and layout.model > 1 else None
 
@@ -1100,7 +1132,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
             return L.mamba2_init_cache(cfg, batch, dtype, lead, device, heads=width)
         if mixer == "rglru":
             return L.rglru_init_cache(cfg, batch, dtype, lead, device, channels=width)
-        n = _cache_len(kind, cfg, max_len)
+        n = _cache_len(kind, cfg, max_len) if slots is None or mixer == "swa" else slots.n
         p = None if rank is None else _Leaves(rank, pre)
         kvh = cfg.n_kv_heads if p is None else _rank_kv(p, cfg)[1]
         shapes = {"k": (n, kvh), "v": (n, kvh)}
@@ -1128,7 +1160,8 @@ def _cache_entry(cache: dict, where) -> dict:
     return cache["rem"][key]
 
 
-def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = False):
+def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = False,
+            seq=None, slots=None):
     """Forward over the prompt: ``batch["tokens"]`` (B, S) after a ``vlm``
     batch's ``patches``, beside an ``encdec`` batch's ``frames``.  Returns
     (last position's f32 logits (B, padded vocab), a cache holding every
@@ -1143,11 +1176,24 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
     is a no-op (:func:`hidden_states`).  On a serving rank (``params`` its
     ``ShardedParams``, ``batch`` its rows): the rank's cache
     (:func:`init_cache`'s ``layout``) and, where :func:`logits_split`, its
-    vocab block of the logits (B, padded vocab / model)."""
+    vocab block of the logits (B, padded vocab / model).
+
+    Where the batch does not split over data (``tensor_parallel.
+    serve_split``): ``seq``, the rank's chunk of the n_prefix + S positions
+    (``batch`` the whole batch): the rank runs its chunk (positions offset,
+    :func:`_self_attend`, the recurrences carried), and the last
+    position's hidden state is all-gathered from the last data rank, so
+    every rank returns the same logits; ``slots``, the rank's block of a
+    full-attention layer's cache of ``slots.length`` slots
+    (:func:`init_cache`'s ``slots``): its entry holds positions ``[start,
+    stop)``, zeros past the prompt.  Without ``slots`` that entry holds
+    every position (gathered where ``seq``); a ``swa`` ring, the recurrent
+    states and ``kx`` / ``vx`` are whole on every rank."""
     check_supported(cfg)
     params = serving_params(params, cfg)
-    x, enc_out, _ = _inputs(params, batch, cfg, remat)
-    positions = torch.arange(x.shape[1], device=x.device)
+    x, enc_out, _ = _inputs(params, batch, cfg, remat, seq)
+    start = 0 if seq is None else seq.start
+    positions = torch.arange(start, start + x.shape[1], device=x.device)
     stacked: dict = {}
     rem = []
     for repeat, layers in _repeats(params, cfg, "decoder"):
@@ -1155,11 +1201,13 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
 
         def body(x, layers=layers, entries=entries):
             for (_, kind, p), entry in zip(layers, entries):
-                x, _ = _apply_block(p, kind, x, positions, cfg, enc_out, kv_out=entry)
+                x, _ = _apply_block(p, kind, x, positions, cfg, enc_out, kv_out=entry, seq=seq)
             return x
 
         x = _checkpointed(body, "full", x) if repeat and remat else body(x)
-        for ((where, key, _), _, _), entry in zip(layers, entries):
+        for ((where, key, _), kind, _), entry in zip(layers, entries):
+            if seq is not None or slots is not None:
+                _cache_block(entry, kind, slots)
             if where == "blocks":
                 stacked.setdefault(key, []).append(entry)
             else:
@@ -1168,11 +1216,33 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
                               for name in entries[0]}
                         for key, entries in stacked.items()},
              "rem": tuple(rem)}
-    h = L.rmsnorm(_full(params, "final_norm.scale"), x[:, -1:], cfg.norm_eps)
+    last = x[:, -1:]
+    if seq is not None:
+        last = comm.all_gather_dim(last.contiguous(), seq.axis, 1)[:, -1:]
+    h = L.rmsnorm(_full(params, "final_norm.scale"), last, cfg.norm_eps)
     return _logits(params, h, cfg)[:, 0], cache
 
 
-def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg):
+def _cache_block(entry: dict, kind: str, slots) -> None:
+    """A prefill's cache entry, in place, on a rank of a split serving call:
+    a full-attention layer's ``k`` / ``v`` (B, S', heads, hd) cut to the
+    rank's block of ``slots`` (positions ``[start, stop)``, zeros past S'),
+    every position where ``slots`` is None; each a copy, not a view of the
+    gathered keys and values."""
+    for name in ("k", "v"):
+        if name not in entry:
+            continue
+        t = entry[name]
+        if slots is None or _parse_kind(kind)[0] == "swa":
+            entry[name] = t.clone()
+            continue
+        out = t.new_zeros((t.shape[0], slots.n) + tuple(t.shape[2:]))
+        part = t[:, slots.start:slots.stop]
+        out[:, :part.shape[1]] = part
+        entry[name] = out
+
+
+def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg, slots=None):
     """One token through one block at absolute position ``pos``: RoPE there,
     its key and value written into the cache, attention over the positions
     it sees.  A full-attention layer writes slot ``pos`` and sees slots
@@ -1192,18 +1262,28 @@ def _decode_block(p, kind: str, entry: dict, x, pos: int, cfg):
         return _ffn_residual(p, ffn, x + out[:, None], cfg)[0]
     positions = torch.arange(pos, pos + 1, device=x.device)
     q, k, v = L.attn_qkv(p("attn.wq"), p("attn.wk"), p("attn.wv"), h, positions, cfg)
-    x = x + L.attn_proj_out(p("attn.wo"), _cache_attend(entry, mixer, q, k, v, pos))
+    x = x + L.attn_proj_out(p("attn.wo"), _cache_attend(entry, mixer, q, k, v, pos, slots))
     if mixer == "xattn":
         x = _cross_residual(p, x, entry["kx"], entry["vx"], cfg)
     return _ffn_residual(p, ffn, x, cfg)[0]
 
 
-def _cache_attend(entry: dict, mixer: str, q, k, v, pos: int):
+def _cache_attend(entry: dict, mixer: str, q, k, v, pos: int, slots=None):
     """One token's key and value written into its slot of the entry's
     ``k`` / ``v`` and its query attended over the valid slots
-    (:func:`_decode_block`'s full-attention slots or ``swa`` ring)."""
+    (:func:`_decode_block`'s full-attention slots or ``swa`` ring).
+    ``slots``: a full-attention layer's slots over the rank's data group,
+    the entry its block: slot ``pos`` written on the rank that holds it,
+    the query attended over every rank's valid slots through the combine
+    of ``layers.split_decode_attention``."""
     n_slots = entry["k"].shape[1]
     idx = torch.arange(n_slots, device=q.device)
+    if slots is not None and mixer != "swa":
+        if slots.start <= pos < slots.stop:
+            entry["k"][:, pos - slots.start:pos - slots.start + 1].copy_(k)
+            entry["v"][:, pos - slots.start:pos - slots.start + 1].copy_(v)
+        return L.split_decode_attention(q, entry["k"], entry["v"], idx + slots.start <= pos,
+                                        slots.axis)
     if mixer == "swa":
         slot = pos % n_slots
         valid = idx + n_slots * torch.div(pos - idx, n_slots, rounding_mode="floor") >= 0
@@ -1216,7 +1296,7 @@ def _cache_attend(entry: dict, mixer: str, q, k, v, pos: int):
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg,
-                unroll: bool = False):
+                unroll: bool = False, slots=None):
     """tokens: (B,) ids; pos: the Python int position they take.  Returns
     (f32 logits (B, padded vocab), cache).  Unlike the reference, which
     returns a new cache, the keys, values and recurrent states are written
@@ -1224,13 +1304,15 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int, cfg,
     back to the host but a MoE layer's group sizes (``layers.moe_apply``).
     ``unroll`` is a no-op (:func:`hidden_states`).  On a serving rank: its
     rows, its cache (:func:`init_cache`'s ``layout``) and, where
-    :func:`logits_split`, its vocab block of the logits, as :func:`prefill`."""
+    :func:`logits_split`, its vocab block of the logits, as :func:`prefill`;
+    ``slots``: its cache's full-attention blocks over data, as
+    :func:`init_cache`'s (:func:`_cache_attend`)."""
     check_supported(cfg)
     params = serving_params(params, cfg)
     block = _tp_decode_block if _model_split(params) else _decode_block
     x = _embed(params, tokens[:, None], cfg)
     for where, kind, p in _layers(params, cfg):
-        x = block(p, kind, _cache_entry(cache, where), x, pos, cfg)
+        x = block(p, kind, _cache_entry(cache, where), x, pos, cfg, slots)
     h = L.rmsnorm(_full(params, "final_norm.scale"), x, cfg.norm_eps)
     return _logits(params, h, cfg)[:, 0], cache
 

@@ -25,7 +25,13 @@ On a rank of the ``(data, model)`` serving grid (``topo``, from
 batch, serves its data row's rows (``tensor_parallel.serve_rows``) from its
 cache, picks each token over the model group (``vocab_argmax`` where the
 logits are the rank's vocab block) and gathers the rows' tokens over the
-data group: every rank returns the whole batch's tokens.
+data group: every rank returns the whole batch's tokens.  Where the batch
+does not split over data (B % D or B < D; ``tensor_parallel.serve_split``)
+every data row serves the whole batch: the prefill runs the rank's chunk of
+the prompt's positions (where they divide into D), each full-attention
+layer's cache holds the rank's block of its slots (where they divide), a
+decode step combines the blocks' attention over data, and every data rank
+holds the same logits, so the tokens need no gather.
 
 The reference sizes the cache ``S + max_new_tokens`` whatever the prefix
 (``src/repro/train/serve.py:30``), so a VLM's prefill overruns it: its
@@ -113,13 +119,18 @@ def generate(
     n_prefix = batch["patches"].shape[1] if cfg.family == "vlm" else 0
     start = n_prefix + S                 # the first decoded position
     max_len = start + max_new_tokens
+    # where the batch does not split over data: the prompt's positions and
+    # the full-attention caches' slots over data, where they divide
+    place = () if topo is None else (topo.worker, topo.worker_index, topo.data)
+    seq, slots = TP.serve_split(prompt.shape[0], start, max_new_tokens, cfg, *place)
     split = topo is not None and T.logits_split(params, cfg)
     rank_layout = params.layout if isinstance(params, ShardedParams) else None
 
     with torch.no_grad():
         t0 = _clock(dev)
-        logits, pcache = T.prefill(params, batch, cfg, remat=False)
-        cache = T.init_cache(cfg, B, max_len, cfg.act_dtype, device=dev, layout=rank_layout)
+        logits, pcache = T.prefill(params, batch, cfg, remat=False, seq=seq, slots=slots)
+        cache = T.init_cache(cfg, B, max_len, cfg.act_dtype, device=dev, layout=rank_layout,
+                             slots=slots)
         cache = _splice_cache(cache, pcache, cfg, start)
         del pcache
         prefill_s = _clock(dev) - t0
@@ -144,7 +155,7 @@ def generate(
         out = [tok]
         t0 = _clock(dev)
         for i in range(max_new_tokens - 1):
-            logits, cache = T.decode_step(params, cache, tok, start + i, cfg)
+            logits, cache = T.decode_step(params, cache, tok, start + i, cfg, slots=slots)
             tok = pick(logits)
             out.append(tok)
         decode_s = _clock(dev) - t0

@@ -563,7 +563,16 @@ def _assert_serving_record(r: dict, multi: bool) -> None:
                          zero_axes=("data",))
     assert mem["params_bytes"] == sum(n * dt.itemsize
                                       for n, dt in zip(lay.group_numels, lay.dtypes))
-    call = TP.serve_collectives(cfg, lay, r["batch_per_rank"], r["seq"], r["kind"])
+    # where the batch does not split over data: the prompt's positions and
+    # the cache's slots over data where they divide (tensor_parallel.serve_split)
+    D, seq = r["mesh"]["data"], r["seq"]
+    over = not r["batch_over_data"] and seq % D == 0
+    assert r.get("seq_over_data", False) == (over and r["kind"] == "prefill")
+    full = any(k.split(":")[0] in ("attn", "xattn") for k in cfg.pattern)
+    assert r.get("cache_slots_over_data", False) == (over and full)
+    split = TP.SeqSplit(seq, D, 0) if over else None
+    call = TP.serve_collectives(cfg, lay, r["batch_per_rank"], seq, r["kind"],
+                                chunk=split if r["kind"] == "prefill" else None, slots=split)
     # a prefill on the rank's blocks resolves them first; a decode step
     # runs on params resolved once before it, as generate's steps
     resolve = TP.serve_collectives(cfg, lay, r["batch_per_rank"], r["seq"], "serving_params")
@@ -606,7 +615,10 @@ def test_serving_record_cache_bytes_are_the_rank_init_cache(arch, shape, multi):
     s = INPUT_SHAPES[shape]
     b = rec["batch_per_rank"]
     lay = TP.rank_layout(cfg, dims["model"], 0)
-    mine = T.init_cache(cfg, b, s.seq_len, device="meta", layout=lay)
+    # a batch that does not split over data: the full-attention slots over it
+    slots = (None if rec["batch_over_data"] or s.seq_len % dims["data"]
+             else TP.SeqSplit(s.seq_len, dims["data"], 0))
+    mine = T.init_cache(cfg, b, s.seq_len, device="meta", layout=lay, slots=slots)
     assert rec["memory"]["cache_bytes_per_rank"] == DR.cache_bytes(mine)
     dense = T.init_cache(cfg, s.global_batch, s.seq_len, device="meta")
     leaves = dict(convert.flatten_tree(dense, is_leaf=lambda x: isinstance(x, torch.Tensor)))
@@ -661,3 +673,81 @@ def test_meta_serving_collectives_equal_a_real_run():
         assert DR.collectives(ours) == DR.collectives(theirs["comm"])
     assert gen["memory"]["cache_bytes_per_rank"] == DR.cache_bytes(T.init_cache(
         cfg, Bt // 2, S + new, layout=TP.rank_layout(cfg, 2, 0)))
+
+
+# sha256 (first 16 hex digits) of json.dumps({"memory", "comm", "flops"},
+# sort_keys=True) of the long_500k single-pod records of the long-context
+# archs without a full-attention layer, as DR.reckon_pod gave them at
+# commit ae145c5, before a batch that does not split over data put the
+# sequence over data
+LONG_RECORDS_AT_AE145C5 = {
+    "recurrentgemma_2b": "a707ea5abde44d69",
+    "mamba2_780m": "96efe3a7132abeaa",
+}
+
+
+def test_long_context_decode_holds_its_block_of_the_global_caches():
+    """gemma3_1b long_500k on the single pod (B = 1 over 16 data rows, the
+    reference's cache_pspecs fallback): each of its 4 global layers holds
+    its block of 524,288 / 16 slots, its 22 window rings whole, so a rank's
+    cache falls from 2,159,017,984 B (at ae145c5, every data row the whole
+    cache) to 145,752,064; each global layer's decode attention combines
+    the blocks over data with one f32 max and one f32 sum of (B, H, 1 + hd);
+    recurrentgemma_2b's and mamba2_780m's long_500k records (no
+    full-attention layer: nothing of their caches splits) are those of
+    ae145c5, to the byte."""
+    import hashlib
+
+    from repro_torch.distributed import tensor_parallel as TP
+
+    cfg = load_arch("gemma3_1b").FULL
+    n_slots = INPUT_SHAPES["long_500k"].seq_len
+    rec = DR.reckon_pod("gemma3_1b", "long_500k", False)
+    assert (rec["batch_over_data"], rec["seq_over_data"], rec["cache_slots_over_data"]) == (
+        False, False, True)
+    n_global = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    n_rings = cfg.n_layers - n_global
+    assert (n_global, n_rings) == (4, 22)
+    kv = 2 * cfg.n_kv_heads * cfg.hd * cfg.act_dtype.itemsize
+    assert rec["memory"]["cache_bytes_per_rank"] == (
+        n_global * (n_slots // 16) * kv + n_rings * cfg.window * kv) == 145_752_064
+    assert rec["memory"]["peak_bytes"] < 2_716_948_192 / 10       # at ae145c5
+    H = cfg.n_heads                # 4 heads over 16 model ranks: every rank computes each
+    assert rec["comm"]["all_reduce_max@data"] == {"calls": 4, "bytes": 4 * H * 4}
+    assert rec["comm"]["all_reduce_sum@data"] == {"calls": 4, "bytes": 4 * H * (1 + cfg.hd) * 4}
+    lay = TP.rank_layout(cfg, 16, 0, zero=16, zero_axes=("data",))
+    assert rec["comm"] == TP.serve_collectives(cfg, lay, 1, n_slots, "decode",
+                                               slots=TP.SeqSplit(n_slots, 16, 0))
+    for arch, digest in LONG_RECORDS_AT_AE145C5.items():
+        rec = DR.reckon_pod(arch, "long_500k", False)
+        keep = {k: rec[k] for k in ("memory", "comm", "flops")}
+        assert hashlib.sha256(json.dumps(keep, sort_keys=True).encode()).hexdigest()[:16] == \
+            digest, arch
+        assert not rec["seq_over_data"] and not rec["cache_slots_over_data"]
+
+
+def test_a_one_sequence_prefill_runs_its_chunk_over_data():
+    """gemma3_1b prefilling one 32,768-token prompt over (data 16, model 16):
+    rank 0 runs its 2,048 positions (26 layers' keys and values all-gathered
+    over data, the last position's hidden state gathered once), keeps its
+    2,048-slot blocks of the global caches beside the whole rings
+    (19,922,944 B against 145,752,064 B with every position), and reckons
+    its peak at 468,286,160 B (3,436,239,568 at ae145c5, the whole prompt on
+    every data row); its collectives are the placement's reckoning."""
+    from repro_torch.distributed import tensor_parallel as TP
+
+    cfg = load_arch("gemma3_1b").FULL
+    rec = DR.reckon_serve(cfg, "prefill", 1, 32768, data=16, model=16)
+    assert rec["seq_over_data"] and rec["cache_slots_over_data"]
+    kv = 2 * cfg.n_kv_heads * cfg.hd * cfg.act_dtype.itemsize
+    assert rec["memory"]["cache_bytes_per_rank"] == 4 * 2048 * kv + 22 * cfg.window * kv \
+        == 19_922_944
+    assert rec["memory"]["peak_bytes"] == 468_286_160
+    lay = TP.rank_layout(cfg, 16, 0)
+    chunk = TP.SeqSplit(32768, 16, 0)
+    want = scaled_sum((1, TP.serve_collectives(cfg, lay, 1, 32768, "serving_params")),
+                      (1, TP.serve_collectives(cfg, lay, 1, 32768, "prefill", chunk=chunk)))
+    assert rec["comm"] == want
+    assert rec["comm"]["all_gather@data"] == {
+        "calls": cfg.n_layers + 1,
+        "bytes": cfg.n_layers * 2048 * kv + cfg.d_model * cfg.act_dtype.itemsize}

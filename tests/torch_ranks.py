@@ -808,9 +808,14 @@ def serve_rank(rank: int, world: int, cases: list) -> list:
     blocks), ``batch`` (the whole batch dict of CPU tensors), ``dec_tokens``
     ((steps, B) teacher-forced decode tokens), ``new`` (generate's tokens),
     ``temperature`` (0: greedy) and optionally ``fsdp`` (the rank holds its
-    data block of each leaf the placement cuts over ``data``).  Returns per
-    case: the rank's grid
-    place and rows; its prefill logits and cache; its init_cache of the
+    data block of each leaf the placement cuts over ``data``).  Where the
+    batch does not split over data the rank serves every row over
+    ``tensor_parallel.serve_split``'s split, as ``generate`` does: the
+    prefill over its chunk of the prompt's positions (``seq``), its cache's
+    full-attention blocks of the decode length's slots (``slots``), kept by
+    the prefill and read by each decode step.  Returns per case: the
+    rank's grid place, rows and split (``seq`` / ``slots`` without their
+    group, or None); its prefill logits and cache; its init_cache of the
     decode length and each teacher-forced ``decode_step``'s logits and the
     cache after them (on params ``serving_params`` resolved first, its
     collectives apart); generate's tokens (the whole batch's); each phase's
@@ -828,7 +833,10 @@ def serve_rank(rank: int, world: int, cases: list) -> list:
         cfg, batch, dec = case["cfg"], case["batch"], case["dec_tokens"]
         topo = mesh.serving_topology(dist.group.WORLD, model=case["model"],
                                      fsdp=case.get("fsdp", False))
-        mine = C.shard_flat(case["row"], T.layout(cfg), TP.topology_layout(cfg, topo))
+        lay = TP.topology_layout(cfg, topo)
+        # (data D, model 1) without FSDP: every rank holds the dense params
+        mine = case["row"] if lay.model_dims == () else C.shard_flat(case["row"], T.layout(cfg),
+                                                                     lay)
 
         def fresh():
             t = dataclasses.replace(topo, stats=CommStats())
@@ -838,26 +846,32 @@ def serve_rank(rank: int, world: int, cases: list) -> list:
         local = {k: v[rows] for k, v in batch.items()}
         b, s = local["tokens"].shape
         n0 = s + (cfg.n_patches if cfg.family == "vlm" else 0)
+        seq, slots = TP.serve_split(batch["tokens"].shape[0], n0, case["new"], cfg, topo.worker,
+                                    topo.worker_index)
         res = {"rank": rank, "data_index": topo.worker_index, "model_index": topo.model_index,
-               "rows": (rows.start, rows.stop)}
+               "rows": (rows.start, rows.stop),
+               **{k: None if v is None else tuple(v) for k, v in (("seq", seq), ("slots", slots))}}
         with torch.no_grad():
             t, params = fresh()
-            logits, small = T.prefill(params, local, cfg, remat=False)
+            seq, slots = (None if v is None else v._replace(axis=t.data) for v in (seq, slots))
+            logits, small = T.prefill(params, local, cfg, remat=False, seq=seq, slots=slots)
             # a copy: the splice passes recurrent states through, and decode
             # then steps them in place
             kept_cache = torch.utils._pytree.tree_map(torch.clone, small)
             res["prefill"] = {"logits": logits, "cache": kept_cache, "comm": t.stats.as_dict()}
             t, params = fresh()
+            slots = None if slots is None else slots._replace(axis=t.data)
             params = T.serving_params(params, cfg)
             resolved = t.stats.as_dict()
             t.stats.reset()
-            cache = T.init_cache(cfg, b, n0 + case["new"], layout=getattr(params, "layout", None))
+            cache = T.init_cache(cfg, b, n0 + case["new"], layout=getattr(params, "layout", None),
+                                 slots=slots)
             res["init_cache"] = {k: tuple(v.shape) for k, v in C.flatten_tree(
                 cache, is_leaf=lambda x: isinstance(x, torch.Tensor))}
             cache = S._splice_cache(cache, small, cfg, n0)
             steps = []
             for i, tok in enumerate(dec):
-                logits, cache = T.decode_step(params, cache, tok[rows], n0 + i, cfg)
+                logits, cache = T.decode_step(params, cache, tok[rows], n0 + i, cfg, slots=slots)
                 steps.append(logits)
             res["decode"] = {"logits": steps, "cache": cache, "comm": t.stats.as_dict(),
                              "serving_params_comm": resolved}
@@ -918,7 +932,9 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
             if turn == rank:
                 row = T.init_params(torch.Generator("cuda").manual_seed(seed), cfg,
                                     device="cuda")
-                mine = C.shard_flat(row, T.layout(cfg), TP.topology_layout(cfg, topo))
+                lay = TP.topology_layout(cfg, topo)
+                # (data D, model 1) without FSDP: the rank holds the dense params
+                mine = row if lay.model_dims == () else C.shard_flat(row, T.layout(cfg), lay)
                 del row
                 torch.cuda.empty_cache()
             dist.barrier()
