@@ -63,14 +63,16 @@ Before that, the model axis (model_axis_full_width: Minitron-4B, GPT-2
 small, Granite-MoE, LLaVA, Mamba-2, RecurrentGemma and Whisper over gloo
 ranks sharing the card,
 Megatron-split DSM steps held against the dense run, the MoE one made to
-take the ranks' routes) and serving on the (data, model) grid in the same
+take the ranks' routes; Minitron-4B and Gemma-3 1B at S = 2,048 with
+sequence parallelism, attn_seq_shard) and serving on the (data, model) grid in the same
 start of the ranks (serve_model_axis_full_width: Minitron-4B at 8 layers
 in bf16 over four model ranks and at 8 layers in f32, GPT-2 small over (2,
 2), Granite-MoE, LLaVA, Mamba-2, RecurrentGemma and Whisper over four model
 ranks; one prompt that does not split over data, its positions and its
 global caches' slots over data: Gemma-3 1B at whole depth in f32 over (4,
 1), Mamba-2 and RecurrentGemma over (2, 2); each held against the dense
-model and its f32 logits), and FSDP in
+model and its f32 logits; Minitron-4B from a 2,048-token prompt with
+sequence parallelism, its rank caches the same bits as without it), and FSDP in
 the same start (fsdp_full_width: GPT-2 small at 2 layers with each rank's
 zero block gathered per layer over its zero group, against its dense run;
 Minitron-4B at 2 layers over (worker 1, zero 2, model 2) against the same
@@ -380,6 +382,25 @@ MODEL_AXIS_CASES = (   # (arch, layers, W, model ranks, B_micro, rounds)
     ("recurrentgemma_2b", RG_LAYERS, 2, 4, 4, MODEL_AXIS_ROUNDS),
     ("whisper_large_v3", ENCDEC_AXIS_LAYERS, 2, 4, 2, MODEL_AXIS_ROUNDS))
 MODEL_AXIS = dict(tau=2, seq=128)
+# (m), (n): sequence parallelism on the model axis (cfg.attn_seq_shard:
+# each rank holds its (B, S / 4, d) block of the residual stream between
+# blocks, the sequence gathered in front of each column-parallel product and
+# reduce-scattered after each row-parallel one), in the same start of the
+# ranks, each against its dense run from the same card draw, MODEL_AXIS'
+# tau, B_micro SP_AXIS["b_micro"], S SP_AXIS["seq"] (four blocks of 512),
+# one round, the same bounds and gates as (a)-(i).  (m) minitron_4b.FULL
+# at MODEL_AXIS_LAYERS layers over (worker 1, zero 1, model 4), W = 2:
+# Megatron-SP, attention by heads; (n) gemma3_1b.FULL at GEMMA_SP_LAYERS of
+# its 26 layers (one repeat of its 5 swa : 1 attn pattern) over (1, 1, 4),
+# W = 2, with the reference's TOPO.attn_tp = False: wq / wk / wv / wo whole
+# on every rank (dryrun.ATTN_NAMES), the rank's 512 queries over every
+# rank's keys and values (its one KV head), the 512-position window across
+# the blocks' edges
+SP_AXIS = dict(b_micro=1, seq=2048)
+GEMMA_SP_LAYERS = 6
+SP_AXIS_CASES = (      # (arch, layers, W, model ranks, TOPO.attn_tp)
+    ("minitron_4b", MODEL_AXIS_LAYERS, 2, 4, True),
+    ("gemma3_1b", GEMMA_SP_LAYERS, 2, 4, False))
 MODEL_AXIS_GAMMA = 1e-3
 MODEL_AXIS_ETA = MAIN["global_lr"]
 # the rounding model: one bf16 ulp (2^-8) of the largest logit per
@@ -437,7 +458,11 @@ MODEL_AXIS_ULP = 2.0 ** -8
 # tokens, PERF.md section 6); over (2, 2), SERVE_SPLIT's:
 # (k) mamba2_780m at MAMBA_AXIS_LAYERS layers (two 256-position chunks, the
 # SSD state carried across them) and (l) recurrentgemma_2b at RG_LAYERS
-# layers (the RG-LRU's); every data rank's logits the same bits
+# layers (the RG-LRU's); every data rank's logits the same bits.  (m')
+# minitron_4b at MODEL_AXIS_LAYERS layers with attn_seq_shard over (data 1,
+# model 4), one SERVE_SP prompt: the prefill over each rank's 512-position
+# block of it, the rank's cache (its KV heads over every position) the same
+# bits as its prefill without the flag, then greedy decode as (a)
 SERVE_MA_BF16_LAYERS = 8        # cut from 32, then 16 (PERF.md section 4)
 SERVE_MA_VLM_LAYERS = 2         # (d)'s, cut from VLM_LAYERS (4)
 SERVE_MA_F32_LAYERS = 8
@@ -445,7 +470,9 @@ SERVE_MA = (4, 256, 16)
 SERVE_MA_ENCDEC_NEW = 16
 SERVE_SPLIT_GEMMA = (1, 4096, 64)
 SERVE_SPLIT = (1, 512, 32)
-SERVE_MA_CASES = (   # (arch, layers (None: whole depth), dtype, model ranks, (B, prompt, new))
+SERVE_SP = (1, 2048, 16)
+SERVE_MA_CASES = (   # (arch, layers (None: whole depth), dtype, model ranks, (B, prompt, new)
+                     # [, config fields])
     ("minitron_4b", SERVE_MA_BF16_LAYERS, None, 4, SERVE_MA),
     ("minitron_4b", SERVE_MA_F32_LAYERS, "float32", 4, SERVE_MA),
     ("gpt2_small", None, None, 2, SERVE_MA),
@@ -456,7 +483,8 @@ SERVE_MA_CASES = (   # (arch, layers (None: whole depth), dtype, model ranks, (B
     ("whisper_large_v3", ENCDEC_AXIS_LAYERS, None, 4, SERVE_ENCDEC[:2] + (SERVE_MA_ENCDEC_NEW,)),
     ("gemma3_1b", None, "float32", 1, SERVE_SPLIT_GEMMA),
     ("mamba2_780m", MAMBA_AXIS_LAYERS, None, 2, SERVE_SPLIT),
-    ("recurrentgemma_2b", RG_LAYERS, None, 2, SERVE_SPLIT))
+    ("recurrentgemma_2b", RG_LAYERS, None, 2, SERVE_SPLIT),
+    ("minitron_4b", MODEL_AXIS_LAYERS, None, 4, SERVE_SP, {"attn_seq_shard": True}))
 SERVE_MA_F32_RTOL = 1e-3
 # fsdp_full_width: FSDP over zero (mesh.topology(..., fsdp=True): each rank
 # holds its zero block of its blocks, gathers each layer at use over its
@@ -1573,7 +1601,9 @@ def phase_zero_card_vs_cpu(torch, K):
     from repro_torch.obs.sinks import read_run
     from repro_torch.obs.summarize import _dedupe_by_step
 
-    x0 = T.init_params(torch.Generator().manual_seed(0), NANO)
+    # shared now: a second thread pickles x0 for the CPU ranks while this
+    # one's card runs read it
+    x0 = shared(T.init_params(torch.Generator().manual_seed(0), NANO))
     plan = fault_plan(FaultPlan, FaultSpec)
     kw = dict(tau=TOPO.tau, steps=len(FAULT_ROUNDS), eval_every=len(FAULT_ROUNDS), faults=plan,
               mask_nonfinite=True, guard_nonfinite=True, **MAIN)
@@ -1582,14 +1612,20 @@ def phase_zero_card_vs_cpu(torch, K):
     tmp_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=tmp_root) as d:
         ck = dict(checkpoint_every=2, checkpoint_keep=len(FAULT_ROUNDS))
-        K.reset_launch_counts()
-        dense = run_training(NANO, TrainSettings(**kw), device="cuda", params=x0)
-        dense_launches = K.launch_counts()
-        card = run_ranks(RANKS, NANO, [TrainSettings(checkpoint_dir=f"{d}/card", **ck, **kw,
-                                                     run_dir=f"{d}/card_run", **both)],
-                         "cuda", x0)[0]
-        cpu = run_ranks(RANKS, NANO, [TrainSettings(checkpoint_dir=f"{d}/cpu", **ck, **kw,
-                                                    **both)], "cpu", x0)[0]
+        # the CPU ranks run beside the dense run and the card ranks, as
+        # mixed_ranks_card_vs_cpu runs its own (cut from one after the other
+        # for the time target: PERF.md section 4)
+        with concurrent.futures.ThreadPoolExecutor(1) as side:
+            cpu = side.submit(run_ranks, RANKS, NANO,
+                              [TrainSettings(checkpoint_dir=f"{d}/cpu", **ck, **kw, **both)],
+                              "cpu", x0)
+            K.reset_launch_counts()
+            dense = run_training(NANO, TrainSettings(**kw), device="cuda", params=x0)
+            dense_launches = K.launch_counts()
+            card = run_ranks(RANKS, NANO, [TrainSettings(checkpoint_dir=f"{d}/card", **ck, **kw,
+                                                         run_dir=f"{d}/card_run", **both)],
+                             "cuda", x0)[0]
+            cpu = cpu.result(timeout=CPU_RUN_TIMEOUT_S)[0]
         os.makedirs(f"{d}/resume")
         for suffix in (".npz", ".json"):
             shutil.copy(CK.step_path(f"{d}/card", 2) + suffix, f"{d}/resume")
@@ -3167,10 +3203,23 @@ def depth_cut(arch: str, layers: int):
 
 
 def model_axis_cfgs():
-    """The model-axis cases: (cfg, W, M, B_micro, rounds) at
-    MODEL_AXIS_CASES' depths."""
-    return [(depth_cut(arch, layers), n_workers, model, b_micro, rounds)
-            for arch, layers, n_workers, model, b_micro, rounds in MODEL_AXIS_CASES]
+    """The model-axis cases: (cfg, W, M, B_micro, rounds, S, the leaves held
+    whole on every rank) at MODEL_AXIS_CASES' depths, then SP_AXIS_CASES'
+    with attn_seq_shard."""
+    import dataclasses
+
+    from repro_torch.launch.dryrun import ATTN_NAMES
+
+    plain = [(depth_cut(arch, layers), n_workers, model, b_micro, rounds, MODEL_AXIS["seq"], ())
+             for arch, layers, n_workers, model, b_micro, rounds in MODEL_AXIS_CASES]
+    sp = []
+    for arch, layers, n_workers, model, attn_tp in SP_AXIS_CASES:
+        cut = depth_cut(arch, layers)
+        cfg = dataclasses.replace(cut, attn_seq_shard=True,
+                                  name=f"{cut.name}_sp{'' if attn_tp else '_attn_whole'}")
+        sp.append((cfg, n_workers, model, SP_AXIS["b_micro"], 1, SP_AXIS["seq"],
+                   () if attn_tp else ATTN_NAMES))
+    return plain + sp
 
 
 def largest_logit(torch, params, cfg, batch) -> float:
@@ -3261,9 +3310,9 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
         raise AssertionError(f"{cfgs[0][0].name}: N {T.layout(cfgs[0][0]).numel}")
     corpus = training_corpus()
     rng = np.random.default_rng(11)
-    tau, seq = MODEL_AXIS["tau"], MODEL_AXIS["seq"]
+    tau = MODEL_AXIS["tau"]
     cases, reckoned = [], []
-    for i, (cfg, W, M, bm, n_rounds) in enumerate(cfgs):
+    for i, (cfg, W, M, bm, n_rounds, seq, rep) in enumerate(cfgs):
         batches = []
         for _ in range(n_rounds):
             batch = {"tokens": corpus.sample(rng, W * tau * bm, seq).reshape(
@@ -3275,12 +3324,12 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
                 batch["frames"] = rng.standard_normal((W, tau, 1, bm, cfg.enc_len,
                                                        cfg.d_model), dtype=np.float32)
             batches.append(batch)
-        cases.append((cfg, W, M, 7 + i, batches, MODEL_AXIS_GAMMA, MODEL_AXIS_ETA))
+        cases.append((cfg, W, M, 7 + i, batches, MODEL_AXIS_GAMMA, MODEL_AXIS_ETA, rep))
         # every rank holds blocks of the same shapes: rank 0's reckoning (a
         # VLM's sequence is its patches and its text)
         n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
         kw = dict(n_workers=W, tau=tau, b_micro=bm, seq=seq + n_prefix, world=RANKS, model=M,
-                  eval_batch=0)
+                  eval_batch=0, replicate_names=rep)
         reckoned.append((kw, pool.submit(reckon_comm, cfg, kw),
                          pool.submit(reckon_peak, cfg, kw)))
     serving = serve_model_axis_cases(torch, pool)
@@ -3293,12 +3342,20 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
     shutil.rmtree(work, ignore_errors=True)
     (work / "fsdp").mkdir(parents=True)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    t0, wall0 = time.perf_counter(), time.time()
     both = run_ranks(torch_ranks.model_axis_serve_rank, RANKS,
                      (cases, str(work), [case for case, _ in serving] + [fsdp_serve],
                       fsdp["cases"]),
                      timeout_s=RANKS_TIMEOUT_S, work_dir=str(ROOT / "build"))
-    ranks_s = time.perf_counter() - t0
+    ranks_s, wall1 = time.perf_counter() - t0, time.time()
+    # where the ranks' start goes: to the rank function's entry, its
+    # training, serving and FSDP cases, and from their end to the return here
+    wall = [r["wall"] for r in both]
+    ranks_split_s = {"enter": max(w[0] for w in wall) - wall0,
+                     "train": max(w[1] - w[0] for w in wall),
+                     "serve": max(w[2] - w[1] for w in wall),
+                     "fsdp": max(w[3] - w[2] for w in wall),
+                     "return": wall1 - max(w[3] for w in wall)}
     ranks = [r["train"] for r in both]
     served = (serving, [[r["serve"][i] for r in both] for i in range(len(serving))], ranks_s)
     fsdp.update(ranks=[r["fsdp"] for r in both], work=work / "fsdp", ranks_s=ranks_s,
@@ -3306,10 +3363,10 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
                         [r["serve"][plain_serve] for r in both]),
                 serve_case=fsdp_serve)
     rows, failures = [], []
-    for i, (cfg, W, M, seed, batches, gamma, eta) in enumerate(cases):
+    for i, (cfg, W, M, seed, batches, gamma, eta, rep) in enumerate(cases):
         per_rank = [r[i] for r in ranks]
         lay = T.layout(cfg)
-        lays = [TP.rank_layout(cfg, M, m) for m in range(M)]
+        lays = [TP.rank_layout(cfg, M, m, replicate_names=rep) for m in range(M)]
         kw, comm_fut, peak_fut = reckoned[i]
         n_rounds = len(batches)
         comm_round, comm_kinds = comm_fut.result(timeout=CPU_RUN_TIMEOUT_S)
@@ -3431,6 +3488,8 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
             if c.get("max_abs_err", 0.0) != 0.0:
                 failures.append(f"{cfg.name}: kernel on rank 0's blocks: {c}")
         rows.append({"config": cfg.name, "n_params": lay.numel, "n_workers": W,
+                     "seq": batches[0]["tokens"].shape[-1],
+                     "attn_seq_shard": cfg.attn_seq_shard, "leaves_whole": list(rep),
                      "dense_and_checks_s": time.perf_counter() - t_dense,
                      "case_s_by_rank": [r["case_s"] for r in per_rank],
                      "grid": {"worker": per_rank[0]["grid"][0], "zero": per_rank[0]["grid"][1],
@@ -3445,8 +3504,9 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
     for f in work.glob("*.pt"):
         f.unlink()
     emit({"phase": "model_axis_full_width", "gpu": smi, "ranks": RANKS,
-          "backend": "gloo", "tau": tau, "seq": seq, "gamma": MODEL_AXIS_GAMMA,
-          "eta": MODEL_AXIS_ETA, "ranks_s": ranks_s, "cases": rows})
+          "backend": "gloo", "tau": tau, "gamma": MODEL_AXIS_GAMMA,
+          "eta": MODEL_AXIS_ETA, "ranks_s": ranks_s, "ranks_split_s": ranks_split_s,
+          "cases": rows})
     if failures:
         raise AssertionError(f"model_axis_full_width: {failures}")
     return total, served, fsdp
@@ -3782,11 +3842,15 @@ def serve_model_axis_cases(torch, pool) -> list:
 
     rng = np.random.default_rng(13)
     out = []
-    for i, (arch, layers, dtype, model, (batch, prompt_len, new)) in enumerate(SERVE_MA_CASES):
+    for i, (arch, layers, dtype, model, (batch, prompt_len, new), *fields) in enumerate(
+            SERVE_MA_CASES):
         cfg = depth_cut(arch, layers) if layers else load_arch(arch).FULL
         if dtype:
             cfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype,
                                       name=f"{cfg.name}_{dtype}")
+        if fields:
+            cfg = dataclasses.replace(cfg, **fields[0],
+                                      name=f"{cfg.name}_{'_'.join(sorted(fields[0]))}")
         prompt = torch.as_tensor(training_corpus().sample(rng, batch, prompt_len),
                                  dtype=torch.long)
         extra = {}
@@ -3942,14 +4006,21 @@ def phase_serve_model_axis_full_width(torch, smi, served) -> None:
                              "reckoned_over_measured_peak": ratio,
                              "collectives": r["comm"], "collectives_by_kind": collectives(
                                  r["comm"])})
+        # with attn_seq_shard: each rank's cache the same bits as its
+        # prefill's without the flag
+        sp_cache = [r["sp_cache"] for r in ranks if "sp_cache" in r]
+        sp_ok = all(c["bytes"] == c["bytes_without"] and c["bytes_differing"] == 0
+                    for c in sp_cache)
         ok = (agree and own_pick and all(e <= g for e, g in zip(tp_err, gate)) and decided > 0
-              and equal == decided and comm_ok and peak_ok and data_alike
+              and equal == decided and comm_ok and peak_ok and data_alike and sp_ok
               and rec["memory"]["cache_bytes_per_rank"] == layout_cache)
         rows.append({"config": cfg.name, "n_layers": cfg.n_layers, "param_dtype": cfg.param_dtype,
                      "grid": {"data": D, "model": M}, "n_params": T.layout(cfg).numel,
                      "seq_over_data": chunk0 is not None,
                      "cache_slots_over_data": slots0 is not None,
                      "data_ranks_logits_bit_equal": data_alike,
+                     "attn_seq_shard": cfg.attn_seq_shard,
+                     "sp_cache_by_rank": sp_cache or None,
                      "rank_block_numel": lay0.numel, "batch": B, "prompt_tokens": S,
                      "new_tokens": new, "model_group_tokens_agree": agree,
                      "tokens_are_argmax_of_ranks_logits": own_pick,

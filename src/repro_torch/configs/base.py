@@ -75,7 +75,10 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     vocab_pad_to: int = 512          # pad vocab so the table shards evenly
     q_block: int = 1024              # blockwise-attention query tile
-    attn_seq_shard: bool = False
+    attn_seq_shard: bool = False     # constrain attention activations to
+                                     # sequence-sharding over the model axis:
+                                     # a model rank holds its block of the
+                                     # sequence (tensor_parallel.seq_shard)
 
     @property
     def hd(self) -> int:
@@ -130,7 +133,8 @@ class TopologyConfig:
     tau: int = 12
     remat: bool = True
     remat_policy: str = "full"
-    attn_tp: bool = True
+    attn_tp: bool = True         # False: replicate attention weights over the
+                                 # model axis (dryrun.ATTN_NAMES held whole)
     supports_long_context: bool = False
 
 

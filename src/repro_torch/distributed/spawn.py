@@ -9,6 +9,12 @@ and returns each rank's result.  A child's exception is raised in the
 caller (``torch.multiprocessing`` re-raises it with the child's traceback)
 and stops the others; a run that outlasts its time limit is killed and
 raises ``TimeoutError``.  No process outlives the call.
+
+The arguments reach the ranks through a file (``torch.save``), not the
+pipe that starts each process: the parent writes a child's start-up data
+into that pipe and waits until the child has read it, which the child does
+only after its interpreter has imported torch, so arguments of more than
+the pipe's buffer made the ranks start one after the other.
 """
 
 from __future__ import annotations
@@ -26,9 +32,10 @@ from repro_torch.distributed import comm
 
 
 def _child(rank: int, fn: Callable, world: int, backend: str, store: str, out_dir: str,
-           group_timeout_s: float, args: tuple) -> None:
+           group_timeout_s: float) -> None:
     import torch.distributed as dist
 
+    args = torch.load(os.path.join(out_dir, "args.pt"), weights_only=False)
     torch.set_num_threads(1)
     if backend == "nccl":
         torch.cuda.set_device(rank)
@@ -48,9 +55,9 @@ def run_ranks(fn: Callable, world: int, args: tuple = (), *, backend: str = "glo
     (a module-level function) and its result picklable by ``torch.save``.
     ``backend="nccl"`` puts rank r on ``cuda:r``."""
     with tempfile.TemporaryDirectory(dir=work_dir) as d:
+        torch.save(args, os.path.join(d, "args.pt"))
         ctx = mp.start_processes(
-            _child, args=(fn, world, backend, os.path.join(d, "store"), d, group_timeout_s,
-                          args),
+            _child, args=(fn, world, backend, os.path.join(d, "store"), d, group_timeout_s),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout_s
         try:

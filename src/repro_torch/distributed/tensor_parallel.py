@@ -20,6 +20,14 @@ one process per rank, so the model (``models/transformer.py``) calls these
     table, and :func:`vocab_argmax`, serving's greedy (and Gumbel) pick over
     vocab-sharded logits.
 
+Sequence parallelism (``cfg.attn_seq_shard``, :func:`seq_shard`) adds the
+pair that replaces :func:`copy_to` / :func:`reduce_from` where a rank holds
+its block of the sequence: :func:`gather` over the sequence (``"sum"``)
+in front of a column-parallel product and :func:`reduce_scatter` after a
+row-parallel one; :func:`split` (the rank's block, all-gather backward)
+and :func:`own_rows` (identity, the gradient kept on the rank's block)
+turn a tensor every rank computes alike into the rank's block and back.
+
 A bf16 activation is all-reduced in f32 and rounded once: each rank's
 partial sum is rounded to bf16 by its product, the sum of the M partials
 is exact to f32 and rounded to bf16 again (the rounding model PERF.md
@@ -97,6 +105,44 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.axis.rank * n, n).contiguous(), None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        wide = x.to(F32) if x.dtype in (torch.bfloat16, torch.float16) else x
+        return comm.reduce_scatter_dim(wide.contiguous(), axis, dim).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_gather_dim(g.contiguous(), ctx.axis, ctx.dim), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        n = x.shape[dim] // axis.world
+        return x.narrow(dim, axis.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_gather_dim(g.contiguous(), ctx.axis, ctx.dim), None, None
+
+
+class _OwnRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.axis.world
+        out = torch.zeros_like(g)
+        out.narrow(ctx.dim, ctx.axis.rank * n, n).copy_(g.narrow(ctx.dim, ctx.axis.rank * n, n))
+        return out, None, None
+
+
 def copy_to(x: torch.Tensor, axis) -> torch.Tensor:
     """Identity forward, all-reduce of the gradient backward."""
     return _Copy.apply(x, axis)
@@ -118,18 +164,55 @@ def gather(x: torch.Tensor, axis, dim: int, mode: str = "slice") -> torch.Tensor
     return _Gather.apply(x, axis, dim, mode)
 
 
-def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, axis) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """The sum over the group of each rank's partial ``x``, cut into
+    ``world`` blocks along ``dim``: the rank's block (bf16 summed in f32,
+    rounded once).  Backward: the blocks' gradients all-gathered."""
+    return _Scatter.apply(x, axis, dim)
+
+
+def split(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """The rank's block along ``dim`` of ``x``, which every rank of the
+    group computes alike.  Backward: the blocks' gradients all-gathered, so
+    every rank holds the whole gradient of ``x``."""
+    return _Split.apply(x, axis, dim)
+
+
+def own_rows(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """``x`` itself, used alike on every rank where it came from a
+    ``"sum"`` :func:`gather`: backward, only the rank's block of the (whole)
+    gradient along ``dim`` is kept, so the gather's reduce-scatter sums it
+    once."""
+    return _OwnRows.apply(x, axis, dim)
+
+
+def column_input(h: torch.Tensor, axis, sp=None) -> torch.Tensor:
+    """The input of column-parallel products: :func:`copy_to` of ``h``, or
+    under sequence parallelism (``sp``, :func:`seq_shard`) the rank's block
+    of the sequence (dim 1) gathered, its gradient reduce-scattered."""
+    return copy_to(h, axis) if sp is None else gather(h, axis, 1, "sum")
+
+
+def row_output(y: torch.Tensor, axis, sp=None) -> torch.Tensor:
+    """The output of a row-parallel product: :func:`reduce_from`, or under
+    sequence parallelism the rank's block of the sequence (dim 1),
+    reduce-scattered."""
+    return reduce_from(y, axis) if sp is None else reduce_scatter(y, axis, 1)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, axis, sp=None) -> torch.Tensor:
     """Rows of a vocab-sharded table (this rank's ``(V / M, d)`` block):
     each rank looks up the tokens in its block, zeros the others, and the
     blocks are summed over the group (exact: one non-zero term per
-    element).  The gradient reaches the rank's rows only."""
+    element).  The gradient reaches the rank's rows only.  ``sp``: the sum
+    is reduce-scattered over the sequence (:func:`row_output`)."""
     n = table.shape[0]
     local = tokens - axis.rank * n
     mine = (local >= 0) & (local < n)
     rows = table[torch.where(mine, local, torch.zeros_like(local))]
     rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                           device=rows.device))
-    return reduce_from(rows, axis)
+    return row_output(rows, axis, sp)
 
 
 class _VocabCE(torch.autograd.Function):
@@ -240,6 +323,21 @@ def _seq_split(batch: int, length: int, data: int, index: int, axis) -> Optional
     if data == 1 or not length or length % data or spec["tokens"][0] == "data":
         return None
     return SeqSplit(length, data, index, axis)
+
+
+def seq_shard(cfg, layout: FlatLayout, length: int) -> Optional[SeqSplit]:
+    """The rank's block of a ``length``-position sequence over its model
+    group under sequence parallelism (``cfg.attn_seq_shard``, the
+    reference's ``P(None, "model", None)`` on the residual stream and the
+    attention's activations): model rank ``m`` of ``M`` holds positions
+    ``[m S / M, (m + 1) S / M)``.  None (the sequence whole, as without
+    the flag) where the flag is off, the layout is not model-parallel or
+    ``length`` does not divide into M blocks (the rule of
+    :func:`_seq_split`; the reference's partitioner pads instead)."""
+    M = layout.model
+    if not cfg.attn_seq_shard or M == 1 or not length or length % M:
+        return None
+    return SeqSplit(length, M, layout.model_index, layout.axis)
 
 
 def serve_split(batch: int, n0: int, new: int, cfg, data: int = 1, index: int = 0,
@@ -475,8 +573,40 @@ class _Reckoning:
             self.add("all_gather", self.block_numel(name) * self.itemsize(name), fwd)
             self.add("reduce_scatter", self.block_numel(name) * self.layout.model * 4, bwd)
 
+    def seq_in(self, cfg, tokens: int, fwd: int, bwd: int) -> None:
+        """Under sequence parallelism, the ``tokens`` rows' blocks gathered
+        in front of column-parallel products (``column_input``): each rank
+        sends its block at each of ``fwd`` uses, and the f32 gradient is
+        reduce-scattered at each of ``bwd``."""
+        d, act = cfg.d_model, cfg.act_dtype.itemsize
+        self.add("all_gather", tokens // self.layout.model * d * act, fwd)
+        self.add("reduce_scatter", tokens * d * 4, bwd)
+
+    def seq_out(self, cfg, tokens: int, fwd: int, bwd: int) -> None:
+        """Under sequence parallelism, a row-parallel output reduce-scattered
+        (f32, ``row_output``) at each of ``fwd`` uses, its gradient's blocks
+        all-gathered at each of ``bwd``."""
+        d, act = cfg.d_model, cfg.act_dtype.itemsize
+        self.add("reduce_scatter", tokens * d * 4, fwd)
+        self.add("all_gather", tokens // self.layout.model * d * act, bwd)
+
+    def alike(self, cfg, tokens: int, fwd: int, bwd: int) -> None:
+        """Under sequence parallelism, a mixer or FFN computed alike
+        (``transformer._alike``): the blocks gathered at each of ``fwd``
+        uses, the output's gradient gathered at each of ``bwd``."""
+        self.add("all_gather", tokens // self.layout.model * cfg.d_model
+                 * cfg.act_dtype.itemsize, fwd + bwd)
+
+    def norm(self, name: str, fwd: int, bwd: int, sp: bool) -> None:
+        """A norm scale taken whole at each of ``fwd`` uses: gathered, or
+        under sequence parallelism :meth:`partial`."""
+        if sp:
+            self.partial(name, fwd, bwd)
+        else:
+            self.gather(name, fwd)
+
     def attention(self, pre: str, cfg, tokens: int, fwd: int, bwd: int, kv: bool = True,
-                  last: int = 0) -> None:
+                  last: int = 0, sp: bool = False) -> None:
         """Attention under ``pre`` over ``tokens`` query rows
         (``transformer._tp_qkv`` / ``_tp_cross_residual``): split by heads,
         the output all-reduced (f32) at each of ``fwd`` forward uses minus
@@ -484,21 +614,36 @@ class _Reckoning:
         the queries' input gradient at each of ``bwd``, ``wk`` / ``wv``
         taken whole where the rank's blocks are not its KV heads; else every
         leaf gathered.  ``kv``: the keys and values are computed (not a
-        decode step's cached ``kx`` / ``vx``)."""
+        decode step's cached ``kx`` / ``vx``).  ``sp``: sequence parallelism:
+        split by heads, :meth:`seq_in` and :meth:`seq_out` in place of the
+        all-reduces; else the leaves taken with :meth:`partial` and a
+        self-attention's keys and values (every KV head of the rank's block)
+        gathered, their f32 gradient reduce-scattered."""
         from repro_torch.models import transformer as T
 
         names = ("wq", "wk", "wv", "wo") if kv else ("wq", "wo")
         if not T._heads_split(self, cfg, self.layout.model, pre):
             for w in names:
-                self.gather(pre + w, fwd)
+                if sp:
+                    self.partial(pre + w, fwd, bwd)
+                else:
+                    self.gather(pre + w, fwd)
+            if sp and not pre.endswith("xattn."):
+                n = 2 * tokens * cfg.n_kv_heads * cfg.hd
+                self.add("all_gather", n // self.layout.model * cfg.act_dtype.itemsize, fwd)
+                self.add("reduce_scatter", n * 4, bwd)
             return
-        self.add("all_reduce_sum", tokens * cfg.d_model * 4, bwd + fwd - last)
+        if sp:
+            self.seq_in(cfg, tokens, fwd, bwd)
+            self.seq_out(cfg, tokens, fwd - last, bwd)
+        else:
+            self.add("all_reduce_sum", tokens * cfg.d_model * 4, bwd + fwd - last)
         if kv and not T._kv_direct(self, cfg, self.layout.model, pre):
             self.partial(pre + "wk", fwd, bwd)
             self.partial(pre + "wv", fwd, bwd)
 
     def recurrent(self, pre: str, mixer: str, cfg, tokens: int, fwd: int, bwd: int,
-                  last: int = 0) -> None:
+                  last: int = 0, sp: bool = False) -> None:
         """A recurrent mixer over ``tokens`` rows (``transformer.
         _tp_recurrent``): by heads or channels, each leaf the rank's block or
         taken whole (``transformer._part``); the input's gradient
@@ -506,7 +651,9 @@ class _Reckoning:
         forward and their gradient backward, the RG-LRU's (T, d_rnn / M)
         conv output gathered and its f32 gradient reduce-scattered; the
         output all-reduced (f32) at each of ``fwd`` minus ``last``; where
-        the heads or channels do not divide, every leaf gathered."""
+        the heads or channels do not divide, every leaf gathered.  ``sp``:
+        sequence parallelism (:meth:`seq_in` / :meth:`seq_out`, or
+        :meth:`alike` where they do not divide)."""
         from repro_torch.models import transformer as T
 
         M, d = self.layout.model, cfg.d_model
@@ -514,11 +661,17 @@ class _Reckoning:
         if n is None:
             for name in self.layer_leaves(f"{pre}{mixer}."):
                 self.gather(name, fwd)
+            if sp:
+                self.alike(cfg, tokens, fwd, bwd)
             return
         for leaf, (dim, ranges) in T.mixer_parts(mixer, cfg, M, 0).items():
             if len(ranges) > 1 or self.dim(f"{pre}{mixer}.{leaf}") != dim:
                 self.partial(f"{pre}{mixer}.{leaf}", fwd, bwd)
-        self.add("all_reduce_sum", tokens * d * 4, bwd + fwd - last)
+        if sp:
+            self.seq_in(cfg, tokens, fwd, bwd)
+            self.seq_out(cfg, tokens, fwd - last, bwd)
+        else:
+            self.add("all_reduce_sum", tokens * d * 4, bwd + fwd - last)
         if mixer == "ssm":
             self.add("all_reduce_sum", tokens * 4, fwd + bwd)
         else:
@@ -526,14 +679,15 @@ class _Reckoning:
             self.add("reduce_scatter", tokens * n * M * 4, bwd)
 
     def layer(self, pre: str, kind: str, cfg, tokens: int, fwd: int, bwd: int,
-              last: int = 0, norms: bool = True, cross_kv: bool = True) -> None:
+              last: int = 0, norms: bool = True, cross_kv: bool = True, sp: bool = False) -> None:
         """One layer group's model-group collectives (``transformer.
         _tp_block`` / ``_tp_decode_block``) over ``tokens`` rows: ``fwd``
         forward and ``bwd`` backward uses; ``last``: the uses of its last
         all-reduce that a checkpointed recompute does not run again;
         ``norms``: its norm scales are gathered (not resolved by
         ``serving_params``); ``cross_kv``: an ``xattn`` block computes its
-        keys and values (prefill, training)."""
+        keys and values (prefill, training); ``sp``: the layer runs on the
+        rank's block of the sequence (``transformer._tp_block``'s ``sp``)."""
         from repro_torch.models import transformer as T
 
         mixer, ffn = T._parse_kind(kind)
@@ -541,27 +695,33 @@ class _Reckoning:
         # or the mixer's
         mixer_last = last if ffn == "none" else 0
         if norms:
-            self.gather(pre + "ln1.scale", fwd)
+            self.norm(pre + "ln1.scale", fwd, bwd, sp)
             if ffn != "none":
-                self.gather(pre + "ln2.scale", fwd)
+                self.norm(pre + "ln2.scale", fwd, bwd, sp)
             if mixer == "xattn":
-                self.gather(pre + "lnx.scale", fwd)
+                self.norm(pre + "lnx.scale", fwd, bwd, sp)
         if mixer in T.RECURRENT:
-            self.recurrent(pre, mixer, cfg, tokens, fwd, bwd, mixer_last)
+            self.recurrent(pre, mixer, cfg, tokens, fwd, bwd, mixer_last, sp)
         else:
             self.attention(pre + "attn.", cfg, tokens, fwd, bwd,
-                           last=0 if mixer == "xattn" else mixer_last)
+                           last=0 if mixer == "xattn" else mixer_last, sp=sp)
         if mixer == "xattn":
-            self.attention(pre + "xattn.", cfg, tokens, fwd, bwd, cross_kv, mixer_last)
+            self.attention(pre + "xattn.", cfg, tokens, fwd, bwd, cross_kv, mixer_last, sp)
         act = tokens * cfg.d_model * 4
         if ffn == "moe":
-            self.moe(pre, cfg, tokens, fwd, bwd, last)
+            self.moe(pre, cfg, tokens, fwd, bwd, last, sp)
         elif ffn == "dense":
             if T._mlp_split(self, pre + "mlp.", cfg):
-                self.add("all_reduce_sum", act, bwd + fwd - last)
+                if sp:
+                    self.seq_in(cfg, tokens, fwd, bwd)
+                    self.seq_out(cfg, tokens, fwd - last, bwd)
+                else:
+                    self.add("all_reduce_sum", act, bwd + fwd - last)
             else:
                 for w in self.ffn_names(pre + "mlp.", cfg):
                     self.gather(w, fwd)
+                if sp:
+                    self.alike(cfg, tokens, fwd, bwd)
 
     def ffn_names(self, pre: str, cfg, names=("w1", "w2", "w3")) -> tuple:
         return tuple(pre + w for w in names[:2] + (names[2:] if cfg.mlp_gated else ()))
@@ -569,7 +729,8 @@ class _Reckoning:
     def is_moe(self, pre: str) -> bool:
         return pre + "moe.router" in self._index
 
-    def moe(self, pre: str, cfg, tokens: int, fwd: int, reps: int = 0, skip: int = 0) -> None:
+    def moe(self, pre: str, cfg, tokens: int, fwd: int, reps: int = 0, skip: int = 0,
+            sp: bool = False) -> None:
         """A MoE FFN's model-group collectives over ``tokens`` rows
         (``layers.moe_apply`` with ``transformer._tp_moe``'s split): the
         router's (T, E / M) f32 logits gathered or its (T, E) partial logits
@@ -581,7 +742,11 @@ class _Reckoning:
         and the (T, K) f32 gates' where the experts' output is reduced after
         the combine.  ``skip``: of the ``fwd``, the calls of the layer's
         last all-reduce that a checkpointed repeat's recompute does not run
-        again (the shared experts', else the combined experts')."""
+        again (the shared experts', else the combined experts').  ``sp``:
+        sequence parallelism: the input's blocks gathered (:meth:`seq_in`,
+        whatever is split), each partial output reduce-scattered
+        (:meth:`seq_out`) and each output computed alike cut to the rank's
+        block, its gradient gathered at each of ``reps``."""
         from repro_torch.models import transformer as T
 
         d, M, K, E = cfg.d_model, self.layout.model, cfg.top_k, cfg.n_experts
@@ -589,25 +754,38 @@ class _Reckoning:
         router = self.dim(pre + "moe.router")
         experts = T._experts_split(self, cfg, pre + "moe.")
         shared = cfg.n_shared_experts > 0 and T._mlp_split(self, pre + "moe.shared.", cfg)
+        alike = tokens // M * d * cfg.act_dtype.itemsize
+
+        def reduced(calls):
+            if sp:
+                self.seq_out(cfg, tokens, calls, reps)
+            else:
+                self.add("all_reduce_sum", act, calls)
+
         if router == 1:
             self.add("all_gather", tokens * (E // M) * 4, fwd)
         elif router == 0:
             self.add("all_reduce_sum", tokens * E * 4, fwd)
-        if router is not None or experts or shared:
+        if sp:
+            self.seq_in(cfg, tokens, fwd, reps)
+        elif router is not None or experts or shared:
             self.add("all_reduce_sum", act, reps)
         if not experts:
             for w in self.ffn_names(pre + "moe.", cfg, ("we1", "we2", "we3")):
                 self.gather(w, fwd)
+            self.add("all_gather", alike, reps if sp else 0)
         elif cfg.moe_impl != "dense" and cfg.moe_combine != "ksum":
             self.add("all_reduce_sum", tokens * K * d * 4, fwd)
+            self.add("all_gather", alike, reps if sp else 0)
         else:
-            self.add("all_reduce_sum", act, fwd - (0 if cfg.n_shared_experts else skip))
+            reduced(fwd - (0 if cfg.n_shared_experts else skip))
             self.add("all_reduce_sum", tokens * K * 4, reps)
         if shared:
-            self.add("all_reduce_sum", act, fwd - skip)
+            reduced(fwd - skip)
         elif cfg.n_shared_experts:
             for w in self.ffn_names(pre + "moe.shared.", cfg):
                 self.gather(w, fwd)
+            self.add("all_gather", alike, reps if sp else 0)
 
     def moe_stats(self, pre: str, cfg, fwd: int) -> None:
         """A MoE layer's aux loss over the whole microbatch, ``fwd`` times:
@@ -719,15 +897,27 @@ def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int,
     ``final_norm`` and ``enc_norm`` once), and with the rows split its
     gradient reduce-scattered once per use (a leaf held whole over zero:
     all-reduced), and each MoE layer's aux-loss statistics all-reduced
-    (``layers.moe_apply``)."""
+    (``layers.moe_apply``).
+
+    Under sequence parallelism (:func:`seq_shard` of the decoder's n_prefix
+    + seq positions, and of an ``encdec`` encoder's ``enc_len`` frames for
+    its stack) each layer runs on the rank's block (:meth:`_Reckoning.layer`'s
+    ``sp``); the lookup's sum is reduce-scattered (a VLM's joined prefix and
+    text, whole, cut), the final hidden states' blocks gathered in front of
+    the head, the encoder output's for the cross-attention, and the norm
+    scales taken with :meth:`_Reckoning.partial`."""
     from repro_torch.models import transformer as T
 
     r = _Reckoning(layout)
     mode = "sum" if zero_split(layout, batch) else "slice"
     rows = batch // layout.zero if mode == "sum" else batch
     M, d = layout.model, cfg.d_model
-    tokens = rows * (seq + (cfg.n_patches if cfg.family == "vlm" else 0))
+    n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    tokens = rows * (seq + n_prefix)
     enc_tokens = rows * cfg.enc_len if cfg.family == "encdec" else 0
+    sp = seq_shard(cfg, layout, seq + n_prefix) is not None
+    enc_sp = cfg.family == "encdec" and seq_shard(cfg, layout, cfg.enc_len) is not None
+    act = cfg.act_dtype.itemsize
     head = "embed" if cfg.tie_embeddings else "lm_head"
     r.zero_use("embed", 1, 1, mode)
     r.zero_use("final_norm.scale", 1, 1, mode)
@@ -737,15 +927,27 @@ def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int,
     if cfg.family == "encdec":
         r.zero_use("enc_norm.scale", 1, 1, mode)
     if M > 1:
-        if r.dim("embed") == 0:
+        # the lookup, then under sequence parallelism its cut to the block
+        if r.dim("embed") == 0 and sp and not n_prefix:
+            r.add("reduce_scatter", rows * seq * d * 4)
+        elif r.dim("embed") == 0:
             r.add("all_reduce_sum", rows * seq * d * 4)
         else:
             r.gather("embed")
+        if sp:
+            item = act if n_prefix else r.itemsize("embed")
+            r.add("all_gather", tokens // M * d * item)
         r.prefix(cfg, rows)
         if cfg.family == "encdec":
-            r.gather("enc_norm.scale")
-            if any(T._heads_split(r, cfg, M, pre + "xattn.") for pre, kind, _ in r.layer_groups(cfg)
-                   if kind.startswith("xattn")):
+            r.norm("enc_norm.scale", 1, 1, enc_sp)
+            partial = sp or any(T._heads_split(r, cfg, M, pre + "xattn.")
+                                for pre, kind, _ in r.layer_groups(cfg)
+                                if kind.startswith("xattn"))
+            if enc_sp:
+                r.add("all_gather", enc_tokens // M * d * act)
+                if partial:
+                    r.add("reduce_scatter", enc_tokens * d * 4)
+            elif partial:
                 r.add("all_reduce_sum", enc_tokens * d * 4)
     for pre, kind, reps in r.layer_groups(cfg):
         checkpointed = remat and r.stacked(pre)
@@ -755,14 +957,23 @@ def microbatch_collectives(cfg, layout: FlatLayout, batch: int, seq: int,
         if mode == "sum":
             r.moe_stats(pre, cfg, fwd)
         if M > 1:
-            n = enc_tokens if pre.startswith("encoder.") else tokens
-            r.layer(pre, kind, cfg, n, fwd, reps, reps if checkpointed and r.tail(cfg, pre) else 0)
+            enc = pre.startswith("encoder.")
+            r.layer(pre, kind, cfg, enc_tokens if enc else tokens, fwd, reps,
+                    reps if checkpointed and r.tail(cfg, pre) else 0,
+                    sp=enc_sp if enc else sp)
     if M == 1:
         return r.out
-    r.gather("final_norm.scale")
+    r.norm("final_norm.scale", 1, 1, sp)
+    if sp:
+        # the final hidden states' blocks gathered, their gradient
+        # reduce-scattered where the head is vocab-parallel
+        r.add("all_gather", tokens // M * d * act)
     if r.head_split(cfg):
         # the head input's gradient, the text positions'
-        r.add("all_reduce_sum", rows * seq * d * 4)
+        if sp:
+            r.add("reduce_scatter", tokens * d * 4)
+        else:
+            r.add("all_reduce_sum", rows * seq * d * 4)
         for c0 in range(0, seq, min(T.CE_CHUNK, seq)):
             n = rows * (min(c0 + T.CE_CHUNK, seq) - c0) * 4
             r.add("all_reduce_max", n)
@@ -816,7 +1027,13 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str,
     group's collectives over its tokens, the lookup over its text tokens,
     the patch projection over its patches, each where it has any; the data
     group's as :meth:`_Reckoning.chunk` counts them); ``slots``, a decode
-    step's full-attention caches over data (:meth:`_Reckoning.slots`)."""
+    step's full-attention caches over data (:meth:`_Reckoning.slots`).
+
+    Under sequence parallelism (:func:`seq_shard`, a prefill without
+    ``chunk`` or ``slots``) the prefill's layers run on the rank's block of
+    the positions (the encoder's on its block of the frames, their output
+    gathered), the lookup's sum is reduce-scattered and the last position's
+    hidden state gathered over the model group."""
     from repro_torch.models import transformer as T
 
     if kind not in ("serving_params", "prefill", "decode", "pick"):
@@ -854,10 +1071,16 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str,
     for name in layout.names:
         if name not in unused:
             r.zero_use(name, r.layer_count(name) * (1 + (name == "embed" and cfg.tie_embeddings)))
+    prefill = kind == "prefill" and chunk is None and slots is None
+    sp = prefill and seq_shard(cfg, layout, b - a) is not None
+    enc_sp = prefill and cfg.family == "encdec" and seq_shard(cfg, layout,
+                                                              cfg.enc_len) is not None
     if layout.model > 1:
+        M, act = layout.model, cfg.act_dtype.itemsize
         if r.dim("embed") == 0:
             if text:
-                r.add("all_reduce_sum", batch * text * cfg.d_model * 4)
+                r.add("reduce_scatter" if sp and not n_prefix else "all_reduce_sum",
+                      batch * text * cfg.d_model * 4)
         elif text:
             r.gather("embed")
         if kind == "prefill" and patches:
@@ -865,10 +1088,15 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str,
         for pre, block, reps in r.layer_groups(cfg):
             if pre.startswith("encoder."):
                 if kind == "prefill":
-                    r.layer(pre, block, cfg, batch * cfg.enc_len, reps, 0, norms=False)
+                    r.layer(pre, block, cfg, batch * cfg.enc_len, reps, 0, norms=False,
+                            sp=enc_sp)
                 continue
             r.layer(pre, block, cfg, batch * (b - a), reps, 0, norms=False,
-                    cross_kv=kind == "prefill")
+                    cross_kv=kind == "prefill", sp=sp)
+        if enc_sp:
+            r.add("all_gather", batch * cfg.enc_len // M * cfg.d_model * act)
+        if sp:
+            r.add("all_gather", batch * cfg.d_model * act)
         if not r.head_split(cfg):
             r.gather("embed" if cfg.tie_embeddings else "lm_head")
     if kind == "prefill" and chunk is not None:

@@ -244,12 +244,14 @@ class MoESplit(NamedTuple):
     or None (whole); ``experts`` True where ``we1`` / ``we3`` are its (E, d,
     d_ff / M) and ``we2`` its (E, d_ff / M, d) blocks, False where they are
     whole; ``shared`` the same for the shared experts' ``w1`` / ``w3`` /
-    ``w2``."""
+    ``w2``; ``seq``: under sequence parallelism the rank's block of the
+    sequence (``tensor_parallel.SeqSplit``), else None."""
 
     axis: object
     router: Optional[str]
     experts: bool
     shared: bool
+    seq: object = None
 
 
 def route(probs: torch.Tensor, k: int) -> tuple:
@@ -309,17 +311,43 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None, tp: MoESplit = None) -> 
     gates then pass through ``copy_to`` (their gradient from each rank's
     partial output is partial).  The shared experts are the dense MLP split
     (one all-reduce of their output).  One ``copy_to`` of the layer's (T,
-    d) input sums the partial gradients of every split product."""
+    d) input sums the partial gradients of every split product.
+
+    With ``tp.seq`` (sequence parallelism) x is the rank's (B, S / M, d)
+    block of the sequence, and so is the output.  The blocks are gathered
+    (``"sum"``: the gradient reduce-scattered): every rank routes the whole
+    sequence alike, the alike consumers reading it through ``own_rows``;
+    each partial output is reduce-scattered over the sequence, and each
+    output every rank computes alike (the ``scatter`` combine after its
+    all-reduce, experts held whole) is cut to the rank's block
+    (``split``)."""
     from repro_torch.distributed import tensor_parallel as TP
 
+    split = tp if tp is not None else MoESplit(None, None, False, False)
+    if split.seq is not None:
+        x = TP.gather(x, split.axis, 1, "sum")
     B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.top_k
     xt = x.reshape(B * S, d)
+    if split.seq is not None:
+        xc, xt = xt, TP.own_rows(x, split.axis, 1).reshape(B * S, d)
+    else:
+        xc = (TP.copy_to(xt, split.axis) if split.router or split.experts or split.shared
+              else xt)
+    E, K = cfg.n_experts, cfg.top_k
     T, dt = B * S, xt.dtype
     act = act_fn(cfg.act)
-    split = tp if tp is not None else MoESplit(None, None, False, False)
-    xc = (TP.copy_to(xt, split.axis) if split.router or split.experts or split.shared
-          else xt)
+
+    def reduce(t):
+        """A (T, d) partial output, summed over the group."""
+        if split.seq is None:
+            return TP.reduce_from(t, split.axis)
+        return TP.reduce_scatter(t.reshape(B, S, d), split.axis, 1)
+
+    def keep(t):
+        """A (T, d) output every rank computes alike."""
+        if split.seq is None:
+            return t
+        return TP.split(t.reshape(B, S, d), split.axis, 1)
 
     logits = _router_logits(p["router"], xt, xc, split)     # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -352,8 +380,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None, tp: MoESplit = None) -> 
         if "we3" in p:
             h = h * torch.einsum("td,edf->tef", xe, p["we3"].to(dt))
         out = torch.einsum("tef,efd,te->td", h, p["we2"].to(dt), gates)
-        if split.experts:
-            out = TP.reduce_from(out, split.axis)
+        out = reduce(out) if split.experts else keep(out)
     else:
         flat_expert = expert_idx.reshape(T * K)
         sort_idx = torch.argsort(flat_expert, stable=True)
@@ -367,8 +394,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None, tp: MoESplit = None) -> 
         inv = torch.argsort(sort_idx)
         if cfg.moe_combine == "ksum":
             out = torch.einsum("tkd,tk->td", y[inv].reshape(T, K, d), gate_vals.to(dt))
-            if split.experts:
-                out = TP.reduce_from(out, split.axis)
+            out = reduce(out) if split.experts else keep(out)
         else:
             if split.experts:
                 y = TP.reduce_from(y, split.axis)
@@ -380,32 +406,36 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, rows=None, tp: MoESplit = None) -> 
             out = contrib[:, 0]
             for k in range(1, K):
                 out = out + contrib[:, k]
+            out = keep(out)
     if "shared" in p:
         sh = p["shared"]
         shared = mlp_apply(sh["w1"], sh["w2"], xc if split.shared else xt, cfg, w3=sh.get("w3"))
-        out = out + (TP.reduce_from(shared, split.axis) if split.shared else shared)
-    return out.reshape(B, S, d), aux
+        out = out + (reduce(shared) if split.shared else keep(shared))
+    return out.reshape(B, -1, d), aux
 
 
-def _column_input(x: torch.Tensor, tp) -> torch.Tensor:
+def _column_input(x: torch.Tensor, tp, sp=None) -> torch.Tensor:
     """x as the input of column-parallel products: on a model-parallel rank
-    (``tp`` its model group) through ``copy_to``, its gradient all-reduced."""
+    (``tp`` its model group) through ``copy_to``, its gradient all-reduced;
+    ``sp``: x is the rank's block of the sequence, gathered
+    (``tensor_parallel.column_input``)."""
     if tp is None:
         return x
     from repro_torch.distributed import tensor_parallel as TP
 
-    return TP.copy_to(x, tp)
+    return TP.column_input(x, tp, sp)
 
 
-def _row_parallel(y: torch.Tensor, w, tp) -> torch.Tensor:
+def _row_parallel(y: torch.Tensor, w, tp, sp=None) -> torch.Tensor:
     """y @ w; on a model-parallel rank (``tp`` its model group) w is its
-    rows and the partial products are all-reduced."""
+    rows and the partial products are all-reduced (``sp``:
+    reduce-scattered over the sequence)."""
     out = y @ w.to(y.dtype)
     if tp is None:
         return out
     from repro_torch.distributed import tensor_parallel as TP
 
-    return TP.reduce_from(out, tp)
+    return TP.row_output(out, tp, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -580,14 +610,14 @@ def _mamba2_split(p: dict, x: torch.Tensor, cfg) -> tuple:
 
 
 def _mamba2_out(p: dict, y: torch.Tensor, z: torch.Tensor, x_dtype, cfg,
-                tp=None) -> torch.Tensor:
+                tp=None, sp=None) -> torch.Tensor:
     """The gated RMSNorm of y (f32) and the out-projection; on a
     model-parallel rank (``tp`` its model group) over its heads' channels:
     the norm's mean of squares over every head's (:func:`_split_rmsnorm`),
     ``out_proj`` row-parallel with one all-reduce."""
     g, scale = y.to(x_dtype) * F.silu(z), p["norm"]["scale"]
     g = rmsnorm(scale, g) if tp is None else _split_rmsnorm(scale, g, cfg.d_inner, tp)
-    return _row_parallel(g, p["out_proj"], tp)
+    return _row_parallel(g, p["out_proj"], tp, sp)
 
 
 def _split_rmsnorm(scale, x: torch.Tensor, width: int, tp, eps: float = 1e-6) -> torch.Tensor:
@@ -604,7 +634,7 @@ def _split_rmsnorm(scale, x: torch.Tensor, width: int, tp, eps: float = 1e-6) ->
 
 
 def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None, tp=None,
-                 seq=None):
+                 seq=None, sp=None):
     """The training / prefill path, x (B, S, d) -> (B, S, d).  ``p``: the
     block's ``ssm`` leaves nested as the reference's (``in_proj``, ``conv``
     {``w``, ``b``}, ``A_log``, ``D``, ``dt_bias``, ``norm`` {``scale``},
@@ -622,7 +652,9 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None
     those heads (the SSD is per head), the gated norm and the out-projection
     as :func:`_mamba2_out`; x passes through ``copy_to``, and the state is
     the rank's heads' (B, H / M, P, N) and channels' (B, width - 1, d_inner
-    / M + 2N).
+    / M + 2N).  ``sp``: with ``tp``, x is the rank's block of the sequence
+    over its model group: gathered in, the output reduce-scattered
+    (:func:`_column_input`, :func:`_row_parallel`).
 
     ``seq``: x is a serving rank's chunk of a sequence over its data group
     (``tensor_parallel.SeqSplit``).  The conv reads the inputs before the
@@ -635,7 +667,7 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None
     H = p["A_log"].shape[-1]
     di = H * P
     width = p["conv"]["w"].shape[0]
-    z, conv_in, dt = _mamba2_split(p, _column_input(x, tp), cfg)
+    z, conv_in, dt = _mamba2_split(p, _column_input(x, tp, sp), cfg)
     history = tail = None
     if seq is not None:
         history, tail = conv_edges(conv_in, width, seq)
@@ -657,7 +689,7 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None
         if seq is None:
             state, tail = _ssd_final_state(xh, dt, A, Bm), conv_tail(conv_in, width)
         state_out.update(state=state, conv=tail)
-    return _mamba2_out(p, y.reshape(*xs.shape[:2], di), z, x.dtype, cfg, tp)
+    return _mamba2_out(p, y.reshape(*xs.shape[:2], di), z, x.dtype, cfg, tp, sp)
 
 
 def _ssd_final_state(xh, dt, A, Bm) -> torch.Tensor:
@@ -765,7 +797,7 @@ def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None, tp=None,
-                seq=None):
+                seq=None, sp=None):
     """The training / prefill path, x (B, S, d) -> (B, S, d): the tanh-GELU
     gate, the conv, the RG-LRU recurrence over S (:func:`linear_scan`).
     ``p``: the block's ``rglru`` leaves nested as the reference's
@@ -782,13 +814,14 @@ def rglru_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None,
     on those channels, ``w_a`` / ``w_x`` over the gathered conv output
     (:func:`_rglru_coeffs`), ``out`` row-parallel with one all-reduce; x
     passes through ``copy_to``, and the state is the rank's channels'.
+    ``sp``: as :func:`mamba2_apply`'s.
 
     ``seq``: x is a serving rank's chunk of a sequence over its data group,
     as :func:`mamba2_apply`'s: the conv reads the inputs before the chunk,
     the rank scans its chunk from zero, and its (product of a, h at its
     end) is carried across the ranks (:func:`_carried`): h plus the
     carried state times the running product of a."""
-    x_in = _column_input(x, tp)
+    x_in = _column_input(x, tp, sp)
     width = p["conv"]["w"].shape[0]
     gate = F.gelu((x_in @ p["in_gate"].to(x.dtype)).to(F32), approximate="tanh")
     xr = x_in @ p["in_x"].to(x.dtype)
@@ -807,7 +840,7 @@ def rglru_apply(p: dict, x: torch.Tensor, cfg, state_out: Optional[dict] = None,
         if state_out is not None:
             state_out.update(h=last[..., 0], conv=tail)
     y = (h * gate).to(x.dtype)
-    return _row_parallel(y, p["out"], tp)
+    return _row_parallel(y, p["out"], tp, sp)
 
 
 def rglru_decode(p: dict, cache: dict, x_t: torch.Tensor, cfg, tp=None) -> tuple:

@@ -293,7 +293,8 @@ def init_params(gen: torch.Generator, cfg, device=None):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None, seq=None):
+def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None, seq=None,
+                 sp=None):
     """One block of ``kind``; ``p(name)`` returns the block's leaf.  Returns
     (x, the MoE aux loss or None).  ``encattn`` attends bidirectionally;
     ``xattn`` attends causally, then its queries attend over ``enc_out``
@@ -306,9 +307,11 @@ def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None, seq
     last position (``layers.mamba2_apply`` / ``rglru_apply``).  ``seq``: x
     is a serving rank's chunk of the decoder sequence over its data group
     (``tensor_parallel.SeqSplit``; ``positions`` its positions):
-    :func:`_self_attend`, and the recurrences carried across the chunks."""
+    :func:`_self_attend`, and the recurrences carried across the chunks.
+    ``sp``: x is a model-parallel rank's block of the sequence
+    (:func:`_tp_block`)."""
     if _model_split(p.params):
-        return _tp_block(p, kind, x, positions, cfg, enc_out, kv_out, seq)
+        return _tp_block(p, kind, x, positions, cfg, enc_out, kv_out, seq, sp)
     mixer, ffn = _parse_kind(kind)
     h = L.rmsnorm(p("ln1.scale"), x, cfg.norm_eps)
     if mixer in RECURRENT:
@@ -325,7 +328,7 @@ def _apply_block(p, kind: str, x, positions, cfg, enc_out=None, kv_out=None, seq
     return _ffn_residual(p, ffn, x, cfg)
 
 
-def _self_attend(q, k, v, mixer: str, cfg, kv_out=None, seq=None):
+def _self_attend(q, k, v, mixer: str, cfg, kv_out=None, seq=None, sp=None):
     """A block's self-attention of q over k / v (B, S, heads, hd): causal
     (``swa``: over its window) or, for ``encattn``, over every position.
     With a dict ``kv_out`` the keys and values of every position (a
@@ -334,10 +337,16 @@ def _self_attend(q, k, v, mixer: str, cfg, kv_out=None, seq=None):
     over its data group (``tensor_parallel.SeqSplit``): every rank's keys
     and values are all-gathered over it (one call of both, the rank's KV
     heads), and the queries attend from their offset over the positions
-    up to the chunk's end (the window holds across the chunk's edge)."""
+    up to the chunk's end (the window holds across the chunk's edge).
+    ``sp``: the same over a model-parallel rank's block of the sequence
+    (whole heads), with autograd: the keys and values gathered over the
+    model group, their gradient reduce-scattered."""
     window = cfg.window if mixer == "swa" else None
     if seq is not None:
         k, v = comm.all_gather_dim(torch.stack([k, v]), seq.axis, 2).unbind(0)
+    elif sp is not None:
+        k, v = TP.gather(torch.stack([k, v]), sp.axis, 2, "sum").unbind(0)
+        seq = sp
     if kv_out is not None:
         w = k.shape[1] if window is None else min(window, k.shape[1])
         kv_out.update(k=k[:, -w:], v=v[:, -w:])
@@ -536,7 +545,8 @@ def _full(params: dict, name: str):
     return TP.gather(leaf, params.layout.axis, params.dim(name))
 
 
-def _tp_block(p: _Leaves, kind: str, x, positions, cfg, enc_out=None, kv_out=None, seq=None):
+def _tp_block(p: _Leaves, kind: str, x, positions, cfg, enc_out=None, kv_out=None, seq=None,
+              sp=None):
     """One block on a model-parallel rank; returns (x, the MoE aux loss or
     None) with x the same on every rank of the group: the mixer split
     (attention by heads, :func:`_tp_attention`; ``encattn`` bidirectional;
@@ -546,24 +556,49 @@ def _tp_block(p: _Leaves, kind: str, x, positions, cfg, enc_out=None, kv_out=Non
     dict ``kv_out`` the rank's cache entry lands in it, as
     :func:`_apply_block`'s: its KV heads (:func:`_rank_kv`), its heads' or
     channels' recurrent state.  ``seq``: x is the rank's chunk of the
-    decoder sequence over its data group, as :func:`_apply_block`'s."""
+    decoder sequence over its data group, as :func:`_apply_block`'s.
+
+    ``sp``: sequence parallelism (``tensor_parallel.seq_shard``): x is the
+    rank's ``(B, S / M, d)`` block of the sequence (``positions`` every
+    position's), and so is the block's output.  The norms run on the block,
+    their scales taken with :meth:`_Leaves.full_partial` (each rank's
+    gradient is its rows' part); each column-parallel product reads the
+    gathered sequence and each row-parallel one is reduce-scattered over it
+    (``tensor_parallel.column_input`` / ``row_output``); attention over
+    whole heads (``wq`` / ``wo`` not whole heads, or held whole: the
+    reference's ``attn_tp=False``) runs on the block's queries over every
+    rank's keys and values (:func:`_tp_qkv`); a mixer or FFN computed alike
+    over gathered leaves runs over the gathered sequence and keeps its
+    block (:func:`_alike`)."""
     mixer, ffn = _parse_kind(kind)
     axis = p.params.layout.axis
-    h = L.rmsnorm(p.full("ln1.scale"), x, cfg.norm_eps)
+    norm = p.full if sp is None else p.full_partial
+    h = L.rmsnorm(norm("ln1.scale"), x, cfg.norm_eps)
     if mixer in RECURRENT:
-        x = x + _tp_recurrent(p, mixer, h, cfg, axis, state_out=kv_out, seq=seq)
+        x = x + _tp_recurrent(p, mixer, h, cfg, axis, state_out=kv_out, seq=seq, sp=sp)
     else:
-        x = x + _tp_attention(p, h, positions, cfg, mixer, axis, kv_out, seq)
+        x = x + _tp_attention(p, h, positions, cfg, mixer, axis, kv_out, seq, sp)
     if mixer == "xattn":
-        kx, vx = _tp_cross_kv(p, enc_out, cfg, axis)
+        kx, vx = _tp_cross_kv(p, enc_out, cfg, axis, sp)
         if kv_out is not None:
             kv_out.update(kx=kx, vx=vx)
-        x = _tp_cross_residual(p, x, kx, vx, cfg, axis)
+        x = _tp_cross_residual(p, x, kx, vx, cfg, axis, sp)
     if ffn == "none":
         return x, None
-    h = L.rmsnorm(p.full("ln2.scale"), x, cfg.norm_eps)
-    out, aux = _tp_ffn(p, ffn, h, cfg, axis)
+    h = L.rmsnorm(norm("ln2.scale"), x, cfg.norm_eps)
+    out, aux = _tp_ffn(p, ffn, h, cfg, axis, sp)
     return x + out, aux
+
+
+def _alike(fn, h, axis, sp):
+    """``fn(h)``, computed alike on every rank of the model group over
+    gathered leaves; under sequence parallelism (``sp``) over the gathered
+    sequence, the rank's block of the output kept (``tensor_parallel.
+    split``: the output's gradient all-gathered, so every rank's backward
+    of ``fn`` is the whole one)."""
+    if sp is None:
+        return fn(h)
+    return TP.split(fn(TP.gather(h, axis, 1)), axis, 1)
 
 
 def _tp_decode_block(p: _Leaves, kind: str, entry: dict, x, pos: int, cfg, slots=None):
@@ -648,39 +683,49 @@ def _kv_weights(p: _Leaves, cfg, axis, pre: str = "attn.") -> tuple:
     return p.full_partial(pre + "wk")[:, cols], p.full_partial(pre + "wv")[:, cols], nkv
 
 
-def _tp_qkv(p: _Leaves, h, positions, cfg, axis) -> tuple:
+def _tp_qkv(p: _Leaves, h, positions, cfg, axis, sp=None) -> tuple:
     """(q, k, v, split): the rank's query heads (``wq`` column-parallel) and
     the KV heads they read (:func:`_kv_weights`), or every head over
     gathered leaves where ``wq`` / ``wo``'s blocks are not whole heads
-    (``split`` False)."""
+    (``split`` False).  ``sp``: h is the rank's block of the sequence: the
+    split heads read the gathered sequence; every head's are the block's
+    rows (RoPE at its positions), the leaves taken with
+    :meth:`_Leaves.full_partial`."""
     M = axis.world
     if not _heads_split(p, cfg, M):
-        q, k, v = L.attn_qkv(p.full("attn.wq"), p.full("attn.wk"), p.full("attn.wv"), h,
-                             positions, cfg)
+        w = p.full if sp is None else p.full_partial
+        if sp is not None:
+            positions = positions[sp.start:sp.stop]
+        q, k, v = L.attn_qkv(w("attn.wq"), w("attn.wk"), w("attn.wv"), h, positions, cfg)
         return q, k, v, False
-    hc = TP.copy_to(h, axis)
+    hc = TP.column_input(h, axis, sp)
     wk, wv, nkv = _kv_weights(p, cfg, axis)
     q, k, v = L.attn_qkv(p("attn.wq"), wk, wv, hc, positions, cfg,
                          heads=(cfg.n_heads // M, nkv))
     return q, k, v, True
 
 
-def _tp_out(p: _Leaves, out, axis, split: bool):
+def _tp_out(p: _Leaves, out, axis, split: bool, sp=None):
     """The attention output's projection: ``wo`` row-parallel with one
-    all-reduce, or over the gathered ``wo``."""
+    all-reduce (``sp``: reduce-scatter), or over the gathered ``wo``
+    (``sp``: the block's rows, ``full_partial``)."""
     if not split:
-        return L.attn_proj_out(p.full("attn.wo"), out)
-    return TP.reduce_from(L.attn_proj_out(p("attn.wo"), out), axis)
+        return L.attn_proj_out((p.full if sp is None else p.full_partial)("attn.wo"), out)
+    return TP.row_output(L.attn_proj_out(p("attn.wo"), out), axis, sp)
 
 
-def _tp_attention(p: _Leaves, h, positions, cfg, mixer: str, axis, kv_out=None, seq=None):
+def _tp_attention(p: _Leaves, h, positions, cfg, mixer: str, axis, kv_out=None, seq=None,
+                  sp=None):
     """Attention over the rank's whole query heads (``wq`` column- and
     ``wo`` row-parallel, one all-reduce of the output); replicated over
     gathered leaves where ``wq`` / ``wo``'s blocks are not whole heads.
     Causal (``swa``: sliding), or over every position (the encoder's
-    ``encattn``): :func:`_self_attend`."""
-    q, k, v, split = _tp_qkv(p, h, positions, cfg, axis)
-    return _tp_out(p, _self_attend(q, k, v, mixer, cfg, kv_out, seq), axis, split)
+    ``encattn``): :func:`_self_attend`.  ``sp``: h is the rank's block of
+    the sequence (:func:`_tp_qkv`); where every head is computed, the
+    block's queries attend over every rank's keys and values."""
+    q, k, v, split = _tp_qkv(p, h, positions, cfg, axis, sp)
+    out = _self_attend(q, k, v, mixer, cfg, kv_out, seq, None if split else sp)
+    return _tp_out(p, out, axis, split, sp)
 
 
 def _cross_split(params: dict, cfg) -> bool:
@@ -694,29 +739,34 @@ def _cross_split(params: dict, cfg) -> bool:
                for _, kind, p in _layers(params, cfg))
 
 
-def _tp_cross_kv(p: _Leaves, enc_out, cfg, axis) -> tuple:
+def _tp_cross_kv(p: _Leaves, enc_out, cfg, axis, sp=None) -> tuple:
     """(kx, vx) of the cross-attention on a model-parallel rank: its KV
     heads' (``xattn.wk`` / ``wv`` column-parallel over the encoder output,
     which every rank holds alike and whose gradient :func:`_inputs`
     all-reduces once), or every head's over the gathered leaves where
-    ``xattn``'s blocks are not whole heads."""
+    ``xattn``'s blocks are not whole heads (``sp``: ``full_partial``, as
+    the queries are the rank's block's)."""
     if not _heads_split(p, cfg, axis.world, "xattn."):
-        return _cross_kv(p.full, enc_out, cfg)
+        return _cross_kv(p.full if sp is None else p.full_partial, enc_out, cfg)
     return _cross_kv(p, enc_out, cfg, _kv_weights(p, cfg, axis, "xattn."))
 
 
-def _tp_cross_residual(p: _Leaves, x, kx, vx, cfg, axis):
+def _tp_cross_residual(p: _Leaves, x, kx, vx, cfg, axis, sp=None):
     """:func:`_cross_residual` on a model-parallel rank: ``lnx`` gathered,
     the rank's query heads (``xattn.wq`` column-parallel) over its ``kx`` /
     ``vx``, ``xattn.wo`` row-parallel with one all-reduce; replicated over
-    the gathered leaves where the blocks are not whole heads."""
+    the gathered leaves where the blocks are not whole heads.  ``sp``: x
+    is the rank's block of the sequence: the split heads' queries read the
+    gathered sequence and ``xattn.wo`` is reduce-scattered over it; every
+    head's queries are the block's rows (``full_partial``)."""
+    norm = p.full if sp is None else p.full_partial
     if not _heads_split(p, cfg, axis.world, "xattn."):
-        return _cross_residual(p.full, x, kx, vx, cfg)
-    hx = TP.copy_to(L.rmsnorm(p.full("lnx.scale"), x, cfg.norm_eps), axis)
+        return _cross_residual(norm, x, kx, vx, cfg)
+    hx = TP.column_input(L.rmsnorm(norm("lnx.scale"), x, cfg.norm_eps), axis, sp)
     B, S, _ = hx.shape
     qx = (hx @ p("xattn.wq").to(hx.dtype)).reshape(B, S, cfg.n_heads // axis.world, cfg.hd)
     out = L.attn_proj_out(p("xattn.wo"), L.full_attention(qx, kx, vx))
-    return x + TP.reduce_from(out, axis)
+    return x + TP.row_output(out, axis, sp)
 
 
 def _rank_width(mixer: str, cfg, model: int):
@@ -781,14 +831,18 @@ def _rank_mixer(p: _Leaves, mixer: str, cfg) -> dict:
     return out
 
 
-def _tp_recurrent(p: _Leaves, mixer: str, h, cfg, axis, state_out=None, cache=None, seq=None):
+def _tp_recurrent(p: _Leaves, mixer: str, h, cfg, axis, state_out=None, cache=None, seq=None,
+                  sp=None):
     """A recurrent mixer on a model-parallel rank (``layers.mamba2_apply``
     / ``rglru_apply`` with ``tp``): Mamba-2 by heads, the RG-LRU by
     channels (:func:`_rank_mixer`); replicated over its leaves, each
     gathered at use, where they do not divide over the group
     (:func:`_rank_width`).  With a ``cache`` entry, one decode step
     (``mamba2_decode`` / ``rglru_decode``): (out, the new state).
-    ``seq``: h is the rank's chunk of a sequence over its data group."""
+    ``seq``: h is the rank's chunk of a sequence over its data group.
+    ``sp``: h is the rank's block of the sequence over its model group: the
+    split mixer reads the gathered sequence and its output is
+    reduce-scattered; the whole one runs :func:`_alike`."""
     split = _rank_width(mixer, cfg, axis.world) is not None
     params = _rank_mixer(p, mixer, cfg) if split else _mixer_params(p.full, mixer, cfg)
     tp = axis if split else None
@@ -796,7 +850,9 @@ def _tp_recurrent(p: _Leaves, mixer: str, h, cfg, axis, state_out=None, cache=No
         step = L.mamba2_decode if mixer == "ssm" else L.rglru_decode
         return step(params, cache, h, cfg, tp=tp)
     apply = L.mamba2_apply if mixer == "ssm" else L.rglru_apply
-    return apply(params, h, cfg, state_out=state_out, tp=tp, seq=seq)
+    if split or sp is None:
+        return apply(params, h, cfg, state_out=state_out, tp=tp, seq=seq, sp=sp)
+    return _alike(lambda h: apply(params, h, cfg, state_out=state_out), h, axis, sp)
 
 
 def _mlp_split(p: _Leaves, pre: str, cfg) -> bool:
@@ -814,40 +870,44 @@ def _experts_split(p: _Leaves, cfg, pre: str = "moe.") -> bool:
             and (not cfg.mlp_gated or p.dim(pre + "we3") == 2))
 
 
-def _tp_ffn(p: _Leaves, ffn: str, h, cfg, axis) -> tuple:
+def _tp_ffn(p: _Leaves, ffn: str, h, cfg, axis, sp=None) -> tuple:
     """(the block's FFN of h, the MoE aux loss or None) on a model-parallel
-    rank: :func:`_tp_mlp` or :func:`_tp_moe`."""
+    rank: :func:`_tp_mlp` or :func:`_tp_moe`; ``sp``: h and the output are
+    the rank's block of the sequence."""
     if ffn == "moe":
-        return _tp_moe(p, h, cfg, axis)
-    return _tp_mlp(p, h, cfg, axis), None
+        return _tp_moe(p, h, cfg, axis, sp)
+    return _tp_mlp(p, h, cfg, axis, sp), None
 
 
-def _tp_mlp(p: _Leaves, h, cfg, axis):
+def _tp_mlp(p: _Leaves, h, cfg, axis, sp=None):
     """The dense FFN, ``w1`` / ``w3`` column- and ``w2`` row-parallel with
-    one all-reduce; replicated over gathered leaves where the blocks do not
-    split d_ff."""
+    one all-reduce (``sp``: the sequence gathered in, reduce-scattered
+    out); replicated over gathered leaves where the blocks do not split
+    d_ff (:func:`_alike`)."""
     gated = cfg.mlp_gated
     if not _mlp_split(p, "mlp.", cfg):
         w3 = p.full("mlp.w3") if gated else None
-        return L.mlp_apply(p.full("mlp.w1"), p.full("mlp.w2"), h, cfg, w3=w3)
-    hc = TP.copy_to(h, axis)
+        return _alike(lambda h: L.mlp_apply(p.full("mlp.w1"), p.full("mlp.w2"), h, cfg, w3=w3),
+                      h, axis, sp)
+    hc = TP.column_input(h, axis, sp)
     w3 = p("mlp.w3") if gated else None
-    return TP.reduce_from(L.mlp_apply(p("mlp.w1"), p("mlp.w2"), hc, cfg, w3=w3), axis)
+    return TP.row_output(L.mlp_apply(p("mlp.w1"), p("mlp.w2"), hc, cfg, w3=w3), axis, sp)
 
 
 ROUTER_SPLIT = {1: "E", 0: "d"}       # the router's (d, E) dim on the model axis
 
 
-def _tp_moe(p: _Leaves, h, cfg, axis) -> tuple:
+def _tp_moe(p: _Leaves, h, cfg, axis, sp=None) -> tuple:
     """The MoE FFN on a model-parallel rank (``layers.moe_apply`` with its
     :class:`~repro_torch.models.layers.MoESplit`): the router's block of
     experts or rows, the experts' and the shared experts' d_ff blocks where
     the placement cuts d_ff (:func:`_experts_split`, :func:`_mlp_split`),
-    else those leaves gathered and computed replicated."""
+    else those leaves gathered and computed replicated; ``sp``: h is the
+    rank's block of the sequence (``MoESplit.seq``)."""
     experts = _experts_split(p, cfg)
     shared = cfg.n_shared_experts > 0 and _mlp_split(p, "moe.shared.", cfg)
     params = _moe_params(p, cfg, p if experts else p.full, p if shared else p.full)
-    split = L.MoESplit(axis, ROUTER_SPLIT.get(p.dim("moe.router")), experts, shared)
+    split = L.MoESplit(axis, ROUTER_SPLIT.get(p.dim("moe.router")), experts, shared, sp)
     return L.moe_apply(params, h, cfg, rows=_rows(p.params), tp=split)
 
 
@@ -859,15 +919,18 @@ def _vocab_split(params: dict, cfg) -> bool:
             else params.dim("lm_head") == 1)
 
 
-def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def _embed(params: dict, tokens: torch.Tensor, cfg, sp=None) -> torch.Tensor:
     """Embedding rows cast to the activation dtype, scaled by sqrt(d_model)
     (vocab-parallel on a model-parallel rank whose ``embed`` block is a
-    range of rows)."""
+    range of rows).  ``sp``: the rank's block of the sequence's rows (the
+    vocab-parallel sum reduce-scattered over it)."""
     if _model_split(params) and params.dim("embed") == 0:
         rows = TP.vocab_embed(_zblock(params, "embed", params["embed"]), tokens,
-                              params.layout.axis)
+                              params.layout.axis, sp)
     else:
         rows = _full(params, "embed")[tokens]
+        if sp is not None:
+            rows = TP.split(rows, params.layout.axis, 1)
     return rows.to(cfg.act_dtype) * math.sqrt(cfg.d_model)
 
 
@@ -891,19 +954,25 @@ def _add_aux(total, aux):
 
 
 def _encode(params: dict, frames: torch.Tensor, cfg, remat: bool = True,
-            unroll: bool = False) -> torch.Tensor:
+            unroll: bool = False, sp=None) -> torch.Tensor:
     """The encoder over the (stub) frame embeddings (B, enc_len, d): cast to
     the activation dtype, the ``encattn`` blocks with RoPE at
     ``arange(enc_len)``, ``enc_norm``.  ``remat`` checkpoints each block
     (:func:`_run_stack`, the ``"full"`` policy, as the reference's
-    ``_encode``); ``unroll`` is a no-op."""
+    ``_encode``); ``unroll`` is a no-op.  ``sp``: sequence parallelism over
+    the frames (:func:`_sp`): the rank's block of them, and of the
+    output."""
     x = frames.to(cfg.act_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run_stack(params, cfg, "encoder", x, positions, remat=remat)
-    return L.rmsnorm(_full(params, "enc_norm.scale"), x, cfg.norm_eps)
+    if sp is not None:
+        x = x[:, sp.start:sp.stop]
+    x, _ = _run_stack(params, cfg, "encoder", x, positions, remat=remat, sp=sp)
+    scale = _full(params, "enc_norm.scale") if sp is None else _full_partial(params,
+                                                                             "enc_norm.scale")
+    return L.rmsnorm(scale, x, cfg.norm_eps)
 
 
-def _inputs(params: dict, batch: dict, cfg, remat: bool = False, seq=None) -> tuple:
+def _inputs(params: dict, batch: dict, cfg, remat: bool = False, seq=None, sp=None) -> tuple:
     """(the decoder's input (B, n_prefix + S, d), the encoder output or
     None, n_prefix): the text embedding, after the projected patches of a
     ``vlm`` batch (``n_prefix`` of them); an ``encdec`` batch's frames
@@ -914,26 +983,56 @@ def _inputs(params: dict, batch: dict, cfg, remat: bool = False, seq=None) -> tu
     alone projected and embedded (the encoder runs whole); a rank whose
     chunk holds no tokens (no patches) still takes its part in the data
     group's gather of ``embed`` (``patch_proj``) on an FSDP rank, in the
-    same order as the ranks that use it."""
+    same order as the ranks that use it.
+
+    ``sp``: sequence parallelism over the model group (:func:`_sp`): the
+    decoder's input is the rank's block of the n_prefix + S positions (a
+    VLM's patches and text joined first, then cut, ``tensor_parallel.
+    split``).  The encoder runs over its own block of the frames where
+    they divide, its output gathered for the cross-attention; where a
+    rank's use of the encoder output is partial (the cross-attention split
+    by heads, or the decoder's block of queries) its gradient is summed
+    over the group."""
     tokens = batch["tokens"]
     n_prefix = batch["patches"].shape[1] if cfg.family == "vlm" else 0
     a, b = (0, n_prefix + tokens.shape[1]) if seq is None else (seq.start, seq.stop)
     x = None
     if b > n_prefix:
-        x = _embed(params, tokens[:, max(a - n_prefix, 0):b - n_prefix], cfg)
+        x = _embed(params, tokens[:, max(a - n_prefix, 0):b - n_prefix], cfg,
+                   None if n_prefix else sp)
     else:
         _zblock(params, "embed", params["embed"])
     enc_out = None
     if cfg.family == "encdec":
-        enc_out = _encode(params, batch["frames"], cfg, remat=remat)
-        if _cross_split(params, cfg):
+        frames = batch["frames"]
+        enc_sp = _sp(params, cfg, frames.shape[1]) if seq is None else None
+        enc_out = _encode(params, frames, cfg, remat=remat, sp=enc_sp)
+        partial = _cross_split(params, cfg) or sp is not None
+        if enc_sp is not None:
+            enc_out = TP.gather(enc_out, params.layout.axis, 1, "sum" if partial else "slice")
+        elif partial:
             enc_out = TP.copy_to(enc_out, params.layout.axis)
     elif cfg.family == "vlm" and a < n_prefix:
         patches = _patch_prefix(params, batch["patches"][:, a:min(b, n_prefix)], cfg)
         x = patches if x is None else torch.cat([patches, x], dim=1)
     elif cfg.family == "vlm":
         _zblock(params, "patch_proj", params["patch_proj"])
+    if sp is not None and n_prefix:
+        x = TP.split(x, params.layout.axis, 1)
     return x, enc_out, n_prefix
+
+
+def _sp(params: dict, cfg, length: int):
+    """The rank's block of a ``length``-position sequence under sequence
+    parallelism on a model-parallel rank (``tensor_parallel.seq_shard``),
+    else None."""
+    return TP.seq_shard(cfg, params.layout, length) if _model_split(params) else None
+
+
+def _full_partial(params: dict, name: str):
+    """A whole top-level leaf used on the rank's block of the sequence
+    (:meth:`_Leaves.full_partial`)."""
+    return _Leaves(params, "").full_partial(name)
 
 
 def _repeats(params: dict, cfg, stack: str):
@@ -981,17 +1080,18 @@ def _checkpointed(body, policy: str, *args):
 
 
 def _run_stack(params: dict, cfg, stack: str, x, positions, enc_out=None,
-               remat: bool = False, remat_policy: str = "full"):
+               remat: bool = False, remat_policy: str = "full", sp=None):
     """The ``decoder`` (or ``encoder``) stack over x; returns (x, the MoE
     aux loss summed over the layers in order, or None).  With ``remat`` each
     repeat of the pattern runs under :func:`_checkpointed`: the same
     operations on the same inputs, so the loss and the gradients are bit
-    for bit those without it."""
+    for bit those without it.  ``sp``: x is the rank's block of the
+    sequence (:func:`_tp_block`)."""
     aux = None
     for repeat, layers in _repeats(params, cfg, stack):
         def body(x, aux, layers=layers):
             for _, kind, p in layers:
-                x, a = _apply_block(p, kind, x, positions, cfg, enc_out)
+                x, a = _apply_block(p, kind, x, positions, cfg, enc_out, sp=sp)
                 aux = _add_aux(aux, a)
             return x, aux
 
@@ -1005,11 +1105,17 @@ def _run_stack(params: dict, cfg, stack: str, x, positions, enc_out=None,
 def _forward(params: dict, batch: dict, cfg, remat: bool = False,
              remat_policy: str = "full"):
     """(final hidden states, the MoE aux loss summed over layers or None,
-    n_prefix)."""
-    x, enc_out, n_prefix = _inputs(params, batch, cfg, remat)
-    positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _run_stack(params, cfg, "decoder", x, positions, enc_out, remat, remat_policy)
-    return L.rmsnorm(_full(params, "final_norm.scale"), x, cfg.norm_eps), aux, n_prefix
+    n_prefix, the sequence's split over the model group or None): under
+    sequence parallelism (:func:`_sp`) the hidden states are the rank's
+    block of the positions, ``final_norm`` run on it."""
+    n = batch["tokens"].shape[1] + (batch["patches"].shape[1] if cfg.family == "vlm" else 0)
+    sp = _sp(params, cfg, n)
+    x, enc_out, n_prefix = _inputs(params, batch, cfg, remat, sp=sp)
+    positions = torch.arange(n, device=x.device)
+    x, aux = _run_stack(params, cfg, "decoder", x, positions, enc_out, remat, remat_policy, sp)
+    scale = (_full(params, "final_norm.scale") if sp is None
+             else _full_partial(params, "final_norm.scale"))
+    return L.rmsnorm(scale, x, cfg.norm_eps), aux, n_prefix, sp
 
 
 def hidden_states(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = False,
@@ -1021,8 +1127,11 @@ def hidden_states(params: dict, batch: dict, cfg, remat: bool = True, unroll: bo
     checkpointing per pattern repeat (:func:`_run_stack`), the reference's
     keywords and defaults.  ``unroll`` is accepted and does nothing: the
     eager loop over the layers is unrolled already, where the reference
-    chooses between a scan and a Python loop."""
-    h, aux, n_prefix = _forward(params, batch, cfg, remat, remat_policy)
+    chooses between a scan and a Python loop.  Under sequence parallelism
+    every rank returns the whole h, its blocks gathered."""
+    h, aux, n_prefix, sp = _forward(params, batch, cfg, remat, remat_policy)
+    if sp is not None:
+        h = TP.gather(h, sp.axis, 1)
     if aux is None:
         aux = torch.zeros((), dtype=F32, device=h.device)
     return h, aux, n_prefix
@@ -1056,8 +1165,14 @@ def loss_fn(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
     shifted, the last position is masked, and the loss is the masked sum
     over ``mask.sum()``, plus ``MOE_AUX_COEF`` times the aux loss summed
     over the MoE layers (a model without one adds nothing).  ``remat``,
-    ``unroll``, ``remat_policy``: as :func:`hidden_states`."""
-    h, aux, n_prefix = _forward(params, batch, cfg, remat, remat_policy)
+    ``unroll``, ``remat_policy``: as :func:`hidden_states`.  Under sequence
+    parallelism the final hidden states' blocks are gathered before the
+    head (their gradient reduce-scattered where the head is vocab-parallel),
+    so the loss and its token mean are the whole sequence's."""
+    h, aux, n_prefix, sp = _forward(params, batch, cfg, remat, remat_policy)
+    split = _vocab_split(params, cfg)
+    if sp is not None:
+        h = TP.gather(h, sp.axis, 1, "sum" if split else "slice")
     h = h[:, n_prefix:]
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -1065,11 +1180,11 @@ def loss_fn(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
     mask = torch.cat([torch.ones(B, S - 1, dtype=F32, device=tokens.device),
                       torch.zeros(B, 1, dtype=F32, device=tokens.device)], dim=1)
     total = torch.zeros((), dtype=F32, device=tokens.device)
-    split = _vocab_split(params, cfg)
     if split:
         # the vocab-parallel head: each rank's logits are its block of rows
         axis = params.layout.axis
-        h = TP.copy_to(h, axis)
+        if sp is None:
+            h = TP.copy_to(h, axis)
     head = _head(params, cfg)
     for c0 in range(0, S, min(CE_CHUNK, S)):
         c1 = min(c0 + CE_CHUNK, S)
@@ -1188,12 +1303,25 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
     (:func:`init_cache`'s ``slots``): its entry holds positions ``[start,
     stop)``, zeros past the prompt.  Without ``slots`` that entry holds
     every position (gathered where ``seq``); a ``swa`` ring, the recurrent
-    states and ``kx`` / ``vx`` are whole on every rank."""
+    states and ``kx`` / ``vx`` are whole on every rank.
+
+    Under sequence parallelism (``cfg.attn_seq_shard`` on a model-parallel
+    rank, :func:`_sp`) the rank runs its block of the positions
+    (:func:`_tp_block`) and the last position's hidden state is
+    all-gathered from the last model rank; its cache is what it is without
+    the flag.  With ``seq`` or ``slots`` as well it raises
+    ``NotImplementedError``."""
     check_supported(cfg)
+    if (seq is not None or slots is not None) and _model_split(params) and cfg.attn_seq_shard:
+        raise NotImplementedError(
+            f"{cfg.name}: attn_seq_shard on a model rank together with a sequence split "
+            f"over data (tensor_parallel.serve_split) is not served (ROADMAP.md queue 1)")
     params = serving_params(params, cfg)
-    x, enc_out, _ = _inputs(params, batch, cfg, remat, seq)
+    n = batch["tokens"].shape[1] + (batch["patches"].shape[1] if cfg.family == "vlm" else 0)
+    sp = _sp(params, cfg, n)
+    x, enc_out, _ = _inputs(params, batch, cfg, remat, seq, sp)
     start = 0 if seq is None else seq.start
-    positions = torch.arange(start, start + x.shape[1], device=x.device)
+    positions = torch.arange(start, start + (x.shape[1] if sp is None else n), device=x.device)
     stacked: dict = {}
     rem = []
     for repeat, layers in _repeats(params, cfg, "decoder"):
@@ -1201,7 +1329,8 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
 
         def body(x, layers=layers, entries=entries):
             for (_, kind, p), entry in zip(layers, entries):
-                x, _ = _apply_block(p, kind, x, positions, cfg, enc_out, kv_out=entry, seq=seq)
+                x, _ = _apply_block(p, kind, x, positions, cfg, enc_out, kv_out=entry, seq=seq,
+                                    sp=sp)
             return x
 
         x = _checkpointed(body, "full", x) if repeat and remat else body(x)
@@ -1217,8 +1346,9 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
                         for key, entries in stacked.items()},
              "rem": tuple(rem)}
     last = x[:, -1:]
-    if seq is not None:
-        last = comm.all_gather_dim(last.contiguous(), seq.axis, 1)[:, -1:]
+    across = seq if seq is not None else sp
+    if across is not None:
+        last = comm.all_gather_dim(last.contiguous(), across.axis, 1)[:, -1:]
     h = L.rmsnorm(_full(params, "final_norm.scale"), last, cfg.norm_eps)
     return _logits(params, h, cfg)[:, 0], cache
 

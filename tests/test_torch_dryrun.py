@@ -19,6 +19,7 @@
     mark of building the state.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -29,7 +30,7 @@ import torch
 from repro.configs import INPUT_SHAPES as J_INPUT_SHAPES
 from repro.configs import load_arch as j_load_arch
 from repro.configs import specs as JSPECS
-from repro_torch.configs import INPUT_SHAPES, arch_supports_shape, load_arch, specs
+from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, arch_supports_shape, load_arch, specs
 from repro_torch.distributed.comm import scaled_sum
 from repro_torch.launch import dryrun as DR
 from repro_torch.models import convert
@@ -751,3 +752,89 @@ def test_a_one_sequence_prefill_runs_its_chunk_over_data():
     assert rec["comm"]["all_gather@data"] == {
         "calls": cfg.n_layers + 1,
         "bytes": cfg.n_layers * 2048 * kv + cfg.d_model * cfg.act_dtype.itemsize}
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism (cfg.attn_seq_shard) on the pod's model axis
+# ---------------------------------------------------------------------------
+
+def test_no_registry_config_sets_attn_seq_shard():
+    """No registry config sets the flag, so every registry pod record is the
+    one reckoned without it (minitron_4b's train_4k constants above still
+    hold; the whole ``--mesh both`` set was diffed against the tree before
+    the flag was read: unchanged to the byte)."""
+    for arch in ARCH_IDS:
+        mod = load_arch(arch)
+        assert not mod.FULL.attn_seq_shard and not mod.SMOKE.attn_seq_shard, arch
+
+
+# (arch, TOPO fields replaced): Megatron-SP with attention by heads, and
+# gemma3's attention weights whole (attn_tp=False, its one KV head)
+SP_PODS = [("minitron_4b", {}), ("gemma3_1b", {}), ("gemma3_1b", {"attn_tp": False})]
+SP_POD_IDS = ["minitron_4b", "gemma3_1b", "gemma3_1b-attn_tp_off"]
+# sha256 (first 16 hex digits) of json.dumps({"memory", "comm", "flops"},
+# sort_keys=True) of the registry's single-pod train_4k records, as
+# DR.reckon_pod gave them at commit b19616b, before the flag was read
+TRAIN_4K_AT_B19616B = {"minitron_4b": "4f162839d946402c", "gemma3_1b": "b5131f5a53944a04"}
+
+
+@pytest.mark.parametrize("arch,topo_fields", SP_PODS, ids=SP_POD_IDS)
+def test_seq_shard_pod_records_reckon_fewer_activation_bytes(monkeypatch, arch, topo_fields):
+    """train_4k on the single pod (model 16, S = 4,096: 256 positions per
+    rank): with the flag the rank's local phase (its activations) and its
+    peak reckon fewer bytes than without, and its row-parallel outputs are
+    reduce-scattered; without it the registry's record is the one reckoned
+    before the flag was read, to the byte."""
+    import hashlib
+
+    from repro_torch.launch import train as LT
+
+    mod = load_arch(arch)
+    topo = dataclasses.replace(mod.TOPO, **topo_fields)
+    records = []
+    for cfg in (mod.FULL, dataclasses.replace(mod.FULL, attn_seq_shard=True)):
+        monkeypatch.setattr(LT, "resolve_arch", lambda name, cfg=cfg: (cfg, topo))
+        records.append(DR.reckon_pod(arch, "train_4k", False))
+    plain, sp = records
+    if not topo_fields:
+        keep = {k: plain[k] for k in ("memory", "comm", "flops")}
+        assert hashlib.sha256(json.dumps(keep, sort_keys=True).encode()).hexdigest()[:16] == \
+            TRAIN_4K_AT_B19616B[arch]
+    assert sp["mesh"] == plain["mesh"] and sp["mesh"]["model"] == 16
+    assert sp["memory"]["local_bytes"] < plain["memory"]["local_bytes"]
+    assert sp["memory"]["peak_bytes"] < plain["memory"]["peak_bytes"]
+    assert sp["memory"]["state_bytes"] == plain["memory"]["state_bytes"]
+    assert "reduce_scatter@model" in sp["comm"] and "reduce_scatter@model" not in plain["comm"]
+
+
+# (arch, W, model, leaves held whole)
+SP_META = [("minitron_4b", 2, 2, ()), ("gemma3_1b", 1, 4, DR.ATTN_NAMES)]
+
+
+@pytest.mark.parametrize("arch,W,M,rep", SP_META, ids=["minitron_4b-2x1x2",
+                                                        "gemma3_1b-attn_tp_off-1x1x4"])
+def test_seq_shard_meta_collectives_equal_a_real_run(arch, W, M, rep):
+    """With the flag the reckoning's collectives of one round, per name,
+    kind and group, equal rank 0's of a real run of the same DSM step on 4
+    gloo ranks: minitron_4b SMOKE over (worker 2, zero 1, model 2) and
+    gemma3_1b SMOKE with its attention weights whole over (1, 1, 4)."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.distributed.spawn import run_ranks
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_ranks
+
+    cfg = dataclasses.replace(load_arch(arch).SMOKE, attn_seq_shard=True)
+    rec = DR.reckon_train(cfg, n_workers=W, tau=2, b_micro=2, seq=32, world=4, model=M,
+                          replicate_names=rep)
+    row = T.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (W, 2, 1, 2, 32))
+    case = dict(cfg=cfg, n_workers=W, model=M, fsdp=False, row=row, gamma=1e-3,
+                flags={"zero_sharded": True, "device_parallel_local": True},
+                batches=[{"tokens": tokens}], replicate=rep)
+    rank0 = run_ranks(torch_ranks.fsdp_dsm_rank, 4, ([case],), timeout_s=300)[0][0]
+    assert rank0["comm"] == rec["comm"]
+    assert DR.collectives(rank0["comm"]) == DR.collectives(rec["comm"])
+    assert "reduce_scatter@model" in rec["comm"]

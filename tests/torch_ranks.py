@@ -7,6 +7,7 @@ the test files so that a rank imports neither JAX nor the JAX package."""
 
 import contextlib
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -398,19 +399,20 @@ def tp_losses_rank(rank: int, world: int, cases: list) -> list:
 
 
 def tp_loss_rank(rank: int, world: int, cfg, model: int, row, batches: list,
-                 n_workers: int = 1, remat: bool = False) -> dict:
+                 n_workers: int = 1, remat: bool = False, replicate_names: tuple = ()) -> dict:
     """The model-axis ``loss_fn`` (``remat``: each pattern repeat
     checkpointed) and its gradient on this rank, for each microbatch of
     ``batches`` (dicts of CPU tensors): ``row`` is the dense ``(N,)``
-    params, cut to the rank's blocks.  Returns the losses, the rank's
-    gradient rows (its layout) and its ``CommStats``."""
+    params, cut to the rank's blocks (the leaves named in
+    ``replicate_names`` whole).  Returns the losses, the rank's gradient
+    rows (its layout) and its ``CommStats``."""
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.models import convert as C
     from repro_torch.models import transformer as T
 
     torch.set_num_threads(1)
     topo = mesh.topology(n_workers, dist.group.WORLD, model=model)
-    lay = TP.topology_layout(cfg, topo)
+    lay = TP.topology_layout(cfg, topo, replicate_names)
     mine = C.shard_flat(row, T.layout(cfg), lay)
     out = {"losses": [], "grads": [], "index": topo.model_index}
     for mb in batches:
@@ -421,6 +423,37 @@ def tp_loss_rank(rank: int, world: int, cfg, model: int, row, batches: list,
         out["losses"].append(loss.detach())
         out["grads"].append(grad)
     out["comm"] = topo.stats.as_dict()
+    return out
+
+
+def sp_losses_rank(rank: int, world: int, cases: list) -> list:
+    """Each case (a dict: ``cfg``, ``row``, ``batch``, optionally
+    ``replicate`` (leaf names held whole) and ``remat``) over all ``world``
+    ranks as one model group: :func:`tp_loss_rank`'s results of ``cfg`` as
+    given, with the shape of every block's output (the residual between
+    blocks, recorded at ``transformer._apply_block``) under ``shapes``, and
+    under ``plain`` its losses and gradient with ``attn_seq_shard`` off."""
+    from repro_torch.models import transformer as T
+
+    out = []
+    for c in cases:
+        run = functools.partial(tp_loss_rank, rank, world, model=world, row=c["row"],
+                                batches=[c["batch"]], remat=c.get("remat", False),
+                                replicate_names=c.get("replicate", ()))
+        shapes, block = [], T._apply_block
+
+        def recording(*a, **k):
+            x, aux = block(*a, **k)
+            shapes.append(tuple(x.shape))
+            return x, aux
+
+        T._apply_block = recording
+        try:
+            res = run(cfg=c["cfg"])
+        finally:
+            T._apply_block = block
+        plain = run(cfg=dataclasses.replace(c["cfg"], attn_seq_shard=False))
+        out.append(dict(res, shapes=shapes, plain={k: plain[k] for k in ("losses", "grads")}))
     return out
 
 
@@ -443,25 +476,27 @@ def tp_dsm_rank(rank: int, world: int, cfg, n_workers: int, model: int, flags: d
 def fsdp_dsm_rank(rank: int, world: int, cases: list) -> list:
     """:func:`dsm_case` for each case of ``cases``, dicts of ``cfg``,
     ``n_workers``, ``model``, ``fsdp`` (the blocks cut over the zero group),
-    ``flags``, ``row``, ``batches``, ``gamma`` and optionally ``nan_rank``,
-    over the grid of all ``world`` ranks, in one start of the ranks."""
+    ``flags``, ``row``, ``batches``, ``gamma`` and optionally ``nan_rank``
+    and ``replicate`` (leaf names held whole on every model rank), over the
+    grid of all ``world`` ranks, in one start of the ranks."""
     torch.set_num_threads(1)
     out = []
     for c in cases:
         topo = mesh.topology(c["n_workers"], dist.group.WORLD, model=c["model"],
                              fsdp=c["fsdp"])
         out.append(dsm_case(topo, c["cfg"], c["n_workers"], c["flags"], c["row"],
-                            c["batches"], c["gamma"], c.get("nan_rank")))
+                            c["batches"], c["gamma"], c.get("nan_rank"), c.get("replicate", ())))
     return out
 
 
 def dsm_case(topo, cfg, n_workers: int, flags: dict, row, batches: list, gamma: float,
-             nan_rank: Optional[int] = None) -> dict:
+             nan_rank: Optional[int] = None, replicate_names: tuple = ()) -> dict:
     """:func:`tp_dsm_rank`'s run on ``topo`` (None: the dense path), its
     blocks by ``tensor_parallel.topology_layout`` (under FSDP its zero
-    blocks: x_tau, x0 and m whole over its worker peers).  ``nan_rank``: that
-    rank sets one element of its first worker's block to NaN after each
-    local phase.  Each round also returns the metrics' ``survivors``."""
+    blocks: x_tau, x0 and m whole over its worker peers; the leaves named in
+    ``replicate_names`` whole).  ``nan_rank``: that rank sets one element of
+    its first worker's block to NaN after each local phase.  Each round also
+    returns the metrics' ``survivors``."""
     from repro_torch import kernels as K
     from repro_torch.core import base_opt, schedules
     from repro_torch.core import dsm as D
@@ -470,7 +505,7 @@ def dsm_case(topo, cfg, n_workers: int, flags: dict, row, batches: list, gamma: 
     from repro_torch.models import convert as C
     from repro_torch.models import transformer as T
 
-    lay = TP.topology_layout(cfg, topo)
+    lay = TP.topology_layout(cfg, topo, replicate_names)
     x0 = C.shard_flat(row, T.layout(cfg), lay) if lay.sharded else row
     base = base_opt.adamw()
     tau = batches[0]["tokens"].shape[1]
@@ -700,9 +735,10 @@ def fsdp_audit_rank(rank: int, world: int, cfg, n_workers: int, model: int, tau:
 
 def model_axis_rank(rank: int, world: int, cases: list, out_dir: str) -> list:
     """``chip_smoke.py``'s model-axis runs on this rank, one per case:
-    ``(cfg, n_workers, model, seed, batches, gamma, eta)`` (a batch's leaves
-    (W, tau, 1, B_micro, ...): ``tokens``, a VLM's ``patches``).  Each draws the
-    dense initial params on the card from ``seed`` (the dense run's draw),
+    ``(cfg, n_workers, model, seed, batches, gamma, eta[, leaves held
+    whole])`` (a batch's leaves (W, tau, 1, B_micro, ...): ``tokens``, a
+    VLM's ``patches``).  Each draws the dense initial params on the card
+    from ``seed`` (the dense run's draw),
     keeps this rank's blocks and runs ``len(batches)`` DSM outer steps
     (AdamW, ZeRO-sharded global step, device-parallel local phase) over the
     ``(worker, zero, model)`` grid of ``world`` ranks.  After each round the
@@ -726,10 +762,10 @@ def model_axis_rank(rank: int, world: int, cases: list, out_dir: str) -> list:
     from repro_torch.obs import metrics as OM
 
     out = []
-    for i, (cfg, n_workers, model, seed, batches, gamma, eta) in enumerate(cases):
+    for i, (cfg, n_workers, model, seed, batches, gamma, eta, *rep) in enumerate(cases):
         t_case = time.perf_counter()
         topo = mesh.topology(n_workers, dist.group.WORLD, model=model)
-        lay = TP.topology_layout(cfg, topo)
+        lay = TP.topology_layout(cfg, topo, *rep)
         row = T.init_params(torch.Generator("cuda").manual_seed(seed), cfg, device="cuda")
         x0 = C.shard_flat(row, T.layout(cfg), lay)
         del row
@@ -808,7 +844,8 @@ def serve_rank(rank: int, world: int, cases: list) -> list:
     blocks), ``batch`` (the whole batch dict of CPU tensors), ``dec_tokens``
     ((steps, B) teacher-forced decode tokens), ``new`` (generate's tokens),
     ``temperature`` (0: greedy) and optionally ``fsdp`` (the rank holds its
-    data block of each leaf the placement cuts over ``data``).  Where the
+    data block of each leaf the placement cuts over ``data``) and
+    ``replicate`` (leaf names held whole on every model rank).  Where the
     batch does not split over data the rank serves every row over
     ``tensor_parallel.serve_split``'s split, as ``generate`` does: the
     prefill over its chunk of the prompt's positions (``seq``), its cache's
@@ -833,14 +870,15 @@ def serve_rank(rank: int, world: int, cases: list) -> list:
         cfg, batch, dec = case["cfg"], case["batch"], case["dec_tokens"]
         topo = mesh.serving_topology(dist.group.WORLD, model=case["model"],
                                      fsdp=case.get("fsdp", False))
-        lay = TP.topology_layout(cfg, topo)
+        rep = case.get("replicate", ())
+        lay = TP.topology_layout(cfg, topo, rep)
         # (data D, model 1) without FSDP: every rank holds the dense params
         mine = case["row"] if lay.model_dims == () else C.shard_flat(case["row"], T.layout(cfg),
                                                                      lay)
 
         def fresh():
             t = dataclasses.replace(topo, stats=CommStats())
-            return t, TP.topology_layout(cfg, t).views(mine)
+            return t, TP.topology_layout(cfg, t, rep).views(mine)
 
         rows = TP.serve_rows(batch["tokens"].shape[0], topo)
         local = {k: v[rows] for k, v in batch.items()}
@@ -903,7 +941,10 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
     the card from ``seed`` (the dense run's draw; one rank at a time), keeps
     this rank's blocks, warms up with a 2-token ``generate`` and then generates ``new`` greedy tokens for the whole
     ``prompt`` batch (its data row's rows served here), its collectives
-    counted apart (the warm-up on the prompts' first 8 tokens).  Returns per
+    counted apart (the warm-up on the prompts' first 8 tokens).  With
+    ``cfg.attn_seq_shard`` the rank's prefill cache of the prompt is then
+    compared with its prefill's without the flag (``sp_cache``: the bytes of
+    each and the elements whose bits differ).  Returns per
     case: the rank's grid place and rows, the tokens (the whole batch's),
     each pick's logits (its rows, and its vocab block where they are split;
     on the CPU), ``generate``'s seconds and tokens/s, the peak
@@ -958,15 +999,40 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
             T.prefill, T.decode_step = prefill, decode_step
         peak = torch.cuda.max_memory_allocated()
         rows = TP.serve_rows(prompt.shape[0], topo)
-        out.append({"rank": rank, "data_index": topo.worker_index,
-                    "model_index": topo.model_index, "rows": (rows.start, rows.stop),
-                    "tokens": toks.cpu(), "logits": [t.cpu() for t in logits], **stats,
-                    "case_s": time.perf_counter() - t_case,
-                    "peak_bytes": peak, "params_bytes": params_bytes, "held_bytes": held,
-                    "comm": timed.stats.as_dict()})
+        res = {"rank": rank, "data_index": topo.worker_index,
+               "model_index": topo.model_index, "rows": (rows.start, rows.stop),
+               "tokens": toks.cpu(), "logits": [t.cpu() for t in logits], **stats,
+               "peak_bytes": peak, "params_bytes": params_bytes, "held_bytes": held,
+               "comm": timed.stats.as_dict()}
+        if cfg.attn_seq_shard:
+            res["sp_cache"] = _sp_cache_bits(mine, cfg, topo, {"tokens": prompt[rows], **{
+                k: v[rows] for k, v in (extra or {}).items()}})
+        res["case_s"] = time.perf_counter() - t_case
+        out.append(res)
         del mine, logits, prompt, extra
         torch.cuda.empty_cache()
     return out
+
+
+def _sp_cache_bits(params, cfg, topo, batch: dict) -> dict:
+    """The rank's prefill cache of ``batch`` under ``cfg.attn_seq_shard``
+    against its prefill's without the flag: the bytes of each and the
+    elements whose bits differ."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.comm import CommStats
+    from repro_torch.models import transformer as T
+
+    caches = []
+    for c in (cfg, dataclasses.replace(cfg, attn_seq_shard=False)):
+        t = dataclasses.replace(topo, stats=CommStats())
+        with torch.no_grad():
+            caches.append(T.prefill(TP.topology_layout(c, t).views(params), batch, c,
+                                    remat=False)[1])
+    leaves = [torch.utils._pytree.tree_leaves(c) for c in caches]
+    nbytes = [sum(x.numel() * x.element_size() for x in ls) for ls in leaves]
+    differ = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                 for a, b in zip(*leaves)) if nbytes[0] == nbytes[1] else -1
+    return {"bytes": nbytes[0], "bytes_without": nbytes[1], "bytes_differing": differ}
 
 
 def model_axis_serve_rank(rank: int, world: int, cases: list, out_dir: str,
@@ -974,12 +1040,19 @@ def model_axis_serve_rank(rank: int, world: int, cases: list, out_dir: str,
     """:func:`model_axis_rank`'s training cases, then
     :func:`serve_full_width_rank`'s serving cases, then
     :func:`fsdp_full_width_rank`'s (saving under ``out_dir/fsdp``), in one
-    start of the ranks."""
+    start of the ranks; ``wall``: the wall clock (``time.time``) as the rank
+    enters and as each of the three ends."""
     import os
+    import time
 
-    return {"train": model_axis_rank(rank, world, cases, out_dir),
-            "serve": serve_full_width_rank(rank, world, serve_cases),
-            "fsdp": fsdp_full_width_rank(rank, world, fsdp_cases, os.path.join(out_dir, "fsdp"))}
+    wall = [time.time()]
+    out = {"train": model_axis_rank(rank, world, cases, out_dir)}
+    wall.append(time.time())
+    out["serve"] = serve_full_width_rank(rank, world, serve_cases)
+    wall.append(time.time())
+    out["fsdp"] = fsdp_full_width_rank(rank, world, fsdp_cases, os.path.join(out_dir, "fsdp"))
+    wall.append(time.time())
+    return dict(out, wall=wall)
 
 
 CHECK_CHUNK = 1 << 26          # elements per slice of a check's temporaries
