@@ -327,7 +327,7 @@ DRYRUN_RTOL = 0.20
 # full width, RANKS gloo ranks sharing the card, held against the dense run
 # in this process.  (a) minitron_4b.FULL (d 3072, 24 heads, 8 KV heads,
 # d_ff 9216, tied 256,000-row vocab) at MODEL_AXIS_LAYERS of its 32 layers
-# (N = 1,006,648,320, the embedding 78% of it; cut for one card: the dense
+# (N = 896,541,696, the embedding 88% of it; cut for one card: the dense
 # run's state alone is ~12 * W + 8 B per parameter) over (worker 1, zero 1,
 # model 4): each rank holds both workers' quarter, 6 query heads, 2 KV heads,
 # 64,000 vocab rows.  (b) gpt2_small.FULL at CUT_LAYERS layers over (worker
@@ -366,13 +366,18 @@ DRYRUN_RTOL = 0.20
 # the ranks; each case's global step bit-equal from the dense x_tau.  The
 # bounds (PERF.md section 6, written before the first run):
 # model_axis_bounds
-MODEL_AXIS_LAYERS = 2
-MODEL_AXIS_N = 1_006_648_320
+# the depth cuts below (from 2, 2 and 2 + 2 layers) pay for the cases (o)
+# and (d) of the randomized signs and the baselines (PERF.md section 4);
+# MODEL_AXIS_LAYERS cuts (a), (m), (m') and FSDP (b) alike.  mamba2 stays at
+# 4 layers: at 2, serving's (k) missed its bf16 noise gate at 2 of 32 steps
+# (PERF.md section 6), as at 24 of its 48 layers before
+MODEL_AXIS_LAYERS = 1           # cut from 2 for the time target
+MODEL_AXIS_N = 896_541_696
 MODEL_AXIS_ROUNDS = 1           # cut from 2 for the time target
-MOE_VLM_LAYERS = 2
+MOE_VLM_LAYERS = 1              # cut from 2 for the time target
 VLM_AXIS_LAYERS = 1
 MAMBA_AXIS_LAYERS = 4
-ENCDEC_AXIS_LAYERS = 2          # encoder and decoder layers each
+ENCDEC_AXIS_LAYERS = 1          # encoder and decoder layers each, cut from 2
 MODEL_AXIS_CASES = (   # (arch, layers, W, model ranks, B_micro, rounds)
     ("minitron_4b", MODEL_AXIS_LAYERS, 2, 4, 4, MODEL_AXIS_ROUNDS),
     ("gpt2_small", CUT_LAYERS, 2, 2, 4, MODEL_AXIS_ROUNDS),
@@ -522,6 +527,28 @@ FSDP_B_MICRO = 4
 FSDP_ROUNDS = 1                 # (a)'s rounds, cut from 2 for the time target
 FSDP_B_ROUNDS = 1
 FSDP_B_TAU = 1
+# (o) and (d): the randomized signs and the local-step baselines over the
+# model axis and FSDP, in the same start of the ranks (each rank its own
+# CUDA generator, seeded as the dense run's; tests/torch_ranks.
+# algorithm_step), each one round on the same draw and batches as its grid's
+# DSM case, held against its dense run here from that draw, those batches
+# and that seed.  (o) on (b)'s grid, gpt2_small.FULL at CUT_LAYERS layers
+# over (worker 2, zero 1, model 2), W = 2, MODEL_AXIS' tau: DSM with rand_pm
+# (the ZeRO-sharded step over each rank's blocks) and global AdamW (eta
+# MODEL_AXIS_ETA); (d) on FSDP (a)'s grid over (2, 2, 1): DSM with rand_zero
+# and SlowMo (alpha ALGO_GLOBAL_LR's).  Gates (PERF.md section 6, written
+# before the first run): the global step from the dense x_tau, x0 and m (a
+# baseline's aux) on every rank's blocks (its ZeRO shard of them for DSM)
+# bit for bit the dense step's, the randomized signs drawn through
+# FlatLayout.dense_index; the round within algorithm_bounds
+# (model_axis_bounds; SlowMo's x0 is its x_tau, so it carries x_tau's
+# gap); each rank's collectives tensor_parallel.round_collectives' to the
+# byte; tau AdamW launches per rank and dtype group and no DSM launch (the
+# kernel computes the deterministic sign only)
+ALGO_AXIS_CASES = (("o_rand_pm", {"sign_mode": "rand_pm", "seed": 29}),
+                   ("o_global_adamw", {"method": "global_adamw", "eta": MODEL_AXIS_ETA}))
+ALGO_FSDP_CASES = (("d_rand_zero", {"sign_mode": "rand_zero", "seed": 31}),
+                   ("d_slowmo", {"method": "slowmo", "alpha": ALGO_GLOBAL_LR["slowmo"]}))
 
 
 # Every phase trains on the sources of the reference package, which stays as
@@ -3332,6 +3359,9 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
                   eval_batch=0, replicate_names=rep)
         reckoned.append((kw, pool.submit(reckon_comm, cfg, kw),
                          pool.submit(reckon_peak, cfg, kw)))
+    # (o): the randomized signs and global AdamW on (b)'s grid, draw and batches
+    b_case = next(c for c in cases if c[0].name == depth_cut("gpt2_small", CUT_LAYERS).name)
+    algo_cases = [b_case[:7] + ((), algo) for _, algo in ALGO_AXIS_CASES]
     serving = serve_model_axis_cases(torch, pool)
     fsdp = fsdp_cases(pool, corpus)
     # (c): serving's (b), gpt2_small over (data 2, model 2), with the data entries cut
@@ -3345,7 +3375,7 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
     t0, wall0 = time.perf_counter(), time.time()
     both = run_ranks(torch_ranks.model_axis_serve_rank, RANKS,
                      (cases, str(work), [case for case, _ in serving] + [fsdp_serve],
-                      fsdp["cases"]),
+                      fsdp["cases"] + fsdp["algo_cases"], algo_cases),
                      timeout_s=RANKS_TIMEOUT_S, work_dir=str(ROOT / "build"))
     ranks_s, wall1 = time.perf_counter() - t0, time.time()
     # where the ranks' start goes: to the rank function's entry, its
@@ -3501,12 +3531,33 @@ def phase_model_axis_full_width(torch, K, smi, pool) -> tuple:
                      "collectives_reckoned_per_round": comm_round,
                      "collectives_by_kind_per_round": comm_kinds, "b_micro": kw["b_micro"],
                      "kernels_on_rank0_blocks": checks, "rounds": rounds})
+    # (o), each against its dense run
+    algo_rows = []
+    for i, ((name, algo), (cfg, W, M, seed, batches, gamma, eta, *_)) in enumerate(
+            zip(ALGO_AXIS_CASES, algo_cases)):
+        worker, zero = mesh.grid(W, RANKS, M)
+        lays = [TP.rank_layout(cfg, M, m) for m in range(M)]
+
+        def saved(i=i, lays=lays, M=M):
+            return lays, [torch.load(work / f"o{i}_{m}_0.pt", mmap=True, weights_only=False)
+                          for m in range(M)]
+
+        per_rank = [r["algorithms"][i] for r in both]
+        row, bad, launches = check_algorithm_run(
+            torch, K, dict(name=name, cfg=cfg, n_workers=W, seed=seed, batches=batches,
+                           gamma=gamma, eta=eta, algo=algo, worker=worker, zero=zero),
+            per_rank, saved, lambda r, cfg=cfg, M=M: TP.rank_layout(cfg, M, r["index"]))
+        row["case_s_by_rank"] = [r["case_s"] for r in per_rank]
+        algo_rows.append(row)
+        failures += bad
+        total = {n: c + launches[n] + sum(r["launches"][n] for r in per_rank)
+                 for n, c in total.items()}
     for f in work.glob("*.pt"):
         f.unlink()
     emit({"phase": "model_axis_full_width", "gpu": smi, "ranks": RANKS,
           "backend": "gloo", "tau": tau, "gamma": MODEL_AXIS_GAMMA,
           "eta": MODEL_AXIS_ETA, "ranks_s": ranks_s, "ranks_split_s": ranks_split_s,
-          "cases": rows})
+          "cases": rows, "algorithms": algo_rows})
     if failures:
         raise AssertionError(f"model_axis_full_width: {failures}")
     return total, served, fsdp
@@ -3557,6 +3608,8 @@ def fsdp_cases(pool, corpus) -> dict:
              keep=True, batches=b_split, **common),
         dict(name="b", cfg=cfg_b, n_workers=w_b, model=m_b, fsdp=True, seed=43,
              against=("b_plain", bounds), batches=b_split, **common)]
+    # (d): the randomized signs and SlowMo on (a)'s grid, draw and batches
+    algo_cases = [dict(cases[0], name=name, algo=algo) for name, algo in ALGO_FSDP_CASES]
     reckoned = []
     for c in cases:
         lead = c["batches"][0]["tokens"].shape
@@ -3566,7 +3619,7 @@ def fsdp_cases(pool, corpus) -> dict:
         reckoned.append((kw, pool.submit(reckon_comm, c["cfg"], kw),
                          pool.submit(reckon_peak, c["cfg"], kw),
                          pool.submit(reckon_peak, c["cfg"], plain) if c["fsdp"] else None))
-    return {"cases": cases, "reckoned": reckoned}
+    return {"cases": cases, "algo_cases": algo_cases, "reckoned": reckoned}
 
 
 def rank_kernel_times(torch, K, lay, dsm_ns: list, n_workers: int) -> list:
@@ -3603,6 +3656,185 @@ def rank_kernel_times(torch, K, lay, dsm_ns: list, n_workers: int) -> list:
         del p, g, mm, v
         torch.cuda.empty_cache()
     return checks + out
+
+
+def algorithm_bounds(algo: dict, n_layers: int, tau: int) -> tuple:
+    """One round's bounds of an (o) / (d) run against its dense run, and
+    ``round_check``'s ``beta2`` for the buffer held beside x0 (one less the
+    weight of the pseudo-gradient (x0 - x_tau) / gamma in it).  DSM with
+    either randomized sign: model_axis_bounds' (a sign that differs between
+    the runs moves x0 by at most 2 eta gamma, as the deterministic one's
+    flip; m as DSM's).  Global AdamW: model_axis_bounds' too (its first
+    direction m_hat / (sqrt(v_hat) + eps) lies within 1 of 0, so the runs'
+    directions differ by at most 2; no weight decay), its m (1 - b1) g.
+    SlowMo: its first round's x0 is x0 - alpha gamma u with u = (x0 -
+    x_tau) / gamma, so x0's gap is alpha times x_tau's plus each run's bf16
+    rounding of x0, and u's 1 / gamma times x_tau's (beta2 0)."""
+    b = model_axis_bounds(n_layers, 1, tau)[0]
+    method = algo.get("method")
+    if method is None:
+        return b, DSM_HP["beta2"]
+    if method == "global_adamw":
+        return b, 0.9
+    if method == "slowmo":
+        a = algo.get("alpha", 1.0)
+        return dict(b, x0=(a * b["x_tau"][0], a * b["x_tau"][1] + 2 * MODEL_AXIS_ULP)), 0.0
+    raise ValueError(f"no bounds for {method}")
+
+
+def dense_elements(t, where) -> list:
+    """Per group, the elements ``where`` (``FlatLayout.dense_index``) of a
+    dense buffer ``t`` (a tensor or Groups), as new tensors."""
+    from repro_torch.groups import parts
+
+    return [p[w].clone() if isinstance(w, slice) else p.index_select(0, w)
+            for p, (_, w) in zip(parts(t), where, strict=True)]
+
+
+def check_algorithm_run(torch, K, run: dict, ranks: list, saved, rank_layout) -> tuple:
+    """An (o) / (d) run (``run``: ``name``, ``cfg``, ``n_workers``, ``seed``,
+    ``batches``, ``gamma``, ``eta``, ``algo``, the grid's ``worker`` and
+    ``zero``) against its dense
+    run here from the same card draw, batches and generator seed
+    (tests/torch_ranks.algorithm_step with no topology): the global step
+    from the dense x_tau, x0 and m (a baseline's aux) on each rank layout's
+    elements bit for bit the dense step's (DSM: on each of its ZeRO shards,
+    core.dsm.randomized_step through FlatLayout.dense_index, as the ranks
+    run it; a baseline: its core.baselines.GLOBAL_UPDATES update); the round
+    (``saved()``: (layouts, blocks) covering the dense buffers) within
+    algorithm_bounds; each rank's loss within the loss bound; its
+    collectives tensor_parallel.round_collectives' to the byte
+    (``rank_layout(r)``: rank r's layout); tau AdamW launches per rank, run
+    and dtype group and no DSM launch.  Returns (the phase line's row, the
+    failures, the dense run's launches)."""
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import dsm as D
+    from repro_torch.core.base_opt import _buffers
+    from repro_torch.distributed import mesh
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed import zero as Z
+    from repro_torch.groups import Groups, each
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+
+    import torch_ranks
+
+    cfg, W, algo, gamma = run["cfg"], run["n_workers"], run["algo"], run["gamma"]
+    method = algo.get("method")
+    lead = run["batches"][0]["tokens"].shape          # (W, tau, 1, B_micro, S)
+    tau = lead[1]
+    lay = T.layout(cfg)
+    failures = []
+    want_launch = {"dsm_update": 0, "adamw_update": tau * lay.n_groups}
+    for r in ranks:
+        want = TP.round_collectives(cfg, rank_layout(r), W, run["worker"], run["zero"], tau,
+                                    lead[3], lead[4], dsm=method is None)
+        if r["comm"] != want:
+            failures.append(f"{run['name']} rank {r['rank']}: collectives {r['comm']}, "
+                            f"reckoned {want}")
+        if r["launches"] != want_launch:
+            failures.append(f"{run['name']} rank {r['rank']}: launches {r['launches']}")
+
+    # the dense run, its worker mean kept
+    t_dense = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x0 = T.init_params(torch.Generator("cuda").manual_seed(run["seed"]), cfg, device="cuda")
+    init, step = torch_ranks.algorithm_step(cfg, algo, tau, gamma, run["eta"], lay)
+    state = init(x0, W)
+    del x0
+    batch = {n: torch.from_numpy(v).to("cuda") for n, v in run["batches"][0].items()}
+    top = largest_logit(torch, lay.views(state.x0), cfg, {n: v[0, 0, 0] for n, v in batch.items()})
+    before = (each(torch.clone, state.x0), each(torch.clone, torch_ranks.momentum(state)))
+    seen, means = {}, (D.worker_mean, BL.worker_mean)
+
+    def mean(p):
+        seen["x_tau"] = means[0](p)
+        return seen["x_tau"]
+
+    D.worker_mean = BL.worker_mean = mean
+    K.reset_launch_counts()
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        D.worker_mean, BL.worker_mean = means
+    launches = K.launch_counts()
+    if launches != want_launch:
+        failures.append(f"{run['name']} dense run: launches {launches}")
+    x_tau, dense_loss = seen.pop("x_tau"), metrics["loss"].item()
+    dense_peak = torch.cuda.max_memory_allocated()
+    del batch
+
+    # the global step from the dense x_tau on every rank layout's elements
+    bit_equal = True
+    # the ranks the ZeRO shards lie over: under FSDP the worker peers
+    dp = run["worker"] * (1 if rank_layout(ranks[0]).zero > 1 else run["zero"])
+    for rl in {(r["index"], r["zero_index"]): rank_layout(r) for r in ranks}.values():
+        if method is None:
+            views = [mesh.Topology(W, dp, 1, i) for i in range(dp)]
+            shards = [[Z.my_bounds(n, v) for n in rl.group_numels] for v in views]
+        else:
+            shards = [None]
+        for chunks in shards:
+            where = rl.dense_index(chunks, "cuda")
+            xb, xt = dense_elements(before[0], where), dense_elements(x_tau, where)
+            if method is None:
+                mb = dense_elements(before[1], where)
+                dcfg = D.DSMConfig(tau=tau, global_lr=run["eta"], sign_mode=algo["sign_mode"])
+                D.randomized_step(Groups(xb), Groups(mb), Groups(xt), gamma, dcfg,
+                                  torch.Generator("cuda").manual_seed(algo["seed"]), where)
+                pairs = list(zip(xb + mb, dense_elements(state.x0, where)
+                                 + dense_elements(state.m, where)))
+            else:
+                init_aux, update = BL.GLOBAL_UPDATES[method](
+                    **{k: v for k, v in algo.items() if k != "method"})
+                theirs = [dense_elements(b, where) for b in _buffers(state.aux)]
+                pairs = list(zip(xb, dense_elements(state.x0, where)))
+                for g, (x, t) in enumerate(zip(xb, xt)):
+                    aux = init_aux(x)
+                    update(x, aux, t, gamma, 0)
+                    pairs += [(a, b[g]) for a, b in zip(_buffers(aux), theirs, strict=True)]
+            bit_equal &= all(same_bits(torch, a, b) for a, b in pairs)
+            del xb, xt, pairs
+    if not bit_equal:
+        failures.append(f"{run['name']}: the global step from the dense x_tau differs on a "
+                        f"rank's elements")
+
+    # the round against the ranks' blocks
+    bound, beta2 = algorithm_bounds(algo, cfg.n_layers, tau)
+    lays, blocks = saved()
+    tp = {n: C.gather_flat([each(lambda t: t.to("cuda"), b[n]) for b in blocks], lay, lays)
+          for n in ("x_tau", "x0", "m")}
+    del blocks
+    check, _ = torch_ranks.round_check(tp, {"x_tau": x_tau, "x0": state.x0,
+                                            "m": torch_ranks.momentum(state)},
+                                       before[0], bound, gamma, beta2, 0.0)
+    loss_gap = max(abs(r["loss"][0] - dense_loss) for r in ranks)
+    ok = check.pop("ok") and loss_gap <= bound["loss"] * top and bit_equal
+    if not ok:
+        failures.append(f"{run['name']}: round {check}, loss gap {loss_gap} over "
+                        f"{bound['loss'] * top}")
+    del tp, x_tau, before, state, step
+    torch.cuda.empty_cache()
+    row = {"case": run["name"], "config": cfg.name, "algorithm": algo, "n_workers": W,
+           "grid": {"worker": run["worker"], "zero": run["zero"],
+                    "model": rank_layout(ranks[0]).model},
+           "tau": tau, "largest_logit": top, "loss_gap": loss_gap,
+           "loss_bound": bound["loss"] * top, "dense_loss": dense_loss,
+           "rank_loss_by_rank": [r["loss"][0] for r in ranks], **check,
+           "bound_C_R": {n: bound[n] for n in ("x_tau", "x0", "x0_before")},
+           "m_beta2": beta2, "global_step_bit_equal_from_dense_x_tau": bit_equal,
+           "dense_step_ms": step_ms, "dense_peak_bytes": dense_peak,
+           "rank_step_ms_by_rank": [r["step_ms"][0] for r in ranks],
+           "rank_peaks_bytes": [r["peak_bytes"] for r in ranks],
+           "launches_by_rank": [r["launches"] for r in ranks], "dense_launches": launches,
+           "collectives_by_rank": [r["comm"] for r in ranks],
+           "dense_and_checks_s": time.perf_counter() - t_dense, "ok": ok and not failures}
+    return row, failures, launches
 
 
 def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
@@ -3783,6 +4015,25 @@ def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
     del state, step, x0
     torch.cuda.empty_cache()
 
+    # (d), each against its dense run
+    algo_rows = []
+    for j, run in enumerate(fsdp["algo_cases"]):
+        per_rank = [r[len(cases) + j] for r in ranks]
+        zl = [TP.rank_layout(run["cfg"], 1, 0, zero=2, zero_index=z) for z in range(2)]
+
+        def saved(name=run["name"], zl=zl):
+            return zl, [torch.load(work / f"{name}_0_{z}_0.pt", mmap=True, weights_only=False)
+                        for z in range(2)]
+
+        row, bad, launches = check_algorithm_run(
+            torch, K, dict(run, worker=2, zero=2), per_rank, saved,
+            lambda r, zl=zl: zl[r["zero_index"]])
+        row["case_s_by_rank"] = [r["case_s"] for r in per_rank]
+        algo_rows.append(row)
+        failures += bad
+        total = {n: c + launches[n] + sum(r["launches"][n] for r in per_rank)
+                 for n, c in total.items()}
+
     # (c): serving with the data entries cut against serving's (b)
     served, plain = fsdp["served"]
     scfg, model, _, prompt, new, _, _ = fsdp["serve_case"]
@@ -3823,6 +4074,7 @@ def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
           "tau": {"a": tau, "b": FSDP_B_TAU}, "seq": MODEL_AXIS["seq"], "gamma": MODEL_AXIS_GAMMA,
           "eta": MODEL_AXIS_ETA, "ranks_s_with_model_axis_full_width": fsdp["ranks_s"],
           "cases": rows, "a_against_dense": dense_rounds, "a_dense_peak_bytes": dense_peak,
+          "algorithms": algo_rows,
           "serving_data_cut": serve_rows, "kernels_on_rank_rows": kernels})
     if failures:
         raise AssertionError(f"fsdp_full_width: {failures}")

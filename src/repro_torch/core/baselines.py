@@ -15,7 +15,9 @@ does every local update) followed by a global update on
 as the reference's are plain jnp, and update ``x0`` and ``aux`` in place.
 Under a topology (the device-parallel local phase, reference
 ``baselines.py:40-110``) a rank runs its own workers, the worker mean is
-the dense one on every rank, and the global update runs replicated.
+the dense one on every rank, and the global update runs replicated; on a
+model axis or under FSDP on the rank's blocks, over the ranks that hold
+the same blocks.
 ``perstep`` and ``mv_signsgd`` take no topology, as the reference's read
 no mesh flag: each rank runs them whole.
 
@@ -38,8 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.base_opt import BaseOptimizer, weak_scalar
-from repro_torch.core.dsm import (lead_dims, make_local_phase, randomized_sign_pm, take,
-                                  worker_grads, worker_mean)
+from repro_torch.core.dsm import (check_rank_layout, lead_dims, make_local_phase,
+                                  randomized_sign_pm, take, worker_grads, worker_mean)
 from repro_torch.distributed import comm
 from repro_torch.distributed import zero as Z
 from repro_torch.groups import Groups, each, join, parts, pick
@@ -72,15 +74,20 @@ def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
     ``global_update(x0, aux, x_tau_mean, gamma, t)`` updates x0 and aux in
     place.  Returns ``(init(x0, n_workers) -> state,
     outer_step(state, batch) -> (state, metrics))``.  Under ``topo`` the
-    state and ``batch`` hold the rank's own workers.  A model axis is
-    DSM's only (``core.dsm.make_dsm_step``): a topology with ``model`` > 1,
-    or with FSDP, raises.
+    state and ``batch`` hold the rank's own workers, and the losses and the
+    worker mean are gathered over ``topo.dp``.  On a model axis or under
+    FSDP (a topology with ``model`` > 1 or ``fsdp="zero"``, with its rank's
+    ``layout``, ``tensor_parallel.topology_layout``) x0 and aux hold the
+    rank's blocks (its layout's elements: under FSDP its zero blocks, as
+    the reference has no sharded global step for the baselines); the local
+    phase computes over its model and zero groups as DSM's does, and
+    ``topo.dp`` is the ranks that hold the same blocks, so the mean, a
+    worker's loss and each element of the global update are the dense
+    ones, a leaf's copies on every rank alike.
     """
-    if topo is not None and (topo.model > 1 or topo.fsdp):
-        raise NotImplementedError("the baselines over a model axis or FSDP are not ported "
-                                  "(ROADMAP.md queue 1); DSM runs over (worker, zero, model) "
-                                  "ranks")
+    check_rank_layout(layout, topo)
     local_phase = make_local_phase(loss_fn, base_opt, layout)
+    dtopo = None if topo is None else topo.dp
 
     def init(x0, n_workers: int) -> LocalMethodState:
         rows = n_workers if topo is None else topo.local_workers
@@ -97,8 +104,8 @@ def make_local_step_method(loss_fn: Callable, base_opt: BaseOptimizer, tau: int,
         if topo is None:
             x_tau = worker_mean(state.params)
         else:
-            losses = comm.gather_workers(losses, topo, dim=1)
-            x_tau = Z.replicated_worker_mean(state.params, topo)
+            losses = comm.gather_workers(losses, dtopo, dim=1)
+            x_tau = Z.replicated_worker_mean(state.params, dtopo)
         for i, x0 in enumerate(parts(state.x0)):
             global_update(x0, pick(state.aux, i), pick(x_tau, i), gamma, state.t)
         each(lambda p, x: p.copy_(x.expand_as(p)), state.params, state.x0)
@@ -135,20 +142,17 @@ def _step_from(x0: torch.Tensor, scale: float, gamma: float, u: torch.Tensor) ->
     x0.copy_(x0.to(F32) - _f32(np.float32(scale) * np.float32(gamma)) * u)
 
 
-def slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5, alpha: float = 1.0,
-           topo=None):
+def slowmo_update(beta: float = 0.5, alpha: float = 1.0):
     """SlowMo (Alg. 5): u <- beta*u + Delta ; x <- x0 - alpha*gamma*u."""
 
     def global_update(x0, u, x_tau, gamma, t):
         u.mul_(beta).add_(_delta(x0, x_tau, gamma))
         _step_from(x0, alpha, gamma, u)
 
-    return make_local_step_method(loss_fn, base_opt, tau, schedule, _zeros_f32,
-                                  global_update, layout, topo)
+    return _zeros_f32, global_update
 
 
-def signed_slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5,
-                  eta: float = 1.0, topo=None):
+def signed_slowmo_update(beta: float = 0.5, eta: float = 1.0):
     """§4.1, the printed form (sign taken before momentum):
     m <- beta*m + ((1-beta)/gamma)*sign(x0 - x_tau); x <- x0 - eta*gamma*m."""
 
@@ -157,30 +161,26 @@ def signed_slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5,
         m.mul_(beta).add_(c * sign_like_jnp(x0.to(F32) - x_tau.to(F32)))
         _step_from(x0, eta, gamma, m)
 
-    return make_local_step_method(loss_fn, base_opt, tau, schedule, _zeros_f32,
-                                  global_update, layout, topo)
+    return _zeros_f32, global_update
 
 
-def lookahead(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.2, eta: float = 1.0,
-              topo=None):
+def lookahead_update(beta: float = 0.2, eta: float = 1.0):
     """Lookahead (§4.1): DSM with (7) replaced by x <- x0 - eta*gamma*u (no sign)."""
 
     def global_update(x0, m, x_tau, gamma, t):
         m.mul_(beta).add_((1.0 - beta) * _delta(x0, x_tau, gamma))
         _step_from(x0, eta, gamma, m)
 
-    return make_local_step_method(loss_fn, base_opt, tau, schedule, _zeros_f32,
-                                  global_update, layout, topo)
+    return _zeros_f32, global_update
 
 
-def local_avg(loss_fn, base_opt, tau, schedule, layout, topo=None):
+def local_avg_update():
     """Local AdamW / FedAvg-style: x <- mean_i x^{(i)}_{t,tau} (App. C.2)."""
 
     def global_update(x0, aux, x_tau, gamma, t):
         x0.copy_(x_tau)
 
-    return make_local_step_method(loss_fn, base_opt, tau, schedule, lambda x0: (),
-                                  global_update, layout, topo)
+    return (lambda x0: ()), global_update
 
 
 class GlobalAdamWAux(NamedTuple):
@@ -188,8 +188,8 @@ class GlobalAdamWAux(NamedTuple):
     v: torch.Tensor
 
 
-def global_adamw(loss_fn, base_opt, tau, schedule, layout, eta: float = 1.0, b1: float = 0.9,
-                 b2: float = 0.95, weight_decay: float = 0.0, eps: float = 1e-8, topo=None):
+def global_adamw_update(eta: float = 1.0, b1: float = 0.9, b2: float = 0.95,
+                        weight_decay: float = 0.0, eps: float = 1e-8):
     """Alg. 7: AdamW on the pseudo-gradient g = (x0 - x_tau)/gamma."""
 
     def init_aux(x0):
@@ -207,8 +207,49 @@ def global_adamw(loss_fn, base_opt, tau, schedule, layout, eta: float = 1.0, b1:
         step = (aux.m / bc1) / (torch.sqrt(aux.v / bc2) + eps) + weight_decay * x0f
         x0.copy_(x0f - _f32(np.float32(eta) * np.float32(gamma)) * step)
 
-    return make_local_step_method(loss_fn, base_opt, tau, schedule, init_aux,
-                                  global_update, layout, topo)
+    return init_aux, global_update
+
+
+# each local-step method's ``(init_aux, global_update)`` from its global
+# step's keyword arguments: ``GLOBAL_UPDATES[name](**kw)``
+GLOBAL_UPDATES = {"slowmo": slowmo_update, "signed_slowmo": signed_slowmo_update,
+                  "lookahead": lookahead_update, "global_adamw": global_adamw_update,
+                  "local_avg": local_avg_update}
+
+
+def slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5, alpha: float = 1.0,
+           topo=None):
+    """SlowMo (:func:`slowmo_update`) with DSM's local phase."""
+    return make_local_step_method(loss_fn, base_opt, tau, schedule,
+                                  *slowmo_update(beta, alpha), layout, topo)
+
+
+def signed_slowmo(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.5,
+                  eta: float = 1.0, topo=None):
+    """Signed SlowMo (:func:`signed_slowmo_update`) with DSM's local phase."""
+    return make_local_step_method(loss_fn, base_opt, tau, schedule,
+                                  *signed_slowmo_update(beta, eta), layout, topo)
+
+
+def lookahead(loss_fn, base_opt, tau, schedule, layout, beta: float = 0.2, eta: float = 1.0,
+              topo=None):
+    """Lookahead (:func:`lookahead_update`) with DSM's local phase."""
+    return make_local_step_method(loss_fn, base_opt, tau, schedule,
+                                  *lookahead_update(beta, eta), layout, topo)
+
+
+def local_avg(loss_fn, base_opt, tau, schedule, layout, topo=None):
+    """Local averaging (:func:`local_avg_update`) with DSM's local phase."""
+    return make_local_step_method(loss_fn, base_opt, tau, schedule, *local_avg_update(),
+                                  layout, topo)
+
+
+def global_adamw(loss_fn, base_opt, tau, schedule, layout, eta: float = 1.0, b1: float = 0.9,
+                 b2: float = 0.95, weight_decay: float = 0.0, eps: float = 1e-8, topo=None):
+    """Global AdamW (:func:`global_adamw_update`) with DSM's local phase."""
+    return make_local_step_method(loss_fn, base_opt, tau, schedule,
+                                  *global_adamw_update(eta, b1, b2, weight_decay, eps),
+                                  layout, topo)
 
 
 LOCAL_METHODS = {"slowmo": slowmo, "signed_slowmo": signed_slowmo, "lookahead": lookahead,

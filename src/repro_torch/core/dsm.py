@@ -130,6 +130,34 @@ RANDOMIZED_SIGNS = {"rand_pm": randomized_sign_pm, "rand_zero": randomized_sign_
 SIGN_MODES = ("sign",) + tuple(RANDOMIZED_SIGNS)
 
 
+def layout_uniforms(rng: Optional[torch.Generator], where, device):
+    """The randomized signs' f32 U[0, 1) draws of a rank's elements, one
+    group at a time in group order (a generator: a group's draw is made as
+    it is taken).  Each is the dense group's whole ``(n,)`` draw from
+    ``rng`` on ``device``, what the dense step draws, taken at the rank's
+    dense indices ``where`` (``FlatLayout.dense_index``).  So every layout
+    draws the same number at the same dense element, and each copy of a
+    leaf held whole on several ranks draws alike.  The draw is never cut in
+    chunks: on the card, Philox draws in chunks do not join into one draw.
+    It holds 4 n bytes while its group's step runs."""
+    for n, at in where:
+        u = torch.rand((n,), generator=rng, dtype=F32, device=device)
+        yield u[at] if isinstance(at, slice) else u.index_select(0, at)
+
+
+def randomized_step(x0, m, x_tau_mean, gamma, cfg: "DSMConfig",
+                    rng: Optional[torch.Generator], where):
+    """Eqs. (6)-(8) with ``cfg.sign_mode``'s randomized sign, in place on a
+    rank's buffers (tensors or Groups: the dense ones, its blocks, or its
+    shard of either), group by group on :func:`layout_uniforms`' draws at
+    ``where``; returns (x0, m).  Given the same x_tau, x0, m and generator
+    state, every element comes out as the dense step's, bit for bit."""
+    draws = layout_uniforms(rng, where, parts(x0)[0].device)
+    for x, mm, xt, u in zip(parts(x0), parts(m), parts(x_tau_mean), draws, strict=True):
+        global_sign_momentum_step(x, mm, xt, gamma, cfg, uniform=u)
+    return x0, m
+
+
 @dataclasses.dataclass(frozen=True)
 class DSMConfig:
     """Hyper-parameters of Algorithm 1 (the reference's fields, less
@@ -375,6 +403,19 @@ def make_local_phase(loss_fn: Callable, base_opt: BaseOptimizer, layout: FlatLay
     return local_phase
 
 
+def check_rank_layout(layout: FlatLayout, topo) -> tuple:
+    """``(model, zero)`` of ``topo`` (a topology's model axis and its FSDP
+    zero group; ``(1, 1)`` without one); a layout that is not its rank's
+    raises."""
+    model = 1 if topo is None else topo.model
+    zero = 1 if topo is None or topo.fsdp != "zero" else topo.zero
+    if layout.model != model or layout.zero != zero:
+        raise ValueError(f"a topology with model={model} and FSDP over zero={zero} needs its "
+                         f"rank's layout (distributed.tensor_parallel.topology_layout), got "
+                         f"model={layout.model}, zero={layout.zero}")
+    return model, zero
+
+
 def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
                   schedule: Callable, layout: FlatLayout, topo=None):
     """Build ``outer_step(state, batch[, rng[, faults]]) -> (state, metrics)``.
@@ -403,12 +444,16 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
     (``tensor_parallel.topology_layout``); the global step then runs over
     ``topo.dp`` on the rank's blocks, the finiteness masks take the minimum
     over the model group, and the stat sums add over it (a leaf every model
-    rank holds whole counted once); the randomized signs raise there.  So
-    does an FSDP topology (``fsdp="zero"``), whose layout cuts the blocks
-    over ``zero`` too: the global step runs over the worker peers on the
-    rank's zero blocks, the masks take the minimum over the zero group as
-    well, and the stat sums add over the ``(worker, zero)`` ranks (a leaf
-    held whole over zero counted once).
+    rank holds whole counted once).  So does an FSDP topology
+    (``fsdp="zero"``), whose layout cuts the blocks over ``zero`` too: the
+    global step runs over the worker peers on the rank's zero blocks, the
+    masks take the minimum over the zero group as well, and the stat sums
+    add over the ``(worker, zero)`` ranks (a leaf held whole over zero
+    counted once).  The randomized signs run on every layout from one
+    draw: each rank draws every dense group whole from ``rng`` and takes
+    its elements (:func:`layout_uniforms`), so with every rank's generator
+    seeded as the dense run's, its x0 and m come out as the dense step's
+    at its elements, bit for bit, a leaf's copies on every rank alike.
 
     ``faults`` (a ``repro_torch.robustness.FaultRound`` of all W workers)
     makes the round survivor-aware: stale and corrupt contributions are
@@ -422,16 +467,7 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
     if cfg.device_parallel_local and topo is None:
         raise ValueError("device_parallel local phase needs a topology with a 'worker' axis "
                          "(repro_torch.distributed.mesh.topology)")
-    model = 1 if topo is None else topo.model
-    zero = 1 if topo is None or topo.fsdp != "zero" else topo.zero
-    if layout.model != model or layout.zero != zero:
-        raise ValueError(f"a topology with model={model} and FSDP over zero={zero} needs its "
-                         f"rank's layout (distributed.tensor_parallel.topology_layout), got "
-                         f"model={layout.model}, zero={layout.zero}")
-    if (model > 1 or zero > 1) and cfg.sign_mode != "sign":
-        raise NotImplementedError(
-            f"sign_mode={cfg.sign_mode!r} over a model axis or FSDP: the randomized signs draw "
-            f"over the dense buffer, which no rank holds (ROADMAP.md queue 1)")
+    model, zero = check_rank_layout(layout, topo)
     local_phase = make_local_phase(loss_fn, base_opt, layout)
     sharded = cfg.zero_sharded and topo is not None
     numels = layout.group_numels
@@ -442,6 +478,15 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
     dtopo = None if topo is None else topo.dp
     blocks = model > 1 or zero > 1
     drop = layout.uncounted_spans() if blocks else ((),) * layout.n_groups
+    # the randomized signs' map of the rank's x0 elements into the dense
+    # groups, built once per device
+    maps = {}
+
+    def dense_index(device):
+        if device not in maps:
+            chunks = [Z.my_bounds(n, dtopo) for n in numels] if sharded else None
+            maps[device] = layout.dense_index(chunks, device)
+        return maps[device]
 
     def outer_step(state: DSMState, batch: dict,
                    rng: Optional[torch.Generator] = None, faults=None):
@@ -480,8 +525,9 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
             stat = Z.sharded_stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1, dtopo,
                                        numels, drop if blocks else None,
                                        topo.wz if zero > 1 else None)
-            Z.sharded_global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, dtopo,
-                                                numels, rng)
+            Z.sharded_global_sign_momentum_step(
+                state.x0, state.m, x_tau, gamma, cfg, dtopo, numels, rng,
+                None if cfg.sign_mode == "sign" else dense_index(parts(state.x0)[0].device))
         else:
             stat = (OM.stat_sums(state.x0, state.m, x_tau, gamma, cfg.beta1) if not blocks
                     else functools.reduce(torch.add, [
@@ -489,7 +535,11 @@ def make_dsm_step(loss_fn: Callable, base_opt: BaseOptimizer, cfg: DSMConfig,
                         zip(parts(state.x0), parts(state.m), parts(x_tau), drop)]))
             if zero > 1:
                 stat = comm.all_reduce(stat, topo.zp, "sum")
-            global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg, rng)
+            if cfg.sign_mode == "sign":
+                global_sign_momentum_step(state.x0, state.m, x_tau, gamma, cfg)
+            else:
+                randomized_step(state.x0, state.m, x_tau, gamma, cfg, rng,
+                                dense_index(parts(state.x0)[0].device))
         if model > 1:
             stat = comm.all_reduce(stat, topo.mp, "sum")
         wsum = None

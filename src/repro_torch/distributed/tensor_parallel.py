@@ -997,6 +997,75 @@ def local_phase_collectives(cfg, layout: FlatLayout, n_local: int, tau: int, b_m
     return comm.scaled_sum((n_local * tau * accum, micro), (1, losses))
 
 
+def global_phase_collectives(layout: FlatLayout, n_workers: int, worker: int, zero: int,
+                             tau: int, zero_sharded: bool = True, dsm: bool = True) -> dict:
+    """The global phase's collectives of one outer step (no faults) on a
+    rank of ``layout`` in a ``(worker, zero, model)`` grid (``layout.model``
+    model ranks; FSDP over ``zero`` where ``layout.zero`` > 1), as
+    ``CommStats`` counts them.  They run over ``Topology.dp``, the ranks
+    that hold the rank's blocks (its ``worker * zero`` ranks, under FSDP
+    its ``worker`` peers), and a group of one rank counts nothing: the
+    (tau, W_local) f32 losses gathered (``gather_workers``); per dtype group
+    the scatter of each local worker's column chunk to the chunk's owner
+    (``scatter_rows``) and, for a group the global step does not shard
+    (``zero_sharded`` off, or too small: ``zero.whole``), the all-gather of
+    the mean's chunks (``all_gather_shards``).  A DSM round (``dsm``; with
+    either sign: the randomized ones draw on every rank, unsent) then sums
+    the seven f32 stat sums over its ``(worker, zero)`` ranks with the
+    sharded step (``all_reduce_sum``), else over its zero group under FSDP
+    (``all_reduce_sum@zero``), and over the model group
+    (``all_reduce_sum@model``), and with the sharded step all-gathers
+    x_{t+1,0}'s shards of each sharded group.  A baseline's round
+    (``dsm=False``) sends nothing more: its global update runs on every
+    rank of ``dp`` alike."""
+    from repro_torch.distributed import zero as Z
+    from repro_torch.obs.metrics import N_STAT_SUMS
+
+    fsdp = layout.zero > 1
+    ranks = worker if fsdp else worker * zero          # Topology.dp's world
+    n_local = n_workers // worker
+    stat = N_STAT_SUMS * 4
+    out: dict = {}
+
+    def add(name: str, nbytes: int, group: int) -> None:
+        if group > 1:
+            rec = out.setdefault(name, {"calls": 0, "bytes": 0})
+            rec["calls"] += 1
+            rec["bytes"] += nbytes
+
+    add("gather_workers", tau * n_local * 4, ranks)
+    sharded = dsm and zero_sharded
+    for n, dt in zip(layout.group_numels, layout.dtypes):
+        chunk, item = Z.chunk_size(n, ranks), dt.itemsize
+        add("scatter_rows", worker * n_local * chunk * item, ranks)
+        if not sharded or Z.whole(n, ranks):
+            add("all_gather_shards", chunk * item, ranks)
+    if dsm:
+        if sharded:
+            add("all_reduce_sum", stat, worker * zero)
+        else:
+            add("all_reduce_sum@zero", stat, layout.zero)
+        add("all_reduce_sum@model", stat, layout.model)
+    if sharded:
+        for n, dt in zip(layout.group_numels, layout.dtypes):
+            if not Z.whole(n, ranks):
+                add("all_gather_shards", Z.chunk_size(n, ranks) * dt.itemsize, ranks)
+    return out
+
+
+def round_collectives(cfg, layout: FlatLayout, n_workers: int, worker: int, zero: int,
+                      tau: int, b_micro: int, seq: int, accum: int = 1, remat: bool = False,
+                      zero_sharded: bool = True, dsm: bool = True) -> dict:
+    """One outer step's collectives on a rank of ``layout``: its local
+    phase's (:func:`local_phase_collectives`, its ``n_workers / worker``
+    workers) and its global phase's (:func:`global_phase_collectives`;
+    ``dsm=False``: a local-step baseline's round)."""
+    return comm.scaled_sum(
+        (1, local_phase_collectives(cfg, layout, n_workers // worker, tau, b_micro, seq, accum,
+                                    remat)),
+        (1, global_phase_collectives(layout, n_workers, worker, zero, tau, zero_sharded, dsm)))
+
+
 def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str,
                       chunk: Optional[SeqSplit] = None,
                       slots: Optional[SeqSplit] = None) -> dict:

@@ -181,27 +181,28 @@ def dsm_update_shard(x0_l, m_l, xt_l, gamma, cfg):
 
 
 def sharded_global_sign_momentum_step(x0_l, m_l, xt_l, gamma, cfg, topo, numels,
-                                      rng: Optional[torch.Generator] = None):
+                                      rng: Optional[torch.Generator] = None, where=None):
     """Eqs. (6)-(8) on the rank's shards, in place (reference ``:257-292``).
 
     The reference's version takes the worker iterates and computes the
     scattered mean inside; the port updates x0 / m in place, so the caller
     takes :func:`scattered_worker_mean` first and reads the pre-update shard
     for the metric pack between the two.  The deterministic sign is the DSM
-    kernel, one launch per group; the randomized signs draw each group's
-    full ``(n,)`` f32 uniforms from ``rng`` on every rank, in group order as
-    the dense step draws them, and take the rank's slice, so the draws do
-    not depend on the layout (reference ``:281-283``).  ``numels``: each
-    group's element count."""
-    from repro_torch.core.dsm import global_sign_momentum_step
+    kernel, one launch per group; the randomized signs
+    (``core.dsm.randomized_step``) draw each group's full dense f32
+    uniforms from ``rng`` on every rank, in group order as the dense step
+    draws them, and take the rank's elements, so the draws do not depend on
+    the layout (reference ``:281-283``).  ``where``: those elements' dense
+    indices per group (``FlatLayout.dense_index`` of a model or FSDP rank's
+    shard); by default the rank's slice of each dense group of ``numels``
+    elements."""
+    from repro_torch.core.dsm import randomized_step
 
     if cfg.sign_mode == "sign":
         return dsm_update_shard(x0_l, m_l, xt_l, gamma, cfg)
-    for x, m, xt, n in zip(parts(x0_l), parts(m_l), parts(xt_l), numels, strict=True):
-        a, b = my_bounds(n, topo)
-        u = torch.rand((n,), generator=rng, dtype=F32, device=x.device)[a:b]
-        global_sign_momentum_step(x, m, xt, gamma, cfg, uniform=u)
-    return x0_l, m_l
+    if where is None:
+        where = tuple((n, slice(*my_bounds(n, topo))) for n in numels)
+    return randomized_step(x0_l, m_l, xt_l, gamma, cfg, rng, where)
 
 
 def stat_sums_less(x0, m, xt, gamma, beta1: float, start: int = 0, drop=()) -> torch.Tensor:

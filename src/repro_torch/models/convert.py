@@ -141,6 +141,38 @@ class FlatLayout:
                 spans[g].append((off, off + n))
         return tuple(tuple(s) for s in spans)
 
+    def dense(self) -> "FlatLayout":
+        """The dense layout this rank's layout cuts (itself for a dense
+        layout): the same leaves, order and groups at their dense shapes."""
+        if not self.dense_shapes:
+            return self
+        offsets, sizes = [], [0] * self.n_groups
+        for shape, g in zip(self.dense_shapes, self.groups):
+            offsets.append(sizes[g])
+            sizes[g] += math.prod(shape)
+        return FlatLayout(self.names, self.dense_shapes, tuple(offsets), self.leaves,
+                          sum(sizes), self.groups, self.dtypes, tuple(sizes))
+
+    def dense_index(self, bounds=None, device=None) -> tuple:
+        """The rank's map into dense coordinates: per group ``(n, where)``,
+        the dense group's element count and, for every element this rank's
+        buffer holds (its ``bounds[g] = (start, stop)`` chunk of it where
+        given: the worker peers' shard of a ZeRO-sharded global step), its
+        index in the dense flat buffer of the group.  ``where`` is a slice
+        for a dense layout, else an index tensor on ``device`` (int32 where
+        the group's indices fit, else int64), built once from each leaf's
+        model and zero blocks (:func:`shard_flat` of the dense positions):
+        a leaf held whole maps every copy to the same dense elements."""
+        dense = self.dense()
+        chunks = bounds or [(0, n) for n in self.group_numels]
+        if dense is self:
+            return tuple((n, slice(a, b)) for n, (a, b) in zip(self.group_numels, chunks,
+                                                              strict=True))
+        rows = [torch.arange(n, dtype=torch.int64, device=device) for n in dense.group_numels]
+        at = parts(shard_flat(rows[0] if len(rows) == 1 else Groups(rows), dense, self))
+        return tuple((n, idx[a:b].to(torch.int32 if n <= 2 ** 31 else torch.int64, copy=True))
+                     for n, idx, (a, b) in zip(dense.group_numels, at, chunks, strict=True))
+
     def _cut(self, dims: dict, ways: int) -> tuple:
         """(shapes, offsets, group sizes) with every leaf cut ``ways`` ways
         along ``dims[name]`` (None: whole)."""

@@ -485,18 +485,85 @@ def fsdp_dsm_rank(rank: int, world: int, cases: list) -> list:
         topo = mesh.topology(c["n_workers"], dist.group.WORLD, model=c["model"],
                              fsdp=c["fsdp"])
         out.append(dsm_case(topo, c["cfg"], c["n_workers"], c["flags"], c["row"],
-                            c["batches"], c["gamma"], c.get("nan_rank"), c.get("replicate", ())))
+                            c["batches"], c["gamma"], c.get("nan_rank"), c.get("replicate", ()),
+                            c.get("seed")))
+    return out
+
+
+def algorithms_rank(rank: int, world: int, cases: list) -> list:
+    """Each case on this rank of the ``(worker, zero, model)`` grid of all
+    ``world`` ranks, in one start of the ranks: a dict of ``cfg``,
+    ``n_workers``, ``model``, ``fsdp``, ``replicate`` (leaf names held whole
+    on every model rank), ``row``, ``batches``, ``gamma`` and either
+    ``flags`` and ``seed`` (a DSM run, :func:`dsm_case`; ``seed`` seeds the
+    randomized signs' generator) or ``method`` and ``kw`` (a local-step
+    baseline, :func:`baseline_case`)."""
+    torch.set_num_threads(1)
+    out = []
+    for c in cases:
+        topo = mesh.topology(c["n_workers"], dist.group.WORLD, model=c["model"],
+                             fsdp=c["fsdp"])
+        if "method" in c:
+            out.append(baseline_case(topo, c["cfg"], c["n_workers"], c["method"], c["kw"],
+                                     c["row"], c["batches"], c["gamma"], c["replicate"]))
+        else:
+            out.append(dsm_case(topo, c["cfg"], c["n_workers"], c["flags"], c["row"],
+                                c["batches"], c["gamma"], replicate_names=c["replicate"],
+                                seed=c["seed"]))
+    return out
+
+
+def baseline_case(topo, cfg, n_workers: int, method: str, kw: dict, row, batches: list,
+                  gamma: float, replicate_names: tuple = ()) -> dict:
+    """A local-step baseline's outer steps (``core.baselines.LOCAL_METHODS
+    [method]`` with ``kw``; AdamW, constant ``gamma``) of ``cfg`` on
+    ``topo`` (None: the dense path) from the dense ``(N,)`` params ``row``
+    cut to the rank's blocks, on the batch dicts of ``batches`` (numpy
+    leaves (W, tau, 1, B_micro, ...), the rank's workers' rows taken).
+    Returns per round the metrics' loss and the rank's x0 and aux buffers
+    (its blocks), its ``CommStats`` and kernel launches."""
+    from repro_torch import kernels as K
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core import baselines as BL
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import convert as C
+    from repro_torch.models import transformer as T
+
+    lay = TP.topology_layout(cfg, topo, replicate_names)
+    x0 = C.shard_flat(row, T.layout(cfg), lay) if lay.sharded else row
+    tau = batches[0]["tokens"].shape[1]
+    init, step = BL.LOCAL_METHODS[method](
+        lambda p, mb: T.loss_fn(p, mb, cfg, remat=False), base_opt.adamw(), tau,
+        schedules.constant(gamma), lay, topo=topo, **kw)
+    state = init(x0, n_workers)
+    rows = slice(None) if topo is None else topo.worker_slice
+    K.reset_launch_counts()
+    out = {"losses": [], "x0": [], "aux": [],
+           "index": 0 if topo is None else topo.model_index,
+           "zero_index": 0 if topo is None else topo.zero_index,
+           "rank": 0 if topo is None else topo.rank}
+    for raw in batches:
+        batch = {k: torch.from_numpy(v[rows]) for k, v in raw.items()}
+        batch["tokens"] = batch["tokens"].long()
+        state, metrics = step(state, batch)
+        out["losses"].append(metrics["loss"])
+        out["x0"].append(each(torch.clone, state.x0))
+        out["aux"].append([t.clone() for t in base_opt._buffers(state.aux)])
+    out["comm"] = None if topo is None else topo.stats.as_dict()
+    out["launches"] = K.launch_counts()
     return out
 
 
 def dsm_case(topo, cfg, n_workers: int, flags: dict, row, batches: list, gamma: float,
-             nan_rank: Optional[int] = None, replicate_names: tuple = ()) -> dict:
+             nan_rank: Optional[int] = None, replicate_names: tuple = (),
+             seed: Optional[int] = None) -> dict:
     """:func:`tp_dsm_rank`'s run on ``topo`` (None: the dense path), its
     blocks by ``tensor_parallel.topology_layout`` (under FSDP its zero
     blocks: x_tau, x0 and m whole over its worker peers; the leaves named in
     ``replicate_names`` whole).  ``nan_rank``: that rank sets one element of
-    its first worker's block to NaN after each local phase.  Each round also
-    returns the metrics' ``survivors``."""
+    its first worker's block to NaN after each local phase.  ``seed``: the
+    randomized signs draw from a generator on ``row``'s device seeded with
+    it.  Each round also returns the metrics' ``survivors``."""
     from repro_torch import kernels as K
     from repro_torch.core import base_opt, schedules
     from repro_torch.core import dsm as D
@@ -554,6 +621,7 @@ def dsm_case(topo, cfg, n_workers: int, flags: dict, row, batches: list, gamma: 
     D.worker_mean = lambda p: means.append(dense_mean(p)) or means[-1]
     for name, fn in mean_fns.items():
         setattr(Z, name, recording(fn))
+    rng = None if seed is None else torch.Generator(parts(row)[0].device).manual_seed(seed)
     K.reset_launch_counts()
     out = {"losses": [], "x_tau": [], "x0": [], "m": [], "survivors": [],
            "state_bytes": state_bytes,
@@ -564,7 +632,7 @@ def dsm_case(topo, cfg, n_workers: int, flags: dict, row, batches: list, gamma: 
         for raw in batches:
             batch = {k: torch.from_numpy(v[rows]) for k, v in raw.items()}
             batch["tokens"] = batch["tokens"].long()
-            state, metrics = step(state, batch)
+            state, metrics = step(state, batch, rng)
             out["losses"].append(metrics["loss"])
             out["survivors"].append(metrics.get("survivors"))
             out["x_tau"].append(each(torch.clone, whole(means[-1])))
@@ -733,91 +801,155 @@ def fsdp_audit_rank(rank: int, world: int, cfg, n_workers: int, model: int, tau:
     return out
 
 
-def model_axis_rank(rank: int, world: int, cases: list, out_dir: str) -> list:
+def algorithm_step(cfg, algo: Optional[dict], tau: int, gamma: float, eta: float, lay,
+                   topo=None, device: str = "cuda") -> tuple:
+    """``(init(x0, n_workers) -> state, step(state, batch) -> (state,
+    metrics))`` of one of ``chip_smoke.py``'s runs of ``cfg`` on ``lay``
+    over ``topo`` (None: the dense run), AdamW local steps at a constant
+    ``gamma``: DSM (``algo`` None, or ``{"sign_mode": ..., "seed": ...}``:
+    the randomized signs from a generator on ``device`` seeded with
+    ``seed``, each rank's its own) with ``eta``, the ZeRO-sharded global
+    step and the device-parallel local phase over ranks; or the local-step
+    baseline ``{"method": name, **its global step's keywords}``."""
+    from repro_torch.core import base_opt, schedules
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import dsm as D
+
+    algo = dict(algo or {})
+    base = base_opt.adamw()
+    loss = functools.partial(_loss, cfg=cfg)
+    if "method" in algo:
+        return BL.LOCAL_METHODS[algo.pop("method")](loss, base, tau, schedules.constant(gamma),
+                                                    lay, topo=topo, **algo)
+    seed = algo.pop("seed", None)
+    flags = dict(zero_sharded=True, device_parallel_local=True) if topo is not None else {}
+    step = D.make_dsm_step(loss, base, DSMConfig(tau=tau, global_lr=eta, **flags, **algo),
+                           schedules.constant(gamma), lay, topo)
+    rng = None if seed is None else torch.Generator(device).manual_seed(seed)
+
+    def init(x0, n_workers: int):
+        return D.dsm_init(x0, base, n_workers, topo, topo is not None)
+
+    return init, lambda state, batch: step(state, batch, rng)
+
+
+def _loss(p, mb, cfg):
+    from repro_torch.models import transformer as T
+
+    return T.loss_fn(p, mb, cfg, remat=False)
+
+
+def momentum(state):
+    """The f32 buffer a round's check holds beside x0: DSM's m, a
+    baseline's first aux buffer (SlowMo's u, global AdamW's m)."""
+    from repro_torch.core.base_opt import _buffers
+
+    return state.m if hasattr(state, "m") else _buffers(state.aux)[0]
+
+
+@contextlib.contextmanager
+def recorded_means(seen: dict):
+    """While active, every worker mean over ranks (the scattered one of a
+    ZeRO-sharded DSM step, the replicated one of a baseline) is kept in
+    ``seen["x_tau"]``."""
+    fns = {name: getattr(Z, name) for name in ("scattered_worker_mean",
+                                               "replicated_worker_mean")}
+
+    def keeping(fn):
+        def mean(*a, **k):
+            seen["x_tau"] = fn(*a, **k)
+            return seen["x_tau"]
+        return mean
+
+    for name, fn in fns.items():
+        setattr(Z, name, keeping(fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in fns.items():
+            setattr(Z, name, fn)
+
+
+def model_axis_rank(rank: int, world: int, cases: list, out_dir: str,
+                    prefix: str = "") -> list:
     """``chip_smoke.py``'s model-axis runs on this rank, one per case:
     ``(cfg, n_workers, model, seed, batches, gamma, eta[, leaves held
-    whole])`` (a batch's leaves (W, tau, 1, B_micro, ...): ``tokens``, a
-    VLM's ``patches``).  Each draws the dense initial params on the card
-    from ``seed`` (the dense run's draw),
-    keeps this rank's blocks and runs ``len(batches)`` DSM outer steps
-    (AdamW, ZeRO-sharded global step, device-parallel local phase) over the
-    ``(worker, zero, model)`` grid of ``world`` ranks.  After each round the
-    first ``(worker, zero)`` rank of each model index saves its blocks of
-    x_tau, x0 and m, whole, to ``out_dir`` (``<case>_<model index>_<round>.pt``,
-    CPU tensors).  Returns per case the per-worker losses (tau, W) of each
-    round, the peak (``max_memory_allocated`` from the state's build on),
-    the collectives, the kernel launches, each outer step's host ms, the
-    case's seconds (``case_s``, the draw included) and, per round, the
+    whole[, algo]])`` (a batch's leaves (W, tau, 1, B_micro, ...):
+    ``tokens``, a VLM's ``patches``; ``algo``: :func:`algorithm_step`'s).
+    Each draws the dense initial params on the card from ``seed`` (the
+    dense run's draw), keeps this rank's blocks and runs ``len(batches)``
+    outer steps (DSM unless ``algo`` names a baseline: AdamW, ZeRO-sharded
+    global step, device-parallel local phase) over the ``(worker, zero,
+    model)`` grid of ``world`` ranks.  After each round the first ``(worker,
+    zero)`` rank of each model index saves its blocks of x_tau, x0 and m (a
+    baseline's first aux buffer, :func:`momentum`), whole, to ``out_dir``
+    (``<prefix><case>_<model index>_<round>.pt``, CPU tensors).  Returns per
+    case the per-worker losses (tau, W) of each DSM round (``loss``: every
+    round's mean), the peak (``max_memory_allocated`` from the state's build
+    on), the collectives, the kernel launches, each outer step's host ms,
+    the case's seconds (``case_s``, the draw included) and, per round, the
     routes of every MoE layer call (:func:`recorded_routes`, on the host;
     none without a MoE layer)."""
     import os
     import time
 
     from repro_torch import kernels as K
-    from repro_torch.core import base_opt, schedules
-    from repro_torch.core import dsm as D
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.models import convert as C
     from repro_torch.models import transformer as T
     from repro_torch.obs import metrics as OM
 
     out = []
-    for i, (cfg, n_workers, model, seed, batches, gamma, eta, *rep) in enumerate(cases):
+    for i, (cfg, n_workers, model, seed, batches, gamma, eta, *extra) in enumerate(cases):
+        rep, algo = (tuple(extra) + ((), None))[:2]
         t_case = time.perf_counter()
         topo = mesh.topology(n_workers, dist.group.WORLD, model=model)
-        lay = TP.topology_layout(cfg, topo, *rep)
+        lay = TP.topology_layout(cfg, topo, rep)
         row = T.init_params(torch.Generator("cuda").manual_seed(seed), cfg, device="cuda")
         x0 = C.shard_flat(row, T.layout(cfg), lay)
         del row
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        base = base_opt.adamw()
         tau = batches[0]["tokens"].shape[1]
-        flags = dict(zero_sharded=True, device_parallel_local=True)
-        step = D.make_dsm_step(lambda p, mb, cfg=cfg: T.loss_fn(p, mb, cfg, remat=False),
-                               base, DSMConfig(tau=tau, global_lr=eta, **flags),
-                               schedules.constant(gamma), lay, topo)
-        state = D.dsm_init(x0, base, n_workers, topo, True)
+        init, step = algorithm_step(cfg, algo, tau, gamma, eta, lay, topo)
+        state = init(x0, n_workers)
         dtopo = topo.dp
         quiet = dataclasses.replace(dtopo, stats=type(dtopo.stats)())
         saves = dtopo.rank == 0
         seen = {}
-        mean_fn, stats_fn = Z.scattered_worker_mean, OM.loss_stats
-
-        def mean(*a, **k):
-            seen["x_tau"] = mean_fn(*a, **k)
-            return seen["x_tau"]
+        stats_fn = OM.loss_stats
 
         def loss_stats(losses):
             seen["losses"] = losses.detach().cpu()
             return stats_fn(losses)
 
-        Z.scattered_worker_mean, OM.loss_stats = mean, loss_stats
+        OM.loss_stats = loss_stats
         K.reset_launch_counts()
-        res = {"losses": [], "step_ms": [], "routes": [], "index": topo.model_index,
-               "rank": rank, "grid": (topo.worker, topo.zero)}
+        res = {"losses": [], "loss": [], "step_ms": [], "routes": [], "index": topo.model_index,
+               "zero_index": topo.zero_index, "rank": rank, "grid": (topo.worker, topo.zero)}
         try:
             for k, raw in enumerate(batches):
                 batch = {n: torch.from_numpy(v[topo.worker_slice]).to("cuda")
                          for n, v in raw.items()}
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with recorded_routes([]) as routes:
-                    state, _ = step(state, batch)
+                with recorded_routes([]) as routes, recorded_means(seen):
+                    state, metrics = step(state, batch)
                 torch.cuda.synchronize()
                 res["step_ms"].append((time.perf_counter() - t0) * 1e3)
-                res["losses"].append(seen["losses"])
+                res["losses"].append(seen.pop("losses", None))
+                res["loss"].append(metrics["loss"].item())
                 res["routes"].append([r.cpu() for r in routes])
                 del batch, routes
                 blocks = {n: Z.gather_shards(t, quiet, lay.group_numels)
                           for n, t in (("x_tau", seen.pop("x_tau")), ("x0", state.x0),
-                                       ("m", state.m))}
+                                       ("m", momentum(state)))}
                 if saves:
                     torch.save({n: each(lambda t: t.cpu(), t) for n, t in blocks.items()},
-                               os.path.join(out_dir, f"{i}_{topo.model_index}_{k}.pt"))
+                               os.path.join(out_dir, f"{prefix}{i}_{topo.model_index}_{k}.pt"))
                 del blocks
         finally:
-            Z.scattered_worker_mean, OM.loss_stats = mean_fn, stats_fn
+            OM.loss_stats = stats_fn
         res["launches"] = K.launch_counts()
         res["peak_bytes"] = torch.cuda.max_memory_allocated()
         res["comm"] = topo.stats.as_dict()
@@ -1036,8 +1168,10 @@ def _sp_cache_bits(params, cfg, topo, batch: dict) -> dict:
 
 
 def model_axis_serve_rank(rank: int, world: int, cases: list, out_dir: str,
-                          serve_cases: list, fsdp_cases: tuple = ()) -> dict:
-    """:func:`model_axis_rank`'s training cases, then
+                          serve_cases: list, fsdp_cases: tuple = (),
+                          algo_cases: tuple = ()) -> dict:
+    """:func:`model_axis_rank`'s training cases and its ``algo_cases``
+    (``algorithms``, saved with the prefix ``o``), then
     :func:`serve_full_width_rank`'s serving cases, then
     :func:`fsdp_full_width_rank`'s (saving under ``out_dir/fsdp``), in one
     start of the ranks; ``wall``: the wall clock (``time.time``) as the rank
@@ -1047,6 +1181,7 @@ def model_axis_serve_rank(rank: int, world: int, cases: list, out_dir: str,
 
     wall = [time.time()]
     out = {"train": model_axis_rank(rank, world, cases, out_dir)}
+    out["algorithms"] = model_axis_rank(rank, world, algo_cases, out_dir, prefix="o")
     wall.append(time.time())
     out["serve"] = serve_full_width_rank(rank, world, serve_cases)
     wall.append(time.time())
@@ -1163,9 +1298,12 @@ def fsdp_full_width_rank(rank: int, world: int, cases, out_dir: str) -> list:
     worker peer of each (model, zero) index saves its zero blocks of x_tau,
     x0 and m, whole, to ``out_dir`` as ``<name>_<model>_<zero>_<round>.pt``),
     ``keep`` (this rank's zero blocks of each round kept on the host for a
-    later case) and ``against`` (``(kept case, bounds)``: each round held
+    later case), ``against`` (``(kept case, bounds)``: each round held
     against that case's, bit for bit where ``bounds`` is None, else within
-    :func:`round_check` of ``bounds[round]``).  Each draws the dense params
+    :func:`round_check` of ``bounds[round]``) and ``algo``
+    (:func:`algorithm_step`'s: the randomized signs or a baseline, whose
+    saved ``m`` is its first aux buffer, :func:`momentum`).  A save also
+    holds each round's mean loss (``loss``).  Each draws the dense params
     on the card from ``seed``, one rank at a time (once per config and seed:
     the rank keeps its model block on the host), keeps this rank's blocks
     (under FSDP its zero blocks; a run without FSDP is cut to the zero blocks
@@ -1183,8 +1321,6 @@ def fsdp_full_width_rank(rank: int, world: int, cases, out_dir: str) -> list:
     import time
 
     from repro_torch import kernels as K
-    from repro_torch.core import base_opt, schedules
-    from repro_torch.core import dsm as D
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.models import convert as C
     from repro_torch.models import transformer as T
@@ -1224,13 +1360,10 @@ def fsdp_full_width_rank(rank: int, world: int, cases, out_dir: str) -> list:
         torch.cuda.reset_peak_memory_stats()
         res_held = torch.cuda.memory_allocated() - sum(t.numel() * t.element_size()
                                                        for t in _tensors(x0))
-        base = base_opt.adamw()
         tau = case["batches"][0]["tokens"].shape[1]
-        flags = dict(zero_sharded=True, device_parallel_local=True)
-        step = D.make_dsm_step(lambda p, mb, cfg=cfg: T.loss_fn(p, mb, cfg, remat=False),
-                               base, DSMConfig(tau=tau, global_lr=case["eta"], **flags),
-                               schedules.constant(case["gamma"]), lay, topo)
-        state = D.dsm_init(x0, base, W, topo, True)
+        init, step = algorithm_step(cfg, case.get("algo"), tau, case["gamma"], case["eta"], lay,
+                                    topo)
+        state = init(x0, W)
         state_bytes = state_nbytes(state, x0, case["batches"][0]["tokens"][topo.worker_slice])
         dtopo = topo.dp
         quiet = dataclasses.replace(dtopo, stats=type(dtopo.stats)())
@@ -1241,19 +1374,15 @@ def fsdp_full_width_rank(rank: int, world: int, cases, out_dir: str) -> list:
 
         before = each(lambda t: t.cpu(), mine(x0))
         seen = {}
-        mean_fn, stats_fn = Z.scattered_worker_mean, OM.loss_stats
-
-        def mean(*a, **k):
-            seen["x_tau"] = mean_fn(*a, **k)
-            return seen["x_tau"]
+        stats_fn = OM.loss_stats
 
         def loss_stats(losses):
             seen["losses"] = losses.detach().cpu()
             return stats_fn(losses)
 
-        Z.scattered_worker_mean, OM.loss_stats = mean, loss_stats
+        OM.loss_stats = loss_stats
         K.reset_launch_counts()
-        res = {"name": name, "losses": [], "step_ms": [], "rank": rank,
+        res = {"name": name, "losses": [], "loss": [], "step_ms": [], "rank": rank,
                "grid": (topo.worker, topo.zero, topo.model), "index": topo.model_index,
                "zero_index": topo.zero_index, "rounds": [], "state_bytes": state_bytes,
                "held_bytes": res_held}
@@ -1264,15 +1393,18 @@ def fsdp_full_width_rank(rank: int, world: int, cases, out_dir: str) -> list:
                          for n, v in raw.items()}
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                state, _ = step(state, batch)
+                with recorded_means(seen):
+                    state, metrics = step(state, batch)
                 torch.cuda.synchronize()
                 res["step_ms"].append((time.perf_counter() - t0) * 1e3)
-                res["losses"].append(seen["losses"])
+                res["losses"].append(seen.get("losses"))
+                res["loss"].append(metrics["loss"].item())
                 blocks = {n: each(lambda t: t.cpu(), mine(Z.gather_shards(t, quiet,
                                                                           lay.group_numels)))
                           for n, t in (("x_tau", seen.pop("x_tau")), ("x0", state.x0),
-                                       ("m", state.m))}
-                blocks["losses"] = seen["losses"]
+                                       ("m", momentum(state)))}
+                blocks["losses"] = seen.pop("losses", None)
+                blocks["loss"] = metrics["loss"].item()
                 if case.get("save") and dtopo.rank == 0:
                     torch.save(blocks, os.path.join(
                         out_dir, f"{name}_{topo.model_index}_{topo.zero_index}_{k}.pt"))
@@ -1281,7 +1413,7 @@ def fsdp_full_width_rank(rank: int, world: int, cases, out_dir: str) -> list:
                 before = blocks["x0"]
                 del blocks
         finally:
-            Z.scattered_worker_mean, OM.loss_stats = mean_fn, stats_fn
+            OM.loss_stats = stats_fn
         res["launches"] = K.launch_counts()
         res["peak_bytes"] = torch.cuda.max_memory_allocated()
         res["comm"] = topo.stats.as_dict()
@@ -1310,7 +1442,8 @@ def _held_against(ours: dict, theirs: dict, before, bound, gamma: float, m_prev:
                    for n in ("x_tau", "x0", "m", "losses")
                    for a, b in zip(_flat_parts(ours[n]), _flat_parts(theirs[n]), strict=True))
         return {"bit_equal": same, "ok": same}
-    card = [{n: each(lambda t: t.to("cuda"), v) for n, v in d.items() if n != "losses"}
+    card = [{n: each(lambda t: t.to("cuda"), v) for n, v in d.items()
+             if n not in ("losses", "loss")}
             for d in (ours, theirs)]
     check, m_next = round_check(*card, each(lambda t: t.to("cuda"), before), bound, gamma,
                                 DSMConfig().beta2, m_prev)
