@@ -20,8 +20,9 @@ bit for bit against main_path and read back (kernel launches, device busy
 share and idle gaps from the trace); the ZeRO ranks write run directories
 whose comm ledger must equal their counted collectives.  Last, the paper's
 other GPT-2 sizes and serving: the AdamW kernel bit for bit past 2^31
-elements, GPT-2 medium and large trained at full width through both
-kernels, generate on the trained large model held against its full
+elements, GPT-2 medium and large trained at full width (half their depth,
+PAPER_SIZES) through both kernels, generate on the trained large model
+held against its full
 forward, and card vs CPU for serving (nano) and the dense GQA/MQA archs
 (SMOKE).  Then sliding-window attention and MoE, with parameters in their
 reference dtypes (one flat buffer and one kernel launch per dtype group):
@@ -72,12 +73,17 @@ ranks; one prompt that does not split over data, its positions and its
 global caches' slots over data: Gemma-3 1B at whole depth in f32 over (4,
 1), Mamba-2 and RecurrentGemma over (2, 2); each held against the dense
 model and its f32 logits; Minitron-4B from a 2,048-token prompt with
-sequence parallelism, its rank caches the same bits as without it), and FSDP in
+sequence parallelism over (1, 4) and over (2, 2), where each data rank's
+chunk of the prompt is cut into the model ranks' blocks, its rank caches
+the same bits as without it), and FSDP in
 the same start (fsdp_full_width: GPT-2 small at 2 layers with each rank's
-zero block gathered per layer over its zero group, against its dense run;
-Minitron-4B at 2 layers over (worker 1, zero 2, model 2) against the same
-grid without FSDP; GPT-2 small served with the data entries cut, bit-equal
-to the replicated-data run).
+zero block gathered per layer over its zero group, against its dense run,
+and again with x0 and m over zero only, the replicated global step on the
+whole zero block, bit-equal to it; Minitron-4B at 2 layers over (worker 1,
+zero 2, model 2) against the same grid without FSDP; GPT-2 small served
+with the data entries cut, bit-equal to the replicated-data run).
+Between the ranks phases and the GPT-2 sizes, the port's counterparts of
+the reference's three examples run on the card (examples_card).
 After the ranks phases, the collective audit (audit_card): every c10d op
 of each outer-step variant recorded over RANKS gloo ranks and held against
 the paper's one-round budget, a planted extra all-reduce caught.  Every
@@ -183,8 +189,10 @@ RANKS_TIMEOUT_S = 600
 # audit_card: the collective audit's steps (W = RANKS, one worker per rank)
 AUDIT_TAU = 2
 AUDIT_BATCH = dict(b_micro=MAIN["b_micro"], seq=MAIN["seq"])
-# the paper's other GPT-2 sizes at full width (vocab padded to 50,688)
-PAPER_SIZES = (("gpt2_medium", 353_944_576), ("gpt2_large", 772_762_880))
+# the paper's other GPT-2 sizes at full width (vocab padded to 50,688):
+# (arch, layers, N), the layers cut from 24 and 36 (whole depth, N
+# 353,944,576 and 772,762,880) to half for the time target
+PAPER_SIZES = (("gpt2_medium", 12, 202_925_056), ("gpt2_large", 18, 418_822_400))
 PAPER_STEPS = 2                 # cut from 3 for the command's time target
 # the AdamW kernel past 2^31 elements: two rows of 2^30 + RAGGED
 PAST_2G_SHAPE = (2, 2 ** 30 + RAGGED)
@@ -467,7 +475,11 @@ MODEL_AXIS_ULP = 2.0 ** -8
 # minitron_4b at MODEL_AXIS_LAYERS layers with attn_seq_shard over (data 1,
 # model 4), one SERVE_SP prompt: the prefill over each rank's 512-position
 # block of it, the rank's cache (its KV heads over every position) the same
-# bits as its prefill without the flag, then greedy decode as (a)
+# bits as its prefill without the flag, then greedy decode as (a); (p) the
+# same over (data 2, model 2): each data rank's 1,024-position chunk of the
+# prompt, each model rank's 512-position block of that chunk, the rank's
+# cache (its KV heads, its block of the cache's slots) the same bits as the
+# same grid's prefill without the flag, the rest as (a)
 SERVE_MA_BF16_LAYERS = 8        # cut from 32, then 16 (PERF.md section 4)
 SERVE_MA_VLM_LAYERS = 2         # (d)'s, cut from VLM_LAYERS (4)
 SERVE_MA_F32_LAYERS = 8
@@ -489,7 +501,8 @@ SERVE_MA_CASES = (   # (arch, layers (None: whole depth), dtype, model ranks, (B
     ("gemma3_1b", None, "float32", 1, SERVE_SPLIT_GEMMA),
     ("mamba2_780m", MAMBA_AXIS_LAYERS, None, 2, SERVE_SPLIT),
     ("recurrentgemma_2b", RG_LAYERS, None, 2, SERVE_SPLIT),
-    ("minitron_4b", MODEL_AXIS_LAYERS, None, 4, SERVE_SP, {"attn_seq_shard": True}))
+    ("minitron_4b", MODEL_AXIS_LAYERS, None, 4, SERVE_SP, {"attn_seq_shard": True}),
+    ("minitron_4b", MODEL_AXIS_LAYERS, None, 2, SERVE_SP, {"attn_seq_shard": True}))
 SERVE_MA_F32_RTOL = 1e-3
 # fsdp_full_width: FSDP over zero (mesh.topology(..., fsdp=True): each rank
 # holds its zero block of its blocks, gathers each layer at use over its
@@ -545,10 +558,30 @@ FSDP_B_TAU = 1
 # gap); each rank's collectives tensor_parallel.round_collectives' to the
 # byte; tau AdamW launches per rank and dtype group and no DSM launch (the
 # kernel computes the deterministic sign only)
+# (e): x0 and m over zero only (the reference dry-run's
+# --no-zero-global-buffers): FSDP (a)'s grid, draw and batches, one round
+# with DSMConfig.zero_sharded off, in the same start of the ranks; each
+# rank's zero block of x_tau, x0, m, the losses and the params bit for bit
+# (a)'s, its worker peers' x0 and m the same bits (SHA-256 per rank), its
+# collectives tensor_parallel.round_collectives(..., zero_sharded=False)'s
+# and the dry-run's to the byte, one DSM launch per round and dtype group
+# over the whole zero block (timed beside its bound), its peak within
+# DRYRUN_RTOL of reckon_train(..., zero_global_buffers=False)
+FSDP_E = {"zero_sharded": False}
 ALGO_AXIS_CASES = (("o_rand_pm", {"sign_mode": "rand_pm", "seed": 29}),
                    ("o_global_adamw", {"method": "global_adamw", "eta": MODEL_AXIS_ETA}))
 ALGO_FSDP_CASES = (("d_rand_zero", {"sign_mode": "rand_zero", "seed": 31}),
                    ("d_slowmo", {"method": "slowmo", "alpha": ALGO_GLOBAL_LR["slowmo"]}))
+
+
+# examples_card: the port's counterparts of the reference's three examples
+# (examples/torch_quickstart.py, torch_train_gpt2_dsm.py and
+# torch_serve_model.py), each through its main on the card with
+# EXAMPLE_STEPS outer steps (their defaults 30, 120 and 40 cut for the time
+# target): every loss finite, each run's launches expected_launches' (DSM
+# launches both kernels), each served completion the example's NEW_TOKENS
+EXAMPLES = ("torch_quickstart", "torch_train_gpt2_dsm", "torch_serve_model")
+EXAMPLE_STEPS = 2
 
 
 # Every phase trains on the sources of the reference package, which stays as
@@ -1821,8 +1854,8 @@ def local_step_breakdown(torch, cfg, state, corpus, s) -> dict:
 
 
 def phase_paper_sizes_full_width(torch, K, smi):
-    """gpt2_medium.FULL, then gpt2_large.FULL: depth and widths as
-    published, bf16 params, W=4, tau=TOPO.tau, B_micro=4, S=128, the
+    """gpt2_medium, then gpt2_large: widths as published, depth cut to
+    PAPER_SIZES' layers, bf16 params, W=4, tau=TOPO.tau, B_micro=4, S=128, the
     config's paper PEAK_LR and the main path's other settings, PAPER_STEPS
     outer steps with an eval after each, through run_training and both
     kernels.  Per size: N equal to specs.param_count, PAPER_STEPS DSM and
@@ -1838,9 +1871,9 @@ def phase_paper_sizes_full_width(torch, K, smi):
     total = dict.fromkeys(K.launch_counts(), 0)
     rows, failures, kept = [], [], None
     card_bytes = torch.cuda.get_device_properties(0).total_memory
-    for arch, n_want in PAPER_SIZES:
+    for arch, layers, n_want in PAPER_SIZES:
         mod = load_arch(arch)
-        cfg = mod.FULL
+        cfg = depth_cut(arch, layers)
         n = specs.param_count(cfg)
         if n != n_want:
             raise AssertionError(f"{arch}: specs.param_count {n}, want {n_want}")
@@ -2183,11 +2216,11 @@ def route_checked(rows, atol) -> dict:
 
 
 def phase_serve_full_width(torch, smi, x0):
-    """generate on gpt2_large.FULL's trained x0 (bf16): SERVE_BATCH prompts
-    of SERVE_PROMPT corpus tokens, SERVE_NEW greedy tokens (serve_check)."""
-    from repro_torch.configs import gpt2_large
-
-    serve_check(torch, smi, "serve_full_width", gpt2_large.FULL, x0, SERVE_BATCH,
+    """generate on gpt2_large's trained x0 (bf16, full width, PAPER_SIZES'
+    layers): SERVE_BATCH prompts of SERVE_PROMPT corpus tokens, SERVE_NEW
+    greedy tokens (serve_check)."""
+    arch, layers, _ = PAPER_SIZES[1]
+    serve_check(torch, smi, "serve_full_width", depth_cut(arch, layers), x0, SERVE_BATCH,
                 SERVE_PROMPT, SERVE_NEW)
 
 
@@ -3599,7 +3632,8 @@ def fsdp_cases(pool, corpus) -> dict:
     bounds = model_axis_bounds(cfg_b.n_layers, FSDP_B_ROUNDS, FSDP_B_TAU)
     cases = [
         dict(name="a", cfg=cfg_a, n_workers=w_a, model=m_a, fsdp=True, seed=41, save=True,
-             batches=batches(w_a, FSDP_B_MICRO, FSDP_ROUNDS), **common),
+             keep=True, params=True, batches=batches(w_a, FSDP_B_MICRO, FSDP_ROUNDS),
+             **common),
         dict(name="b_plain_whole", cfg=cfg_b, n_workers=w_b, model=m_b, fsdp=False, seed=43,
              keep=True, batches=b_whole, **common),
         dict(name="b_whole", cfg=cfg_b, n_workers=w_b, model=m_b, fsdp=True, seed=43,
@@ -3608,13 +3642,20 @@ def fsdp_cases(pool, corpus) -> dict:
              keep=True, batches=b_split, **common),
         dict(name="b", cfg=cfg_b, n_workers=w_b, model=m_b, fsdp=True, seed=43,
              against=("b_plain", bounds), batches=b_split, **common)]
+    # (e): x0 and m over zero only on (a)'s grid, draw and batches, held
+    # against (a) bit for bit
+    cases.insert(1, dict(cases[0], name="e", algo=FSDP_E, save=False, keep=False,
+                         against=("a", None), digest=True))
     # (d): the randomized signs and SlowMo on (a)'s grid, draw and batches
-    algo_cases = [dict(cases[0], name=name, algo=algo) for name, algo in ALGO_FSDP_CASES]
+    algo_cases = [dict(cases[0], name=name, algo=algo, keep=False, params=False)
+                  for name, algo in ALGO_FSDP_CASES]
     reckoned = []
     for c in cases:
         lead = c["batches"][0]["tokens"].shape
         kw = dict(n_workers=c["n_workers"], tau=lead[1], b_micro=lead[3], seq=seq, world=RANKS,
                   model=c["model"], eval_batch=0, fsdp=c["fsdp"])
+        if c.get("algo") == FSDP_E:
+            kw["zero_global_buffers"] = False
         plain = dict(kw, fsdp=False)
         reckoned.append((kw, pool.submit(reckon_comm, c["cfg"], kw),
                          pool.submit(reckon_peak, c["cfg"], kw),
@@ -3892,7 +3933,10 @@ def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
             if not all(c["ok"] for c in r["rounds"]):
                 failures.append(f"{case['name']} rank {r['rank']}: {r['rounds']}")
             total = {k: n + r["launches"][k] for k, n in total.items()}
+        zero_only = zero_only_checks(case, per_rank, kw, failures)
         rows.append({"case": case["name"], "config": cfg.name, "fsdp": case["fsdp"],
+                     "zero_sharded": (case.get("algo") or {}).get("zero_sharded", True),
+                     **zero_only,
                      "n_workers": case["n_workers"], "grid": per_rank[0]["grid"],
                      "b_micro": kw["b_micro"], "rounds": rounds,
                      "rank_block_numel": per_rank[0]["block_numel"],
@@ -4062,10 +4106,13 @@ def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
             failures.append(f"serving rank {r['rank']}: bit equal {same}, collectives "
                             f"{r['comm']}, reckoned {want}")
 
-    # both kernels on (a)'s rank rows: its zero block, its chunk over its peers
+    # both kernels on (a)'s rank rows: its zero block, its chunk over its
+    # peers; (e)'s DSM over the whole zero block
     worker = ranks[0][0]["grid"][0]
     kernels = rank_kernel_times(torch, K, lays[0], [Z.chunk_size(lays[0].numel, worker)],
                                 W // worker)
+    kernels += [dsm_time_row(torch, K, n, dt) for n, dt in zip(lays[0].group_numels,
+                                                                lays[0].dtypes)]
     for c in kernels:
         if c.get("max_abs_err", 0.0) != 0.0:
             failures.append(f"kernel on the rank rows: {c}")
@@ -4079,6 +4126,59 @@ def phase_fsdp_full_width(torch, K, smi, fsdp) -> dict:
     if failures:
         raise AssertionError(f"fsdp_full_width: {failures}")
     return total
+
+
+def zero_only_checks(case, per_rank, kw, failures) -> dict:
+    """(e)'s checks beyond the other FSDP cases' (a case whose x0 and m lie
+    over zero only, ``algo`` FSDP_E; else nothing): each rank's collectives
+    ``tensor_parallel.round_collectives(..., zero_sharded=False)``'s to the
+    byte, its worker peers' x0 and m the same bits every round (their
+    SHA-256s), its x0 the whole zero block."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.comm import scaled_sum
+
+    if case.get("algo") != FSDP_E:
+        return {}
+    cfg, rounds = case["cfg"], len(case["batches"])
+    worker, zero, model = per_rank[0]["grid"]
+    peers: dict = {}
+    for r in per_rank:
+        lay = TP.rank_layout(cfg, model, r["index"], zero=zero, zero_index=r["zero_index"])
+        want = scaled_sum((rounds, TP.round_collectives(
+            cfg, lay, case["n_workers"], worker, zero, kw["tau"], kw["b_micro"], kw["seq"],
+            zero_sharded=False)))
+        if r["comm"] != want:
+            failures.append(f"{case['name']} rank {r['rank']}: collectives {r['comm']}, "
+                            f"round_collectives {want}")
+        peers.setdefault((r["zero_index"], r["index"]), []).append(r["digests"])
+    alike = all(d == group[0] for group in peers.values() for d in group)
+    if not alike or any(len(g) != worker for g in peers.values()):
+        failures.append(f"{case['name']}: worker peers' x0 / m digests {peers}")
+    return {"worker_peers_x0_m_bit_identical": alike,
+            "x0_m_digests_by_zero_and_model_index": {f"{z}_{m}": g[0]
+                                                     for (z, m), g in peers.items()}}
+
+
+def dsm_time_row(torch, K, n: int, dt) -> dict:
+    """The DSM kernel over ``n`` elements of ``dt`` (x0 in ``dt``, m f32):
+    bit for bit against its plain version, timed with it (CUDA events,
+    median) beside its byte bound."""
+    from repro_torch.kernels.dsm_update import dsm_update_plain
+
+    es = torch.empty((), dtype=dt).element_size()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x0, m, xt = dsm_inputs(torch, gen, n, dt)
+    ox, om = x0.clone(), m.clone()
+    K.dsm_update(x0, m, xt, 0.02, **DSM_HP)
+    dsm_update_plain(ox, om, xt, 0.02, **DSM_HP)
+    err = compare(torch, (x0, m), (ox, om))
+    row = {"kernel": "dsm_update", "shape": [n], "dtype": str(dt), "max_abs_err": err,
+           "ms": median_ms(torch, lambda: K.dsm_update(x0, m, xt, 0.02, **DSM_HP)),
+           "plain_ms": median_ms(torch, lambda: dsm_update_plain(x0, m, xt, 0.02, **DSM_HP))}
+    row["bound_ms"], row["bound_by"] = bound_ms(n * (3 * es + 2 * 4), n * 12)
+    del x0, m, xt, ox, om
+    torch.cuda.empty_cache()
+    return row
 
 
 def serve_model_axis_cases(torch, pool) -> list:
@@ -4342,6 +4442,71 @@ def model_axis_kernel_checks(torch, K, lay, n_workers) -> list:
     return cases
 
 
+def example_module(name: str):
+    """examples/<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_runs(mod, name: str, steps: int) -> list:
+    """The TrainSettings of each run_training call the example makes."""
+    if name == "torch_quickstart":
+        return list(mod.settings(steps).values())
+    if name == "torch_train_gpt2_dsm":
+        return [mod.build(mod.parse(["--steps", str(steps)]))[1]]
+    return [mod.settings(steps)]
+
+
+def phase_examples_card(torch, K, smi) -> dict:
+    """EXAMPLES on the card (see EXAMPLE_STEPS): each main's results, its
+    seconds (host clock after cuda.synchronize) and its launches; its
+    printed lines kept apart, their tail in the phase line.  Returns the
+    launches."""
+    import contextlib
+    import io
+
+    total = dict.fromkeys(K.launch_counts(), 0)
+    rows, failures = [], []
+    for name in EXAMPLES:
+        mod = example_module(name)
+        want = dict.fromkeys(total, 0)
+        for s in example_runs(mod, name, EXAMPLE_STEPS):
+            want = {k: n + expected_launches(s)[k] for k, n in want.items()}
+        printed = io.StringIO()
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            out = mod.main(["--steps", str(EXAMPLE_STEPS)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = K.launch_counts()
+        runs = out if name == "torch_quickstart" else {"run": out}
+        losses = {k: r["history"] + [r["final_eval"]] for k, r in runs.items()}
+        row = {"example": name, "seconds": seconds, "outer_steps": EXAMPLE_STEPS,
+               "losses": losses, "launches": launches, "want_launches": want,
+               "printed_tail": printed.getvalue().splitlines()[-4:]}
+        if name == "torch_serve_model":
+            row.update(completions=out["completions"], prefill_s=out["prefill_s"],
+                       tok_per_s=out["tok_per_s"])
+            if tuple(out["tokens"].shape) != (len(mod.PROMPTS), mod.NEW_TOKENS):
+                failures.append(f"{name}: tokens {tuple(out['tokens'].shape)}")
+        if not all(math.isfinite(x) for v in losses.values() for x in v):
+            failures.append(f"{name}: losses {losses}")
+        if launches != want or not (want["dsm_update"] and want["adamw_update"]):
+            failures.append(f"{name}: launches {launches}, want {want}")
+        rows.append(row)
+        total = {k: n + launches[k] for k, n in total.items()}
+    emit({"phase": "examples_card", "gpu": smi, "examples": rows})
+    if failures:
+        raise AssertionError(f"examples_card: {failures}")
+    return total
+
+
 def phase_dryrun_vs_card(pool, smi) -> None:
     """Every full-width run's measured peak (PEAKS: main_path, gpt2_medium
     and large, gemma3_1b, granite, whisper, recurrentgemma, mamba2 with
@@ -4479,6 +4644,7 @@ def all_phases(torch, K, smi, pool):
                phase_zero_nccl_world1(torch, K),
                phase_zero_card_vs_cpu(torch, K),
                phase_audit_card(torch, K, smi),
+               phase_examples_card(torch, K, smi),
                slice_phases(torch, K, smi, pool)]
     for phases in (window_moe_phases, encdec_vlm_phases, recurrent_phases):
         more, group_errs = phases(torch, K, smi, pool)

@@ -59,7 +59,12 @@ slice of the gradient.  x0 and m are the rank's chunk of its zero block
 over its worker peers (``Topology.dp``), which the worker mean, the global
 step and the re-sync run over; the stat sums add over the ``(worker,
 zero)`` ranks of its model index, and a worker's finiteness mask is the
-minimum over its zero group.
+minimum over its zero group.  Without ``zero_sharded`` (x0 and m over
+``("zero",)`` only, the reference dry-run's ``--no-zero-global-buffers``)
+every peer holds the whole zero block of x0 and m: the worker mean is the
+replicated one over the peers, the stat sums add over the zero group and
+then the model group, the DSM kernel runs once per group over the whole
+block, and nothing is gathered after it.
 
 The outer step takes an optional ``FaultRound`` (``repro_torch.robustness``)
 and then makes line 7's mean survivor-aware; ``DSMConfig.mask_nonfinite``

@@ -28,7 +28,12 @@ index, :attr:`Topology.zp`, ``<name>@zero``): the rank then holds its zero
 block of its workers' params, gradients and AdamW moments, and its x0 and m
 are its chunk of that block over its **worker peers** (the ``worker`` ranks
 with its zero and model index), which the worker mean, the global step and
-the re-sync run over (:attr:`Topology.dp`).  A serving rank's FSDP group
+the re-sync run over (:attr:`Topology.dp`).  That chunk is the default, the
+reference dry-run's x0 and m over ``(worker, zero)``.  With the global
+buffers not sharded (``DSMConfig.zero_sharded`` off, the reference's
+``--no-zero-global-buffers``: x0 and m over ``("zero",)`` only) the rank
+holds its whole zero block of x0 and m, every worker peer the same copy, and
+the replicated global step runs on it.  A serving rank's FSDP group
 (``fsdp="data"``) is its data group (:attr:`Topology.data`).
 """
 

@@ -333,7 +333,11 @@ def seq_shard(cfg, layout: FlatLayout, length: int) -> Optional[SeqSplit]:
     ``[m S / M, (m + 1) S / M)``.  None (the sequence whole, as without
     the flag) where the flag is off, the layout is not model-parallel or
     ``length`` does not divide into M blocks (the rule of
-    :func:`_seq_split`; the reference's partitioner pads instead)."""
+    :func:`_seq_split`; the reference's partitioner pads instead).  Where
+    a prefill's sequence also lies over data (:func:`serve_split`),
+    ``length`` is the data rank's chunk and the block is one of that chunk:
+    positions ``[start + m n / M, start + (m + 1) n / M)`` of the chunk
+    ``[start, start + n)``."""
     M = layout.model
     if not cfg.attn_seq_shard or M == 1 or not length or length % M:
         return None
@@ -1098,11 +1102,12 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str,
     group's as :meth:`_Reckoning.chunk` counts them); ``slots``, a decode
     step's full-attention caches over data (:meth:`_Reckoning.slots`).
 
-    Under sequence parallelism (:func:`seq_shard`, a prefill without
-    ``chunk`` or ``slots``) the prefill's layers run on the rank's block of
-    the positions (the encoder's on its block of the frames, their output
-    gathered), the lookup's sum is reduce-scattered and the last position's
-    hidden state gathered over the model group."""
+    Under sequence parallelism (:func:`seq_shard` of the prefill's
+    positions, or of its ``chunk``) the prefill's layers run on the rank's
+    block of them (without ``chunk`` the encoder's on its block of the
+    frames, their output gathered), the lookup's sum is reduce-scattered
+    and the last position's hidden state gathered over the model group
+    (then, with ``chunk``, over the data group)."""
     from repro_torch.models import transformer as T
 
     if kind not in ("serving_params", "prefill", "decode", "pick"):
@@ -1140,10 +1145,9 @@ def serve_collectives(cfg, layout: FlatLayout, batch: int, seq: int, kind: str,
     for name in layout.names:
         if name not in unused:
             r.zero_use(name, r.layer_count(name) * (1 + (name == "embed" and cfg.tie_embeddings)))
-    prefill = kind == "prefill" and chunk is None and slots is None
-    sp = prefill and seq_shard(cfg, layout, b - a) is not None
-    enc_sp = prefill and cfg.family == "encdec" and seq_shard(cfg, layout,
-                                                              cfg.enc_len) is not None
+    sp = kind == "prefill" and seq_shard(cfg, layout, b - a) is not None
+    enc_sp = (kind == "prefill" and chunk is None and cfg.family == "encdec"
+              and seq_shard(cfg, layout, cfg.enc_len) is not None)
     if layout.model > 1:
         M, act = layout.model, cfg.act_dtype.itemsize
         if r.dim("embed") == 0:

@@ -93,7 +93,12 @@ def shard_dsm_state(state, topo, global_sharded: bool = True):
     """The rank keeps only its shard of each group of x0 and m (a group kept
     whole stays whole) with ``global_sharded``; else they stay whole (the
     device-parallel local phase with a replicated global step).  The state
-    already holds only the rank's worker rows."""
+    already holds only the rank's worker rows.  On an FSDP rank (``topo``
+    its worker peers, ``Topology.dp``) whole is its whole zero block of
+    every model block: with ``global_sharded`` it keeps that block's chunk
+    over the peers (x0 and m over ``(worker, zero)``), without it every
+    peer holds the same whole block (over ``("zero",)`` only, the reference
+    dry-run's ``--no-zero-global-buffers``)."""
     if not global_sharded:
         return state
 

@@ -56,7 +56,11 @@ parameters' and base state's ``zero`` entries are sharded (FSDP,
 ``ZERO_AXIS``): the rank holds its zero block of its blocks, gathers each
 layer at use over its zero group, runs its ``B_micro / Z`` rows where the
 batch splits over zero (``batch_over_zero``), and its x0 and m are its chunk
-of its zero block over its worker peers.  A record carries the
+of its zero block over its worker peers.  ``--no-zero-global-buffers``
+(the reference's flag, train shapes only) puts x0 and m over ``("zero",)``
+only: each worker peer holds the rank's whole zero block of them and the
+round takes the replicated global step (``zero_global_buffers`` in the
+record; on ``--mesh card`` it changes nothing).  A record carries the
 reference's fields (``flops`` per rank, ``collectives`` per kind with
 ``wire_bytes`` under its ring model, ``memory``, ``t_compute_s`` /
 ``t_memory_s`` / ``t_collective_s``, ``dominant``, ``n_chips``, ``mesh``)
@@ -207,12 +211,14 @@ def _meta_collectives():
             setattr(dist, n, fn)
 
 
-def _global_step(state, losses, topo, numels, beta1: float) -> None:
+def _global_step(state, losses, topo, numels, beta1: float, sharded: bool = True) -> None:
     """The allocations of ``make_dsm_step``'s global phase on the DSM path
     (no faults): over ranks the gather of the losses, the worker mean (over
-    ranks the scatter and the shard's mean), the metric pack's stat sums,
-    the DSM kernel (in place, nothing allocated, not run), the all-gather of
-    x_{t+1,0} and the workers' re-sync (in place)."""
+    ranks the scatter and the shard's mean, or with x0 and m not
+    ``sharded`` the scatter and the all-gather of the whole mean), the
+    metric pack's stat sums, the DSM kernel (in place, nothing allocated,
+    not run), the all-gather of x_{t+1,0} where x0 is sharded, and the
+    workers' re-sync (in place)."""
     from repro_torch.distributed import comm
     from repro_torch.distributed import zero as Z
 
@@ -223,6 +229,14 @@ def _global_step(state, losses, topo, numels, beta1: float) -> None:
     if topo is None:
         x_tau = D.worker_mean(state.params)
         stat = OM.stat_sums(state.x0, state.m, x_tau, gamma, beta1)
+        x0 = state.x0
+    elif not sharded:
+        x_tau = Z.replicated_worker_mean(state.params, dtopo)
+        stat = OM.stat_sums(state.x0, state.m, x_tau, gamma, beta1)
+        if topo.fsdp and topo.zero > 1:
+            stat = comm.all_reduce(stat, topo.zp, "sum")
+        if topo.model > 1:
+            stat = comm.all_reduce(stat, topo.mp, "sum")
         x0 = state.x0
     else:
         x_tau = Z.scattered_worker_mean(state.params, dtopo)
@@ -239,7 +253,8 @@ def _global_step(state, losses, topo, numels, beta1: float) -> None:
 def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int, seq: int,
                  base_opt: str = "adamw", remat: bool = False, remat_policy: str = "full",
                  eval_batch: int = 0, keep_x0: bool = True, world: int = 1, model: int = 1,
-                 replicate_names: tuple = (), fsdp: bool = False) -> dict:
+                 replicate_names: tuple = (), fsdp: bool = False,
+                 zero_global_buffers: bool = True) -> dict:
     """One outer step's FLOPs and peak device bytes, on ``meta``.
 
     ``keep_x0``: the initial x0 stays allocated beside the state, as in
@@ -253,7 +268,14 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
     microbatch times W_local * tau * accum.  ``fsdp``: the rank's blocks
     cut over its ``zero`` ranks too (``<name>@zero``; the losses'
     all-reduce over them once per round where ``B_micro`` splits), its x0
-    and m its chunk over its worker peers."""
+    and m its chunk over its worker peers.  ``zero_global_buffers`` off
+    (the reference dry-run's ``--no-zero-global-buffers``): x0 and m are
+    not cut over the worker peers (the ``(worker, zero)`` ranks without
+    FSDP), every one of which holds the rank's whole blocks (under FSDP its
+    whole zero block) of them, and the round takes the replicated global
+    step (``DSMConfig.zero_sharded`` off); the record's
+    ``zero_global_buffers`` says which placement it reckoned (False on one
+    rank, where x0 and m are whole)."""
     from repro_torch.distributed import comm as CM
     from repro_torch.distributed import mesh
     from repro_torch.distributed import tensor_parallel as TP
@@ -276,7 +298,8 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
     tracker = MemoryTracker()
     with tracker:
         x0 = lay.empty(device=META)
-        state = D.dsm_init(x0, base, n_workers, topo, global_sharded=topo is not None)
+        sharded = topo is not None and zero_global_buffers
+        state = D.dsm_init(x0, base, n_workers, topo, global_sharded=sharded)
         if not keep_x0:
             del x0
         batch = _as_model_batch(specs.batch_specs(cfg, (w_local, tau, accum, b_micro), seq))
@@ -310,7 +333,7 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
         if split:
             # the local phase's end: a worker's loss, the mean of its zero ranks'
             CM.all_reduce(losses, topo.zp, "sum")
-        _global_step(state, losses, topo, lay.group_numels, D.DSMConfig().beta1)
+        _global_step(state, losses, topo, lay.group_numels, D.DSMConfig().beta1, sharded)
         del losses
     global_bytes = tracker.peak - state_bytes
 
@@ -325,13 +348,14 @@ def reckon_train(cfg, *, n_workers: int, tau: int, accum: int = 1, b_micro: int,
         eval_bytes = tracker.peak - state_bytes
 
     rows = [(dt, n) for dt, n in zip(lay.dtypes, lay.group_numels)]
-    shard = (lambda n: n) if topo is None else (lambda n: -(-n // topo.dp.world))
+    shard = (lambda n: -(-n // topo.dp.world)) if sharded else (lambda n: n)
     kernel_bytes = sum(n * w_local * tau * ADAMW_BYTES[dt] * (base_opt == "adamw")
                        + shard(n) * DSM_BYTES[dt] for dt, n in rows)
     total_flops = micro_flops * w_local * tau * accum
     rec = {"kind": "train", "n_workers": n_workers, "world": world, "tau": tau,
            "grad_accum": accum, "b_micro": b_micro, "seq": seq, "base_opt": base_opt,
-           "remat": remat, "remat_policy": remat_policy, "flops": total_flops,
+           "remat": remat, "remat_policy": remat_policy, "zero_global_buffers": sharded,
+           "flops": total_flops,
            "microbatch_flops": micro_flops,
            "memory": {"init_bytes": init_bytes, "state_bytes": state_bytes,
                       "local_bytes": local_bytes, "global_bytes": global_bytes,
@@ -365,12 +389,17 @@ def collectives(comm: dict) -> dict:
     return out
 
 
-def reckon_pod(arch: str, shape_name: str, multi_pod: bool, tau: int = None) -> dict:
+def reckon_pod(arch: str, shape_name: str, multi_pod: bool, tau: int = None,
+               zero_global_buffers: bool = True) -> dict:
     """Rank 0 of the reference's grid on its pod mesh, for one H100 SXM per
     rank, with the reference's record fields: at train shapes its training
     grid (``training_mesh(make_production_mesh(multi_pod), W)``), at
     serving shapes its serving grid (``serving_mesh``, :func:`reckon_serve`),
-    with the reference's FSDP placement over zero (data)."""
+    with the reference's FSDP placement over zero (data).
+    ``zero_global_buffers`` off (train shapes only, as the reference's
+    ``--no-zero-global-buffers``): x0 and m over ``("zero",)`` only, the
+    rank's whole zero block of them on every worker peer
+    (:func:`reckon_train`)."""
     from repro_torch.distributed import mesh
     from repro_torch.launch.train import resolve_arch
 
@@ -392,7 +421,8 @@ def reckon_pod(arch: str, shape_name: str, multi_pod: bool, tau: int = None) -> 
     rec = reckon_train(cfg, n_workers=W, tau=tau or topo.tau, accum=topo.grad_accum,
                        b_micro=lead[3], seq=shape.seq_len, base_opt=topo.base_opt,
                        remat=topo.remat, remat_policy=topo.remat_policy, world=grid.size,
-                       model=dims["model"], replicate_names=rep, fsdp=True)
+                       model=dims["model"], replicate_names=rep, fsdp=True,
+                       zero_global_buffers=zero_global_buffers)
     rec.update(zero_axis=ZERO_AXIS,
                state_bytes_per_rank=rec["memory"]["state_bytes"])
     return _pod_terms(rec, grid, multi_pod)
@@ -610,9 +640,11 @@ def reckon(arch: str, shape_name: str, tau: int = None) -> dict:
     return rec
 
 
-def run_one(arch: str, shape_name: str, outdir: str, multi_pod=None) -> dict:
+def run_one(arch: str, shape_name: str, outdir: str, multi_pod=None,
+            zero_global_buffers: bool = True) -> dict:
     """One record: the one-card reckoning (``multi_pod`` None), or rank 0
-    of a pod mesh (False: single pod, True: two pods)."""
+    of a pod mesh (False: single pod, True: two pods; ``zero_global_buffers``
+    as :func:`reckon_pod`'s)."""
     tag = f"{arch}.{shape_name}" + ("" if multi_pod is None else
                                     f".{'multipod' if multi_pod else 'singlepod'}")
     t0 = time.time()
@@ -620,7 +652,8 @@ def run_one(arch: str, shape_name: str, outdir: str, multi_pod=None) -> dict:
         if multi_pod is None:
             rec = reckon(arch, shape_name)
         else:
-            rec = reckon_pod(arch, shape_name, multi_pod)
+            rec = reckon_pod(arch, shape_name, multi_pod,
+                             zero_global_buffers=zero_global_buffers)
         rec.setdefault("status", "ok")
         rec.update(arch=arch, shape=shape_name, seconds=round(time.time() - t0, 1))
     except Exception as e:  # noqa: BLE001 — record failures, they are bugs
@@ -659,6 +692,10 @@ def main(argv=None):
     ap.add_argument("--mesh", choices=("card",) + tuple(MESHES), default="card",
                     help="card: one H100 (default); single / multi / both: rank 0 of the "
                          "reference's pod training grid, MODEL_PAR on the model axis")
+    ap.add_argument("--no-zero-global-buffers", action="store_true",
+                    help="train shapes on a pod mesh: x0 and m over zero only, every worker "
+                         "peer holding the rank's whole zero block of them (the default cuts "
+                         "them over the worker peers too)")
     args = ap.parse_args(argv)
     recs = []
     pods = (None,) if args.mesh == "card" else MESHES[args.mesh]
@@ -667,7 +704,10 @@ def main(argv=None):
             print(f"SKIP {arch} x {shape_name} (sub-quadratic archs only)")
             continue
         for mp in pods:
-            rec = run_one(arch, shape_name, args.outdir, mp)
+            kw = {}
+            if INPUT_SHAPES[shape_name].kind == "train" and args.no_zero_global_buffers:
+                kw["zero_global_buffers"] = False
+            rec = run_one(arch, shape_name, args.outdir, mp, **kw)
             recs.append(rec)
             _report(rec, mp)
     return recs

@@ -82,7 +82,8 @@ def _gqa_out(probs, v, out_dtype):
 
 
 def causal_attention(q, k, v, window: Optional[int] = None,
-                     q_block: int = 1024, q_start: int = 0) -> torch.Tensor:
+                     q_block: int = 1024, q_start: int = 0,
+                     span: Optional[tuple] = None) -> torch.Tensor:
     """Blockwise causal (optionally sliding-window) attention as explicit
     masked softmax (no fused attention op, so the precision path is the
     reference's).  Each query tile attends only to the block-aligned keys
@@ -90,23 +91,30 @@ def causal_attention(q, k, v, window: Optional[int] = None,
     ``q_start``: the queries are positions ``q_start, q_start + 1, ...`` of
     the sequence whose keys ``k`` / ``v`` hold positions ``0, 1, ...`` (a
     serving rank's chunk of a prompt over data; the window holds across
-    the chunk's edge)."""
+    the chunk's edge).  ``span``: ``(start, length)`` of the query positions
+    whose tiling to keep (default the queries' own): the queries are a part
+    of them, and each attends over its tile's keys of that tiling, masked
+    alike, so its row is the whole span's bit for bit (a model rank's block
+    of a data rank's chunk; ``k`` / ``v`` then reach the tile's end)."""
     B, S, H, hd = q.shape
-    qb = min(q_block, S)
+    origin, length = (q_start, S) if span is None else span
+    qb = min(q_block, length)
     outs = []
-    for t0 in range(0, S, qb):
-        t1 = min(t0 + qb, S)
-        q0, q1 = q_start + t0, q_start + t1
-        k_start = 0 if window is None else max(0, (q0 - window) // qb * qb)
-        scores = _gqa_scores(q[:, t0:t1], k[:, k_start:q1])
+    for t0 in range(origin, origin + length, qb):
+        t1 = min(t0 + qb, origin + length)
+        q0, q1 = max(t0, q_start), min(t1, q_start + S)
+        if q0 >= q1:
+            continue
+        k_start = 0 if window is None else max(0, (t0 - window) // qb * qb)
+        scores = _gqa_scores(q[:, q0 - q_start:q1 - q_start], k[:, k_start:t1])
         q_pos = torch.arange(q0, q1, device=q.device)[:, None]
-        k_pos = torch.arange(k_start, q1, device=q.device)[None, :]
+        k_pos = torch.arange(k_start, t1, device=q.device)[None, :]
         hidden = k_pos > q_pos
         if window is not None:
             hidden |= k_pos <= q_pos - window
         scores = scores.masked_fill(hidden, float("-inf"))
         probs = torch.softmax(scores, dim=-1)
-        outs.append(_gqa_out(probs, v[:, k_start:q1], q.dtype))
+        outs.append(_gqa_out(probs, v[:, k_start:t1], q.dtype))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 

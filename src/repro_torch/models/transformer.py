@@ -340,22 +340,31 @@ def _self_attend(q, k, v, mixer: str, cfg, kv_out=None, seq=None, sp=None):
     up to the chunk's end (the window holds across the chunk's edge).
     ``sp``: the same over a model-parallel rank's block of the sequence
     (whole heads), with autograd: the keys and values gathered over the
-    model group, their gradient reduce-scattered."""
+    model group, their gradient reduce-scattered.  With both, q is the
+    rank's block of its data rank's chunk: the keys and values are gathered
+    over the model group (the chunk's), then over the data group, and the
+    queries attend from the block's offset in the sequence, tiled as the
+    chunk's queries are (``layers.causal_attention``'s ``span``), so each
+    row is the one the grid computes without ``sp``, bit for bit."""
     window = cfg.window if mixer == "swa" else None
+    start = 0
+    if sp is not None:
+        k, v = TP.gather(torch.stack([k, v]), sp.axis, 2, "sum").unbind(0)
+        start = sp.start
     if seq is not None:
         k, v = comm.all_gather_dim(torch.stack([k, v]), seq.axis, 2).unbind(0)
-    elif sp is not None:
-        k, v = TP.gather(torch.stack([k, v]), sp.axis, 2, "sum").unbind(0)
-        seq = sp
+        start += seq.start
     if kv_out is not None:
         w = k.shape[1] if window is None else min(window, k.shape[1])
         kv_out.update(k=k[:, -w:], v=v[:, -w:])
     if mixer == "encattn":
         return L.full_attention(q, k, v)
-    if seq is None:
+    if seq is None and sp is None:
         return L.causal_attention(q, k, v, window=window, q_block=cfg.q_block)
-    return L.causal_attention(q, k[:, :seq.stop], v[:, :seq.stop], window, cfg.q_block,
-                              q_start=seq.start)
+    span = (seq.start, seq.n) if seq is not None and sp is not None else None
+    stop = seq.stop if span else start + q.shape[1]
+    return L.causal_attention(q, k[:, :stop], v[:, :stop], window, cfg.q_block,
+                              q_start=start, span=span)
 
 
 def _mixer_params(p, mixer: str, cfg) -> dict:
@@ -842,7 +851,9 @@ def _tp_recurrent(p: _Leaves, mixer: str, h, cfg, axis, state_out=None, cache=No
     ``seq``: h is the rank's chunk of a sequence over its data group.
     ``sp``: h is the rank's block of the sequence over its model group: the
     split mixer reads the gathered sequence and its output is
-    reduce-scattered; the whole one runs :func:`_alike`."""
+    reduce-scattered; the whole one runs :func:`_alike`.  With both, h is
+    the block of the rank's chunk, gathered over the model group into the
+    chunk, whose recurrence is then carried across the data group."""
     split = _rank_width(mixer, cfg, axis.world) is not None
     params = _rank_mixer(p, mixer, cfg) if split else _mixer_params(p.full, mixer, cfg)
     tp = axis if split else None
@@ -852,7 +863,7 @@ def _tp_recurrent(p: _Leaves, mixer: str, h, cfg, axis, state_out=None, cache=No
     apply = L.mamba2_apply if mixer == "ssm" else L.rglru_apply
     if split or sp is None:
         return apply(params, h, cfg, state_out=state_out, tp=tp, seq=seq, sp=sp)
-    return _alike(lambda h: apply(params, h, cfg, state_out=state_out), h, axis, sp)
+    return _alike(lambda h: apply(params, h, cfg, state_out=state_out, seq=seq), h, axis, sp)
 
 
 def _mlp_split(p: _Leaves, pre: str, cfg) -> bool:
@@ -986,10 +997,11 @@ def _inputs(params: dict, batch: dict, cfg, remat: bool = False, seq=None, sp=No
     same order as the ranks that use it.
 
     ``sp``: sequence parallelism over the model group (:func:`_sp`): the
-    decoder's input is the rank's block of the n_prefix + S positions (a
-    VLM's patches and text joined first, then cut, ``tensor_parallel.
-    split``).  The encoder runs over its own block of the frames where
-    they divide, its output gathered for the cross-attention; where a
+    decoder's input is the rank's block of the n_prefix + S positions, or
+    with ``seq`` of its chunk (a VLM's patches and text joined first, then
+    cut, ``tensor_parallel.split``).  The encoder runs over its own block
+    of the frames where they divide, its output gathered for the
+    cross-attention; where a
     rank's use of the encoder output is partial (the cross-attention split
     by heads, or the decoder's block of queries) its gradient is summed
     over the group."""
@@ -1309,19 +1321,22 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
     rank, :func:`_sp`) the rank runs its block of the positions
     (:func:`_tp_block`) and the last position's hidden state is
     all-gathered from the last model rank; its cache is what it is without
-    the flag.  With ``seq`` or ``slots`` as well it raises
-    ``NotImplementedError``."""
+    the flag.  With ``seq`` as well the block is one of the rank's chunk
+    (``tensor_parallel.seq_shard`` of the chunk's length; the chunk whole
+    over the model group where it does not divide): the keys and values
+    are gathered over the model group, then over the data group, each
+    recurrence carried over the model group's blocks by the gather and then
+    across the data group's chunks, and the last position's hidden state
+    comes from the last model rank of the last data rank; the cache is what
+    the same grid holds without the flag."""
     check_supported(cfg)
-    if (seq is not None or slots is not None) and _model_split(params) and cfg.attn_seq_shard:
-        raise NotImplementedError(
-            f"{cfg.name}: attn_seq_shard on a model rank together with a sequence split "
-            f"over data (tensor_parallel.serve_split) is not served (ROADMAP.md queue 1)")
     params = serving_params(params, cfg)
     n = batch["tokens"].shape[1] + (batch["patches"].shape[1] if cfg.family == "vlm" else 0)
-    sp = _sp(params, cfg, n)
+    sp = _sp(params, cfg, n if seq is None else seq.n)
     x, enc_out, _ = _inputs(params, batch, cfg, remat, seq, sp)
     start = 0 if seq is None else seq.start
-    positions = torch.arange(start, start + (x.shape[1] if sp is None else n), device=x.device)
+    positions = torch.arange(start, start + (x.shape[1] if sp is None else sp.length),
+                             device=x.device)
     stacked: dict = {}
     rem = []
     for repeat, layers in _repeats(params, cfg, "decoder"):
@@ -1346,9 +1361,9 @@ def prefill(params: dict, batch: dict, cfg, remat: bool = True, unroll: bool = F
                         for key, entries in stacked.items()},
              "rem": tuple(rem)}
     last = x[:, -1:]
-    across = seq if seq is not None else sp
-    if across is not None:
-        last = comm.all_gather_dim(last.contiguous(), across.axis, 1)[:, -1:]
+    for across in (sp, seq):
+        if across is not None:
+            last = comm.all_gather_dim(last.contiguous(), across.axis, 1)[:, -1:]
     h = L.rmsnorm(_full(params, "final_norm.scale"), last, cfg.norm_eps)
     return _logits(params, h, cfg)[:, 0], cache
 

@@ -54,7 +54,8 @@ tokens, or n_patches patches before S - n_patches tokens):
   * the same outer step driven by the reference's loss and gradients
     (``_reference_loss``), for every ported arch, within the same
     tolerances: the port's local steps, worker mean and global step on the
-    arch's leaves, without the second model's rounding.
+    arch's leaves, without the second model's rounding
+    (``test_torch_archs_reference_gradients.py``).
 
 For granite_moe_3b_a800m SMOKE with bf16 parameters, the routers stay f32
 (two dtype groups, every leaf's dtype the reference's), and one DSM outer
@@ -251,35 +252,6 @@ def _reference_loss(jcfg, jp, lay):
         return Bridge.apply(*(t for ps in parts for t in ps))
 
     return loss_fn
-
-
-@pytest.mark.parametrize("arch", PORTED)
-def test_smoke_dsm_outer_step_on_reference_gradients(arch):
-    """The port's DSM outer step (W=2, tau=2, TOPO.base_opt, the settings of
-    ``test_smoke_dsm_outer_step_matches_reference``) driven by the
-    reference's loss and gradients, against the reference's step: the
-    algorithm alone, without the rounding noise of a second model.  Both
-    sides take the same gradients at the same params up to the ulps of the
-    optimizer arithmetic, so: loss rtol 1e-6; AdamW moments within 1e-6 of
-    each buffer's largest magnitude; x0 within 1e-6 (+ 1e-6 relative) except
-    at most N/1000 coordinates whose sign(u) sits within rounding of 0, each
-    by at most 2 * eta * gamma; m within 1e-6 (+ 1e-5 relative), where
-    Delta = (x0 - x_tau) / gamma scales an ulp of x_tau by 1/gamma."""
-    jcfg, cfg, jp, flat = _setup(arch, seed=0)
-    topo = load_arch(arch).TOPO
-    batch = _batch(cfg, 4, (W, TAU, 1, BM), SEQ)
-    jbase = j_get_base_optimizer(topo.base_opt)
-    jstep = jax.jit(j_make_dsm_step(lambda p, b: JT.loss_fn(p, b, jcfg, remat=False), jbase,
-                                    JDSMConfig(tau=TAU, global_lr=ETA), j_constant(GAMMA)))
-    jstate, jm = jstep(j_dsm_init(jp, jbase, n_workers=W), _jax_batch(batch))
-
-    base = B.get_base_optimizer(topo.base_opt)
-    lay = T.layout(cfg)
-    step = D.make_dsm_step(_reference_loss(jcfg, jp, lay), base,
-                           D.DSMConfig(tau=TAU, global_lr=ETA), S.constant(GAMMA), lay)
-    state, m = step(D.dsm_init(flat, base, W), _torch_batch(batch))
-
-    _assert_step_close(state, m, jstate, jm, flat, lay)
 
 
 @pytest.mark.parametrize("part", ["mixer", "ffn"])

@@ -44,7 +44,8 @@ residual stream between blocks (``tensor_parallel.seq_shard``):
     against the JAX package's ``prefill`` (``test_torch_serve.py``'s
     tolerances), the cache the one the rank holds without the flag, the
     collectives ``serve_collectives``'.  A sequence split over data
-    (``tensor_parallel.serve_split``) with the flag is refused.
+    (``tensor_parallel.serve_split``) with the flag runs (on meta here;
+    ``test_torch_serve_sequence_split_sp.py`` holds it on gloo ranks).
 """
 
 import dataclasses
@@ -232,13 +233,24 @@ def test_seq_shard_rule():
 
 def test_serve_split_with_sp_is_refused():
     """A prefill whose sequence lies over data (``serve_split``) with the
-    flag on a model rank raises, naming ROADMAP queue 1."""
+    flag on a model rank, which raised until the combination was ported,
+    now runs: on meta (``dryrun.reckon_serve``, one sequence over (data 2,
+    model 2), its positions and its cache's slots over data) it returns the
+    rank's logits and cache, its collectives the reckoning's, reduce-scattered
+    over the model group (``test_torch_serve_sequence_split_sp.py`` holds
+    it against the JAX package on gloo ranks)."""
+    from repro_torch.launch import dryrun as DR
+
     cfg = sp_configs("minitron_4b")[1]
-    params = convert.ShardedParams(TP.rank_layout(cfg, 2, 0))
-    tokens = torch.zeros(1, 8, dtype=torch.int64)
-    for split in ({"seq": TP.SeqSplit(8, 2, 0)}, {"slots": TP.SeqSplit(10, 2, 0)}):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            T.prefill(params, {"tokens": tokens}, cfg, **split)
+    for n0, new in ((8, 0), (8, 2)):
+        rec = DR.reckon_serve(cfg, "generate" if new else "prefill", 1, n0, 2, 2, new=new)
+        assert rec["seq_over_data"] and rec["cache_slots_over_data"]
+        assert "reduce_scatter@model" in rec["comm"] and "all_gather@data" in rec["comm"]
+    seq, _ = TP.serve_split(1, 8, 0, cfg, 2, 0)
+    lay = TP.rank_layout(cfg, 2, 0)
+    assert DR.reckon_serve(cfg, "prefill", 1, 8, 2, 2)["comm"] == scaled_sum(
+        (1, TP.serve_collectives(cfg, lay, 1, 8, "serving_params")),
+        (1, TP.serve_collectives(cfg, lay, 1, 8, "prefill", chunk=seq)))
 
 
 # ---------------------------------------------------------------------------

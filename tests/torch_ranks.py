@@ -18,6 +18,7 @@ from repro_torch.distributed import mesh
 from repro_torch.distributed import zero as Z
 from repro_torch.groups import Groups, each
 from repro_torch.models.convert import state_fields
+from repro_torch.robustness.faults import FaultRound
 
 
 def flat_state(state, prefix: str = "") -> dict:
@@ -495,9 +496,9 @@ def algorithms_rank(rank: int, world: int, cases: list) -> list:
     ``world`` ranks, in one start of the ranks: a dict of ``cfg``,
     ``n_workers``, ``model``, ``fsdp``, ``replicate`` (leaf names held whole
     on every model rank), ``row``, ``batches``, ``gamma`` and either
-    ``flags`` and ``seed`` (a DSM run, :func:`dsm_case`; ``seed`` seeds the
-    randomized signs' generator) or ``method`` and ``kw`` (a local-step
-    baseline, :func:`baseline_case`)."""
+    ``flags``, ``seed`` and optionally ``faults`` (a DSM run,
+    :func:`dsm_case`; ``seed`` seeds the randomized signs' generator) or
+    ``method`` and ``kw`` (a local-step baseline, :func:`baseline_case`)."""
     torch.set_num_threads(1)
     out = []
     for c in cases:
@@ -509,7 +510,7 @@ def algorithms_rank(rank: int, world: int, cases: list) -> list:
         else:
             out.append(dsm_case(topo, c["cfg"], c["n_workers"], c["flags"], c["row"],
                                 c["batches"], c["gamma"], replicate_names=c["replicate"],
-                                seed=c["seed"]))
+                                seed=c["seed"], faults=c.get("faults")))
     return out
 
 
@@ -520,8 +521,9 @@ def baseline_case(topo, cfg, n_workers: int, method: str, kw: dict, row, batches
     ``topo`` (None: the dense path) from the dense ``(N,)`` params ``row``
     cut to the rank's blocks, on the batch dicts of ``batches`` (numpy
     leaves (W, tau, 1, B_micro, ...), the rank's workers' rows taken).
-    Returns per round the metrics' loss and the rank's x0 and aux buffers
-    (its blocks), its ``CommStats`` and kernel launches."""
+    Returns per round the metrics' loss, the rank's worker mean (under a
+    topology) and its x0 and aux buffers (its blocks), its ``CommStats`` and
+    kernel launches."""
     from repro_torch import kernels as K
     from repro_torch.core import base_opt, schedules
     from repro_torch.core import baselines as BL
@@ -538,17 +540,27 @@ def baseline_case(topo, cfg, n_workers: int, method: str, kw: dict, row, batches
     state = init(x0, n_workers)
     rows = slice(None) if topo is None else topo.worker_slice
     K.reset_launch_counts()
-    out = {"losses": [], "x0": [], "aux": [],
+    out = {"losses": [], "x_tau": [], "x0": [], "aux": [],
            "index": 0 if topo is None else topo.model_index,
            "zero_index": 0 if topo is None else topo.zero_index,
            "rank": 0 if topo is None else topo.rank}
-    for raw in batches:
-        batch = {k: torch.from_numpy(v[rows]) for k, v in raw.items()}
-        batch["tokens"] = batch["tokens"].long()
-        state, metrics = step(state, batch)
-        out["losses"].append(metrics["loss"])
-        out["x0"].append(each(torch.clone, state.x0))
-        out["aux"].append([t.clone() for t in base_opt._buffers(state.aux)])
+    mean = Z.replicated_worker_mean
+
+    def recorded(*a, **k):
+        out["x_tau"].append(each(torch.clone, mean(*a, **k)))
+        return out["x_tau"][-1]
+
+    Z.replicated_worker_mean = recorded
+    try:
+        for raw in batches:
+            batch = {k: torch.from_numpy(v[rows]) for k, v in raw.items()}
+            batch["tokens"] = batch["tokens"].long()
+            state, metrics = step(state, batch)
+            out["losses"].append(metrics["loss"])
+            out["x0"].append(each(torch.clone, state.x0))
+            out["aux"].append([t.clone() for t in base_opt._buffers(state.aux)])
+    finally:
+        Z.replicated_worker_mean = mean
     out["comm"] = None if topo is None else topo.stats.as_dict()
     out["launches"] = K.launch_counts()
     return out
@@ -556,14 +568,16 @@ def baseline_case(topo, cfg, n_workers: int, method: str, kw: dict, row, batches
 
 def dsm_case(topo, cfg, n_workers: int, flags: dict, row, batches: list, gamma: float,
              nan_rank: Optional[int] = None, replicate_names: tuple = (),
-             seed: Optional[int] = None) -> dict:
+             seed: Optional[int] = None, faults: Optional[list] = None) -> dict:
     """:func:`tp_dsm_rank`'s run on ``topo`` (None: the dense path), its
     blocks by ``tensor_parallel.topology_layout`` (under FSDP its zero
     blocks: x_tau, x0 and m whole over its worker peers; the leaves named in
     ``replicate_names`` whole).  ``nan_rank``: that rank sets one element of
     its first worker's block to NaN after each local phase.  ``seed``: the
     randomized signs draw from a generator on ``row``'s device seeded with
-    it.  Each round also returns the metrics' ``survivors``."""
+    it.  ``faults``: per round the ``(survivors, stale, corrupt)`` bool
+    masks of all W workers, the round's ``FaultRound``.  Each round also
+    returns the metrics' ``survivors`` and the rank's params rows."""
     from repro_torch import kernels as K
     from repro_torch.core import base_opt, schedules
     from repro_torch.core import dsm as D
@@ -623,7 +637,7 @@ def dsm_case(topo, cfg, n_workers: int, flags: dict, row, batches: list, gamma: 
         setattr(Z, name, recording(fn))
     rng = None if seed is None else torch.Generator(parts(row)[0].device).manual_seed(seed)
     K.reset_launch_counts()
-    out = {"losses": [], "x_tau": [], "x0": [], "m": [], "survivors": [],
+    out = {"losses": [], "x_tau": [], "x0": [], "m": [], "params": [], "survivors": [],
            "state_bytes": state_bytes,
            "index": 0 if topo is None else topo.model_index,
            "zero_index": 0 if topo is None else topo.zero_index,
@@ -632,12 +646,15 @@ def dsm_case(topo, cfg, n_workers: int, flags: dict, row, batches: list, gamma: 
         for raw in batches:
             batch = {k: torch.from_numpy(v[rows]) for k, v in raw.items()}
             batch["tokens"] = batch["tokens"].long()
-            state, metrics = step(state, batch, rng)
+            fr = None if faults is None else FaultRound(*(torch.tensor(m) for m in
+                                                          faults[len(out["losses"])]))
+            state, metrics = step(state, batch, rng, fr)
             out["losses"].append(metrics["loss"])
             out["survivors"].append(metrics.get("survivors"))
             out["x_tau"].append(each(torch.clone, whole(means[-1])))
             out["x0"].append(each(torch.clone, whole(state.x0)))
             out["m"].append(each(torch.clone, whole(state.m)))
+            out["params"].append(each(torch.clone, state.params))
             out.setdefault("packs", []).append(metrics["pack"])
     finally:
         D.worker_mean = dense_mean
@@ -809,8 +826,10 @@ def algorithm_step(cfg, algo: Optional[dict], tau: int, gamma: float, eta: float
     ``gamma``: DSM (``algo`` None, or ``{"sign_mode": ..., "seed": ...}``:
     the randomized signs from a generator on ``device`` seeded with
     ``seed``, each rank's its own) with ``eta``, the ZeRO-sharded global
-    step and the device-parallel local phase over ranks; or the local-step
-    baseline ``{"method": name, **its global step's keywords}``."""
+    step (``{"zero_sharded": False}``: the replicated one, x0 and m whole
+    over the worker peers) and the device-parallel local phase over ranks;
+    or the local-step baseline ``{"method": name, **its global step's
+    keywords}``."""
     from repro_torch.core import base_opt, schedules
     from repro_torch.core import baselines as BL
     from repro_torch.core import dsm as D
@@ -822,13 +841,14 @@ def algorithm_step(cfg, algo: Optional[dict], tau: int, gamma: float, eta: float
         return BL.LOCAL_METHODS[algo.pop("method")](loss, base, tau, schedules.constant(gamma),
                                                     lay, topo=topo, **algo)
     seed = algo.pop("seed", None)
-    flags = dict(zero_sharded=True, device_parallel_local=True) if topo is not None else {}
+    sharded = topo is not None and algo.pop("zero_sharded", True)
+    flags = dict(zero_sharded=sharded, device_parallel_local=True) if topo is not None else {}
     step = D.make_dsm_step(loss, base, DSMConfig(tau=tau, global_lr=eta, **flags, **algo),
                            schedules.constant(gamma), lay, topo)
     rng = None if seed is None else torch.Generator(device).manual_seed(seed)
 
     def init(x0, n_workers: int):
-        return D.dsm_init(x0, base, n_workers, topo, topo is not None)
+        return D.dsm_init(x0, base, n_workers, topo, sharded)
 
     return init, lambda state, batch: step(state, batch, rng)
 
@@ -1138,7 +1158,7 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
                "comm": timed.stats.as_dict()}
         if cfg.attn_seq_shard:
             res["sp_cache"] = _sp_cache_bits(mine, cfg, topo, {"tokens": prompt[rows], **{
-                k: v[rows] for k, v in (extra or {}).items()}})
+                k: v[rows] for k, v in (extra or {}).items()}}, new, prompt.shape[0])
         res["case_s"] = time.perf_counter() - t_case
         out.append(res)
         del mine, logits, prompt, extra
@@ -1146,20 +1166,27 @@ def serve_full_width_rank(rank: int, world: int, cases: list) -> list:
     return out
 
 
-def _sp_cache_bits(params, cfg, topo, batch: dict) -> dict:
-    """The rank's prefill cache of ``batch`` under ``cfg.attn_seq_shard``
-    against its prefill's without the flag: the bytes of each and the
-    elements whose bits differ."""
+def _sp_cache_bits(params, cfg, topo, batch: dict, new: int, whole: int) -> dict:
+    """The rank's prefill cache of ``batch`` (its rows of a ``whole``-row
+    batch) under ``cfg.attn_seq_shard`` against its prefill's without the
+    flag, each over the split ``generate`` takes for ``new`` tokens
+    (``tensor_parallel.serve_split``: where the batch does not split over
+    data, the rank's chunk of the prompt and its block of the
+    full-attention caches' slots): the bytes of each and the elements whose
+    bits differ."""
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.distributed.comm import CommStats
     from repro_torch.models import transformer as T
 
     caches = []
+    tokens = batch["tokens"]
+    n0 = tokens.shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
     for c in (cfg, dataclasses.replace(cfg, attn_seq_shard=False)):
         t = dataclasses.replace(topo, stats=CommStats())
+        seq, slots = TP.serve_split(whole, n0, new, c, t.worker, t.worker_index, t.data)
         with torch.no_grad():
             caches.append(T.prefill(TP.topology_layout(c, t).views(params), batch, c,
-                                    remat=False)[1])
+                                    remat=False, seq=seq, slots=slots)[1])
     leaves = [torch.utils._pytree.tree_leaves(c) for c in caches]
     nbytes = [sum(x.numel() * x.element_size() for x in ls) for ls in leaves]
     differ = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
@@ -1300,9 +1327,12 @@ def fsdp_full_width_rank(rank: int, world: int, cases, out_dir: str) -> list:
     ``keep`` (this rank's zero blocks of each round kept on the host for a
     later case), ``against`` (``(kept case, bounds)``: each round held
     against that case's, bit for bit where ``bounds`` is None, else within
-    :func:`round_check` of ``bounds[round]``) and ``algo``
-    (:func:`algorithm_step`'s: the randomized signs or a baseline, whose
-    saved ``m`` is its first aux buffer, :func:`momentum`).  A save also
+    :func:`round_check` of ``bounds[round]``), ``params`` (the first
+    worker's params row kept beside x0 and m, and held too), ``algo`` (:func:`algorithm_step`'s: the
+    randomized signs, a baseline, whose saved ``m`` is its first aux
+    buffer, :func:`momentum`, or the replicated global step) and
+    ``digest`` (each round's SHA-256 of the bits of this rank's x0 and m,
+    which its worker peers hold alike where they are not sharded).  A save also
     holds each round's mean loss (``loss``).  Each draws the dense params
     on the card from ``seed``, one rank at a time (once per config and seed:
     the rank keeps its model block on the host), keeps this rank's blocks
@@ -1405,6 +1435,12 @@ def fsdp_full_width_rank(rank: int, world: int, cases, out_dir: str) -> list:
                                        ("m", momentum(state)))}
                 blocks["losses"] = seen.pop("losses", None)
                 blocks["loss"] = metrics["loss"].item()
+                if case.get("params"):
+                    blocks["params"] = each(lambda t: t.cpu(),
+                                            mine(each(lambda p: p[0], state.params)))
+                if case.get("digest"):
+                    res.setdefault("digests", []).append(
+                        {n: _digest(blocks[n]) for n in ("x0", "m")})
                 if case.get("save") and dtopo.rank == 0:
                     torch.save(blocks, os.path.join(
                         out_dir, f"{name}_{topo.model_index}_{topo.zero_index}_{k}.pt"))
@@ -1434,12 +1470,23 @@ def fsdp_full_width_rank(rank: int, world: int, cases, out_dir: str) -> list:
     return out
 
 
+def _digest(t) -> str:
+    """The SHA-256 of the bits of a host tensor or Groups, group by group."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in _flat_parts(t):
+        h.update(x.contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def _held_against(ours: dict, theirs: dict, before, bound, gamma: float, m_prev: float) -> dict:
     """One round's blocks (host tensors) against another run's on the card:
-    bit for bit (``bound`` None) or within :func:`round_check`'s ``bound``."""
+    bit for bit (``bound`` None: x_tau, x0, m, the losses and, where both
+    kept them, the params) or within :func:`round_check`'s ``bound``."""
     if bound is None:
         same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-                   for n in ("x_tau", "x0", "m", "losses")
+                   for n in ("x_tau", "x0", "m", "losses", "params") if n in ours or n in theirs
                    for a, b in zip(_flat_parts(ours[n]), _flat_parts(theirs[n]), strict=True))
         return {"bit_equal": same, "ok": same}
     card = [{n: each(lambda t: t.to("cuda"), v) for n, v in d.items()
